@@ -1,0 +1,24 @@
+"""nereus_tpu_torch: the PyTorch + CUDA port of nereus_tpu.
+
+The single-phase WCSPH step of ``nereus_tpu`` on one NVIDIA GPU: the same
+public names and semantics for the ported subset, with the density and
+force neighbor sweeps as hand-written CUDA kernels for Hopper (``csrc/``)
+and plain PyTorch versions of them on the CPU. Imports torch and numpy,
+never JAX.
+"""
+
+from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
+                     calibrate_mass, make_params)
+from .grid import Grid, fit_grid, make_grid
+from .state import BoundaryData, FluidState, make_fluid_state
+from .solvers.wcsph import StepDiagnostics, cfl_dt, tait_pressure, wcsph_step
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "KernelSet", "SimConfig", "SimParams", "SurfaceTensionModel",
+    "calibrate_mass", "make_params",
+    "Grid", "fit_grid", "make_grid",
+    "BoundaryData", "FluidState", "make_fluid_state",
+    "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
+]

@@ -1,0 +1,357 @@
+// Neighbor-sweep kernels of the WCSPH step, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
+// (launched by neighbor_sweep) together with the three pair functions the
+// WCSPH step runs through it, nereus_tpu/ops/pallas_sph.py::density_pair,
+// fluid_force_pair and boundary_force_pair (reached through
+// pallas_sph.density_sweep and pallas_sph.fluid_force_sweep).
+//
+// Design: one thread per query, in hash-sorted order. Each thread walks its
+// exact neighbor ranges over the hash-sorted source matrix: rows 0-8 are
+// the 9 (dy, dz) runs of the fluid region, rows 9-17 (when present) those
+// of the boundary region. This is the reference's own cell-range design;
+// the TPU's window plan (128-lane windows, SMEM anchors, float hash
+// payloads) exists only for Mosaic and is not carried over. Ranges are
+// computed by the caller (torch.searchsorted), so the kernels never
+// recompute cell coordinates.
+//
+// Bound: memory traffic. Every candidate costs one or two 16-byte reads of
+// a source row at a data-dependent address, and roughly a sixth of the
+// candidates of a 27-cell neighborhood lie inside the cutoff. Neighboring
+// queries share most of their sources, so the reads mostly hit L1/L2. A
+// later change tiles the sources of a cell block through shared memory.
+//
+// Numerics: float32, no fast-math. r^2 is clamped to 1e-24 before the
+// rsqrt, so every term except the density self term is exactly 0 at the
+// self pair, and the Müller viscosity bracket (~1e36 at the clamp)
+// multiplies r^2 before its ~1e4 constant (the other order is inf*0 =
+// NaN). The viscosity denominator uses exact division. FMA contraction and
+// rsqrtf change the last bits against the plain PyTorch version.
+//
+// Layouts (all row-major float32, 16-byte aligned):
+//   density query (N, 4): x y z pad
+//   force query   (N, 8): x y z vx vy vz rho pd2
+//   source        (M, 8): x y z vx vy vz s6 pad
+//     s6 = psi (density: m for fluid, rho0*V_b for boundary rows) or
+//          rho_j (force sweep, fluid rows) / psi_b (boundary rows)
+//   seg_start, seg_end (n_rows, N) int32
+//   pvec: the PV_* vector of ops/sph_pairs.py
+
+#include <cuda_runtime.h>
+
+namespace {
+
+enum {
+  PV_H2 = 0, PV_PM = 1, PV_KPOLY = 2, PV_KPRESS = 3, PV_KVISC = 4,
+  PV_KVISC_DEN = 5, PV_H = 6, PV_KAPPA = 7, PV_WDIAM = 8, PV_BETA = 10,
+  PV_VISC = 11, PV_CS = 12, PV_RD = 13, PV_K = 14, PV_KSURF1 = 15,
+  PV_KSURF2 = 16, PV_KPOLY_GRAD = 17
+};
+
+// KernelSet and SurfaceTensionModel enum values of params.py
+constexpr int MONAGHAN = 0;
+constexpr int MULLER = 1;
+constexpr int ST_NONE = 0;
+constexpr int ST_BECKER = 1;
+constexpr int ST_AKINCI = 2;
+
+constexpr int THREADS = 128;
+constexpr int N_ROWS = 9;
+
+struct Params {
+  float h2, pm, kpoly, kpress, kvisc, kvisc_den, h, kappa, wdiam, beta,
+      visc, cs, rd, k, ksurf1, ksurf2, kpoly_grad;
+  float sigma;  // Monaghan 1/(4 pi h^3)
+};
+
+__device__ __forceinline__ Params load_params(const float* __restrict__ pv) {
+  Params p;
+  p.h2 = __ldg(pv + PV_H2);
+  p.pm = __ldg(pv + PV_PM);
+  p.kpoly = __ldg(pv + PV_KPOLY);
+  p.kpress = __ldg(pv + PV_KPRESS);
+  p.kvisc = __ldg(pv + PV_KVISC);
+  p.kvisc_den = __ldg(pv + PV_KVISC_DEN);
+  p.h = __ldg(pv + PV_H);
+  p.kappa = __ldg(pv + PV_KAPPA);
+  p.wdiam = __ldg(pv + PV_WDIAM);
+  p.beta = __ldg(pv + PV_BETA);
+  p.visc = __ldg(pv + PV_VISC);
+  p.cs = __ldg(pv + PV_CS);
+  p.rd = __ldg(pv + PV_RD);
+  p.k = __ldg(pv + PV_K);
+  p.ksurf1 = __ldg(pv + PV_KSURF1);
+  p.ksurf2 = __ldg(pv + PV_KSURF2);
+  p.kpoly_grad = __ldg(pv + PV_KPOLY_GRAD);
+  p.sigma = 1.0f / (12.566370614359172f * p.h * p.h * p.h);
+  return p;
+}
+
+// Calls f(j) for every source index j of rows [row0, row1) of query i.
+template <typename F>
+__device__ __forceinline__ void for_each_source(
+    int i, int n, int row0, int row1, const int* __restrict__ seg_start,
+    const int* __restrict__ seg_end, F&& f) {
+  for (int r = row0; r < row1; ++r) {
+    const int s = __ldg(seg_start + static_cast<size_t>(r) * n + i);
+    const int e = __ldg(seg_end + static_cast<size_t>(r) * n + i);
+    for (int j = s; j < e; ++j) f(j);
+  }
+}
+
+__device__ __forceinline__ void rl_invrl(float r2, float& rl, float& invrl) {
+  invrl = rsqrtf(fmaxf(r2, 1e-24f));
+  rl = r2 * invrl;
+}
+
+template <int KS>
+__device__ __forceinline__ float w_value(float r2, float rl, const Params& p) {
+  if constexpr (KS == MULLER) {
+    const float d = fmaxf(p.h2 - r2, 0.0f);
+    return p.kpoly * d * d * d;
+  } else {
+    const float q = rl / p.h;
+    const float a = fmaxf(2.0f - q, 0.0f);
+    const float b = fmaxf(1.0f - q, 0.0f);
+    return p.sigma * (a * a * a - 4.0f * b * b * b);
+  }
+}
+
+__device__ __forceinline__ float grad_scale_monaghan(float rl, float invrl,
+                                                     const Params& p) {
+  const float q = rl / p.h;
+  const float a = fmaxf(2.0f - q, 0.0f);
+  const float b = fmaxf(1.0f - q, 0.0f);
+  return (p.sigma / p.h) * (-3.0f * a * a + 12.0f * b * b) * invrl;
+}
+
+// s with grad W = s * r for the poly6/default gradient
+template <int KS>
+__device__ __forceinline__ float grad_scale_default(float r2, float rl,
+                                                    float invrl,
+                                                    const Params& p) {
+  if constexpr (KS == MULLER) {
+    const float d = fmaxf(p.h2 - r2, 0.0f);
+    return p.kpoly_grad * d * d;
+  } else {
+    return grad_scale_monaghan(rl, invrl, p);
+  }
+}
+
+// s for the spiky pressure gradient
+template <int KS>
+__device__ __forceinline__ float grad_scale_press(float rl, float invrl,
+                                                  const Params& p) {
+  if constexpr (KS == MULLER) {
+    const float hr = fmaxf(p.h - rl, 0.0f);
+    return p.kpress * hr * hr * invrl;
+  } else {
+    return grad_scale_monaghan(rl, invrl, p);
+  }
+}
+
+// r . grad W_visc; r^2 multiplies the bracket before the KVISC constant
+template <int KS>
+__device__ __forceinline__ float visc_rdotgrad(float r2, float rl,
+                                               float invrl, const Params& p) {
+  if constexpr (KS == MULLER) {
+    const float inv3 = invrl * invrl * invrl;
+    const float c = (2.0f / p.h2) - rl * (3.0f / p.kvisc_den) -
+                    inv3 * (p.h * 0.5f);
+    return (c * r2) * p.kvisc;
+  } else {
+    return grad_scale_monaghan(rl, invrl, p) * r2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Density: rho_i = sum_j s6_j W(r_ij) over all rows, self term included
+// ---------------------------------------------------------------------------
+
+template <int KS>
+__global__ void __launch_bounds__(THREADS)
+density_sweep_kernel(const float4* __restrict__ q,
+                     const float4* __restrict__ src,
+                     const int* __restrict__ seg_start,
+                     const int* __restrict__ seg_end, int n, int n_rows,
+                     const float* __restrict__ pv, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Params p = load_params(pv);
+  const float4 qi = __ldg(q + i);
+  float acc = 0.0f;
+  for_each_source(i, n, 0, n_rows, seg_start, seg_end, [&](int j) {
+    const float4 a = __ldg(src + 2 * j);
+    const float psi = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+    const float dx = qi.x - a.x, dy = qi.y - a.y, dz = qi.z - a.z;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if constexpr (KS == MULLER) {
+      const float d = fmaxf(p.h2 - r2, 0.0f);
+      acc += (d * d * d) * (psi * p.kpoly);
+    } else {
+      float rl, invrl;
+      rl_invrl(r2, rl, invrl);
+      if (r2 < p.h2) acc += psi * w_value<KS>(r2, rl, p);
+    }
+  });
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
+// from rho_j) on rows 0-8, static-wall boundary pairs (adhesion, friction,
+// reference-scale boundary pressure) on rows 9-17
+// ---------------------------------------------------------------------------
+
+template <int KS, int ST>
+__global__ void __launch_bounds__(THREADS)
+force_sweep_kernel(const float4* __restrict__ q,
+                   const float4* __restrict__ src,
+                   const int* __restrict__ seg_start,
+                   const int* __restrict__ seg_end, int n, int n_rows,
+                   const float* __restrict__ pv, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Params p = load_params(pv);
+  const float4 qa = __ldg(q + 2 * i);      // x y z vx
+  const float4 qb = __ldg(q + 2 * i + 1);  // vy vz rho pd2
+  const float dens_i = qb.z, pd2_i = qb.w;
+  const float kv0 = 2.0f * p.pm * p.visc * p.pm;
+  const float inv_rd = 1.0f / p.rd;
+  const float cp = -p.pm * p.pm;
+  const float bden0 = 0.01f * p.h2;
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+
+  for_each_source(i, n, 0, min(n_rows, N_ROWS), seg_start, seg_end,
+                  [&](int j) {
+    const float4 a = __ldg(src + 2 * j);      // x y z vx
+    const float4 b = __ldg(src + 2 * j + 1);  // vy vz rho pad
+    const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    float rl, invrl;
+    rl_invrl(r2, rl, invrl);
+    const float okf = r2 < p.h2 ? 1.0f : 0.0f;
+    const float dens_j = fmaxf(b.z, 1e-12f);
+    const float inv_dens = 1.0f / dens_j;
+
+    const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
+    const float cvisc = (kv0 * inv_dens) * (av * (1.0f / (r2 + bden0))) * okf;
+
+    const float ratio = dens_j * inv_rd;
+    const float ratio2 = ratio * ratio;
+    const float p_j = p.k * (ratio2 * ratio2 * ratio2 * ratio - 1.0f);
+    const float pd2_j = p_j * inv_dens * inv_dens;
+    float cpd = (pd2_i + pd2_j) * cp * grad_scale_press<KS>(rl, invrl, p);
+
+    if constexpr (ST == ST_BECKER) {
+      cpd += fminf(w_value<KS>(r2, rl, p), p.wdiam) * (-p.kappa);
+    } else if constexpr (ST == ST_AKINCI) {
+      const float hr = fmaxf(p.h - rl, 0.0f);
+      const float cube = hr * hr * hr * rl * rl * rl;
+      float c = 0.0f;
+      if (2.0f * rl > p.h && rl <= p.h) {
+        c = p.ksurf1 * cube;
+      } else if (rl > 1e-12f && 2.0f * rl <= p.h) {
+        c = p.ksurf1 * (2.0f * cube - p.ksurf2);
+      }
+      const float kij = 2.0f * p.rd / (dens_i + dens_j);
+      cpd += (-p.kappa * p.pm * p.pm) * kij * c * invrl;
+    }
+    cpd *= okf;
+    fx += cvisc * (qa.w - a.w) + cpd * dx;
+    fy += cvisc * (qb.x - b.x) + cpd * dy;
+    fz += cvisc * (qb.y - b.y) + cpd * dz;
+  });
+
+  if (n_rows > N_ROWS) {
+    const float di = fmaxf(dens_i, 1e-12f);
+    const float nu = ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
+                      (1.0f + 0.01f * p.h2)) / (di * di);
+    const float cpb = p.pm * p.pm;
+    for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
+      const float4 a = __ldg(src + 2 * j);
+      const float psi = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+      const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      float rl = 0.0f, invrl = 0.0f;
+      if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
+      const float okf = r2 < p.h2 ? 1.0f : 0.0f;
+      const float w = w_value<KS>(r2, rl, p);
+      const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
+      const float vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
+      const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+      const float c = ((p.beta * psi) * w +
+                       (cfric + cpb * psi * pd2_i * sd)) * okf;
+      fx += c * dx;
+      fy += c * dy;
+      fz += c * dz;
+    });
+  }
+  out[3 * i + 0] = fx;
+  out[3 * i + 1] = fy;
+  out[3 * i + 2] = fz;
+}
+
+inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
+
+template <int KS, int ST>
+void launch_force(const float* q, const float* src, const int* s,
+                  const int* e, int n, int n_rows, const float* pv,
+                  float* out, cudaStream_t stream) {
+  force_sweep_kernel<KS, ST><<<blocks_for(n), THREADS, 0, stream>>>(
+      reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
+      s, e, n, n_rows, pv, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches one kernel on `stream` and returns
+// cudaGetLastError() (0 on success); an unknown switch value returns -1.
+
+int nereus_density_sweep(const float* q, const float* src,
+                         const int* seg_start, const int* seg_end, int n,
+                         int n_rows, const float* pvec, int kernel_set,
+                         float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  if (kernel_set == MULLER) {
+    density_sweep_kernel<MULLER><<<blocks_for(n), THREADS, 0, st>>>(
+        q4, s4, seg_start, seg_end, n, n_rows, pvec, out);
+  } else if (kernel_set == MONAGHAN) {
+    density_sweep_kernel<MONAGHAN><<<blocks_for(n), THREADS, 0, st>>>(
+        q4, s4, seg_start, seg_end, n, n_rows, pvec, out);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
+                       const int* seg_end, int n, int n_rows,
+                       const float* pvec, int kernel_set, int st_model,
+                       float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NEREUS_FORCE(KS, ST)                                              \
+  if (kernel_set == KS && st_model == ST) {                               \
+    launch_force<KS, ST>(q, src, seg_start, seg_end, n, n_rows, pvec, out, \
+                         st);                                             \
+    return static_cast<int>(cudaGetLastError());                          \
+  }
+  NEREUS_FORCE(MULLER, ST_NONE)
+  NEREUS_FORCE(MULLER, ST_BECKER)
+  NEREUS_FORCE(MULLER, ST_AKINCI)
+  NEREUS_FORCE(MONAGHAN, ST_NONE)
+  NEREUS_FORCE(MONAGHAN, ST_BECKER)
+  NEREUS_FORCE(MONAGHAN, ST_AKINCI)
+#undef NEREUS_FORCE
+  return -1;
+}
+
+const char* nereus_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

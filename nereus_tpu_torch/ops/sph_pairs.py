@@ -1,0 +1,331 @@
+"""SPH pair formulas, their plain sweeps, and the sweep dispatchers
+(PyTorch port of the main-path part of ``nereus_tpu.ops.pallas_sph``).
+
+Parameter scalars travel as one packed vector (:func:`build_pvec`, the
+same ``PV_*`` layout as the JAX package): the CUDA kernels read it from
+device memory, the plain formulas index it.
+
+Source matrices are (M, 8) float32 rows ``x y z vx vy vz s6 pad``. Slot 6
+means different things by region: ψ = m (density sweep) or ρ_j (force
+sweep) for fluid sources, ψ_b = ρ₀·V_b for boundary sources. Query
+matrices are (N, 4) ``x y z pad`` for density and (N, 8)
+``x y z vx vy vz ρ pd2`` for forces.
+
+The pair formulas keep the JAX functions' operation order, including the
+float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
+every term but the density self term is exactly 0 at r = 0, and the Müller
+viscosity bracket (~1e36 at the clamp) multiplies r² before its ~1e4
+constant.
+
+``density_sweep`` / ``fluid_force_sweep`` route by device: a CPU tensor
+goes to the plain sweep, a CUDA float32 tensor to the hand-written kernel
+(``ops/cuda_sweep.py``); anything else raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import kernels as K
+from ..params import KernelSet, SimConfig, SimParams, SurfaceTensionModel
+from .neighbors import neighbor_sweep_plain
+
+_EPS = 1e-12
+
+# pvec layout (shared with the JAX package and csrc/sph_sweep.cu)
+PV_H2 = 0
+PV_PM = 1
+PV_KPOLY = 2
+PV_KPRESS = 3
+PV_KVISC = 4
+PV_KVISC_DEN = 5
+PV_H = 6
+PV_KAPPA = 7
+PV_WDIAM = 8       # W(2·particle_radius), for the Becker clamp
+PV_DIAM2 = 9
+PV_BETA = 10
+PV_VISC = 11
+PV_CS = 12
+PV_RD = 13
+PV_K = 14          # Tait stiffness (pd2_j is recomputed per pair)
+PV_KSURF1 = 15
+PV_KSURF2 = 16
+PV_KPOLY_GRAD = 17
+PV_OX = 18
+PV_OY = 19
+PV_OZ = 20
+PV_INVCELL = 21
+PV_DT = 22
+PV_SCORR_S = 23
+PV_STX = 24
+PV_LEN = 25
+
+SRC_WIDTH = 8
+
+
+def build_pvec(params: SimParams, cfg: SimConfig, grid):
+    """The packed (PV_LEN,) parameter vector, in ``cfg.dtype`` on the
+    params' device."""
+    h = params.interaction_radius
+    diam = 2.0 * params.particle_radius
+    zero = torch.zeros_like(diam)
+    wdiam = K.w_value(cfg.kernel_set,
+                      torch.stack([diam, zero, zero])[None, :], params)[0]
+    vals = [None] * PV_LEN
+    vals[PV_H2] = h * h
+    vals[PV_PM] = params.particle_mass
+    vals[PV_KPOLY] = params.kpoly
+    vals[PV_KPRESS] = params.kpress_grad
+    vals[PV_KVISC] = params.kvisc_grad
+    vals[PV_KVISC_DEN] = params.kvisc_denum
+    vals[PV_H] = h
+    vals[PV_KAPPA] = params.surface_tension
+    vals[PV_WDIAM] = wdiam
+    vals[PV_DIAM2] = diam * diam
+    vals[PV_BETA] = params.beta
+    vals[PV_VISC] = params.viscosity
+    vals[PV_CS] = params.sound_speed
+    vals[PV_RD] = params.rest_density
+    vals[PV_K] = params.gas_stiffness
+    vals[PV_KSURF1] = params.ksurf1
+    vals[PV_KSURF2] = params.ksurf2
+    vals[PV_KPOLY_GRAD] = params.kpoly_grad
+    vals[PV_OX] = grid.origin[0]
+    vals[PV_OY] = grid.origin[1]
+    vals[PV_OZ] = grid.origin[2]
+    vals[PV_INVCELL] = 1.0 / grid.cell[0]
+    vals[PV_DT] = params.dt
+    if cfg.pbf_scorr_k > 0.0:
+        wdq = K.w_value(cfg.kernel_set,
+                        torch.stack([cfg.pbf_scorr_dq * h, zero, zero])[None],
+                        params)[0]
+        vals[PV_SCORR_S] = (cfg.pbf_scorr_k ** 0.25) / torch.clamp(
+            wdq, min=1e-30)
+    else:
+        vals[PV_SCORR_S] = zero
+    vals[PV_STX] = torch.full_like(h, cfg.st_cross)
+    return torch.stack([v.to(device=h.device, dtype=cfg.dtype)
+                        for v in vals])
+
+
+# ---------------------------------------------------------------------------
+# Smoothing-kernel pieces on pair vectors (cutoff applied by the caller)
+# ---------------------------------------------------------------------------
+
+def _rl_invrl(r2):
+    """|r| and 1/|r| from one rsqrt of the ε²-clamped r² (finite at 0)."""
+    inv = torch.rsqrt(torch.clamp(r2, min=_EPS * _EPS))
+    return r2 * inv, inv
+
+
+def _w_value(kernel_set, r2, rl, pv):
+    if kernel_set == KernelSet.MULLER:
+        d = torch.clamp(pv[PV_H2] - r2, min=0.0)
+        return pv[PV_KPOLY] * d * d * d
+    h = pv[PV_H]
+    sigma = 1.0 / (4.0 * math.pi * h * h * h)
+    q = rl / h
+    a = torch.clamp(2.0 - q, min=0.0)
+    bq = torch.clamp(1.0 - q, min=0.0)
+    return sigma * (a * a * a - 4.0 * bq * bq * bq)
+
+
+def _w_grad_scale_monaghan(rl, pv, invrl):
+    h = pv[PV_H]
+    sigma = 1.0 / (4.0 * math.pi * h * h * h)
+    q = rl / h
+    a = torch.clamp(2.0 - q, min=0.0)
+    bq = torch.clamp(1.0 - q, min=0.0)
+    scalar = -3.0 * a * a + 12.0 * bq * bq
+    return (sigma / h) * scalar * invrl
+
+
+def _w_grad_scale_default(kernel_set, r2, rl, pv, invrl):
+    """s with ∇W = s·r⃗ for the poly6/default gradient."""
+    if kernel_set == KernelSet.MULLER:
+        d = torch.clamp(pv[PV_H2] - r2, min=0.0)
+        return pv[PV_KPOLY_GRAD] * d * d
+    return _w_grad_scale_monaghan(rl, pv, invrl)
+
+
+def _w_grad_scale_press(kernel_set, r2, rl, pv, invrl):
+    """s for the spiky pressure gradient (finite at r = 0 via invrl)."""
+    if kernel_set == KernelSet.MULLER:
+        hr = torch.clamp(pv[PV_H] - rl, min=0.0)
+        return pv[PV_KPRESS] * hr * hr * invrl
+    return _w_grad_scale_monaghan(rl, pv, invrl)
+
+
+def _visc_rdotgrad(kernel_set, r2, rl, pv, invrl):
+    """r⃗·∇W_visc. The Müller bracket multiplies r² BEFORE the KVISC
+    constant: the other order overflows to inf at the clamp, and inf·0 is
+    NaN."""
+    if kernel_set == KernelSet.MULLER:
+        inv3 = invrl * invrl * invrl
+        c = ((2.0 / pv[PV_H2]) - rl * (3.0 / pv[PV_KVISC_DEN])
+             - inv3 * (pv[PV_H] * 0.5))
+        return (c * r2) * pv[PV_KVISC]
+    return _w_grad_scale_monaghan(rl, pv, invrl) * r2
+
+
+def _geometry(q, s):
+    dx = q[:, 0] - s[:, 0]
+    dy = q[:, 1] - s[:, 1]
+    dz = q[:, 2] - s[:, 2]
+    return dx, dy, dz, dx * dx + dy * dy + dz * dz
+
+
+# ---------------------------------------------------------------------------
+# Pair formulas: (P, Fq) query rows × (P, 8) source rows → (P, k)
+# ---------------------------------------------------------------------------
+
+def density_pair(q, s, pv, *, kernel_set):
+    """ψ_j·W(r): one formula for fluid (ψ = m) and boundary (ψ_b) sources
+    (``computeCellDensity`` / ``computeBoundaryCellDensity``,
+    ``sph_kernel_impl.cuh:290-360``). Returns (P, 1)."""
+    _, _, _, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        # poly6 vanishes outside the cutoff through the clamp
+        d = torch.clamp(pv[PV_H2] - r2, min=0.0)
+        return ((d * d * d) * (s[:, 6] * pv[PV_KPOLY]))[:, None]
+    rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    return (s[:, 6] * _w_value(kernel_set, r2, rl, pv) * okf)[:, None]
+
+
+def fluid_force_pair(q, s, pv, *, kernel_set, st_model):
+    """Fluid-source forces: Müller viscosity, Becker or Akinci surface
+    tension, and symmetric Tait pressure with pd2_j recomputed from the
+    source density in slot 6. Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    dens_j = torch.clamp(s[:, 6], min=_EPS)
+    inv_dens = 1.0 / dens_j
+
+    # viscosity 2·m·μ·(m/ρ_j)(r·∇W_v)/(r² + 0.01h²)·(v_i − v_j); exact 1/x
+    a = _visc_rdotgrad(kernel_set, r2, rl, pv, invrl)
+    kv = (2.0 * pv[PV_PM] * pv[PV_VISC] * pv[PV_PM]) * inv_dens
+    bden = r2 + 0.01 * pv[PV_H2]
+    cvisc = kv * (a * (1.0 / bden)) * okf
+
+    # pressure: −m²(pd2_i + pd2_j)·∇W_press, pd2_j from the Tait EOS of ρ_j
+    ratio = dens_j * (1.0 / pv[PV_RD])
+    ratio2 = ratio * ratio
+    p_j = pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0)
+    pd2_j = p_j * inv_dens * inv_dens
+    sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
+    cpd = (q[:, 7] + pd2_j) * (-pv[PV_PM] * pv[PV_PM]) * sp
+
+    if st_model == SurfaceTensionModel.BECKER:
+        # the reference's diameter clamp, as min(W, W(diam))
+        w_eff = torch.minimum(_w_value(kernel_set, r2, rl, pv),
+                              pv[PV_WDIAM])
+        cpd = cpd + w_eff * (-pv[PV_KAPPA])
+    elif st_model == SurfaceTensionModel.AKINCI:
+        h = pv[PV_H]
+        hr = torch.clamp(h - rl, min=0.0)
+        cube = hr * hr * hr * rl * rl * rl
+        near = pv[PV_KSURF1] * (2.0 * cube - pv[PV_KSURF2])
+        far = pv[PV_KSURF1] * cube
+        zero = torch.zeros_like(rl)
+        c = torch.where((2.0 * rl > h) & (rl <= h), far,
+                        torch.where((rl > _EPS) & (2.0 * rl <= h), near,
+                                    zero))
+        kij = 2.0 * pv[PV_RD] / (q[:, 6] + dens_j)
+        cpd = cpd + (-pv[PV_KAPPA] * pv[PV_PM] * pv[PV_PM]) * kij * c * invrl
+
+    cpd = cpd * okf
+    return torch.stack([cvisc * (q[:, 3] - s[:, 3]) + cpd * dx,
+                        cvisc * (q[:, 4] - s[:, 4]) + cpd * dy,
+                        cvisc * (q[:, 5] - s[:, 5]) + cpd * dz], dim=1)
+
+
+def boundary_force_pair(q, s, pv, *, kernel_set):
+    """Static-wall boundary forces (``computeCellForces`` boundary loop,
+    ``sph_kernel_impl.cuh:552-602``): β adhesion β·ψ·W·r⃗, friction with
+    max(v_i·r⃗, 0), and the reference-scale boundary pressure
+    +m²·ψ·pd2_i·∇W_dflt (the reference's sign and scale, kept for
+    parity). Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    psi = s[:, 6]
+    dens_i = torch.clamp(q[:, 6], min=_EPS)
+    w = _w_value(kernel_set, r2, rl, pv)
+    sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
+    cadh = (pv[PV_BETA] * psi) * w
+    nu = ((2.0 * pv[PV_PM] * pv[PV_PM] * pv[PV_VISC] * pv[PV_VISC]
+           * pv[PV_H] * pv[PV_CS]) / (1.0 + 0.01 * pv[PV_H2])) \
+        / (dens_i * dens_i)
+    vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+    cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
+    c = cadh + (cfric + (pv[PV_PM] * pv[PV_PM]) * psi * q[:, 7] * sd)
+    c = c * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Plain sweeps and the dispatchers
+# ---------------------------------------------------------------------------
+
+def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """ρ_i = Σ_j ψ_j W(r_ij) over the fluid rows and (18 rows) the
+    boundary rows, self term included. Returns (N,)."""
+    def pair(qq, ss):
+        return density_pair(qq, ss, pvec, kernel_set=cfg.kernel_set)
+    return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 1,
+                                pair_fn_b=pair)[:, 0]
+
+
+def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                            pvec):
+    """WCSPH forces: fluid pairs on rows 0-8, static-wall boundary pairs on
+    rows 9-17. Returns (N, 3)."""
+    def pair(qq, ss):
+        return fluid_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
+                                st_model=cfg.surface_tension_model)
+
+    def pair_b(qq, ss):
+        return boundary_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set)
+    return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 3,
+                                pair_fn_b=pair_b)
+
+
+def _route(*tensors) -> str:
+    """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
+    for CUDA float32 ones; raises on anything else, or on mixed devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"sweep inputs on several devices: {devs}")
+    dev = devs.pop()
+    dtype = tensors[0].dtype
+    if dev.type == "cpu" and dtype in (torch.float32, torch.float64):
+        return "plain"
+    if dev.type == "cuda" and dtype == torch.float32:
+        return "cuda"
+    raise TypeError(f"no sweep for {dtype} tensors on {dev}: CPU takes "
+                    "float32/float64, CUDA takes float32")
+
+
+def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Density sweep: the plain version on CPU, the CUDA kernel on GPU."""
+    if _route(q, src, pvec, seg_start) == "plain":
+        return density_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
+    from . import cuda_sweep
+    return cuda_sweep.density_sweep(cfg, q, src, seg_start, seg_end, pvec)
+
+
+def fluid_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Fused fluid + boundary force sweep: the plain version on CPU, the
+    CUDA kernel on GPU."""
+    if _route(q, src, pvec, seg_start) == "plain":
+        return fluid_force_sweep_plain(cfg, q, src, seg_start, seg_end,
+                                       pvec)
+    from . import cuda_sweep
+    return cuda_sweep.force_sweep(cfg, q, src, seg_start, seg_end, pvec)

@@ -19,3 +19,9 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU and nvcc; skipped "
+        "without one (tests/test_torch_package.py)")

@@ -1,0 +1,60 @@
+"""Shared inputs for the PyTorch-port tests: one small scene built by the
+JAX package and carried to the port through ``nereus_tpu_torch.convert``,
+so both packages start from identical float32 arrays."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+import nereus_tpu as jt
+from nereus_tpu import scene as jscene
+from nereus_tpu_torch import convert
+
+# (kernel set, surface-tension model) grid of the port tests
+MODELS = [
+    (jt.KernelSet.MULLER, jt.SurfaceTensionModel.BECKER),
+    (jt.KernelSet.MONAGHAN, jt.SurfaceTensionModel.AKINCI),
+    (jt.KernelSet.MULLER, jt.SurfaceTensionModel.NONE),
+]
+MODEL_IDS = ["muller-becker", "monaghan-akinci", "muller-none"]
+
+
+def jax_scene(with_boundary, kernel_set=jt.KernelSet.MULLER,
+              st=jt.SurfaceTensionModel.BECKER, floor=-0.3, seed=0):
+    """The ``tests/test_pallas.py`` dam-break scene (343 particles, cube
+    0.25, boundary radius 0.04, dt 5e-4) with seeded random velocities in
+    [−0.5, 0.5) m/s, so the viscosity and friction terms are non-zero.
+    ``floor`` moves the box floor: −0.115 puts the bottom layer 0.04 from
+    the wall, inside the kernel support."""
+    cfg = jt.SimConfig(seg_window=48, kernel_set=kernel_set,
+                       surface_tension_model=st, engine="segments")
+    params = jt.make_params(dt=5e-4)
+    state, grid, boundary = jscene.dam_break(
+        params, cfg, cube_size=(0.25, 0.25, 0.25),
+        cube_center=(-0.3, 0.05, 0.5),
+        box_min=(-0.8, floor, 0.0), box_max=(0.2, 0.7, 1.0),
+        with_boundary=with_boundary, boundary_radius=0.04)
+    pos = np.asarray(state.pos)
+    vel = np.random.default_rng(seed).uniform(-0.5, 0.5, pos.shape)
+    state = jt.make_fluid_state(pos, vel.astype(np.float32))
+    return cfg, params, state, grid, boundary
+
+
+def to_port(cfg, params, state, grid, boundary, device="cpu"):
+    """The same config, params, state, grid and boundary as port objects
+    on ``device``."""
+    pparams = convert.params_from_numpy(
+        {f.name: np.asarray(getattr(params, f.name))
+         for f in dataclasses.fields(params)}, device=device)
+    pboundary = None
+    if boundary is not None:
+        pboundary = convert.boundary_from_numpy(
+            boundary.pos, boundary.psi, boundary.sorted_hash, device=device)
+    return (convert.config_from_jax_fields(cfg), pparams,
+            convert.state_from_numpy(state.pos, state.vel, state.pressure,
+                                     state.num_active, device=device),
+            convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
+                                    device=device),
+            pboundary)
