@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from .grid import Grid, make_grid
-from .params import KernelSet, SimConfig, SimParams, SurfaceTensionModel
+from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
+                     resolve_device)
 from .state import BoundaryData, FluidState
 
 _ENUMS = {"kernel_set": KernelSet,
@@ -22,14 +23,15 @@ _ENUMS = {"kernel_set": KernelSet,
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def _t(a, dtype=None, device="cpu"):
+def _t(a, dtype=None, device=None):
     t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> SimParams:
+def params_from_numpy(arrays: dict, device=None) -> SimParams:
     """SimParams from ``{field: numpy array}`` (every SimParams field), in
-    the arrays' own dtype."""
+    the arrays' own dtype. Every converter builds on ``device``, by default
+    the CUDA device."""
     return SimParams(**{f.name: _t(arrays[f.name], device=device)
                         for f in dataclasses.fields(SimParams)})
 
@@ -50,7 +52,7 @@ def config_from_jax_fields(src) -> SimConfig:
 
 
 def state_from_numpy(pos, vel, pressure, num_active, mass=None, rho0=None,
-                     device="cpu") -> FluidState:
+                     device=None) -> FluidState:
     """FluidState from numpy arrays, dtypes kept (num_active: int32)."""
     return FluidState(
         pos=_t(pos, device=device), vel=_t(vel, device=device),
@@ -61,7 +63,7 @@ def state_from_numpy(pos, vel, pressure, num_active, mass=None, rho0=None,
 
 
 def boundary_from_numpy(pos, psi, sorted_hash, vel=None,
-                        device="cpu") -> BoundaryData:
+                        device=None) -> BoundaryData:
     """BoundaryData from numpy arrays (already hash-sorted)."""
     return BoundaryData(
         pos=_t(pos, device=device), psi=_t(psi, device=device),
@@ -69,7 +71,7 @@ def boundary_from_numpy(pos, psi, sorted_hash, vel=None,
         vel=None if vel is None else _t(vel, device=device))
 
 
-def grid_from_numpy(origin, size, cell, device="cpu") -> Grid:
+def grid_from_numpy(origin, size, cell, device=None) -> Grid:
     """Grid from its origin (3,), cell counts and cell edge (3,)."""
     origin = np.asarray(origin)
     return make_grid(origin, size, np.asarray(cell),

@@ -26,7 +26,12 @@
 // self pair, and the Müller viscosity bracket (~1e36 at the clamp)
 // multiplies r^2 before its ~1e4 constant (the other order is inf*0 =
 // NaN). The viscosity denominator uses exact division. FMA contraction and
-// rsqrtf change the last bits against the plain PyTorch version.
+// rsqrtf change the last bits against the plain PyTorch version. The
+// shared formulas live in sweep_common.cuh.
+//
+// The force kernel's PRESSURE switch (0 for the IISPH advection forces,
+// fluid_force_sweep(include_pressure=False)) drops the Tait term pd2_i +
+// pd2_j of the fluid rows and the pressure term of the boundary rows.
 //
 // Layouts (all row-major float32, 16-byte aligned):
 //   density query (N, 4): x y z pad
@@ -37,132 +42,11 @@
 //   seg_start, seg_end (n_rows, N) int32
 //   pvec: the PV_* vector of ops/sph_pairs.py
 
-#include <cuda_runtime.h>
+#include "sweep_common.cuh"
 
 namespace {
 
-enum {
-  PV_H2 = 0, PV_PM = 1, PV_KPOLY = 2, PV_KPRESS = 3, PV_KVISC = 4,
-  PV_KVISC_DEN = 5, PV_H = 6, PV_KAPPA = 7, PV_WDIAM = 8, PV_BETA = 10,
-  PV_VISC = 11, PV_CS = 12, PV_RD = 13, PV_K = 14, PV_KSURF1 = 15,
-  PV_KSURF2 = 16, PV_KPOLY_GRAD = 17
-};
-
-// KernelSet and SurfaceTensionModel enum values of params.py
-constexpr int MONAGHAN = 0;
-constexpr int MULLER = 1;
-constexpr int ST_NONE = 0;
-constexpr int ST_BECKER = 1;
-constexpr int ST_AKINCI = 2;
-
-constexpr int THREADS = 128;
-constexpr int N_ROWS = 9;
-
-struct Params {
-  float h2, pm, kpoly, kpress, kvisc, kvisc_den, h, kappa, wdiam, beta,
-      visc, cs, rd, k, ksurf1, ksurf2, kpoly_grad;
-  float sigma;  // Monaghan 1/(4 pi h^3)
-};
-
-__device__ __forceinline__ Params load_params(const float* __restrict__ pv) {
-  Params p;
-  p.h2 = __ldg(pv + PV_H2);
-  p.pm = __ldg(pv + PV_PM);
-  p.kpoly = __ldg(pv + PV_KPOLY);
-  p.kpress = __ldg(pv + PV_KPRESS);
-  p.kvisc = __ldg(pv + PV_KVISC);
-  p.kvisc_den = __ldg(pv + PV_KVISC_DEN);
-  p.h = __ldg(pv + PV_H);
-  p.kappa = __ldg(pv + PV_KAPPA);
-  p.wdiam = __ldg(pv + PV_WDIAM);
-  p.beta = __ldg(pv + PV_BETA);
-  p.visc = __ldg(pv + PV_VISC);
-  p.cs = __ldg(pv + PV_CS);
-  p.rd = __ldg(pv + PV_RD);
-  p.k = __ldg(pv + PV_K);
-  p.ksurf1 = __ldg(pv + PV_KSURF1);
-  p.ksurf2 = __ldg(pv + PV_KSURF2);
-  p.kpoly_grad = __ldg(pv + PV_KPOLY_GRAD);
-  p.sigma = 1.0f / (12.566370614359172f * p.h * p.h * p.h);
-  return p;
-}
-
-// Calls f(j) for every source index j of rows [row0, row1) of query i.
-template <typename F>
-__device__ __forceinline__ void for_each_source(
-    int i, int n, int row0, int row1, const int* __restrict__ seg_start,
-    const int* __restrict__ seg_end, F&& f) {
-  for (int r = row0; r < row1; ++r) {
-    const int s = __ldg(seg_start + static_cast<size_t>(r) * n + i);
-    const int e = __ldg(seg_end + static_cast<size_t>(r) * n + i);
-    for (int j = s; j < e; ++j) f(j);
-  }
-}
-
-__device__ __forceinline__ void rl_invrl(float r2, float& rl, float& invrl) {
-  invrl = rsqrtf(fmaxf(r2, 1e-24f));
-  rl = r2 * invrl;
-}
-
-template <int KS>
-__device__ __forceinline__ float w_value(float r2, float rl, const Params& p) {
-  if constexpr (KS == MULLER) {
-    const float d = fmaxf(p.h2 - r2, 0.0f);
-    return p.kpoly * d * d * d;
-  } else {
-    const float q = rl / p.h;
-    const float a = fmaxf(2.0f - q, 0.0f);
-    const float b = fmaxf(1.0f - q, 0.0f);
-    return p.sigma * (a * a * a - 4.0f * b * b * b);
-  }
-}
-
-__device__ __forceinline__ float grad_scale_monaghan(float rl, float invrl,
-                                                     const Params& p) {
-  const float q = rl / p.h;
-  const float a = fmaxf(2.0f - q, 0.0f);
-  const float b = fmaxf(1.0f - q, 0.0f);
-  return (p.sigma / p.h) * (-3.0f * a * a + 12.0f * b * b) * invrl;
-}
-
-// s with grad W = s * r for the poly6/default gradient
-template <int KS>
-__device__ __forceinline__ float grad_scale_default(float r2, float rl,
-                                                    float invrl,
-                                                    const Params& p) {
-  if constexpr (KS == MULLER) {
-    const float d = fmaxf(p.h2 - r2, 0.0f);
-    return p.kpoly_grad * d * d;
-  } else {
-    return grad_scale_monaghan(rl, invrl, p);
-  }
-}
-
-// s for the spiky pressure gradient
-template <int KS>
-__device__ __forceinline__ float grad_scale_press(float rl, float invrl,
-                                                  const Params& p) {
-  if constexpr (KS == MULLER) {
-    const float hr = fmaxf(p.h - rl, 0.0f);
-    return p.kpress * hr * hr * invrl;
-  } else {
-    return grad_scale_monaghan(rl, invrl, p);
-  }
-}
-
-// r . grad W_visc; r^2 multiplies the bracket before the KVISC constant
-template <int KS>
-__device__ __forceinline__ float visc_rdotgrad(float r2, float rl,
-                                               float invrl, const Params& p) {
-  if constexpr (KS == MULLER) {
-    const float inv3 = invrl * invrl * invrl;
-    const float c = (2.0f / p.h2) - rl * (3.0f / p.kvisc_den) -
-                    inv3 * (p.h * 0.5f);
-    return (c * r2) * p.kvisc;
-  } else {
-    return grad_scale_monaghan(rl, invrl, p) * r2;
-  }
-}
+using namespace nereus_sweep;
 
 // ---------------------------------------------------------------------------
 // Density: rho_i = sum_j s6_j W(r_ij) over all rows, self term included
@@ -200,10 +84,11 @@ density_sweep_kernel(const float4* __restrict__ q,
 // ---------------------------------------------------------------------------
 // Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
 // from rho_j) on rows 0-8, static-wall boundary pairs (adhesion, friction,
-// reference-scale boundary pressure) on rows 9-17
+// reference-scale boundary pressure) on rows 9-17; PRESSURE = 0 drops both
+// pressure terms
 // ---------------------------------------------------------------------------
 
-template <int KS, int ST>
+template <int KS, int ST, int PRESSURE>
 __global__ void __launch_bounds__(THREADS)
 force_sweep_kernel(const float4* __restrict__ q,
                    const float4* __restrict__ src,
@@ -237,11 +122,14 @@ force_sweep_kernel(const float4* __restrict__ q,
     const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
     const float cvisc = (kv0 * inv_dens) * (av * (1.0f / (r2 + bden0))) * okf;
 
-    const float ratio = dens_j * inv_rd;
-    const float ratio2 = ratio * ratio;
-    const float p_j = p.k * (ratio2 * ratio2 * ratio2 * ratio - 1.0f);
-    const float pd2_j = p_j * inv_dens * inv_dens;
-    float cpd = (pd2_i + pd2_j) * cp * grad_scale_press<KS>(rl, invrl, p);
+    float cpd = 0.0f;
+    if constexpr (PRESSURE != 0) {
+      const float ratio = dens_j * inv_rd;
+      const float ratio2 = ratio * ratio;
+      const float p_j = p.k * (ratio2 * ratio2 * ratio2 * ratio - 1.0f);
+      const float pd2_j = p_j * inv_dens * inv_dens;
+      cpd = (pd2_i + pd2_j) * cp * grad_scale_press<KS>(rl, invrl, p);
+    }
 
     if constexpr (ST == ST_BECKER) {
       cpd += fminf(w_value<KS>(r2, rl, p), p.wdiam) * (-p.kappa);
@@ -280,8 +168,9 @@ force_sweep_kernel(const float4* __restrict__ q,
       const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
       const float vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
       const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
-      const float c = ((p.beta * psi) * w +
-                       (cfric + cpb * psi * pd2_i * sd)) * okf;
+      const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
+                                  (cfric + cpb * psi * pd2_i * sd)) * okf
+                               : ((p.beta * psi) * w + cfric) * okf;
       fx += c * dx;
       fy += c * dy;
       fz += c * dz;
@@ -292,13 +181,11 @@ force_sweep_kernel(const float4* __restrict__ q,
   out[3 * i + 2] = fz;
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
-template <int KS, int ST>
+template <int KS, int ST, int PRESSURE>
 void launch_force(const float* q, const float* src, const int* s,
                   const int* e, int n, int n_rows, const float* pv,
                   float* out, cudaStream_t stream) {
-  force_sweep_kernel<KS, ST><<<blocks_for(n), THREADS, 0, stream>>>(
+  force_sweep_kernel<KS, ST, PRESSURE><<<blocks_for(n), THREADS, 0, stream>>>(
       reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
       s, e, n, n_rows, pv, out);
 }
@@ -332,20 +219,26 @@ int nereus_density_sweep(const float* q, const float* src,
 int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
                        const int* seg_end, int n, int n_rows,
                        const float* pvec, int kernel_set, int st_model,
-                       float* out, void* stream) {
+                       int pressure, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NEREUS_FORCE(KS, ST)                                              \
-  if (kernel_set == KS && st_model == ST) {                               \
-    launch_force<KS, ST>(q, src, seg_start, seg_end, n, n_rows, pvec, out, \
-                         st);                                             \
-    return static_cast<int>(cudaGetLastError());                          \
+#define NEREUS_FORCE(KS, ST, P)                                             \
+  if (kernel_set == KS && st_model == ST && pressure == P) {                \
+    launch_force<KS, ST, P>(q, src, seg_start, seg_end, n, n_rows, pvec,    \
+                            out, st);                                       \
+    return static_cast<int>(cudaGetLastError());                            \
   }
-  NEREUS_FORCE(MULLER, ST_NONE)
-  NEREUS_FORCE(MULLER, ST_BECKER)
-  NEREUS_FORCE(MULLER, ST_AKINCI)
-  NEREUS_FORCE(MONAGHAN, ST_NONE)
-  NEREUS_FORCE(MONAGHAN, ST_BECKER)
-  NEREUS_FORCE(MONAGHAN, ST_AKINCI)
+  NEREUS_FORCE(MULLER, ST_NONE, 1)
+  NEREUS_FORCE(MULLER, ST_BECKER, 1)
+  NEREUS_FORCE(MULLER, ST_AKINCI, 1)
+  NEREUS_FORCE(MONAGHAN, ST_NONE, 1)
+  NEREUS_FORCE(MONAGHAN, ST_BECKER, 1)
+  NEREUS_FORCE(MONAGHAN, ST_AKINCI, 1)
+  NEREUS_FORCE(MULLER, ST_NONE, 0)
+  NEREUS_FORCE(MULLER, ST_BECKER, 0)
+  NEREUS_FORCE(MULLER, ST_AKINCI, 0)
+  NEREUS_FORCE(MONAGHAN, ST_NONE, 0)
+  NEREUS_FORCE(MONAGHAN, ST_BECKER, 0)
+  NEREUS_FORCE(MONAGHAN, ST_AKINCI, 0)
 #undef NEREUS_FORCE
   return -1;
 }

@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .params import resolve_device
+
 INT32_MAX = 2 ** 31 - 1
 
 # The 9 (dy, dz) row offsets of the 3×3×3 neighborhood, dz outer.
@@ -33,7 +35,9 @@ class Grid:
 
 
 def make_grid(origin, size, cell_size, dtype=torch.float32,
-              device="cpu") -> Grid:
+              device=None) -> Grid:
+    """A grid on ``device`` (default: the CUDA device)."""
+    device = resolve_device(device)
     origin = torch.as_tensor(np.asarray(origin, np.float64)).to(
         dtype=dtype, device=device)
     size = tuple(int(s) for s in np.asarray(size).reshape(-1))
@@ -43,7 +47,7 @@ def make_grid(origin, size, cell_size, dtype=torch.float32,
 
 
 def fit_grid(lo, hi, cell_size, margin: float = 0.1, dtype=torch.float32,
-             device="cpu") -> Grid:
+             device=None) -> Grid:
     """Fit a grid around an AABB on the host (``SPH::updateGrid``,
     ``sph/sph.cpp:313-337``): origin = lo − margin, extent padded by
     ``margin`` on both faces, exact size (no power-of-two rounding; the

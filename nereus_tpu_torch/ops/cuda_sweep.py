@@ -1,10 +1,13 @@
 """Build, load and launch the hand-written CUDA sweep kernels
-(``csrc/sph_sweep.cu``; the counterpart of ``nereus_tpu.ops.pallas_neighbors``).
+(``csrc/sph_sweep.cu`` for WCSPH, ``csrc/iisph_sweep.cu`` for IISPH; the
+counterpart of ``nereus_tpu.ops.pallas_neighbors``).
 
-The sources are compiled with nvcc for ``sm_90a`` into a shared library
-with a plain C interface, in this package's ``build/`` directory, at first
-use and again whenever a source is newer than the library; the library is
-loaded with ctypes. Importing this module needs no nvcc and no GPU.
+Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
+all at once in parallel, and the objects are linked into one shared
+library with a plain C interface, in this package's ``build/`` directory,
+at first use and again whenever a source is newer than the library; the
+library is loaded with ctypes. Importing this module needs no nvcc and no
+GPU.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, and
 raises on anything else; allocates its output with ``torch.empty``;
@@ -32,7 +35,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnereus_sweep.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC")
 
 
 class Kernel:
@@ -45,7 +48,14 @@ class Kernel:
 
 DENSITY = Kernel("density_sweep_kernel")
 FORCE = Kernel("force_sweep_kernel")
-KERNELS = (DENSITY, FORCE)
+FORCE_P0 = Kernel("force_sweep_kernel<PRESSURE=0>")
+DII_RHOADV = Kernel("iisph_sweep_kernel<DiiRhoAdv>")
+AII = Kernel("iisph_sweep_kernel<Aii>")
+SUM_DIJ = Kernel("iisph_sweep_kernel<SumDij>")
+JACOBI = Kernel("iisph_sweep_kernel<Jacobi>")
+PRESSURE_FORCE = Kernel("iisph_sweep_kernel<PressureForce>")
+KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
+           PRESSURE_FORCE)
 
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +70,10 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _inputs_of_build():
+    return sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def nvcc_path() -> str | None:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = os.path.join(home, "bin", "nvcc")
@@ -68,35 +82,57 @@ def nvcc_path() -> str | None:
     return shutil.which("nvcc")
 
 
+def _run_all(cmds, timeout=900):
+    """Runs the commands side by side; returns their combined output and
+    raises RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(c)}\n{out}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return "".join(outs)
+
+
 def build() -> str:
-    """Compile the kernels into ``LIB_PATH``; returns nvcc's output (the
-    ptxas register and spill report). Raises RuntimeError if nvcc is
-    missing or the build fails."""
+    """Compile the kernels into ``LIB_PATH``, one nvcc per source, all
+    started together, then one link; returns nvcc's output (the ptxas
+    register and spill report). Raises RuntimeError if nvcc is missing or
+    the build fails."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA sweep "
                            "kernels need the CUDA toolkit")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources()],
-                             capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, LIB_PATH)
-        return res.stdout + res.stderr
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o")
+                for s in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", s,
+                         "-o", o] for s, o in zip(sources(), objs)])
+        lib = os.path.join(tmpdir, "lib.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
+        return log
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources())
+    return any(os.path.getmtime(s) > built for s in _inputs_of_build())
 
 
 def load():
@@ -109,12 +145,11 @@ def load():
             build()
         lib = ctypes.CDLL(LIB_PATH)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.nereus_density_sweep.restype = i32
-        lib.nereus_density_sweep.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr, ptr]
-        lib.nereus_force_sweep.restype = i32
-        lib.nereus_force_sweep.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32, ptr, ptr]
+        for fn, n_switches in _SWEEP_FNS.items():
+            f = getattr(lib, f"nereus_{fn}_sweep")
+            f.restype = i32
+            f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32,
+                          *[i32] * n_switches, ptr, ptr]
         lib.nereus_cuda_error_string.restype = ctypes.c_char_p
         lib.nereus_cuda_error_string.argtypes = [i32]
         _lib = lib
@@ -135,15 +170,18 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_inputs(q, fq, src, seg_start, seg_end, pvec):
+def _check_inputs(q, fq, src, seg_start, seg_end, pvec, fs=None,
+                  rows=(9, 18)):
+    """Checks a sweep's operands: q (N, fq), src (M, fs) (default the
+    8-wide source), ranges (n_rows, N) with n_rows in ``rows``."""
     from .sph_pairs import PV_LEN, SRC_WIDTH
     n = q.shape[0]
     n_rows = seg_start.shape[0] if seg_start.dim() == 2 else -1
-    if n_rows not in (9, 18):
-        raise ValueError(f"seg_start must be (9 or 18, N), got "
-                         f"{tuple(seg_start.shape)}")
+    if n_rows not in rows:
+        raise ValueError(f"seg_start must be ({' or '.join(map(str, rows))}"
+                         f", N), got {tuple(seg_start.shape)}")
     _check("q", q, torch.float32, (n, fq))
-    _check("src", src, torch.float32, (src.shape[0], SRC_WIDTH))
+    _check("src", src, torch.float32, (src.shape[0], fs or SRC_WIDTH))
     _check("seg_start", seg_start, torch.int32, (n_rows, n))
     _check("seg_end", seg_end, torch.int32, (n_rows, n))
     _check("pvec", pvec, torch.float32, (PV_LEN,))
@@ -160,39 +198,81 @@ def _raise_on(lib, kernel: Kernel, rc: int):
         raise RuntimeError(f"{kernel.name} launch failed ({rc}): {msg}")
 
 
+# the C entry points nereus_<fn>_sweep(q, src, seg_start, seg_end, n,
+# n_rows, pvec, kernel_set, *switches, out, stream), by their number of
+# int switches after kernel_set
+_SWEEP_FNS = {"density": 0, "force": 2, "dii_rhoadv": 0, "aii": 0,
+              "sum_dij": 0, "jacobi": 0, "pressure_force": 0}
+
+
+def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
+           seg_start, seg_end, pvec, rows, out_cols, *switches):
+    """Checks and launches one kernel of ``_SWEEP_FNS``: q (N, fq),
+    src (M, fs), ranges with a row count in ``rows``, the entry point's
+    int ``switches``; the output is (N, out_cols), or (N,) for
+    out_cols 0."""
+    n, n_rows = _check_inputs(q, fq, src, seg_start, seg_end, pvec, fs=fs,
+                              rows=rows)
+    shape = (n, out_cols) if out_cols else (n,)
+    out = torch.empty(shape, dtype=torch.float32, device=q.device)
+    if n == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"nereus_{fn}_sweep")(
+            q.data_ptr(), src.data_ptr(), seg_start.data_ptr(),
+            seg_end.data_ptr(), n, n_rows, pvec.data_ptr(),
+            cfg.kernel_set.value, *switches, out.data_ptr(), stream)
+    kernel.launches += 1
+    _raise_on(lib, kernel, rc)
+    return out
+
+
 def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """ρ (N,) from the density kernel: q (N, 4), src (M, 8)."""
-    n, n_rows = _check_inputs(q, 4, src, seg_start, seg_end, pvec)
-    out = torch.empty((n,), dtype=torch.float32, device=q.device)
-    if n == 0:
-        return out
-    lib = load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nereus_density_sweep(
-            q.data_ptr(), src.data_ptr(), seg_start.data_ptr(),
-            seg_end.data_ptr(), n, n_rows, pvec.data_ptr(),
-            cfg.kernel_set.value, out.data_ptr(), stream)
-    DENSITY.launches += 1
-    _raise_on(lib, DENSITY, rc)
-    return out
+    return _sweep(DENSITY, "density", cfg, q, 4, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 0)
 
 
-def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                include_pressure=True):
     """Forces (N, 3) from the fused fluid + boundary force kernel:
-    q (N, 8), src (M, 8)."""
-    n, n_rows = _check_inputs(q, 8, src, seg_start, seg_end, pvec)
-    out = torch.empty((n, 3), dtype=torch.float32, device=q.device)
-    if n == 0:
-        return out
-    lib = load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nereus_force_sweep(
-            q.data_ptr(), src.data_ptr(), seg_start.data_ptr(),
-            seg_end.data_ptr(), n, n_rows, pvec.data_ptr(),
-            cfg.kernel_set.value, cfg.surface_tension_model.value,
-            out.data_ptr(), stream)
-    FORCE.launches += 1
-    _raise_on(lib, FORCE, rc)
-    return out
+    q (N, 8), src (M, 8); ``include_pressure=False`` launches the
+    pressure-off instance (the IISPH advection forces), counted in
+    ``FORCE_P0``."""
+    return _sweep(FORCE if include_pressure else FORCE_P0, "force", cfg, q,
+                  8, src, 8, seg_start, seg_end, pvec, (9, 18), 3,
+                  cfg.surface_tension_model.value, int(bool(include_pressure)))
+
+
+def dii_rhoadv_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """(d_ii xyz, Δρ_adv) (N, 4): q (N, 12), src (M, 8)."""
+    return _sweep(DII_RHOADV, "dii_rhoadv", cfg, q, 12, src, 8,
+                  seg_start, seg_end, pvec, (9, 18), 4)
+
+
+def aii_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """a_ii (N,): q (N, 8), src (M, 8)."""
+    return _sweep(AII, "aii", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 0)
+
+
+def sum_dij_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σd_ij·p_j (N, 3) over the fluid rows only: q (N, 4), src (M, 8),
+    ranges (9, N)."""
+    return _sweep(SUM_DIJ, "sum_dij", cfg, q, 4, src, 8, seg_start,
+                  seg_end, pvec, (9,), 3)
+
+
+def jacobi_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Jacobi off-diagonal sum (N,): q (N, 8), wide src (M, 12)."""
+    from .sph_pairs import WIDE_WIDTH
+    return _sweep(JACOBI, "jacobi", cfg, q, 8, src, WIDE_WIDTH,
+                  seg_start, seg_end, pvec, (9, 18), 0)
+
+
+def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Implicit-solver pressure force (N, 3): q (N, 4), src (M, 8)."""
+    return _sweep(PRESSURE_FORCE, "pressure_force", cfg, q, 4, src, 8,
+                  seg_start, seg_end, pvec, (9, 18), 3)

@@ -6,10 +6,12 @@ same ``PV_*`` layout as the JAX package): the CUDA kernels read it from
 device memory, the plain formulas index it.
 
 Source matrices are (M, 8) float32 rows ``x y z vx vy vz s6 pad``. Slot 6
-means different things by region: ψ = m (density sweep) or ρ_j (force
-sweep) for fluid sources, ψ_b = ρ₀·V_b for boundary sources. Query
-matrices are (N, 4) ``x y z pad`` for density and (N, 8)
-``x y z vx vy vz ρ pd2`` for forces.
+means different things by region: ψ = m (density sweep), ρ_j (force
+sweep) or p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force) for fluid sources,
+ψ_b = ρ₀·V_b for boundary sources. Query matrices are (N, 4) ``x y z pad``
+for density and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH
+Jacobi sweep reads a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
+``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad``, boundary rows with ψ_b in slot 6.
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -17,9 +19,10 @@ every term but the density self term is exactly 0 at r = 0, and the Müller
 viscosity bracket (~1e36 at the clamp) multiplies r² before its ~1e4
 constant.
 
-``density_sweep`` / ``fluid_force_sweep`` route by device: a CPU tensor
-goes to the plain sweep, a CUDA float32 tensor to the hand-written kernel
-(``ops/cuda_sweep.py``); anything else raises.
+Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep`` and the
+five IISPH sweeps) routes by device: a CPU tensor goes to the plain sweep,
+a CUDA float32 tensor to the hand-written kernel (``ops/cuda_sweep.py``);
+anything else raises.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ PV_STX = 24
 PV_LEN = 25
 
 SRC_WIDTH = 8
+WIDE_WIDTH = 12
 
 
 def build_pvec(params: SimParams, cfg: SimConfig, grid):
@@ -195,10 +199,13 @@ def density_pair(q, s, pv, *, kernel_set):
     return (s[:, 6] * _w_value(kernel_set, r2, rl, pv) * okf)[:, None]
 
 
-def fluid_force_pair(q, s, pv, *, kernel_set, st_model):
+def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
+                     include_pressure=True):
     """Fluid-source forces: Müller viscosity, Becker or Akinci surface
     tension, and symmetric Tait pressure with pd2_j recomputed from the
-    source density in slot 6. Returns (P, 3)."""
+    source density in slot 6. ``include_pressure=False`` drops the whole
+    Tait term, pd2_i and pd2_j (the IISPH advection forces). Returns
+    (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     rl, invrl = _rl_invrl(r2)
     okf = (r2 < pv[PV_H2]).to(q.dtype)
@@ -212,12 +219,15 @@ def fluid_force_pair(q, s, pv, *, kernel_set, st_model):
     cvisc = kv * (a * (1.0 / bden)) * okf
 
     # pressure: −m²(pd2_i + pd2_j)·∇W_press, pd2_j from the Tait EOS of ρ_j
-    ratio = dens_j * (1.0 / pv[PV_RD])
-    ratio2 = ratio * ratio
-    p_j = pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0)
-    pd2_j = p_j * inv_dens * inv_dens
-    sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
-    cpd = (q[:, 7] + pd2_j) * (-pv[PV_PM] * pv[PV_PM]) * sp
+    if include_pressure:
+        ratio = dens_j * (1.0 / pv[PV_RD])
+        ratio2 = ratio * ratio
+        p_j = pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0)
+        pd2_j = p_j * inv_dens * inv_dens
+        sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
+        cpd = (q[:, 7] + pd2_j) * (-pv[PV_PM] * pv[PV_PM]) * sp
+    else:
+        cpd = torch.zeros_like(r2)
 
     if st_model == SurfaceTensionModel.BECKER:
         # the reference's diameter clamp, as min(W, W(diam))
@@ -243,12 +253,12 @@ def fluid_force_pair(q, s, pv, *, kernel_set, st_model):
                         cvisc * (q[:, 5] - s[:, 5]) + cpd * dz], dim=1)
 
 
-def boundary_force_pair(q, s, pv, *, kernel_set):
+def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True):
     """Static-wall boundary forces (``computeCellForces`` boundary loop,
     ``sph_kernel_impl.cuh:552-602``): β adhesion β·ψ·W·r⃗, friction with
     max(v_i·r⃗, 0), and the reference-scale boundary pressure
     +m²·ψ·pd2_i·∇W_dflt (the reference's sign and scale, kept for
-    parity). Returns (P, 3)."""
+    parity; dropped with ``include_pressure=False``). Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     if kernel_set == KernelSet.MULLER:
         rl = invrl = None
@@ -265,7 +275,106 @@ def boundary_force_pair(q, s, pv, *, kernel_set):
         / (dens_i * dens_i)
     vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
     cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
-    c = cadh + (cfric + (pv[PV_PM] * pv[PV_PM]) * psi * q[:, 7] * sd)
+    if include_pressure:
+        c = cadh + (cfric + (pv[PV_PM] * pv[PV_PM]) * psi * q[:, 7] * sd)
+    else:
+        c = cadh + cfric
+    c = c * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# IISPH pair formulas (all with the default poly6/Monaghan gradient, as the
+# reference's implicit kernels use it)
+# ---------------------------------------------------------------------------
+
+def _default_grad(q, s, pv, kernel_set):
+    """(dx, dy, dz, r², s, okf) with ∇W_dflt = s·r⃗ and okf the cutoff
+    mask; the Müller gradient is a function of r² alone."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    return dx, dy, dz, r2, _w_grad_scale_default(kernel_set, r2, rl, pv,
+                                                 invrl), okf
+
+
+def dii_rhoadv_pair(q, s, pv, *, kernel_set, vel_q_offset):
+    """Fused IISPH predict terms: d_ii += −ψ_j·inv_ρ²_i·∇W and
+    Δρ_adv += dt·ψ_j·(v_q − v_j)·∇W. ``vel_q_offset`` picks the query
+    velocity: 3 = v_adv (fluid rows), 6 = the pre-advection v (boundary
+    rows, whose source velocities are 0; ``rho_adv_boundary``,
+    ``sph_kernel_impl.cuh:1007-1036``).
+    q: x y z vax vay vaz vx vy vz inv_d2 pad pad. Returns (P, 4)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    psi = s[:, 6]
+    cdii = -psi * q[:, 9] * sg * okf
+    o = vel_q_offset
+    dvx = q[:, o] - s[:, 3]
+    dvy = q[:, o + 1] - s[:, 4]
+    dvz = q[:, o + 2] - s[:, 5]
+    cr = pv[PV_DT] * psi * sg * (dvx * dx + dvy * dy + dvz * dz) * okf
+    return torch.stack([cdii * dx, cdii * dy, cdii * dz, cr], dim=1)
+
+
+def aii_pair(q, s, pv, *, kernel_set):
+    """a_ii += ψ_j·(d_ii − d_ji)·∇W with d_ji = (m/ρ_i²)∇W, one formula
+    for fluid (ψ = m) and boundary rows (``compute_aii_cell[_boundary]``,
+    ``sph_kernel_impl.cuh:1040-1108``). q: x y z d_ii(3) m/ρ_i² pad.
+    Returns (P, 1)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    dii_dot_r = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+    term = s[:, 6] * (sg * dii_dot_r - q[:, 6] * sg * sg * r2) * okf
+    return term[:, None]
+
+
+def sum_dij_pair(q, s, pv, *, kernel_set):
+    """Σ_j d_ij·p_j = −Σ_j m·(p_j/ρ_j²)·∇W (``dijpjcell``,
+    ``sph_kernel_impl.cuh:1224-1253``); slot 6 of the source carries
+    p_j/ρ_j². q: x y z pad. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = -pv[PV_PM] * s[:, 6] * sg * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+def jacobi_fluid_pair(q, s, pv, *, kernel_set):
+    """Jacobi off-diagonal sum over fluid sources (``computePressure``
+    fluid loop, ``sph_kernel_impl.cuh:1330-1445``):
+    m·(Σd_ij p_j − d_jj p_j − (Σd_jk p_k − d_ji p_i))·∇W, with d_ji·p_i
+    as the IISPH paper has it. Wide source (``WIDE_WIDTH``) slots 3-5
+    d_jj, 6 p_j, 7-9 Σd_jk·p_k. q: x y z Σd_ij·p_j(3) (m/ρ_i²)·p_i pad.
+    Returns (P, 1)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    p_j = s[:, 6]
+    ix = q[:, 3] - s[:, 3] * p_j - s[:, 7]
+    iy = q[:, 4] - s[:, 4] * p_j - s[:, 8]
+    iz = q[:, 5] - s[:, 5] * p_j - s[:, 9]
+    inner = sg * (ix * dx + iy * dy + iz * dz) + q[:, 6] * sg * sg * r2
+    return (pv[PV_PM] * inner * okf)[:, None]
+
+
+def jacobi_boundary_pair(q, s, pv, *, kernel_set):
+    """Jacobi boundary sum ψ_b·(Σd_ij p_j)·∇W (``sph_kernel_impl.cuh:
+    1445-1460``, over the boundary segment bounds, not the reference's
+    fluid-start defect). Returns (P, 1)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    dot = sg * (q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz)
+    return (s[:, 6] * dot * okf)[:, None]
+
+
+def grad_pressure_force_pair(q, s, pv, *, kernel_set, boundary,
+                             boundary_sign=1.0):
+    """Implicit-solver pressure force (``computePressureForce``,
+    ``sph_kernel_impl.cuh:1497-1620``): fluid −m²(pd2_i + pd2_j)·∇W with
+    pd2_j in slot 6; boundary ``boundary_sign``·m·ψ_b·pd2_i·∇W.
+    q: x y z pd2. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    if boundary:
+        c = boundary_sign * pv[PV_PM] * s[:, 6] * q[:, 3] * sg
+    else:
+        c = -pv[PV_PM] * pv[PV_PM] * (q[:, 3] + s[:, 6]) * sg
     c = c * okf
     return torch.stack([c * dx, c * dy, c * dz], dim=1)
 
@@ -284,17 +393,69 @@ def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                            pvec):
+                            pvec, include_pressure=True):
     """WCSPH forces: fluid pairs on rows 0-8, static-wall boundary pairs on
-    rows 9-17. Returns (N, 3)."""
+    rows 9-17; ``include_pressure=False`` drops both pressure terms.
+    Returns (N, 3)."""
     def pair(qq, ss):
         return fluid_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
-                                st_model=cfg.surface_tension_model)
+                                st_model=cfg.surface_tension_model,
+                                include_pressure=include_pressure)
 
     def pair_b(qq, ss):
-        return boundary_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set)
+        return boundary_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
+                                   include_pressure=include_pressure)
     return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 3,
                                 pair_fn_b=pair_b)
+
+
+def _bind(pair_fn, cfg, pvec, **kw):
+    def pair(qq, ss):
+        return pair_fn(qq, ss, pvec, kernel_set=cfg.kernel_set, **kw)
+    return pair
+
+
+def dii_rhoadv_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """(d_ii xyz, Δρ_adv) (N, 4): q (N, 12), src (M, 8) with ψ in slot 6
+    and v_adv in the fluid rows' velocity slots."""
+    return neighbor_sweep_plain(
+        _bind(dii_rhoadv_pair, cfg, pvec, vel_q_offset=3), q, src,
+        seg_start, seg_end, 4,
+        pair_fn_b=_bind(dii_rhoadv_pair, cfg, pvec, vel_q_offset=6))
+
+
+def aii_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """a_ii (N,): q (N, 8), src (M, 8) with ψ in slot 6."""
+    pair = _bind(aii_pair, cfg, pvec)
+    return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 1,
+                                pair_fn_b=pair)[:, 0]
+
+
+def sum_dij_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σd_ij·p_j (N, 3) over the fluid rows only: ranges (9, N), q (N, 4),
+    src (M, 8) with p/ρ² in slot 6."""
+    return neighbor_sweep_plain(_bind(sum_dij_pair, cfg, pvec), q, src,
+                                seg_start, seg_end, 3)
+
+
+def jacobi_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Jacobi off-diagonal sum (N,): q (N, 8), src (M, 12)."""
+    return neighbor_sweep_plain(
+        _bind(jacobi_fluid_pair, cfg, pvec), q, src, seg_start, seg_end, 1,
+        pair_fn_b=_bind(jacobi_boundary_pair, cfg, pvec))[:, 0]
+
+
+def pressure_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                               pvec):
+    """Implicit-solver pressure force (N, 3): q (N, 4) x y z pd2, src
+    (M, 8) with pd2_j (fluid) / ψ_b (boundary) in slot 6; the boundary
+    term repels (``boundary_sign=-1``)."""
+    return neighbor_sweep_plain(
+        _bind(grad_pressure_force_pair, cfg, pvec, boundary=False), q, src,
+        seg_start, seg_end, 3,
+        pair_fn_b=_bind(grad_pressure_force_pair, cfg, pvec, boundary=True,
+                        boundary_sign=-1.0))
 
 
 def _route(*tensors) -> str:
@@ -313,19 +474,27 @@ def _route(*tensors) -> str:
                     "float32/float64, CUDA takes float32")
 
 
-def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Density sweep: the plain version on CPU, the CUDA kernel on GPU."""
-    if _route(q, src, pvec, seg_start) == "plain":
-        return density_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
-    from . import cuda_sweep
-    return cuda_sweep.density_sweep(cfg, q, src, seg_start, seg_end, pvec)
+def _dispatcher(plain, kernel_name):
+    """The sweep ``plain`` names, routed by device: ``plain`` for CPU
+    tensors, the CUDA kernel ``cuda_sweep.<kernel_name>`` for GPU ones;
+    keyword switches (``include_pressure``) go to both."""
+    def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
+        if _route(q, src, pvec, seg_start) == "plain":
+            return plain(cfg, q, src, seg_start, seg_end, pvec, **kw)
+        from . import cuda_sweep
+        return getattr(cuda_sweep, kernel_name)(cfg, q, src, seg_start,
+                                                seg_end, pvec, **kw)
+    sweep.__name__ = plain.__name__.removesuffix("_plain")
+    sweep.__doc__ = (f"``{plain.__name__}`` on CPU tensors, the CUDA kernel "
+                     f"``cuda_sweep.{kernel_name}`` on GPU ones.")
+    return sweep
 
 
-def fluid_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Fused fluid + boundary force sweep: the plain version on CPU, the
-    CUDA kernel on GPU."""
-    if _route(q, src, pvec, seg_start) == "plain":
-        return fluid_force_sweep_plain(cfg, q, src, seg_start, seg_end,
-                                       pvec)
-    from . import cuda_sweep
-    return cuda_sweep.force_sweep(cfg, q, src, seg_start, seg_end, pvec)
+density_sweep = _dispatcher(density_sweep_plain, "density_sweep")
+fluid_force_sweep = _dispatcher(fluid_force_sweep_plain, "force_sweep")
+dii_rhoadv_sweep = _dispatcher(dii_rhoadv_sweep_plain, "dii_rhoadv_sweep")
+aii_sweep = _dispatcher(aii_sweep_plain, "aii_sweep")
+sum_dij_sweep = _dispatcher(sum_dij_sweep_plain, "sum_dij_sweep")
+jacobi_sweep = _dispatcher(jacobi_sweep_plain, "jacobi_sweep")
+pressure_force_sweep = _dispatcher(pressure_force_sweep_plain,
+                                   "pressure_force_sweep")

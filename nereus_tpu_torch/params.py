@@ -38,6 +38,13 @@ class SurfaceTensionModel(enum.Enum):
     AKINCI = 2
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its tensors on: ``device``, or
+    the CUDA device when it is None. There is no probe and no fallback: on
+    a host without CUDA, building on the default raises as torch raises."""
+    return torch.device("cuda" if device is None else device)
+
+
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static switches; hashable. Field meanings as in ``nereus_tpu``."""
@@ -110,10 +117,11 @@ def make_params(
     beta: float = 450.0,
     sound_speed: float | None = None,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> SimParams:
     """WCSPH defaults (``sph/sph.cpp:29-93``); constants in float64, then
-    cast to ``dtype`` on ``device``."""
+    cast to ``dtype`` on ``device`` (default: the CUDA device)."""
+    device = resolve_device(device)
     h = float(interaction_radius)
     if particle_mass is None:
         particle_mass = mass_factor * h**3 * rest_density
@@ -152,6 +160,19 @@ def make_params(
         sound_speed=s(sound_speed),
         **{k: s(v) for k, v in consts.items()},
     )
+
+
+def iisph_params(**overrides) -> SimParams:
+    """IISPH default parameter set (``sph/iisph/iisph.cpp:37-80``)."""
+    defaults = dict(
+        viscosity=0.01,
+        surface_tension=0.01,
+        interaction_radius=0.0537,
+        beta=1050.0,
+        mass_factor=0.5,
+    )
+    defaults.update(overrides)
+    return make_params(**defaults)
 
 
 def calibrate_mass(params: SimParams, cfg: SimConfig,

@@ -1,7 +1,7 @@
 """Scene construction (PyTorch port of ``nereus_tpu.scene``): particle
 seeding (``SPH::generateParticleCube``, ``sph/sph.cpp:341-386``) and the
 demo scenes. Scenes are deterministic lattices built on the host in
-float64 and moved to ``device`` once."""
+float64 and moved to ``device`` once (default: the CUDA device)."""
 
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def resting_block(params: SimParams, cfg: SimConfig, *,
                   spacing: float | None = None,
                   compress: float = 0.003,
                   impact_velocity: float = 0.0,
-                  device="cpu"):
+                  device=None):
     """A fluid block at rest-density packing on the floor of a boundary
     box, compressed by ``compress`` in density; pass
     ``calibrate_mass(params, cfg, spacing=spacing)`` params. Walls stand
@@ -73,7 +73,7 @@ def dam_break(params: SimParams, cfg: SimConfig, *,
               capacity: int | None = None,
               capacity_factor: float = 1.0,
               boundary_radius: float = 0.02,
-              device="cpu"):
+              device=None):
     """The demo scene (``main.cpp:533-555``): a fluid cube inside a
     boundary box, seeded at spacing h − 0.005 (``sph.cpp:375``). With
     ``n_target`` the cube is scaled at fixed spacing to about that many

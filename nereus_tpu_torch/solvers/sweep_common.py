@@ -5,19 +5,21 @@ coordinates → exact fluid and boundary ranges → packed parameters.
 There is no window plan, no packing into lane-aligned regions and no float
 hash payload: those exist for the TPU's Mosaic compiler. Per-step state
 stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
-the kernels read are built from them per sweep.
+the kernels read are built from them per sweep, and the IISPH Jacobi sweep
+reads a (M, 12) wide source (:meth:`SweepCtx.pack_wide`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from .. import grid as gridlib
 from ..ops import sph_pairs as SP
-from ..ops.neighbors import query_ranges
+from ..ops.neighbors import N_ROWS, query_ranges
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
 
@@ -36,11 +38,29 @@ class SweepCtx:
     seg_start: torch.Tensor   # (9 or 18, C) int32, fluid rows then
     seg_end: torch.Tensor     # boundary rows (offset by C)
     pvec: torch.Tensor        # (PV_LEN,)
+    perm: torch.Tensor        # (C,) int64, sorted row → state row
+    pressure: torch.Tensor    # (C,) the state's pressure, unsorted
     b_src: Optional[torch.Tensor] = None   # (Mb, 8) boundary source rows
 
     @property
     def c(self) -> int:
         return self.px.shape[0]
+
+    @functools.cached_property
+    def pres_prev(self):
+        """(C,) previous pressure, hash-sorted: gathered on first use, so
+        only the IISPH warm start pays for it."""
+        return self.pressure.index_select(0, self.perm)
+
+    @property
+    def seg_start_f(self):
+        """(9, C) fluid rows only (a view): the ranges of a sweep that
+        never reaches the boundary region (IISPH Σd_ij·p_j)."""
+        return self.seg_start[:N_ROWS]
+
+    @property
+    def seg_end_f(self):
+        return self.seg_end[:N_ROWS]
 
     def queries(self, *cols, width: int | None = None):
         """(C, width) query matrix: positions, then ``cols``, then zero
@@ -63,6 +83,25 @@ class SweepCtx:
             return fluid
         return torch.cat([fluid, self.b_src])
 
+    def pack_wide(self, cols):
+        """(C [+ Mb], 12) source matrix for the Jacobi sweep: fluid rows
+        ``x y z`` then the 7 ``cols`` (d_jj xyz, p_j, Σd_jk·p_k xyz) and 2
+        zero pads; boundary rows ``x y z 0 0 0 ψ_b 0 0 0 0 0``."""
+        if len(cols) != SP.WIDE_WIDTH - 5:
+            raise ValueError(f"pack_wide takes {SP.WIDE_WIDTH - 5} columns, "
+                             f"got {len(cols)}")
+        z = torch.zeros_like(self.px)
+        fluid = torch.stack([self.px, self.py, self.pz, *cols, z, z], dim=1)
+        if self.b_src is None:
+            return fluid
+        return torch.cat([fluid, self._b_src_wide])
+
+    @functools.cached_property
+    def _b_src_wide(self):
+        pad = self.b_src.new_zeros((self.b_src.shape[0],
+                                    SP.WIDE_WIDTH - SP.SRC_WIDTH))
+        return torch.cat([self.b_src, pad], dim=1)
+
 
 def _boundary_src(boundary: BoundaryData):
     z = torch.zeros_like(boundary.psi)
@@ -75,8 +114,8 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
                     grid: gridlib.Grid, cfg: SimConfig,
                     boundary: Optional[BoundaryData]) -> SweepCtx:
     h = gridlib.hash_positions(grid, state.pos, state.active_mask())
-    sorted_hash, _, (pos, vel) = gridlib.sort_by_hash(h, state.pos,
-                                                       state.vel)
+    sorted_hash, perm, (pos, vel) = gridlib.sort_by_hash(
+        h, state.pos, state.vel, return_perm=True)
     px, py, pz = pos.unbind(1)
     coords = gridlib.cell_coords(grid, pos)
     with_b = boundary is not None and boundary.num_boundaries > 0
@@ -89,4 +128,5 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
         < state.num_active,
         seg_start=seg_start, seg_end=seg_end,
         pvec=SP.build_pvec(params, cfg, grid),
+        perm=perm, pressure=state.pressure,
         b_src=_boundary_src(boundary) if with_b else None)

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .params import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class FluidState:
@@ -59,9 +61,10 @@ class BoundaryData:
 
 def make_fluid_state(positions, velocities=None, capacity=None,
                      dtype=torch.float32, masses=None, rest_densities=None,
-                     device="cpu") -> FluidState:
-    """Build a FluidState from host arrays on ``device``, padding to
-    ``capacity`` with slots parked at 1e9."""
+                     device=None) -> FluidState:
+    """Build a FluidState from host arrays on ``device`` (default: the
+    CUDA device), padding to ``capacity`` with slots parked at 1e9."""
+    device = resolve_device(device)
     positions = np.asarray(positions, dtype=np.float64)
     n = positions.shape[0]
     if velocities is None:

@@ -88,7 +88,7 @@ def test_cpu_sweep_is_plain_and_launches_nothing():
     q, src, s, e, pv = _inputs()
     out = SP.density_sweep(nereus_tpu_torch.SimConfig(), q, src, s, e, pv)
     assert out.shape == (8,) and float(out.abs().max()) == 0.0
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0]
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -98,7 +98,7 @@ def test_cuda_wrappers_reject_cpu_tensors():
         cuda_sweep.density_sweep(cfg, q, src, s, e, pv)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sweep.force_sweep(cfg, torch.zeros((8, 8)), src, s, e, pv)
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0]
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -106,7 +106,46 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
-        os.path.join(PKG_DIR, "csrc", "sph_sweep.cu")]
+        os.path.join(PKG_DIR, "csrc", f) for f in ("iisph_sweep.cu",
+                                                   "sph_sweep.cu")]
+
+
+# the IISPH sweeps: (dispatcher, CUDA wrapper, query width, source width,
+# range rows)
+IISPH_SWEEPS = {
+    "dii_rhoadv": (SP.dii_rhoadv_sweep, cuda_sweep.dii_rhoadv_sweep, 12, 8,
+                   18),
+    "aii": (SP.aii_sweep, cuda_sweep.aii_sweep, 8, 8, 18),
+    "sum_dij": (SP.sum_dij_sweep, cuda_sweep.sum_dij_sweep, 4, 8, 9),
+    "jacobi": (SP.jacobi_sweep, cuda_sweep.jacobi_sweep, 8, 12, 18),
+    "pressure_force": (SP.pressure_force_sweep,
+                       cuda_sweep.pressure_force_sweep, 4, 8, 18),
+}
+
+
+def _iisph_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
+    _, _, fq, fs, rows = IISPH_SWEEPS[key]
+    return (torch.zeros((n, fq), dtype=dtype, device=device),
+            torch.zeros((m, fs), dtype=dtype, device=device),
+            torch.zeros((rows, n), dtype=torch.int32, device=device),
+            torch.zeros((rows, n), dtype=torch.int32, device=device),
+            torch.zeros((SP.PV_LEN,), dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("key", sorted(IISPH_SWEEPS))
+def test_iisph_dispatchers_route_by_device(key):
+    """CPU float32 runs the plain sweep and launches nothing; unsupported
+    dtypes raise; the CUDA wrapper refuses CPU tensors."""
+    dispatch, wrapper = IISPH_SWEEPS[key][:2]
+    cfg = nereus_tpu_torch.SimConfig()
+    cuda_sweep.reset_launches()
+    out = dispatch(cfg, *_iisph_inputs(key))
+    assert out.shape[0] == 8 and float(out.abs().max()) == 0.0
+    with pytest.raises(TypeError):
+        dispatch(cfg, *_iisph_inputs(key, dtype=torch.float16))
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(cfg, *_iisph_inputs(key))
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +206,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1]
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1, 0, 0, 0, 0, 0, 0]
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -187,3 +226,103 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
     np.testing.assert_array_equal(
         cuda_sweep.density_sweep(cfg, q, src, s, e, pv).cpu().numpy(),
         np.zeros(8, np.float32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """Each IISPH kernel and the pressure-off force kernel against its
+    plain version on the operands of one IISPH step whose warm start
+    carries a real pressure: max|Δ| ≤ 1e-4·max|ref| per output column
+    (FMA contraction, rsqrtf, the plain version's atomic order)."""
+    from nereus_tpu_torch.solvers import iisph_cuda
+    cfg = nereus_tpu_torch.SimConfig(
+        kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
+    base = nereus_tpu_torch.iisph_params(dt=5e-4, device=cuda)
+    spacing = float(base.interaction_radius) - 0.005
+    params = nereus_tpu_torch.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, boundary = scene.dam_break(
+        params, cfg, cube_size=(0.25,) * 3, cube_center=(-0.3, 0.05, 0.5),
+        box_min=(-0.8, -0.115, 0.0), box_max=(0.2, 0.7, 1.0),
+        boundary_radius=0.04, device=cuda)
+    pos = state.pos.cpu().numpy()
+    vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
+    state = nereus_tpu_torch.make_fluid_state(pos, vel, device=cuda)
+    state, _ = nereus_tpu_torch.iisph_step(state, params, grid, cfg,
+                                           boundary)
+    assert float(state.pressure.max()) > 0.0
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    rows = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    zero = torch.zeros_like(ctx.px)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    pm = params.particle_mass
+    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
+                                  ctx.pack(vel, pm), *rows)
+    inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
+    p = 0.5 * ctx.pres_prev
+    dii = (vel[0] * 1e-3, vel[1] * 1e-3, vel[2] * 1e-3)
+    src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
+    cases = {
+        "dii_rhoadv": (ctx.queries(*vel, *vel, inv_d2, width=12),
+                       ctx.pack(vel, pm), *rows),
+        "aii": (ctx.queries(*dii, pm * inv_d2, width=8), ctx.pack(vel, pm),
+                *rows),
+        "sum_dij": (ctx.queries(width=4), src_pd, ctx.seg_start_f,
+                    ctx.seg_end_f, ctx.pvec),
+        "jacobi": (ctx.queries(*dii, pm * inv_d2 * p, width=8),
+                   ctx.pack_wide([*dii, p, *dii]), *rows),
+        "pressure_force": (ctx.queries(p * inv_d2), src_pd, *rows),
+    }
+    plain = {"dii_rhoadv": SP.dii_rhoadv_sweep_plain,
+             "aii": SP.aii_sweep_plain, "sum_dij": SP.sum_dij_sweep_plain,
+             "jacobi": SP.jacobi_sweep_plain,
+             "pressure_force": SP.pressure_force_sweep_plain}
+    cuda_sweep.reset_launches()
+    for key, args in cases.items():
+        got = IISPH_SWEEPS[key][0](cfg, *args)
+        ref = plain[key](cfg, *args)
+        _assert_columns_close(got, ref, key)
+    fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rows)
+    got = SP.fluid_force_sweep(cfg, *fargs, include_pressure=False)
+    _assert_columns_close(
+        got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
+        "force_p0")
+    torch.cuda.synchronize()
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0, 1, 1, 1, 1, 1, 1]
+    assert iisph_cuda.SYNC_EVERY >= 1
+
+
+def _assert_columns_close(got, ref, key):
+    g, r = got.reshape(len(got), -1), ref.reshape(len(ref), -1)
+    assert torch.isfinite(g).all(), key
+    err = (g - r).abs().amax(dim=0)
+    scale = r.abs().amax(dim=0)
+    assert bool((scale > 0).all()), (key, scale)
+    assert bool((err <= 1e-4 * scale).all()), (key, err, scale)
+
+
+@pytest.mark.requires_cuda
+def test_iisph_step_runs_kernels_on_cuda(cuda):
+    """A few IISPH steps of the settled block on the card: every IISPH
+    kernel launched, Σd_ij·p_j and Jacobi once per launched iteration."""
+    from nereus_tpu_torch.solvers import iisph_cuda
+    cfg = nereus_tpu_torch.SimConfig()
+    base = nereus_tpu_torch.iisph_params(device=cuda)
+    spacing = 0.8 * float(base.interaction_radius)
+    params = nereus_tpu_torch.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, boundary = scene.resting_block(
+        params, cfg, n_target=4000, spacing=spacing, impact_velocity=-1.0,
+        device=cuda)
+    cuda_sweep.reset_launches()
+    iisph_cuda.LOOP.reset()
+    iters = 0
+    for _ in range(3):
+        state, diag = nereus_tpu_torch.iisph_step(state, params, grid, cfg,
+                                                  boundary)
+        iters += int(diag.solver_iters)
+    assert iters > 3 * cfg.iisph_min_iters
+    launches = [k.launches for k in cuda_sweep.KERNELS]
+    assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
+    assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
+    assert torch.isfinite(state.pos).all()
+    assert float(state.pressure.min()) >= 0.0

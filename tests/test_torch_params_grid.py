@@ -49,7 +49,7 @@ def _port_fields(p):
 @pytest.mark.parametrize("name", sorted(PARAM_SETS))
 def test_params_match_jax(name):
     want = _fields(getattr(jt, name)())
-    got = _port_fields(pt.make_params(**PARAM_SETS[name]))
+    got = _port_fields(pt.make_params(**PARAM_SETS[name], device="cpu"))
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == np.float32, k
@@ -61,7 +61,8 @@ def test_calibrate_mass_matches_jax(kernel_set):
     jcfg = jt.SimConfig(kernel_set=jt.KernelSet[kernel_set])
     pcfg = pt.SimConfig(kernel_set=pt.KernelSet[kernel_set])
     want = j_calibrate_mass(jt.pcisph_params(), jcfg).particle_mass
-    got = pt.calibrate_mass(pt.make_params(**PARAM_SETS["pcisph_params"]),
+    got = pt.calibrate_mass(pt.make_params(**PARAM_SETS["pcisph_params"],
+                                           device="cpu"),
                             pcfg).particle_mass
     np.testing.assert_array_max_ulp(got.numpy(), np.asarray(want),
                                     maxulp=1)
@@ -103,7 +104,7 @@ def test_kernels_match_jax(name):
     r[0] = 0.0                     # the self pair
     fn = KERNEL_FNS[name]
     want = np.asarray(fn(JK, jnp.asarray(r), jt.make_params()))
-    got = fn(PK, torch.from_numpy(r), pt.make_params()).numpy()
+    got = fn(PK, torch.from_numpy(r), pt.make_params(device="cpu")).numpy()
     assert got.shape == want.shape
     assert np.isfinite(got).all()
     if name == "a_boundary":
@@ -128,7 +129,7 @@ def test_scene_matches_jax(with_boundary):
     ps, pg, pb = pscene.dam_break(
         pparams, pcfg, cube_size=(0.25,) * 3, cube_center=(-0.3, 0.05, 0.5),
         box_min=(-0.8, -0.3, 0.0), box_max=(0.2, 0.7, 1.0),
-        with_boundary=with_boundary, boundary_radius=0.04)
+        with_boundary=with_boundary, boundary_radius=0.04, device="cpu")
     np.testing.assert_array_equal(ps.pos.numpy(), np.asarray(state.pos))
     assert int(ps.num_active) == int(state.num_active)
     assert pg.size == grid.size
@@ -148,8 +149,9 @@ def test_resting_block_matches_jax():
     jcfg, pcfg = jt.SimConfig(), pt.SimConfig()
     js, jg, jb = jscene.resting_block(jt.make_params(), jcfg, n_target=500,
                                       impact_velocity=-0.5)
-    ps, pg, pb = pscene.resting_block(pt.make_params(), pcfg, n_target=500,
-                                      impact_velocity=-0.5)
+    ps, pg, pb = pscene.resting_block(pt.make_params(device="cpu"), pcfg,
+                                      n_target=500, impact_velocity=-0.5,
+                                      device="cpu")
     np.testing.assert_array_equal(ps.pos.numpy(), np.asarray(js.pos))
     np.testing.assert_array_equal(ps.vel.numpy(), np.asarray(js.vel))
     assert pg.size == jg.size
@@ -165,9 +167,9 @@ def test_hash_sort_row_segments_exact():
     n = int(state.num_active)
     pos = np.asarray(state.pos)
     jstate = jt.make_fluid_state(pos, capacity=n + 37)
-    pstate = pt.make_fluid_state(pos, capacity=n + 37)
+    pstate = pt.make_fluid_state(pos, capacity=n + 37, device="cpu")
     pg = pgrid.make_grid(np.asarray(grid.origin), grid.size,
-                         np.asarray(grid.cell))
+                         np.asarray(grid.cell), device="cpu")
 
     jh = jgrid.hash_positions(grid, jstate.pos, jstate.active_mask())
     ph = pgrid.hash_positions(pg, pstate.pos, pstate.active_mask())

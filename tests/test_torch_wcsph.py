@@ -81,16 +81,16 @@ def test_multi_step_stability():
 
 def _oracle_setup(seed, n=600):
     """``tests/test_density_forces.py``'s random block with a box shell."""
-    params = pt.make_params()
+    params = pt.make_params(device="cpu")
     h = float(params.interaction_radius)
     rng = np.random.RandomState(seed)
     side = h * (n / 2.0) ** (1 / 3)
     pos = rng.uniform(0.0, side, (n, 3))
     vel = rng.uniform(-1.0, 1.0, (n, 3))
-    grid = pgrid.fit_grid(pos.min(0), pos.max(0), h)
-    state = pt.make_fluid_state(pos, vel)
+    grid = pgrid.fit_grid(pos.min(0), pos.max(0), h, device="cpu")
+    state = pt.make_fluid_state(pos, vel, device="cpu")
     boundary = pbnd.box_boundary(grid, (-0.05,) * 3, (side + 0.05,) * 3,
-                                 0.02, params)
+                                 0.02, params, device="cpu")
     oracle = Oracle(h, float(params.particle_mass),
                     float(params.rest_density), float(params.gas_stiffness),
                     float(params.viscosity), float(params.surface_tension),
@@ -136,7 +136,7 @@ def test_parked_slots_stay_parked():
     params, grid, state, _, _ = _oracle_setup(seed=4)
     n = state.capacity
     s = pt.make_fluid_state(state.pos.numpy(), state.vel.numpy(),
-                            capacity=n + 64)
+                            capacity=n + 64, device="cpu")
     for _ in range(2):
         s, _ = pt.wcsph_step(s, params, grid, pt.SimConfig())
     pos = s.pos.numpy()
@@ -155,7 +155,7 @@ def test_unported_options_raise():
     scene = jax_scene(True)
     pcfg, pparams, pstate, pg, pb = to_port(*scene)
     multi = pt.make_fluid_state(pstate.pos.numpy(), masses=1.0,
-                                rest_densities=1000.0)
+                                rest_densities=1000.0, device="cpu")
     cases = [
         (multi, pcfg, pb, None),
         (pstate, pcfg, pb, 0.5),

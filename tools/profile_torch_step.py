@@ -1,0 +1,150 @@
+"""Where the time of one step of the PyTorch port goes, on a CUDA card.
+
+    python3 tools/profile_torch_step.py --solver wcsph|iisph \
+        [--warmup N] [--steps N]
+
+Builds the solver's 1M main-path scene of ``chip_smoke.py`` (wcsph: the
+``dam_break(n_target=2**20)`` with its boundary shell; iisph: the settled
+``resting_block(n_target=2**20)``), runs ``--warmup`` steps, times
+``--steps`` steps with CUDA events and the host clock, then profiles the
+next ``--steps`` steps with ``torch.profiler`` and prints, for those
+steps, the device time per step by kernel and the device busy time per
+step (the sum of all device time: one stream, so nothing overlaps). The
+profiler slows the host's launches, so the idle share is taken against
+the unprofiled steps' CUDA-event time (pick ``--warmup`` so that both
+windows run the same solver iterations); the profiled window's own idle
+share is printed beside it.
+Imports no JAX; needs a CUDA card.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def build(solver, dev):
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    if solver == "wcsph":
+        params = nt.make_params(device=dev)
+        state, grid, boundary = scene.dam_break(params, cfg, n_target=2 ** 20,
+                                                device=dev)
+
+        def step(s):
+            return nt.wcsph_step(s, params, grid, cfg, boundary)
+    else:
+        base = nt.iisph_params(device=dev)
+        spacing = 0.8 * float(base.interaction_radius)
+        params = nt.calibrate_mass(base, cfg, spacing=spacing)
+        state, grid, boundary = scene.resting_block(
+            params, cfg, n_target=2 ** 20, spacing=spacing,
+            impact_velocity=-1.0, device=dev)
+
+        def step(s):
+            return nt.iisph_step(s, params, grid, cfg, boundary, tol=1.0,
+                                 omega=0.5)
+    return state, step
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--solver", choices=("wcsph", "iisph"), required=True)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_step: needs a CUDA device")
+    from nereus_tpu_torch.solvers import iisph_cuda
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    state, step = build(args.solver, dev)
+    iters = []
+    for _ in range(args.warmup):
+        state, diag = step(state)
+    torch.cuda.synchronize()
+
+    iisph_cuda.LOOP.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(args.steps):
+        state, diag = step(state)
+        iters.append(diag.solver_iters)
+    end.record()
+    t_host = (time.perf_counter() - t0) * 1e3 / args.steps
+    torch.cuda.synchronize()
+    ms_plain = start.elapsed_time(end) / args.steps
+    n_it = [int(i) for i in iters]
+    print(f"{args.solver}: steps {args.warmup + 1}-{args.warmup + args.steps}"
+          f": {ms_plain:.4f} ms/step (CUDA events), host loop "
+          f"{t_host:.4f} ms/step"
+          f" to the last enqueue; solver_iters {n_it}, Jacobi iterations "
+          f"launched {iisph_cuda.LOOP.launched}, host syncs "
+          f"{iisph_cuda.LOOP.syncs}")
+
+    from torch.profiler import ProfilerActivity, profile
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(args.steps):
+            state, diag = step(state)
+            iters.append(diag.solver_iters)
+        end.record()
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / args.steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # the device-side events only: a CPU operator's entry repeats the
+    # device time of the kernels it launched
+    rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and dev_us(e) > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3 / args.steps
+    print(f"profiled steps {args.warmup + args.steps + 1}-"
+          f"{args.warmup + 2 * args.steps}: {ms:.4f} ms/step (CUDA events), "
+          f"device busy {busy:.4f} ms/step, idle share "
+          f"{max(0.0, 1.0 - busy / ms):.3f}; solver_iters "
+          f"{[int(i) for i in iters]}")
+    print(f"idle share of the unprofiled steps: "
+          f"{max(0.0, 1.0 - busy / ms_plain):.4f}")
+    print(f"{'device ms/step':>14} {'calls/step':>10}  kernel")
+    for us, count, key in rows[:args.top]:
+        print(f"{us / 1e3 / args.steps:14.4f} {count / args.steps:10.1f}  "
+              f"{key[:100]}")
+    groups = {"sweep kernels": 0.0, "sort": 0.0, "searchsorted": 0.0,
+              "copies (cat/stack/index)": 0.0, "other": 0.0}
+    for us, _, key in rows:
+        k = key.lower()
+        if "sweep_kernel" in k:
+            g = "sweep kernels"
+        elif "sort" in k and "searchsorted" not in k:
+            g = "sort"
+        elif "searchsorted" in k:
+            g = "searchsorted"
+        elif any(w in k for w in ("cat", "copy", "index", "gather",
+                                  "stack", "memcpy", "memset")):
+            g = "copies (cat/stack/index)"
+        else:
+            g = "other"
+        groups[g] += us / 1e3 / args.steps
+    print("by group, device ms/step: " + ", ".join(
+        f"{g} {v:.4f}" for g, v in groups.items()))
+
+
+if __name__ == "__main__":
+    main()
