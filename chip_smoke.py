@@ -30,8 +30,32 @@ Phases, in order; any failure exits non-zero:
    tol = 1 kg/m³ and omega = 0.5, steps 11-60 timed with CUDA events;
    gates on the iteration counts, the convergence bound, finite
    positions, the floor, pressure ≥ 0 and the kernels' launches; then
-   each IISPH kernel against its plain version at these shapes, timed in
-   turns.
+   each kernel of the path against its plain version at these shapes,
+   timed in turns;
+7. every kernel of the PCISPH and the DFSPH step (density, pressure-off
+   force, pressure force with p⁰/ρ² resp. κ/ρ, predicted density, α,
+   Dρ/Dt) against its plain version on the phase-3 dam-break (mass
+   calibrated to the lattice, PCISPH resp. DFSPH parameters), fed the
+   operands of one real step of each solver, built by the solvers' own
+   operand functions, for both kernel sets (max|Δ| ≤ 1e-4·max|ref| per
+   output column, and finite);
+8. the PCISPH main path: ``bench.py``'s ``pcisph_256k_settled`` cell,
+   ``resting_block(n_target=256_000)`` (262,144 fluid particles, impact
+   velocity −1 m/s, mass calibrated to the 0.8·h lattice), 60
+   ``pcisph_step`` calls at tol_frac = 0.001, steps 11-60 timed with CUDA
+   events; gates on convergence (each solver loop within its own
+   tolerance or at its own cap), finite positions, the floor, pressure
+   ≥ 0 and every kernel's launches; then every kernel of the path against
+   its plain version at these shapes, timed in turns;
+9. the DFSPH main path: ``bench.py``'s ``dfsph_256k_settled`` cell, the
+   same block with DFSPH parameters, 60 ``dfsph_step`` calls at tol =
+   tol_v = 1 kg/m³, with the same gates for both of its loops; then every
+   kernel of the path against its plain version at these shapes, timed
+   in turns.
+
+Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
+JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
+physics cross-check, not a gate.
 
 Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
@@ -41,9 +65,11 @@ over 67 TFLOP/s, the H100 SXM's published float32 peaks.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
 
-The last two lines are a JSON object with each kernel's launches, error,
-times and bound, and ``{"ok": true, "device": {...}}``. Without a CUDA
-device the script fails before it prints either.
+The last two lines are a JSON object with one entry per kernel and main
+path that launched it (the path's launches, the kernel's error, times and
+bound at the path's shapes), and ``{"ok": true, "device": {...}}``. The
+run fails if a path launched a kernel it did not hold against its plain
+version. Without a CUDA device the script fails before it prints either.
 """
 
 import json
@@ -60,11 +86,20 @@ SMALL_N = 2 ** 15
 MAIN_N = 2 ** 20
 DENS_RTOL = 1e-5
 FORCE_TOL = 1e-4
-IISPH_STEPS = 60
-IISPH_TIMED_FROM = 10    # steps 11..60 are timed
+IMPLICIT_STEPS = 60
+IMPLICIT_TIMED_FROM = 10    # steps 11..60 are timed
 IISPH_TOL = 1.0          # kg/m^3
 IISPH_OMEGA = 0.5
 IISPH_FLUID = 1_092_727
+SETTLED_N = 256_000      # bench.py's *_256k_settled cells
+SETTLED_FLUID = 262_144
+PCISPH_TOL_FRAC = 0.001  # bench.py's settled PCISPH tolerance
+DFSPH_TOL = 1.0          # kg/m^3, tol and tol_v
+V5E_ITERS_1_10 = {"pcisph": 41.8, "dfsph": 10.2}   # BASELINE.md:98, :101
+# (kernel set, surface-tension model) of the kernel-vs-plain phases
+MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
+          ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
+          ("MONAGHAN", "NONE"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per candidate pair (fluid rows, boundary rows) of each pair
@@ -73,7 +108,8 @@ F32_OPS_PER_S = 67e12
 # division and rsqrt as one
 PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (23, 0),
-            "jacobi": (35, 22), "pressure_force": (24, 24)}
+            "jacobi": (35, 22), "pressure_force": (24, 24),
+            "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25)}
 
 
 def fail(msg):
@@ -180,6 +216,27 @@ def time_turns(name, kern, plain, reps=20):
     return min(k1, k2), min(p1, p2)
 
 
+def start_operands(cfg, ctx, params):
+    """The density and pressure-off force sweeps' operands of an implicit
+    step from ``ctx`` (on the state's velocities), built as the solvers
+    build them, the force's from the plain density: ``(ops, dens, f_adv)``
+    with ``ops = {key: (kernel, plain, args, kwargs)}`` and the plain
+    density and advection force."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dargs = (ctx.queries(width=4), ctx.pack(vel, params.particle_mass), *rng)
+    dens = SP.density_sweep_plain(cfg, *dargs)
+    zero = torch.zeros_like(dens)
+    fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rng)
+    off = dict(include_pressure=False)
+    f_adv = SP.fluid_force_sweep_plain(cfg, *fargs, **off)
+    return ({"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
+                         dargs, {}),
+             "force_p0": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
+                          fargs, off)}, dens, f_adv)
+
+
 def iisph_operands(cfg, ctx, params):
     """The operands of every sweep of one IISPH step from ``ctx`` (with
     p = ½·p_prev), built as ``solvers/iisph_cuda.py`` builds them, each
@@ -190,12 +247,10 @@ def iisph_operands(cfg, ctx, params):
     pm, dt = params.particle_mass, params.dt
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     q4 = ctx.queries(width=4)
-    dens = SP.density_sweep_plain(cfg, q4, ctx.pack(vel, pm), *rng)
+    ops, dens, f_adv = start_operands(cfg, ctx, params)
     ds = dens.clamp(min=1e-12)
     inv_d2 = 1.0 / (ds * ds)
     zero = torch.zeros_like(dens)
-    fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rng)
-    f_adv = SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False)
     vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * params.gravity[k])
                     for k, v in enumerate(vel))
     src_p = ctx.pack(vel_adv, pm)
@@ -206,10 +261,8 @@ def iisph_operands(cfg, ctx, params):
     src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
     sargs = (q4, src_pd, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec)
     sd = SP.sum_dij_sweep_plain(cfg, *sargs).unbind(1)
-    off = dict(include_pressure=False)
     return {
-        "force_p0": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
-                     fargs, off),
+        **ops,
         "dii_rhoadv": (cuda_sweep.dii_rhoadv_sweep,
                        SP.dii_rhoadv_sweep_plain, dargs, {}),
         "aii": (cuda_sweep.aii_sweep, SP.aii_sweep_plain,
@@ -225,12 +278,70 @@ def iisph_operands(cfg, ctx, params):
     }
 
 
-def compare_iisph(cfg, ctx, params, label, keys=None, time_it=False):
-    """Each IISPH kernel (``keys``, default all) against its plain version
-    on one step's operands: max|Δ| ≤ FORCE_TOL·max|ref| per output column,
-    and finite. Returns per-kernel (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, bound_ranges_ms) when timed."""
-    ops = iisph_operands(cfg, ctx, params)
+def pcisph_operands(cfg, ctx, params):
+    """The operands of every sweep of one PCISPH step from ``ctx``, built
+    by ``solvers/pcisph_cuda.py``'s own operand functions, each from the
+    plain versions' upstream results: the density, the pressure-off
+    force, the pressure force of the warm start p⁰ (p⁰/ρ² in the pd2
+    slot) and the predicted density at the first corrective iteration's
+    x*. ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers.pcisph_cuda import (
+        predicted_density_operands)
+    from nereus_tpu_torch.solvers.sweep_common import pd2_operands
+    pos3 = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
+    vel3 = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    pm, dt = params.particle_mass, params.dt
+    ops, dens, f_adv = start_operands(cfg, ctx, params)
+    ds = dens.clamp(min=1e-12)
+    p0 = cfg.pcisph_warm_frac * torch.clamp(
+        torch.where(ctx.active, ctx.pres_prev, torch.zeros_like(dens)),
+        min=0.0)
+    pargs = pd2_operands(ctx)(p0 / (ds * ds))
+    f_p = SP.pressure_force_sweep_plain(cfg, *pargs)
+    x = pos3 + dt * (vel3 + (dt / pm) * (f_adv + pm * params.gravity + f_p))
+    return {
+        **ops,
+        "pressure_force": (cuda_sweep.pressure_force_sweep,
+                           SP.pressure_force_sweep_plain, pargs, {}),
+        "density_pred": (cuda_sweep.predicted_density_sweep,
+                         SP.density_sweep_plain,
+                         predicted_density_operands(ctx, pm)(x), {}),
+    }
+
+
+def dfsph_operands(cfg, ctx, params):
+    """The operands of every sweep of one DFSPH step from ``ctx``, built
+    by ``solvers/dfsph_cuda.py``'s own operand functions on the plain
+    density: the density, α, the pressure-off force and Dρ/Dt on the
+    state's velocities, and the κ correction of the warm start ½·κ_prev
+    (κ/ρ in the pd2 slot). ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps
+    ops, dens, _ = start_operands(cfg, ctx, params)
+    sweeps = KappaSweeps(ctx, params, cfg, dens)
+    kap = 0.5 * torch.clamp(
+        torch.where(ctx.active, ctx.pres_prev, torch.zeros_like(dens)),
+        min=0.0)
+    return {
+        **ops,
+        "alpha": (cuda_sweep.alpha_sweep, SP.alpha_sweep_plain,
+                  ops["density"][2], {}),
+        "drho": (cuda_sweep.drho_sweep, SP.drho_sweep_plain,
+                 sweeps.drho_operands(
+                     torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)), {}),
+        "pressure_force": (cuda_sweep.pressure_force_sweep,
+                           SP.pressure_force_sweep_plain,
+                           sweeps.kappa_operands(kap), {}),
+    }
+
+
+def compare_kernels(cfg, ops, label, keys=None, time_it=False):
+    """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
+    ``keys``, default all) against its plain version on the same operands:
+    max|Δ| ≤ FORCE_TOL·max|ref| per output column, and finite. Returns
+    per-kernel (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    bound_ranges_ms) when timed."""
     out, msg = {}, []
     for key in keys or ops:
         kern, plain, args, kw = ops[key]
@@ -255,6 +366,183 @@ def compare_iisph(cfg, ctx, params, label, keys=None, time_it=False):
                         *bound(key, args, got))
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
+
+
+def small_dam_break(nt, params, cfg, dev):
+    """Phase 3's ~32k-particle dam-break: floor 0.04 under the bottom
+    layer (inside the kernel support), seeded velocities in ±0.5 m/s."""
+    from nereus_tpu_torch import scene
+    spacing = float(params.interaction_radius) - 0.005
+    side = spacing * SMALL_N ** (1.0 / 3.0)
+    # bottom layer at y = 0.04 - side/2; floor 0.04 below it
+    floor = 0.04 - side / 2.0 - 0.04
+    state, grid, boundary = scene.dam_break(
+        params, cfg, cube_size=(side,) * 3, cube_center=(-0.4, 0.04, 0.5),
+        box_min=(-1.2, floor, -0.5), box_max=(0.8, 1.5, 1.5), device=dev)
+    pos = state.pos.cpu().numpy()
+    vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
+    return nt.make_fluid_state(pos, vel, device=dev), grid, boundary
+
+
+def settled_main_path(solver, dev, n_target):
+    """The settled block of ``bench.py``'s ``*_settled`` cells for
+    ``solver`` (iisph, pcisph or dfsph), built as ``bench.py:386-449``
+    builds it: ``(cfg, params, state, grid, boundary, step)`` with
+    ``step(state) -> (state, diag)`` at the cell's tolerances."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    if solver == "iisph":
+        base = nt.iisph_params(device=dev)
+    elif solver == "pcisph":
+        base = nt.calibrate_mass(nt.pcisph_params(device=dev), cfg)
+    else:
+        base = nt.dfsph_params(device=dev)
+    spacing = 0.8 * float(base.interaction_radius)
+    params = nt.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, boundary = scene.resting_block(
+        params, cfg, n_target=n_target, spacing=spacing, impact_velocity=-1.0,
+        device=dev)
+    if solver == "iisph":
+        def step(s):
+            return nt.iisph_step(s, params, grid, cfg, boundary,
+                                 tol=IISPH_TOL, omega=IISPH_OMEGA)
+    elif solver == "pcisph":
+        delta = nt.pcisph_delta(params, cfg)
+
+        def step(s):
+            return nt.pcisph_step(s, params, grid, cfg, boundary,
+                                  delta=delta, tol_frac=PCISPH_TOL_FRAC)
+    else:
+        def step(s):
+            return nt.dfsph_step(s, params, grid, cfg, boundary,
+                                 tol=DFSPH_TOL, tol_v=DFSPH_TOL)
+    return cfg, params, state, grid, boundary, step
+
+
+def run_steps(step, state, n_steps, timed_from, loops=()):
+    """``n_steps`` calls of ``step`` from ``state``, the steps after
+    ``timed_from`` timed with CUDA events; returns ``(state, diags,
+    ms/step, window, ends)`` with ``window`` the (launched, syncs) of each
+    of ``loops`` (``LoopCounts``) over the timed steps and ``ends`` each
+    step's last run of each loop (``LoopCounts.last``)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    diags, at, ends = [], [], []
+    for i in range(n_steps):
+        if i == timed_from:
+            start.record()
+            at = [(lp.launched, lp.syncs) for lp in loops]
+        state, diag = step(state)
+        diags.append(diag)
+        ends.append([lp.last for lp in loops])
+    end.record()
+    torch.cuda.synchronize()
+    window = [(lp.launched - a, lp.syncs - s)
+              for lp, (a, s) in zip(loops, at)]
+    return (state, diags, start.elapsed_time(end) / (n_steps - timed_from),
+            window, ends)
+
+
+def check_launches(label, want):
+    """Fails unless every kernel launched as ``want`` says (``{Kernel:
+    count}``; a kernel not named must not have launched)."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    for k in cuda_sweep.KERNELS:
+        if k.launches != want.get(k, 0):
+            fail(f"{label}: {k.name} launched {k.launches} times, expected "
+                 f"{want.get(k, 0)}")
+
+
+def run_settled_path(solver, dev, loops):
+    """Phases 8 and 9: ``SETTLED_N`` block, ``IMPLICIT_STEPS`` steps, gates;
+    ``loops`` names the solver's loops (``{name: LoopCounts}``). Returns
+    ``(cfg, params, state, grid, boundary, iters, launches)``."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    t0 = time.perf_counter()
+    cfg, params, state, grid, boundary, step = settled_main_path(
+        solver, dev, SETTLED_N)
+    torch.cuda.synchronize()
+    n = int(state.num_active)
+    floor = float(boundary.pos[:, 1].min())
+    name = solver.upper()
+    print(f"{name} main path: resting_block n_target={SETTLED_N}: {n} "
+          f"fluid particles, {boundary.num_boundaries} boundary samples, "
+          f"grid {grid.size}, dt {float(params.dt)}, mass "
+          f"{float(params.particle_mass):.6g}, floor y {floor:.6g}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n != SETTLED_FLUID:
+        fail(f"{name}: expected {SETTLED_FLUID:,} fluid particles, got {n}")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    for lp in loops.values():
+        lp.reset()
+    t_host = time.perf_counter()
+    state, diags, ms, window, ends = run_steps(
+        step, state, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM, tuple(loops.values()))
+    t_host = time.perf_counter() - t_host
+    timed = IMPLICIT_STEPS - IMPLICIT_TIMED_FROM
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
+    errs = torch.stack([d.mean_density_error for d in diags]).cpu().numpy()
+    launched = sum(lp.launched for lp in loops.values())
+    pos = state.pos[:n]
+    min_y = float(pos[:, 1].min())
+    early = float(iters[:IMPLICIT_TIMED_FROM].mean())
+    print(f"{name} main path: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; "
+          f"steps {IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name} main path: solver_iters per step {iters.tolist()}; mean "
+          f"steps 1-{IMPLICIT_TIMED_FROM} {early:.4g} (JAX package on the v5e, "
+          f"BASELINE.md: {V5E_ITERS_1_10[solver]}), steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS} "
+          f"{float(iters[IMPLICIT_TIMED_FROM:].mean()):.4g}")
+    print(f"{name} main path: iterations launched / converged "
+          + ", ".join(f"{lp.launched}" for lp in loops.values())
+          + f" / {int(iters.sum())} in {IMPLICIT_STEPS} steps; over steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: launched "
+          f"{sum(w[0] for w in window) / timed:.4g}, host syncs "
+          f"{sum(w[1] for w in window) / timed:.4g} per step")
+    print(f"{name} main path: launches {launches}, min y {min_y:.6g}, "
+          f"mean_density_error last {errs[-1]:.6g} max {errs.max():.6g}, "
+          f"min pressure {float(state.pressure.min()):.6g}, max pressure "
+          f"{float(state.pressure.max()):.6g}")
+    # every run of each loop ends within its own tolerance or at its own
+    # cap, compared as the loop compares
+    for j, label in enumerate(loops):
+        runs = [e[j] for e in ends]
+        its = torch.stack([r.it for r in runs]).cpu().numpy()
+        bad = torch.stack([(r.err > r.tol) & (r.it < r.max_iters)
+                           for r in runs]).cpu().numpy()
+        print(f"{name} {label} loop: iterations per step {its.tolist()}, "
+              f"final error last {float(runs[-1].err):.6g} (tol "
+              f"{float(runs[-1].tol):.6g}, cap {runs[-1].max_iters})")
+        if bad.any():
+            fail(f"{name}: {label} loop of steps "
+                 f"{np.flatnonzero(bad).tolist()} ends above its tol before "
+                 "its max iterations")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"{name}: non-finite positions")
+    if min_y < floor:
+        fail(f"{name}: floor penetration: min y {min_y} < floor {floor}")
+    if float(state.pressure.min()) < 0.0:
+        fail(f"{name}: negative pressure")
+    if launched < int(iters.sum()):
+        fail(f"{name}: {launched} iterations launched for "
+             f"{int(iters.sum())} converged")
+    steps = IMPLICIT_STEPS
+    if solver == "pcisph":
+        # the warm sweep runs on every step (PCISPH warm start on)
+        want = {cuda_sweep.DENSITY: steps, cuda_sweep.FORCE_P0: steps,
+                cuda_sweep.DENSITY_PRED: launched,
+                cuda_sweep.PRESSURE_FORCE: launched + steps}
+    else:
+        # the warm κ is applied on every step (DFSPH warm start on)
+        want = {cuda_sweep.DENSITY: steps, cuda_sweep.ALPHA: steps,
+                cuda_sweep.FORCE_P0: steps, cuda_sweep.DRHO: launched,
+                cuda_sweep.PRESSURE_FORCE: launched + steps}
+    check_launches(f"{name} main path", want)
+    return cfg, params, state, grid, boundary, iters, launches
 
 
 def wcsph_main_path(dev):
@@ -295,9 +583,8 @@ def main():
     # the port itself, before anything is printed: without it (the script
     # alone in a directory) the run fails with no output
     import nereus_tpu_torch as nt
-    from nereus_tpu_torch import scene
     from nereus_tpu_torch.ops import cuda_sweep
-    from nereus_tpu_torch.solvers import iisph_cuda
+    from nereus_tpu_torch.solvers import dfsph_cuda, iisph_cuda, pcisph_cuda
     from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     from nereus_tpu_torch.solvers.wcsph_cuda import PLAIN, wcsph_step_cuda
 
@@ -326,23 +613,11 @@ def main():
     # -- 3. kernel vs plain, every kernel set and surface-tension model -------
     print(f"kernel vs plain, dam-break n_target={SMALL_N}, floor in "
           "support, seeded velocities:")
-    for ks, st in (("MULLER", "BECKER"), ("MULLER", "AKINCI"),
-                   ("MULLER", "NONE"), ("MONAGHAN", "BECKER"),
-                   ("MONAGHAN", "AKINCI"), ("MONAGHAN", "NONE")):
+    for ks, st in MODELS:
         cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks],
                            surface_tension_model=nt.SurfaceTensionModel[st])
         params = nt.make_params(device=dev)
-        spacing = float(params.interaction_radius) - 0.005
-        side = spacing * SMALL_N ** (1.0 / 3.0)
-        # bottom layer at y = 0.04 - side/2; floor 0.04 below it
-        floor = 0.04 - side / 2.0 - 0.04
-        state, grid, boundary = scene.dam_break(
-            params, cfg, cube_size=(side,) * 3, cube_center=(-0.4, 0.04, 0.5),
-            box_min=(-1.2, floor, -0.5), box_max=(0.8, 1.5, 1.5),
-            device=dev)
-        pos = state.pos.cpu().numpy()
-        vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
-        state = nt.make_fluid_state(pos, vel, device=dev)
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
         ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
         compare(cfg, ctx, params,
                 f"{ks}+{st} n={state.capacity} nb={boundary.num_boundaries}")
@@ -379,11 +654,8 @@ def main():
           f"{overflow}, min y {min_y:.6g}, mean_compression {mc:.6g}, "
           f"mean_density_error {float(diag.mean_density_error):.6g}, "
           f"max_density {float(diag.max_density):.6g}")
-    for k in cuda_sweep.KERNELS:
-        want = N_STEPS if k in (cuda_sweep.DENSITY, cuda_sweep.FORCE) else 0
-        if k.launches != want:
-            fail(f"{k.name} launched {k.launches} times in {N_STEPS} WCSPH "
-                 f"steps, expected {want}")
+    check_launches("WCSPH main path", {cuda_sweep.DENSITY: N_STEPS,
+                                       cuda_sweep.FORCE: N_STEPS})
     if overflow != 0:
         fail(f"seg_overflow {overflow}")
     if not bool(torch.isfinite(state.pos).all()):
@@ -420,23 +692,13 @@ def main():
     # -- 5. IISPH kernels vs plain, on one real IISPH step's operands --------
     print(f"IISPH kernels vs plain, dam-break n_target={SMALL_N}, mass "
           "calibrated to the lattice, floor in support, seeded velocities:")
-    for ks, st in (("MULLER", "BECKER"), ("MULLER", "AKINCI"),
-                   ("MULLER", "NONE"), ("MONAGHAN", "BECKER"),
-                   ("MONAGHAN", "AKINCI"), ("MONAGHAN", "NONE")):
+    for ks, st in MODELS:
         cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks],
                            surface_tension_model=nt.SurfaceTensionModel[st])
         base = nt.iisph_params(device=dev)
-        spacing = float(base.interaction_radius) - 0.005
-        params = nt.calibrate_mass(base, cfg, spacing=spacing)
-        side = spacing * SMALL_N ** (1.0 / 3.0)
-        floor = 0.04 - side / 2.0 - 0.04
-        state, grid, boundary = scene.dam_break(
-            params, cfg, cube_size=(side,) * 3, cube_center=(-0.4, 0.04, 0.5),
-            box_min=(-1.2, floor, -0.5), box_max=(0.8, 1.5, 1.5),
-            device=dev)
-        pos = state.pos.cpu().numpy()
-        vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
-        state = nt.make_fluid_state(pos, vel, device=dev)
+        params = nt.calibrate_mass(
+            base, cfg, spacing=float(base.interaction_radius) - 0.005)
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
         # one step carries a real pressure into the operands' warm start
         state, diag = nt.iisph_step(state, params, grid, cfg, boundary,
                                     tol=IISPH_TOL, omega=IISPH_OMEGA)
@@ -444,22 +706,17 @@ def main():
         # the pressure-off force sweep for every model, the five IISPH
         # sweeps (which read no surface-tension model) once per kernel set
         keys = None if st == "BECKER" else ("force_p0",)
-        compare_iisph(cfg, ctx, params,
-                      f"{ks}+{st} n={state.capacity} "
-                      f"nb={boundary.num_boundaries} iters "
-                      f"{int(diag.solver_iters)} max p "
-                      f"{float(state.pressure.max()):.4g}", keys=keys)
+        compare_kernels(cfg, iisph_operands(cfg, ctx, params),
+                        f"{ks}+{st} n={state.capacity} "
+                        f"nb={boundary.num_boundaries} iters "
+                        f"{int(diag.solver_iters)} max p "
+                        f"{float(state.pressure.max()):.4g}", keys=keys)
     torch.cuda.synchronize()
 
     # -- 6. the IISPH main path --------------------------------------------
-    cfg = nt.SimConfig()
-    base = nt.iisph_params(device=dev)
-    spacing = 0.8 * float(base.interaction_radius)
-    params = nt.calibrate_mass(base, cfg, spacing=spacing)
     t0 = time.perf_counter()
-    state, grid, boundary = scene.resting_block(
-        params, cfg, n_target=MAIN_N, spacing=spacing, impact_velocity=-1.0,
-        device=dev)
+    cfg, params, state, grid, boundary, step = settled_main_path(
+        "iisph", dev, MAIN_N)
     torch.cuda.synchronize()
     n = int(state.num_active)
     floor = float(boundary.pos[:, 1].min())
@@ -474,31 +731,19 @@ def main():
     torch.cuda.synchronize()
     cuda_sweep.reset_launches()
     iisph_cuda.LOOP.reset()
-    iters, errs = [], []
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     t_host = time.perf_counter()
-    for i in range(IISPH_STEPS):
-        if i == IISPH_TIMED_FROM:
-            start.record()
-            syncs_before = iisph_cuda.LOOP.syncs
-        state, diag = nt.iisph_step(state, params, grid, cfg, boundary,
-                                    tol=IISPH_TOL, omega=IISPH_OMEGA)
-        iters.append(diag.solver_iters)
-        errs.append(diag.mean_density_error)
-    end.record()
-    torch.cuda.synchronize()
+    state, diags, ms, window, _ = run_steps(
+        step, state, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM, (iisph_cuda.LOOP,))
     t_host = time.perf_counter() - t_host
-    timed = IISPH_STEPS - IISPH_TIMED_FROM
-    ms = start.elapsed_time(end) / timed
+    timed = IMPLICIT_STEPS - IMPLICIT_TIMED_FROM
     launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
-    iters = torch.stack(iters).cpu().numpy()
-    errs = torch.stack(errs).cpu().numpy()
-    syncs = (iisph_cuda.LOOP.syncs - syncs_before) / timed
+    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
+    errs = torch.stack([d.mean_density_error for d in diags]).cpu().numpy()
+    syncs = window[0][1] / timed
     pos = state.pos[:n]
     min_y = float(pos[:, 1].min())
-    print(f"IISPH main path: {IISPH_STEPS} steps in {t_host:.2f} s host; "
-          f"steps {IISPH_TIMED_FROM + 1}-{IISPH_STEPS}: {ms:.4f} ms/step = "
+    print(f"IISPH main path: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; "
+          f"steps {IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
           f"{n / (ms * 1e-3):.4g} particle-steps/s")
     print(f"IISPH main path: solver_iters mean {iters.mean():.4g} max "
           f"{iters.max()} (per step {iters.tolist()}); Jacobi iterations "
@@ -524,64 +769,117 @@ def main():
         fail(f"floor penetration: min y {min_y} < floor {floor}")
     if float(state.pressure.min()) < 0.0:
         fail("negative pressure")
-    for k, want in ((cuda_sweep.DENSITY, IISPH_STEPS), (cuda_sweep.FORCE, 0),
-                    (cuda_sweep.FORCE_P0, IISPH_STEPS),
-                    (cuda_sweep.DII_RHOADV, IISPH_STEPS),
-                    (cuda_sweep.AII, IISPH_STEPS),
-                    (cuda_sweep.PRESSURE_FORCE, IISPH_STEPS)):
-        if k.launches != want:
-            fail(f"{k.name} launched {k.launches} times in {IISPH_STEPS} "
-                 f"IISPH steps, expected {want}")
-    for k in (cuda_sweep.SUM_DIJ, cuda_sweep.JACOBI):
-        if k.launches != iisph_cuda.LOOP.launched or \
-                k.launches < int(iters.sum()):
-            fail(f"{k.name} launched {k.launches} times for "
-                 f"{iisph_cuda.LOOP.launched} launched and "
-                 f"{int(iters.sum())} converged iterations")
+    if iisph_cuda.LOOP.launched < int(iters.sum()):
+        fail(f"{iisph_cuda.LOOP.launched} Jacobi iterations launched for "
+             f"{int(iters.sum())} converged")
+    check_launches("IISPH main path", {
+        cuda_sweep.DENSITY: IMPLICIT_STEPS, cuda_sweep.FORCE_P0: IMPLICIT_STEPS,
+        cuda_sweep.DII_RHOADV: IMPLICIT_STEPS, cuda_sweep.AII: IMPLICIT_STEPS,
+        cuda_sweep.PRESSURE_FORCE: IMPLICIT_STEPS,
+        cuda_sweep.SUM_DIJ: iisph_cuda.LOOP.launched,
+        cuda_sweep.JACOBI: iisph_cuda.LOOP.launched})
     iisph_launches = launches
 
     # each IISPH kernel vs plain at these shapes, on the last state
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-    iisph_timing = compare_iisph(cfg, ctx, params,
-                                 f"IISPH main path after {IISPH_STEPS} steps",
-                                 time_it=True)
+    iisph_timing = compare_kernels(
+        cfg, iisph_operands(cfg, ctx, params),
+        f"IISPH main path after {IMPLICIT_STEPS} steps", time_it=True)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, diags, ctx, boundary, grid
+    torch.cuda.empty_cache()
+
+    # -- 7. PCISPH and DFSPH kernels vs plain, on one real step's operands ---
+    print(f"PCISPH / DFSPH kernels vs plain, dam-break n_target={SMALL_N}, "
+          "mass calibrated to the lattice, floor in support, seeded "
+          "velocities:")
+    for ks in ("MULLER", "MONAGHAN"):
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        for solver, params_fn in (("pcisph", nt.pcisph_params),
+                                  ("dfsph", nt.dfsph_params)):
+            base = params_fn(device=dev)
+            params = nt.calibrate_mass(
+                base, cfg, spacing=float(base.interaction_radius) - 0.005)
+            state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+            # one step carries a real pressure (κ) into the operands
+            if solver == "pcisph":
+                state, diag = nt.pcisph_step(
+                    state, params, grid, cfg, boundary,
+                    delta=nt.pcisph_delta(params, cfg),
+                    tol_frac=PCISPH_TOL_FRAC)
+                ops = pcisph_operands
+            else:
+                state, diag = nt.dfsph_step(state, params, grid, cfg,
+                                            boundary, tol=DFSPH_TOL,
+                                            tol_v=DFSPH_TOL)
+                ops = dfsph_operands
+            ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+            compare_kernels(cfg, ops(cfg, ctx, params),
+                            f"{solver} {ks} n={state.capacity} "
+                            f"nb={boundary.num_boundaries} iters "
+                            f"{int(diag.solver_iters)} max p "
+                            f"{float(state.pressure.max()):.4g}")
+    torch.cuda.synchronize()
+
+    # -- 8. the PCISPH main path -------------------------------------------
+    cfg, params, state, grid, boundary, _, pcisph_launches = \
+        run_settled_path("pcisph", dev, {"corrective": pcisph_cuda.LOOP})
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    pcisph_timing = compare_kernels(
+        cfg, pcisph_operands(cfg, ctx, params),
+        f"PCISPH main path after {IMPLICIT_STEPS} steps", time_it=True)
+    del state, ctx, boundary, grid
+
+    # -- 9. the DFSPH main path --------------------------------------------
+    cfg, params, state, grid, boundary, _, dfsph_launches = \
+        run_settled_path("dfsph", dev, {"divergence": dfsph_cuda.LOOP_V,
+                                        "density": dfsph_cuda.LOOP})
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    dfsph_timing = compare_kernels(
+        cfg, dfsph_operands(cfg, ctx, params),
+        f"DFSPH main path after {IMPLICIT_STEPS} steps", time_it=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    kernels = []
+    # one entry per kernel and path: every kernel a path launched is held
+    # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
     iisph_src = "nereus_tpu_torch/csrc/iisph_sweep.cu"
-    for key, name, src, rep, path_launches, t in (
-            ("density", cuda_sweep.DENSITY.name, sph_src,
-             "nereus_tpu/ops/pallas_sph.py:1193", wcsph_launches, timing),
-            ("force", cuda_sweep.FORCE.name, sph_src,
-             "nereus_tpu/ops/pallas_sph.py:1207", wcsph_launches, timing),
-            ("force_p0", cuda_sweep.FORCE_P0.name, sph_src,
-             "nereus_tpu/ops/pallas_sph.py:1207", iisph_launches,
-             iisph_timing),
-            ("dii_rhoadv", cuda_sweep.DII_RHOADV.name, iisph_src,
-             "nereus_tpu/ops/pallas_sph.py:475", iisph_launches,
-             iisph_timing),
-            ("aii", cuda_sweep.AII.name, iisph_src,
-             "nereus_tpu/ops/pallas_sph.py:506", iisph_launches,
-             iisph_timing),
-            ("sum_dij", cuda_sweep.SUM_DIJ.name, iisph_src,
-             "nereus_tpu/ops/pallas_sph.py:524", iisph_launches,
-             iisph_timing),
-            ("jacobi", cuda_sweep.JACOBI.name, iisph_src,
-             "nereus_tpu/ops/pallas_sph.py:543", iisph_launches,
-             iisph_timing),
-            ("pressure_force", cuda_sweep.PRESSURE_FORCE.name, iisph_src,
-             "nereus_tpu/ops/pallas_sph.py:922", iisph_launches,
-             iisph_timing)):
-        err, kms, pms, bms, by, brms = t[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "path": "iisph_1M_settled" if t is iisph_timing else "wcsph_1M",
-            "launches": path_launches[name], "max_abs_err": err, "ms": kms,
-            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "bound_ranges_ms": brms,
-            # no single PyTorch call computes a range-walk neighbor sweep
-            "library_ms": None})
+    dfsph_src = "nereus_tpu_torch/csrc/dfsph_sweep.cu"
+    rep = "nereus_tpu/ops/pallas_sph.py:"
+    info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
+            "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
+            "force_p0": (cuda_sweep.FORCE_P0, sph_src, rep + "1207"),
+            "dii_rhoadv": (cuda_sweep.DII_RHOADV, iisph_src, rep + "475"),
+            "aii": (cuda_sweep.AII, iisph_src, rep + "506"),
+            "sum_dij": (cuda_sweep.SUM_DIJ, iisph_src, rep + "524"),
+            "jacobi": (cuda_sweep.JACOBI, iisph_src, rep + "543"),
+            "pressure_force": (cuda_sweep.PRESSURE_FORCE, iisph_src,
+                               rep + "922"),
+            "density_pred": (cuda_sweep.DENSITY_PRED, sph_src, rep + "1193"),
+            "alpha": (cuda_sweep.ALPHA, dfsph_src, rep + "578"),
+            "drho": (cuda_sweep.DRHO, dfsph_src, rep + "903")}
+    kernels = []
+    for path, t, path_launches in (
+            ("wcsph_1M", timing, wcsph_launches),
+            ("iisph_1M_settled", iisph_timing, iisph_launches),
+            ("pcisph_256k_settled", pcisph_timing, pcisph_launches),
+            ("dfsph_256k_settled", dfsph_timing, dfsph_launches)):
+        ran = {k for k, c in path_launches.items() if c}
+        held = {info[key][0].name for key in t}
+        if ran != held:
+            fail(f"{path}: kernels launched {sorted(ran)} but held against "
+                 f"their plain versions {sorted(held)}")
+        for key, (err, kms, pms, bms, by, brms) in t.items():
+            kern, src, replaces = info[key]
+            kernels.append({
+                "name": kern.name, "route": "cuda", "source": src,
+                "replaces": replaces, "path": path,
+                "launches": path_launches[kern.name], "max_abs_err": err,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_ranges_ms": brms,
+                # no single PyTorch call computes a range-walk neighbor
+                # sweep
+                "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,30 @@
 """nereus_tpu_torch: the PyTorch + CUDA port of nereus_tpu.
 
-The single-phase WCSPH and IISPH steps of ``nereus_tpu`` on one NVIDIA
-GPU: the same public names and semantics for the ported subset, with the
-neighbor sweeps as hand-written CUDA kernels for Hopper (``csrc/``) and
-plain PyTorch versions of them on the CPU. Entry points build on the CUDA
+The single-phase WCSPH, IISPH, PCISPH and DFSPH steps of ``nereus_tpu`` on
+one NVIDIA GPU: the same public names and semantics for the ported
+subset, with the neighbor sweeps as hand-written CUDA kernels for Hopper
+(``csrc/``) and plain PyTorch versions of them on the CPU. Entry points build on the CUDA
 device unless given another. Imports torch and numpy, never JAX.
 """
 
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
-                     calibrate_mass, iisph_params, make_params)
+                     calibrate_mass, dfsph_params, iisph_params, make_params,
+                     pcisph_params)
 from .grid import Grid, fit_grid, make_grid
 from .state import BoundaryData, FluidState, make_fluid_state
 from .solvers.wcsph import StepDiagnostics, cfl_dt, tait_pressure, wcsph_step
 from .solvers.iisph import iisph_step
+from .solvers.pcisph import pcisph_delta, pcisph_step
+from .solvers.dfsph import dfsph_step
 
 __version__ = "0.1.0"
 
 __all__ = [
     "KernelSet", "SimConfig", "SimParams", "SurfaceTensionModel",
-    "calibrate_mass", "make_params", "iisph_params",
+    "calibrate_mass", "make_params", "iisph_params", "pcisph_params",
+    "dfsph_params",
     "Grid", "fit_grid", "make_grid",
     "BoundaryData", "FluidState", "make_fluid_state",
     "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
-    "iisph_step",
+    "iisph_step", "pcisph_step", "pcisph_delta", "dfsph_step",
 ]

@@ -1,0 +1,72 @@
+// Pair functions of the single-phase DFSPH step, for Hopper (sm_90a).
+//
+// Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
+// as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the two
+// DFSPH pair functions of pallas_sph.py, alpha_pair and drho_pair
+// (solvers/dfsph_pallas.py::dfsph_step_pallas). Its kappa correction is the
+// PressureForce functor of iisph_sweep.cu with kappa/rho in the pd2 slot.
+//
+// Design: one functor each for the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, in the operation order
+// of ops/sph_pairs.py. Both use the default (poly6 / Monaghan) gradient,
+// which is exactly 0 at the self pair only because r^2 is clamped before
+// the rsqrt, so self-pairs stay in the ranges; the Muller gradient skips
+// the rsqrt. Bound: memory traffic (sweep_common.cuh): one 32-byte source
+// row per candidate against ~20 flops.
+//
+// Layouts (row-major float32, 16-byte aligned rows):
+//   alpha: q (N, 4) x y z pad; src (M, 8) x y z 0 0 0 psi pad;
+//          out (N, 4) sum psi grad W (3), sum |psi grad W|^2 (fluid rows)
+//   drho:  q (N, 8) x y z vx vy vz pad pad; src (M, 8) x y z vx vy vz psi
+//          pad (boundary velocities 0); out (N,)
+
+#include "sweep_common.cuh"
+
+namespace {
+
+using namespace nereus_sweep;
+
+// sum psi grad W, and sum |psi grad W|^2 over the fluid rows only (static
+// boundaries add to the gradient sum alone)
+struct Alpha {
+  static constexpr int QW = 4, SW = 8, OW = 4;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);
+    const float psi = src_f4(src, SW, j, 1).z;
+    const Geom g = default_geom<KS>(q, a, p);
+    const float c = psi * g.s * g.okf;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+    if constexpr (!B) acc[3] += c * c * g.r2;
+  }
+};
+
+// D rho / Dt = sum psi_j (v_q - v_j) . grad W, one formula for both regions
+struct Drho {
+  static constexpr int QW = 8, SW = 8, OW = 1;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz psi pad
+    const Geom g = default_geom<KS>(q, a, p);
+    const float dvx = q[3] - a.w;
+    const float dvy = q[4] - b.x;
+    const float dvz = q[5] - b.y;
+    acc[0] += b.z * g.s * (dvx * g.dx + dvy * g.dy + dvz * g.dz) * g.okf;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+NEREUS_PAIR_SWEEP(alpha, Alpha)
+NEREUS_PAIR_SWEEP(drho, Drho)
+
+}  // extern "C"

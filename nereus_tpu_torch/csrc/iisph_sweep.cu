@@ -1,24 +1,16 @@
-// Neighbor-sweep kernels of the IISPH step, for Hopper (sm_90a).
+// Pair functions of the IISPH step, for Hopper (sm_90a).
 //
 // Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
 // as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the five
 // IISPH pair functions of pallas_sph.py: dii_rhoadv_pair, aii_pair,
 // sum_dij_pair, jacobi_fluid_pair + jacobi_boundary_pair, and
-// grad_pressure_force_pair (solvers/iisph_pallas.py::iisph_step_pallas).
+// grad_pressure_force_pair (solvers/iisph_pallas.py::iisph_step_pallas; the
+// last is also PCISPH's and DFSPH's pressure / kappa correction).
 //
-// Design: the range walk of sph_sweep.cu. One thread per hash-sorted query
-// walks its exact neighbor ranges, rows 0-8 over the fluid region and rows
-// 9-17 (when present) over the boundary region of one source matrix. One
-// kernel template, iisph_sweep_kernel<Pair, KS>, takes the pair math from a
-// functor with the query, source and output widths and a fluid and a
-// boundary formula; every formula keeps the operation order of
-// ops/sph_pairs.py. All five use the default (poly6 / Monaghan) gradient,
-// which is exactly 0 at the self pair, so self-pairs stay in the ranges.
-//
-// Bound: memory traffic, as in sph_sweep.cu: each candidate reads one
-// source row (32 or 48 bytes) at a data-dependent address and does ~20-40
-// flops on it; sorted neighbors share rows, so most reads hit L1/L2.
-// Shared-memory tiling of a cell block's sources is later work.
+// Design: one functor each for the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh. All five use the default
+// (poly6 / Monaghan) gradient, which is exactly 0 at the self pair, so
+// self-pairs stay in the ranges. Bound: memory traffic (sweep_common.cuh).
 //
 // The Jacobi source is 12 floats wide, not the TPU's 16: fluid rows carry
 // x y z, d_jj (3), p_j and sum_k d_jk p_k (3), 10 values, and the port
@@ -44,47 +36,6 @@
 namespace {
 
 using namespace nereus_sweep;
-
-template <int W>
-__device__ __forceinline__ void load_row(const float* __restrict__ base,
-                                         int i, float (&v)[W]) {
-  const float4* p =
-      reinterpret_cast<const float4*>(base) + static_cast<size_t>(i) * (W / 4);
-#pragma unroll
-  for (int k = 0; k < W / 4; ++k) {
-    const float4 t = __ldg(p + k);
-    v[4 * k + 0] = t.x;
-    v[4 * k + 1] = t.y;
-    v[4 * k + 2] = t.z;
-    v[4 * k + 3] = t.w;
-  }
-}
-
-// Pair geometry with the default gradient: grad W = s * (dx, dy, dz)
-struct Geom {
-  float dx, dy, dz, r2, s, okf;
-};
-
-template <int KS>
-__device__ __forceinline__ Geom default_geom(const float* q, float4 a,
-                                             const Params& p) {
-  Geom g;
-  g.dx = q[0] - a.x;
-  g.dy = q[1] - a.y;
-  g.dz = q[2] - a.z;
-  g.r2 = g.dx * g.dx + g.dy * g.dy + g.dz * g.dz;
-  float rl = 0.0f, invrl = 0.0f;
-  if constexpr (KS != MULLER) rl_invrl(g.r2, rl, invrl);
-  g.s = grad_scale_default<KS>(g.r2, rl, invrl, p);
-  g.okf = g.r2 < p.h2 ? 1.0f : 0.0f;
-  return g;
-}
-
-__device__ __forceinline__ float4 src_f4(const float* src, int width, int j,
-                                         int k) {
-  return __ldg(reinterpret_cast<const float4*>(src) +
-               static_cast<size_t>(j) * (width / 4) + k);
-}
 
 // d_ii += -psi inv_rho2_i grad W ; rho_adv += dt psi (v_q - v_j) . grad W
 struct DiiRhoAdv {
@@ -194,94 +145,14 @@ struct PressureForce {
   }
 };
 
-template <class P, int KS>
-__global__ void __launch_bounds__(THREADS)
-iisph_sweep_kernel(const float* __restrict__ q, const float* __restrict__ src,
-                   const int* __restrict__ seg_start,
-                   const int* __restrict__ seg_end, int n, int n_rows,
-                   const float* __restrict__ pv, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Params p = load_params(pv);
-  float qv[P::QW];
-  load_row<P::QW>(q, i, qv);
-  float acc[P::OW];
-#pragma unroll
-  for (int k = 0; k < P::OW; ++k) acc[k] = 0.0f;
-  for_each_source(i, n, 0, min(n_rows, N_ROWS), seg_start, seg_end,
-                  [&](int j) {
-    P::template pair<KS, false>(qv, src, j, p, acc);
-  });
-  if constexpr (P::BOUNDARY_ROWS) {
-    for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
-      P::template pair<KS, true>(qv, src, j, p, acc);
-    });
-  }
-#pragma unroll
-  for (int k = 0; k < P::OW; ++k) out[static_cast<size_t>(i) * P::OW + k] = acc[k];
-}
-
-template <class P>
-int launch(const float* q, const float* src, const int* seg_start,
-           const int* seg_end, int n, int n_rows, const float* pvec,
-           int kernel_set, float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kernel_set == MULLER) {
-    iisph_sweep_kernel<P, MULLER><<<blocks_for(n), THREADS, 0, st>>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, out);
-  } else if (kernel_set == MONAGHAN) {
-    iisph_sweep_kernel<P, MONAGHAN><<<blocks_for(n), THREADS, 0, st>>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, out);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// Each entry point launches one kernel on `stream` and returns
-// cudaGetLastError() (0 on success); an unknown kernel set returns -1.
-
-int nereus_dii_rhoadv_sweep(const float* q, const float* src,
-                            const int* seg_start, const int* seg_end, int n,
-                            int n_rows, const float* pvec, int kernel_set,
-                            float* out, void* stream) {
-  return launch<DiiRhoAdv>(q, src, seg_start, seg_end, n, n_rows, pvec,
-                           kernel_set, out, stream);
-}
-
-int nereus_aii_sweep(const float* q, const float* src, const int* seg_start,
-                     const int* seg_end, int n, int n_rows, const float* pvec,
-                     int kernel_set, float* out, void* stream) {
-  return launch<Aii>(q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set,
-                     out, stream);
-}
-
-int nereus_sum_dij_sweep(const float* q, const float* src,
-                         const int* seg_start, const int* seg_end, int n,
-                         int n_rows, const float* pvec, int kernel_set,
-                         float* out, void* stream) {
-  return launch<SumDij>(q, src, seg_start, seg_end, n, n_rows, pvec,
-                        kernel_set, out, stream);
-}
-
-int nereus_jacobi_sweep(const float* q, const float* src,
-                        const int* seg_start, const int* seg_end, int n,
-                        int n_rows, const float* pvec, int kernel_set,
-                        float* out, void* stream) {
-  return launch<Jacobi>(q, src, seg_start, seg_end, n, n_rows, pvec,
-                        kernel_set, out, stream);
-}
-
-int nereus_pressure_force_sweep(const float* q, const float* src,
-                                const int* seg_start, const int* seg_end,
-                                int n, int n_rows, const float* pvec,
-                                int kernel_set, float* out, void* stream) {
-  return launch<PressureForce>(q, src, seg_start, seg_end, n, n_rows, pvec,
-                               kernel_set, out, stream);
-}
+NEREUS_PAIR_SWEEP(dii_rhoadv, DiiRhoAdv)
+NEREUS_PAIR_SWEEP(aii, Aii)
+NEREUS_PAIR_SWEEP(sum_dij, SumDij)
+NEREUS_PAIR_SWEEP(jacobi, Jacobi)
+NEREUS_PAIR_SWEEP(pressure_force, PressureForce)
 
 }  // extern "C"

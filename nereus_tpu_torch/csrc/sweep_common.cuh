@@ -1,6 +1,7 @@
-// Shared pieces of the neighbor-sweep kernels (sph_sweep.cu, iisph_sweep.cu):
-// the packed parameter vector, the exact-range walk and the smoothing-kernel
-// formulas, in the operation order of nereus_tpu_torch/ops/sph_pairs.py.
+// Shared pieces of the neighbor-sweep kernels (sph_sweep.cu, iisph_sweep.cu,
+// dfsph_sweep.cu): the packed parameter vector, the exact-range walk, the
+// smoothing-kernel formulas in the operation order of
+// nereus_tpu_torch/ops/sph_pairs.py, and the pair-sweep kernel template.
 //
 // Numerics: float32, no fast-math. r^2 is clamped to 1e-24 before the
 // rsqrt, so every term except the density self term is exactly 0 at the
@@ -138,4 +139,126 @@ __device__ __forceinline__ float visc_rdotgrad(float r2, float rl,
 
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
+// ---------------------------------------------------------------------------
+// The pair-sweep kernel: the range walk of a generic_sweep pair function
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
+// as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it. One thread per
+// hash-sorted query walks its exact neighbor ranges, rows 0-8 over the
+// fluid region and rows 9-17 (when present) over the boundary region of one
+// source matrix. The pair math comes from a functor P with the query,
+// source and output widths (QW, SW, OW; QW and SW multiples of 4, one float4
+// load each), BOUNDARY_ROWS (whether rows 9-17 are walked), and
+// template <int KS, bool B> pair(q, src, j, params, acc) with B true on the
+// boundary rows. Every formula keeps the operation order of ops/sph_pairs.py.
+//
+// Bound: memory traffic. Each candidate reads one source row (32 or 48
+// bytes) at a data-dependent address and does ~20-40 flops on it; sorted
+// neighbors share rows, so most reads hit L1/L2. Shared-memory tiling of a
+// cell block's sources is later work.
+
+template <int W>
+__device__ __forceinline__ void load_row(const float* __restrict__ base,
+                                         int i, float (&v)[W]) {
+  const float4* p =
+      reinterpret_cast<const float4*>(base) + static_cast<size_t>(i) * (W / 4);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const float4 t = __ldg(p + k);
+    v[4 * k + 0] = t.x;
+    v[4 * k + 1] = t.y;
+    v[4 * k + 2] = t.z;
+    v[4 * k + 3] = t.w;
+  }
+}
+
+// Pair geometry with the default gradient: grad W = s * (dx, dy, dz). The
+// Muller gradient is a function of r^2 alone, so it skips the rsqrt.
+struct Geom {
+  float dx, dy, dz, r2, s, okf;
+};
+
+template <int KS>
+__device__ __forceinline__ Geom default_geom(const float* q, float4 a,
+                                             const Params& p) {
+  Geom g;
+  g.dx = q[0] - a.x;
+  g.dy = q[1] - a.y;
+  g.dz = q[2] - a.z;
+  g.r2 = g.dx * g.dx + g.dy * g.dy + g.dz * g.dz;
+  float rl = 0.0f, invrl = 0.0f;
+  if constexpr (KS != MULLER) rl_invrl(g.r2, rl, invrl);
+  g.s = grad_scale_default<KS>(g.r2, rl, invrl, p);
+  g.okf = g.r2 < p.h2 ? 1.0f : 0.0f;
+  return g;
+}
+
+// the k-th float4 of source row j of a (M, width) matrix
+__device__ __forceinline__ float4 src_f4(const float* src, int width, int j,
+                                         int k) {
+  return __ldg(reinterpret_cast<const float4*>(src) +
+               static_cast<size_t>(j) * (width / 4) + k);
+}
+
+template <class P, int KS>
+__global__ void __launch_bounds__(THREADS)
+pair_sweep_kernel(const float* __restrict__ q, const float* __restrict__ src,
+                  const int* __restrict__ seg_start,
+                  const int* __restrict__ seg_end, int n, int n_rows,
+                  const float* __restrict__ pv, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Params p = load_params(pv);
+  float qv[P::QW];
+  load_row<P::QW>(q, i, qv);
+  float acc[P::OW];
+#pragma unroll
+  for (int k = 0; k < P::OW; ++k) acc[k] = 0.0f;
+  for_each_source(i, n, 0, min(n_rows, N_ROWS), seg_start, seg_end,
+                  [&](int j) {
+    P::template pair<KS, false>(qv, src, j, p, acc);
+  });
+  if constexpr (P::BOUNDARY_ROWS) {
+    for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
+      P::template pair<KS, true>(qv, src, j, p, acc);
+    });
+  }
+#pragma unroll
+  for (int k = 0; k < P::OW; ++k) out[static_cast<size_t>(i) * P::OW + k] = acc[k];
+}
+
+// Launches pair_sweep_kernel<P, kernel_set> on `stream`; returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
+template <class P>
+int launch_pair_sweep(const float* q, const float* src, const int* seg_start,
+                      const int* seg_end, int n, int n_rows,
+                      const float* pvec, int kernel_set, float* out,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kernel_set == MULLER) {
+    pair_sweep_kernel<P, MULLER><<<blocks_for(n), THREADS, 0, st>>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, out);
+  } else if (kernel_set == MONAGHAN) {
+    pair_sweep_kernel<P, MONAGHAN><<<blocks_for(n), THREADS, 0, st>>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, out);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace nereus_sweep
+
+// The C entry point nereus_<NAME>_sweep of pair_sweep_kernel<PAIR>, for use
+// inside an extern "C" block: launches one kernel on `stream` and returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
+#define NEREUS_PAIR_SWEEP(NAME, PAIR)                                        \
+  int nereus_##NAME##_sweep(const float* q, const float* src,               \
+                            const int* seg_start, const int* seg_end, int n, \
+                            int n_rows, const float* pvec, int kernel_set,   \
+                            float* out, void* stream) {                      \
+    return nereus_sweep::launch_pair_sweep<PAIR>(                          \
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,        \
+        stream);                                                             \
+  }

@@ -1,5 +1,6 @@
 """Build, load and launch the hand-written CUDA sweep kernels
-(``csrc/sph_sweep.cu`` for WCSPH, ``csrc/iisph_sweep.cu`` for IISPH; the
+(``csrc/sph_sweep.cu`` for the density and force sweeps,
+``csrc/iisph_sweep.cu`` for IISPH, ``csrc/dfsph_sweep.cu`` for DFSPH; the
 counterpart of ``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
@@ -49,13 +50,17 @@ class Kernel:
 DENSITY = Kernel("density_sweep_kernel")
 FORCE = Kernel("force_sweep_kernel")
 FORCE_P0 = Kernel("force_sweep_kernel<PRESSURE=0>")
-DII_RHOADV = Kernel("iisph_sweep_kernel<DiiRhoAdv>")
-AII = Kernel("iisph_sweep_kernel<Aii>")
-SUM_DIJ = Kernel("iisph_sweep_kernel<SumDij>")
-JACOBI = Kernel("iisph_sweep_kernel<Jacobi>")
-PRESSURE_FORCE = Kernel("iisph_sweep_kernel<PressureForce>")
+DII_RHOADV = Kernel("pair_sweep_kernel<DiiRhoAdv>")
+AII = Kernel("pair_sweep_kernel<Aii>")
+SUM_DIJ = Kernel("pair_sweep_kernel<SumDij>")
+JACOBI = Kernel("pair_sweep_kernel<Jacobi>")
+PRESSURE_FORCE = Kernel("pair_sweep_kernel<PressureForce>")
+# the density kernel at PCISPH's predicted positions, counted apart
+DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
+ALPHA = Kernel("pair_sweep_kernel<Alpha>")
+DRHO = Kernel("pair_sweep_kernel<Drho>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
-           PRESSURE_FORCE)
+           PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO)
 
 _lock = threading.Lock()
 _lib = None
@@ -202,7 +207,8 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 0, "force": 2, "dii_rhoadv": 0, "aii": 0,
-              "sum_dij": 0, "jacobi": 0, "pressure_force": 0}
+              "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
+              "drho": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -276,3 +282,24 @@ def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Implicit-solver pressure force (N, 3): q (N, 4), src (M, 8)."""
     return _sweep(PRESSURE_FORCE, "pressure_force", cfg, q, 4, src, 8,
                   seg_start, seg_end, pvec, (9, 18), 3)
+
+
+def predicted_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                            pvec):
+    """PCISPH's predicted density ρ* (N,) from the density kernel, counted
+    in ``DENSITY_PRED``: q (N, 4) and the source's fluid rows at the
+    predicted positions, over the start-of-step ranges."""
+    return _sweep(DENSITY_PRED, "density", cfg, q, 4, src, 8, seg_start,
+                  seg_end, pvec, (9, 18), 0)
+
+
+def alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """DFSPH factor accumulators (N, 4): q (N, 4), src (M, 8)."""
+    return _sweep(ALPHA, "alpha", cfg, q, 4, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 4)
+
+
+def drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """DFSPH Dρ/Dt (N,): q (N, 8), src (M, 8)."""
+    return _sweep(DRHO, "drho", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 0)

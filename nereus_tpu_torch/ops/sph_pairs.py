@@ -7,9 +7,10 @@ device memory, the plain formulas index it.
 
 Source matrices are (M, 8) float32 rows ``x y z vx vy vz s6 pad``. Slot 6
 means different things by region: ψ = m (density sweep), ρ_j (force
-sweep) or p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force) for fluid sources,
-ψ_b = ρ₀·V_b for boundary sources. Query matrices are (N, 4) ``x y z pad``
-for density and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH
+sweep) or p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force; κ_j/ρ_j in
+DFSPH's κ correction) for fluid sources, ψ_b = ρ₀·V_b for boundary
+sources. Query matrices are (N, 4) ``x y z pad`` for density and (N, 8)
+``x y z vx vy vz ρ pd2`` for forces. The IISPH
 Jacobi sweep reads a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
 ``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad``, boundary rows with ψ_b in slot 6.
 
@@ -19,8 +20,9 @@ every term but the density self term is exactly 0 at r = 0, and the Müller
 viscosity bracket (~1e36 at the clamp) multiplies r² before its ~1e4
 constant.
 
-Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep`` and the
-five IISPH sweeps) routes by device: a CPU tensor goes to the plain sweep,
+Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
+five IISPH sweeps, PCISPH's ``predicted_density_sweep`` and the two DFSPH
+sweeps) routes by device: a CPU tensor goes to the plain sweep,
 a CUDA float32 tensor to the hand-written kernel (``ops/cuda_sweep.py``);
 anything else raises.
 """
@@ -380,6 +382,32 @@ def grad_pressure_force_pair(q, s, pv, *, kernel_set, boundary,
 
 
 # ---------------------------------------------------------------------------
+# DFSPH pair formulas (default gradient)
+# ---------------------------------------------------------------------------
+
+def alpha_pair(q, s, pv, *, kernel_set, include_sq):
+    """DFSPH factor accumulators: Σψ∇W (3) and Σ|ψ∇W|² (fluid rows,
+    ``include_sq``; static boundaries add to the gradient sum alone).
+    q: x y z pad; src ψ in slot 6. Returns (P, 4)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = s[:, 6] * sg * okf
+    sq = c * c * r2 if include_sq else torch.zeros_like(c)
+    return torch.stack([c * dx, c * dy, c * dz, sq], dim=1)
+
+
+def drho_pair(q, s, pv, *, kernel_set):
+    """DFSPH velocity divergence Σψ_j(v_q − v_j)·∇W, one formula for both
+    regions (boundary source velocities are packed 0). q: x y z vx vy vz
+    pad pad. Returns (P, 1)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    dvx = q[:, 3] - s[:, 3]
+    dvy = q[:, 4] - s[:, 4]
+    dvz = q[:, 5] - s[:, 5]
+    c = s[:, 6] * sg * (dvx * dx + dvy * dy + dvz * dz) * okf
+    return c[:, None]
+
+
+# ---------------------------------------------------------------------------
 # Plain sweeps and the dispatchers
 # ---------------------------------------------------------------------------
 
@@ -458,6 +486,22 @@ def pressure_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                         boundary_sign=-1.0))
 
 
+def alpha_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """(Σψ∇W xyz, Σ|ψ∇W|²) (N, 4): q (N, 4), src (M, 8) with ψ in slot 6;
+    the square sum over the fluid rows only."""
+    return neighbor_sweep_plain(
+        _bind(alpha_pair, cfg, pvec, include_sq=True), q, src, seg_start,
+        seg_end, 4, pair_fn_b=_bind(alpha_pair, cfg, pvec, include_sq=False))
+
+
+def drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Dρ/Dt (N,): q (N, 8) x y z v pad pad, src (M, 8) with the fluid
+    velocities and ψ in slot 6."""
+    pair = _bind(drho_pair, cfg, pvec)
+    return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 1,
+                                pair_fn_b=pair)[:, 0]
+
+
 def _route(*tensors) -> str:
     """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
     for CUDA float32 ones; raises on anything else, or on mixed devices."""
@@ -474,17 +518,18 @@ def _route(*tensors) -> str:
                     "float32/float64, CUDA takes float32")
 
 
-def _dispatcher(plain, kernel_name):
-    """The sweep ``plain`` names, routed by device: ``plain`` for CPU
-    tensors, the CUDA kernel ``cuda_sweep.<kernel_name>`` for GPU ones;
-    keyword switches (``include_pressure``) go to both."""
+def _dispatcher(plain, kernel_name, name=None):
+    """The sweep ``name`` (default: ``plain``'s name without ``_plain``),
+    routed by device: ``plain`` for CPU tensors, the CUDA kernel
+    ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
+    (``include_pressure``) go to both."""
     def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
         if _route(q, src, pvec, seg_start) == "plain":
             return plain(cfg, q, src, seg_start, seg_end, pvec, **kw)
         from . import cuda_sweep
         return getattr(cuda_sweep, kernel_name)(cfg, q, src, seg_start,
                                                 seg_end, pvec, **kw)
-    sweep.__name__ = plain.__name__.removesuffix("_plain")
+    sweep.__name__ = name or plain.__name__.removesuffix("_plain")
     sweep.__doc__ = (f"``{plain.__name__}`` on CPU tensors, the CUDA kernel "
                      f"``cuda_sweep.{kernel_name}`` on GPU ones.")
     return sweep
@@ -498,3 +543,11 @@ sum_dij_sweep = _dispatcher(sum_dij_sweep_plain, "sum_dij_sweep")
 jacobi_sweep = _dispatcher(jacobi_sweep_plain, "jacobi_sweep")
 pressure_force_sweep = _dispatcher(pressure_force_sweep_plain,
                                    "pressure_force_sweep")
+alpha_sweep = _dispatcher(alpha_sweep_plain, "alpha_sweep")
+drho_sweep = _dispatcher(drho_sweep_plain, "drho_sweep")
+# PCISPH's predicted density ρ* at x*: the density sweep on the x* query
+# and source rows over the start-of-step ranges (``density_pair`` with
+# ``geom_offset=3`` on the TPU), its launches counted apart
+predicted_density_sweep = _dispatcher(density_sweep_plain,
+                                      "predicted_density_sweep",
+                                      name="predicted_density_sweep")

@@ -175,6 +175,49 @@ def iisph_params(**overrides) -> SimParams:
     return make_params(**defaults)
 
 
+def dfsph_params(**overrides) -> SimParams:
+    """DFSPH default parameter set: the IISPH physical parameters
+    (``sph/iisph/iisph.cpp:37-80``), since DFSPH replaces only the
+    pressure solve."""
+    defaults = dict(
+        viscosity=0.01,
+        surface_tension=0.01,
+        interaction_radius=0.0537,
+        beta=1050.0,
+        mass_factor=0.5,
+    )
+    defaults.update(overrides)
+    return make_params(**defaults)
+
+
+def pcisph_params(**overrides) -> SimParams:
+    """PCISPH default parameter set (``sph/pcisph/pcisph.cpp:37-80``); the
+    reference's PCISPH mass has no 0.5 factor (``pcisph.cpp:49``), so wrap
+    it in :func:`calibrate_mass` for a real corrective solve."""
+    defaults = dict(
+        viscosity=0.005,
+        surface_tension=0.0001,
+        interaction_radius=0.0537,
+        beta=650.0,
+        mass_factor=1.0,
+    )
+    defaults.update(overrides)
+    return make_params(**defaults)
+
+
+def prototype_lattice(params: SimParams, cfg: SimConfig, spacing: float):
+    """(P, 3) float64 offsets of a cubic lattice of ``spacing`` within the
+    kernel's support radius (h for Müller, 2h for Monaghan), origin
+    included: a particle's filled neighborhood at rest."""
+    h = float(params.interaction_radius)
+    support = h if cfg.kernel_set == KernelSet.MULLER else 2.0 * h
+    k = int(math.ceil(support / spacing)) + 1
+    ax = np.arange(-k, k + 1) * spacing
+    xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
+    pts = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], axis=-1)
+    return pts[np.sum(pts * pts, axis=-1) <= support * support]
+
+
 def calibrate_mass(params: SimParams, cfg: SimConfig,
                    spacing: float | None = None) -> SimParams:
     """Return params with the mass set so a rest lattice sums to ρ₀:
@@ -186,16 +229,9 @@ def calibrate_mass(params: SimParams, cfg: SimConfig,
     mass agrees to the last bit."""
     from . import kernels as K  # local import to avoid a cycle
 
-    h = float(params.interaction_radius)
     if spacing is None:
         spacing = 2.0 * float(params.particle_radius)
-    support = h if cfg.kernel_set == KernelSet.MULLER else 2.0 * h
-    k = int(math.ceil(support / spacing)) + 1
-    ax = np.arange(-k, k + 1) * spacing
-    xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
-    pts = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], axis=-1)
-    r2 = np.sum(pts * pts, axis=-1)
-    pts = pts[r2 <= support * support]
+    pts = prototype_lattice(params, cfg, spacing)
     cpu = {f.name: getattr(params, f.name).cpu()
            for f in dataclasses.fields(params)}
     w = K.w_value(cfg.kernel_set,

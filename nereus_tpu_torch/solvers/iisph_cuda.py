@@ -8,17 +8,12 @@ Euler. On CUDA tensors the sweeps are the hand-written kernels of
 ``csrc/sph_sweep.cu`` and ``csrc/iisph_sweep.cu``; on CPU tensors their
 plain PyTorch versions.
 
-The JAX step runs the solve as one on-device ``lax.while_loop``. Here
-every iteration is predicated on the device: it computes the loop
-condition ``((ρ_err > tol) | (it < min)) & (it < max)`` of the carry it
-starts from and commits ``p``, ``ρ_err`` and ``it`` only where it holds,
-so a frozen iteration changes nothing and the iteration count and ``p``
-are the while loop's. The host reads the condition after every
-:data:`SYNC_EVERY`-th launched iteration from ``iisph_min_iters`` on
-(before it, the condition holds), the only synchronisation in the step,
-and stops launching when it is false. Launches therefore count
-iterations launched, which may exceed ``solver_iters`` by up to
-``SYNC_EVERY − 1``.
+The JAX step runs the solve as one on-device ``lax.while_loop``; here it
+is a :class:`~.predicated_loop.PredicatedLoop` that commits ``p`` and
+``ρ_err`` and reads its condition on the host once per
+:data:`SYNC_EVERY` launched iterations from ``iisph_min_iters`` on, the
+only synchronisation in the step. Launches therefore count iterations
+launched, which may exceed ``solver_iters`` by up to ``SYNC_EVERY − 1``.
 
 The loop-invariant source and query matrices are built once per step;
 each iteration writes its pressure-dependent columns into them in place.
@@ -34,6 +29,7 @@ from .. import grid as gridlib
 from ..ops import sph_pairs as SP
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
+from .predicated_loop import LoopCounts, PredicatedLoop
 from .sweep_common import build_sweep_ctx
 from .wcsph import StepDiagnostics
 
@@ -45,18 +41,7 @@ from .wcsph import StepDiagnostics
 SYNC_EVERY = 2
 
 
-class LoopCounts:
-    """Jacobi iterations launched and host reads of the loop condition,
-    summed over steps until :meth:`reset`."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.launched = 0
-        self.syncs = 0
-
-
+# Jacobi iterations launched and host reads of their condition
 LOOP = LoopCounts()
 
 
@@ -116,14 +101,11 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     src_j = ctx.pack_wide([*dii, p, zero, zero, zero])
     qj = ctx.queries(zero, zero, zero, zero, width=8)
 
-    def cond(rho_err, it):
-        return (((rho_err > tol) | (it < cfg.iisph_min_iters))
-                & (it < cfg.iisph_max_iters))
-
-    rho_err = torch.full((), 2.0 * tol, dtype=cfg.dtype, device=dens.device)
-    it = torch.zeros((), dtype=torch.int32, device=dens.device)
-    go = cond(rho_err, it)
-    for n in range(cfg.iisph_max_iters):
+    loop = PredicatedLoop(LOOP, like=dens, tol=tol,
+                          min_iters=cfg.iisph_min_iters,
+                          max_iters=cfg.iisph_max_iters,
+                          sync_every=SYNC_EVERY, err0=2.0 * tol)
+    for _ in loop:
         torch.mul(p, inv_d2, out=src_pd[:c, 6])
         sum_dij = SP.sum_dij_sweep(cfg, q4, src_pd, ctx.seg_start_f,
                                    ctx.seg_end_f, ctx.pvec)
@@ -139,15 +121,8 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
         rho_corr = rho_adv + dt2 * (fb + aii * p)
         err = torch.clamp(rho_corr - rest, min=0.0)
         err_new = torch.sum(torch.where(active, err, zero)) / nact
-        p = torch.where(go, p_new, p)
-        rho_err = torch.where(go, err_new, rho_err)
-        it = it + go.to(torch.int32)
-        go = cond(rho_err, it)
-        LOOP.launched += 1
-        if n + 1 >= cfg.iisph_min_iters and (n + 1) % SYNC_EVERY == 0:
-            LOOP.syncs += 1
-            if not bool(go):
-                break
+        p = loop.commit(p_new, p)
+        loop.advance(err_new)
 
     # -- pressure force + integration --------------------------------------
     pd2 = p * inv_d2
@@ -170,9 +145,9 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     diag = StepDiagnostics(
         max_density=torch.max(torch.where(active, dens, zero)),
         # the solver residual is already clamped-positive (compression)
-        mean_density_error=rho_err / rest,
-        mean_compression=rho_err / rest,
+        mean_density_error=loop.err / rest,
+        mean_compression=loop.err / rest,
         seg_overflow=zero_i,
-        solver_iters=it,
+        solver_iters=loop.it,
     )
     return new_state, diag

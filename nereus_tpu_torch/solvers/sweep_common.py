@@ -7,6 +7,10 @@ hash payload: those exist for the TPU's Mosaic compiler. Per-step state
 stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
 the kernels read are built from them per sweep, and the IISPH Jacobi sweep
 reads a (M, 12) wide source (:meth:`SweepCtx.pack_wide`).
+
+Every sweep of a step walks the ranges built here from the start-of-step
+positions, PCISPH's predicted density at x* included
+(``solvers/pcisph_cuda.py``).
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ class SweepCtx:
 
     @functools.cached_property
     def pres_prev(self):
-        """(C,) previous pressure, hash-sorted: gathered on first use, so
-        only the IISPH warm start pays for it."""
+        """(C,) previous pressure (DFSPH: accumulated κ), hash-sorted:
+        gathered on first use, so only the implicit solvers' warm starts
+        pay for it."""
         return self.pressure.index_select(0, self.perm)
 
     @property
@@ -101,6 +106,22 @@ class SweepCtx:
         pad = self.b_src.new_zeros((self.b_src.shape[0],
                                     SP.WIDE_WIDTH - SP.SRC_WIDTH))
         return torch.cat([self.b_src, pad], dim=1)
+
+
+def pd2_operands(ctx: SweepCtx):
+    """The pressure-force sweep's operands, loop-invariant: returns
+    ``at(pd2) -> (q, src, seg_start, seg_end, pvec)``, which writes the
+    (C,) ``pd2`` (p/ρ², or DFSPH's κ/ρ) in place into query column 3 and
+    the fluid source rows' slot 6 (the boundary rows keep ψ_b)."""
+    z = torch.zeros_like(ctx.px)
+    q = ctx.queries(z)
+    src = ctx.pack((z, z, z), z)
+
+    def at(pd2):
+        q[:, 3] = pd2
+        src[:ctx.c, 6] = pd2
+        return q, src, ctx.seg_start, ctx.seg_end, ctx.pvec
+    return at
 
 
 def _boundary_src(boundary: BoundaryData):

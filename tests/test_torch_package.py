@@ -21,11 +21,13 @@ import nereus_tpu_torch
 from nereus_tpu_torch import scene
 from nereus_tpu_torch.ops import cuda_sweep
 from nereus_tpu_torch.ops import sph_pairs as SP
+from nereus_tpu_torch.solvers import pcisph_cuda
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
 
 torch.set_num_threads(1)
 
 PKG_DIR = os.path.dirname(nereus_tpu_torch.__file__)
+N_KERNELS = len(cuda_sweep.KERNELS)
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     [PKG_DIR], prefix="nereus_tpu_torch."))
 
@@ -88,7 +90,7 @@ def test_cpu_sweep_is_plain_and_launches_nothing():
     q, src, s, e, pv = _inputs()
     out = SP.density_sweep(nereus_tpu_torch.SimConfig(), q, src, s, e, pv)
     assert out.shape == (8,) and float(out.abs().max()) == 0.0
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -98,7 +100,7 @@ def test_cuda_wrappers_reject_cpu_tensors():
         cuda_sweep.density_sweep(cfg, q, src, s, e, pv)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sweep.force_sweep(cfg, torch.zeros((8, 8)), src, s, e, pv)
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -106,12 +108,12 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
-        os.path.join(PKG_DIR, "csrc", f) for f in ("iisph_sweep.cu",
-                                                   "sph_sweep.cu")]
+        os.path.join(PKG_DIR, "csrc", f) for f in (
+            "dfsph_sweep.cu", "iisph_sweep.cu", "sph_sweep.cu")]
 
 
-# the IISPH sweeps: (dispatcher, CUDA wrapper, query width, source width,
-# range rows)
+# the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
+# query width, source width, range rows)
 IISPH_SWEEPS = {
     "dii_rhoadv": (SP.dii_rhoadv_sweep, cuda_sweep.dii_rhoadv_sweep, 12, 8,
                    18),
@@ -121,10 +123,16 @@ IISPH_SWEEPS = {
     "pressure_force": (SP.pressure_force_sweep,
                        cuda_sweep.pressure_force_sweep, 4, 8, 18),
 }
+PCISPH_DFSPH_SWEEPS = {
+    "predicted_density": (SP.predicted_density_sweep,
+                          cuda_sweep.predicted_density_sweep, 4, 8, 18),
+    "alpha": (SP.alpha_sweep, cuda_sweep.alpha_sweep, 4, 8, 18),
+    "drho": (SP.drho_sweep, cuda_sweep.drho_sweep, 8, 8, 18),
+}
 
 
-def _iisph_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
-    _, _, fq, fs, rows = IISPH_SWEEPS[key]
+def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
+    _, _, fq, fs, rows = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS}[key]
     return (torch.zeros((n, fq), dtype=dtype, device=device),
             torch.zeros((m, fs), dtype=dtype, device=device),
             torch.zeros((rows, n), dtype=torch.int32, device=device),
@@ -132,20 +140,28 @@ def _iisph_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
             torch.zeros((SP.PV_LEN,), dtype=dtype, device=device))
 
 
-@pytest.mark.parametrize("key", sorted(IISPH_SWEEPS))
-def test_iisph_dispatchers_route_by_device(key):
+def _routes_by_device(dispatch, wrapper, key):
     """CPU float32 runs the plain sweep and launches nothing; unsupported
     dtypes raise; the CUDA wrapper refuses CPU tensors."""
-    dispatch, wrapper = IISPH_SWEEPS[key][:2]
     cfg = nereus_tpu_torch.SimConfig()
     cuda_sweep.reset_launches()
-    out = dispatch(cfg, *_iisph_inputs(key))
+    out = dispatch(cfg, *_sweep_inputs(key))
     assert out.shape[0] == 8 and float(out.abs().max()) == 0.0
     with pytest.raises(TypeError):
-        dispatch(cfg, *_iisph_inputs(key, dtype=torch.float16))
+        dispatch(cfg, *_sweep_inputs(key, dtype=torch.float16))
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(cfg, *_iisph_inputs(key))
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8
+        wrapper(cfg, *_sweep_inputs(key))
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
+
+
+@pytest.mark.parametrize("key", sorted(IISPH_SWEEPS))
+def test_iisph_dispatchers_route_by_device(key):
+    _routes_by_device(*IISPH_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(PCISPH_DFSPH_SWEEPS))
+def test_pcisph_dfsph_dispatchers_route_by_device(key):
+    _routes_by_device(*PCISPH_DFSPH_SWEEPS[key][:2], key)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +222,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1, 0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 9
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -288,7 +304,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
         "force_p0")
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0, 1, 1, 1, 1, 1, 1]
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0] + [1] * 6 + [0] * 3
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -324,5 +340,102 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
+    assert torch.isfinite(state.pos).all()
+    assert float(state.pressure.min()) >= 0.0
+
+
+def _settled_block(params_fn, cuda, n_target=4000):
+    """The settled block of the PCISPH and DFSPH main paths at a small
+    size: mass calibrated to the 0.8·h lattice, impact velocity −1 m/s."""
+    cfg = nereus_tpu_torch.SimConfig()
+    base = params_fn(device=cuda)
+    spacing = 0.8 * float(base.interaction_radius)
+    params = nereus_tpu_torch.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, boundary = scene.resting_block(
+        params, cfg, n_target=n_target, spacing=spacing,
+        impact_velocity=-1.0, device=cuda)
+    return cfg, params, state, grid, boundary
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """The predicted-density, α and Dρ/Dt kernels against their plain
+    versions on the small dam-break after one real DFSPH step, with x*
+    moved up to 0.3·h: max|Δ| ≤ 1e-4·max|ref| per output column."""
+    cfg = nereus_tpu_torch.SimConfig(
+        kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
+    base = nereus_tpu_torch.dfsph_params(dt=5e-4, device=cuda)
+    spacing = float(base.interaction_radius) - 0.005
+    params = nereus_tpu_torch.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, boundary = scene.dam_break(
+        params, cfg, cube_size=(0.25,) * 3, cube_center=(-0.3, 0.05, 0.5),
+        box_min=(-0.8, -0.115, 0.0), box_max=(0.2, 0.7, 1.0),
+        boundary_radius=0.04, device=cuda)
+    pos = state.pos.cpu().numpy()
+    vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
+    state = nereus_tpu_torch.make_fluid_state(pos, vel, device=cuda)
+    state, _ = nereus_tpu_torch.dfsph_step(state, params, grid, cfg,
+                                           boundary)
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    rows = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    pm = params.particle_mass
+    shift = torch.from_numpy(np.random.default_rng(1).uniform(
+        -0.3, 0.3, (ctx.c, 3))).float().to(cuda) * params.interaction_radius
+    x = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1) + shift
+    cases = {
+        "predicted_density":
+            pcisph_cuda.predicted_density_operands(ctx, pm)(x),
+        "alpha": (ctx.queries(width=4), ctx.pack(vel, pm), *rows),
+        "drho": (ctx.queries(*vel, width=8), ctx.pack(vel, pm), *rows),
+    }
+    plain = {"predicted_density": SP.density_sweep_plain,
+             "alpha": SP.alpha_sweep_plain, "drho": SP.drho_sweep_plain}
+    cuda_sweep.reset_launches()
+    for key, args in cases.items():
+        got = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
+        _assert_columns_close(got, plain[key](cfg, *args), key)
+    torch.cuda.synchronize()
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8 + [1] * 3
+
+
+@pytest.mark.requires_cuda
+def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
+    """A few PCISPH and DFSPH steps of the settled block on the card:
+    every kernel of each path launched as often as its loops say."""
+    from nereus_tpu_torch.solvers import dfsph_cuda
+    cfg, params, state, grid, boundary = _settled_block(
+        nereus_tpu_torch.pcisph_params, cuda)
+    delta = nereus_tpu_torch.pcisph_delta(params, cfg)
+    cuda_sweep.reset_launches()
+    pcisph_cuda.LOOP.reset()
+    iters = 0
+    for _ in range(3):
+        state, diag = nereus_tpu_torch.pcisph_step(
+            state, params, grid, cfg, boundary, delta=delta, tol_frac=0.001)
+        iters += int(diag.solver_iters)
+    launched = pcisph_cuda.LOOP.launched
+    assert launched >= iters > 3 * cfg.pcisph_min_iters
+    assert [k.launches for k in cuda_sweep.KERNELS] == [
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0]
+    assert torch.isfinite(state.pos).all()
+    assert float(state.pressure.min()) >= 0.0
+
+    cfg, params, state, grid, boundary = _settled_block(
+        nereus_tpu_torch.dfsph_params, cuda)
+    cuda_sweep.reset_launches()
+    dfsph_cuda.LOOP.reset()
+    dfsph_cuda.LOOP_V.reset()
+    iters = 0
+    for _ in range(3):
+        state, diag = nereus_tpu_torch.dfsph_step(state, params, grid, cfg,
+                                                  boundary)
+        iters += int(diag.solver_iters)
+    launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
+    assert launched >= iters > 3 * (cfg.dfsph_min_iters
+                                    + cfg.dfsph_min_iters_v)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched]
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0

@@ -7,9 +7,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 
 import nereus_tpu as jt
 from nereus_tpu import scene as jscene
+from nereus_tpu.ops import pallas_sph as PS
 from nereus_tpu_torch import convert
 
 # (kernel set, surface-tension model) grid of the port tests
@@ -42,12 +44,17 @@ def jax_scene(with_boundary, kernel_set=jt.KernelSet.MULLER,
     return cfg, params, state, grid, boundary
 
 
+def params_to_port(params, device="cpu"):
+    """The same params as port params on ``device``."""
+    return convert.params_from_numpy(
+        {f.name: np.asarray(getattr(params, f.name))
+         for f in dataclasses.fields(params)}, device=device)
+
+
 def to_port(cfg, params, state, grid, boundary, device="cpu"):
     """The same config, params, state, grid and boundary as port objects
     on ``device``."""
-    pparams = convert.params_from_numpy(
-        {f.name: np.asarray(getattr(params, f.name))
-         for f in dataclasses.fields(params)}, device=device)
+    pparams = params_to_port(params, device)
     pboundary = None
     if boundary is not None:
         pboundary = convert.boundary_from_numpy(
@@ -58,3 +65,27 @@ def to_port(cfg, params, state, grid, boundary, device="cpu"):
             convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
                                     device=device),
             pboundary)
+
+
+@pytest.fixture
+def exact_reciprocal(monkeypatch):
+    """Interpret mode evaluates the force pair's ``pl.reciprocal(approx=
+    True)`` with a ~4e-3 relative error. The port divides exactly, as the
+    JAX pair formulas do outside a Mosaic kernel (``_fast_recip``); hold
+    both to the exact form so the tolerance measures the sweep. Import it
+    into a test module to use it there."""
+    monkeypatch.setattr(PS, "_fast_recip", lambda x: 1.0 / x)
+
+
+def assert_columns_close(got, want, rtol, name=""):
+    """Per output column: max|got − want| ≤ ``rtol``·max|want|, the
+    reference column not all zero (the check would be vacuous), and the
+    port's output finite."""
+    got = np.asarray(got).reshape(len(got), -1)
+    want = np.asarray(want).reshape(len(want), -1)
+    assert np.isfinite(got).all(), name
+    for col in range(want.shape[1]):
+        scale = np.abs(want[:, col]).max()
+        assert scale > 0.0, (name, col)
+        err = np.abs(got[:, col] - want[:, col]).max()
+        assert err <= rtol * scale, (name, col, err, scale)

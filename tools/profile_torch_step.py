@@ -1,19 +1,23 @@
 """Where the time of one step of the PyTorch port goes, on a CUDA card.
 
-    python3 tools/profile_torch_step.py --solver wcsph|iisph \
-        [--warmup N] [--steps N]
+    python3 tools/profile_torch_step.py --solver wcsph|iisph|pcisph|dfsph \
+        [--warmup N] [--steps N] [--sync-every K]
 
-Builds the solver's 1M main-path scene of ``chip_smoke.py`` (wcsph: the
+Builds the solver's main-path scene of ``chip_smoke.py`` (wcsph: the
 ``dam_break(n_target=2**20)`` with its boundary shell; iisph: the settled
-``resting_block(n_target=2**20)``), runs ``--warmup`` steps, times
-``--steps`` steps with CUDA events and the host clock, then profiles the
-next ``--steps`` steps with ``torch.profiler`` and prints, for those
-steps, the device time per step by kernel and the device busy time per
-step (the sum of all device time: one stream, so nothing overlaps). The
-profiler slows the host's launches, so the idle share is taken against
-the unprofiled steps' CUDA-event time (pick ``--warmup`` so that both
-windows run the same solver iterations); the profiled window's own idle
-share is printed beside it.
+``resting_block(n_target=2**20)``; pcisph, dfsph: the settled
+``resting_block(n_target=256_000)`` of ``bench.py``'s ``*_256k_settled``
+cells), runs ``--warmup`` steps, times ``--steps`` steps with CUDA events
+and the host clock, then profiles the next ``--steps`` steps with
+``torch.profiler`` and prints, for those steps, the device time per step
+by kernel and the device busy time per step (the sum of all device time:
+one stream, so nothing overlaps). The profiler slows the host's launches,
+so the idle share is taken against the unprofiled steps' CUDA-event time
+(pick ``--warmup`` so that both windows run the same solver iterations);
+the profiled window's own idle share is printed beside it.
+``--sync-every`` sets the solver loop's host-read interval (the
+``SYNC_EVERY`` of ``solvers/{iisph,pcisph,dfsph}_cuda.py``; for DFSPH its
+density loop), to price it: the iterations do not depend on it.
 Imports no JAX; needs a CUDA card.
 """
 
@@ -25,55 +29,58 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def build(solver, dev):
+    """``(state, step, loops)``: the main-path scene of ``solver``, its
+    step function and the ``LoopCounts`` of its solver loops."""
+    import chip_smoke as smoke
     import nereus_tpu_torch as nt
-    from nereus_tpu_torch import scene
-    cfg = nt.SimConfig()
+    from nereus_tpu_torch.solvers import dfsph_cuda, iisph_cuda, pcisph_cuda
     if solver == "wcsph":
-        params = nt.make_params(device=dev)
-        state, grid, boundary = scene.dam_break(params, cfg, n_target=2 ** 20,
-                                                device=dev)
+        cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
 
         def step(s):
             return nt.wcsph_step(s, params, grid, cfg, boundary)
-    else:
-        base = nt.iisph_params(device=dev)
-        spacing = 0.8 * float(base.interaction_radius)
-        params = nt.calibrate_mass(base, cfg, spacing=spacing)
-        state, grid, boundary = scene.resting_block(
-            params, cfg, n_target=2 ** 20, spacing=spacing,
-            impact_velocity=-1.0, device=dev)
-
-        def step(s):
-            return nt.iisph_step(s, params, grid, cfg, boundary, tol=1.0,
-                                 omega=0.5)
-    return state, step
+        return state, step, ()
+    n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
+    _, _, state, _, _, step = smoke.settled_main_path(solver, dev, n)
+    loops = {"iisph": (iisph_cuda.LOOP,), "pcisph": (pcisph_cuda.LOOP,),
+             "dfsph": (dfsph_cuda.LOOP_V, dfsph_cuda.LOOP)}[solver]
+    return state, step, loops
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--solver", choices=("wcsph", "iisph"), required=True)
+    ap.add_argument("--solver", choices=("wcsph", "iisph", "pcisph", "dfsph"),
+                    required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--sync-every", type=int)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: needs a CUDA device")
-    from nereus_tpu_torch.solvers import iisph_cuda
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    state, step = build(args.solver, dev)
+    state, step, loops = build(args.solver, dev)
+    if args.sync_every is not None:
+        import importlib
+        importlib.import_module(
+            f"nereus_tpu_torch.solvers.{args.solver}_cuda").SYNC_EVERY = \
+            args.sync_every
+        print(f"{args.solver}: SYNC_EVERY = {args.sync_every}")
     iters = []
     for _ in range(args.warmup):
         state, diag = step(state)
     torch.cuda.synchronize()
 
-    iisph_cuda.LOOP.reset()
+    for lp in loops:
+        lp.reset()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -89,9 +96,9 @@ def main():
     print(f"{args.solver}: steps {args.warmup + 1}-{args.warmup + args.steps}"
           f": {ms_plain:.4f} ms/step (CUDA events), host loop "
           f"{t_host:.4f} ms/step"
-          f" to the last enqueue; solver_iters {n_it}, Jacobi iterations "
-          f"launched {iisph_cuda.LOOP.launched}, host syncs "
-          f"{iisph_cuda.LOOP.syncs}")
+          f" to the last enqueue; solver_iters {n_it}, iterations launched "
+          f"{[lp.launched for lp in loops]}, host syncs "
+          f"{[lp.syncs for lp in loops]} (per solver loop)")
 
     from torch.profiler import ProfilerActivity, profile
     iters = []
