@@ -53,6 +53,27 @@ Phases, in order; any failure exits non-zero:
    kernel of the path against its plain version at these shapes, timed
    in turns.
 
+10. the multiphase density and force kernels against their plain versions
+    on the phase-3 dam-break split in two phases as ``bench.py`` splits
+    ``multiphase_1M`` (the top half by y at 0.3·ρ₀, mass ρ0_i/ρ₀·m), fed
+    the operands of its first multiphase step built by the step's own
+    operand functions, both kernel sets × {NONE, BECKER with st_cross =
+    0.25}; and the XSPH kernel on the first XSPH step's operands of the
+    single-phase dam-break, both kernel sets (max|Δ| ≤ 1e-4·max|ref| per
+    output column, and finite);
+11. the multiphase main path, ``bench.py``'s ``multiphase_1M``: phase 4's
+    dam-break with its boundary shell, split in two phases, 300
+    ``wcsph_step`` calls at dt = 1e-3, steps 51-300 timed with CUDA
+    events; gates: each multiphase kernel launched once per step and no
+    other kernel, finite positions, nothing below the floor, mean
+    compression (against each particle's own ρ₀) < 0.1, the light phase's
+    mean height above the heavy phase's; then both kernels against their
+    plain versions at these shapes, timed in turns;
+12. the XSPH path ``wcsph_1M_xsph``: phase 4's dam-break, 300 steps with
+    ``xsph_eps = 0.3``, phase 4's gates plus one XSPH launch per step; then
+    the density, force and XSPH kernels against their plain versions at
+    these shapes, timed in turns.
+
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
 physics cross-check, not a gate.
@@ -72,6 +93,7 @@ run fails if a path launched a kernel it did not hold against its plain
 version. Without a CUDA device the script fails before it prints either.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -90,12 +112,16 @@ IMPLICIT_STEPS = 60
 IMPLICIT_TIMED_FROM = 10    # steps 11..60 are timed
 IISPH_TOL = 1.0          # kg/m^3
 IISPH_OMEGA = 0.5
+WCSPH_FLUID = 1_092_727  # dam_break(n_target=2**20)
 IISPH_FLUID = 1_092_727
 SETTLED_N = 256_000      # bench.py's *_256k_settled cells
 SETTLED_FLUID = 262_144
 PCISPH_TOL_FRAC = 0.001  # bench.py's settled PCISPH tolerance
 DFSPH_TOL = 1.0          # kg/m^3, tol and tol_v
 V5E_ITERS_1_10 = {"pcisph": 41.8, "dfsph": 10.2}   # BASELINE.md:98, :101
+MP_RATIO = 0.3           # bench.py's multiphase_1M: the top half at 0.3*rho0
+MP_ST_CROSS = 0.25       # the cross-phase cohesion of phase 10
+XSPH_EPS = 0.3           # tests/test_xsph.py's epsilon
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -109,7 +135,8 @@ F32_OPS_PER_S = 67e12
 PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (23, 0),
             "jacobi": (35, 22), "pressure_force": (24, 24),
-            "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25)}
+            "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
+            "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0)}
 
 
 def fail(msg):
@@ -336,6 +363,64 @@ def dfsph_operands(cfg, ctx, params):
     }
 
 
+def two_phase(state, params):
+    """``state`` split as ``bench.py:416-431`` splits ``multiphase_1M``
+    (the CLI's ``--second-phase 0.3:0.5``): the top half of the fluid by
+    y at ``MP_RATIO``·ρ₀, mass ρ0_i·m/ρ₀; parked slots keep ρ₀."""
+    n = int(state.num_active)
+    pos = state.pos[:n].cpu().numpy()
+    y_cut = np.quantile(pos[:, 1], 0.5)
+    rd = float(params.rest_density)
+    pm = float(params.particle_mass)
+    rho0 = np.full(state.capacity, rd)
+    rho0[:n] = np.where(pos[:, 1] >= y_cut, rd * MP_RATIO, rd)
+    dev = state.pos.device
+    return dataclasses.replace(
+        state, mass=torch.tensor(rho0 * (pm / rd), dtype=torch.float32,
+                                 device=dev),
+        rho0=torch.tensor(rho0, dtype=torch.float32, device=dev))
+
+
+def multiphase_operands(cfg, ctx, params):
+    """The operands of both sweeps of one multiphase step from ``ctx``,
+    built by ``solvers/wcsph_cuda.py``'s own operand functions, the
+    force's from the plain density: ``{key: (kernel, plain, args,
+    kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import wcsph_cuda
+    dargs = wcsph_cuda.multiphase_density_operands(ctx)
+    dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
+    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, cfg,
+                                                       dout)
+    return {"mp_density": (cuda_sweep.multiphase_density_sweep,
+                           SP.multiphase_density_sweep_plain, dargs, {}),
+            "mp_force": (cuda_sweep.multiphase_force_sweep,
+                         SP.multiphase_force_sweep_plain, fargs, {})}
+
+
+def xsph_path_operands(cfg, ctx, params):
+    """The operands of the three sweeps of one XSPH step from ``ctx``, as
+    ``solvers/wcsph_cuda.py`` builds them, each from the plain versions'
+    upstream results (the XSPH sweep's from the plain density and the
+    velocity after the plain force): ``{key: (kernel, plain, args,
+    kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import wcsph_cuda
+    dargs, _ = sweep_inputs(ctx, params)
+    dens = SP.density_sweep_plain(cfg, *dargs)
+    _, fargs = sweep_inputs(ctx, params, dens)
+    f = SP.fluid_force_sweep_plain(cfg, *fargs)
+    pm, dt = params.particle_mass, params.dt
+    nv = [v + (dt / pm) * (f[:, k] + pm * params.gravity[k])
+          for k, v in enumerate((ctx.vx, ctx.vy, ctx.vz))]
+    return {"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
+                        dargs, {}),
+            "force": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
+                      fargs, {}),
+            "xsph": (cuda_sweep.xsph_sweep, SP.xsph_sweep_plain,
+                     wcsph_cuda.xsph_operands(ctx, nv, dens), {})}
+
+
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
@@ -557,8 +642,9 @@ def wcsph_main_path(dev):
     return cfg, params, state, grid, boundary
 
 
-def run_wcsph(cfg, params, state, grid, boundary):
-    """``N_STEPS`` WCSPH steps from ``state``, the steps after
+def run_wcsph(cfg, params, state, grid, boundary, xsph_eps=None):
+    """``N_STEPS`` WCSPH steps from ``state`` (with ``xsph_eps``; a
+    multiphase state runs the multiphase step), the steps after
     ``TIMED_FROM`` timed with CUDA events; returns ``(state, diag,
     ms/step, max seg_overflow)``."""
     import nereus_tpu_torch as nt
@@ -568,7 +654,8 @@ def run_wcsph(cfg, params, state, grid, boundary):
     for i in range(N_STEPS):
         if i == TIMED_FROM:
             start.record()
-        state, diag = nt.wcsph_step(state, params, grid, cfg, boundary)
+        state, diag = nt.wcsph_step(state, params, grid, cfg, boundary,
+                                    xsph_eps=xsph_eps)
         overflow = torch.maximum(overflow, diag.seg_overflow)
     end.record()
     torch.cuda.synchronize()
@@ -626,6 +713,9 @@ def main():
     # -- 4. the main path ----------------------------------------------------
     t0 = time.perf_counter()
     cfg, params, state, grid, boundary = wcsph_main_path(dev)
+    # phases 11 and 12 start from the same scene (the steps never write
+    # their input state)
+    dam_1m = (cfg, params, state, grid, boundary)
     torch.cuda.synchronize()
     n = int(state.num_active)
     floor = float(boundary.pos[:, 1].min())
@@ -633,8 +723,8 @@ def main():
           f"{boundary.num_boundaries} boundary samples, grid {grid.size}, "
           f"dt {float(params.dt)}, floor y {floor:.6g}; set-up "
           f"{time.perf_counter() - t0:.1f} s")
-    if n != 1_092_727:
-        fail(f"expected 1,092,727 fluid particles, got {n}")
+    if n != WCSPH_FLUID:
+        fail(f"expected {WCSPH_FLUID:,} fluid particles, got {n}")
 
     torch.cuda.synchronize()
     cuda_sweep.reset_launches()
@@ -839,12 +929,126 @@ def main():
         cfg, dfsph_operands(cfg, ctx, params),
         f"DFSPH main path after {IMPLICIT_STEPS} steps", time_it=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, ctx, boundary, grid
+
+    # -- 10. multiphase and XSPH kernels vs plain, on one real step's operands
+    print(f"multiphase / XSPH kernels vs plain, dam-break n_target="
+          f"{SMALL_N} (multiphase: top half by y at {MP_RATIO}·ρ₀), floor in "
+          "support, seeded velocities:")
+    for ks in ("MULLER", "MONAGHAN"):
+        params = nt.make_params(device=dev)
+        for st, cross in (("NONE", 0.0), ("BECKER", MP_ST_CROSS)):
+            cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks],
+                               surface_tension_model=nt.SurfaceTensionModel[
+                                   st], st_cross=cross)
+            state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+            # the first step's operands: a step of this uncalibrated scene
+            # lifts its bottom layer off the floor under Monaghan kernels
+            ctx = build_sweep_ctx(two_phase(state, params), params, grid,
+                                  cfg, boundary)
+            compare_kernels(cfg, multiphase_operands(cfg, ctx, params),
+                            f"multiphase {ks}+{st} st_cross {cross} "
+                            f"n={state.capacity} "
+                            f"nb={boundary.num_boundaries}")
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        compare_kernels(cfg, xsph_path_operands(cfg, ctx, params),
+                        f"xsph {ks} n={state.capacity}", keys=("xsph",))
+    torch.cuda.synchronize()
+
+    # -- 11. the multiphase main path (bench.py's multiphase_1M) -----------
+    cfg, params, state, grid, boundary = dam_1m
+    state = two_phase(state, params)
+    n = int(state.num_active)
+    floor = float(boundary.pos[:, 1].min())
+    rd = float(params.rest_density)
+    light = state.rho0[:n] < 0.5 * rd
+    print(f"multiphase main path: {n} fluid particles ({int(light.sum())} "
+          f"at {MP_RATIO}·ρ₀), {boundary.num_boundaries} boundary samples, "
+          f"surface tension {cfg.surface_tension_model.name} st_cross "
+          f"{cfg.st_cross}")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diag, ms, overflow = run_wcsph(cfg, params, state, grid,
+                                          boundary)
+    t_host = time.perf_counter() - t_host
+    mp_launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    y = state.pos[:n, 1]
+    light = state.rho0[:n] < 0.5 * rd
+    y_light, y_heavy = float(y[light].mean()), float(y[~light].mean())
+    min_y = float(y.min())
+    mc = float(diag.mean_compression)
+    print(f"multiphase main path: {N_STEPS} steps in {t_host:.2f} s host; "
+          f"steps {TIMED_FROM + 1}-{N_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"multiphase main path: launches {mp_launches}, seg_overflow max "
+          f"{overflow}, min y {min_y:.6g}, mean_compression {mc:.6g}, "
+          f"mean_density_error {float(diag.mean_density_error):.6g}, "
+          f"max_density {float(diag.max_density):.6g}, mean y light "
+          f"{y_light:.6g} heavy {y_heavy:.6g}")
+    check_launches("multiphase main path", {cuda_sweep.MP_DENSITY: N_STEPS,
+                                            cuda_sweep.MP_FORCE: N_STEPS})
+    if overflow != 0:
+        fail(f"multiphase: seg_overflow {overflow}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("multiphase: non-finite positions")
+    if min_y < floor:
+        fail(f"multiphase: floor penetration: min y {min_y} < floor {floor}")
+    if not mc < 0.1:
+        fail(f"multiphase: mean_compression {mc} >= 0.1")
+    if not y_light > y_heavy:
+        fail(f"multiphase: light phase's mean height {y_light} not above "
+             f"the heavy phase's {y_heavy}")
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    mp_timing = compare_kernels(
+        cfg, multiphase_operands(cfg, ctx, params),
+        f"multiphase main path after {N_STEPS} steps", time_it=True)
+    del state, diag, ctx
+
+    # -- 12. the XSPH path -------------------------------------------------
+    cfg, params, state, grid, boundary = dam_1m
+    n = int(state.num_active)
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diag, ms, overflow = run_wcsph(cfg, params, state, grid,
+                                          boundary, xsph_eps=XSPH_EPS)
+    t_host = time.perf_counter() - t_host
+    xsph_launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    min_y = float(state.pos[:n, 1].min())
+    mc = float(diag.mean_compression)
+    print(f"XSPH path (xsph_eps {XSPH_EPS}): {N_STEPS} steps in "
+          f"{t_host:.2f} s host; steps {TIMED_FROM + 1}-{N_STEPS}: "
+          f"{ms:.4f} ms/step = {n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"XSPH path: launches {xsph_launches}, seg_overflow max "
+          f"{overflow}, min y {min_y:.6g}, mean_compression {mc:.6g}, "
+          f"mean_density_error {float(diag.mean_density_error):.6g}, "
+          f"max_density {float(diag.max_density):.6g}")
+    check_launches("XSPH path", {cuda_sweep.DENSITY: N_STEPS,
+                                 cuda_sweep.FORCE: N_STEPS,
+                                 cuda_sweep.XSPH: N_STEPS})
+    if overflow != 0:
+        fail(f"XSPH: seg_overflow {overflow}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("XSPH: non-finite positions")
+    if min_y < floor:
+        fail(f"XSPH: floor penetration: min y {min_y} < floor {floor}")
+    if not mc < 0.1:
+        fail(f"XSPH: mean_compression {mc} >= 0.1")
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    xsph_timing = compare_kernels(
+        cfg, xsph_path_operands(cfg, ctx, params),
+        f"XSPH path after {N_STEPS} steps", time_it=True)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
     iisph_src = "nereus_tpu_torch/csrc/iisph_sweep.cu"
     dfsph_src = "nereus_tpu_torch/csrc/dfsph_sweep.cu"
+    mp_src = "nereus_tpu_torch/csrc/multiphase_sweep.cu"
     rep = "nereus_tpu/ops/pallas_sph.py:"
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
@@ -857,13 +1061,18 @@ def main():
                                rep + "922"),
             "density_pred": (cuda_sweep.DENSITY_PRED, sph_src, rep + "1193"),
             "alpha": (cuda_sweep.ALPHA, dfsph_src, rep + "578"),
-            "drho": (cuda_sweep.DRHO, dfsph_src, rep + "903")}
+            "drho": (cuda_sweep.DRHO, dfsph_src, rep + "903"),
+            "mp_density": (cuda_sweep.MP_DENSITY, mp_src, rep + "628"),
+            "mp_force": (cuda_sweep.MP_FORCE, mp_src, rep + "657"),
+            "xsph": (cuda_sweep.XSPH, mp_src, rep + "603")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
             ("iisph_1M_settled", iisph_timing, iisph_launches),
             ("pcisph_256k_settled", pcisph_timing, pcisph_launches),
-            ("dfsph_256k_settled", dfsph_timing, dfsph_launches)):
+            ("dfsph_256k_settled", dfsph_timing, dfsph_launches),
+            ("multiphase_1M", mp_timing, mp_launches),
+            ("wcsph_1M_xsph", xsph_timing, xsph_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:

@@ -1,7 +1,8 @@
 """nereus_tpu_torch: the PyTorch + CUDA port of nereus_tpu.
 
-The single-phase WCSPH, IISPH, PCISPH and DFSPH steps of ``nereus_tpu`` on
-one NVIDIA GPU: the same public names and semantics for the ported
+The WCSPH step (single phase with optional XSPH, and multiphase) and the
+single-phase IISPH, PCISPH and DFSPH steps of ``nereus_tpu`` on one NVIDIA
+GPU: the same public names and semantics for the ported
 subset, with the neighbor sweeps as hand-written CUDA kernels for Hopper
 (``csrc/``) and plain PyTorch versions of them on the CPU. Entry points build on the CUDA
 device unless given another. Imports torch and numpy, never JAX.

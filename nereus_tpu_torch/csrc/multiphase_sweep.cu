@@ -1,0 +1,186 @@
+// Pair functions of the multiphase WCSPH step and of XSPH, for Hopper
+// (sm_90a).
+//
+// Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
+// as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the pair
+// functions of pallas_sph.py that solvers/wcsph_pallas.py runs:
+// multiphase_density_pair / multiphase_density_bpair and
+// multiphase_force_pair / multiphase_boundary_pair
+// (_wcsph_pallas_multiphase), and xsph_pair (wcsph_step_pallas with
+// xsph_eps).
+//
+// Design: one functor each for the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
+// hash-sorted query, exact neighbor ranges), in the operation order of
+// nereus_tpu_torch/ops/sph_pairs.py. The self pair stays in the ranges:
+// it gives the number density its W(0), and every force and XSPH term is
+// exactly 0 there (r^2 is clamped before the rsqrt, so the gradients are
+// finite and multiply r = 0; dv = 0; Becker's r is 0). The viscosity
+// bracket multiplies r^2 before its kernel constant (visc_rdotgrad) and the
+// viscosity denominator divides exactly. The same-phase test of Becker
+// cohesion is an exact float compare of two copies of one sorted rho0
+// column.
+//
+// Bound: memory traffic (sweep_common.cuh). The multiphase force sweep
+// reads 48-byte wide source rows (two per-source scalars, V_j and p_j V_j^2,
+// plus rho0_j) where the single-phase force sweep reads 32-byte rows; the
+// multiphase density sweep reads 16-byte rows (position and psi_b only),
+// the XSPH sweep 32-byte rows.
+//
+// Layouts (row-major float32, 16-byte aligned rows):
+//   multiphase density: q (N, 4) x y z pad; src (M, 4) fluid x y z 0,
+//       boundary x y z psi_b; out (N, 2) sum W (fluid rows), sum psi_b W
+//       (boundary rows)
+//   multiphase force: q (N, 12) x y z vx vy vz p_iV_i^2 1/m_i m_i 1/rho_i
+//       [rho0_i] pad; src (M, 12) fluid x y z vx vy vz V_j p_jV_j^2
+//       [rho0_j] pad pad pad, boundary x y z 0 0 0 psi_b 0...; out (N, 3)
+//       acceleration
+//   xsph: q (N, 8) x y z vx vy vz rho pad; src (M, 8) x y z vx vy vz rho
+//       pad, fluid rows only (9 range rows); out (N, 3), scaled by eps
+//       outside
+
+#include "sweep_common.cuh"
+
+namespace {
+
+using namespace nereus_sweep;
+
+// (dx, dy, dz, r^2, W, okf) of a pair; the rsqrt only for Monaghan
+struct WGeom {
+  float dx, dy, dz, r2, w, okf;
+};
+
+template <int KS>
+__device__ __forceinline__ WGeom w_geom(const float* q, float4 a,
+                                        const Params& p) {
+  WGeom g;
+  g.dx = q[0] - a.x;
+  g.dy = q[1] - a.y;
+  g.dz = q[2] - a.z;
+  g.r2 = g.dx * g.dx + g.dy * g.dy + g.dz * g.dz;
+  float rl = 0.0f, invrl = 0.0f;
+  if constexpr (KS != MULLER) rl_invrl(g.r2, rl, invrl);
+  g.w = w_value<KS>(g.r2, rl, p);
+  g.okf = g.r2 < p.h2 ? 1.0f : 0.0f;
+  return g;
+}
+
+// number density sum W (fluid rows, column 0) and sum psi_b W (boundary
+// rows, column 1, rescaled per query phase by the caller)
+struct MultiphaseDensity {
+  static constexpr int QW = 4, SW = 4, OW = 2;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z (psi_b)
+    const WGeom g = w_geom<KS>(q, a, p);
+    if constexpr (B) {
+      acc[1] += a.w * g.w * g.okf;
+    } else {
+      acc[0] += g.w * g.okf;
+    }
+  }
+};
+
+// acceleration in the adapted-density volume form; BECKER adds phase-pair
+// cohesion. Boundary rows: wall penalty and friction, no pressure term.
+template <bool BECKER>
+struct MultiphaseForce {
+  static constexpr int QW = 12, SW = 12, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz V_j pV2_j (psi_b 0)
+    const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    const float okf = r2 < p.h2 ? 1.0f : 0.0f;
+    if constexpr (B) {
+      float rl = 0.0f, invrl = 0.0f;
+      if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
+      const float psi = b.z;
+      const float inv_rho = q[9];
+      const float w = w_value<KS>(r2, rl, p);
+      const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
+      const float cadh = (p.beta * psi) * q[7] * w;
+      const float nu = ((2.0f * p.visc * p.visc * p.h * p.cs) /
+                        (1.0f + 0.01f * p.h2)) *
+                       q[8] * (inv_rho * inv_rho);
+      const float vdotr = q[3] * dx + q[4] * dy + q[5] * dz;
+      const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+      const float c = (cadh + cfric) * okf;
+      acc[0] += c * dx;
+      acc[1] += c * dy;
+      acc[2] += c * dz;
+    } else {
+      float rl, invrl;
+      rl_invrl(r2, rl, invrl);
+      const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
+      const float bden = r2 + 0.01f * p.h2;
+      const float cvisc = (2.0f * p.visc) * b.z * (av * (1.0f / bden)) * okf;
+      const float sp = grad_scale_press<KS>(rl, invrl, p);
+      float cp = -q[7] * (q[6] + b.w) * sp * okf;
+      if constexpr (BECKER) {
+        const float w_eff = fminf(w_value<KS>(r2, rl, p), p.wdiam);
+        const float rho0_j = src_f4(src, SW, j, 2).x;
+        const float same = q[10] == rho0_j ? 1.0f : 0.0f;
+        const float keff = p.kappa * (same + (1.0f - same) * p.stx);
+        cp = cp - (keff * q[7]) * w_eff * okf;
+      }
+      acc[0] += cvisc * (q[3] - a.w) + cp * dx;
+      acc[1] += cvisc * (q[4] - b.x) + cp * dy;
+      acc[2] += cvisc * (q[5] - b.y) + cp * dz;
+    }
+  }
+};
+
+// sum 2m / max(rho_i + rho_j, eps) (v_j - v_i) W over the fluid rows
+struct Xsph {
+  static constexpr int QW = 8, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz rho pad
+    const WGeom g = w_geom<KS>(q, a, p);
+    const float denom = fmaxf(q[6] + b.z, 1e-12f);
+    // (2m W / denom) * okf, the division skipped outside the cutoff (the
+    // same +0 there, W >= 0): an exact division costs more than the rest
+    // of the pair, and most candidates lie outside the cutoff
+    const float c = g.okf != 0.0f ? (2.0f * p.pm) * g.w / denom : 0.0f;
+    acc[0] += c * (a.w - q[3]);
+    acc[1] += c * (b.x - q[4]);
+    acc[2] += c * (b.y - q[5]);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+NEREUS_PAIR_SWEEP(multiphase_density, MultiphaseDensity)
+NEREUS_PAIR_SWEEP(xsph, Xsph)
+
+// pair_sweep_kernel<MultiphaseForce<st_model == BECKER>> on `stream`;
+// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
+// set or a surface-tension model other than NONE and BECKER.
+int nereus_multiphase_force_sweep(const float* q, const float* src,
+                                  const int* seg_start, const int* seg_end,
+                                  int n, int n_rows, const float* pvec,
+                                  int kernel_set, int st_model, float* out,
+                                  void* stream) {
+  if (st_model == ST_BECKER) {
+    return nereus_sweep::launch_pair_sweep<MultiphaseForce<true>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  if (st_model == ST_NONE) {
+    return nereus_sweep::launch_pair_sweep<MultiphaseForce<false>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  return -1;
+}
+
+}  // extern "C"

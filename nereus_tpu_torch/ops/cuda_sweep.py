@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA sweep kernels
 (``csrc/sph_sweep.cu`` for the density and force sweeps,
-``csrc/iisph_sweep.cu`` for IISPH, ``csrc/dfsph_sweep.cu`` for DFSPH; the
+``csrc/iisph_sweep.cu`` for IISPH, ``csrc/dfsph_sweep.cu`` for DFSPH,
+``csrc/multiphase_sweep.cu`` for multiphase WCSPH and XSPH; the
 counterpart of ``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
@@ -59,8 +60,12 @@ PRESSURE_FORCE = Kernel("pair_sweep_kernel<PressureForce>")
 DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
 ALPHA = Kernel("pair_sweep_kernel<Alpha>")
 DRHO = Kernel("pair_sweep_kernel<Drho>")
+MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
+MP_FORCE = Kernel("pair_sweep_kernel<MultiphaseForce>")
+XSPH = Kernel("pair_sweep_kernel<Xsph>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
-           PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO)
+           PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
+           XSPH)
 
 _lock = threading.Lock()
 _lib = None
@@ -208,7 +213,8 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 0, "force": 2, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
-              "drho": 0}
+              "drho": 0, "multiphase_density": 0, "multiphase_force": 1,
+              "xsph": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -303,3 +309,29 @@ def drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """DFSPH Dρ/Dt (N,): q (N, 8), src (M, 8)."""
     return _sweep(DRHO, "drho", cfg, q, 8, src, 8, seg_start, seg_end,
                   pvec, (9, 18), 0)
+
+
+def multiphase_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                             pvec):
+    """(δ = ΣW, Σψ_b·W) (N, 2): q (N, 4), src (M, 4)."""
+    return _sweep(MP_DENSITY, "multiphase_density", cfg, q, 4, src, 4,
+                  seg_start, seg_end, pvec, (9, 18), 2)
+
+
+def multiphase_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12); the
+    BECKER instance for Becker surface tension, the plain one for NONE
+    (AKINCI raises)."""
+    from .sph_pairs import WIDE_WIDTH, _st_becker
+    _st_becker(cfg)
+    return _sweep(MP_FORCE, "multiphase_force", cfg, q, 12, src,
+                  WIDE_WIDTH, seg_start, seg_end, pvec, (9, 18), 3,
+                  cfg.surface_tension_model.value)
+
+
+def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """XSPH sum (N, 3) over the fluid rows only: q (N, 8), src (M, 8),
+    ranges (9, N)."""
+    return _sweep(XSPH, "xsph", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9,), 3)

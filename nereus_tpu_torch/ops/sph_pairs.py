@@ -10,9 +10,12 @@ means different things by region: ψ = m (density sweep), ρ_j (force
 sweep) or p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force; κ_j/ρ_j in
 DFSPH's κ correction) for fluid sources, ψ_b = ρ₀·V_b for boundary
 sources. Query matrices are (N, 4) ``x y z pad`` for density and (N, 8)
-``x y z vx vy vz ρ pd2`` for forces. The IISPH
-Jacobi sweep reads a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
-``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad``, boundary rows with ψ_b in slot 6.
+``x y z vx vy vz ρ pd2`` for forces. The IISPH Jacobi and the multiphase
+force sweeps read a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
+``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad`` (Jacobi) or ``x y z vx vy vz
+V_j p_j·V_j² [ρ0_j] pad…`` (multiphase), boundary rows with ψ_b in slot 6.
+The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
+rows ``x y z 0``).
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -21,8 +24,9 @@ viscosity bracket (~1e36 at the clamp) multiplies r² before its ~1e4
 constant.
 
 Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
-five IISPH sweeps, PCISPH's ``predicted_density_sweep`` and the two DFSPH
-sweeps) routes by device: a CPU tensor goes to the plain sweep,
+five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
+sweeps, the multiphase density and force sweeps and ``xsph_sweep``)
+routes by device: a CPU tensor goes to the plain sweep,
 a CUDA float32 tensor to the hand-written kernel (``ops/cuda_sweep.py``);
 anything else raises.
 """
@@ -408,6 +412,106 @@ def drho_pair(q, s, pv, *, kernel_set):
 
 
 # ---------------------------------------------------------------------------
+# Multiphase WCSPH pair formulas (Solenthaler adapted density, Hu–Adams
+# volume-form forces) and XSPH
+# ---------------------------------------------------------------------------
+
+def _w_ok(q, s, pv, kernel_set):
+    """(dx, dy, dz, r², W, okf); the rsqrt only for Monaghan, whose W
+    needs |r|."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl = _rl_invrl(r2)[0] if kernel_set != KernelSet.MULLER else None
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    return dx, dy, dz, r2, _w_value(kernel_set, r2, rl, pv), okf
+
+
+def multiphase_density_pair(q, s, pv, *, kernel_set):
+    """Fluid rows of the multiphase density sweep: the number density
+    δ = ΣW into column 0, no source scalar (the caller multiplies by the
+    query's own mass, ρ̃_i = m_i·δ_i; the self pair gives W(0)).
+    q: x y z pad. Returns (P, 2): [W, 0]."""
+    _, _, _, _, w, okf = _w_ok(q, s, pv, kernel_set)
+    d = w * okf
+    return torch.stack([d, torch.zeros_like(d)], dim=1)
+
+
+def multiphase_density_bpair(q, s, pv, *, kernel_set):
+    """Boundary rows of the multiphase density sweep: Σψ_b·W into column 1,
+    apart from the fluid sum, so that the caller rescales the baked
+    ψ = ρ0_ref·V_b by each query's ρ0_i/ρ0_ref. s: x y z ψ_b.
+    Returns (P, 2): [0, ψW]."""
+    _, _, _, _, w, okf = _w_ok(q, s, pv, kernel_set)
+    d = s[:, 3] * w * okf
+    return torch.stack([torch.zeros_like(d), d], dim=1)
+
+
+def multiphase_force_pair(q, s, pv, *, kernel_set, st_becker=False):
+    """Fluid rows of the multiphase force sweep, as an acceleration:
+    −(1/m_i)(p_iV_i² + p_jV_j²)∇W_press
+    + 2μV_j(r·∇W_visc)/(r² + 0.01h²)(v_i − v_j), and with ``st_becker``
+    −κ_eff(1/m_i)·min(W, W_diam)·r⃗ with κ_eff = κ·(ρ0_i == ρ0_j ? 1 :
+    st_cross). Exact division (``_fast_recip`` in JAX).
+    q: x y z vx vy vz p_iV_i² 1/m_i m_i 1/ρ̃_i [ρ0_i] pad; wide src: x y z
+    vx vy vz V_j p_jV_j² [ρ0_j] pad pad pad (the ρ0 columns exact copies
+    of one sorted tensor, so the same-phase compare is exact).
+    Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    a = _visc_rdotgrad(kernel_set, r2, rl, pv, invrl)
+    bden = r2 + 0.01 * pv[PV_H2]
+    cvisc = (2.0 * pv[PV_VISC]) * s[:, 6] * (a * (1.0 / bden)) * okf
+    sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
+    cp = -q[:, 7] * (q[:, 6] + s[:, 7]) * sp * okf
+    if st_becker:
+        w_eff = torch.minimum(_w_value(kernel_set, r2, rl, pv),
+                              pv[PV_WDIAM])
+        same = (q[:, 10] == s[:, 8]).to(q.dtype)
+        keff = pv[PV_KAPPA] * (same + (1.0 - same) * pv[PV_STX])
+        cp = cp - (keff * q[:, 7]) * w_eff * okf
+    return torch.stack([cvisc * (q[:, 3] - s[:, 3]) + cp * dx,
+                        cvisc * (q[:, 4] - s[:, 4]) + cp * dy,
+                        cvisc * (q[:, 5] - s[:, 5]) + cp * dz], dim=1)
+
+
+def multiphase_boundary_pair(q, s, pv, *, kernel_set):
+    """Boundary rows of the multiphase force sweep (static walls), as an
+    acceleration: the wall penalty (β/m_i)ψ_b·W·r⃗ (ψ unscaled) and the
+    friction 2μ²h·c_s/(1 + 0.01h²)·m_i/ρ̃_i²·max(v_i·r⃗, 0)·ψ_b·∇W_dflt;
+    no boundary pressure term. q as :func:`multiphase_force_pair`, src ψ_b
+    in slot 6. Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    psi = s[:, 6]
+    inv_rho = q[:, 9]
+    w = _w_value(kernel_set, r2, rl, pv)
+    sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
+    cadh = (pv[PV_BETA] * psi) * q[:, 7] * w
+    nu = ((2.0 * pv[PV_VISC] * pv[PV_VISC] * pv[PV_H] * pv[PV_CS])
+          / (1.0 + 0.01 * pv[PV_H2])) * q[:, 8] * (inv_rho * inv_rho)
+    vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+    cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
+    c = (cadh + cfric) * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+def xsph_pair(q, s, pv, *, kernel_set):
+    """Monaghan XSPH sum Σ 2m/max(ρ_i + ρ_j, ε)·(v_j − v_i)·W over fluid
+    rows (exactly 0 at the self pair: v_i − v_i). q: x y z vx vy vz ρ pad;
+    src: x y z vx vy vz ρ pad. Returns (P, 3), scaled by ε by the
+    caller."""
+    _, _, _, _, w, okf = _w_ok(q, s, pv, kernel_set)
+    denom = torch.clamp(q[:, 6] + s[:, 6], min=_EPS)
+    c = (2.0 * pv[PV_PM]) * w / denom * okf
+    return torch.stack([c * (s[:, 3] - q[:, 3]), c * (s[:, 4] - q[:, 4]),
+                        c * (s[:, 5] - q[:, 5])], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Plain sweeps and the dispatchers
 # ---------------------------------------------------------------------------
 
@@ -502,6 +606,40 @@ def drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 pair_fn_b=pair)[:, 0]
 
 
+def multiphase_density_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                   seg_end, pvec):
+    """(δ = ΣW, Σψ_b·W) (N, 2): q (N, 4), src (M, 4) fluid rows
+    ``x y z 0``, boundary rows ``x y z ψ_b``."""
+    return neighbor_sweep_plain(
+        _bind(multiphase_density_pair, cfg, pvec), q, src, seg_start,
+        seg_end, 2, pair_fn_b=_bind(multiphase_density_bpair, cfg, pvec))
+
+
+def _st_becker(cfg: SimConfig) -> bool:
+    """The multiphase force sweep's surface-tension switch: NONE or
+    BECKER; AKINCI has no per-phase meaning and raises."""
+    if cfg.surface_tension_model == SurfaceTensionModel.AKINCI:
+        raise ValueError("the multiphase force sweep takes surface tension "
+                         "NONE or BECKER, not AKINCI")
+    return cfg.surface_tension_model == SurfaceTensionModel.BECKER
+
+
+def multiphase_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                                 pvec):
+    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12)."""
+    return neighbor_sweep_plain(
+        _bind(multiphase_force_pair, cfg, pvec, st_becker=_st_becker(cfg)),
+        q, src, seg_start, seg_end, 3,
+        pair_fn_b=_bind(multiphase_boundary_pair, cfg, pvec))
+
+
+def xsph_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """XSPH sum (N, 3) over the fluid rows only: ranges (9, N), q (N, 8),
+    src (M, 8) with the new velocities and ρ in slot 6."""
+    return neighbor_sweep_plain(_bind(xsph_pair, cfg, pvec), q, src,
+                                seg_start, seg_end, 3)
+
+
 def _route(*tensors) -> str:
     """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
     for CUDA float32 ones; raises on anything else, or on mixed devices."""
@@ -551,3 +689,8 @@ drho_sweep = _dispatcher(drho_sweep_plain, "drho_sweep")
 predicted_density_sweep = _dispatcher(density_sweep_plain,
                                       "predicted_density_sweep",
                                       name="predicted_density_sweep")
+multiphase_density_sweep = _dispatcher(multiphase_density_sweep_plain,
+                                       "multiphase_density_sweep")
+multiphase_force_sweep = _dispatcher(multiphase_force_sweep_plain,
+                                     "multiphase_force_sweep")
+xsph_sweep = _dispatcher(xsph_sweep_plain, "xsph_sweep")

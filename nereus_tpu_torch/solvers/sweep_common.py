@@ -5,8 +5,11 @@ coordinates → exact fluid and boundary ranges → packed parameters.
 There is no window plan, no packing into lane-aligned regions and no float
 hash payload: those exist for the TPU's Mosaic compiler. Per-step state
 stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
-the kernels read are built from them per sweep, and the IISPH Jacobi sweep
-reads a (M, 12) wide source (:meth:`SweepCtx.pack_wide`).
+the kernels read are built from them per sweep; the IISPH Jacobi and the
+multiphase force sweeps read a (M, 12) wide source
+(:meth:`SweepCtx.pack_wide`), the multiphase density sweep a (M, 4) one
+(:meth:`SweepCtx.pack_psi`). A multiphase state's ``mass`` and ``rho0``
+ride the sort with the positions.
 
 Every sweep of a step walks the ranges built here from the start-of-step
 positions, PCISPH's predicted density at x* included
@@ -45,6 +48,8 @@ class SweepCtx:
     perm: torch.Tensor        # (C,) int64, sorted row → state row
     pressure: torch.Tensor    # (C,) the state's pressure, unsorted
     b_src: Optional[torch.Tensor] = None   # (Mb, 8) boundary source rows
+    mass: Optional[torch.Tensor] = None    # (C,) hash-sorted phase columns
+    rho0: Optional[torch.Tensor] = None    # of a multiphase state
 
     @property
     def c(self) -> int:
@@ -78,25 +83,36 @@ class SweepCtx:
             cols += [z] * (width - len(cols))
         return torch.stack(cols, dim=1)
 
-    def pack(self, vel, slot6):
+    def pack(self, vel, slot6, boundary=True):
         """(C [+ Mb], 8) source matrix: fluid rows ``x y z vx vy vz slot6
-        0``, then the boundary rows (velocity 0, ψ_b in slot 6)."""
+        0``, then (unless ``boundary`` is False: a sweep over the fluid
+        rows only) the boundary rows (velocity 0, ψ_b in slot 6)."""
         z = torch.zeros_like(self.px)
         fluid = torch.stack([self.px, self.py, self.pz, *vel,
                              slot6.expand(self.c), z], dim=1)
-        if self.b_src is None:
+        if self.b_src is None or not boundary:
             return fluid
         return torch.cat([fluid, self.b_src])
 
+    def pack_psi(self, q4):
+        """(C [+ Mb], 4) source of a sweep that reads positions and ψ_b
+        only: fluid rows ``x y z 0`` (``q4``, the 4-wide queries), then
+        the boundary rows ``x y z ψ_b``."""
+        if self.b_src is None:
+            return q4
+        return torch.cat([q4, self.b_src[:, [0, 1, 2, 6]]])
+
     def pack_wide(self, cols):
-        """(C [+ Mb], 12) source matrix for the Jacobi sweep: fluid rows
-        ``x y z`` then the 7 ``cols`` (d_jj xyz, p_j, Σd_jk·p_k xyz) and 2
-        zero pads; boundary rows ``x y z 0 0 0 ψ_b 0 0 0 0 0``."""
-        if len(cols) != SP.WIDE_WIDTH - 5:
-            raise ValueError(f"pack_wide takes {SP.WIDE_WIDTH - 5} columns, "
-                             f"got {len(cols)}")
+        """(C [+ Mb], 12) wide source: fluid rows ``x y z``, then ``cols``
+        and zero pads (Jacobi: d_jj xyz, p_j, Σd_jk·p_k xyz; multiphase
+        force: vx vy vz V_j p_j·V_j² [ρ0_j]); boundary rows
+        ``x y z 0 0 0 ψ_b 0 0 0 0 0``."""
+        if len(cols) > SP.WIDE_WIDTH - 3:
+            raise ValueError(f"pack_wide takes at most {SP.WIDE_WIDTH - 3} "
+                             f"columns, got {len(cols)}")
         z = torch.zeros_like(self.px)
-        fluid = torch.stack([self.px, self.py, self.pz, *cols, z, z], dim=1)
+        pads = [z] * (SP.WIDE_WIDTH - 3 - len(cols))
+        fluid = torch.stack([self.px, self.py, self.pz, *cols, *pads], dim=1)
         if self.b_src is None:
             return fluid
         return torch.cat([fluid, self._b_src_wide])
@@ -135,8 +151,9 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
                     grid: gridlib.Grid, cfg: SimConfig,
                     boundary: Optional[BoundaryData]) -> SweepCtx:
     h = gridlib.hash_positions(grid, state.pos, state.active_mask())
-    sorted_hash, perm, (pos, vel) = gridlib.sort_by_hash(
-        h, state.pos, state.vel, return_perm=True)
+    phase = (state.mass, state.rho0) if state.multiphase else ()
+    sorted_hash, perm, (pos, vel, *phase) = gridlib.sort_by_hash(
+        h, state.pos, state.vel, *phase, return_perm=True)
     px, py, pz = pos.unbind(1)
     coords = gridlib.cell_coords(grid, pos)
     with_b = boundary is not None and boundary.num_boundaries > 0
@@ -150,4 +167,5 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
         seg_start=seg_start, seg_end=seg_end,
         pvec=SP.build_pvec(params, cfg, grid),
         perm=perm, pressure=state.pressure,
-        b_src=_boundary_src(boundary) if with_b else None)
+        b_src=_boundary_src(boundary) if with_b else None,
+        mass=phase[0] if phase else None, rho0=phase[1] if phase else None)

@@ -3,9 +3,11 @@
 
 One step = hash → sort → density sweep → Tait EOS → fused force sweep →
 symplectic Euler (``SPH::update``, ``sph/sph.cpp:215-285``), with no host
-synchronisation. :func:`wcsph_step` checks the configuration and runs the
-sweep step of :mod:`.wcsph_cuda`; the sweeps run the CUDA kernels on a GPU
-and their plain PyTorch versions on the CPU.
+synchronisation; optionally XSPH on the advection velocity. A multiphase
+state (per-particle mass and ρ₀) runs the adapted-density, volume-form
+step. :func:`wcsph_step` checks the configuration and runs the sweep steps
+of :mod:`.wcsph_cuda`; the sweeps run the CUDA kernels on a GPU and their
+plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 
 from .. import grid as gridlib
-from ..params import SimConfig, SimParams
+from ..params import SimConfig, SimParams, SurfaceTensionModel
 from ..state import BoundaryData, FluidState
 
 
@@ -57,17 +59,25 @@ def wcsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
                cfg: SimConfig, boundary: Optional[BoundaryData] = None,
                xsph_eps=None):
     """One WCSPH step; returns ``(new_state, StepDiagnostics)`` with the new
-    state in hash-sorted order, as the JAX step returns it.
+    state in hash-sorted order, as the JAX step returns it. A multiphase
+    state (``mass``/``rho0`` set) runs the multiphase step; ``xsph_eps``
+    (single phase only) smooths the advection velocity.
 
-    Raises NotImplementedError for what is not ported yet, rather than
-    ignoring it."""
+    Raises NotImplementedError for what the JAX package refuses and for
+    what is not ported yet, rather than ignoring it."""
     if state.multiphase:
-        raise NotImplementedError(
-            "multiphase WCSPH is not ported yet (ROADMAP.md Queue A, "
-            "item 8)")
-    if xsph_eps is not None:
-        raise NotImplementedError(
-            "XSPH is not ported yet (ROADMAP.md Queue A, item 9)")
+        # the JAX multiphase step's refusals, with its reasons
+        if xsph_eps is not None:
+            raise NotImplementedError("XSPH is single-phase-only")
+        if cfg.viscosity_model == "implicit":
+            raise NotImplementedError(
+                "implicit viscosity is single-phase-only")
+        if cfg.surface_tension_model == SurfaceTensionModel.AKINCI:
+            raise NotImplementedError(
+                "AKINCI surface tension is single-phase-only (its "
+                "curvature correction has no per-phase meaning); "
+                "multiphase supports NONE or BECKER (phase-pair cohesion, "
+                "SimConfig.st_cross)")
     if cfg.viscosity_model != "explicit":
         raise NotImplementedError(
             f"viscosity_model={cfg.viscosity_model!r} is not ported yet "
@@ -76,8 +86,11 @@ def wcsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
         raise NotImplementedError(
             "moving boundaries are not ported yet (ROADMAP.md Queue A, "
             "item 9)")
-    from .wcsph_cuda import wcsph_step_cuda
-    return wcsph_step_cuda(state, params, grid, cfg, boundary)
+    from .wcsph_cuda import wcsph_step_cuda, wcsph_step_multiphase_cuda
+    if state.multiphase:
+        return wcsph_step_multiphase_cuda(state, params, grid, cfg, boundary)
+    return wcsph_step_cuda(state, params, grid, cfg, boundary,
+                           xsph_eps=xsph_eps)
 
 
 def cfl_dt(state: FluidState, params: SimParams, lam: float = 0.4):

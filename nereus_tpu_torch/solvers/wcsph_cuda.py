@@ -1,11 +1,19 @@
-"""The single-phase WCSPH step on the sweep kernels (the counterpart of
-``nereus_tpu.solvers.wcsph_pallas.wcsph_step_pallas``).
+"""The WCSPH steps on the sweep kernels (the counterpart of
+``nereus_tpu.solvers.wcsph_pallas``).
 
-Density sweep (fluid ψ = m and boundary ψ_b, self term included) → Tait
-EOS → pd2 = p/max(ρ, 1e-12)² → one fused fluid + boundary force sweep →
-symplectic Euler under the ``active`` mask. On CUDA tensors the two
-sweeps are the hand-written kernels of ``csrc/sph_sweep.cu``; on CPU
-tensors their plain PyTorch versions.
+Single phase (:func:`wcsph_step_cuda`): density sweep (fluid ψ = m and
+boundary ψ_b, self term included) → Tait EOS → pd2 = p/max(ρ, 1e-12)² →
+one fused fluid + boundary force sweep → symplectic Euler under the
+``active`` mask; with ``xsph_eps`` one more sweep over the fluid rows
+smooths the advection velocity (Monaghan XSPH).
+
+Multiphase (:func:`wcsph_step_multiphase_cuda`): number-density sweep
+(fluid ΣW and boundary Σψ_bW in two columns) → ρ̃ = m·δ + (ρ0_i/ρ0_ref)·
+Σψ_bW → Tait EOS with per-particle ρ₀ → one fused volume-form
+acceleration sweep (walls: penalty and friction) → symplectic Euler.
+
+On CUDA tensors the sweeps are the hand-written kernels of ``csrc/``; on
+CPU tensors their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from .. import grid as gridlib
 from ..ops import sph_pairs as SP
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
-from .sweep_common import build_sweep_ctx
+from .sweep_common import SweepCtx, build_sweep_ctx
 from .wcsph import StepDiagnostics, density_errors, tait_pressure
 
 
@@ -28,17 +36,54 @@ class Sweeps(NamedTuple):
 
 
 # the device dispatchers (the step's default), and the plain versions on
-# any device (to time the plain step on a GPU against the kernels)
+# any device (to time the plain single-phase step on a GPU against the
+# kernels)
 DISPATCH = Sweeps(SP.density_sweep, SP.fluid_force_sweep)
 PLAIN = Sweeps(SP.density_sweep_plain, SP.fluid_force_sweep_plain)
+
+
+def xsph_operands(ctx: SweepCtx, nv, dens):
+    """The XSPH sweep's operands from the new velocities ``nv`` (three (C,)
+    columns) and the density: ``(q, src, seg_start_f, seg_end_f, pvec)``,
+    q ``x y z nv ρ 0``, src fluid rows ``x y z nv ρ 0``, fluid ranges."""
+    return (ctx.queries(*nv, dens, width=8), ctx.pack(nv, dens,
+                                                      boundary=False),
+            ctx.seg_start_f, ctx.seg_end_f, ctx.pvec)
+
+
+def _integrate(ctx: SweepCtx, dt, nv, v_adv):
+    """Positions advanced by ``v_adv``, velocities ``nv``, both under the
+    ``active`` mask: ``(pos, vel)`` (C, 3)."""
+    active = ctx.active
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    npos = [torch.where(active, p + dt * v, p)
+            for p, v in zip((ctx.px, ctx.py, ctx.pz), v_adv)]
+    nvel = [torch.where(active, v1, v0) for v1, v0 in zip(nv, vel)]
+    return torch.stack(npos, dim=1), torch.stack(nvel, dim=1)
+
+
+def _diagnostics(state: FluidState, dens, active, rest):
+    nact = torch.clamp(state.num_active.to(dens.dtype), min=1.0)
+    mae, mc = density_errors(dens, active, nact, rest)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dens.device)
+    return StepDiagnostics(
+        max_density=torch.max(torch.where(active, dens,
+                                          torch.zeros_like(dens))),
+        mean_density_error=mae,
+        mean_compression=mc,
+        seg_overflow=zero_i,
+        solver_iters=zero_i.clone(),
+    )
 
 
 def wcsph_step_cuda(state: FluidState, params: SimParams,
                     grid: gridlib.Grid, cfg: SimConfig,
                     boundary: Optional[BoundaryData] = None, *,
-                    sweeps: Sweeps = DISPATCH):
+                    xsph_eps=None, sweeps: Sweeps = DISPATCH):
     """One single-phase WCSPH step; returns ``(new_state,
-    StepDiagnostics)`` with the new state in hash-sorted order."""
+    StepDiagnostics)`` with the new state in hash-sorted order.
+    ``xsph_eps`` (float or 0-d tensor) smooths the advection velocity:
+    positions advance with nv + ε·Σ, the stored velocity stays nv."""
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     vel = (ctx.vx, ctx.vy, ctx.vz)
     active = ctx.active
@@ -62,24 +107,78 @@ def wcsph_step_cuda(state: FluidState, params: SimParams,
     g = params.gravity
     nv = [v + (dt / pm) * (force[:, k] + pm * g[k])
           for k, v in enumerate(vel)]
-    npos = [torch.where(active, p + dt * v, p)
-            for p, v in zip((ctx.px, ctx.py, ctx.pz), nv)]
-    nvel = [torch.where(active, v1, v0) for v1, v0 in zip(nv, vel)]
+    v_adv = nv
+    if xsph_eps is not None:
+        # XSPH over the fluid rows; ε scales outside the sweep
+        sm = SP.xsph_sweep(cfg, *xsph_operands(ctx, nv, dens))
+        v_adv = [v + xsph_eps * sm[:, k] for k, v in enumerate(nv)]
+    pos, vel_new = _integrate(ctx, dt, nv, v_adv)
 
     new_state = FluidState(
-        pos=torch.stack(npos, dim=1),
-        vel=torch.stack(nvel, dim=1),
+        pos=pos, vel=vel_new,
         pressure=torch.where(active, pres, torch.zeros_like(pres)),
         num_active=state.num_active)
-    nact = torch.clamp(state.num_active.to(dens.dtype), min=1.0)
-    mae, mc = density_errors(dens, active, nact, params.rest_density)
-    zero_i = torch.zeros((), dtype=torch.int32, device=dens.device)
-    diag = StepDiagnostics(
-        max_density=torch.max(torch.where(active, dens,
-                                          torch.zeros_like(dens))),
-        mean_density_error=mae,
-        mean_compression=mc,
-        seg_overflow=zero_i,
-        solver_iters=zero_i.clone(),
-    )
-    return new_state, diag
+    return new_state, _diagnostics(state, dens, active, params.rest_density)
+
+
+def multiphase_density_operands(ctx: SweepCtx):
+    """The multiphase density sweep's operands ``(q, src, seg_start,
+    seg_end, pvec)``: q ``x y z 0``, the 4-wide source (fluid rows the
+    queries, boundary rows ``x y z ψ_b``)."""
+    q = ctx.queries(width=4)
+    return q, ctx.pack_psi(q), ctx.seg_start, ctx.seg_end, ctx.pvec
+
+
+def multiphase_force_operands(ctx: SweepCtx, params: SimParams,
+                              cfg: SimConfig, dout):
+    """The multiphase force sweep's operands from the density sweep's
+    (C, 2) output: ``(args, dens, pres)`` with ``args = (q, src,
+    seg_start, seg_end, pvec)``, q ``x y z v p_iV_i² 1/m_i m_i 1/ρ̃_i
+    [ρ0_i]``, wide src ``x y z v V_j p_jV_j² [ρ0_j]`` (ρ0 for Becker
+    cohesion, the same sorted tensor on both sides), and the adapted
+    density ρ̃ and its pressure, in ``_wcsph_pallas_multiphase``'s order."""
+    from ..params import SurfaceTensionModel
+    mass, rho0 = ctx.mass, ctx.rho0
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    delta = dout[:, 0]
+    dens = mass * delta + (rho0 / params.rest_density) * dout[:, 1]
+    pres = tait_pressure(dens, params, rho0)
+    inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
+    vol = 1.0 / torch.clamp(delta, min=1e-12)
+    pv2 = pres * vol * vol
+    qcols = [*vel, pv2, 1.0 / mass, mass, inv_rho]
+    wcols = [*vel, vol, pv2]
+    if cfg.surface_tension_model == SurfaceTensionModel.BECKER:
+        qcols.append(rho0)
+        wcols.append(rho0)
+    args = (ctx.queries(*qcols, width=12), ctx.pack_wide(wcols),
+            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    return args, dens, pres
+
+
+def wcsph_step_multiphase_cuda(state: FluidState, params: SimParams,
+                               grid: gridlib.Grid, cfg: SimConfig,
+                               boundary: Optional[BoundaryData] = None):
+    """One multiphase WCSPH step (surface tension NONE or BECKER); returns
+    ``(new_state, StepDiagnostics)`` with the new state, its ``mass`` and
+    ``rho0`` in hash-sorted order and the density errors taken against
+    each particle's own ρ₀."""
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    active = ctx.active
+
+    dout = SP.multiphase_density_sweep(cfg,
+                                       *multiphase_density_operands(ctx))
+    args, dens, pres = multiphase_force_operands(ctx, params, cfg, dout)
+    acc = SP.multiphase_force_sweep(cfg, *args)
+
+    dt = params.dt
+    g = params.gravity
+    nv = [v + dt * (acc[:, k] + g[k])
+          for k, v in enumerate((ctx.vx, ctx.vy, ctx.vz))]
+    pos, vel_new = _integrate(ctx, dt, nv, nv)
+
+    new_state = FluidState(
+        pos=pos, vel=vel_new,
+        pressure=torch.where(active, pres, torch.zeros_like(pres)),
+        num_active=state.num_active, mass=ctx.mass, rho0=ctx.rho0)
+    return new_state, _diagnostics(state, dens, active, ctx.rho0)

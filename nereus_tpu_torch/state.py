@@ -21,8 +21,8 @@ class FluidState:
     """Dynamic fluid-particle state: pos/vel (C, 3), pressure (C,).
 
     ``mass``/``rho0`` (optional) carry per-particle masses and rest
-    densities of a multiphase scene; the port's WCSPH step refuses them
-    until multiphase is ported."""
+    densities of a multiphase scene; the WCSPH step runs them through its
+    multiphase step, the implicit solvers refuse them."""
 
     pos: torch.Tensor
     vel: torch.Tensor

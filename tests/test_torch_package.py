@@ -7,6 +7,7 @@ has none: ``python -m pytest --noconftest tests/test_torch_package.py``
 (the repository's conftest imports JAX).
 """
 
+import dataclasses
 import os
 import pkgutil
 import re
@@ -109,7 +110,8 @@ def test_build_without_nvcc_raises(monkeypatch):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
-            "dfsph_sweep.cu", "iisph_sweep.cu", "sph_sweep.cu")]
+            "dfsph_sweep.cu", "iisph_sweep.cu", "multiphase_sweep.cu",
+            "sph_sweep.cu")]
 
 
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
@@ -131,8 +133,18 @@ PCISPH_DFSPH_SWEEPS = {
 }
 
 
+MULTIPHASE_XSPH_SWEEPS = {
+    "multiphase_density": (SP.multiphase_density_sweep,
+                           cuda_sweep.multiphase_density_sweep, 4, 4, 18),
+    "multiphase_force": (SP.multiphase_force_sweep,
+                         cuda_sweep.multiphase_force_sweep, 12, 12, 18),
+    "xsph": (SP.xsph_sweep, cuda_sweep.xsph_sweep, 8, 8, 9),
+}
+ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS}
+
+
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
-    _, _, fq, fs, rows = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS}[key]
+    _, _, fq, fs, rows = ALL_SWEEPS[key]
     return (torch.zeros((n, fq), dtype=dtype, device=device),
             torch.zeros((m, fs), dtype=dtype, device=device),
             torch.zeros((rows, n), dtype=torch.int32, device=device),
@@ -162,6 +174,11 @@ def test_iisph_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(PCISPH_DFSPH_SWEEPS))
 def test_pcisph_dfsph_dispatchers_route_by_device(key):
     _routes_by_device(*PCISPH_DFSPH_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(MULTIPHASE_XSPH_SWEEPS))
+def test_multiphase_xsph_dispatchers_route_by_device(key):
+    _routes_by_device(*MULTIPHASE_XSPH_SWEEPS[key][:2], key)
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +239,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 9
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 12
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -304,7 +321,8 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
         "force_p0")
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0, 0] + [1] * 6 + [0] * 3
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
+                                                        + [0] * 6)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -339,6 +357,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
+    assert launches[8:] == [0] * 6
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -397,7 +416,8 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 8 + [1] * 3
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
+                                                        + [0] * 3)
 
 
 @pytest.mark.requires_cuda
@@ -418,7 +438,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0]
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0]
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -436,6 +456,76 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched]
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0]
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
+
+
+def _two_phase(state, params, device):
+    """``state`` split as ``bench.py``'s ``multiphase_1M`` splits it: the
+    top half of the fluid by y at 0.3·ρ₀, mass ρ0_i/ρ₀ of the calibrated
+    mass."""
+    pos = state.pos.cpu().numpy()
+    rd = float(params.rest_density)
+    rho0 = np.where(pos[:, 1] >= np.quantile(pos[:, 1], 0.5), 0.3 * rd, rd)
+    return nereus_tpu_torch.make_fluid_state(
+        pos, state.vel.cpu().numpy(),
+        masses=rho0 * float(params.particle_mass) / rd, rest_densities=rho0,
+        device=device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+@pytest.mark.parametrize("st", ["NONE", "BECKER"])
+def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
+    """The multiphase density and force kernels on the operands of the
+    first two-phase step of the small dam-break (st_cross 0.25), and the
+    XSPH kernel on the first single-phase step's, against their plain
+    versions: max|Δ| ≤ 1e-4·max|ref| per output column."""
+    from nereus_tpu_torch.solvers import wcsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, st, True, cuda)
+    cfg = dataclasses.replace(cfg, st_cross=0.25)
+    ctx = build_sweep_ctx(_two_phase(state, params, cuda), params, grid,
+                          cfg, boundary)
+    dargs = wcsph_cuda.multiphase_density_operands(ctx)
+    dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
+    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, cfg,
+                                                       dout)
+    ctx1 = build_sweep_ctx(state, params, grid, cfg, boundary)
+    dens = SP.density_sweep_plain(cfg, ctx1.queries(width=4),
+                                  ctx1.pack((ctx1.vx, ctx1.vy, ctx1.vz),
+                                            params.particle_mass),
+                                  ctx1.seg_start, ctx1.seg_end, ctx1.pvec)
+    xargs = wcsph_cuda.xsph_operands(ctx1, (ctx1.vx, ctx1.vy, ctx1.vz),
+                                     dens)
+    cuda_sweep.reset_launches()
+    for key, args in (("multiphase_density", dargs),
+                      ("multiphase_force", fargs), ("xsph", xargs)):
+        dispatch = MULTIPHASE_XSPH_SWEEPS[key][0]
+        plain = getattr(SP, f"{key}_sweep_plain")
+        _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
+    torch.cuda.synchronize()
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 11 + [1] * 3
+
+
+@pytest.mark.requires_cuda
+def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
+    """A few multiphase steps launch the multiphase density and force
+    kernels once per step and nothing else; a few XSPH steps launch the
+    density, force and XSPH kernels once per step."""
+    cfg, params, state, grid, boundary = _scene("MULLER", "BECKER", True,
+                                                cuda)
+    mp = _two_phase(state, params, cuda)
+    cuda_sweep.reset_launches()
+    for _ in range(3):
+        mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
+                                               boundary)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 11 + [3, 3, 0]
+    assert torch.isfinite(mp.pos).all() and mp.multiphase
+    assert float(diag.mean_compression) < 0.1
+    cuda_sweep.reset_launches()
+    for _ in range(3):
+        state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
+                                               boundary, xsph_eps=0.3)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [3, 3] + [0] * 11 + [3]
+    assert torch.isfinite(state.pos).all()

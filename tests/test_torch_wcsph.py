@@ -154,11 +154,7 @@ def test_cfl_dt_matches_jax():
 def test_unported_options_raise():
     scene = jax_scene(True)
     pcfg, pparams, pstate, pg, pb = to_port(*scene)
-    multi = pt.make_fluid_state(pstate.pos.numpy(), masses=1.0,
-                                rest_densities=1000.0, device="cpu")
     cases = [
-        (multi, pcfg, pb, None),
-        (pstate, pcfg, pb, 0.5),
         (pstate, dataclasses.replace(pcfg, viscosity_model="implicit"),
          pb, None),
         (pstate, pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)),

@@ -52,8 +52,8 @@ def params_to_port(params, device="cpu"):
 
 
 def to_port(cfg, params, state, grid, boundary, device="cpu"):
-    """The same config, params, state, grid and boundary as port objects
-    on ``device``."""
+    """The same config, params, state (with a multiphase state's mass and
+    ρ₀ columns), grid and boundary as port objects on ``device``."""
     pparams = params_to_port(params, device)
     pboundary = None
     if boundary is not None:
@@ -61,7 +61,8 @@ def to_port(cfg, params, state, grid, boundary, device="cpu"):
             boundary.pos, boundary.psi, boundary.sorted_hash, device=device)
     return (convert.config_from_jax_fields(cfg), pparams,
             convert.state_from_numpy(state.pos, state.vel, state.pressure,
-                                     state.num_active, device=device),
+                                     state.num_active, state.mass,
+                                     state.rho0, device=device),
             convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
                                     device=device),
             pboundary)

@@ -1,10 +1,13 @@
 """Where the time of one step of the PyTorch port goes, on a CUDA card.
 
-    python3 tools/profile_torch_step.py --solver wcsph|iisph|pcisph|dfsph \
+    python3 tools/profile_torch_step.py \
+        --solver wcsph|multiphase|xsph|iisph|pcisph|dfsph \
         [--warmup N] [--steps N] [--sync-every K]
 
 Builds the solver's main-path scene of ``chip_smoke.py`` (wcsph: the
-``dam_break(n_target=2**20)`` with its boundary shell; iisph: the settled
+``dam_break(n_target=2**20)`` with its boundary shell; multiphase: the
+same scene split in two phases as ``bench.py``'s ``multiphase_1M``; xsph:
+the same scene stepped with ``xsph_eps = 0.3``; iisph: the settled
 ``resting_block(n_target=2**20)``; pcisph, dfsph: the settled
 ``resting_block(n_target=256_000)`` of ``bench.py``'s ``*_256k_settled``
 cells), runs ``--warmup`` steps, times ``--steps`` steps with CUDA events
@@ -39,11 +42,15 @@ def build(solver, dev):
     import chip_smoke as smoke
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.solvers import dfsph_cuda, iisph_cuda, pcisph_cuda
-    if solver == "wcsph":
+    if solver in ("wcsph", "multiphase", "xsph"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+        if solver == "multiphase":
+            state = smoke.two_phase(state, params)
+        eps = smoke.XSPH_EPS if solver == "xsph" else None
 
         def step(s):
-            return nt.wcsph_step(s, params, grid, cfg, boundary)
+            return nt.wcsph_step(s, params, grid, cfg, boundary,
+                                 xsph_eps=eps)
         return state, step, ()
     n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
     _, _, state, _, _, step = smoke.settled_main_path(solver, dev, n)
@@ -54,7 +61,8 @@ def build(solver, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--solver", choices=("wcsph", "iisph", "pcisph", "dfsph"),
+    ap.add_argument("--solver", choices=("wcsph", "multiphase", "xsph",
+                                         "iisph", "pcisph", "dfsph"),
                     required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
