@@ -72,11 +72,38 @@ Phases, in order; any failure exits non-zero:
 12. the XSPH path ``wcsph_1M_xsph``: phase 4's dam-break, 300 steps with
     ``xsph_eps = 0.3``, phase 4's gates plus one XSPH launch per step; then
     the density, force and XSPH kernels against their plain versions at
-    these shapes, timed in turns.
+    these shapes, timed in turns;
+13. the force kernel's two instances without viscosity and wall friction
+    (pressure on and off) and the viscous-Laplacian kernel against their
+    plain versions on the phase-3 dam-break (DFSPH parameters at ν = 5,
+    mass calibrated to the lattice), fed its first step's operands; and
+    the three multiphase DFSPH kernels (α̂ sums, dδ̂/dt, κV̂² correction)
+    on the first step's operands of its two-phase split (phase 10's),
+    κ from the first divergence iteration; both kernel sets
+    (max|Δ| ≤ 1e-4·max|ref| per output column, and finite);
+14. the WCSPH path with the implicit viscosity solve, ``wcsph_1M_visc``:
+    phase 4's dam-break at ν = 5 (the CLI's ``--implicit-viscosity 5``),
+    300 steps, phase 4's gates, the force kernel without viscosity once per
+    step and the Laplacian once per launched CG iteration plus once per
+    step (for r0), each CG solve within ``visc_cg_tol`` or at its cap;
+    then its kernels against their plain versions at these shapes, timed;
+15. the DFSPH path with the implicit viscosity solve, ``bench.py``'s
+    ``dfsph_visc_256k_settled`` (built as ``bench.py:376-404``: the
+    settled block with ``dfsph_params(viscosity=5.0)``), 60 steps, phase
+    9's gates plus the CG gates of phase 14 and no launch of the force
+    instances with viscosity; then its kernels against their plain
+    versions, timed;
+16. the multiphase DFSPH path ``dfsph_mp_256k_settled``: phase 9's block
+    split by phase 10's ``two_phase`` (the CLI's ``--solver dfsph
+    --second-phase 0.3:0.5`` on that block), 60 steps, phase 9's gates on
+    the multiphase kernels (none of the single-phase DFSPH kernels) and
+    the light phase's mean height above the heavy phase's; then its
+    kernels against their plain versions, timed.
 
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
-physics cross-check, not a gate.
+physics cross-check, not a gate. Each launch gate counts one main-path
+run: the counters are set to 0 just before it and read just after.
 
 Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
@@ -122,6 +149,7 @@ V5E_ITERS_1_10 = {"pcisph": 41.8, "dfsph": 10.2}   # BASELINE.md:98, :101
 MP_RATIO = 0.3           # bench.py's multiphase_1M: the top half at 0.3*rho0
 MP_ST_CROSS = 0.25       # the cross-phase cohesion of phase 10
 XSPH_EPS = 0.3           # tests/test_xsph.py's epsilon
+VISC_NU = 5.0            # bench.py's dfsph_visc_256k_settled viscosity
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -136,7 +164,10 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (23, 0),
             "jacobi": (35, 22), "pressure_force": (24, 24),
             "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
-            "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0)}
+            "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
+            "force_v0": (51, 32), "force_p0_v0": (32, 28),
+            "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
+            "mp_drho": (24, 25), "mp_kappa": (22, 22)}
 
 
 def fail(msg):
@@ -246,9 +277,10 @@ def time_turns(name, kern, plain, reps=20):
 def start_operands(cfg, ctx, params):
     """The density and pressure-off force sweeps' operands of an implicit
     step from ``ctx`` (on the state's velocities), built as the solvers
-    build them, the force's from the plain density: ``(ops, dens, f_adv)``
-    with ``ops = {key: (kernel, plain, args, kwargs)}`` and the plain
-    density and advection force."""
+    build them, the force's from the plain density (without viscosity and
+    wall friction, key ``force_p0_v0``, under ``viscosity_model=
+    "implicit"``): ``(ops, dens, f_adv)`` with ``ops = {key: (kernel,
+    plain, args, kwargs)}`` and the plain density and advection force."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     vel = (ctx.vx, ctx.vy, ctx.vz)
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
@@ -256,12 +288,23 @@ def start_operands(cfg, ctx, params):
     dens = SP.density_sweep_plain(cfg, *dargs)
     zero = torch.zeros_like(dens)
     fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rng)
-    off = dict(include_pressure=False)
+    implicit = cfg.viscosity_model == "implicit"
+    off = dict(include_pressure=False, include_viscosity=not implicit)
     f_adv = SP.fluid_force_sweep_plain(cfg, *fargs, **off)
     return ({"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
                          dargs, {}),
-             "force_p0": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
-                          fargs, off)}, dens, f_adv)
+             "force_p0_v0" if implicit else "force_p0": (
+                 cuda_sweep.force_sweep, SP.fluid_force_sweep_plain, fargs,
+                 off)}, dens, f_adv)
+
+
+def laplacian_op(ctx, params, dens, v):
+    """The viscous-Laplacian sweep's ``(kernel, plain, args, kwargs)`` at
+    the (C, 3) velocities ``v``, built by ``solvers/viscosity.py``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers.viscosity import laplacian_operands
+    return (cuda_sweep.visc_laplacian_sweep, SP.visc_laplacian_sweep_plain,
+            laplacian_operands(ctx, params, dens)(v), {})
 
 
 def iisph_operands(cfg, ctx, params):
@@ -341,15 +384,22 @@ def dfsph_operands(cfg, ctx, params):
     """The operands of every sweep of one DFSPH step from ``ctx``, built
     by ``solvers/dfsph_cuda.py``'s own operand functions on the plain
     density: the density, α, the pressure-off force and Dρ/Dt on the
-    state's velocities, and the κ correction of the warm start ½·κ_prev
-    (κ/ρ in the pd2 slot). ``{key: (kernel, plain, args, kwargs)}``."""
+    state's velocities, the κ correction of the warm start ½·κ_prev (κ/ρ
+    in the pd2 slot), and under ``viscosity_model="implicit"`` the
+    Laplacian of the CG's first matvec (at v* after the plain advection
+    force). ``{key: (kernel, plain, args, kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps
-    ops, dens, _ = start_operands(cfg, ctx, params)
+    ops, dens, f_adv = start_operands(cfg, ctx, params)
     sweeps = KappaSweeps(ctx, params, cfg, dens)
     kap = 0.5 * torch.clamp(
         torch.where(ctx.active, ctx.pres_prev, torch.zeros_like(dens)),
         min=0.0)
+    if cfg.viscosity_model == "implicit":
+        pm = params.particle_mass
+        v_star = (torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+                  + (params.dt / pm) * (f_adv + pm * params.gravity))
+        ops["visc_laplacian"] = laplacian_op(ctx, params, dens, v_star)
     return {
         **ops,
         "alpha": (cuda_sweep.alpha_sweep, SP.alpha_sweep_plain,
@@ -421,6 +471,70 @@ def xsph_path_operands(cfg, ctx, params):
                      wcsph_cuda.xsph_operands(ctx, nv, dens), {})}
 
 
+def wcsph_visc_operands(cfg, ctx, params):
+    """The operands of the three sweeps of one WCSPH step with the implicit
+    viscosity solve from ``ctx``, as ``solvers/wcsph_cuda.py`` builds
+    them, each from the plain versions' upstream results: the density,
+    the force without viscosity and wall friction, and the Laplacian of
+    the CG's first matvec (at the velocities after that force).
+    ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    dargs, _ = sweep_inputs(ctx, params)
+    dens = SP.density_sweep_plain(cfg, *dargs)
+    _, fargs = sweep_inputs(ctx, params, dens)
+    off = dict(include_viscosity=False)
+    f = SP.fluid_force_sweep_plain(cfg, *fargs, **off)
+    pm, dt = params.particle_mass, params.dt
+    nv = (torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+          + (dt / pm) * (f + pm * params.gravity))
+    return {"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
+                        dargs, {}),
+            "force_v0": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
+                         fargs, off),
+            "visc_laplacian": laplacian_op(ctx, params, dens, nv)}
+
+
+def mp_dfsph_operands(cfg, ctx, params):
+    """The operands of every sweep of one multiphase DFSPH step from
+    ``ctx``, built by ``solvers/dfsph_cuda.py``'s own operand functions,
+    each from the plain versions' upstream results: the density, α̂, the
+    non-pressure forces (zero pressure) and dδ̂/dt on the state's
+    velocities, and the κV̂² correction of the first divergence iteration
+    (κᵛ = max(dδ̂/dt, 0)·α̂/dt). ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
+    mass, rho0 = ctx.mass, ctx.rho0
+    dargs = wcsph_cuda.multiphase_density_operands(ctx)
+    dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
+    delta = dout[:, 0]
+    dens = mass * delta + (rho0 / params.rest_density) * dout[:, 1]
+    sweeps = dfsph_cuda.MultiphaseKappaSweeps(ctx, params, cfg, dens)
+    aargs = dfsph_cuda.multiphase_alpha_operands(ctx)
+    al = SP.multiphase_alpha_sweep_plain(cfg, *aargs)
+    g = al[:, 0:3] + sweeps.sm[:, None] * al[:, 4:7]
+    alpha = mass * sweeps.delta_hat ** 2 / torch.clamp(
+        (g * g).sum(dim=1) + mass * al[:, 3], min=1e-6)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    vargs = sweeps.drho_operands(torch.stack(vel, dim=1))
+    d = SP.multiphase_drho_sweep_plain(cfg, *vargs)
+    kappa = torch.clamp(d[:, 0] + sweeps.sm * d[:, 1], min=0.0) * alpha \
+        / params.dt
+    fargs = wcsph_cuda.multiphase_force_args(
+        ctx, cfg, vel, 1.0 / torch.clamp(delta, min=1e-12),
+        1.0 / torch.clamp(dens, min=1e-12), torch.zeros_like(dens))
+    return {"mp_density": (cuda_sweep.multiphase_density_sweep,
+                           SP.multiphase_density_sweep_plain, dargs, {}),
+            "mp_alpha": (cuda_sweep.multiphase_alpha_sweep,
+                         SP.multiphase_alpha_sweep_plain, aargs, {}),
+            "mp_force": (cuda_sweep.multiphase_force_sweep,
+                         SP.multiphase_force_sweep_plain, fargs, {}),
+            "mp_drho": (cuda_sweep.multiphase_drho_sweep,
+                        SP.multiphase_drho_sweep_plain, vargs, {}),
+            "mp_kappa": (cuda_sweep.multiphase_kappa_sweep,
+                         SP.multiphase_kappa_sweep_plain,
+                         sweeps.kappa_operands(kappa), {})}
+
+
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
@@ -471,9 +585,11 @@ def small_dam_break(nt, params, cfg, dev):
 
 def settled_main_path(solver, dev, n_target):
     """The settled block of ``bench.py``'s ``*_settled`` cells for
-    ``solver`` (iisph, pcisph or dfsph), built as ``bench.py:386-449``
-    builds it: ``(cfg, params, state, grid, boundary, step)`` with
-    ``step(state) -> (state, diag)`` at the cell's tolerances."""
+    ``solver`` (iisph, pcisph, dfsph, dfsph_visc: implicit viscosity at
+    ν = ``VISC_NU``, or dfsph_mp: the block split by :func:`two_phase`),
+    built as ``bench.py:376-449`` builds it: ``(cfg, params, state, grid,
+    boundary, step)`` with ``step(state) -> (state, diag)`` at the cell's
+    tolerances."""
     import nereus_tpu_torch as nt
     from nereus_tpu_torch import scene
     cfg = nt.SimConfig()
@@ -481,6 +597,9 @@ def settled_main_path(solver, dev, n_target):
         base = nt.iisph_params(device=dev)
     elif solver == "pcisph":
         base = nt.calibrate_mass(nt.pcisph_params(device=dev), cfg)
+    elif solver == "dfsph_visc":
+        cfg = nt.SimConfig(viscosity_model="implicit")
+        base = nt.dfsph_params(viscosity=VISC_NU, device=dev)
     else:
         base = nt.dfsph_params(device=dev)
     spacing = 0.8 * float(base.interaction_radius)
@@ -488,6 +607,8 @@ def settled_main_path(solver, dev, n_target):
     state, grid, boundary = scene.resting_block(
         params, cfg, n_target=n_target, spacing=spacing, impact_velocity=-1.0,
         device=dev)
+    if solver == "dfsph_mp":
+        state = two_phase(state, params)
     if solver == "iisph":
         def step(s):
             return nt.iisph_step(s, params, grid, cfg, boundary,
@@ -539,61 +660,11 @@ def check_launches(label, want):
                  f"{want.get(k, 0)}")
 
 
-def run_settled_path(solver, dev, loops):
-    """Phases 8 and 9: ``SETTLED_N`` block, ``IMPLICIT_STEPS`` steps, gates;
-    ``loops`` names the solver's loops (``{name: LoopCounts}``). Returns
-    ``(cfg, params, state, grid, boundary, iters, launches)``."""
-    from nereus_tpu_torch.ops import cuda_sweep
-    t0 = time.perf_counter()
-    cfg, params, state, grid, boundary, step = settled_main_path(
-        solver, dev, SETTLED_N)
-    torch.cuda.synchronize()
-    n = int(state.num_active)
-    floor = float(boundary.pos[:, 1].min())
-    name = solver.upper()
-    print(f"{name} main path: resting_block n_target={SETTLED_N}: {n} "
-          f"fluid particles, {boundary.num_boundaries} boundary samples, "
-          f"grid {grid.size}, dt {float(params.dt)}, mass "
-          f"{float(params.particle_mass):.6g}, floor y {floor:.6g}; set-up "
-          f"{time.perf_counter() - t0:.1f} s")
-    if n != SETTLED_FLUID:
-        fail(f"{name}: expected {SETTLED_FLUID:,} fluid particles, got {n}")
-    torch.cuda.synchronize()
-    cuda_sweep.reset_launches()
-    for lp in loops.values():
-        lp.reset()
-    t_host = time.perf_counter()
-    state, diags, ms, window, ends = run_steps(
-        step, state, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM, tuple(loops.values()))
-    t_host = time.perf_counter() - t_host
-    timed = IMPLICIT_STEPS - IMPLICIT_TIMED_FROM
-    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
-    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
-    errs = torch.stack([d.mean_density_error for d in diags]).cpu().numpy()
-    launched = sum(lp.launched for lp in loops.values())
-    pos = state.pos[:n]
-    min_y = float(pos[:, 1].min())
-    early = float(iters[:IMPLICIT_TIMED_FROM].mean())
-    print(f"{name} main path: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; "
-          f"steps {IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
-          f"{n / (ms * 1e-3):.4g} particle-steps/s")
-    print(f"{name} main path: solver_iters per step {iters.tolist()}; mean "
-          f"steps 1-{IMPLICIT_TIMED_FROM} {early:.4g} (JAX package on the v5e, "
-          f"BASELINE.md: {V5E_ITERS_1_10[solver]}), steps "
-          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS} "
-          f"{float(iters[IMPLICIT_TIMED_FROM:].mean()):.4g}")
-    print(f"{name} main path: iterations launched / converged "
-          + ", ".join(f"{lp.launched}" for lp in loops.values())
-          + f" / {int(iters.sum())} in {IMPLICIT_STEPS} steps; over steps "
-          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: launched "
-          f"{sum(w[0] for w in window) / timed:.4g}, host syncs "
-          f"{sum(w[1] for w in window) / timed:.4g} per step")
-    print(f"{name} main path: launches {launches}, min y {min_y:.6g}, "
-          f"mean_density_error last {errs[-1]:.6g} max {errs.max():.6g}, "
-          f"min pressure {float(state.pressure.min()):.6g}, max pressure "
-          f"{float(state.pressure.max()):.6g}")
-    # every run of each loop ends within its own tolerance or at its own
-    # cap, compared as the loop compares
+def check_loop_ends(name, loops, ends):
+    """Fails unless every run of each loop of ``loops`` (``{label:
+    LoopCounts}``) recorded in ``ends`` (one list of ``LoopCounts.last``
+    per step, :func:`run_steps`) ended within its own tolerance or at its
+    own cap, compared as the loop compares."""
     for j, label in enumerate(loops):
         runs = [e[j] for e in ends]
         its = torch.stack([r.it for r in runs]).cpu().numpy()
@@ -606,6 +677,81 @@ def run_settled_path(solver, dev, loops):
             fail(f"{name}: {label} loop of steps "
                  f"{np.flatnonzero(bad).tolist()} ends above its tol before "
                  "its max iterations")
+
+
+def print_cg(name, cg, ends, window, steps, timed):
+    """The CG loop's iterations launched and converged (the last of
+    ``ends`` per step), in all and per timed step, and its host syncs."""
+    its = torch.stack([e[-1].it for e in ends]).cpu().numpy()
+    print(f"{name}: CG iterations launched / converged {cg.launched} / "
+          f"{int(its.sum())} in {steps} steps; over the last {timed} steps "
+          f"per step: launched {window[-1][0] / timed:.4g}, converged "
+          f"{float(its[-timed:].mean()):.4g}, host syncs "
+          f"{window[-1][1] / timed:.4g}")
+
+
+def run_settled_path(solver, dev, loops, cg=None):
+    """Phases 8, 9, 15 and 16: ``SETTLED_N`` block, ``IMPLICIT_STEPS``
+    steps, gates; ``loops`` names the solver's loops (``{name:
+    LoopCounts}``), ``cg`` the implicit viscosity solve's loop (its
+    iterations are not in ``solver_iters``). Returns ``(cfg, params,
+    state, grid, boundary, iters, launches)``."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    t0 = time.perf_counter()
+    cfg, params, state, grid, boundary, step = settled_main_path(
+        solver, dev, SETTLED_N)
+    torch.cuda.synchronize()
+    n = int(state.num_active)
+    floor = float(boundary.pos[:, 1].min())
+    name = solver.upper()
+    print(f"{name} main path: resting_block n_target={SETTLED_N}: {n} "
+          f"fluid particles, {boundary.num_boundaries} boundary samples, "
+          f"grid {grid.size}, dt {float(params.dt)}, mass "
+          f"{float(params.particle_mass):.6g}, viscosity "
+          f"{float(params.viscosity):.6g} ({cfg.viscosity_model}), floor y "
+          f"{floor:.6g}; set-up {time.perf_counter() - t0:.1f} s")
+    if n != SETTLED_FLUID:
+        fail(f"{name}: expected {SETTLED_FLUID:,} fluid particles, got {n}")
+    all_loops = {**loops, **({"CG": cg} if cg is not None else {})}
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    for lp in all_loops.values():
+        lp.reset()
+    t_host = time.perf_counter()
+    state, diags, ms, window, ends = run_steps(
+        step, state, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM,
+        tuple(all_loops.values()))
+    t_host = time.perf_counter() - t_host
+    timed = IMPLICIT_STEPS - IMPLICIT_TIMED_FROM
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
+    errs = torch.stack([d.mean_density_error for d in diags]).cpu().numpy()
+    launched = sum(lp.launched for lp in loops.values())
+    pos = state.pos[:n]
+    min_y = float(pos[:, 1].min())
+    early = float(iters[:IMPLICIT_TIMED_FROM].mean())
+    v5e = V5E_ITERS_1_10.get(solver)
+    print(f"{name} main path: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; "
+          f"steps {IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name} main path: solver_iters per step {iters.tolist()}; mean "
+          f"steps 1-{IMPLICIT_TIMED_FROM} {early:.4g}"
+          + (f" (JAX package on the v5e, BASELINE.md: {v5e})" if v5e else "")
+          + f", steps {IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS} "
+          f"{float(iters[IMPLICIT_TIMED_FROM:].mean()):.4g}")
+    print(f"{name} main path: iterations launched / converged "
+          + ", ".join(f"{lp.launched}" for lp in loops.values())
+          + f" / {int(iters.sum())} in {IMPLICIT_STEPS} steps; over steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: launched "
+          f"{sum(w[0] for w in window[:len(loops)]) / timed:.4g}, host syncs "
+          f"{sum(w[1] for w in window) / timed:.4g} per step")
+    if cg is not None:
+        print_cg(f"{name} main path", cg, ends, window, IMPLICIT_STEPS, timed)
+    print(f"{name} main path: launches {launches}, min y {min_y:.6g}, "
+          f"mean_density_error last {errs[-1]:.6g} max {errs.max():.6g}, "
+          f"min pressure {float(state.pressure.min()):.6g}, max pressure "
+          f"{float(state.pressure.max()):.6g}")
+    check_loop_ends(name, all_loops, ends)
     if not bool(torch.isfinite(state.pos).all()):
         fail(f"{name}: non-finite positions")
     if min_y < floor:
@@ -615,17 +761,39 @@ def run_settled_path(solver, dev, loops):
     if launched < int(iters.sum()):
         fail(f"{name}: {launched} iterations launched for "
              f"{int(iters.sum())} converged")
+    if state.multiphase:
+        light = state.rho0[:n] < 0.5 * float(params.rest_density)
+        y_light = float(pos[light, 1].mean())
+        y_heavy = float(pos[~light, 1].mean())
+        print(f"{name} main path: {int(light.sum())} particles at "
+              f"{MP_RATIO}·ρ₀, mean y light {y_light:.6g} heavy "
+              f"{y_heavy:.6g}")
+        if not y_light > y_heavy:
+            fail(f"{name}: light phase's mean height {y_light} not above "
+                 f"the heavy phase's {y_heavy}")
     steps = IMPLICIT_STEPS
     if solver == "pcisph":
         # the warm sweep runs on every step (PCISPH warm start on)
         want = {cuda_sweep.DENSITY: steps, cuda_sweep.FORCE_P0: steps,
                 cuda_sweep.DENSITY_PRED: launched,
                 cuda_sweep.PRESSURE_FORCE: launched + steps}
+    elif solver == "dfsph_mp":
+        # the warm κ̂ is applied on every step (DFSPH warm start on)
+        want = {cuda_sweep.MP_DENSITY: steps, cuda_sweep.MP_ALPHA: steps,
+                cuda_sweep.MP_FORCE: steps, cuda_sweep.MP_DRHO: launched,
+                cuda_sweep.MP_KAPPA: launched + steps}
     else:
-        # the warm κ is applied on every step (DFSPH warm start on)
+        # the warm κ is applied on every step (DFSPH warm start on); the
+        # implicit viscosity solve runs its Laplacian once for r0 and once
+        # per launched CG iteration, after the force without viscosity
         want = {cuda_sweep.DENSITY: steps, cuda_sweep.ALPHA: steps,
-                cuda_sweep.FORCE_P0: steps, cuda_sweep.DRHO: launched,
+                cuda_sweep.DRHO: launched,
                 cuda_sweep.PRESSURE_FORCE: launched + steps}
+        if cg is None:
+            want[cuda_sweep.FORCE_P0] = steps
+        else:
+            want[cuda_sweep.FORCE_P0_V0] = steps
+            want[cuda_sweep.VISC_LAPLACIAN] = cg.launched + steps
     check_launches(f"{name} main path", want)
     return cfg, params, state, grid, boundary, iters, launches
 
@@ -671,7 +839,8 @@ def main():
     # alone in a directory) the run fails with no output
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
-    from nereus_tpu_torch.solvers import dfsph_cuda, iisph_cuda, pcisph_cuda
+    from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda,
+                                          pcisph_cuda, viscosity)
     from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     from nereus_tpu_torch.solvers.wcsph_cuda import PLAIN, wcsph_step_cuda
 
@@ -1042,6 +1211,113 @@ def main():
         cfg, xsph_path_operands(cfg, ctx, params),
         f"XSPH path after {N_STEPS} steps", time_it=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, diag, ctx
+
+    # -- 13. the kernels of the implicit viscosity solve and of multiphase
+    # DFSPH vs plain, on the first step's operands ---------------------------
+    print(f"implicit viscosity / multiphase DFSPH kernels vs plain, "
+          f"dam-break n_target={SMALL_N} (DFSPH parameters, ν {VISC_NU}, "
+          f"mass calibrated to the lattice; multiphase: top half by y at "
+          f"{MP_RATIO}·ρ₀), floor in support, seeded velocities:")
+    for ks in ("MULLER", "MONAGHAN"):
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks],
+                           viscosity_model="implicit")
+        base = nt.dfsph_params(viscosity=VISC_NU, device=dev)
+        params = nt.calibrate_mass(
+            base, cfg, spacing=float(base.interaction_radius) - 0.005)
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        label = f"{ks} n={state.capacity} nb={boundary.num_boundaries}"
+        compare_kernels(cfg, dfsph_operands(cfg, ctx, params),
+                        f"DFSPH implicit viscosity {label}",
+                        keys=("force_p0_v0", "visc_laplacian"))
+        compare_kernels(cfg, wcsph_visc_operands(cfg, ctx, params),
+                        f"WCSPH implicit viscosity {label}",
+                        keys=("force_v0", "visc_laplacian"))
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        ctx = build_sweep_ctx(two_phase(state, params), params, grid, cfg,
+                              boundary)
+        compare_kernels(cfg, mp_dfsph_operands(cfg, ctx, params),
+                        f"multiphase DFSPH {label}",
+                        keys=("mp_alpha", "mp_drho", "mp_kappa"))
+    torch.cuda.synchronize()
+    del state, ctx, boundary, grid
+
+    # -- 14. the WCSPH path with the implicit viscosity solve ---------------
+    cfg, _, state, grid, boundary = dam_1m
+    cfg = dataclasses.replace(cfg, viscosity_model="implicit")
+    params = nt.make_params(viscosity=VISC_NU, device=dev)
+    n = int(state.num_active)
+    floor = float(boundary.pos[:, 1].min())
+    print(f"WCSPH implicit viscosity path: {n} fluid particles, "
+          f"{boundary.num_boundaries} boundary samples, viscosity "
+          f"{float(params.viscosity)}, CG tol {cfg.visc_cg_tol} cap "
+          f"{cfg.visc_cg_max_iters}, host read every "
+          f"{viscosity.SYNC_EVERY} launched iterations")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    viscosity.LOOP.reset()
+    t_host = time.perf_counter()
+    state, diags, ms, window, ends = run_steps(
+        lambda s: nt.wcsph_step(s, params, grid, cfg, boundary), state,
+        N_STEPS, TIMED_FROM, (viscosity.LOOP,))
+    t_host = time.perf_counter() - t_host
+    wvisc_launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    diag = diags[-1]
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    min_y = float(state.pos[:n, 1].min())
+    mc = float(diag.mean_compression)
+    print(f"WCSPH implicit viscosity path: {N_STEPS} steps in {t_host:.2f} s "
+          f"host; steps {TIMED_FROM + 1}-{N_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print_cg("WCSPH implicit viscosity path", viscosity.LOOP, ends, window,
+             N_STEPS, N_STEPS - TIMED_FROM)
+    print(f"WCSPH implicit viscosity path: launches {wvisc_launches}, "
+          f"seg_overflow max {overflow}, min y {min_y:.6g}, mean_compression "
+          f"{mc:.6g}, mean_density_error "
+          f"{float(diag.mean_density_error):.6g}, max_density "
+          f"{float(diag.max_density):.6g}")
+    check_loop_ends("WCSPH implicit viscosity path", {"CG": viscosity.LOOP},
+                    ends)
+    check_launches("WCSPH implicit viscosity path", {
+        cuda_sweep.DENSITY: N_STEPS, cuda_sweep.FORCE_V0: N_STEPS,
+        cuda_sweep.VISC_LAPLACIAN: viscosity.LOOP.launched + N_STEPS})
+    if overflow != 0:
+        fail(f"WCSPH implicit viscosity: seg_overflow {overflow}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("WCSPH implicit viscosity: non-finite positions")
+    if min_y < floor:
+        fail(f"WCSPH implicit viscosity: floor penetration: min y {min_y} < "
+             f"floor {floor}")
+    if not mc < 0.1:
+        fail(f"WCSPH implicit viscosity: mean_compression {mc} >= 0.1")
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    wvisc_timing = compare_kernels(
+        cfg, wcsph_visc_operands(cfg, ctx, params),
+        f"WCSPH implicit viscosity path after {N_STEPS} steps", time_it=True)
+    del state, diags, ctx, dam_1m, boundary, grid
+    torch.cuda.empty_cache()
+
+    # -- 15. the DFSPH path with the implicit viscosity solve ---------------
+    cfg, params, state, grid, boundary, _, dvisc_launches = run_settled_path(
+        "dfsph_visc", dev, {"divergence": dfsph_cuda.LOOP_V,
+                            "density": dfsph_cuda.LOOP}, cg=viscosity.LOOP)
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    dvisc_timing = compare_kernels(
+        cfg, dfsph_operands(cfg, ctx, params),
+        f"DFSPH_VISC main path after {IMPLICIT_STEPS} steps", time_it=True)
+    del state, ctx, boundary, grid
+
+    # -- 16. the multiphase DFSPH path --------------------------------------
+    cfg, params, state, grid, boundary, _, dmp_launches = run_settled_path(
+        "dfsph_mp", dev, {"divergence": dfsph_cuda.LOOP_V,
+                          "density": dfsph_cuda.LOOP})
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    dmp_timing = compare_kernels(
+        cfg, mp_dfsph_operands(cfg, ctx, params),
+        f"DFSPH_MP main path after {IMPLICIT_STEPS} steps", time_it=True)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, ctx, boundary, grid
 
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands
@@ -1049,6 +1325,8 @@ def main():
     iisph_src = "nereus_tpu_torch/csrc/iisph_sweep.cu"
     dfsph_src = "nereus_tpu_torch/csrc/dfsph_sweep.cu"
     mp_src = "nereus_tpu_torch/csrc/multiphase_sweep.cu"
+    visc_src = "nereus_tpu_torch/csrc/viscosity_sweep.cu"
+    mpd_src = "nereus_tpu_torch/csrc/dfsph_multiphase_sweep.cu"
     rep = "nereus_tpu/ops/pallas_sph.py:"
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
@@ -1064,7 +1342,14 @@ def main():
             "drho": (cuda_sweep.DRHO, dfsph_src, rep + "903"),
             "mp_density": (cuda_sweep.MP_DENSITY, mp_src, rep + "628"),
             "mp_force": (cuda_sweep.MP_FORCE, mp_src, rep + "657"),
-            "xsph": (cuda_sweep.XSPH, mp_src, rep + "603")}
+            "xsph": (cuda_sweep.XSPH, mp_src, rep + "603"),
+            "force_v0": (cuda_sweep.FORCE_V0, sph_src, rep + "1207"),
+            "force_p0_v0": (cuda_sweep.FORCE_P0_V0, sph_src, rep + "1207"),
+            "visc_laplacian": (cuda_sweep.VISC_LAPLACIAN, visc_src,
+                               rep + "984"),
+            "mp_alpha": (cuda_sweep.MP_ALPHA, mpd_src, rep + "799"),
+            "mp_drho": (cuda_sweep.MP_DRHO, mpd_src, rep + "836"),
+            "mp_kappa": (cuda_sweep.MP_KAPPA, mpd_src, rep + "871")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -1072,7 +1357,10 @@ def main():
             ("pcisph_256k_settled", pcisph_timing, pcisph_launches),
             ("dfsph_256k_settled", dfsph_timing, dfsph_launches),
             ("multiphase_1M", mp_timing, mp_launches),
-            ("wcsph_1M_xsph", xsph_timing, xsph_launches)):
+            ("wcsph_1M_xsph", xsph_timing, xsph_launches),
+            ("wcsph_1M_visc", wvisc_timing, wvisc_launches),
+            ("dfsph_visc_256k_settled", dvisc_timing, dvisc_launches),
+            ("dfsph_mp_256k_settled", dmp_timing, dmp_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:

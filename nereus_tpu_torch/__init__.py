@@ -1,11 +1,13 @@
 """nereus_tpu_torch: the PyTorch + CUDA port of nereus_tpu.
 
-The WCSPH step (single phase with optional XSPH, and multiphase) and the
-single-phase IISPH, PCISPH and DFSPH steps of ``nereus_tpu`` on one NVIDIA
-GPU: the same public names and semantics for the ported
-subset, with the neighbor sweeps as hand-written CUDA kernels for Hopper
-(``csrc/``) and plain PyTorch versions of them on the CPU. Entry points build on the CUDA
-device unless given another. Imports torch and numpy, never JAX.
+The WCSPH step (single phase with optional XSPH and implicit viscosity,
+and multiphase), the single-phase IISPH and PCISPH steps and the DFSPH step
+(single phase with optional implicit viscosity, and multiphase) of
+``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
+the ported subset, with the neighbor sweeps as hand-written CUDA kernels
+for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
+Entry points build on the CUDA device unless given another. Imports torch
+and numpy, never JAX.
 """
 
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
@@ -15,7 +17,8 @@ from .grid import Grid, fit_grid, make_grid
 from .state import BoundaryData, FluidState, make_fluid_state
 from .solvers.wcsph import StepDiagnostics, cfl_dt, tait_pressure, wcsph_step
 from .solvers.iisph import iisph_step
-from .solvers.pcisph import pcisph_delta, pcisph_step
+from .solvers.pcisph import (pcisph_delta, pcisph_delta_from_denom,
+                             pcisph_grad_denom, pcisph_step)
 from .solvers.dfsph import dfsph_step
 
 __version__ = "0.1.0"
@@ -27,5 +30,6 @@ __all__ = [
     "Grid", "fit_grid", "make_grid",
     "BoundaryData", "FluidState", "make_fluid_state",
     "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
-    "iisph_step", "pcisph_step", "pcisph_delta", "dfsph_step",
+    "iisph_step", "pcisph_step", "pcisph_delta", "pcisph_delta_from_denom",
+    "pcisph_grad_denom", "dfsph_step",
 ]

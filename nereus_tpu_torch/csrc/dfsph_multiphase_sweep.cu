@@ -1,0 +1,115 @@
+// Pair functions of the multiphase DFSPH step, for Hopper (sm_90a).
+//
+// Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
+// as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the six
+// pair functions of solvers/dfsph_pallas.py::dfsph_multiphase_pallas, on the
+// adapted number-density domain (delta-hat, alpha-hat, kappa V-hat^2):
+// multiphase_alpha_pair / _bpair, multiphase_drho_pair / _bpair and
+// multiphase_kappa_pair / _bpair. Its density and non-pressure force sweeps
+// are the MultiphaseDensity and MultiphaseForce functors of
+// multiphase_sweep.cu.
+//
+// Design: one functor per fluid / wall pair of the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, the fluid rows the
+// B = false branch and the wall rows the B = true one, in the operation
+// order of ops/sph_pairs.py. All three use the default (poly6 / Monaghan)
+// gradient, exactly 0 at the self pair (r^2 is clamped before the rsqrt),
+// so self-pairs stay in the ranges; the Muller gradient skips the rsqrt.
+// The wall sums the caller rescales by each query's s_i / m_i (alpha's
+// B vector, drho's wall column) keep columns of their own.
+//
+// Bound: memory traffic (sweep_common.cuh). The alpha and kappa sources
+// are 16-byte rows (x y z and one scalar: 1 / m_j or kappa V-hat_j^2 on
+// fluid rows, psi_b on wall rows), the drho source a 32-byte row (the
+// velocities and psi_b).
+//
+// Layouts (row-major float32, 16-byte aligned rows):
+//   alpha: q (N, 4) x y z pad; src (M, 4) fluid x y z 1/m_j, wall x y z
+//          psi_b; out (N, 7) sum grad W (3), sum |grad W|^2 / m_j (fluid
+//          rows), sum psi_b grad W (3, wall rows)
+//   drho:  q (N, 8) x y z vx vy vz pad pad; src (M, 8) x y z vx vy vz s6
+//          pad (fluid s6 unread, wall rows velocity 0 and psi_b);
+//          out (N, 2) sum (v_i - v_j) . grad W (fluid rows, no mass
+//          weight), sum psi_b (v_i - v_b) . grad W (wall rows)
+//   kappa: q (N, 8) x y z kv2_i qc_i pad pad pad; src (M, 4) fluid x y z
+//          kv2_j, wall x y z psi_b; out (N, 3)
+//          sum (kv2_i + kv2_j) grad W + qc_i sum psi_b grad W
+
+#include "sweep_common.cuh"
+
+namespace {
+
+using namespace nereus_sweep;
+
+// G = sum grad W and S = sum |grad W|^2 / m_j over the fluid rows,
+// B = sum psi_b grad W over the wall rows
+struct MultiphaseAlpha {
+  static constexpr int QW = 4, SW = 4, OW = 7;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z (1/m_j or psi_b)
+    const Geom g = default_geom<KS>(q, a, p);
+    if constexpr (B) {
+      const float c = a.w * g.s * g.okf;
+      acc[4] += c * g.dx;
+      acc[5] += c * g.dy;
+      acc[6] += c * g.dz;
+    } else {
+      const float c = g.s * g.okf;
+      acc[0] += c * g.dx;
+      acc[1] += c * g.dy;
+      acc[2] += c * g.dz;
+      acc[3] += a.w * c * c * g.r2;
+    }
+  }
+};
+
+// d delta-hat / dt: sum (v_i - v_j) . grad W over the fluid rows (column 0),
+// sum psi_b (v_i - v_b) . grad W over the wall rows (column 1)
+struct MultiphaseDrho {
+  static constexpr int QW = 8, SW = 8, OW = 2;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz psi_b pad
+    const Geom g = default_geom<KS>(q, a, p);
+    const float dv = (q[3] - a.w) * g.dx + (q[4] - b.x) * g.dy +
+                     (q[5] - b.y) * g.dz;
+    if constexpr (B) {
+      acc[1] += b.z * g.s * dv * g.okf;
+    } else {
+      acc[0] += g.s * dv * g.okf;
+    }
+  }
+};
+
+// the stiffness correction sum (kv2_i + kv2_j) grad W over the fluid rows
+// plus qc_i sum psi_b grad W over the wall rows, into the same columns
+struct MultiphaseKappa {
+  static constexpr int QW = 8, SW = 4, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);  // x y z (kv2_j or psi_b)
+    const Geom g = default_geom<KS>(q, a, p);
+    const float c = B ? q[4] * a.w * g.s * g.okf : (q[3] + a.w) * g.s * g.okf;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+NEREUS_PAIR_SWEEP(multiphase_alpha, MultiphaseAlpha)
+NEREUS_PAIR_SWEEP(multiphase_drho, MultiphaseDrho)
+NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)
+
+}  // extern "C"

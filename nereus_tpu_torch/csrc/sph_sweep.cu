@@ -31,7 +31,10 @@
 //
 // The force kernel's PRESSURE switch (0 for the IISPH advection forces,
 // fluid_force_sweep(include_pressure=False)) drops the Tait term pd2_i +
-// pd2_j of the fluid rows and the pressure term of the boundary rows.
+// pd2_j of the fluid rows and the pressure term of the boundary rows. Its
+// VISC switch (0 when the implicit viscosity solve owns viscosity,
+// fluid_force_sweep(include_viscosity=False)) drops the Muller viscosity of
+// the fluid rows and the friction of the boundary rows.
 //
 // Layouts (all row-major float32, 16-byte aligned):
 //   density query (N, 4): x y z pad
@@ -85,10 +88,10 @@ density_sweep_kernel(const float4* __restrict__ q,
 // Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
 // from rho_j) on rows 0-8, static-wall boundary pairs (adhesion, friction,
 // reference-scale boundary pressure) on rows 9-17; PRESSURE = 0 drops both
-// pressure terms
+// pressure terms, VISC = 0 the viscosity and the friction
 // ---------------------------------------------------------------------------
 
-template <int KS, int ST, int PRESSURE>
+template <int KS, int ST, int PRESSURE, int VISC>
 __global__ void __launch_bounds__(THREADS)
 force_sweep_kernel(const float4* __restrict__ q,
                    const float4* __restrict__ src,
@@ -119,9 +122,6 @@ force_sweep_kernel(const float4* __restrict__ q,
     const float dens_j = fmaxf(b.z, 1e-12f);
     const float inv_dens = 1.0f / dens_j;
 
-    const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
-    const float cvisc = (kv0 * inv_dens) * (av * (1.0f / (r2 + bden0))) * okf;
-
     float cpd = 0.0f;
     if constexpr (PRESSURE != 0) {
       const float ratio = dens_j * inv_rd;
@@ -146,15 +146,26 @@ force_sweep_kernel(const float4* __restrict__ q,
       cpd += (-p.kappa * p.pm * p.pm) * kij * c * invrl;
     }
     cpd *= okf;
-    fx += cvisc * (qa.w - a.w) + cpd * dx;
-    fy += cvisc * (qb.x - b.x) + cpd * dy;
-    fz += cvisc * (qb.y - b.y) + cpd * dz;
+    if constexpr (VISC != 0) {
+      const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
+      const float cvisc =
+          (kv0 * inv_dens) * (av * (1.0f / (r2 + bden0))) * okf;
+      fx += cvisc * (qa.w - a.w) + cpd * dx;
+      fy += cvisc * (qb.x - b.x) + cpd * dy;
+      fz += cvisc * (qb.y - b.y) + cpd * dz;
+    } else {
+      fx += cpd * dx;
+      fy += cpd * dy;
+      fz += cpd * dz;
+    }
   });
 
   if (n_rows > N_ROWS) {
     const float di = fmaxf(dens_i, 1e-12f);
-    const float nu = ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
-                      (1.0f + 0.01f * p.h2)) / (di * di);
+    const float nu = VISC != 0 ? ((2.0f * p.pm * p.pm * p.visc * p.visc *
+                                   p.h * p.cs) / (1.0f + 0.01f * p.h2)) /
+                                     (di * di)
+                               : 0.0f;
     const float cpb = p.pm * p.pm;
     for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
       const float4 a = __ldg(src + 2 * j);
@@ -166,8 +177,11 @@ force_sweep_kernel(const float4* __restrict__ q,
       const float okf = r2 < p.h2 ? 1.0f : 0.0f;
       const float w = w_value<KS>(r2, rl, p);
       const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
-      const float vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
-      const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+      float cfric = 0.0f;
+      if constexpr (VISC != 0) {
+        const float vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
+        cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+      }
       const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
                                   (cfric + cpb * psi * pd2_i * sd)) * okf
                                : ((p.beta * psi) * w + cfric) * okf;
@@ -181,11 +195,12 @@ force_sweep_kernel(const float4* __restrict__ q,
   out[3 * i + 2] = fz;
 }
 
-template <int KS, int ST, int PRESSURE>
+template <int KS, int ST, int PRESSURE, int VISC>
 void launch_force(const float* q, const float* src, const int* s,
                   const int* e, int n, int n_rows, const float* pv,
                   float* out, cudaStream_t stream) {
-  force_sweep_kernel<KS, ST, PRESSURE><<<blocks_for(n), THREADS, 0, stream>>>(
+  force_sweep_kernel<KS, ST, PRESSURE, VISC>
+      <<<blocks_for(n), THREADS, 0, stream>>>(
       reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
       s, e, n, n_rows, pv, out);
 }
@@ -219,26 +234,27 @@ int nereus_density_sweep(const float* q, const float* src,
 int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
                        const int* seg_end, int n, int n_rows,
                        const float* pvec, int kernel_set, int st_model,
-                       int pressure, float* out, void* stream) {
+                       int pressure, int visc, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NEREUS_FORCE(KS, ST, P)                                             \
-  if (kernel_set == KS && st_model == ST && pressure == P) {                \
-    launch_force<KS, ST, P>(q, src, seg_start, seg_end, n, n_rows, pvec,    \
-                            out, st);                                       \
+#define NEREUS_FORCE(KS, ST, P, V)                                          \
+  if (kernel_set == KS && st_model == ST && pressure == P && visc == V) {   \
+    launch_force<KS, ST, P, V>(q, src, seg_start, seg_end, n, n_rows, pvec, \
+                               out, st);                                    \
     return static_cast<int>(cudaGetLastError());                            \
   }
-  NEREUS_FORCE(MULLER, ST_NONE, 1)
-  NEREUS_FORCE(MULLER, ST_BECKER, 1)
-  NEREUS_FORCE(MULLER, ST_AKINCI, 1)
-  NEREUS_FORCE(MONAGHAN, ST_NONE, 1)
-  NEREUS_FORCE(MONAGHAN, ST_BECKER, 1)
-  NEREUS_FORCE(MONAGHAN, ST_AKINCI, 1)
-  NEREUS_FORCE(MULLER, ST_NONE, 0)
-  NEREUS_FORCE(MULLER, ST_BECKER, 0)
-  NEREUS_FORCE(MULLER, ST_AKINCI, 0)
-  NEREUS_FORCE(MONAGHAN, ST_NONE, 0)
-  NEREUS_FORCE(MONAGHAN, ST_BECKER, 0)
-  NEREUS_FORCE(MONAGHAN, ST_AKINCI, 0)
+#define NEREUS_FORCE_ST(KS, P, V) \
+  NEREUS_FORCE(KS, ST_NONE, P, V) \
+  NEREUS_FORCE(KS, ST_BECKER, P, V) \
+  NEREUS_FORCE(KS, ST_AKINCI, P, V)
+  NEREUS_FORCE_ST(MULLER, 1, 1)
+  NEREUS_FORCE_ST(MONAGHAN, 1, 1)
+  NEREUS_FORCE_ST(MULLER, 0, 1)
+  NEREUS_FORCE_ST(MONAGHAN, 0, 1)
+  NEREUS_FORCE_ST(MULLER, 1, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 1, 0)
+  NEREUS_FORCE_ST(MULLER, 0, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 0, 0)
+#undef NEREUS_FORCE_ST
 #undef NEREUS_FORCE
   return -1;
 }

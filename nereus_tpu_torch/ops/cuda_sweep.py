@@ -1,7 +1,9 @@
 """Build, load and launch the hand-written CUDA sweep kernels
 (``csrc/sph_sweep.cu`` for the density and force sweeps,
 ``csrc/iisph_sweep.cu`` for IISPH, ``csrc/dfsph_sweep.cu`` for DFSPH,
-``csrc/multiphase_sweep.cu`` for multiphase WCSPH and XSPH; the
+``csrc/multiphase_sweep.cu`` for multiphase WCSPH and XSPH,
+``csrc/dfsph_multiphase_sweep.cu`` for multiphase DFSPH,
+``csrc/viscosity_sweep.cu`` for the implicit viscosity solve; the
 counterpart of ``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
@@ -63,9 +65,18 @@ DRHO = Kernel("pair_sweep_kernel<Drho>")
 MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
 MP_FORCE = Kernel("pair_sweep_kernel<MultiphaseForce>")
 XSPH = Kernel("pair_sweep_kernel<Xsph>")
+# the force kernel without the viscosity and the wall friction (the
+# implicit viscosity solve owns both): WCSPH's, then DFSPH's pressure-off
+FORCE_V0 = Kernel("force_sweep_kernel<VISC=0>")
+FORCE_P0_V0 = Kernel("force_sweep_kernel<PRESSURE=0,VISC=0>")
+VISC_LAPLACIAN = Kernel("pair_sweep_kernel<ViscLaplacian>")
+MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
+MP_DRHO = Kernel("pair_sweep_kernel<MultiphaseDrho>")
+MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
-           XSPH)
+           XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
+           MP_KAPPA)
 
 _lock = threading.Lock()
 _lib = None
@@ -211,10 +222,11 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # the C entry points nereus_<fn>_sweep(q, src, seg_start, seg_end, n,
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
-_SWEEP_FNS = {"density": 0, "force": 2, "dii_rhoadv": 0, "aii": 0,
+_SWEEP_FNS = {"density": 0, "force": 3, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 1,
-              "xsph": 0}
+              "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
+              "multiphase_drho": 0, "multiphase_kappa": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -248,14 +260,19 @@ def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
-                include_pressure=True):
+                include_pressure=True, include_viscosity=True):
     """Forces (N, 3) from the fused fluid + boundary force kernel:
     q (N, 8), src (M, 8); ``include_pressure=False`` launches the
-    pressure-off instance (the IISPH advection forces), counted in
-    ``FORCE_P0``."""
-    return _sweep(FORCE if include_pressure else FORCE_P0, "force", cfg, q,
-                  8, src, 8, seg_start, seg_end, pvec, (9, 18), 3,
-                  cfg.surface_tension_model.value, int(bool(include_pressure)))
+    pressure-off instance (the implicit solvers' advection forces),
+    ``include_viscosity=False`` the instance without viscosity and wall
+    friction (the implicit viscosity solve owns both), each counted in its
+    own ``Kernel``."""
+    kernel = {(True, True): FORCE, (False, True): FORCE_P0,
+              (True, False): FORCE_V0, (False, False): FORCE_P0_V0}[
+        bool(include_pressure), bool(include_viscosity)]
+    return _sweep(kernel, "force", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 3, cfg.surface_tension_model.value,
+                  int(bool(include_pressure)), int(bool(include_viscosity)))
 
 
 def dii_rhoadv_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -335,3 +352,30 @@ def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     ranges (9, N)."""
     return _sweep(XSPH, "xsph", cfg, q, 8, src, 8, seg_start, seg_end,
                   pvec, (9,), 3)
+
+
+def visc_laplacian_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Viscous Laplacian L(v) (N, 3): q (N, 8), src (M, 8)."""
+    return _sweep(VISC_LAPLACIAN, "visc_laplacian", cfg, q, 8, src, 8,
+                  seg_start, seg_end, pvec, (9, 18), 3)
+
+
+def multiphase_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """Multiphase DFSPH factor sums (N, 7): q (N, 4), src (M, 4)."""
+    return _sweep(MP_ALPHA, "multiphase_alpha", cfg, q, 4, src, 4,
+                  seg_start, seg_end, pvec, (9, 18), 7)
+
+
+def multiphase_drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Adapted number-density rate, fluid and wall sums (N, 2): q (N, 8),
+    src (M, 8)."""
+    return _sweep(MP_DRHO, "multiphase_drho", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9, 18), 2)
+
+
+def multiphase_kappa_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """Multiphase stiffness correction (N, 3): q (N, 8), src (M, 4)."""
+    return _sweep(MP_KAPPA, "multiphase_kappa", cfg, q, 8, src, 4, seg_start,
+                  seg_end, pvec, (9, 18), 3)

@@ -15,7 +15,8 @@ force sweeps read a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
 ``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad`` (Jacobi) or ``x y z vx vy vz
 V_j p_j·V_j² [ρ0_j] pad…`` (multiphase), boundary rows with ψ_b in slot 6.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
-rows ``x y z 0``).
+rows ``x y z 0``); the multiphase DFSPH α and κ sweeps a (M, 4) source
+``x y z s`` (fluid s = 1/m_j resp. κV̂²_j, boundary s = ψ_b).
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -25,10 +26,11 @@ constant.
 
 Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
-sweeps, the multiphase density and force sweeps and ``xsph_sweep``)
-routes by device: a CPU tensor goes to the plain sweep,
-a CUDA float32 tensor to the hand-written kernel (``ops/cuda_sweep.py``);
-anything else raises.
+sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
+implicit viscosity solve's ``visc_laplacian_sweep`` and the three
+multiphase DFSPH sweeps) routes by device: a CPU tensor goes to the plain
+sweep, a CUDA float32 tensor to the hand-written kernel
+(``ops/cuda_sweep.py``); anything else raises.
 """
 
 from __future__ import annotations
@@ -206,23 +208,18 @@ def density_pair(q, s, pv, *, kernel_set):
 
 
 def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
-                     include_pressure=True):
+                     include_pressure=True, include_viscosity=True):
     """Fluid-source forces: Müller viscosity, Becker or Akinci surface
     tension, and symmetric Tait pressure with pd2_j recomputed from the
     source density in slot 6. ``include_pressure=False`` drops the whole
-    Tait term, pd2_i and pd2_j (the IISPH advection forces). Returns
-    (P, 3)."""
+    Tait term, pd2_i and pd2_j (the implicit solvers' advection forces);
+    ``include_viscosity=False`` the viscosity (the implicit viscosity solve
+    owns it). Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     rl, invrl = _rl_invrl(r2)
     okf = (r2 < pv[PV_H2]).to(q.dtype)
     dens_j = torch.clamp(s[:, 6], min=_EPS)
     inv_dens = 1.0 / dens_j
-
-    # viscosity 2·m·μ·(m/ρ_j)(r·∇W_v)/(r² + 0.01h²)·(v_i − v_j); exact 1/x
-    a = _visc_rdotgrad(kernel_set, r2, rl, pv, invrl)
-    kv = (2.0 * pv[PV_PM] * pv[PV_VISC] * pv[PV_PM]) * inv_dens
-    bden = r2 + 0.01 * pv[PV_H2]
-    cvisc = kv * (a * (1.0 / bden)) * okf
 
     # pressure: −m²(pd2_i + pd2_j)·∇W_press, pd2_j from the Tait EOS of ρ_j
     if include_pressure:
@@ -254,15 +251,24 @@ def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
         cpd = cpd + (-pv[PV_KAPPA] * pv[PV_PM] * pv[PV_PM]) * kij * c * invrl
 
     cpd = cpd * okf
+    if not include_viscosity:
+        return torch.stack([cpd * dx, cpd * dy, cpd * dz], dim=1)
+    # viscosity 2·m·μ·(m/ρ_j)(r·∇W_v)/(r² + 0.01h²)·(v_i − v_j); exact 1/x
+    a = _visc_rdotgrad(kernel_set, r2, rl, pv, invrl)
+    kv = (2.0 * pv[PV_PM] * pv[PV_VISC] * pv[PV_PM]) * inv_dens
+    bden = r2 + 0.01 * pv[PV_H2]
+    cvisc = kv * (a * (1.0 / bden)) * okf
     return torch.stack([cvisc * (q[:, 3] - s[:, 3]) + cpd * dx,
                         cvisc * (q[:, 4] - s[:, 4]) + cpd * dy,
                         cvisc * (q[:, 5] - s[:, 5]) + cpd * dz], dim=1)
 
 
-def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True):
+def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True,
+                        include_friction=True):
     """Static-wall boundary forces (``computeCellForces`` boundary loop,
     ``sph_kernel_impl.cuh:552-602``): β adhesion β·ψ·W·r⃗, friction with
-    max(v_i·r⃗, 0), and the reference-scale boundary pressure
+    max(v_i·r⃗, 0) (dropped with ``include_friction=False``: the implicit
+    viscosity solve owns it), and the reference-scale boundary pressure
     +m²·ψ·pd2_i·∇W_dflt (the reference's sign and scale, kept for
     parity; dropped with ``include_pressure=False``). Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
@@ -276,11 +282,13 @@ def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True):
     w = _w_value(kernel_set, r2, rl, pv)
     sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
     cadh = (pv[PV_BETA] * psi) * w
-    nu = ((2.0 * pv[PV_PM] * pv[PV_PM] * pv[PV_VISC] * pv[PV_VISC]
-           * pv[PV_H] * pv[PV_CS]) / (1.0 + 0.01 * pv[PV_H2])) \
-        / (dens_i * dens_i)
-    vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
-    cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
+    cfric = 0.0
+    if include_friction:
+        nu = ((2.0 * pv[PV_PM] * pv[PV_PM] * pv[PV_VISC] * pv[PV_VISC]
+               * pv[PV_H] * pv[PV_CS]) / (1.0 + 0.01 * pv[PV_H2])) \
+            / (dens_i * dens_i)
+        vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+        cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
     if include_pressure:
         c = cadh + (cfric + (pv[PV_PM] * pv[PV_PM]) * psi * q[:, 7] * sd)
     else:
@@ -512,6 +520,95 @@ def xsph_pair(q, s, pv, *, kernel_set):
 
 
 # ---------------------------------------------------------------------------
+# Multiphase DFSPH pair formulas (default gradient, adapted number-density
+# domain) and the implicit viscosity Laplacian
+# ---------------------------------------------------------------------------
+
+def multiphase_alpha_pair(q, s, pv, *, kernel_set):
+    """Fluid rows of the multiphase DFSPH factor sweep: the unweighted
+    gradient sum G = Σ∇W (columns 0-2) and S = Σ|∇W|²/m_j (column 3).
+    q: x y z pad; src: x y z 1/m_j. Returns (P, 7): [G, S, 0, 0, 0]."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = sg * okf
+    z = torch.zeros_like(c)
+    return torch.stack([c * dx, c * dy, c * dz, s[:, 3] * c * c * r2,
+                        z, z, z], dim=1)
+
+
+def multiphase_alpha_bpair(q, s, pv, *, kernel_set):
+    """Boundary rows of the multiphase DFSPH factor sweep: B = Σψ_b∇W into
+    columns 4-6, apart from G, since the caller scales it by each query's
+    s_i/m_i. src: x y z ψ_b. Returns (P, 7): [0, 0, 0, 0, B]."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = s[:, 3] * sg * okf
+    z = torch.zeros_like(c)
+    return torch.stack([z, z, z, z, c * dx, c * dy, c * dz], dim=1)
+
+
+def _dv_dot_grad(q, s, pv, kernel_set):
+    """(s·(v_q − v_j)·r⃗·okf) with ∇W = s·r⃗: the velocity divergence term
+    of one pair, without a source weight."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    dvx = q[:, 3] - s[:, 3]
+    dvy = q[:, 4] - s[:, 4]
+    dvz = q[:, 5] - s[:, 5]
+    return sg, dvx * dx + dvy * dy + dvz * dz, okf
+
+
+def multiphase_drho_pair(q, s, pv, *, kernel_set):
+    """Fluid rows of the adapted number-density rate dδ̂/dt: Σ(v_q − v_j)·∇W
+    into column 0, with no mass weight. q: x y z vx vy vz pad pad.
+    Returns (P, 2)."""
+    sg, dv, okf = _dv_dot_grad(q, s, pv, kernel_set)
+    c = sg * dv * okf
+    return torch.stack([c, torch.zeros_like(c)], dim=1)
+
+
+def multiphase_drho_bpair(q, s, pv, *, kernel_set):
+    """Boundary rows of dδ̂/dt: Σψ_b(v_q − v_b)·∇W into column 1 (scaled by
+    s_i/m_i outside; wall velocities in source slots 3-5, 0 when static).
+    Returns (P, 2)."""
+    sg, dv, okf = _dv_dot_grad(q, s, pv, kernel_set)
+    c = s[:, 6] * sg * dv * okf
+    return torch.stack([torch.zeros_like(c), c], dim=1)
+
+
+def multiphase_kappa_pair(q, s, pv, *, kernel_set):
+    """Fluid rows of the multiphase stiffness correction: the positive sum
+    Σ(κV̂²_i + κV̂²_j)∇W (the caller applies v −= dt/m_i·out).
+    q: x y z κV̂²_i qc_i pad pad pad; src: x y z κV̂²_j. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = (q[:, 3] + s[:, 3]) * sg * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+def multiphase_kappa_bpair(q, s, pv, *, kernel_set):
+    """Boundary rows of the multiphase stiffness correction: qc_i·Σψ_b∇W
+    with qc_i = (s_i/m_i)·κV̂²_i (query column 4), into the same columns
+    as the fluid rows. src: x y z ψ_b. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = q[:, 4] * s[:, 3] * sg * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+def visc_laplacian_pair(q, s, pv, *, kernel_set, boundary):
+    """Weiler-2018 viscous Laplacian L(v)_i = 10·Σ coef·(v_ij·x_ij)/
+    (|x_ij|² + 0.01h²)·∇W with coef = m/ρ_j for fluid sources (slot 6) and
+    ψ_b/ρ_i for boundary sources (ψ_b in slot 6, ρ_i in query column 6;
+    wall velocities in slots 3-5). Exact division (``_fast_recip`` in
+    JAX). q: x y z vx vy vz ρ pad. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    if boundary:
+        coef = s[:, 6] * (1.0 / torch.clamp(q[:, 6], min=_EPS))
+    else:
+        coef = s[:, 6]
+    dvdotx = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
+              + (q[:, 5] - s[:, 5]) * dz)
+    c = (10.0 * coef * sg) * dvdotx * (1.0 / (r2 + 0.01 * pv[PV_H2])) * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Plain sweeps and the dispatchers
 # ---------------------------------------------------------------------------
 
@@ -525,18 +622,22 @@ def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                            pvec, include_pressure=True):
+                            pvec, include_pressure=True,
+                            include_viscosity=True):
     """WCSPH forces: fluid pairs on rows 0-8, static-wall boundary pairs on
-    rows 9-17; ``include_pressure=False`` drops both pressure terms.
+    rows 9-17; ``include_pressure=False`` drops both pressure terms,
+    ``include_viscosity=False`` the viscosity and the wall friction.
     Returns (N, 3)."""
     def pair(qq, ss):
         return fluid_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
                                 st_model=cfg.surface_tension_model,
-                                include_pressure=include_pressure)
+                                include_pressure=include_pressure,
+                                include_viscosity=include_viscosity)
 
     def pair_b(qq, ss):
         return boundary_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
-                                   include_pressure=include_pressure)
+                                   include_pressure=include_pressure,
+                                   include_friction=include_viscosity)
     return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 3,
                                 pair_fn_b=pair_b)
 
@@ -640,6 +741,43 @@ def xsph_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 seg_start, seg_end, 3)
 
 
+def visc_laplacian_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                              pvec):
+    """Viscous Laplacian L(v) (N, 3): q (N, 8) x y z v ρ pad, src (M, 8)
+    with the velocities and m/ρ_j (fluid) / ψ_b (boundary) in slot 6."""
+    return neighbor_sweep_plain(
+        _bind(visc_laplacian_pair, cfg, pvec, boundary=False), q, src,
+        seg_start, seg_end, 3,
+        pair_fn_b=_bind(visc_laplacian_pair, cfg, pvec, boundary=True))
+
+
+def multiphase_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                 seg_end, pvec):
+    """(G, S, B) (N, 7): q (N, 4), src (M, 4) fluid rows ``x y z 1/m_j``,
+    boundary rows ``x y z ψ_b``."""
+    return neighbor_sweep_plain(
+        _bind(multiphase_alpha_pair, cfg, pvec), q, src, seg_start, seg_end,
+        7, pair_fn_b=_bind(multiphase_alpha_bpair, cfg, pvec))
+
+
+def multiphase_drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                                pvec):
+    """(Σ(v_i − v_j)·∇W, Σψ_b(v_i − v_b)·∇W) (N, 2): q (N, 8), src (M, 8)
+    with the velocities, ψ_b in the boundary rows' slot 6."""
+    return neighbor_sweep_plain(
+        _bind(multiphase_drho_pair, cfg, pvec), q, src, seg_start, seg_end,
+        2, pair_fn_b=_bind(multiphase_drho_bpair, cfg, pvec))
+
+
+def multiphase_kappa_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                 seg_end, pvec):
+    """Multiphase stiffness correction (N, 3): q (N, 8) x y z κV̂² qc,
+    src (M, 4) fluid rows ``x y z κV̂²_j``, boundary rows ``x y z ψ_b``."""
+    return neighbor_sweep_plain(
+        _bind(multiphase_kappa_pair, cfg, pvec), q, src, seg_start, seg_end,
+        3, pair_fn_b=_bind(multiphase_kappa_bpair, cfg, pvec))
+
+
 def _route(*tensors) -> str:
     """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
     for CUDA float32 ones; raises on anything else, or on mixed devices."""
@@ -660,7 +798,7 @@ def _dispatcher(plain, kernel_name, name=None):
     """The sweep ``name`` (default: ``plain``'s name without ``_plain``),
     routed by device: ``plain`` for CPU tensors, the CUDA kernel
     ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
-    (``include_pressure``) go to both."""
+    (``include_pressure``, ``include_viscosity``) go to both."""
     def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
         if _route(q, src, pvec, seg_start) == "plain":
             return plain(cfg, q, src, seg_start, seg_end, pvec, **kw)
@@ -694,3 +832,11 @@ multiphase_density_sweep = _dispatcher(multiphase_density_sweep_plain,
 multiphase_force_sweep = _dispatcher(multiphase_force_sweep_plain,
                                      "multiphase_force_sweep")
 xsph_sweep = _dispatcher(xsph_sweep_plain, "xsph_sweep")
+visc_laplacian_sweep = _dispatcher(visc_laplacian_sweep_plain,
+                                   "visc_laplacian_sweep")
+multiphase_alpha_sweep = _dispatcher(multiphase_alpha_sweep_plain,
+                                     "multiphase_alpha_sweep")
+multiphase_drho_sweep = _dispatcher(multiphase_drho_sweep_plain,
+                                    "multiphase_drho_sweep")
+multiphase_kappa_sweep = _dispatcher(multiphase_kappa_sweep_plain,
+                                     "multiphase_kappa_sweep")

@@ -69,7 +69,7 @@ class SimConfig:
     pbf_eps: float = 100.0
     dfsph_strong_coupling: bool = True
     # "explicit" (Müller viscous force) or "implicit" (Weiler 2018 CG
-    # solve); only "explicit" is ported so far.
+    # solve, single-phase WCSPH and DFSPH; solvers/viscosity.py)
     viscosity_model: str = "explicit"
     visc_cg_max_iters: int = 100
     visc_cg_tol: float = 1e-4

@@ -36,9 +36,14 @@ def iisph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
             "multiphase (per-particle mass/rho0) is WCSPH-only; "
             "iisph refuses rather than silently dropping the columns")
     if cfg.viscosity_model != "explicit":
+        # nereus_tpu has no implicit-viscosity stage for IISPH: its step
+        # runs the explicit Müller term whatever viscosity_model says
+        # (iisph_pallas.py:52-57); the port refuses rather than doing so
         raise NotImplementedError(
-            f"viscosity_model={cfg.viscosity_model!r} is not ported yet "
-            "(ROADMAP.md Queue A, item 12)")
+            f"viscosity_model={cfg.viscosity_model!r}: IISPH has no "
+            "implicit viscosity stage (the JAX IISPH step silently runs "
+            "the explicit Müller viscosity instead); the implicit solve "
+            "runs with wcsph_step and dfsph_step")
     if boundary is not None and boundary.vel is not None:
         raise NotImplementedError(
             "moving boundaries are not ported yet (ROADMAP.md Queue A, "

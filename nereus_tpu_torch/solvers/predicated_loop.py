@@ -2,14 +2,15 @@
 counterpart of the JAX package's on-device ``lax.while_loop``).
 
 The JAX steps run each solver loop (IISPH's Jacobi solve, PCISPH's
-corrective loop, DFSPH's divergence and density solves) as one
-``lax.while_loop`` with the condition ``((err > tol) | (it < min_iters))
-& (it < max_iters)``. Here the host launches the body again and again:
-each launched iteration computes its candidate carry from the committed
-one, and :meth:`PredicatedLoop.commit` keeps a candidate only where the
-condition of the carry the iteration started from holds. An iteration
-launched after the loop has ended therefore changes nothing, and the
-iteration count and the carry are the while loop's. The host reads the
+corrective loop, DFSPH's divergence and density solves, the implicit
+viscosity CG) as one ``lax.while_loop`` with the condition
+``((err > tol) | (it < min_iters)) & (it < max_iters)``. Here the host
+launches the body again and again: each launched iteration computes its
+candidate carry from the committed one, and
+:meth:`PredicatedLoop.commit` keeps a candidate only where the condition
+of the carry the iteration started from holds. An iteration launched
+after the loop has ended therefore changes nothing, and the iteration
+count and the carry are the while loop's. The host reads the
 condition after every ``sync_every``-th launched iteration from
 ``min_iters`` on (before it, the condition holds), the only
 synchronisation of the loop, and stops launching when it is false: up to
@@ -50,14 +51,16 @@ class PredicatedLoop:
     """
 
     def __init__(self, counts: LoopCounts, *, like: torch.Tensor, tol,
-                 min_iters: int, max_iters: int, sync_every: int,
-                 err0: float):
+                 min_iters: int, max_iters: int, sync_every: int, err0):
+        """``tol`` and ``err0`` are Python floats or 0-d tensors on
+        ``like``'s device (CG's first error is its initial residual)."""
         self.counts = counts
         self.tol = tol
         self.min_iters = min_iters
         self.max_iters = max_iters
         self.sync_every = sync_every
-        self.err = torch.full((), err0, dtype=like.dtype, device=like.device)
+        self.err = (err0 if torch.is_tensor(err0) else
+                    torch.full((), err0, dtype=like.dtype, device=like.device))
         self.it = torch.zeros((), dtype=torch.int32, device=like.device)
         self.go = self._cond()
 

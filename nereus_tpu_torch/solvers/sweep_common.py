@@ -7,9 +7,10 @@ hash payload: those exist for the TPU's Mosaic compiler. Per-step state
 stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
 the kernels read are built from them per sweep; the IISPH Jacobi and the
 multiphase force sweeps read a (M, 12) wide source
-(:meth:`SweepCtx.pack_wide`), the multiphase density sweep a (M, 4) one
-(:meth:`SweepCtx.pack_psi`). A multiphase state's ``mass`` and ``rho0``
-ride the sort with the positions.
+(:meth:`SweepCtx.pack_wide`), the multiphase density sweep and the
+multiphase DFSPH α and κ sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`).
+A multiphase state's ``mass`` and ``rho0`` ride the sort with the
+positions.
 
 Every sweep of a step walks the ranges built here from the start-of-step
 positions, PCISPH's predicted density at x* included
@@ -95,9 +96,10 @@ class SweepCtx:
         return torch.cat([fluid, self.b_src])
 
     def pack_psi(self, q4):
-        """(C [+ Mb], 4) source of a sweep that reads positions and ψ_b
-        only: fluid rows ``x y z 0`` (``q4``, the 4-wide queries), then
-        the boundary rows ``x y z ψ_b``."""
+        """(C [+ Mb], 4) source of a sweep that reads positions and one
+        scalar: fluid rows ``q4`` (4-wide queries, ``x y z s``: 0 for the
+        multiphase density, 1/m_j or κV̂²_j for multiphase DFSPH), then the
+        boundary rows ``x y z ψ_b``."""
         if self.b_src is None:
             return q4
         return torch.cat([q4, self.b_src[:, [0, 1, 2, 6]]])

@@ -3,9 +3,10 @@
 
 One step = hash → sort → density sweep → Tait EOS → fused force sweep →
 symplectic Euler (``SPH::update``, ``sph/sph.cpp:215-285``), with no host
-synchronisation; optionally XSPH on the advection velocity. A multiphase
-state (per-particle mass and ρ₀) runs the adapted-density, volume-form
-step. :func:`wcsph_step` checks the configuration and runs the sweep steps
+synchronisation; optionally the implicit viscosity solve (Weiler 2018) in
+place of the explicit viscosity, and XSPH on the advection velocity. A
+multiphase state (per-particle mass and ρ₀) runs the adapted-density,
+volume-form step. :func:`wcsph_step` checks the configuration and runs the sweep steps
 of :mod:`.wcsph_cuda`; the sweeps run the CUDA kernels on a GPU and their
 plain PyTorch versions on the CPU.
 """
@@ -55,33 +56,33 @@ def tait_pressure(dens, params: SimParams, rho0=None):
     return params.gas_stiffness * (r2 * r2 * r2 * ratio - 1.0)
 
 
+def check_multiphase_cfg(cfg: SimConfig):
+    """The JAX multiphase steps' (WCSPH and DFSPH) refusals, with their
+    reasons."""
+    if cfg.viscosity_model == "implicit":
+        raise NotImplementedError("implicit viscosity is single-phase-only")
+    if cfg.surface_tension_model == SurfaceTensionModel.AKINCI:
+        raise NotImplementedError(
+            "AKINCI surface tension is single-phase-only (its curvature "
+            "correction has no per-phase meaning); multiphase supports "
+            "NONE or BECKER (phase-pair cohesion, SimConfig.st_cross)")
+
+
 def wcsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
                cfg: SimConfig, boundary: Optional[BoundaryData] = None,
                xsph_eps=None):
     """One WCSPH step; returns ``(new_state, StepDiagnostics)`` with the new
     state in hash-sorted order, as the JAX step returns it. A multiphase
     state (``mass``/``rho0`` set) runs the multiphase step; ``xsph_eps``
-    (single phase only) smooths the advection velocity.
+    and ``viscosity_model="implicit"`` (single phase only) smooth the
+    advection velocity and solve the viscosity implicitly.
 
     Raises NotImplementedError for what the JAX package refuses and for
     what is not ported yet, rather than ignoring it."""
     if state.multiphase:
-        # the JAX multiphase step's refusals, with its reasons
         if xsph_eps is not None:
             raise NotImplementedError("XSPH is single-phase-only")
-        if cfg.viscosity_model == "implicit":
-            raise NotImplementedError(
-                "implicit viscosity is single-phase-only")
-        if cfg.surface_tension_model == SurfaceTensionModel.AKINCI:
-            raise NotImplementedError(
-                "AKINCI surface tension is single-phase-only (its "
-                "curvature correction has no per-phase meaning); "
-                "multiphase supports NONE or BECKER (phase-pair cohesion, "
-                "SimConfig.st_cross)")
-    if cfg.viscosity_model != "explicit":
-        raise NotImplementedError(
-            f"viscosity_model={cfg.viscosity_model!r} is not ported yet "
-            "(ROADMAP.md Queue A, item 12)")
+        check_multiphase_cfg(cfg)
     if boundary is not None and boundary.vel is not None:
         raise NotImplementedError(
             "moving boundaries are not ported yet (ROADMAP.md Queue A, "

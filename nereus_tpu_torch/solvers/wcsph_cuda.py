@@ -4,8 +4,11 @@
 Single phase (:func:`wcsph_step_cuda`): density sweep (fluid ψ = m and
 boundary ψ_b, self term included) → Tait EOS → pd2 = p/max(ρ, 1e-12)² →
 one fused fluid + boundary force sweep → symplectic Euler under the
-``active`` mask; with ``xsph_eps`` one more sweep over the fluid rows
-smooths the advection velocity (Monaghan XSPH).
+``active`` mask; with ``viscosity_model="implicit"`` the force sweep drops
+the viscosity and the wall friction and the implicit viscosity solve
+(:mod:`.viscosity`) replaces the new velocities of the active rows; with
+``xsph_eps`` one more sweep over the fluid rows smooths the advection
+velocity (Monaghan XSPH).
 
 Multiphase (:func:`wcsph_step_multiphase_cuda`): number-density sweep
 (fluid ΣW and boundary Σψ_bW in two columns) → ρ̃ = m·δ + (ρ0_i/ρ0_ref)·
@@ -27,6 +30,7 @@ from ..ops import sph_pairs as SP
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
 from .sweep_common import SweepCtx, build_sweep_ctx
+from .viscosity import implicit_viscosity
 from .wcsph import StepDiagnostics, density_errors, tait_pressure
 
 
@@ -96,17 +100,24 @@ def wcsph_step_cuda(state: FluidState, params: SimParams,
     pres = tait_pressure(dens, params)
 
     # -- forces: viscosity + surface tension + pressure + boundary terms ---
+    # (the implicit viscosity solve owns the viscosity and wall friction)
+    implicit_visc = cfg.viscosity_model == "implicit"
     dens_safe = torch.clamp(dens, min=1e-12)
     pd2 = pres / (dens_safe * dens_safe)
     q8 = ctx.queries(*vel, dens, pd2)
     force = sweeps.force(cfg, q8, ctx.pack(vel, dens), ctx.seg_start,
-                         ctx.seg_end, ctx.pvec)
+                         ctx.seg_end, ctx.pvec,
+                         include_viscosity=not implicit_visc)
 
     # -- symplectic Euler (``integrate_functor``) --------------------------
     dt = params.dt
     g = params.gravity
     nv = [v + (dt / pm) * (force[:, k] + pm * g[k])
           for k, v in enumerate(vel)]
+    if implicit_visc:
+        nv3 = torch.stack(nv, dim=1)
+        v_sol, _, _ = implicit_viscosity(ctx, params, cfg, dens, nv3)
+        nv = torch.where(active[:, None], v_sol, nv3).unbind(1)
     v_adv = nv
     if xsph_eps is not None:
         # XSPH over the fluid rows; ε scales outside the sweep
@@ -129,30 +140,41 @@ def multiphase_density_operands(ctx: SweepCtx):
     return q, ctx.pack_psi(q), ctx.seg_start, ctx.seg_end, ctx.pvec
 
 
+def multiphase_force_args(ctx: SweepCtx, cfg: SimConfig, vel, vol, inv_rho,
+                          pv2):
+    """The multiphase force sweep's operands ``(q, src, seg_start,
+    seg_end, pvec)`` from the velocities ``vel`` (three (C,) columns), the
+    volume V = 1/δ, 1/ρ̃ and pV² (0 in DFSPH's non-pressure forces):
+    q ``x y z v pV²_i 1/m_i m_i 1/ρ̃_i [ρ0_i]``, wide src ``x y z v V_j
+    pV²_j [ρ0_j]`` (ρ0 for Becker cohesion, the same sorted tensor on both
+    sides)."""
+    from ..params import SurfaceTensionModel
+    mass, rho0 = ctx.mass, ctx.rho0
+    qcols = [*vel, pv2, 1.0 / mass, mass, inv_rho]
+    wcols = [*vel, vol, pv2]
+    if cfg.surface_tension_model == SurfaceTensionModel.BECKER:
+        qcols.append(rho0)
+        wcols.append(rho0)
+    return (ctx.queries(*qcols, width=12), ctx.pack_wide(wcols),
+            ctx.seg_start, ctx.seg_end, ctx.pvec)
+
+
 def multiphase_force_operands(ctx: SweepCtx, params: SimParams,
                               cfg: SimConfig, dout):
     """The multiphase force sweep's operands from the density sweep's
-    (C, 2) output: ``(args, dens, pres)`` with ``args = (q, src,
-    seg_start, seg_end, pvec)``, q ``x y z v p_iV_i² 1/m_i m_i 1/ρ̃_i
-    [ρ0_i]``, wide src ``x y z v V_j p_jV_j² [ρ0_j]`` (ρ0 for Becker
-    cohesion, the same sorted tensor on both sides), and the adapted
-    density ρ̃ and its pressure, in ``_wcsph_pallas_multiphase``'s order."""
-    from ..params import SurfaceTensionModel
+    (C, 2) output: ``(args, dens, pres)`` with ``args`` those of
+    :func:`multiphase_force_args` on the state's velocities, and the
+    adapted density ρ̃ and its pressure, in ``_wcsph_pallas_multiphase``'s
+    order."""
     mass, rho0 = ctx.mass, ctx.rho0
-    vel = (ctx.vx, ctx.vy, ctx.vz)
     delta = dout[:, 0]
     dens = mass * delta + (rho0 / params.rest_density) * dout[:, 1]
     pres = tait_pressure(dens, params, rho0)
     inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
     vol = 1.0 / torch.clamp(delta, min=1e-12)
     pv2 = pres * vol * vol
-    qcols = [*vel, pv2, 1.0 / mass, mass, inv_rho]
-    wcols = [*vel, vol, pv2]
-    if cfg.surface_tension_model == SurfaceTensionModel.BECKER:
-        qcols.append(rho0)
-        wcols.append(rho0)
-    args = (ctx.queries(*qcols, width=12), ctx.pack_wide(wcols),
-            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    args = multiphase_force_args(ctx, cfg, (ctx.vx, ctx.vy, ctx.vz), vol,
+                                 inv_rho, pv2)
     return args, dens, pres
 
 

@@ -189,16 +189,13 @@ def test_apply_kappa_conserves_momentum():
 
 
 def test_unported_options_raise():
+    """Moving boundaries are not ported (multiphase DFSPH and implicit
+    viscosity are: ``test_torch_dfsph_multiphase.py``,
+    ``test_torch_viscosity.py``)."""
     pcfg, pparams, pstate, pg, pb = to_port(*_dam_scene(True))
-    multi = pt.make_fluid_state(pstate.pos.numpy(), masses=1.0,
-                                rest_densities=1000.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.dfsph_step(multi, pparams, pg, pcfg, pb)
-    for c, b in (
-            (dataclasses.replace(pcfg, viscosity_model="implicit"), pb),
-            (pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.dfsph_step(pstate, pparams, pg, c, b)
+        pt.dfsph_step(pstate, pparams, pg, pcfg,
+                      dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))
 
 
 def _port_block():

@@ -370,10 +370,14 @@ def test_unported_options_raise():
                                 rest_densities=1000.0, device="cpu")
     with pytest.raises(NotImplementedError, match="WCSPH-only"):
         pt.iisph_step(multi, pparams, pg, pcfg, pb)
-    for c, b in (
-            (dataclasses.replace(pcfg, viscosity_model="implicit"), pb),
-            (pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the JAX IISPH step has no implicit viscosity stage
+    # (test_torch_viscosity.py::test_iisph_refuses_implicit_viscosity)
+    for c, b, reason in (
+            (dataclasses.replace(pcfg, viscosity_model="implicit"), pb,
+             "IISPH has no implicit viscosity stage"),
+            (pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)),
+             "ROADMAP")):
+        with pytest.raises(NotImplementedError, match=reason):
             pt.iisph_step(pstate, pparams, pg, c, b)
 
 

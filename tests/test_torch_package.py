@@ -110,8 +110,8 @@ def test_build_without_nvcc_raises(monkeypatch):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
-            "dfsph_sweep.cu", "iisph_sweep.cu", "multiphase_sweep.cu",
-            "sph_sweep.cu")]
+            "dfsph_multiphase_sweep.cu", "dfsph_sweep.cu", "iisph_sweep.cu",
+            "multiphase_sweep.cu", "sph_sweep.cu", "viscosity_sweep.cu")]
 
 
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
@@ -140,7 +140,18 @@ MULTIPHASE_XSPH_SWEEPS = {
                          cuda_sweep.multiphase_force_sweep, 12, 12, 18),
     "xsph": (SP.xsph_sweep, cuda_sweep.xsph_sweep, 8, 8, 9),
 }
-ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS}
+VISC_MP_DFSPH_SWEEPS = {
+    "visc_laplacian": (SP.visc_laplacian_sweep,
+                       cuda_sweep.visc_laplacian_sweep, 8, 8, 18),
+    "multiphase_alpha": (SP.multiphase_alpha_sweep,
+                         cuda_sweep.multiphase_alpha_sweep, 4, 4, 18),
+    "multiphase_drho": (SP.multiphase_drho_sweep,
+                        cuda_sweep.multiphase_drho_sweep, 8, 8, 18),
+    "multiphase_kappa": (SP.multiphase_kappa_sweep,
+                         cuda_sweep.multiphase_kappa_sweep, 8, 4, 18),
+}
+ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
+              **VISC_MP_DFSPH_SWEEPS}
 
 
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
@@ -179,6 +190,27 @@ def test_pcisph_dfsph_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(MULTIPHASE_XSPH_SWEEPS))
 def test_multiphase_xsph_dispatchers_route_by_device(key):
     _routes_by_device(*MULTIPHASE_XSPH_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(VISC_MP_DFSPH_SWEEPS))
+def test_visc_mp_dfsph_dispatchers_route_by_device(key):
+    _routes_by_device(*VISC_MP_DFSPH_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("include_pressure", [True, False])
+def test_force_without_viscosity_routes_by_device(include_pressure):
+    """The force sweep's ``include_viscosity=False`` runs the plain sweep on
+    CPU tensors, launching nothing, and its CUDA wrapper refuses them."""
+    cfg = nereus_tpu_torch.SimConfig()
+    kw = dict(include_pressure=include_pressure, include_viscosity=False)
+    q, src, s, e, pv = _inputs()
+    q8 = torch.zeros((q.shape[0], 8))
+    cuda_sweep.reset_launches()
+    out = SP.fluid_force_sweep(cfg, q8, src, s, e, pv, **kw)
+    assert out.shape == (8, 3) and float(out.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.force_sweep(cfg, q8, src, s, e, pv, **kw)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +271,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 12
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 18
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -322,7 +354,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 6)
+                                                        + [0] * 12)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -357,7 +389,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 6
+    assert launches[8:] == [0] * 12
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -417,7 +449,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 3)
+                                                        + [0] * 9)
 
 
 @pytest.mark.requires_cuda
@@ -438,7 +470,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0]
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 6
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -456,7 +488,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0]
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 6
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -505,7 +537,8 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         plain = getattr(SP, f"{key}_sweep_plain")
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 11 + [1] * 3
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
+                                                        + [0] * 6)
 
 
 @pytest.mark.requires_cuda
@@ -520,12 +553,125 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
     for _ in range(3):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
-    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * 11 + [3, 3, 0]
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
+                                                        + [0] * 6)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
     for _ in range(3):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
-    assert [k.launches for k in cuda_sweep.KERNELS] == [3, 3] + [0] * 11 + [3]
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
+                                                        + [3] + [0] * 6)
     assert torch.isfinite(state.pos).all()
+
+
+def _assert_launches(want):
+    """Every kernel launched as ``want`` (``{Kernel: count}``) says, the
+    others never."""
+    assert ({k.name: k.launches for k in cuda_sweep.KERNELS}
+            == {k.name: want.get(k, 0) for k in cuda_sweep.KERNELS})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_visc_mp_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """The two force instances without viscosity and the Laplacian on the
+    first-step operands of the small dam-break, and the three multiphase
+    DFSPH kernels on those of its two-phase split (κ a positive stand-in),
+    against their plain versions: max|Δ| ≤ 1e-4·max|ref| per output
+    column."""
+    from nereus_tpu_torch.solvers import dfsph_cuda, viscosity, wcsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, "BECKER", True,
+                                                cuda)
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    rows = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
+                                  ctx.pack(vel, params.particle_mass), *rows)
+    ds = dens.clamp(min=1e-12)
+    pd2 = nereus_tpu_torch.tait_pressure(dens, params) / (ds * ds)
+    fargs = (ctx.queries(*vel, dens, pd2), ctx.pack(vel, dens), *rows)
+    mp = build_sweep_ctx(_two_phase(state, params, cuda), params, grid, cfg,
+                         boundary)
+    dout = SP.multiphase_density_sweep_plain(
+        cfg, *wcsph_cuda.multiphase_density_operands(mp))
+    mp_dens = mp.mass * dout[:, 0] + (mp.rho0 / params.rest_density) \
+        * dout[:, 1]
+    sweeps = dfsph_cuda.MultiphaseKappaSweeps(mp, params, cfg, mp_dens)
+    cases = {
+        "visc_laplacian": viscosity.laplacian_operands(ctx, params, dens)(
+            torch.stack(vel, dim=1)),
+        "multiphase_alpha": dfsph_cuda.multiphase_alpha_operands(mp),
+        "multiphase_drho": sweeps.drho_operands(
+            torch.stack([mp.vx, mp.vy, mp.vz], dim=1)),
+        "multiphase_kappa": sweeps.kappa_operands(
+            1e3 * (mp.px.abs() + 0.5)),
+    }
+    cuda_sweep.reset_launches()
+    for key, args in cases.items():
+        dispatch = VISC_MP_DFSPH_SWEEPS[key][0]
+        plain = getattr(SP, f"{key}_sweep_plain")
+        _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
+    for p in (True, False):
+        kw = dict(include_pressure=p, include_viscosity=False)
+        _assert_columns_close(SP.fluid_force_sweep(cfg, *fargs, **kw),
+                              SP.fluid_force_sweep_plain(cfg, *fargs, **kw),
+                              f"force pressure={p} visc=0")
+    torch.cuda.synchronize()
+    _assert_launches({k: 1 for k in (
+        cuda_sweep.FORCE_V0, cuda_sweep.FORCE_P0_V0,
+        cuda_sweep.VISC_LAPLACIAN, cuda_sweep.MP_ALPHA, cuda_sweep.MP_DRHO,
+        cuda_sweep.MP_KAPPA)})
+
+
+@pytest.mark.requires_cuda
+def test_visc_mp_dfsph_steps_run_kernels_on_cuda(cuda):
+    """A few steps of the settled block on the card: DFSPH and WCSPH with
+    the implicit viscosity solve (the Laplacian once per launched CG
+    iteration plus once for r0, the force instances without viscosity)
+    and multiphase DFSPH (its kernels as often as its loops say, none of
+    the single-phase DFSPH kernels)."""
+    from nereus_tpu_torch.solvers import dfsph_cuda, viscosity
+    cfg, params, state, grid, boundary = _settled_block(
+        lambda device: nereus_tpu_torch.dfsph_params(viscosity=5.0,
+                                                     device=device), cuda)
+    implicit = dataclasses.replace(cfg, viscosity_model="implicit")
+    for loop in (dfsph_cuda.LOOP, dfsph_cuda.LOOP_V, viscosity.LOOP):
+        loop.reset()
+    cuda_sweep.reset_launches()
+    s = state
+    for _ in range(3):
+        s, _ = nereus_tpu_torch.dfsph_step(s, params, grid, implicit,
+                                           boundary)
+    launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
+    cg = viscosity.LOOP.launched
+    assert cg >= 3 and int(viscosity.LOOP.last.it) > 0
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.ALPHA: 3,
+                      cuda_sweep.FORCE_P0_V0: 3, cuda_sweep.DRHO: launched,
+                      cuda_sweep.PRESSURE_FORCE: launched + 3,
+                      cuda_sweep.VISC_LAPLACIAN: cg + 3})
+    assert torch.isfinite(s.pos).all()
+
+    viscosity.LOOP.reset()
+    cuda_sweep.reset_launches()
+    s = state
+    for _ in range(3):
+        s, _ = nereus_tpu_torch.wcsph_step(s, params, grid, implicit,
+                                           boundary)
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE_V0: 3,
+                      cuda_sweep.VISC_LAPLACIAN: viscosity.LOOP.launched + 3})
+    assert torch.isfinite(s.pos).all()
+
+    for loop in (dfsph_cuda.LOOP, dfsph_cuda.LOOP_V):
+        loop.reset()
+    cuda_sweep.reset_launches()
+    s = _two_phase(state, params, cuda)
+    for _ in range(3):
+        s, _ = nereus_tpu_torch.dfsph_step(s, params, grid, cfg, boundary)
+    launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
+    _assert_launches({cuda_sweep.MP_DENSITY: 3, cuda_sweep.MP_ALPHA: 3,
+                      cuda_sweep.MP_FORCE: 3, cuda_sweep.MP_DRHO: launched,
+                      cuda_sweep.MP_KAPPA: launched + 3})
+    assert torch.isfinite(s.pos).all() and s.multiphase
+    assert float(s.pressure.min()) >= 0.0

@@ -308,3 +308,19 @@ def test_corrective_loop_syncs_once_per_k_iterations(monkeypatch,
               if m >= cfg.pcisph_min_iters and m % sync_every == 0]
     assert pcisph_cuda.LOOP.syncs == len(checks)
     assert checks[-1] == launched
+
+
+def test_delta_helpers_are_exported():
+    """``nereus_tpu`` exports ``pcisph_grad_denom`` and
+    ``pcisph_delta_from_denom``; so does the port, and both agree with the
+    JAX functions on the default PCISPH parameters."""
+    for name in ("pcisph_grad_denom", "pcisph_delta_from_denom"):
+        assert name in jt.__all__ and name in pt.__all__, name
+    params = jt.pcisph_params()
+    pparams = params_to_port(params)
+    denom = pt.pcisph_grad_denom(pparams, pt.SimConfig())
+    j_denom = jt.pcisph_grad_denom(params, jt.SimConfig())
+    assert denom == pytest.approx(j_denom, rel=1e-6)
+    np.testing.assert_allclose(
+        float(pt.pcisph_delta_from_denom(pparams, denom)),
+        float(jt.pcisph_delta_from_denom(params, j_denom)), rtol=1e-6)

@@ -152,14 +152,10 @@ def test_cfl_dt_matches_jax():
 
 
 def test_unported_options_raise():
+    """Moving boundaries are not ported (implicit viscosity is:
+    ``test_torch_viscosity.py``)."""
     scene = jax_scene(True)
     pcfg, pparams, pstate, pg, pb = to_port(*scene)
-    cases = [
-        (pstate, dataclasses.replace(pcfg, viscosity_model="implicit"),
-         pb, None),
-        (pstate, pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)),
-         None),
-    ]
-    for s, c, b, eps in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.wcsph_step(s, pparams, pg, c, b, xsph_eps=eps)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.wcsph_step(pstate, pparams, pg, pcfg,
+                      dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))

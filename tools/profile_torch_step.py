@@ -1,17 +1,18 @@
 """Where the time of one step of the PyTorch port goes, on a CUDA card.
 
-    python3 tools/profile_torch_step.py \
-        --solver wcsph|multiphase|xsph|iisph|pcisph|dfsph \
-        [--warmup N] [--steps N] [--sync-every K]
+    python3 tools/profile_torch_step.py --solver SOLVER \
+        [--warmup N] [--steps N] [--sync-every K] [--cg-sync-every K]
 
-Builds the solver's main-path scene of ``chip_smoke.py`` (wcsph: the
+Builds the SOLVER's main-path scene of ``chip_smoke.py`` (wcsph: the
 ``dam_break(n_target=2**20)`` with its boundary shell; multiphase: the
 same scene split in two phases as ``bench.py``'s ``multiphase_1M``; xsph:
-the same scene stepped with ``xsph_eps = 0.3``; iisph: the settled
-``resting_block(n_target=2**20)``; pcisph, dfsph: the settled
-``resting_block(n_target=256_000)`` of ``bench.py``'s ``*_256k_settled``
-cells), runs ``--warmup`` steps, times ``--steps`` steps with CUDA events
-and the host clock, then profiles the next ``--steps`` steps with
+the same scene stepped with ``xsph_eps = 0.3``; wcsph_visc: the same scene
+with the implicit viscosity solve at ν = 5; iisph: the settled
+``resting_block(n_target=2**20)``; pcisph, dfsph, dfsph_visc, dfsph_mp:
+the settled ``resting_block(n_target=256_000)`` of ``bench.py``'s
+``*_256k_settled`` cells, dfsph_mp split in two phases), runs
+``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
+clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
 by kernel and the device busy time per step (the sum of all device time:
 one stream, so nothing overlaps). The profiler slows the host's launches,
@@ -20,7 +21,9 @@ so the idle share is taken against the unprofiled steps' CUDA-event time
 the profiled window's own idle share is printed beside it.
 ``--sync-every`` sets the solver loop's host-read interval (the
 ``SYNC_EVERY`` of ``solvers/{iisph,pcisph,dfsph}_cuda.py``; for DFSPH its
-density loop), to price it: the iterations do not depend on it.
+density loop), ``--cg-sync-every`` the implicit viscosity CG's
+(``solvers/viscosity.py``), to price them: the iterations do not depend
+on them.
 Imports no JAX; needs a CUDA card.
 """
 
@@ -39,35 +42,45 @@ sys.path.insert(0, ROOT)
 def build(solver, dev):
     """``(state, step, loops)``: the main-path scene of ``solver``, its
     step function and the ``LoopCounts`` of its solver loops."""
+    import dataclasses
+
     import chip_smoke as smoke
     import nereus_tpu_torch as nt
-    from nereus_tpu_torch.solvers import dfsph_cuda, iisph_cuda, pcisph_cuda
-    if solver in ("wcsph", "multiphase", "xsph"):
+    from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda,
+                                          pcisph_cuda, viscosity)
+    if solver in ("wcsph", "multiphase", "xsph", "wcsph_visc"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
         if solver == "multiphase":
             state = smoke.two_phase(state, params)
+        if solver == "wcsph_visc":
+            cfg = dataclasses.replace(cfg, viscosity_model="implicit")
+            params = nt.make_params(viscosity=smoke.VISC_NU, device=dev)
         eps = smoke.XSPH_EPS if solver == "xsph" else None
 
         def step(s):
             return nt.wcsph_step(s, params, grid, cfg, boundary,
                                  xsph_eps=eps)
-        return state, step, ()
+        return state, step, ((viscosity.LOOP,) if solver == "wcsph_visc"
+                             else ())
     n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
     _, _, state, _, _, step = smoke.settled_main_path(solver, dev, n)
+    dfsph = (dfsph_cuda.LOOP_V, dfsph_cuda.LOOP)
     loops = {"iisph": (iisph_cuda.LOOP,), "pcisph": (pcisph_cuda.LOOP,),
-             "dfsph": (dfsph_cuda.LOOP_V, dfsph_cuda.LOOP)}[solver]
+             "dfsph": dfsph, "dfsph_mp": dfsph,
+             "dfsph_visc": dfsph + (viscosity.LOOP,)}[solver]
     return state, step, loops
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--solver", choices=("wcsph", "multiphase", "xsph",
-                                         "iisph", "pcisph", "dfsph"),
-                    required=True)
+    ap.add_argument("--solver", choices=(
+        "wcsph", "multiphase", "xsph", "wcsph_visc", "iisph", "pcisph",
+        "dfsph", "dfsph_visc", "dfsph_mp"), required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--sync-every", type=int)
+    ap.add_argument("--cg-sync-every", type=int)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: needs a CUDA device")
@@ -78,10 +91,15 @@ def main():
     state, step, loops = build(args.solver, dev)
     if args.sync_every is not None:
         import importlib
+        name = args.solver.split("_")[0]
         importlib.import_module(
-            f"nereus_tpu_torch.solvers.{args.solver}_cuda").SYNC_EVERY = \
+            f"nereus_tpu_torch.solvers.{name}_cuda").SYNC_EVERY = \
             args.sync_every
-        print(f"{args.solver}: SYNC_EVERY = {args.sync_every}")
+        print(f"{name}: SYNC_EVERY = {args.sync_every}")
+    if args.cg_sync_every is not None:
+        from nereus_tpu_torch.solvers import viscosity
+        viscosity.SYNC_EVERY = args.cg_sync_every
+        print(f"viscosity CG: SYNC_EVERY = {args.cg_sync_every}")
     iters = []
     for _ in range(args.warmup):
         state, diag = step(state)
