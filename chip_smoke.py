@@ -98,7 +98,34 @@ Phases, in order; any failure exits non-zero:
     --second-phase 0.3:0.5`` on that block), 60 steps, phase 9's gates on
     the multiphase kernels (none of the single-phase DFSPH kernels) and
     the light phase's mean height above the heavy phase's; then its
-    kernels against their plain versions, timed.
+    kernels against their plain versions, timed;
+17. the three PBF kernels (λ sums, Δp, ω) and the λ kernel on the fluid
+    rows alone (vorticity confinement's N) against their plain versions
+    on a ~32k-particle settled block (PBF parameters, mass calibrated to
+    the 0.8·h lattice, impact velocity −1 m/s, so λ ≠ 0 from the first
+    iteration; seeded at 0.7·h under Monaghan kernels), fed the first
+    step's operands built by the step's own operand functions
+    (``solvers/pbf_cuda.py``): the first iteration's λ and Δp, then ω and
+    N at the velocities after the iterations, both kernel sets (max|Δ| ≤
+    1e-4·max|ref| per output column, and finite);
+18. the PBF path ``pbf_1M`` (``bench.py:355``, built as ``bench.py:392-
+    393, 112``): ``dam_break(calibrate_mass(pbf_params()), n_target=
+    2**20)`` with its boundary shell, 300 ``pbf_step`` calls at dt = 1e-3,
+    steps 51-300 timed with CUDA events; gates: the λ and Δp kernels
+    launched ``pbf_iters`` times per step and no other kernel, zero
+    overflow, finite positions, nothing below the floor, mean compression
+    < 0.1 on every step; then both kernels against their plain versions at
+    these shapes, timed in turns;
+19. the PBF path ``pbf_256k_settled`` (``bench.py:356``): the settled
+    262,144-particle block with PBF parameters calibrated twice
+    (``bench.py:392-393, 399-403``), 60 steps, steps 11-60 timed, phase
+    18's gates; then both kernels against their plain versions, timed;
+20. the PBF path ``pbf_1M_vort_xsph``: phase 18's dam-break with
+    ``xsph_eps = 0.02`` and ``vorticity_eps = 0.01`` (the CLI's ``--solver
+    pbf --xsph 0.02 --vorticity 0.01``), 300 steps, phase 18's gates with
+    λ launched ``pbf_iters + 1`` times per step (N), Δp ``pbf_iters``, ω
+    and XSPH once; then the λ, Δp, ω and XSPH kernels against their plain
+    versions at these shapes, timed (and N untimed).
 
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
@@ -113,8 +140,9 @@ over 67 TFLOP/s, the H100 SXM's published float32 peaks.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
 
-The last two lines are a JSON object with one entry per kernel and main
-path that launched it (the path's launches, the kernel's error, times and
+The run's total wall time is printed before the card's name and power
+limit. The last two lines are a JSON object with one entry per kernel and
+main path that launched it (the path's launches, the kernel's error, times and
 bound at the path's shapes), and ``{"ok": true, "device": {...}}``. The
 run fails if a path launched a kernel it did not hold against its plain
 version. Without a CUDA device the script fails before it prints either.
@@ -150,6 +178,9 @@ MP_RATIO = 0.3           # bench.py's multiphase_1M: the top half at 0.3*rho0
 MP_ST_CROSS = 0.25       # the cross-phase cohesion of phase 10
 XSPH_EPS = 0.3           # tests/test_xsph.py's epsilon
 VISC_NU = 5.0            # bench.py's dfsph_visc_256k_settled viscosity
+PBF_FLUID = 1_092_727    # dam_break(calibrate_mass(pbf_params()), 2**20)
+PBF_XSPH_EPS = 0.02      # tests/test_pbf.py:40, inside the CLI's PBF range
+PBF_VORTICITY_EPS = 0.01
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -167,7 +198,8 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
             "force_v0": (51, 32), "force_p0_v0": (32, 28),
             "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
-            "mp_drho": (24, 25), "mp_kappa": (22, 22)}
+            "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (30, 27),
+            "pbf_dp": (31, 22), "pbf_omega": (33, 0)}
 
 
 def fail(msg):
@@ -535,6 +567,62 @@ def mp_dfsph_operands(cfg, ctx, params):
                          sweeps.kappa_operands(kappa), {})}
 
 
+def pbf_path_operands(cfg, ctx, params, vorticity=False):
+    """The operands of every sweep of one PBF step from ``ctx`` (built at
+    x*, ``pbf_cuda.advected``), by ``solvers/pbf_cuda.py``'s own operand
+    functions, each from the plain versions' upstream results: the first
+    iteration's λ and Δp; with ``vorticity``, also ω and N (key
+    ``pbf_lambda_n``) at the velocities after the ``pbf_iters`` plain
+    iterations, and XSPH at those after the plain confinement.
+    ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import pbf_cuda, wcsph_cuda
+    rest, pm = params.rest_density, params.particle_mass
+    lam_at, dp_at = pbf_cuda.pbf_operands(ctx, pm)
+    x0 = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
+    x = x0
+    ops = {}
+    for _ in range(cfg.pbf_iters):
+        largs = lam_at(x)
+        dens, lam = pbf_cuda.lambda_of(
+            SP.pbf_lambda_sweep_plain(cfg, *largs), rest, cfg)
+        dargs = dp_at(lam)
+        if not ops:
+            # the first iteration's operands, kept from the in-place writes
+            ops = {"pbf_lambda": (cuda_sweep.pbf_lambda_sweep,
+                                  SP.pbf_lambda_sweep_plain,
+                                  tuple(t.clone() for t in largs), {}),
+                   "pbf_dp": (cuda_sweep.pbf_dp_sweep,
+                              SP.pbf_dp_sweep_plain,
+                              tuple(t.clone() for t in dargs), {})}
+            if not vorticity:
+                return ops
+        dp = SP.pbf_dp_sweep_plain(cfg, *dargs)
+        x = torch.where(ctx.active[:, None], x + dp / rest, x)
+    v_star = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    v = (v_star + (x - x0) / params.dt).unbind(1)
+    mrho = pm / torch.clamp(dens, min=1e-12)
+    oargs = pbf_cuda.omega_operands(ctx, v, mrho)
+    om = SP.pbf_omega_sweep_plain(cfg, *oargs)
+    ox, oy, oz = om.unbind(1)
+    nargs = pbf_cuda.grad_operands(
+        ctx, mrho * torch.sqrt(ox * ox + oy * oy + oz * oz))
+    al = SP.pbf_lambda_sweep_plain(cfg, *nargs)
+    nx, ny, nz = al[:, 1], al[:, 2], al[:, 3]
+    ninv = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    k = params.dt * PBF_VORTICITY_EPS
+    v = (v[0] + k * (ny * oz - nz * oy) * ninv,
+         v[1] + k * (nz * ox - nx * oz) * ninv,
+         v[2] + k * (nx * oy - ny * ox) * ninv)
+    return {**ops,
+            "pbf_omega": (cuda_sweep.pbf_omega_sweep,
+                          SP.pbf_omega_sweep_plain, oargs, {}),
+            "pbf_lambda_n": (cuda_sweep.pbf_lambda_sweep,
+                             SP.pbf_lambda_sweep_plain, nargs, {}),
+            "xsph": (cuda_sweep.xsph_sweep, SP.xsph_sweep_plain,
+                     wcsph_cuda.xsph_operands(ctx, v, dens), {})}
+
+
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
@@ -624,6 +712,40 @@ def settled_main_path(solver, dev, n_target):
             return nt.dfsph_step(s, params, grid, cfg, boundary,
                                  tol=DFSPH_TOL, tol_v=DFSPH_TOL)
     return cfg, params, state, grid, boundary, step
+
+
+def pbf_block(cfg, dev, n_target, lattice=0.8):
+    """The settled block of ``bench.py``'s ``pbf_256k_settled`` at
+    ``n_target`` particles: ``pbf_params()`` calibrated twice, the second
+    time to the 0.8·h lattice (``bench.py:392-393, 399-403``), impact
+    velocity −1 m/s, seeded at ``lattice``·h. Returns ``(cfg, params,
+    state, grid, boundary)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    base = nt.calibrate_mass(nt.pbf_params(device=dev), cfg)
+    h = float(base.interaction_radius)
+    params = nt.calibrate_mass(base, cfg, spacing=0.8 * h)
+    state, grid, boundary = scene.resting_block(
+        params, cfg, n_target=n_target, spacing=lattice * h,
+        impact_velocity=-1.0, device=dev)
+    return cfg, params, state, grid, boundary
+
+
+def pbf_main_path(dev, settled=False):
+    """The PBF cells' scenes: ``pbf_1M`` (``bench.py:355``, built as
+    ``bench.py:392-393, 112``: ``dam_break(calibrate_mass(pbf_params()),
+    n_target=2**20)``, here with its boundary shell) or, ``settled``,
+    ``pbf_256k_settled``. Returns ``(cfg, params, state, grid,
+    boundary)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    if settled:
+        return pbf_block(cfg, dev, SETTLED_N)
+    params = nt.calibrate_mass(nt.pbf_params(device=dev), cfg)
+    state, grid, boundary = scene.dam_break(params, cfg, n_target=MAIN_N,
+                                            device=dev)
+    return cfg, params, state, grid, boundary
 
 
 def run_steps(step, state, n_steps, timed_from, loops=()):
@@ -798,6 +920,68 @@ def run_settled_path(solver, dev, loops, cg=None):
     return cfg, params, state, grid, boundary, iters, launches
 
 
+def run_pbf_path(name, scene, n_steps, timed_from, **kw):
+    """``n_steps`` ``pbf_step`` calls on ``scene`` (``(cfg, params, state,
+    grid, boundary)``) with ``kw`` (``xsph_eps``, ``vorticity_eps``), the
+    steps after ``timed_from`` timed with CUDA events. Gates: λ launched
+    ``pbf_iters`` times per step (once more with vorticity, for N), Δp
+    ``pbf_iters`` times, ω and XSPH once with their options, no other
+    kernel; ``solver_iters`` = ``pbf_iters``; zero overflow; finite
+    positions; nothing below the floor; mean compression < 0.1 on every
+    step. Returns ``(state, launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep
+    cfg, params, state, grid, boundary = scene
+    n = int(state.num_active)
+    floor = float(boundary.pos[:, 1].min())
+    print(f"{name}: {n} fluid particles, {boundary.num_boundaries} boundary "
+          f"samples, grid {grid.size}, dt {float(params.dt)}, mass "
+          f"{float(params.particle_mass):.6g}, pbf_iters {cfg.pbf_iters}, "
+          f"options {kw}, floor y {floor:.6g}")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diags, ms, _, _ = run_steps(
+        lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw), state,
+        n_steps, timed_from)
+    t_host = time.perf_counter() - t_host
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    mcs = torch.stack([d.mean_compression for d in diags]).cpu().numpy()
+    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    min_y = float(state.pos[:n, 1].min())
+    print(f"{name}: {n_steps} steps in {t_host:.2f} s host; steps "
+          f"{timed_from + 1}-{n_steps}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, min y "
+          f"{min_y:.6g}, mean_compression max {mcs.max():.6g} (step "
+          f"{int(mcs.argmax()) + 1}) last {mcs[-1]:.6g}, max_density last "
+          f"{float(diags[-1].max_density):.6g}, min λ "
+          f"{float(state.pressure.min()):.6g}")
+    it = cfg.pbf_iters
+    vort = kw.get("vorticity_eps") is not None
+    want = {cuda_sweep.PBF_LAMBDA: n_steps * (it + vort),
+            cuda_sweep.PBF_DP: n_steps * it}
+    if vort:
+        want[cuda_sweep.PBF_OMEGA] = n_steps
+    if kw.get("xsph_eps") is not None:
+        want[cuda_sweep.XSPH] = n_steps
+    check_launches(name, want)
+    if (iters != it).any():
+        fail(f"{name}: solver_iters {sorted(set(iters.tolist()))} != "
+             f"pbf_iters {it}")
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"{name}: non-finite positions")
+    if min_y < floor:
+        fail(f"{name}: floor penetration: min y {min_y} < floor {floor}")
+    if not mcs.max() < 0.1:
+        fail(f"{name}: mean_compression {mcs.max()} >= 0.1 at step "
+             f"{int(mcs.argmax()) + 1}")
+    return state, launches
+
+
 def wcsph_main_path(dev):
     """The WCSPH main path's scene: ``dam_break(n_target=2**20)`` with its
     boundary shell; returns ``(cfg, params, state, grid, boundary)``."""
@@ -839,11 +1023,12 @@ def main():
     # alone in a directory) the run fails with no output
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
-    from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda,
+    from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda, pbf_cuda,
                                           pcisph_cuda, viscosity)
     from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     from nereus_tpu_torch.solvers.wcsph_cuda import PLAIN, wcsph_step_cuda
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1319,6 +1504,80 @@ def main():
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del state, ctx, boundary, grid
 
+    # -- 17. PBF kernels vs plain, on the first step's operands --------------
+    print(f"PBF kernels vs plain, resting_block n_target={SMALL_N} (PBF "
+          "parameters, mass calibrated to the 0.8·h lattice, impact velocity "
+          "-1 m/s; Monaghan seeded at 0.7·h):")
+    for ks in ("MULLER", "MONAGHAN"):
+        # calibrate_mass sums Monaghan's lattice out to its 2h support while
+        # the sweeps cut at h: a 0.8·h block sits at 0.58·ρ₀ and never
+        # compresses, and its λ would be 0; at 0.7·h it is at 1.18·ρ₀
+        cfg, params, state, grid, boundary = pbf_block(
+            nt.SimConfig(kernel_set=nt.KernelSet[ks]), dev, SMALL_N,
+            lattice=0.8 if ks == "MULLER" else 0.7)
+        ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
+                              cfg, boundary)
+        ops = pbf_path_operands(cfg, ctx, params, vorticity=True)
+        lam = ops["pbf_dp"][2][0][:, 3]
+        if not float(lam.min()) < 0.0:
+            fail(f"PBF {ks}: the first iteration's λ is all 0: the check "
+                 "would not reach the λ terms")
+        compare_kernels(cfg, ops, f"PBF {ks} n={state.capacity} nb="
+                        f"{boundary.num_boundaries} min λ "
+                        f"{float(lam.min()):.4g}",
+                        keys=("pbf_lambda", "pbf_dp", "pbf_omega",
+                              "pbf_lambda_n"))
+    torch.cuda.synchronize()
+    del state, ctx, boundary, grid, ops
+
+    # -- 18. the PBF path pbf_1M -------------------------------------------
+    pbf_1m = pbf_main_path(dev)
+    if int(pbf_1m[2].num_active) != PBF_FLUID:
+        fail(f"pbf_1M: expected {PBF_FLUID:,} fluid particles, got "
+             f"{int(pbf_1m[2].num_active)}")
+    cfg, params, _, grid, boundary = pbf_1m
+    state, pbf_launches = run_pbf_path("PBF pbf_1M", pbf_1m, N_STEPS,
+                                       TIMED_FROM)
+    ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
+                          cfg, boundary)
+    pbf_timing = compare_kernels(cfg, pbf_path_operands(cfg, ctx, params),
+                                 f"pbf_1M after {N_STEPS} steps",
+                                 time_it=True)
+    del state, ctx
+
+    # -- 19. the PBF path pbf_256k_settled ----------------------------------
+    settled = pbf_main_path(dev, settled=True)
+    if int(settled[2].num_active) != SETTLED_FLUID:
+        fail(f"pbf_256k_settled: expected {SETTLED_FLUID:,} fluid particles, "
+             f"got {int(settled[2].num_active)}")
+    cfg, params, _, grid, boundary = settled
+    state, pbfs_launches = run_pbf_path(
+        "PBF pbf_256k_settled", settled, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM)
+    ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
+                          cfg, boundary)
+    pbfs_timing = compare_kernels(
+        cfg, pbf_path_operands(cfg, ctx, params),
+        f"pbf_256k_settled after {IMPLICIT_STEPS} steps", time_it=True)
+    del state, ctx, settled, boundary, grid
+
+    # -- 20. the PBF path with vorticity confinement and XSPH ---------------
+    cfg, params, _, grid, boundary = pbf_1m
+    state, pbfv_launches = run_pbf_path(
+        "PBF pbf_1M_vort_xsph", pbf_1m, N_STEPS, TIMED_FROM,
+        xsph_eps=PBF_XSPH_EPS, vorticity_eps=PBF_VORTICITY_EPS)
+    ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
+                          cfg, boundary)
+    ops = pbf_path_operands(cfg, ctx, params, vorticity=True)
+    # the λ kernel of the N sweep, untimed: the path's λ entry is the
+    # iterations' shapes
+    compare_kernels(cfg, ops, f"pbf_1M_vort_xsph after {N_STEPS} steps, N",
+                    keys=("pbf_lambda_n",))
+    pbfv_timing = compare_kernels(
+        cfg, ops, f"pbf_1M_vort_xsph after {N_STEPS} steps",
+        keys=("pbf_lambda", "pbf_dp", "pbf_omega", "xsph"), time_it=True)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, ctx, ops, pbf_1m, boundary, grid
+
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
@@ -1327,6 +1586,7 @@ def main():
     mp_src = "nereus_tpu_torch/csrc/multiphase_sweep.cu"
     visc_src = "nereus_tpu_torch/csrc/viscosity_sweep.cu"
     mpd_src = "nereus_tpu_torch/csrc/dfsph_multiphase_sweep.cu"
+    pbf_src = "nereus_tpu_torch/csrc/pbf_sweep.cu"
     rep = "nereus_tpu/ops/pallas_sph.py:"
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
@@ -1349,7 +1609,10 @@ def main():
                                rep + "984"),
             "mp_alpha": (cuda_sweep.MP_ALPHA, mpd_src, rep + "799"),
             "mp_drho": (cuda_sweep.MP_DRHO, mpd_src, rep + "836"),
-            "mp_kappa": (cuda_sweep.MP_KAPPA, mpd_src, rep + "871")}
+            "mp_kappa": (cuda_sweep.MP_KAPPA, mpd_src, rep + "871"),
+            "pbf_lambda": (cuda_sweep.PBF_LAMBDA, pbf_src, rep + "949"),
+            "pbf_dp": (cuda_sweep.PBF_DP, pbf_src, rep + "1044"),
+            "pbf_omega": (cuda_sweep.PBF_OMEGA, pbf_src, rep + "1019")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -1360,7 +1623,10 @@ def main():
             ("wcsph_1M_xsph", xsph_timing, xsph_launches),
             ("wcsph_1M_visc", wvisc_timing, wvisc_launches),
             ("dfsph_visc_256k_settled", dvisc_timing, dvisc_launches),
-            ("dfsph_mp_256k_settled", dmp_timing, dmp_launches)):
+            ("dfsph_mp_256k_settled", dmp_timing, dmp_launches),
+            ("pbf_1M", pbf_timing, pbf_launches),
+            ("pbf_256k_settled", pbfs_timing, pbfs_launches),
+            ("pbf_1M_vort_xsph", pbfv_timing, pbfv_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:
@@ -1377,6 +1643,7 @@ def main():
                 # no single PyTorch call computes a range-walk neighbor
                 # sweep
                 "library_ms": None})
+    print(f"total wall time {time.perf_counter() - t_run:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

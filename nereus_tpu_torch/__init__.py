@@ -1,8 +1,9 @@
 """nereus_tpu_torch: the PyTorch + CUDA port of nereus_tpu.
 
 The WCSPH step (single phase with optional XSPH and implicit viscosity,
-and multiphase), the single-phase IISPH and PCISPH steps and the DFSPH step
-(single phase with optional implicit viscosity, and multiphase) of
+and multiphase), the single-phase IISPH and PCISPH steps, the DFSPH step
+(single phase with optional implicit viscosity, and multiphase) and the
+PBF step (with optional vorticity confinement and XSPH) of
 ``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
 the ported subset, with the neighbor sweeps as hand-written CUDA kernels
 for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
@@ -12,7 +13,7 @@ and numpy, never JAX.
 
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
                      calibrate_mass, dfsph_params, iisph_params, make_params,
-                     pcisph_params)
+                     pbf_params, pcisph_params)
 from .grid import Grid, fit_grid, make_grid
 from .state import BoundaryData, FluidState, make_fluid_state
 from .solvers.wcsph import StepDiagnostics, cfl_dt, tait_pressure, wcsph_step
@@ -20,16 +21,17 @@ from .solvers.iisph import iisph_step
 from .solvers.pcisph import (pcisph_delta, pcisph_delta_from_denom,
                              pcisph_grad_denom, pcisph_step)
 from .solvers.dfsph import dfsph_step
+from .solvers.pbf import pbf_step
 
 __version__ = "0.1.0"
 
 __all__ = [
     "KernelSet", "SimConfig", "SimParams", "SurfaceTensionModel",
     "calibrate_mass", "make_params", "iisph_params", "pcisph_params",
-    "dfsph_params",
+    "dfsph_params", "pbf_params",
     "Grid", "fit_grid", "make_grid",
     "BoundaryData", "FluidState", "make_fluid_state",
     "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
     "iisph_step", "pcisph_step", "pcisph_delta", "pcisph_delta_from_denom",
-    "pcisph_grad_denom", "dfsph_step",
+    "pcisph_grad_denom", "dfsph_step", "pbf_step",
 ]

@@ -1,5 +1,5 @@
-// Shared pieces of the neighbor-sweep kernels (sph_sweep.cu, iisph_sweep.cu,
-// dfsph_sweep.cu, multiphase_sweep.cu): the packed parameter vector, the
+// Shared pieces of the neighbor-sweep kernels (sph_sweep.cu and the
+// functors of the other csrc/*.cu): the packed parameter vector, the
 // exact-range walk, the smoothing-kernel formulas in the operation order of
 // nereus_tpu_torch/ops/sph_pairs.py, and the pair-sweep kernel template.
 //
@@ -17,7 +17,8 @@ enum {
   PV_H2 = 0, PV_PM = 1, PV_KPOLY = 2, PV_KPRESS = 3, PV_KVISC = 4,
   PV_KVISC_DEN = 5, PV_H = 6, PV_KAPPA = 7, PV_WDIAM = 8, PV_BETA = 10,
   PV_VISC = 11, PV_CS = 12, PV_RD = 13, PV_K = 14, PV_KSURF1 = 15,
-  PV_KSURF2 = 16, PV_KPOLY_GRAD = 17, PV_DT = 22, PV_STX = 24
+  PV_KSURF2 = 16, PV_KPOLY_GRAD = 17, PV_DT = 22, PV_SCORR_S = 23,
+  PV_STX = 24
 };
 
 // KernelSet and SurfaceTensionModel enum values of params.py
@@ -33,6 +34,7 @@ constexpr int N_ROWS = 9;
 struct Params {
   float h2, pm, kpoly, kpress, kvisc, kvisc_den, h, kappa, wdiam, beta,
       visc, cs, rd, k, ksurf1, ksurf2, kpoly_grad, dt;
+  float scorr_s;  // PBF k^(1/4) / W(dq h): scorr = -(W scorr_s)^4
   float stx;    // cross-phase Becker cohesion factor (SimConfig.st_cross)
   float sigma;  // Monaghan 1/(4 pi h^3)
 };
@@ -57,6 +59,7 @@ __device__ __forceinline__ Params load_params(const float* __restrict__ pv) {
   p.ksurf2 = __ldg(pv + PV_KSURF2);
   p.kpoly_grad = __ldg(pv + PV_KPOLY_GRAD);
   p.dt = __ldg(pv + PV_DT);
+  p.scorr_s = __ldg(pv + PV_SCORR_S);
   p.stx = __ldg(pv + PV_STX);
   p.sigma = 1.0f / (12.566370614359172f * p.h * p.h * p.h);
   return p;

@@ -3,8 +3,9 @@
 ``csrc/iisph_sweep.cu`` for IISPH, ``csrc/dfsph_sweep.cu`` for DFSPH,
 ``csrc/multiphase_sweep.cu`` for multiphase WCSPH and XSPH,
 ``csrc/dfsph_multiphase_sweep.cu`` for multiphase DFSPH,
-``csrc/viscosity_sweep.cu`` for the implicit viscosity solve; the
-counterpart of ``nereus_tpu.ops.pallas_neighbors``).
+``csrc/viscosity_sweep.cu`` for the implicit viscosity solve,
+``csrc/pbf_sweep.cu`` for PBF; the counterpart of
+``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
 all at once in parallel, and the objects are linked into one shared
@@ -73,10 +74,14 @@ VISC_LAPLACIAN = Kernel("pair_sweep_kernel<ViscLaplacian>")
 MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
 MP_DRHO = Kernel("pair_sweep_kernel<MultiphaseDrho>")
 MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
+# PBF's λ sums (also vorticity confinement's N), Δp and ω
+PBF_LAMBDA = Kernel("pair_sweep_kernel<PbfLambda>")
+PBF_DP = Kernel("pair_sweep_kernel<PbfDp>")
+PBF_OMEGA = Kernel("pair_sweep_kernel<PbfOmega>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
            XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
-           MP_KAPPA)
+           MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA)
 
 _lock = threading.Lock()
 _lib = None
@@ -226,7 +231,8 @@ _SWEEP_FNS = {"density": 0, "force": 3, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 1,
               "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
-              "multiphase_drho": 0, "multiphase_kappa": 0}
+              "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
+              "pbf_dp": 0, "pbf_omega": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -379,3 +385,24 @@ def multiphase_kappa_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
     """Multiphase stiffness correction (N, 3): q (N, 8), src (M, 4)."""
     return _sweep(MP_KAPPA, "multiphase_kappa", cfg, q, 8, src, 4, seg_start,
                   seg_end, pvec, (9, 18), 3)
+
+
+def pbf_lambda_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """PBF constraint sums (ρ, Σψ∇W, Σ|ψ∇W|²) (N, 5): q (N, 4),
+    src (M, 4); 9 range rows for the fluid sums alone (vorticity
+    confinement's N)."""
+    return _sweep(PBF_LAMBDA, "pbf_lambda", cfg, q, 4, src, 4, seg_start,
+                  seg_end, pvec, (9, 18), 5)
+
+
+def pbf_dp_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """PBF position correction Δp·ρ₀ (N, 3): q (N, 4), src (M, 4)."""
+    return _sweep(PBF_DP, "pbf_dp", cfg, q, 4, src, 4, seg_start, seg_end,
+                  pvec, (9, 18), 3)
+
+
+def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """PBF vorticity ω (N, 3) over the fluid rows only: q (N, 8),
+    src (M, 8), ranges (9, N)."""
+    return _sweep(PBF_OMEGA, "pbf_omega", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9,), 3)

@@ -15,8 +15,9 @@ force sweeps read a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
 ``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad`` (Jacobi) or ``x y z vx vy vz
 V_j p_j·V_j² [ρ0_j] pad…`` (multiphase), boundary rows with ψ_b in slot 6.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
-rows ``x y z 0``); the multiphase DFSPH α and κ sweeps a (M, 4) source
-``x y z s`` (fluid s = 1/m_j resp. κV̂²_j, boundary s = ψ_b).
+rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
+sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j, m or λ_j,
+boundary s = ψ_b).
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -27,10 +28,10 @@ constant.
 Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
 sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
-implicit viscosity solve's ``visc_laplacian_sweep`` and the three
-multiphase DFSPH sweeps) routes by device: a CPU tensor goes to the plain
-sweep, a CUDA float32 tensor to the hand-written kernel
-(``ops/cuda_sweep.py``); anything else raises.
+implicit viscosity solve's ``visc_laplacian_sweep``, the three
+multiphase DFSPH sweeps and PBF's λ, Δp and ω sweeps) routes by device:
+a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
+hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
 """
 
 from __future__ import annotations
@@ -609,6 +610,66 @@ def visc_laplacian_pair(q, s, pv, *, kernel_set, boundary):
 
 
 # ---------------------------------------------------------------------------
+# PBF pair formulas (default gradient; Macklin & Müller 2013)
+# ---------------------------------------------------------------------------
+
+def _w_grad(q, s, pv, kernel_set):
+    """(dx, dy, dz, r², W, s, okf) with ∇W = s·r⃗ the default gradient;
+    the rsqrt only for Monaghan."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    return (dx, dy, dz, r2, _w_value(kernel_set, r2, rl, pv),
+            _w_grad_scale_default(kernel_set, r2, rl, pv, invrl), okf)
+
+
+def pbf_lambda_pair(q, s, pv, *, kernel_set, include_sq):
+    """PBF constraint sums ρ = Σψ_jW, Σψ_j∇W and (``include_sq``: fluid
+    rows) Σ|ψ_j∇W|², one formula for fluid (ψ = m) and wall (ψ_b) sources;
+    vorticity confinement's N = Σ(m/ρ_j·|ω_j|)∇W is the same sum on the
+    fluid rows. q: x y z pad; src: x y z ψ. Returns (P, 5)."""
+    dx, dy, dz, r2, w, sg, okf = _w_grad(q, s, pv, kernel_set)
+    psi = s[:, 3]
+    d = psi * w * okf
+    c = psi * sg * okf
+    sq = c * c * r2 if include_sq else torch.zeros_like(c)
+    return torch.stack([d, c * dx, c * dy, c * dz, sq], dim=1)
+
+
+def pbf_dp_pair(q, s, pv, *, kernel_set, boundary):
+    """PBF position correction (unscaled by 1/ρ₀): fluid sources
+    m(λ_i + λ_j + scorr)∇W with scorr = −(W·s_corr)⁴ (``PV_SCORR_S``),
+    wall sources ψ_b·λ_i·∇W. q: x y z λ_i; src: x y z (λ_j or ψ_b).
+    Returns (P, 3)."""
+    dx, dy, dz, r2, w, sg, okf = _w_grad(q, s, pv, kernel_set)
+    if boundary:
+        coef = s[:, 3] * q[:, 3] * sg
+    else:
+        t = w * pv[PV_SCORR_S]
+        t2 = t * t
+        scorr = -(t2 * t2)
+        coef = pv[PV_PM] * (q[:, 3] + s[:, 3] + scorr) * sg
+    coef = coef * okf
+    return torch.stack([coef * dx, coef * dy, coef * dz], dim=1)
+
+
+def pbf_omega_pair(q, s, pv, *, kernel_set):
+    """PBF vorticity ω = Σ(m/ρ_j)(v_j − v_i)×∇W over fluid rows (exactly 0
+    at the self pair). q: x y z vx vy vz pad pad; src: x y z vx vy vz
+    m/ρ_j pad. Returns (P, 3)."""
+    dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
+    c = s[:, 6] * sg * okf
+    dvx = s[:, 3] - q[:, 3]
+    dvy = s[:, 4] - q[:, 4]
+    dvz = s[:, 5] - q[:, 5]
+    return torch.stack([c * (dvy * dz - dvz * dy), c * (dvz * dx - dvx * dz),
+                        c * (dvx * dy - dvy * dx)], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Plain sweeps and the dispatchers
 # ---------------------------------------------------------------------------
 
@@ -778,6 +839,32 @@ def multiphase_kappa_sweep_plain(cfg: SimConfig, q, src, seg_start,
         3, pair_fn_b=_bind(multiphase_kappa_bpair, cfg, pvec))
 
 
+def pbf_lambda_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """(ρ, Σψ∇W xyz, Σ|ψ∇W|²) (N, 5): q (N, 4), src (M, 4) fluid rows
+    ``x y z ψ``, boundary rows ``x y z ψ_b``; the square sum over the
+    fluid rows only (9 range rows: the fluid sums alone)."""
+    return neighbor_sweep_plain(
+        _bind(pbf_lambda_pair, cfg, pvec, include_sq=True), q, src,
+        seg_start, seg_end, 5,
+        pair_fn_b=_bind(pbf_lambda_pair, cfg, pvec, include_sq=False))
+
+
+def pbf_dp_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """PBF Δp·ρ₀ (N, 3): q (N, 4) ``x y z λ_i``, src (M, 4) fluid rows
+    ``x y z λ_j``, boundary rows ``x y z ψ_b``."""
+    return neighbor_sweep_plain(
+        _bind(pbf_dp_pair, cfg, pvec, boundary=False), q, src, seg_start,
+        seg_end, 3, pair_fn_b=_bind(pbf_dp_pair, cfg, pvec, boundary=True))
+
+
+def pbf_omega_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """PBF vorticity ω (N, 3) over the fluid rows only: ranges (9, N),
+    q (N, 8), src (M, 8) ``x y z v m/ρ 0``."""
+    return neighbor_sweep_plain(_bind(pbf_omega_pair, cfg, pvec), q, src,
+                                seg_start, seg_end, 3)
+
+
 def _route(*tensors) -> str:
     """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
     for CUDA float32 ones; raises on anything else, or on mixed devices."""
@@ -840,3 +927,6 @@ multiphase_drho_sweep = _dispatcher(multiphase_drho_sweep_plain,
                                     "multiphase_drho_sweep")
 multiphase_kappa_sweep = _dispatcher(multiphase_kappa_sweep_plain,
                                      "multiphase_kappa_sweep")
+pbf_lambda_sweep = _dispatcher(pbf_lambda_sweep_plain, "pbf_lambda_sweep")
+pbf_dp_sweep = _dispatcher(pbf_dp_sweep_plain, "pbf_dp_sweep")
+pbf_omega_sweep = _dispatcher(pbf_omega_sweep_plain, "pbf_omega_sweep")

@@ -190,6 +190,23 @@ def dfsph_params(**overrides) -> SimParams:
     return make_params(**defaults)
 
 
+def pbf_params(**overrides) -> SimParams:
+    """PBF default parameter set: the IISPH physical parameters
+    (``sph/iisph/iisph.cpp:37-80``), since PBF replaces only the pressure
+    projection. Calibrate the mass (:func:`calibrate_mass`): the density
+    constraint C = ρ/ρ₀ − 1 means nothing on a lattice that does not sum
+    to ρ₀."""
+    defaults = dict(
+        viscosity=0.01,
+        surface_tension=0.01,
+        interaction_radius=0.0537,
+        beta=1050.0,
+        mass_factor=0.5,
+    )
+    defaults.update(overrides)
+    return make_params(**defaults)
+
+
 def pcisph_params(**overrides) -> SimParams:
     """PCISPH default parameter set (``sph/pcisph/pcisph.cpp:37-80``); the
     reference's PCISPH mass has no 0.5 factor (``pcisph.cpp:49``), so wrap

@@ -111,7 +111,8 @@ def test_build_without_nvcc_raises(monkeypatch):
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
             "dfsph_multiphase_sweep.cu", "dfsph_sweep.cu", "iisph_sweep.cu",
-            "multiphase_sweep.cu", "sph_sweep.cu", "viscosity_sweep.cu")]
+            "multiphase_sweep.cu", "pbf_sweep.cu", "sph_sweep.cu",
+            "viscosity_sweep.cu")]
 
 
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
@@ -150,8 +151,14 @@ VISC_MP_DFSPH_SWEEPS = {
     "multiphase_kappa": (SP.multiphase_kappa_sweep,
                          cuda_sweep.multiphase_kappa_sweep, 8, 4, 18),
 }
+PBF_SWEEPS = {
+    "pbf_lambda": (SP.pbf_lambda_sweep, cuda_sweep.pbf_lambda_sweep, 4, 4,
+                   18),
+    "pbf_dp": (SP.pbf_dp_sweep, cuda_sweep.pbf_dp_sweep, 4, 4, 18),
+    "pbf_omega": (SP.pbf_omega_sweep, cuda_sweep.pbf_omega_sweep, 8, 8, 9),
+}
 ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
-              **VISC_MP_DFSPH_SWEEPS}
+              **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS}
 
 
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
@@ -195,6 +202,11 @@ def test_multiphase_xsph_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(VISC_MP_DFSPH_SWEEPS))
 def test_visc_mp_dfsph_dispatchers_route_by_device(key):
     _routes_by_device(*VISC_MP_DFSPH_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(PBF_SWEEPS))
+def test_pbf_dispatchers_route_by_device(key):
+    _routes_by_device(*PBF_SWEEPS[key][:2], key)
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -271,7 +283,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 18
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 21
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -354,7 +366,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 12)
+                                                        + [0] * 15)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -389,7 +401,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 12
+    assert launches[8:] == [0] * 15
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -449,7 +461,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 9)
+                                                        + [0] * 12)
 
 
 @pytest.mark.requires_cuda
@@ -470,7 +482,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 6
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 9
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -488,7 +500,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 6
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 9
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -538,7 +550,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 6)
+                                                        + [0] * 9)
 
 
 @pytest.mark.requires_cuda
@@ -554,7 +566,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 6)
+                                                        + [0] * 9)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
@@ -562,7 +574,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 6)
+                                                        + [3] + [0] * 9)
     assert torch.isfinite(state.pos).all()
 
 
@@ -675,3 +687,84 @@ def test_visc_mp_dfsph_steps_run_kernels_on_cuda(cuda):
                       cuda_sweep.MP_KAPPA: launched + 3})
     assert torch.isfinite(s.pos).all() and s.multiphase
     assert float(s.pressure.min()) >= 0.0
+
+
+def _pbf_block(cuda, kernel_set="MULLER", n_target=4000):
+    """The settled block of the ``pbf_256k_settled`` path at a small size:
+    PBF parameters calibrated twice, as ``bench.py`` calibrates them, the
+    second time to the 0.8·h lattice; impact velocity −1 m/s, so λ is
+    non-zero from the first iteration. Under Monaghan kernels the block is
+    seeded at 0.7·h: calibrate_mass sums that lattice out to the 2h
+    support while the sweeps cut at h, so at 0.8·h it sits at 0.58·ρ₀."""
+    cfg = nereus_tpu_torch.SimConfig(
+        kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
+    base = nereus_tpu_torch.calibrate_mass(
+        nereus_tpu_torch.pbf_params(device=cuda), cfg)
+    h = float(base.interaction_radius)
+    params = nereus_tpu_torch.calibrate_mass(base, cfg, spacing=0.8 * h)
+    state, grid, boundary = scene.resting_block(
+        params, cfg, n_target=n_target,
+        spacing=(0.8 if kernel_set == "MULLER" else 0.7) * h,
+        impact_velocity=-1.0, device=cuda)
+    return cfg, params, state, grid, boundary
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """The λ, Δp, ω and N (the λ kernel on the fluid rows) kernels against
+    their plain versions on the first PBF step's operands of the small
+    settled block, built by the step's own operand functions, with seeded
+    velocities for ω: max|Δ| ≤ 1e-4·max|ref| per output column."""
+    from nereus_tpu_torch.solvers import pbf_cuda
+    cfg, params, state, grid, boundary = _pbf_block(cuda, kernel_set)
+    ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
+                          cfg, boundary)
+    x = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
+    lam_at, dp_at = pbf_cuda.pbf_operands(ctx, params.particle_mass)
+    largs = tuple(t.clone() for t in lam_at(x))
+    dens, lam = pbf_cuda.lambda_of(SP.pbf_lambda_sweep_plain(cfg, *largs),
+                                   params.rest_density, cfg)
+    assert float(lam.min()) < 0.0
+    dargs = dp_at(lam)
+    vel = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (ctx.c, 3))).float().to(cuda)
+    v = vel.unbind(1)
+    mrho = params.particle_mass / dens.clamp(min=1e-12)
+    oargs = pbf_cuda.omega_operands(ctx, v, mrho)
+    om = SP.pbf_omega_sweep_plain(cfg, *oargs)
+    nargs = pbf_cuda.grad_operands(ctx, mrho * om.norm(dim=1))
+    cuda_sweep.reset_launches()
+    for key, args, cols in (("pbf_lambda", largs, 5), ("pbf_dp", dargs, 3),
+                            ("pbf_omega", oargs, 3), ("pbf_lambda", nargs,
+                                                      4)):
+        dispatch = PBF_SWEEPS[key][0]
+        plain = getattr(SP, f"{key}_sweep_plain")
+        _assert_columns_close(dispatch(cfg, *args)[:, :cols],
+                              plain(cfg, *args)[:, :cols], key)
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.PBF_LAMBDA: 2, cuda_sweep.PBF_DP: 1,
+                      cuda_sweep.PBF_OMEGA: 1})
+
+
+@pytest.mark.requires_cuda
+def test_pbf_steps_run_kernels_on_cuda(cuda):
+    """A few PBF steps of the small settled block launch the λ and Δp
+    kernels ``pbf_iters`` times each per step and nothing else; with
+    vorticity confinement and XSPH one more λ launch (N), one ω and one
+    XSPH launch per step."""
+    cfg, params, state, grid, boundary = _pbf_block(cuda)
+    it = cfg.pbf_iters
+    for kw, extra in (({}, {}),
+                      (dict(xsph_eps=0.02, vorticity_eps=0.01),
+                       {cuda_sweep.PBF_OMEGA: 3, cuda_sweep.XSPH: 3})):
+        cuda_sweep.reset_launches()
+        s = state
+        for _ in range(3):
+            s, diag = nereus_tpu_torch.pbf_step(s, params, grid, cfg,
+                                                boundary, **kw)
+        _assert_launches({cuda_sweep.PBF_LAMBDA: 3 * (it + bool(kw)),
+                          cuda_sweep.PBF_DP: 3 * it, **extra})
+        assert torch.isfinite(s.pos).all()
+        assert int(diag.solver_iters) == it
+        assert float(s.pressure.max()) <= 0.0

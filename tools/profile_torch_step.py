@@ -10,7 +10,10 @@ the same scene stepped with ``xsph_eps = 0.3``; wcsph_visc: the same scene
 with the implicit viscosity solve at ν = 5; iisph: the settled
 ``resting_block(n_target=2**20)``; pcisph, dfsph, dfsph_visc, dfsph_mp:
 the settled ``resting_block(n_target=256_000)`` of ``bench.py``'s
-``*_256k_settled`` cells, dfsph_mp split in two phases), runs
+``*_256k_settled`` cells, dfsph_mp split in two phases; pbf: ``bench.py``'s
+``pbf_1M`` dam-break with its boundary shell; pbf_vort: the same stepped
+with ``xsph_eps = 0.02`` and ``vorticity_eps = 0.01``; pbf_settled: the
+settled ``pbf_256k_settled`` block), runs
 ``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
 clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
@@ -48,6 +51,16 @@ def build(solver, dev):
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda,
                                           pcisph_cuda, viscosity)
+    if solver in ("pbf", "pbf_vort", "pbf_settled"):
+        cfg, params, state, grid, boundary = smoke.pbf_main_path(
+            dev, settled=solver == "pbf_settled")
+        kw = (dict(xsph_eps=smoke.PBF_XSPH_EPS,
+                   vorticity_eps=smoke.PBF_VORTICITY_EPS)
+              if solver == "pbf_vort" else {})
+
+        def step(s):
+            return nt.pbf_step(s, params, grid, cfg, boundary, **kw)
+        return state, step, ()
     if solver in ("wcsph", "multiphase", "xsph", "wcsph_visc"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
         if solver == "multiphase":
@@ -75,7 +88,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", choices=(
         "wcsph", "multiphase", "xsph", "wcsph_visc", "iisph", "pcisph",
-        "dfsph", "dfsph_visc", "dfsph_mp"), required=True)
+        "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled"),
+        required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
