@@ -127,6 +127,55 @@ Phases, in order; any failure exits non-zero:
     and XSPH once; then the λ, Δp, ω and XSPH kernels against their plain
     versions at these shapes, timed (and N untimed).
 
+21. the moving-wall kernels against their plain versions on the phase-3
+    dam-break with its walls moving at (0.8, 0, −0.4) m/s
+    (``tests/test_moving_boundary.py:96``; multiphase: its two-phase
+    split), both kernel sets: the force kernel's MOVING instances
+    (pressure on and off) and MultiphaseForce<MOVING>, each also on its
+    wall friction alone (fluid ranges empty, the penalty and pressure
+    terms zeroed: the friction is ~1e-10 of the wall force, so only this
+    shows the wall velocity is read, and the static instance must differ
+    there), and the unchanged kernels that read the wall rows' velocity
+    slots (DiiRhoAdv, Drho, MultiphaseDrho, ViscLaplacian);
+22. the wavemaker path ``wcsph_1M_wavemaker``: phase 4's dam-break under
+    the CLI's ``--wavemaker x:0.05:2`` (``nereus_tpu/app/cli.py:285-297,
+    776-788``: the grid widened by A + cell along x, the walls re-sorted
+    against it, then moved every step to offset A·sin ωt with velocity
+    A·ω·cos ωt), 300 steps, steps 51-300 timed; gates: the density and
+    the MOVING force kernel once per step and no other kernel (the static
+    force never), zero overflow, finite positions, no active particle
+    outside the moved box by more than h, mean compression < 0.1 on every
+    step; then both kernels against their plain versions, timed, and the
+    MOVING force kernel on its wall friction alone at these shapes, as in
+    phase 21;
+23. ``multiphase_1M_wavemaker``: phase 11's two-phase dam-break under the
+    same wavemaker, phase 22's gates on MultiphaseDensity and
+    MultiphaseForce<MOVING>;
+24. ``dfsph_256k_wavemaker``: phase 9's block under the same wavemaker,
+    phase 9's gates with the pressure-off MOVING force kernel in place of
+    the static one;
+25. ``mp_coupled_256k`` (``bench.py:200-237``): the settled block of
+    ``make_params()`` calibrated to the 0.8·h lattice, split at its median
+    height with the top half at 0.4·ρ₀, and a 0.15 m box of 600 kg/m³
+    dropped from 0.1 above the water; BodyDensity and MultiphaseBody held
+    against their plain versions on the first step's operands, and
+    MultiphaseBody on its friction alone (bp at 0) with the box moving at
+    (0.3, −0.5, 0.2) m/s and spinning at (1, −2, 0.5) rad/s, which must
+    differ from its result with the shell's sample velocities at 0; then 60
+    ``wcsph_coupled_step`` calls, steps 11-60 timed; gates: one
+    multiphase density, multiphase force, body density and
+    MultiphaseBody launch per step and no other kernel, zero overflow,
+    finite fluid and body state, R orthonormal within 1e-5 on every step,
+    the body's centre above the floor, mean compression < 0.1 on every
+    step; then every kernel of the path against its plain version, timed
+    (the body kernels on the first step's operands: the body has left the
+    water by the last), and the dense body-wall contact timed apart;
+26. ``coupled_256k``: the same block and box, single phase (the CLI's
+    ``--rigid-box`` on that block), phase 25's gates on the density,
+    force, body density and BodyForce kernels (BodyForce on its friction
+    alone with pd2 at 0).
+
+Phases 21-23 run right after phase 12, on its scene; 24-26 after 20.
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
 physics cross-check, not a gate. Each launch gate counts one main-path
@@ -181,6 +230,15 @@ VISC_NU = 5.0            # bench.py's dfsph_visc_256k_settled viscosity
 PBF_FLUID = 1_092_727    # dam_break(calibrate_mass(pbf_params()), 2**20)
 PBF_XSPH_EPS = 0.02      # tests/test_pbf.py:40, inside the CLI's PBF range
 PBF_VORTICITY_EPS = 0.01
+WALL_VEL = (0.8, 0.0, -0.4)      # tests/test_moving_boundary.py:96
+WAVEMAKER = (0, 0.05, 2.0)       # the CLI's --wavemaker x:0.05:2: axis, m, Hz
+COUPLED_N = 256_000              # bench.py:200-237, mp_coupled_256k
+COUPLED_RATIO = 0.4              # bench.py:214-219: the top half at 0.4·ρ₀
+BODY_SIZE = 0.15                 # bench.py:227-230: a 0.15 m box of
+BODY_DENSITY = 600.0             # 600 kg/m³ dropped from water_top + 0.1
+BODY_DROP = 0.1
+BODY_VEL = (0.3, -0.5, 0.2)      # m/s and rad/s of the body whose contact
+BODY_OMEGA = (1.0, -2.0, 0.5)    # friction alone is held (not a path's)
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -199,7 +257,10 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "force_v0": (51, 32), "force_p0_v0": (32, 28),
             "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
             "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (30, 27),
-            "pbf_dp": (31, 22), "pbf_omega": (33, 0)}
+            "pbf_dp": (31, 22), "pbf_omega": (33, 0),
+            "force_moving": (71, 44), "force_p0_moving": (52, 40),
+            "mp_force_moving": (72, 51), "body_density": (15, 0),
+            "body_force": (50, 0), "mp_body": (45, 0)}
 
 
 def fail(msg):
@@ -445,17 +506,18 @@ def dfsph_operands(cfg, ctx, params):
     }
 
 
-def two_phase(state, params):
+def two_phase(state, params, ratio=MP_RATIO):
     """``state`` split as ``bench.py:416-431`` splits ``multiphase_1M``
     (the CLI's ``--second-phase 0.3:0.5``): the top half of the fluid by
-    y at ``MP_RATIO``·ρ₀, mass ρ0_i·m/ρ₀; parked slots keep ρ₀."""
+    y at ``ratio``·ρ₀ (``bench.py:214-219``'s mp_coupled_256k: 0.4), mass
+    ρ0_i·m/ρ₀; parked slots keep ρ₀."""
     n = int(state.num_active)
     pos = state.pos[:n].cpu().numpy()
     y_cut = np.quantile(pos[:, 1], 0.5)
     rd = float(params.rest_density)
     pm = float(params.particle_mass)
     rho0 = np.full(state.capacity, rd)
-    rho0[:n] = np.where(pos[:, 1] >= y_cut, rd * MP_RATIO, rd)
+    rho0[:n] = np.where(pos[:, 1] >= y_cut, rd * ratio, rd)
     dev = state.pos.device
     return dataclasses.replace(
         state, mass=torch.tensor(rho0 * (pm / rd), dtype=torch.float32,
@@ -623,6 +685,143 @@ def pbf_path_operands(cfg, ctx, params, vorticity=False):
                      wcsph_cuda.xsph_operands(ctx, v, dens), {})}
 
 
+def moving(op, **kw):
+    """``op`` (kernel, plain, args, kwargs) with ``moving_boundary=True``
+    and ``kw`` added to its keyword switches."""
+    kern, plain, args, okw = op
+    return kern, plain, args, {**okw, "moving_boundary": True, **kw}
+
+
+def friction_only(op, zero_col, beta0=False):
+    """A wall-force sweep's op on its wall friction alone: the fluid ranges
+    emptied, query column ``zero_col`` at 0 (pd2 of the force sweep, 1/m_i
+    of the multiphase one, dropping the wall pressure resp. penalty) and,
+    with ``beta0``, β at 0 (the force sweep's penalty). The friction is
+    ~1e-10 of the wall force at these parameters, so the whole sweep
+    cannot show that it reads the wall velocity."""
+    from nereus_tpu_torch.ops import sph_pairs as SP
+    kern, plain, (q, src, s, e, pv), kw = op
+    q = q.clone()
+    q[:, zero_col] = 0.0
+    e = e.clone()
+    e[:9] = s[:9]
+    if beta0:
+        pv = pv.clone()
+        pv[SP.PV_BETA] = 0.0
+    return kern, plain, (q, src, s, e, pv), kw
+
+
+def moving_wall_operands(cfg, ctx, params):
+    """On ``ctx`` built with a moving wall: the force sweep's MOVING
+    instances (pressure on: the WCSPH step's operands; off: the implicit
+    solvers' advection operands), each also on its friction alone, and the
+    unchanged kernels that read the wall rows' velocity slots (IISPH's
+    d_ii/ρ_adv, DFSPH's Dρ/Dt, the viscous Laplacian), each from the plain
+    versions' upstream results. ``{key: (kernel, plain, args, kwargs)}``."""
+    dens_ops = xsph_path_operands(cfg, ctx, params)
+    iisph = iisph_operands(cfg, ctx, params)
+    ops = {"force_moving": moving(dens_ops["force"]),
+           "force_p0_moving": moving(iisph["force_p0"])}
+    ops["force_moving_friction"] = friction_only(ops["force_moving"], 7,
+                                                 beta0=True)
+    ops["force_p0_moving_friction"] = friction_only(ops["force_p0_moving"],
+                                                    7, beta0=True)
+    ops["dii_rhoadv"] = iisph["dii_rhoadv"]
+    ops["drho"] = dfsph_operands(cfg, ctx, params)["drho"]
+    ops["visc_laplacian"] = wcsph_visc_operands(cfg, ctx,
+                                                params)["visc_laplacian"]
+    return ops
+
+
+def moving_wall_mp_operands(cfg, ctx, params):
+    """On a two-phase ``ctx`` with a moving wall: MultiphaseForce<MOVING>,
+    also on its friction alone, and the unchanged dδ̂/dt kernel."""
+    ops = {"mp_force_moving": moving(multiphase_operands(cfg, ctx,
+                                                         params)["mp_force"])}
+    ops["mp_force_moving_friction"] = friction_only(ops["mp_force_moving"],
+                                                    7)
+    ops["mp_drho"] = mp_dfsph_operands(cfg, ctx, params)["mp_drho"]
+    return ops
+
+
+def check_reads_wall_velocity(cfg, ops, label):
+    """Fails unless each ``*_friction`` op's kernel gives another result
+    with the static switch: the MOVING instance reads the wall velocity."""
+    for key, (kern, _, args, kw) in ops.items():
+        if key.endswith("_friction"):
+            static = {k: v for k, v in kw.items() if k != "moving_boundary"}
+            if torch.equal(kern(cfg, *args, **static), kern(cfg, *args, **kw)):
+                fail(f"{label}: {key}: the MOVING kernel's wall friction "
+                     "equals the static one's")
+
+
+def check_body_friction(cfg, ctx, params, grid, body, label):
+    """The body contact kernel of ``ctx``'s phase (BodyForce; MultiphaseBody
+    on a multiphase ``ctx``) on its friction alone: pd2 resp. bp at 0, on
+    ``body`` set moving at ``BODY_VEL`` and spinning at ``BODY_OMEGA``, so
+    its shell's rows carry sample velocities v + ω × r in slots 3-5. The
+    friction is ~1e-10 of the pressure term, so the whole sweep cannot show
+    that the kernel reads them. Held against its plain version at
+    FORCE_TOL; fails if the kernel gives the same result with those slots
+    at 0."""
+    dev = body.com.device
+    moved = dataclasses.replace(
+        body, vel=torch.tensor(BODY_VEL, dtype=torch.float32, device=dev),
+        omega=torch.tensor(BODY_OMEGA, dtype=torch.float32, device=dev))
+    ops = coupled_operands(cfg, ctx, params, grid, moved)
+    key, col = ("mp_body", 6) if ctx.mass is not None else ("body_force", 7)
+    kern, plain, (q, src, s, e, pv), kw = ops[key]
+    q = q.clone()
+    q[:, col] = 0.0
+    compare_kernels(cfg, {f"{key}_friction": (kern, plain,
+                                              (q, src, s, e, pv), kw)},
+                    f"{label}, body at {BODY_VEL} m/s and {BODY_OMEGA} "
+                    "rad/s")
+    still = src.clone()
+    still[:, 3:6] = 0.0
+    if torch.equal(kern(cfg, q, src, s, e, pv, **kw),
+                   kern(cfg, q, still, s, e, pv, **kw)):
+        fail(f"{label}: {key}: the body friction equals the one with the "
+             "shell's sample velocities at 0")
+
+
+def coupled_operands(cfg, ctx, params, grid, body):
+    """The operands of every sweep of one coupled step (single phase:
+    density, force, body density, BodyForce; a multiphase ``ctx``:
+    multiphase density and force, body density, MultiphaseBody) with one
+    ``body``, built by ``solvers/coupled_cuda.py``'s own operand
+    functions. ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import coupled_cuda, wcsph_cuda
+    shells = coupled_cuda.body_shells(ctx, grid, (body,))
+    sh = shells[0]
+    rows = (sh.src, sh.seg_start, sh.seg_end, ctx.pvec)
+    q4 = ctx.queries(width=4)
+    bdens = (cuda_sweep.body_density_sweep, SP.density_sweep_plain,
+             (q4, *rows), {})
+    if ctx.mass is None:
+        dargs, fargs, _, _ = coupled_cuda.coupled_operands(ctx, params, cfg,
+                                                           shells)
+        return {"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
+                            dargs, {}),
+                "force": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
+                          fargs, {}),
+                "body_density": bdens,
+                "body_force": (cuda_sweep.body_force_sweep,
+                               SP.body_force_sweep_plain,
+                               (fargs[0], *rows), {})}
+    fargs, q8b, _, _ = coupled_cuda.coupled_multiphase_operands(
+        ctx, params, cfg, shells)
+    return {"mp_density": (cuda_sweep.multiphase_density_sweep,
+                           SP.multiphase_density_sweep_plain,
+                           wcsph_cuda.multiphase_density_operands(ctx), {}),
+            "mp_force": (cuda_sweep.multiphase_force_sweep,
+                         SP.multiphase_force_sweep_plain, fargs, {}),
+            "body_density": bdens,
+            "mp_body": (cuda_sweep.multiphase_body_sweep,
+                        SP.multiphase_body_sweep_plain, (q8b, *rows), {})}
+
+
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
@@ -674,8 +873,10 @@ def small_dam_break(nt, params, cfg, dev):
 def settled_main_path(solver, dev, n_target):
     """The settled block of ``bench.py``'s ``*_settled`` cells for
     ``solver`` (iisph, pcisph, dfsph, dfsph_visc: implicit viscosity at
-    ν = ``VISC_NU``, or dfsph_mp: the block split by :func:`two_phase`),
-    built as ``bench.py:376-449`` builds it: ``(cfg, params, state, grid,
+    ν = ``VISC_NU``, dfsph_mp: the block split by :func:`two_phase`, or
+    dfsph_wavemaker: the DFSPH block, whose walls
+    :func:`run_settled_path` moves), built as ``bench.py:376-449`` builds
+    it: ``(cfg, params, state, grid,
     boundary, step)`` with ``step(state) -> (state, diag)`` at the cell's
     tolerances."""
     import nereus_tpu_torch as nt
@@ -813,15 +1014,27 @@ def print_cg(name, cg, ends, window, steps, timed):
 
 
 def run_settled_path(solver, dev, loops, cg=None):
-    """Phases 8, 9, 15 and 16: ``SETTLED_N`` block, ``IMPLICIT_STEPS``
+    """Phases 8, 9, 15, 16 and 24: ``SETTLED_N`` block, ``IMPLICIT_STEPS``
     steps, gates; ``loops`` names the solver's loops (``{name:
     LoopCounts}``), ``cg`` the implicit viscosity solve's loop (its
-    iterations are not in ``solver_iters``). Returns ``(cfg, params,
-    state, grid, boundary, iters, launches)``."""
+    iterations are not in ``solver_iters``); ``dfsph_wavemaker`` moves the
+    walls as the CLI's ``--wavemaker`` does (:func:`wavemaker`). Returns
+    ``(cfg, params, state, grid, boundary, iters, launches)``, the grid and
+    walls of the last step."""
+    import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
     t0 = time.perf_counter()
     cfg, params, state, grid, boundary, step = settled_main_path(
         solver, dev, SETTLED_N)
+    moving = solver.endswith("_wavemaker")
+    if moving:
+        # the CLI's --wavemaker on the settled block: the walls move every
+        # step (pcisph/iisph/dfsph take it alike; DFSPH here)
+        grid, bd_at = wavemaker(grid, boundary, params)
+
+        def step(s):
+            return nt.dfsph_step(s, params, grid, cfg, bd_at(),
+                                 tol=DFSPH_TOL, tol_v=DFSPH_TOL)
     torch.cuda.synchronize()
     n = int(state.num_active)
     floor = float(boundary.pos[:, 1].min())
@@ -912,11 +1125,15 @@ def run_settled_path(solver, dev, loops, cg=None):
                 cuda_sweep.DRHO: launched,
                 cuda_sweep.PRESSURE_FORCE: launched + steps}
         if cg is None:
-            want[cuda_sweep.FORCE_P0] = steps
+            want[cuda_sweep.FORCE_P0_MOVING if moving
+                 else cuda_sweep.FORCE_P0] = steps
         else:
             want[cuda_sweep.FORCE_P0_V0] = steps
             want[cuda_sweep.VISC_LAPLACIAN] = cg.launched + steps
     check_launches(f"{name} main path", want)
+    if moving:
+        boundary, off = bd_at.last
+        print(f"{name} main path: last wall offset {float(off):.6g} m")
     return cfg, params, state, grid, boundary, iters, launches
 
 
@@ -982,6 +1199,233 @@ def run_pbf_path(name, scene, n_steps, timed_from, **kw):
     return state, launches
 
 
+def wavemaker(grid, boundary, params):
+    """The CLI's ``--wavemaker x:0.05:2`` (``nereus_tpu/app/cli.py:285-297,
+    776-788``): the grid widened by A + cell along the axis and the wall
+    set re-sorted against it; returns ``(grid, bd_at)`` with ``bd_at()``
+    the wall set moved to the current time (offset A·sin ωt, velocity
+    A·ω·cos ωt along the axis), which then advances the time by dt. The
+    time stays on the device: no host synchronisation per step."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.boundary import move_boundary, rehash_boundary
+    axis, amp, freq = WAVEMAKER
+    cell = float(grid.cell[0])
+    lo = grid.origin.double().cpu().numpy()
+    hi = lo + np.asarray(grid.size, np.float64) * cell
+    pad = np.zeros(3)
+    pad[axis] = amp + cell
+    dev = grid.origin.device
+    grid = nt.fit_grid(lo - pad, hi + pad, cell, device=dev)
+    boundary = rehash_boundary(boundary, grid)
+    om = 2.0 * np.pi * freq
+    unit = torch.zeros(3, device=dev)
+    unit[axis] = 1.0
+    clock = {"t": torch.zeros((), device=dev)}
+
+    def bd_at():
+        t = clock["t"]
+        bd = move_boundary(boundary, grid,
+                           offset=unit * (amp * torch.sin(om * t)),
+                           velocity=unit * (amp * om * torch.cos(om * t)))
+        clock["t"] = t + params.dt
+        bd_at.last = (bd, amp * torch.sin(om * t))
+        return bd
+    return grid, bd_at
+
+
+def run_wavemaker(name, scene):
+    """``N_STEPS`` WCSPH steps of ``scene`` (``(cfg, params, state, grid,
+    boundary)``; a multiphase state runs the multiphase step) under the
+    wavemaker, the steps after ``TIMED_FROM`` timed. Gates: the density
+    and the MOVING force kernel (multiphase: MultiphaseForce<MOVING>) once
+    per step and no other kernel, zero overflow, finite positions, no
+    active particle outside the moved box by more than h, mean compression
+    < 0.1 on every step. Returns ``(state, grid, last moved walls, ms,
+    launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep
+    cfg, params, state, grid, boundary = scene
+    grid, bd_at = wavemaker(grid, boundary, params)
+    n = int(state.num_active)
+    h = float(params.interaction_radius)
+    box_lo = boundary.pos.min(dim=0).values.cpu().numpy()
+    box_hi = boundary.pos.max(dim=0).values.cpu().numpy()
+    axis, amp, freq = WAVEMAKER
+    print(f"{name}: {n} fluid particles, {boundary.num_boundaries} wall "
+          f"samples, grid widened to {grid.size}, wavemaker axis {axis} "
+          f"amplitude {amp} m at {freq} Hz, multiphase {state.multiphase}")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diags, ms, _, _ = run_steps(
+        lambda s: nt.wcsph_step(s, params, grid, cfg, bd_at()), state,
+        N_STEPS, TIMED_FROM)
+    t_host = time.perf_counter() - t_host
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    bd, off = bd_at.last
+    off = float(off)
+    mcs = torch.stack([d.mean_compression for d in diags]).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    pos = state.pos[:n].cpu().numpy()
+    shift = np.zeros(3)
+    shift[axis] = off
+    out = float(np.maximum(box_lo + shift - pos, pos - box_hi - shift).max())
+    print(f"{name}: {N_STEPS} steps in {t_host:.2f} s host; steps "
+          f"{TIMED_FROM + 1}-{N_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, last "
+          f"wall offset {off:.6g} m, largest distance outside the moved box "
+          f"{out:.6g} (h {h:.6g}), mean_compression max {mcs.max():.6g} "
+          f"last {mcs[-1]:.6g}")
+    if state.multiphase:
+        want = {cuda_sweep.MP_DENSITY: N_STEPS,
+                cuda_sweep.MP_FORCE_MOVING: N_STEPS}
+    else:
+        want = {cuda_sweep.DENSITY: N_STEPS,
+                cuda_sweep.FORCE_MOVING: N_STEPS}
+    check_launches(name, want)
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"{name}: non-finite positions")
+    if out > h:
+        fail(f"{name}: a particle lies {out} outside the moved box")
+    if not mcs.max() < 0.1:
+        fail(f"{name}: mean_compression {mcs.max()} >= 0.1 at step "
+             f"{int(mcs.argmax()) + 1}")
+    return state, grid, bd, ms, launches
+
+
+def coupled_scene(dev, multiphase):
+    """``bench.py:200-237``'s mp_coupled_256k (``multiphase``) or its
+    single-phase twin (the CLI's ``--rigid-box`` on the same block):
+    ``resting_block(n_target=256_000)`` under ``make_params()`` calibrated
+    to the 0.8·h lattice, impact velocity −1 m/s, with its wall shell;
+    multiphase: split at the median height, the top half at 0.4·ρ₀; a
+    0.15 m box of 600 kg/m³ centred over the block, ``BODY_DROP`` above the
+    water. Returns ``(cfg, params, state, grid, walls, body)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    base = nt.make_params(device=dev)
+    spacing = 0.8 * float(base.interaction_radius)
+    params = nt.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, walls = scene.resting_block(
+        params, cfg, n_target=COUPLED_N, spacing=spacing,
+        impact_velocity=-1.0, device=dev)
+    if multiphase:
+        state = two_phase(state, params, ratio=COUPLED_RATIO)
+    n = int(state.num_active)
+    posf = state.pos[:n]
+    center = (float(posf[:, 0].mean()),
+              float(posf[:, 1].max()) + BODY_DROP, float(posf[:, 2].mean()))
+    body = nt.make_rigid_box(center, (BODY_SIZE,) * 3,
+                             float(params.particle_radius), BODY_DENSITY,
+                             params, device=dev)
+    return cfg, params, state, grid, walls, body
+
+
+def run_coupled(name, dev, multiphase):
+    """``IMPLICIT_STEPS`` coupled steps of :func:`coupled_scene`, steps
+    after ``IMPLICIT_TIMED_FROM`` timed, after its body kernels were held
+    against their plain versions on the first step's operands, and on
+    their friction alone (:func:`check_body_friction`). Gates: per
+    step one density, force, body density and body contact launch of the
+    phase's kernels and no other; zero overflow; finite fluid and body
+    state; R orthonormal within 1e-5 on every step; the body's centre above
+    the floor; mean compression < 0.1 on every step. Returns ``(timing,
+    launches)``, the timing of every kernel of the path (the body kernels
+    on the first step's operands, the others on the last step's), and the
+    dense body-wall contact timed apart."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.rigid import wall_contact_force
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    t0 = time.perf_counter()
+    cfg, params, state, grid, walls, body = coupled_scene(dev, multiphase)
+    n = int(state.num_active)
+    floor = float(walls.pos[:, 1].min())
+    print(f"{name}: {n} fluid particles, {walls.num_boundaries} wall "
+          f"samples, body of {body.num_samples} samples at "
+          f"{body.com.tolist()} ({BODY_DENSITY} kg/m³, {BODY_SIZE} m), "
+          f"grid {grid.size}, dt {float(params.dt)}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    ops = coupled_operands(cfg, ctx, params, grid, body)
+    body_keys = [k for k in ops if k.startswith(("body", "mp_body"))]
+    compare_kernels(cfg, ops, f"{name} first step", keys=body_keys)
+    check_body_friction(cfg, ctx, params, grid, body,
+                        f"{name} first step, friction alone")
+    held = {"body": body}
+    coms, orth = [], []
+
+    def step(s):
+        s, held["body"], d = nt.wcsph_coupled_step(s, params, grid, cfg,
+                                                   held["body"], walls)
+        b = held["body"]
+        coms.append(b.com)
+        eye = torch.eye(3, device=b.R.device)
+        orth.append((b.R @ b.R.T - eye).abs().max())
+        return s, d
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diags, ms, _, _ = run_steps(step, state, IMPLICIT_STEPS,
+                                       IMPLICIT_TIMED_FROM)
+    t_host = time.perf_counter() - t_host
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    body = held["body"]
+    mcs = torch.stack([d.mean_compression for d in diags]).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    com_y = torch.stack(coms)[:, 1].cpu().numpy()
+    orth = float(torch.stack(orth).max())
+    print(f"{name}: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, body "
+          f"com {body.com.tolist()} vel {body.vel.tolist()} omega "
+          f"{body.omega.tolist()}, min com y {com_y.min():.6g} (floor "
+          f"{floor:.6g}), max |R Rᵀ − I| {orth:.3g}, mean_compression max "
+          f"{mcs.max():.6g} last {mcs[-1]:.6g}")
+    steps = IMPLICIT_STEPS
+    if multiphase:
+        want = {cuda_sweep.MP_DENSITY: steps, cuda_sweep.MP_FORCE: steps,
+                cuda_sweep.BODY_DENSITY: steps, cuda_sweep.MP_BODY: steps}
+    else:
+        want = {cuda_sweep.DENSITY: steps, cuda_sweep.FORCE: steps,
+                cuda_sweep.BODY_DENSITY: steps,
+                cuda_sweep.BODY_FORCE: steps}
+    check_launches(name, want)
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    finite = [bool(torch.isfinite(t).all()) for t in (
+        state.pos, body.com, body.vel, body.omega, body.R)]
+    if not all(finite):
+        fail(f"{name}: non-finite fluid or body state {finite}")
+    if not orth < 1e-5:
+        fail(f"{name}: R drifts from orthonormal by {orth}")
+    if not com_y.min() > floor:
+        fail(f"{name}: the body's centre {com_y.min()} below the floor")
+    if not mcs.max() < 0.1:
+        fail(f"{name}: mean_compression {mcs.max()} >= 0.1 at step "
+             f"{int(mcs.argmax()) + 1}")
+    # the body kernels on the first step's operands (the body meets the
+    # water in the first step and has left it by the last), the fluid
+    # kernels on the last step's (the block reaches the walls only then)
+    timing = compare_kernels(cfg, ops, f"{name} first-step operands",
+                             keys=body_keys, time_it=True)
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    last = coupled_operands(cfg, ctx, params, grid, body)
+    timing.update(compare_kernels(
+        cfg, last, f"{name} after {IMPLICIT_STEPS} steps",
+        keys=[k for k in last if k not in body_keys], time_it=True))
+    walls_ms = events_ms(lambda: wall_contact_force(
+        body, walls, params, kernel_set=cfg.kernel_set), 20)
+    print(f"{name}: dense body-wall contact ({body.num_samples} × "
+          f"{walls.num_boundaries} pairs) {walls_ms:.4f} ms per call")
+    return timing, launches
+
+
 def wcsph_main_path(dev):
     """The WCSPH main path's scene: ``dam_break(n_target=2**20)`` with its
     boundary shell; returns ``(cfg, params, state, grid, boundary)``."""
@@ -1025,6 +1469,7 @@ def main():
     from nereus_tpu_torch.ops import cuda_sweep
     from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda, pbf_cuda,
                                           pcisph_cuda, viscosity)
+    from nereus_tpu_torch.boundary import move_boundary
     from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     from nereus_tpu_torch.solvers.wcsph_cuda import PLAIN, wcsph_step_cuda
 
@@ -1398,6 +1843,64 @@ def main():
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del state, diag, ctx
 
+    # -- 21. the moving-wall kernels vs plain, on a moving wall's operands --
+    print(f"moving-wall kernels vs plain, dam-break n_target={SMALL_N}, "
+          f"walls at {WALL_VEL} m/s, floor in support, seeded velocities "
+          f"(multiphase: top half by y at {MP_RATIO}·ρ₀):")
+    for ks in ("MULLER", "MONAGHAN"):
+        params = nt.make_params(device=dev)
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+        moved = move_boundary(boundary, grid, velocity=WALL_VEL)
+        label = (f"moving walls {ks} n={state.capacity} "
+                 f"nb={moved.num_boundaries}")
+        ctx = build_sweep_ctx(state, params, grid, cfg, moved)
+        ops = moving_wall_operands(cfg, ctx, params)
+        compare_kernels(cfg, ops, label)
+        check_reads_wall_velocity(cfg, ops, label)
+        ctx = build_sweep_ctx(two_phase(state, params), params, grid, cfg,
+                              moved)
+        ops = moving_wall_mp_operands(cfg, ctx, params)
+        compare_kernels(cfg, ops, f"multiphase {label}")
+        check_reads_wall_velocity(cfg, ops, f"multiphase {label}")
+    torch.cuda.synchronize()
+    del state, ctx, ops, boundary, moved
+
+    # -- 22. the WCSPH path under the wavemaker ------------------------------
+    cfg, params, _, _, _ = dam_1m
+    state, wgrid, moved, _, wm_launches = run_wavemaker(
+        "wcsph_1M_wavemaker", dam_1m)
+    ctx = build_sweep_ctx(state, params, wgrid, cfg, moved)
+    ops = xsph_path_operands(cfg, ctx, params)
+    wm_timing = compare_kernels(
+        cfg, {"density": ops["density"],
+              "force_moving": moving(ops["force"])},
+        f"wcsph_1M_wavemaker after {N_STEPS} steps", time_it=True)
+    fric = {"force_moving_friction": friction_only(moving(ops["force"]), 7,
+                                                   beta0=True)}
+    compare_kernels(cfg, fric, f"wcsph_1M_wavemaker after {N_STEPS} steps")
+    check_reads_wall_velocity(cfg, fric, "wcsph_1M_wavemaker")
+    del state, ctx, ops, fric, moved
+
+    # -- 23. the multiphase path under the wavemaker -------------------------
+    cfg, params, state, grid, boundary = dam_1m
+    state, wgrid, moved, _, mwm_launches = run_wavemaker(
+        "multiphase_1M_wavemaker",
+        (cfg, params, two_phase(state, params), grid, boundary))
+    ctx = build_sweep_ctx(state, params, wgrid, cfg, moved)
+    ops = multiphase_operands(cfg, ctx, params)
+    mwm_timing = compare_kernels(
+        cfg, {"mp_density": ops["mp_density"],
+              "mp_force_moving": moving(ops["mp_force"])},
+        f"multiphase_1M_wavemaker after {N_STEPS} steps", time_it=True)
+    fric = {"mp_force_moving_friction": friction_only(
+        moving(ops["mp_force"]), 7)}
+    compare_kernels(cfg, fric,
+                    f"multiphase_1M_wavemaker after {N_STEPS} steps")
+    check_reads_wall_velocity(cfg, fric, "multiphase_1M_wavemaker")
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, ctx, ops, fric, moved, boundary, grid
+
     # -- 13. the kernels of the implicit viscosity solve and of multiphase
     # DFSPH vs plain, on the first step's operands ---------------------------
     print(f"implicit viscosity / multiphase DFSPH kernels vs plain, "
@@ -1578,6 +2081,23 @@ def main():
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del state, ctx, ops, pbf_1m, boundary, grid
 
+    # -- 24. the DFSPH path under the wavemaker ------------------------------
+    cfg, params, state, grid, boundary, _, dwm_launches = run_settled_path(
+        "dfsph_wavemaker", dev, {"divergence": dfsph_cuda.LOOP_V,
+                                 "density": dfsph_cuda.LOOP})
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    ops = dfsph_operands(cfg, ctx, params)
+    ops["force_p0_moving"] = moving(ops.pop("force_p0"))
+    dwm_timing = compare_kernels(
+        cfg, ops, f"DFSPH_WAVEMAKER main path after {IMPLICIT_STEPS} steps",
+        time_it=True)
+    del state, ctx, ops, boundary, grid
+
+    # -- 25-26. the rigid-body coupled paths ---------------------------------
+    mpc_timing, mpc_launches = run_coupled("mp_coupled_256k", dev, True)
+    cpl_timing, cpl_launches = run_coupled("coupled_256k", dev, False)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
@@ -1587,6 +2107,7 @@ def main():
     visc_src = "nereus_tpu_torch/csrc/viscosity_sweep.cu"
     mpd_src = "nereus_tpu_torch/csrc/dfsph_multiphase_sweep.cu"
     pbf_src = "nereus_tpu_torch/csrc/pbf_sweep.cu"
+    cpl_src = "nereus_tpu_torch/csrc/coupled_sweep.cu"
     rep = "nereus_tpu/ops/pallas_sph.py:"
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
@@ -1612,7 +2133,15 @@ def main():
             "mp_kappa": (cuda_sweep.MP_KAPPA, mpd_src, rep + "871"),
             "pbf_lambda": (cuda_sweep.PBF_LAMBDA, pbf_src, rep + "949"),
             "pbf_dp": (cuda_sweep.PBF_DP, pbf_src, rep + "1044"),
-            "pbf_omega": (cuda_sweep.PBF_OMEGA, pbf_src, rep + "1019")}
+            "pbf_omega": (cuda_sweep.PBF_OMEGA, pbf_src, rep + "1019"),
+            "force_moving": (cuda_sweep.FORCE_MOVING, sph_src, rep + "326"),
+            "force_p0_moving": (cuda_sweep.FORCE_P0_MOVING, sph_src,
+                                rep + "326"),
+            "mp_force_moving": (cuda_sweep.MP_FORCE_MOVING, mp_src,
+                                rep + "710"),
+            "body_density": (cuda_sweep.BODY_DENSITY, sph_src, rep + "1193"),
+            "body_force": (cuda_sweep.BODY_FORCE, cpl_src, rep + "326"),
+            "mp_body": (cuda_sweep.MP_BODY, cpl_src, rep + "757")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -1626,7 +2155,12 @@ def main():
             ("dfsph_mp_256k_settled", dmp_timing, dmp_launches),
             ("pbf_1M", pbf_timing, pbf_launches),
             ("pbf_256k_settled", pbfs_timing, pbfs_launches),
-            ("pbf_1M_vort_xsph", pbfv_timing, pbfv_launches)):
+            ("pbf_1M_vort_xsph", pbfv_timing, pbfv_launches),
+            ("wcsph_1M_wavemaker", wm_timing, wm_launches),
+            ("multiphase_1M_wavemaker", mwm_timing, mwm_launches),
+            ("dfsph_256k_wavemaker", dwm_timing, dwm_launches),
+            ("mp_coupled_256k", mpc_timing, mpc_launches),
+            ("coupled_256k", cpl_timing, cpl_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:

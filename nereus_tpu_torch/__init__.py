@@ -2,8 +2,10 @@
 
 The WCSPH step (single phase with optional XSPH and implicit viscosity,
 and multiphase), the single-phase IISPH and PCISPH steps, the DFSPH step
-(single phase with optional implicit viscosity, and multiphase) and the
-PBF step (with optional vorticity confinement and XSPH) of
+(single phase with optional implicit viscosity, and multiphase), the PBF
+step (with optional vorticity confinement and XSPH), moving boundaries
+(``move_boundary``) for all of them, and the WCSPH step with two-way
+rigid-body coupling (single phase and multiphase) of
 ``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
 the ported subset, with the neighbor sweeps as hand-written CUDA kernels
 for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
@@ -16,12 +18,17 @@ from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
                      pbf_params, pcisph_params)
 from .grid import Grid, fit_grid, make_grid
 from .state import BoundaryData, FluidState, make_fluid_state
+from .boundary import move_boundary, rehash_boundary, rotation_matrix
+from .rigid import (RigidBody, body_body_contact, body_boundary,
+                    concat_boundaries, integrate_rigid, make_rigid_box,
+                    wall_contact_force)
 from .solvers.wcsph import StepDiagnostics, cfl_dt, tait_pressure, wcsph_step
 from .solvers.iisph import iisph_step
 from .solvers.pcisph import (pcisph_delta, pcisph_delta_from_denom,
                              pcisph_grad_denom, pcisph_step)
 from .solvers.dfsph import dfsph_step
 from .solvers.pbf import pbf_step
+from .solvers.coupled import wcsph_coupled_step
 
 __version__ = "0.1.0"
 
@@ -34,4 +41,8 @@ __all__ = [
     "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
     "iisph_step", "pcisph_step", "pcisph_delta", "pcisph_delta_from_denom",
     "pcisph_grad_denom", "dfsph_step", "pbf_step",
+    "move_boundary", "rehash_boundary", "rotation_matrix",
+    "RigidBody", "make_rigid_box", "body_boundary", "body_body_contact",
+    "concat_boundaries", "integrate_rigid", "wall_contact_force",
+    "wcsph_coupled_step",
 ]

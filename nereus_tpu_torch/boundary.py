@@ -8,6 +8,11 @@
 Both are one-time host computations in float64 (the C++ pass of
 ``native/`` when a compiler is present, numpy otherwise); the result
 moves to the device once, hash-sorted, in :func:`build_boundary`.
+
+Prescribed rigid motion (a wavemaker, a rotating drum) runs on the
+device: :func:`move_boundary` transforms the t = 0 set, gives it wall
+velocities and re-sorts it by hash each step; :func:`rehash_boundary`
+re-sorts a set against a refit grid.
 """
 
 from __future__ import annotations
@@ -129,3 +134,77 @@ def box_boundary(grid, box_min, box_max, radius, params: SimParams,
     vbi = compute_vbi(pts, float(params.interaction_radius), kernel_set)
     return build_boundary(grid, pts, vbi, float(params.rest_density),
                           dtype=dtype, device=device)
+
+
+def rotation_matrix(axis, angle, dtype=torch.float32, device=None):
+    """Rodrigues rotation matrix (3, 3) about ``axis`` by ``angle``
+    (radians; a float or a 0-d tensor, whose device it takes), on
+    ``device`` (default: the CUDA device)."""
+    if isinstance(angle, torch.Tensor):
+        device = angle.device if device is None else device
+        angle = angle.to(dtype)
+    device = resolve_device(device)
+    a = torch.as_tensor(axis, dtype=dtype, device=device)
+    a = a / torch.sqrt(torch.sum(a * a))
+    angle = torch.as_tensor(angle, dtype=dtype, device=device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    z = torch.zeros_like(a[0])
+    k = torch.stack([torch.stack([z, -a[2], a[1]]),
+                     torch.stack([a[2], z, -a[0]]),
+                     torch.stack([-a[1], a[0], z])])
+    return torch.eye(3, dtype=dtype, device=device) + s * k + (1.0 - c) * (
+        k @ k)
+
+
+def move_boundary(boundary: BoundaryData, grid, offset=None,
+                  velocity=None, rotation=None, omega=None,
+                  center=None) -> BoundaryData:
+    """Prescribed rigid motion of a boundary set, on its device: new
+    positions ``center + R·(p₀ − center) + offset``, wall velocities
+    ``velocity + ω × (p' − center)``, hashes recomputed and every column
+    re-sorted by one stable sort (``grid.sort_by_hash``).
+
+    ``offset`` (3,) translation; ``velocity`` (3,) or (M, 3); ``rotation``
+    (3, 3) (:func:`rotation_matrix`) about ``center`` (default: the
+    origin); ``omega`` (3,) angular velocity. With no velocity-like
+    argument the result has ``vel=None`` (the static path); with neither
+    ``offset`` nor ``rotation`` the set keeps its order. Pass the t = 0
+    set with absolute motion parameters every step: increments would
+    accumulate error. The grid must cover the swept region; ψ is
+    geometry and moves unchanged."""
+    pos = boundary.pos
+
+    def t(x):
+        return torch.as_tensor(x, dtype=pos.dtype, device=pos.device)
+
+    c = 0.0 if center is None else t(center)
+    if rotation is not None:
+        pos = (pos - c) @ t(rotation).T + c
+    vel = None
+    if velocity is not None:
+        vel = torch.broadcast_to(t(velocity), pos.shape)
+    if omega is not None:
+        spin = torch.linalg.cross(torch.broadcast_to(t(omega), pos.shape),
+                                  pos - c)
+        vel = spin if vel is None else vel + spin
+    if offset is None and rotation is None:
+        return BoundaryData(pos=pos, psi=boundary.psi,
+                            sorted_hash=boundary.sorted_hash,
+                            vel=None if vel is None else vel.contiguous())
+    if offset is not None:
+        pos = pos + t(offset)[None, :]
+    h = gridlib.hash_positions(grid, pos)
+    cols = (pos, boundary.psi) + ((vel,) if vel is not None else ())
+    sorted_hash, _, out = gridlib.sort_by_hash(h, *cols)
+    return BoundaryData(pos=out[0], psi=out[1], sorted_hash=sorted_hash,
+                        vel=out[2] if vel is not None else None)
+
+
+def rehash_boundary(boundary: BoundaryData, grid) -> BoundaryData:
+    """Re-sort a boundary set against a refit grid (``updateGpuBoundaries``
+    after ``updateGrid``, ``sph/sph.cpp:408``): ψ is geometry, only the
+    hashes and their order move."""
+    h = gridlib.hash_positions(grid, boundary.pos)
+    sorted_hash, _, (pos_s, psi_s) = gridlib.sort_by_hash(
+        h, boundary.pos, boundary.psi)
+    return BoundaryData(pos=pos_s, psi=psi_s, sorted_hash=sorted_hash)

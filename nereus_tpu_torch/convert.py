@@ -16,6 +16,7 @@ import torch
 from .grid import Grid, make_grid
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
                      resolve_device)
+from .rigid import RigidBody
 from .state import BoundaryData, FluidState
 
 _ENUMS = {"kernel_set": KernelSet,
@@ -69,6 +70,13 @@ def boundary_from_numpy(pos, psi, sorted_hash, vel=None,
         pos=_t(pos, device=device), psi=_t(psi, device=device),
         sorted_hash=_t(sorted_hash, torch.int32, device=device),
         vel=None if vel is None else _t(vel, device=device))
+
+
+def rigid_body_from_numpy(arrays: dict, device=None) -> RigidBody:
+    """RigidBody from ``{field: numpy array}`` (every RigidBody field:
+    offsets, psi, mass, inertia_body, com, R, vel, omega), dtypes kept."""
+    return RigidBody(**{f.name: _t(arrays[f.name], device=device)
+                        for f in dataclasses.fields(RigidBody)})
 
 
 def grid_from_numpy(origin, size, cell, device=None) -> Grid:

@@ -6,8 +6,10 @@
 // functions of pallas_sph.py that solvers/wcsph_pallas.py runs:
 // multiphase_density_pair / multiphase_density_bpair and
 // multiphase_force_pair / multiphase_boundary_pair
-// (_wcsph_pallas_multiphase), and xsph_pair (wcsph_step_pallas with
-// xsph_eps).
+// (_wcsph_pallas_multiphase; multiphase_boundary_pair's moving=True is the
+// MOVING instance, whose wall friction reads (v_i - v_b) . r with the wall
+// velocity in slots 3-5 of the boundary source row), and xsph_pair
+// (wcsph_step_pallas with xsph_eps).
 //
 // Design: one functor each for the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
@@ -33,8 +35,8 @@
 //       (boundary rows)
 //   multiphase force: q (N, 12) x y z vx vy vz p_iV_i^2 1/m_i m_i 1/rho_i
 //       [rho0_i] pad; src (M, 12) fluid x y z vx vy vz V_j p_jV_j^2
-//       [rho0_j] pad pad pad, boundary x y z 0 0 0 psi_b 0...; out (N, 3)
-//       acceleration
+//       [rho0_j] pad pad pad, boundary x y z vb_x vb_y vb_z psi_b 0...
+//       (the wall velocity 0 for a static wall); out (N, 3) acceleration
 //   xsph: q (N, 8) x y z vx vy vz rho pad; src (M, 8) x y z vx vy vz rho
 //       pad, fluid rows only (9 range rows); out (N, 3), scaled by eps
 //       outside
@@ -84,8 +86,9 @@ struct MultiphaseDensity {
 };
 
 // acceleration in the adapted-density volume form; BECKER adds phase-pair
-// cohesion. Boundary rows: wall penalty and friction, no pressure term.
-template <bool BECKER>
+// cohesion. Boundary rows: wall penalty and friction, no pressure term;
+// MOVING makes the friction read the wall velocity.
+template <bool BECKER, bool MOVING>
 struct MultiphaseForce {
   static constexpr int QW = 12, SW = 12, OW = 3;
   static constexpr bool BOUNDARY_ROWS = true;
@@ -108,7 +111,12 @@ struct MultiphaseForce {
       const float nu = ((2.0f * p.visc * p.visc * p.h * p.cs) /
                         (1.0f + 0.01f * p.h2)) *
                        q[8] * (inv_rho * inv_rho);
-      const float vdotr = q[3] * dx + q[4] * dy + q[5] * dz;
+      float vdotr;
+      if constexpr (MOVING) {
+        vdotr = (q[3] - a.w) * dx + (q[4] - b.x) * dy + (q[5] - b.y) * dz;
+      } else {
+        vdotr = q[3] * dx + q[4] * dy + q[5] * dz;
+      }
       const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
       const float c = (cadh + cfric) * okf;
       acc[0] += c * dx;
@@ -164,22 +172,26 @@ extern "C" {
 NEREUS_PAIR_SWEEP(multiphase_density, MultiphaseDensity)
 NEREUS_PAIR_SWEEP(xsph, Xsph)
 
-// pair_sweep_kernel<MultiphaseForce<st_model == BECKER>> on `stream`;
-// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
-// set or a surface-tension model other than NONE and BECKER.
+// pair_sweep_kernel<MultiphaseForce<st_model == BECKER, moving>> on
+// `stream`; returns cudaGetLastError() (0 on success), or -1 for an unknown
+// kernel set, a surface-tension model other than NONE and BECKER, or a
+// moving switch other than 0 and 1.
 int nereus_multiphase_force_sweep(const float* q, const float* src,
                                   const int* seg_start, const int* seg_end,
                                   int n, int n_rows, const float* pvec,
-                                  int kernel_set, int st_model, float* out,
-                                  void* stream) {
-  if (st_model == ST_BECKER) {
-    return nereus_sweep::launch_pair_sweep<MultiphaseForce<true>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+                                  int kernel_set, int st_model, int moving,
+                                  float* out, void* stream) {
+#define NEREUS_MP_FORCE(ST, BECKER, M, MOVING)                               \
+  if (st_model == ST && moving == M) {                                       \
+    return nereus_sweep::launch_pair_sweep<MultiphaseForce<BECKER, MOVING>>( \
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,        \
+        stream);                                                             \
   }
-  if (st_model == ST_NONE) {
-    return nereus_sweep::launch_pair_sweep<MultiphaseForce<false>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
-  }
+  NEREUS_MP_FORCE(ST_BECKER, true, 0, false)
+  NEREUS_MP_FORCE(ST_NONE, false, 0, false)
+  NEREUS_MP_FORCE(ST_BECKER, true, 1, true)
+  NEREUS_MP_FORCE(ST_NONE, false, 1, true)
+#undef NEREUS_MP_FORCE
   return -1;
 }
 

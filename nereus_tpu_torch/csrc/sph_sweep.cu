@@ -34,12 +34,18 @@
 // pd2_j of the fluid rows and the pressure term of the boundary rows. Its
 // VISC switch (0 when the implicit viscosity solve owns viscosity,
 // fluid_force_sweep(include_viscosity=False)) drops the Muller viscosity of
-// the fluid rows and the friction of the boundary rows.
+// the fluid rows and the friction of the boundary rows. Its MOVING switch
+// (1 for a moving boundary, fluid_force_sweep(moving_boundary=True); the
+// moving=True of pallas_sph.py::boundary_force_pair) makes the wall
+// friction read the relative velocity (v_i - v_b) . r, the wall velocity
+// taken from slots 3-5 of the boundary source row; it is instantiated only
+// with VISC = 1, since without friction no wall term reads a velocity.
 //
 // Layouts (all row-major float32, 16-byte aligned):
 //   density query (N, 4): x y z pad
 //   force query   (N, 8): x y z vx vy vz rho pd2
-//   source        (M, 8): x y z vx vy vz s6 pad
+//   source        (M, 8): x y z vx vy vz s6 pad (boundary rows: the wall
+//                         velocity, 0 for a static wall, in vx vy vz)
 //     s6 = psi (density: m for fluid, rho0*V_b for boundary rows) or
 //          rho_j (force sweep, fluid rows) / psi_b (boundary rows)
 //   seg_start, seg_end (n_rows, N) int32
@@ -86,12 +92,13 @@ density_sweep_kernel(const float4* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
-// from rho_j) on rows 0-8, static-wall boundary pairs (adhesion, friction,
-// reference-scale boundary pressure) on rows 9-17; PRESSURE = 0 drops both
-// pressure terms, VISC = 0 the viscosity and the friction
+// from rho_j) on rows 0-8, wall pairs (adhesion, friction, reference-scale
+// boundary pressure) on rows 9-17; PRESSURE = 0 drops both pressure terms,
+// VISC = 0 the viscosity and the friction, MOVING = 1 makes the friction
+// read the wall velocity
 // ---------------------------------------------------------------------------
 
-template <int KS, int ST, int PRESSURE, int VISC>
+template <int KS, int ST, int PRESSURE, int VISC, int MOVING>
 __global__ void __launch_bounds__(THREADS)
 force_sweep_kernel(const float4* __restrict__ q,
                    const float4* __restrict__ src,
@@ -168,8 +175,14 @@ force_sweep_kernel(const float4* __restrict__ q,
                                : 0.0f;
     const float cpb = p.pm * p.pm;
     for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
-      const float4 a = __ldg(src + 2 * j);
-      const float psi = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+      const float4 a = __ldg(src + 2 * j);  // x y z vbx
+      float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // vby vbz psi pad
+      if constexpr (MOVING != 0) {
+        b = __ldg(src + 2 * j + 1);
+      } else {
+        b.z = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+      }
+      const float psi = b.z;
       const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
       const float r2 = dx * dx + dy * dy + dz * dz;
       float rl = 0.0f, invrl = 0.0f;
@@ -179,7 +192,12 @@ force_sweep_kernel(const float4* __restrict__ q,
       const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
       float cfric = 0.0f;
       if constexpr (VISC != 0) {
-        const float vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
+        float vdotr;
+        if constexpr (MOVING != 0) {
+          vdotr = (qa.w - a.w) * dx + (qb.x - b.x) * dy + (qb.y - b.y) * dz;
+        } else {
+          vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
+        }
         cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
       }
       const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
@@ -195,11 +213,11 @@ force_sweep_kernel(const float4* __restrict__ q,
   out[3 * i + 2] = fz;
 }
 
-template <int KS, int ST, int PRESSURE, int VISC>
+template <int KS, int ST, int PRESSURE, int VISC, int MOVING>
 void launch_force(const float* q, const float* src, const int* s,
                   const int* e, int n, int n_rows, const float* pv,
                   float* out, cudaStream_t stream) {
-  force_sweep_kernel<KS, ST, PRESSURE, VISC>
+  force_sweep_kernel<KS, ST, PRESSURE, VISC, MOVING>
       <<<blocks_for(n), THREADS, 0, stream>>>(
       reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
       s, e, n, n_rows, pv, out);
@@ -234,26 +252,32 @@ int nereus_density_sweep(const float* q, const float* src,
 int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
                        const int* seg_end, int n, int n_rows,
                        const float* pvec, int kernel_set, int st_model,
-                       int pressure, int visc, float* out, void* stream) {
+                       int pressure, int visc, int moving, float* out,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NEREUS_FORCE(KS, ST, P, V)                                          \
-  if (kernel_set == KS && st_model == ST && pressure == P && visc == V) {   \
-    launch_force<KS, ST, P, V>(q, src, seg_start, seg_end, n, n_rows, pvec, \
-                               out, st);                                    \
-    return static_cast<int>(cudaGetLastError());                            \
+#define NEREUS_FORCE(KS, ST, P, V, M)                                        \
+  if (kernel_set == KS && st_model == ST && pressure == P && visc == V &&    \
+      moving == M) {                                                         \
+    launch_force<KS, ST, P, V, M>(q, src, seg_start, seg_end, n, n_rows,     \
+                                  pvec, out, st);                            \
+    return static_cast<int>(cudaGetLastError());                             \
   }
-#define NEREUS_FORCE_ST(KS, P, V) \
-  NEREUS_FORCE(KS, ST_NONE, P, V) \
-  NEREUS_FORCE(KS, ST_BECKER, P, V) \
-  NEREUS_FORCE(KS, ST_AKINCI, P, V)
-  NEREUS_FORCE_ST(MULLER, 1, 1)
-  NEREUS_FORCE_ST(MONAGHAN, 1, 1)
-  NEREUS_FORCE_ST(MULLER, 0, 1)
-  NEREUS_FORCE_ST(MONAGHAN, 0, 1)
-  NEREUS_FORCE_ST(MULLER, 1, 0)
-  NEREUS_FORCE_ST(MONAGHAN, 1, 0)
-  NEREUS_FORCE_ST(MULLER, 0, 0)
-  NEREUS_FORCE_ST(MONAGHAN, 0, 0)
+#define NEREUS_FORCE_ST(KS, P, V, M) \
+  NEREUS_FORCE(KS, ST_NONE, P, V, M) \
+  NEREUS_FORCE(KS, ST_BECKER, P, V, M) \
+  NEREUS_FORCE(KS, ST_AKINCI, P, V, M)
+  NEREUS_FORCE_ST(MULLER, 1, 1, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 1, 1, 0)
+  NEREUS_FORCE_ST(MULLER, 0, 1, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 0, 1, 0)
+  NEREUS_FORCE_ST(MULLER, 1, 0, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 1, 0, 0)
+  NEREUS_FORCE_ST(MULLER, 0, 0, 0)
+  NEREUS_FORCE_ST(MONAGHAN, 0, 0, 0)
+  NEREUS_FORCE_ST(MULLER, 1, 1, 1)
+  NEREUS_FORCE_ST(MONAGHAN, 1, 1, 1)
+  NEREUS_FORCE_ST(MULLER, 0, 1, 1)
+  NEREUS_FORCE_ST(MONAGHAN, 0, 1, 1)
 #undef NEREUS_FORCE_ST
 #undef NEREUS_FORCE
   return -1;

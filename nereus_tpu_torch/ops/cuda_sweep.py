@@ -4,8 +4,8 @@
 ``csrc/multiphase_sweep.cu`` for multiphase WCSPH and XSPH,
 ``csrc/dfsph_multiphase_sweep.cu`` for multiphase DFSPH,
 ``csrc/viscosity_sweep.cu`` for the implicit viscosity solve,
-``csrc/pbf_sweep.cu`` for PBF; the counterpart of
-``nereus_tpu.ops.pallas_neighbors``).
+``csrc/pbf_sweep.cu`` for PBF, ``csrc/coupled_sweep.cu`` for the
+rigid-body contact; the counterpart of ``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
 all at once in parallel, and the objects are linked into one shared
@@ -78,10 +78,22 @@ MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
 PBF_LAMBDA = Kernel("pair_sweep_kernel<PbfLambda>")
 PBF_DP = Kernel("pair_sweep_kernel<PbfDp>")
 PBF_OMEGA = Kernel("pair_sweep_kernel<PbfOmega>")
+# the force kernels whose wall friction reads a moving wall's velocity:
+# WCSPH's, then the implicit solvers' pressure-off one; the multiphase one
+FORCE_MOVING = Kernel("force_sweep_kernel<MOVING=1>")
+FORCE_P0_MOVING = Kernel("force_sweep_kernel<PRESSURE=0,MOVING=1>")
+MP_FORCE_MOVING = Kernel("pair_sweep_kernel<MultiphaseForce,MOVING>")
+# the rigid-body coupling: a body shell's ψ-density (the density kernel
+# over the body source, counted apart) and the two contact sweeps
+BODY_DENSITY = Kernel("density_sweep_kernel<body>")
+BODY_FORCE = Kernel("pair_sweep_kernel<BodyForce>")
+MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
            XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
-           MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA)
+           MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
+           FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
+           MP_BODY)
 
 _lock = threading.Lock()
 _lib = None
@@ -227,12 +239,13 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # the C entry points nereus_<fn>_sweep(q, src, seg_start, seg_end, n,
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
-_SWEEP_FNS = {"density": 0, "force": 3, "dii_rhoadv": 0, "aii": 0,
+_SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
-              "drho": 0, "multiphase_density": 0, "multiphase_force": 1,
+              "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
               "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
-              "pbf_dp": 0, "pbf_omega": 0}
+              "pbf_dp": 0, "pbf_omega": 0, "body_force": 0,
+              "multiphase_body": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -266,19 +279,28 @@ def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
-                include_pressure=True, include_viscosity=True):
+                include_pressure=True, include_viscosity=True,
+                moving_boundary=False):
     """Forces (N, 3) from the fused fluid + boundary force kernel:
     q (N, 8), src (M, 8); ``include_pressure=False`` launches the
     pressure-off instance (the implicit solvers' advection forces),
     ``include_viscosity=False`` the instance without viscosity and wall
-    friction (the implicit viscosity solve owns both), each counted in its
-    own ``Kernel``."""
-    kernel = {(True, True): FORCE, (False, True): FORCE_P0,
-              (True, False): FORCE_V0, (False, False): FORCE_P0_V0}[
-        bool(include_pressure), bool(include_viscosity)]
+    friction (the implicit viscosity solve owns both),
+    ``moving_boundary=True`` the instance whose wall friction reads the
+    wall velocities of the boundary rows (without friction no wall term
+    reads them, and the static instance runs), each counted in its own
+    ``Kernel``."""
+    moving = bool(moving_boundary) and bool(include_viscosity)
+    kernel = {(True, True, False): FORCE, (False, True, False): FORCE_P0,
+              (True, False, False): FORCE_V0,
+              (False, False, False): FORCE_P0_V0,
+              (True, True, True): FORCE_MOVING,
+              (False, True, True): FORCE_P0_MOVING}[
+        bool(include_pressure), bool(include_viscosity), moving]
     return _sweep(kernel, "force", cfg, q, 8, src, 8, seg_start, seg_end,
                   pvec, (9, 18), 3, cfg.surface_tension_model.value,
-                  int(bool(include_pressure)), int(bool(include_viscosity)))
+                  int(bool(include_pressure)), int(bool(include_viscosity)),
+                  int(moving))
 
 
 def dii_rhoadv_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -342,15 +364,18 @@ def multiphase_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 
 
 def multiphase_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
-                           pvec):
+                           pvec, moving_boundary=False):
     """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12); the
     BECKER instance for Becker surface tension, the plain one for NONE
-    (AKINCI raises)."""
+    (AKINCI raises); ``moving_boundary=True`` the MOVING instance (wall
+    friction against the wall velocities), counted in ``MP_FORCE_MOVING``."""
     from .sph_pairs import WIDE_WIDTH, _st_becker
     _st_becker(cfg)
-    return _sweep(MP_FORCE, "multiphase_force", cfg, q, 12, src,
-                  WIDE_WIDTH, seg_start, seg_end, pvec, (9, 18), 3,
-                  cfg.surface_tension_model.value)
+    moving = bool(moving_boundary)
+    return _sweep(MP_FORCE_MOVING if moving else MP_FORCE,
+                  "multiphase_force", cfg, q, 12, src, WIDE_WIDTH, seg_start,
+                  seg_end, pvec, (9, 18), 3,
+                  cfg.surface_tension_model.value, int(moving))
 
 
 def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -405,4 +430,25 @@ def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """PBF vorticity ω (N, 3) over the fluid rows only: q (N, 8),
     src (M, 8), ranges (9, N)."""
     return _sweep(PBF_OMEGA, "pbf_omega", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9,), 3)
+
+
+def body_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """A body shell's Σψ_b·W (N,) from the density kernel, counted in
+    ``BODY_DENSITY``: q (N, 4), the body source (Mb, 8), ranges (9, N)."""
+    return _sweep(BODY_DENSITY, "density", cfg, q, 4, src, 8, seg_start,
+                  seg_end, pvec, (9,), 0)
+
+
+def body_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Rigid-body contact force (N, 3), friction and pressure: q (N, 8),
+    the body source (Mb, 8), ranges (9, N)."""
+    return _sweep(BODY_FORCE, "body_force", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9,), 3)
+
+
+def multiphase_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Multiphase rigid-body contact acceleration (N, 3): q (N, 8), the
+    body source (Mb, 8), ranges (9, N)."""
+    return _sweep(MP_BODY, "multiphase_body", cfg, q, 8, src, 8, seg_start,
                   seg_end, pvec, (9,), 3)

@@ -29,7 +29,9 @@ Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
 sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
 implicit viscosity solve's ``visc_laplacian_sweep``, the three
-multiphase DFSPH sweeps and PBF's λ, Δp and ω sweeps) routes by device:
+multiphase DFSPH sweeps, PBF's λ, Δp and ω sweeps, and the rigid-body
+coupling's ``body_density_sweep``, ``body_force_sweep`` and
+``multiphase_body_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
 hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
 """
@@ -265,13 +267,23 @@ def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
 
 
 def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True,
-                        include_friction=True):
-    """Static-wall boundary forces (``computeCellForces`` boundary loop,
-    ``sph_kernel_impl.cuh:552-602``): β adhesion β·ψ·W·r⃗, friction with
-    max(v_i·r⃗, 0) (dropped with ``include_friction=False``: the implicit
-    viscosity solve owns it), and the reference-scale boundary pressure
-    +m²·ψ·pd2_i·∇W_dflt (the reference's sign and scale, kept for
-    parity; dropped with ``include_pressure=False``). Returns (P, 3)."""
+                        include_friction=True, moving=False,
+                        include_adhesion=True, pressure_sign=1.0,
+                        consistent_pressure=False):
+    """Boundary forces (``computeCellForces`` boundary loop,
+    ``sph_kernel_impl.cuh:552-602``): β adhesion β·ψ·W·r⃗ (dropped with
+    ``include_adhesion=False``), friction with max(v_i·r⃗, 0) (dropped with
+    ``include_friction=False``: the implicit viscosity solve owns it), and
+    the reference-scale boundary pressure +m²·ψ·pd2_i·∇W_dflt (the
+    reference's sign and scale, kept for parity; dropped with
+    ``include_pressure=False``). ``moving``: the source rows carry wall
+    velocities in slots 3-5 and the friction reads (v_i − v_b)·r⃗.
+
+    The rigid-body contact (``BodyForce``) is ``moving=True,
+    include_adhesion=False, pressure_sign=-1, consistent_pressure=True``:
+    the repulsive Akinci pressure at the consistent scale
+    −m·ψ·max(pd2_i, 0)·∇W_dflt (the clamp drops free-surface tension).
+    Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     if kernel_set == KernelSet.MULLER:
         rl = invrl = None
@@ -280,18 +292,28 @@ def boundary_force_pair(q, s, pv, *, kernel_set, include_pressure=True,
     okf = (r2 < pv[PV_H2]).to(q.dtype)
     psi = s[:, 6]
     dens_i = torch.clamp(q[:, 6], min=_EPS)
-    w = _w_value(kernel_set, r2, rl, pv)
     sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
-    cadh = (pv[PV_BETA] * psi) * w
+    cadh = 0.0
+    if include_adhesion:
+        cadh = (pv[PV_BETA] * psi) * _w_value(kernel_set, r2, rl, pv)
     cfric = 0.0
     if include_friction:
         nu = ((2.0 * pv[PV_PM] * pv[PV_PM] * pv[PV_VISC] * pv[PV_VISC]
                * pv[PV_H] * pv[PV_CS]) / (1.0 + 0.01 * pv[PV_H2])) \
             / (dens_i * dens_i)
-        vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+        if moving:
+            vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
+                     + (q[:, 5] - s[:, 5]) * dz)
+        else:
+            vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
         cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
     if include_pressure:
-        c = cadh + (cfric + (pv[PV_PM] * pv[PV_PM]) * psi * q[:, 7] * sd)
+        if consistent_pressure:
+            c = cadh + (cfric + (pressure_sign * pv[PV_PM]) * psi
+                        * torch.clamp(q[:, 7], min=0.0) * sd)
+        else:
+            c = cadh + (cfric + (pressure_sign * pv[PV_PM] * pv[PV_PM])
+                        * psi * q[:, 7] * sd)
     else:
         c = cadh + cfric
     c = c * okf
@@ -483,10 +505,11 @@ def multiphase_force_pair(q, s, pv, *, kernel_set, st_becker=False):
                         cvisc * (q[:, 5] - s[:, 5]) + cp * dz], dim=1)
 
 
-def multiphase_boundary_pair(q, s, pv, *, kernel_set):
-    """Boundary rows of the multiphase force sweep (static walls), as an
-    acceleration: the wall penalty (β/m_i)ψ_b·W·r⃗ (ψ unscaled) and the
-    friction 2μ²h·c_s/(1 + 0.01h²)·m_i/ρ̃_i²·max(v_i·r⃗, 0)·ψ_b·∇W_dflt;
+def multiphase_boundary_pair(q, s, pv, *, kernel_set, moving=False):
+    """Boundary rows of the multiphase force sweep, as an acceleration: the
+    wall penalty (β/m_i)ψ_b·W·r⃗ (ψ unscaled) and the friction
+    2μ²h·c_s/(1 + 0.01h²)·m_i/ρ̃_i²·max(v_i·r⃗, 0)·ψ_b·∇W_dflt, with
+    (v_i − v_b)·r⃗ when ``moving`` (wall velocities in source slots 3-5);
     no boundary pressure term. q as :func:`multiphase_force_pair`, src ψ_b
     in slot 6. Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
@@ -502,9 +525,38 @@ def multiphase_boundary_pair(q, s, pv, *, kernel_set):
     cadh = (pv[PV_BETA] * psi) * q[:, 7] * w
     nu = ((2.0 * pv[PV_VISC] * pv[PV_VISC] * pv[PV_H] * pv[PV_CS])
           / (1.0 + 0.01 * pv[PV_H2])) * q[:, 8] * (inv_rho * inv_rho)
-    vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
+    if moving:
+        vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
+                 + (q[:, 5] - s[:, 5]) * dz)
+    else:
+        vdotr = q[:, 3] * dx + q[:, 4] * dy + q[:, 5] * dz
     cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
     c = (cadh + cfric) * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+def multiphase_body_pair(q, s, pv, *, kernel_set):
+    """Rigid-body contact rows of the multiphase coupled step, as an
+    acceleration: −bp_i·ψ_b·∇W_dflt (bp_i = (ρ0_i/ρ₀)·max(p_i, 0)/ρ̃_i²)
+    plus K·fr_i·ψ_b·max((v_i − v_b)·r⃗, 0)·∇W_dflt with
+    K = 2μ²h·c_s/(1 + 0.01h²) and fr_i = m_i/ρ̃_i²: the single-phase body
+    contact divided by m_i at uniform phase. q: x y z vx vy vz bp_i fr_i;
+    src: the body shell ``x y z v_b ψ_b 0``. Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    psi = s[:, 6]
+    sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
+    cpress = -q[:, 6] * psi * sd
+    kf = ((2.0 * pv[PV_VISC] * pv[PV_VISC] * pv[PV_H] * pv[PV_CS])
+          / (1.0 + 0.01 * pv[PV_H2]))
+    vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
+             + (q[:, 5] - s[:, 5]) * dz)
+    cfric = (kf * q[:, 7]) * torch.clamp(vdotr, min=0.0) * psi * sd
+    c = (cpress + cfric) * okf
     return torch.stack([c * dx, c * dy, c * dz], dim=1)
 
 
@@ -684,11 +736,12 @@ def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                             pvec, include_pressure=True,
-                            include_viscosity=True):
-    """WCSPH forces: fluid pairs on rows 0-8, static-wall boundary pairs on
-    rows 9-17; ``include_pressure=False`` drops both pressure terms,
-    ``include_viscosity=False`` the viscosity and the wall friction.
-    Returns (N, 3)."""
+                            include_viscosity=True, moving_boundary=False):
+    """WCSPH forces: fluid pairs on rows 0-8, wall pairs on rows 9-17;
+    ``include_pressure=False`` drops both pressure terms,
+    ``include_viscosity=False`` the viscosity and the wall friction,
+    ``moving_boundary=True`` makes the friction read the wall velocities
+    of source slots 3-5. Returns (N, 3)."""
     def pair(qq, ss):
         return fluid_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
                                 st_model=cfg.surface_tension_model,
@@ -698,7 +751,8 @@ def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
     def pair_b(qq, ss):
         return boundary_force_pair(qq, ss, pvec, kernel_set=cfg.kernel_set,
                                    include_pressure=include_pressure,
-                                   include_friction=include_viscosity)
+                                   include_friction=include_viscosity,
+                                   moving=moving_boundary)
     return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 3,
                                 pair_fn_b=pair_b)
 
@@ -787,12 +841,35 @@ def _st_becker(cfg: SimConfig) -> bool:
 
 
 def multiphase_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                                 pvec):
-    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12)."""
+                                 pvec, moving_boundary=False):
+    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12);
+    ``moving_boundary=True`` makes the wall friction read the wall
+    velocities of source slots 3-5."""
     return neighbor_sweep_plain(
         _bind(multiphase_force_pair, cfg, pvec, st_becker=_st_becker(cfg)),
         q, src, seg_start, seg_end, 3,
-        pair_fn_b=_bind(multiphase_boundary_pair, cfg, pvec))
+        pair_fn_b=_bind(multiphase_boundary_pair, cfg, pvec,
+                        moving=moving_boundary))
+
+
+def body_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Rigid-body contact force (N, 3) on the fluid from one body shell:
+    :func:`boundary_force_pair` in its body form over the body source
+    alone (9 range rows). q (N, 8) ``x y z v ρ pd2``, src (Mb, 8)
+    ``x y z v_b ψ_b 0``."""
+    return neighbor_sweep_plain(
+        _bind(boundary_force_pair, cfg, pvec, moving=True,
+              include_adhesion=False, pressure_sign=-1.0,
+              consistent_pressure=True), q, src, seg_start, seg_end, 3)
+
+
+def multiphase_body_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                                pvec):
+    """Multiphase rigid-body contact acceleration (N, 3) from one body
+    shell (9 range rows): q (N, 8) ``x y z v bp fr``, src (Mb, 8)
+    ``x y z v_b ψ_b 0``."""
+    return neighbor_sweep_plain(_bind(multiphase_body_pair, cfg, pvec), q,
+                                src, seg_start, seg_end, 3)
 
 
 def xsph_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -885,7 +962,8 @@ def _dispatcher(plain, kernel_name, name=None):
     """The sweep ``name`` (default: ``plain``'s name without ``_plain``),
     routed by device: ``plain`` for CPU tensors, the CUDA kernel
     ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
-    (``include_pressure``, ``include_viscosity``) go to both."""
+    (``include_pressure``, ``include_viscosity``, ``moving_boundary``) go
+    to both."""
     def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
         if _route(q, src, pvec, seg_start) == "plain":
             return plain(cfg, q, src, seg_start, seg_end, pvec, **kw)
@@ -918,6 +996,13 @@ multiphase_density_sweep = _dispatcher(multiphase_density_sweep_plain,
                                        "multiphase_density_sweep")
 multiphase_force_sweep = _dispatcher(multiphase_force_sweep_plain,
                                      "multiphase_force_sweep")
+# a body shell's ψ-density Σψ_b·W: the density sweep over the body source
+# alone (9 range rows), its launches counted apart
+body_density_sweep = _dispatcher(density_sweep_plain, "body_density_sweep",
+                                 name="body_density_sweep")
+body_force_sweep = _dispatcher(body_force_sweep_plain, "body_force_sweep")
+multiphase_body_sweep = _dispatcher(multiphase_body_sweep_plain,
+                                    "multiphase_body_sweep")
 xsph_sweep = _dispatcher(xsph_sweep_plain, "xsph_sweep")
 visc_laplacian_sweep = _dispatcher(visc_laplacian_sweep_plain,
                                    "visc_laplacian_sweep")

@@ -31,6 +31,8 @@ def dfsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
                tol: float = 1.0, tol_v: float = 1.0):
     """One DFSPH step; returns ``(new_state, StepDiagnostics)`` with the
     new state (a multiphase state's mass and ρ₀ too) in hash-sorted order.
+    A moving ``boundary`` (``vel`` set) enters Dρ/Dt (dδ̂/dt), the wall
+    friction and the viscous Laplacian.
 
     ``tol`` bounds the mean clamped predicted density error of the
     constant-density solve, ``tol_v`` the per-step density drift
@@ -42,10 +44,6 @@ def dfsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
     NotImplementedError for what is not ported, rather than ignoring it."""
     if state.multiphase:
         check_multiphase_cfg(cfg)
-    if boundary is not None and boundary.vel is not None:
-        raise NotImplementedError(
-            "moving boundaries are not ported yet (ROADMAP.md Queue A, "
-            "item 9)")
     from .dfsph_cuda import dfsph_step_cuda, dfsph_step_multiphase_cuda
     step = dfsph_step_multiphase_cuda if state.multiphase else dfsph_step_cuda
     return step(state, params, grid, cfg, boundary, tol=tol, tol_v=tol_v)

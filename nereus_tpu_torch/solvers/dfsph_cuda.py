@@ -231,7 +231,8 @@ def dfsph_step_cuda(state: FluidState, params: SimParams,
     f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*cols, dens, zero),
                                  ctx.pack(cols, dens), *rng,
                                  include_pressure=False,
-                                 include_viscosity=not implicit_visc)
+                                 include_viscosity=not implicit_visc,
+                                 moving_boundary=ctx.moving_boundary)
     v = v + (dt / pm) * (f_adv + pm * params.gravity)
     if implicit_visc:
         v_sol, _, _ = implicit_viscosity(ctx, params, cfg, dens, v)
@@ -308,7 +309,8 @@ def dfsph_step_multiphase_cuda(state: FluidState, params: SimParams,
     inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
     acc = SP.multiphase_force_sweep(
         cfg, *multiphase_force_args(ctx, cfg, v.unbind(1), vol, inv_rho,
-                                    zero))
+                                    zero),
+        moving_boundary=ctx.moving_boundary)
     v = v + dt * (acc + params.gravity)
 
     # -- constant-density solve on v*, warm-started with ½·κ̂_prev ---------

@@ -25,7 +25,8 @@ def iisph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
                cfg: SimConfig, boundary: Optional[BoundaryData] = None,
                tol: float = 1.0, omega: float = 0.5):
     """One IISPH step; returns ``(new_state, StepDiagnostics)`` with the
-    new state in hash-sorted order and the solver's iteration count.
+    new state in hash-sorted order and the solver's iteration count. A
+    moving ``boundary`` (``vel`` set) enters ρ_adv and the wall friction.
 
     ``tol`` bounds the mean clamped-positive predicted density error in
     kg/m³ (the reference's ``max_rho_err = 1``, 0.1% of ρ₀); ``omega`` is
@@ -44,10 +45,6 @@ def iisph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
             "implicit viscosity stage (the JAX IISPH step silently runs "
             "the explicit Müller viscosity instead); the implicit solve "
             "runs with wcsph_step and dfsph_step")
-    if boundary is not None and boundary.vel is not None:
-        raise NotImplementedError(
-            "moving boundaries are not ported yet (ROADMAP.md Queue A, "
-            "item 9)")
     from .iisph_cuda import iisph_step_cuda
     return iisph_step_cuda(state, params, grid, cfg, boundary, tol=tol,
                            omega=omega)

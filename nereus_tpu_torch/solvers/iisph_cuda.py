@@ -71,7 +71,8 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     zero = torch.zeros_like(dens)
     f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*vel, dens, zero),
                                  ctx.pack(vel, dens), *rng,
-                                 include_pressure=False)
+                                 include_pressure=False,
+                                 moving_boundary=ctx.moving_boundary)
     g = params.gravity
     vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * g[k])
                     for k, v in enumerate(vel))

@@ -81,7 +81,8 @@ def pcisph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
                 delta: float | None = None, tol_frac: float = 0.01):
     """One PCISPH step; returns ``(new_state, StepDiagnostics)`` with the
     new state in hash-sorted order and the corrective iteration count in
-    ``solver_iters``.
+    ``solver_iters``. A moving ``boundary`` (``vel`` set) enters the wall
+    friction.
 
     ``delta``: the stiffness of :func:`pcisph_delta` (computed here when
     None). ``tol_frac``: the bound on the max positive predicted density
@@ -91,10 +92,6 @@ def pcisph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
         raise NotImplementedError(
             "multiphase (per-particle mass/rho0) is WCSPH-only; "
             "pcisph refuses rather than silently dropping the columns")
-    if boundary is not None and boundary.vel is not None:
-        raise NotImplementedError(
-            "moving boundaries are not ported yet (ROADMAP.md Queue A, "
-            "item 9)")
     if delta is None:
         delta = pcisph_delta(params, cfg)
     from .pcisph_cuda import pcisph_step_cuda

@@ -95,7 +95,8 @@ def pcisph_step_cuda(state: FluidState, params: SimParams,
     zero = torch.zeros_like(dens)
     f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*vel, dens, zero),
                                  ctx.pack(vel, dens), *rng,
-                                 include_pressure=False)
+                                 include_pressure=False,
+                                 moving_boundary=ctx.moving_boundary)
     f_adv = f_adv + pm * params.gravity
     tol = tol_frac * rest
 

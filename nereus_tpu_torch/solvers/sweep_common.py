@@ -10,7 +10,11 @@ multiphase force sweeps read a (M, 12) wide source
 (:meth:`SweepCtx.pack_wide`), the multiphase density sweep and the
 multiphase DFSPH α and κ sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`).
 A multiphase state's ``mass`` and ``rho0`` ride the sort with the
-positions.
+positions. A moving boundary (``BoundaryData.vel`` set) packs its wall
+velocities into slots 3-5 of every 8-wide and wide boundary row, as the
+JAX package's ``_bcols`` does, so every sweep that reads a source
+velocity there (IISPH's ρ_adv, DFSPH's Dρ/Dt, multiphase DFSPH's dδ̂/dt,
+the viscous Laplacian, the wall friction) reads the moving wall.
 
 Every sweep of a step walks the ranges built here from the start-of-step
 positions, PCISPH's predicted density at x* included
@@ -49,8 +53,12 @@ class SweepCtx:
     perm: torch.Tensor        # (C,) int64, sorted row → state row
     pressure: torch.Tensor    # (C,) the state's pressure, unsorted
     b_src: Optional[torch.Tensor] = None   # (Mb, 8) boundary source rows
+    coords: Optional[torch.Tensor] = None  # (C, 3) int32 query cells
     mass: Optional[torch.Tensor] = None    # (C,) hash-sorted phase columns
     rho0: Optional[torch.Tensor] = None    # of a multiphase state
+
+    # the boundary rows carry wall velocities (``BoundaryData.vel`` set)
+    moving_boundary: bool = False
 
     @property
     def c(self) -> int:
@@ -87,7 +95,8 @@ class SweepCtx:
     def pack(self, vel, slot6, boundary=True):
         """(C [+ Mb], 8) source matrix: fluid rows ``x y z vx vy vz slot6
         0``, then (unless ``boundary`` is False: a sweep over the fluid
-        rows only) the boundary rows (velocity 0, ψ_b in slot 6)."""
+        rows only) the boundary rows (the wall velocity, 0 for a static
+        wall, and ψ_b in slot 6)."""
         z = torch.zeros_like(self.px)
         fluid = torch.stack([self.px, self.py, self.pz, *vel,
                              slot6.expand(self.c), z], dim=1)
@@ -108,7 +117,7 @@ class SweepCtx:
         """(C [+ Mb], 12) wide source: fluid rows ``x y z``, then ``cols``
         and zero pads (Jacobi: d_jj xyz, p_j, Σd_jk·p_k xyz; multiphase
         force: vx vy vz V_j p_j·V_j² [ρ0_j]); boundary rows
-        ``x y z 0 0 0 ψ_b 0 0 0 0 0``."""
+        ``x y z v_b ψ_b 0 0 0 0 0`` (v_b = 0 for a static wall)."""
         if len(cols) > SP.WIDE_WIDTH - 3:
             raise ValueError(f"pack_wide takes at most {SP.WIDE_WIDTH - 3} "
                              f"columns, got {len(cols)}")
@@ -142,11 +151,14 @@ def pd2_operands(ctx: SweepCtx):
     return at
 
 
-def _boundary_src(boundary: BoundaryData):
+def boundary_src(boundary: BoundaryData):
+    """(Mb, 8) source rows of a boundary set, ``x y z v_b ψ_b 0``: the wall
+    velocity when ``boundary.vel`` is set, else 0 (a static wall)."""
     z = torch.zeros_like(boundary.psi)
     p = boundary.pos
-    return torch.stack([p[:, 0], p[:, 1], p[:, 2], z, z, z,
-                        boundary.psi, z], dim=1)
+    v = (z, z, z) if boundary.vel is None else boundary.vel.unbind(1)
+    return torch.stack([p[:, 0], p[:, 1], p[:, 2], *v, boundary.psi, z],
+                       dim=1)
 
 
 def build_sweep_ctx(state: FluidState, params: SimParams,
@@ -169,5 +181,6 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
         seg_start=seg_start, seg_end=seg_end,
         pvec=SP.build_pvec(params, cfg, grid),
         perm=perm, pressure=state.pressure,
-        b_src=_boundary_src(boundary) if with_b else None,
+        b_src=boundary_src(boundary) if with_b else None, coords=coords,
+        moving_boundary=with_b and boundary.vel is not None,
         mass=phase[0] if phase else None, rho0=phase[1] if phase else None)

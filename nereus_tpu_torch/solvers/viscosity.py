@@ -10,7 +10,10 @@ matrix-free conjugate gradient, one viscous-Laplacian sweep per matvec::
 
 warm-started at v* and iterated to the relative residual
 ``SimConfig.visc_cg_tol``, capped at ``visc_cg_max_iters``. Positions and
-densities are frozen over the solve, so the operator is linear. The steps
+densities are frozen over the solve. With a moving wall the boundary rows
+carry the wall velocity v_b into every matvec, as the JAX solve packs it,
+so the operator is affine (A·v + c(v_b)) rather than linear and CG solves
+it as if it were linear; the port follows the JAX package there. The steps
 that run it (single-phase WCSPH and DFSPH) drop the explicit viscosity and
 the wall friction from their force sweep (``include_viscosity=False``):
 the solve owns both.
@@ -78,8 +81,8 @@ def laplacian_operands(ctx: SweepCtx, params: SimParams, dens):
     """The Laplacian sweep's operands, loop-invariant: returns ``at(v) ->
     (q, src, seg_start, seg_end, pvec)``, which writes the (C, 3)
     velocities ``v`` in place into the query (``x y z v ρ 0``) and the
-    fluid source rows (``x y z v m/ρ_j 0``; the boundary rows keep
-    velocity 0 and ψ_b)."""
+    fluid source rows (``x y z v m/ρ_j 0``; the boundary rows keep the
+    wall velocity, 0 for a static wall, and ψ_b)."""
     z = torch.zeros_like(dens)
     q = ctx.queries(z, z, z, dens, width=8)
     src = ctx.pack((z, z, z),

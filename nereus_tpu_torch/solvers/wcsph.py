@@ -75,7 +75,9 @@ def wcsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
     state in hash-sorted order, as the JAX step returns it. A multiphase
     state (``mass``/``rho0`` set) runs the multiphase step; ``xsph_eps``
     and ``viscosity_model="implicit"`` (single phase only) smooth the
-    advection velocity and solve the viscosity implicitly.
+    advection velocity and solve the viscosity implicitly. A moving
+    ``boundary`` (``vel`` set, ``boundary.move_boundary``) gives the wall
+    friction the relative velocity.
 
     Raises NotImplementedError for what the JAX package refuses and for
     what is not ported yet, rather than ignoring it."""
@@ -83,10 +85,6 @@ def wcsph_step(state: FluidState, params: SimParams, grid: gridlib.Grid,
         if xsph_eps is not None:
             raise NotImplementedError("XSPH is single-phase-only")
         check_multiphase_cfg(cfg)
-    if boundary is not None and boundary.vel is not None:
-        raise NotImplementedError(
-            "moving boundaries are not ported yet (ROADMAP.md Queue A, "
-            "item 9)")
     from .wcsph_cuda import wcsph_step_cuda, wcsph_step_multiphase_cuda
     if state.multiphase:
         return wcsph_step_multiphase_cuda(state, params, grid, cfg, boundary)

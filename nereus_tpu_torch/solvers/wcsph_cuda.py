@@ -107,7 +107,8 @@ def wcsph_step_cuda(state: FluidState, params: SimParams,
     q8 = ctx.queries(*vel, dens, pd2)
     force = sweeps.force(cfg, q8, ctx.pack(vel, dens), ctx.seg_start,
                          ctx.seg_end, ctx.pvec,
-                         include_viscosity=not implicit_visc)
+                         include_viscosity=not implicit_visc,
+                         moving_boundary=ctx.moving_boundary)
 
     # -- symplectic Euler (``integrate_functor``) --------------------------
     dt = params.dt
@@ -191,7 +192,8 @@ def wcsph_step_multiphase_cuda(state: FluidState, params: SimParams,
     dout = SP.multiphase_density_sweep(cfg,
                                        *multiphase_density_operands(ctx))
     args, dens, pres = multiphase_force_operands(ctx, params, cfg, dout)
-    acc = SP.multiphase_force_sweep(cfg, *args)
+    acc = SP.multiphase_force_sweep(cfg, *args,
+                                    moving_boundary=ctx.moving_boundary)
 
     dt = params.dt
     g = params.gravity

@@ -189,13 +189,16 @@ def test_apply_kappa_conserves_momentum():
 
 
 def test_unported_options_raise():
-    """Moving boundaries are not ported (multiphase DFSPH and implicit
-    viscosity are: ``test_torch_dfsph_multiphase.py``,
-    ``test_torch_viscosity.py``)."""
+    """Nothing the JAX step takes is refused any more: moving boundaries
+    are ported (``test_torch_moving_boundary.py``), multiphase DFSPH and
+    implicit viscosity too (``test_torch_dfsph_multiphase.py``,
+    ``test_torch_viscosity.py``). A wall set at velocity 0, once refused,
+    runs and reproduces the static step."""
     pcfg, pparams, pstate, pg, pb = to_port(*_dam_scene(True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.dfsph_step(pstate, pparams, pg, pcfg,
-                      dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))
+    s0, _ = pt.dfsph_step(pstate, pparams, pg, pcfg, pb)
+    s1, _ = pt.dfsph_step(pstate, pparams, pg, pcfg,
+                          dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))
+    assert torch.equal(s0.pos, s1.pos) and torch.equal(s0.vel, s1.vel)
 
 
 def _port_block():

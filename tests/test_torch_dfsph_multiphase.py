@@ -231,8 +231,8 @@ def test_multiphase_loops_sync_once_per_k_iterations(contact, monkeypatch,
 
 def test_multiphase_dfsph_refusals():
     """The JAX multiphase DFSPH step's refusals, with its reasons (AKINCI
-    surface tension, implicit viscosity), and the port's own for moving
-    walls."""
+    surface tension, implicit viscosity); moving walls, once refused, are
+    ported: a wall set at velocity 0 reproduces the static step."""
     state, params, grid, walls, _ = two_layer(side_cells=3)
     pcfg, pparams, s, pg, pb = to_port(jt.SimConfig(), params, state, grid,
                                        walls)
@@ -242,12 +242,14 @@ def test_multiphase_dfsph_refusals():
         (dataclasses.replace(
             pcfg, surface_tension_model=pt.SurfaceTensionModel.AKINCI), pb,
          "AKINCI surface tension is single-phase-only"),
-        (pcfg, dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)),
-         "ROADMAP"),
     ]
     for c, b, reason in cases:
         with pytest.raises(NotImplementedError, match=reason):
             pt.dfsph_step(s, pparams, pg, c, b)
+    s0, _ = pt.dfsph_step(s, pparams, pg, pcfg, pb)
+    s1, _ = pt.dfsph_step(s, pparams, pg, pcfg, dataclasses.replace(
+        pb, vel=torch.zeros_like(pb.pos)))
+    assert torch.equal(s0.pos, s1.pos) and torch.equal(s0.vel, s1.vel)
     # the JAX step refuses the same two configurations
     for c, _, reason in cases[:2]:
         jcfg = dataclasses.replace(

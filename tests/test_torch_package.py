@@ -110,7 +110,8 @@ def test_build_without_nvcc_raises(monkeypatch):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
-            "dfsph_multiphase_sweep.cu", "dfsph_sweep.cu", "iisph_sweep.cu",
+            "coupled_sweep.cu", "dfsph_multiphase_sweep.cu",
+            "dfsph_sweep.cu", "iisph_sweep.cu",
             "multiphase_sweep.cu", "pbf_sweep.cu", "sph_sweep.cu",
             "viscosity_sweep.cu")]
 
@@ -157,8 +158,16 @@ PBF_SWEEPS = {
     "pbf_dp": (SP.pbf_dp_sweep, cuda_sweep.pbf_dp_sweep, 4, 4, 18),
     "pbf_omega": (SP.pbf_omega_sweep, cuda_sweep.pbf_omega_sweep, 8, 8, 9),
 }
+COUPLED_SWEEPS = {
+    "body_density": (SP.body_density_sweep, cuda_sweep.body_density_sweep,
+                     4, 8, 9),
+    "body_force": (SP.body_force_sweep, cuda_sweep.body_force_sweep, 8, 8,
+                   9),
+    "multiphase_body": (SP.multiphase_body_sweep,
+                        cuda_sweep.multiphase_body_sweep, 8, 8, 9),
+}
 ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
-              **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS}
+              **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS, **COUPLED_SWEEPS}
 
 
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
@@ -207,6 +216,35 @@ def test_visc_mp_dfsph_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(PBF_SWEEPS))
 def test_pbf_dispatchers_route_by_device(key):
     _routes_by_device(*PBF_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(COUPLED_SWEEPS))
+def test_coupled_dispatchers_route_by_device(key):
+    _routes_by_device(*COUPLED_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("include_pressure", [True, False])
+def test_moving_force_routes_by_device(include_pressure):
+    """The force and multiphase force sweeps' ``moving_boundary=True`` run
+    the plain sweeps on CPU tensors, launching nothing, and their CUDA
+    wrappers refuse them."""
+    cfg = nereus_tpu_torch.SimConfig()
+    q, src, s, e, pv = _inputs()
+    q8 = torch.zeros((q.shape[0], 8))
+    kw = dict(include_pressure=include_pressure, moving_boundary=True)
+    cuda_sweep.reset_launches()
+    out = SP.fluid_force_sweep(cfg, q8, src, s, e, pv, **kw)
+    assert out.shape == (8, 3) and float(out.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.force_sweep(cfg, q8, src, s, e, pv, **kw)
+    mq, msrc, ms, me, mpv = _sweep_inputs("multiphase_force")
+    out = SP.multiphase_force_sweep(cfg, mq, msrc, ms, me, mpv,
+                                    moving_boundary=True)
+    assert out.shape == (8, 3) and float(out.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.multiphase_force_sweep(cfg, mq, msrc, ms, me, mpv,
+                                          moving_boundary=True)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -283,7 +321,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 21
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 27
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -366,7 +404,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 15)
+                                                        + [0] * 21)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -401,7 +439,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 15
+    assert launches[8:] == [0] * 21
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -461,7 +499,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 12)
+                                                        + [0] * 18)
 
 
 @pytest.mark.requires_cuda
@@ -482,7 +520,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 9
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 15
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -500,7 +538,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 9
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 15
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -550,7 +588,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 9)
+                                                        + [0] * 15)
 
 
 @pytest.mark.requires_cuda
@@ -566,7 +604,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 9)
+                                                        + [0] * 15)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
@@ -574,7 +612,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 9)
+                                                        + [3] + [0] * 15)
     assert torch.isfinite(state.pos).all()
 
 
@@ -768,3 +806,158 @@ def test_pbf_steps_run_kernels_on_cuda(cuda):
         assert torch.isfinite(s.pos).all()
         assert int(diag.solver_iters) == it
         assert float(s.pressure.max()) <= 0.0
+
+
+WALL_VEL = (0.8, 0.0, -0.4)
+
+
+def _friction_args(args, zero_col, pv_beta0=False):
+    """``args`` (q, src, seg_start, seg_end, pvec) of a wall sweep with the
+    fluid ranges emptied, query column ``zero_col`` at 0 (pd2, or 1/m_i for
+    the multiphase sweep) and, with ``pv_beta0``, β at 0: the wall friction
+    alone."""
+    q, src, s, e, pv = args
+    q = q.clone()
+    q[:, zero_col] = 0.0
+    e = e.clone()
+    e[:9] = s[:9]
+    if pv_beta0:
+        pv = pv.clone()
+        pv[SP.PV_BETA] = 0.0
+    return q, src, s, e, pv
+
+
+def _zero_col(args, col):
+    """``args`` (q, src, seg_start, seg_end, pvec) of a body contact sweep
+    with query column ``col`` at 0 (pd2 of BodyForce, bp of
+    MultiphaseBody): the friction alone. The sweep walks the shell's rows
+    only, so its ranges stay."""
+    q = args[0].clone()
+    q[:, col] = 0.0
+    return (q, *args[1:])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_moving_and_body_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """On the small dam-break with its walls moving at (0.8, 0, −0.4) m/s
+    and a moving, spinning 0.08 box in the fluid: the force kernel's MOVING
+    instances (pressure on and off), MultiphaseForce<MOVING>, BodyForce and
+    MultiphaseBody against their plain versions, each also on its friction
+    alone (walls: β, pd2 and 1/m_i at 0, fluid ranges empty; body: pd2 resp.
+    bp at 0): max|Δ| ≤ 1e-4·max|ref| per output column; the wall friction
+    reads the wall velocity (it differs from the static instance's) and
+    the body friction the shell's sample velocities (it differs from the
+    result with slots 3-5 of the body rows at 0)."""
+    import dataclasses as dc
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import coupled_cuda, wcsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, "BECKER", True,
+                                                cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    ctx = build_sweep_ctx(state, params, grid, cfg, moving)
+    assert ctx.moving_boundary
+    pos = state.pos.cpu().numpy()
+    body = dc.replace(
+        nereus_tpu_torch.make_rigid_box(pos.mean(axis=0), (0.08,) * 3,
+                                        float(params.particle_radius), 500.0,
+                                        params, device=cuda),
+        vel=torch.tensor([0.05, -0.1, 0.02], device=cuda),
+        omega=torch.tensor([0.2, -0.1, 0.3], device=cuda))
+    shells = coupled_cuda.body_shells(ctx, grid, (body,))
+    sh = shells[0]
+    _, fargs, _, _ = coupled_cuda.coupled_operands(ctx, params, cfg, shells)
+    mctx = build_sweep_ctx(_two_phase(state, params, cuda), params, grid,
+                           cfg, moving)
+    margs, q8b, _, _ = coupled_cuda.coupled_multiphase_operands(
+        mctx, params, cfg, coupled_cuda.body_shells(mctx, grid, (body,)))
+    bargs = (fargs[0], sh.src, sh.seg_start, sh.seg_end, ctx.pvec)
+    mbargs = (q8b, *coupled_cuda.body_shells(mctx, grid, (body,))[0],
+              mctx.pvec)
+    cases = []
+    for p in (True, False):
+        kw = dict(include_pressure=p, moving_boundary=True)
+        cases += [("force", SP.fluid_force_sweep, SP.fluid_force_sweep_plain,
+                   fargs, kw),
+                  ("force friction", SP.fluid_force_sweep,
+                   SP.fluid_force_sweep_plain,
+                   _friction_args(fargs, 7, pv_beta0=True), kw)]
+    mkw = dict(moving_boundary=True)
+    cases += [("mp force", SP.multiphase_force_sweep,
+               SP.multiphase_force_sweep_plain, margs, mkw),
+              ("mp force friction", SP.multiphase_force_sweep,
+               SP.multiphase_force_sweep_plain, _friction_args(margs, 7),
+               mkw),
+              ("body", SP.body_force_sweep, SP.body_force_sweep_plain,
+               bargs, {}),
+              ("body friction", SP.body_force_sweep,
+               SP.body_force_sweep_plain, _zero_col(bargs, 7), {}),
+              ("mp body", SP.multiphase_body_sweep,
+               SP.multiphase_body_sweep_plain, mbargs, {}),
+              ("mp body friction", SP.multiphase_body_sweep,
+               SP.multiphase_body_sweep_plain, _zero_col(mbargs, 6), {})]
+    cuda_sweep.reset_launches()
+    for key, dispatch, plain, args, kw in cases:
+        got = dispatch(cfg, *args, **kw)
+        _assert_columns_close(got, plain(cfg, *args, **kw), key)
+        if "body friction" in key:
+            q, src, *rest = args
+            still = src.clone()
+            still[:, 3:6] = 0.0
+            assert not torch.equal(dispatch(cfg, q, still, *rest), got), key
+        elif "friction" in key:
+            static = {k: v for k, v in kw.items() if k != "moving_boundary"}
+            assert not torch.equal(dispatch(cfg, *args, **static), got), key
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.FORCE_MOVING: 2,
+                      cuda_sweep.FORCE_P0_MOVING: 2, cuda_sweep.FORCE: 1,
+                      cuda_sweep.FORCE_P0: 1, cuda_sweep.MP_FORCE_MOVING: 2,
+                      cuda_sweep.MP_FORCE: 1, cuda_sweep.BODY_FORCE: 3,
+                      cuda_sweep.MP_BODY: 3})
+
+
+@pytest.mark.requires_cuda
+def test_moving_and_coupled_steps_run_kernels_on_cuda(cuda):
+    """A few steps with moving walls launch the MOVING force kernel and not
+    the static one (WCSPH; multiphase WCSPH its MOVING instance; IISPH the
+    pressure-off MOVING one); a few coupled steps launch one body density
+    and one body contact sweep per step and body, single- and multiphase,
+    and keep the bodies finite with R orthonormal."""
+    from nereus_tpu_torch import boundary as B
+    cfg, params, state, grid, boundary = _scene("MULLER", "BECKER", True,
+                                                cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    K = cuda_sweep
+    cuda_sweep.reset_launches()
+    s = state
+    for _ in range(3):
+        s, _ = nereus_tpu_torch.wcsph_step(s, params, grid, cfg, moving)
+    _assert_launches({K.DENSITY: 3, K.FORCE_MOVING: 3})
+    mp = _two_phase(state, params, cuda)
+    cuda_sweep.reset_launches()
+    for _ in range(3):
+        mp, _ = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg, moving)
+    _assert_launches({K.MP_DENSITY: 3, K.MP_FORCE_MOVING: 3})
+    pos = state.pos.cpu().numpy()
+    body = nereus_tpu_torch.make_rigid_box(
+        pos.mean(axis=0) + np.array([0.0, 0.2, 0.0]), (0.08,) * 3,
+        float(params.particle_radius), 500.0, params, device=cuda)
+    for fluid, want in ((state, {K.DENSITY: 3, K.FORCE: 3,
+                                 K.BODY_DENSITY: 6, K.BODY_FORCE: 6}),
+                        (_two_phase(state, params, cuda),
+                         {K.MP_DENSITY: 3, K.MP_FORCE: 3,
+                          K.BODY_DENSITY: 6, K.MP_BODY: 6})):
+        bodies = (body, dataclasses.replace(
+            body, com=body.com + torch.tensor([0.2, 0.0, 0.0],
+                                              device=cuda)))
+        cuda_sweep.reset_launches()
+        s = fluid
+        for _ in range(3):
+            s, bodies, diag = nereus_tpu_torch.wcsph_coupled_step(
+                s, params, grid, cfg, bodies, boundary)
+        _assert_launches(want)
+        assert torch.isfinite(s.pos).all()
+        for b in bodies:
+            assert torch.isfinite(b.com).all()
+            eye = torch.eye(3, device=cuda)
+            assert float((b.R @ b.R.T - eye).abs().max()) < 1e-5

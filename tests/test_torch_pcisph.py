@@ -262,9 +262,12 @@ def test_unported_options_raise():
                                 rest_densities=1000.0, device="cpu")
     with pytest.raises(NotImplementedError, match="WCSPH-only"):
         pt.pcisph_step(multi, pparams, pg, pcfg, pb)
+    # moving boundaries are ported (test_torch_moving_boundary.py): a wall
+    # set at velocity 0, once refused, reproduces the static step
     moving = dataclasses.replace(pb, vel=torch.zeros_like(pb.pos))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.pcisph_step(pstate, pparams, pg, pcfg, moving)
+    s0, _ = pt.pcisph_step(pstate, pparams, pg, pcfg, pb)
+    s1, _ = pt.pcisph_step(pstate, pparams, pg, pcfg, moving)
+    assert torch.equal(s0.pos, s1.pos) and torch.equal(s0.vel, s1.vel)
 
 
 def _port_block():

@@ -152,10 +152,13 @@ def test_cfl_dt_matches_jax():
 
 
 def test_unported_options_raise():
-    """Moving boundaries are not ported (implicit viscosity is:
-    ``test_torch_viscosity.py``)."""
+    """Nothing the JAX step takes is refused any more: moving boundaries
+    are ported (``test_torch_moving_boundary.py``), implicit viscosity too
+    (``test_torch_viscosity.py``). A wall set at velocity 0, once refused,
+    runs and reproduces the static step."""
     scene = jax_scene(True)
     pcfg, pparams, pstate, pg, pb = to_port(*scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.wcsph_step(pstate, pparams, pg, pcfg,
-                      dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))
+    s0, _ = pt.wcsph_step(pstate, pparams, pg, pcfg, pb)
+    s1, _ = pt.wcsph_step(pstate, pparams, pg, pcfg,
+                          dataclasses.replace(pb, vel=torch.zeros_like(pb.pos)))
+    assert torch.equal(s0.pos, s1.pos) and torch.equal(s0.vel, s1.vel)

@@ -53,12 +53,15 @@ def params_to_port(params, device="cpu"):
 
 def to_port(cfg, params, state, grid, boundary, device="cpu"):
     """The same config, params, state (with a multiphase state's mass and
-    ρ₀ columns), grid and boundary as port objects on ``device``."""
+    ρ₀ columns), grid and boundary (with a moving boundary's wall
+    velocities) as port objects on ``device``."""
     pparams = params_to_port(params, device)
     pboundary = None
     if boundary is not None:
         pboundary = convert.boundary_from_numpy(
-            boundary.pos, boundary.psi, boundary.sorted_hash, device=device)
+            boundary.pos, boundary.psi, boundary.sorted_hash,
+            vel=None if boundary.vel is None else np.asarray(boundary.vel),
+            device=device)
     return (convert.config_from_jax_fields(cfg), pparams,
             convert.state_from_numpy(state.pos, state.vel, state.pressure,
                                      state.num_active, state.mass,
@@ -66,6 +69,13 @@ def to_port(cfg, params, state, grid, boundary, device="cpu"):
             convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
                                     device=device),
             pboundary)
+
+
+def body_to_port(body, device="cpu"):
+    """The same JAX ``RigidBody`` as a port ``RigidBody`` on ``device``."""
+    return convert.rigid_body_from_numpy(
+        {f.name: np.asarray(getattr(body, f.name))
+         for f in dataclasses.fields(body)}, device=device)
 
 
 @pytest.fixture

@@ -13,7 +13,11 @@ the settled ``resting_block(n_target=256_000)`` of ``bench.py``'s
 ``*_256k_settled`` cells, dfsph_mp split in two phases; pbf: ``bench.py``'s
 ``pbf_1M`` dam-break with its boundary shell; pbf_vort: the same stepped
 with ``xsph_eps = 0.02`` and ``vorticity_eps = 0.01``; pbf_settled: the
-settled ``pbf_256k_settled`` block), runs
+settled ``pbf_256k_settled`` block; wavemaker, mp_wavemaker: the wcsph
+and multiphase scenes under ``chip_smoke.wavemaker`` (the CLI's
+``--wavemaker x:0.05:2``); coupled, mp_coupled: ``chip_smoke.
+coupled_scene``, ``bench.py``'s mp_coupled_256k and its single-phase
+twin, a rigid box dropped on the settled 256k block), runs
 ``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
 clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
@@ -61,6 +65,25 @@ def build(solver, dev):
         def step(s):
             return nt.pbf_step(s, params, grid, cfg, boundary, **kw)
         return state, step, ()
+    if solver in ("coupled", "mp_coupled"):
+        cfg, params, state, grid, walls, body = smoke.coupled_scene(
+            dev, solver == "mp_coupled")
+        held = {"body": body}
+
+        def step(s):
+            s, held["body"], d = nt.wcsph_coupled_step(
+                s, params, grid, cfg, held["body"], walls)
+            return s, d
+        return state, step, ()
+    if solver in ("wavemaker", "mp_wavemaker"):
+        cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+        if solver == "mp_wavemaker":
+            state = smoke.two_phase(state, params)
+        grid, bd_at = smoke.wavemaker(grid, boundary, params)
+
+        def step(s):
+            return nt.wcsph_step(s, params, grid, cfg, bd_at())
+        return state, step, ()
     if solver in ("wcsph", "multiphase", "xsph", "wcsph_visc"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
         if solver == "multiphase":
@@ -88,7 +111,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", choices=(
         "wcsph", "multiphase", "xsph", "wcsph_visc", "iisph", "pcisph",
-        "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled"),
+        "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled",
+        "wavemaker", "mp_wavemaker", "coupled", "mp_coupled"),
         required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
