@@ -173,9 +173,45 @@ Phases, in order; any failure exits non-zero:
 26. ``coupled_256k``: the same block and box, single phase (the CLI's
     ``--rigid-box`` on that block), phase 25's gates on the density,
     force, body density and BodyForce kernels (BodyForce on its friction
-    alone with pd2 at 0).
+    alone with pd2 at 0);
+27. the elastic kernels against their plain versions, both kernel sets:
+    ElasticF and ElasticForceHourglass on a 12×10×8 block at spacing h/2
+    stretched 2 % along x, sheared, rotated and perturbed by a seeded
+    noise of 0.05·spacing (the hourglass term is exactly 0 on affine
+    motion); FluidReaction on a 6³ cube moving at (0.3, −0.5, 0.2) m/s and
+    spinning at (1, −2, 0.5) rad/s inside phase 3's dam-break, as it is
+    and on its friction alone (the fluid density clamped to ρ₀, so the
+    Tait pressure is 0), which must differ from its result with the
+    samples' velocities at 0; some samples must have fluid in their
+    ranges; max|Δ| ≤ 1e-4·max|ref| per output column, none all zero;
+28. ``elastic_512k`` (``bench.py:136-163``): ``make_params(dt=1e-4)``, an
+    80³ block (512,000 samples) at spacing h/2 over its penalty floor at
+    y = 0, E = 2e5, ν = 0.3, damping 5; 60 ``elastic_step`` calls, steps
+    11-60 timed; gates: one ElasticF and one ElasticForceHourglass launch
+    per step and no other kernel, finite positions and velocities,
+    ``seg_overflow`` 0, ``max_stretch`` < 0.1 and min y ≥ −0.01·spacing on
+    every step; then both kernels against their plain versions at the
+    path's shapes, timed. The block starts 0.5·spacing above its floor
+    and falls freely for ~480 steps, so over these 60 its F is I to
+    rounding: the kernels are held on its statics and ranges at the
+    deformed positions of phase 27;
+29. ``elastic_plastic_512k``: phase 28 with ``plastic=True`` and
+    ``yield_strain=0.02``; E_p also finite and traceless within
+    1e-5·max|E_p|;
+30. ``wcsph_elastic_256k`` (``bench.py:165-198``): the 256k dam-break with
+    its walls and a 16³ cube of 400 kg/m³ at E = 1e5 standing 2·spacing
+    over the floor 0.3 m downstream of the fluid, 4 substeps, 60
+    ``wcsph_elastic_step`` calls, steps 11-60 timed; gates per step: one
+    density, force, body density, BodyForce and FluidReaction launch, 4
+    ElasticF and 4 ElasticForceHourglass launches, no other kernel, finite
+    fluid and body, mean compression < 0.1, zero overflow; prints how many
+    samples feel the fluid at the last step (the water may not reach the
+    cube in 60 steps); then every kernel of the path against its plain
+    version, timed: the elastic ones on the body's deformed positions, the
+    others on the last state with the body moved into the middle of the
+    fluid, FluidReaction also on its friction alone.
 
-Phases 21-23 run right after phase 12, on its scene; 24-26 after 20.
+Phases 21-23 run right after phase 12, on its scene; 24-30 after 20.
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
 physics cross-check, not a gate. Each launch gate counts one main-path
@@ -185,7 +221,12 @@ Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
-over 67 TFLOP/s, the H100 SXM's published float32 peaks.
+over 67 TFLOP/s, the H100 SXM's published float32 peaks. The elastic
+and reaction kernels return after the geometry on a candidate outside
+the cutoff: there only those operations count (``GUARDED``), and the
+candidates inside the cutoff are counted from this run's positions. The
+elastic sweeps read one matrix as queries and source: its bytes count
+once.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
 
@@ -239,6 +280,20 @@ BODY_DENSITY = 600.0             # 600 kg/m³ dropped from water_top + 0.1
 BODY_DROP = 0.1
 BODY_VEL = (0.3, -0.5, 0.2)      # m/s and rad/s of the body whose contact
 BODY_OMEGA = (1.0, -2.0, 0.5)    # friction alone is held (not a path's)
+ELASTIC_DT = 1e-4                # bench.py:136-163, elastic_512k: an 80³
+ELASTIC_SIDE = 80                # block at spacing h/2, E = 2e5, ν = 0.3,
+ELASTIC_N = 512_000              # damping 5, its floor at y = 0
+ELASTIC_E = 2e5
+ELASTIC_DAMPING = 5.0
+ELASTIC_YIELD = 0.02             # elastic_plastic_512k's yield strain
+WEL_N = 256_000                  # bench.py:165-198, wcsph_elastic_256k:
+WEL_E = 1e5                      # the 256k dam-break and a 16³ cube of
+WEL_SIDE = 15                    # 400 kg/m³ at E = 1e5, 0.3 m downstream,
+WEL_DENSITY = 400.0              # 4 elastic substeps per step
+WEL_GAP = 0.3
+WEL_SUBSTEPS = 4
+ELASTIC_NOISE = 0.05             # ·spacing: the kernel checks' non-affine
+                                 # perturbation
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -260,7 +315,12 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "pbf_dp": (31, 22), "pbf_omega": (33, 0),
             "force_moving": (71, 44), "force_p0_moving": (52, 40),
             "mp_force_moving": (72, 51), "body_density": (15, 0),
-            "body_force": (50, 0), "mp_body": (45, 0)}
+            "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
+            "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0)}
+# the kernels that return after the geometry and the cutoff compare on a
+# candidate outside the cutoff: those candidates cost this many operations,
+# the others PAIR_OPS's
+GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9}
 
 
 def fail(msg):
@@ -287,17 +347,36 @@ def bound(key, args, out):
     the output moved once, against the candidate pairs of these ranges;
     ``bound_ranges_ms`` also reads the range rows."""
     q, src, s, e, pv = args
-    nbytes = (sum(t.numel() * t.element_size() for t in (q, src, pv, out))
+    # the elastic sweeps read one matrix as queries and source: once
+    ins = (q, pv, out) if src is q else (q, src, pv, out)
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
               + 4 * src.shape[0])
     ranges = sum(t.numel() * t.element_size() for t in (s, e))
     cand = (e - s).clamp(min=0).sum(dim=1, dtype=torch.int64)
     fluid, bnd = PAIR_OPS[key]
     ops = int(cand[:9].sum()) * fluid + int(cand[9:].sum()) * bnd
+    if key in GUARDED:
+        from nereus_tpu_torch.ops.sph_pairs import PV_H2
+        inside = cutoff_pairs(q, src, s, e, float(pv[PV_H2]))
+        ops = int(cand.sum()) * GUARDED[key] + inside * (fluid
+                                                         - GUARDED[key])
     t_ops = ops / F32_OPS_PER_S * 1e3
     t_bytes, t_ranges = (b / HBM_BYTES_PER_S * 1e3
                          for b in (nbytes, nbytes + ranges))
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")) + (max(t_ranges, t_ops),)
+
+
+def cutoff_pairs(q, src, s, e, h2):
+    """The candidate pairs of the ranges ``s``, ``e`` whose positions
+    (columns 0-2 of ``q`` and ``src``) lie within r² < ``h2``."""
+    from nereus_tpu_torch.ops.neighbors import row_pairs
+    n = 0
+    for r in range(s.shape[0]):
+        qi, sj = row_pairs(s[r], e[r])
+        d = q[qi, :3] - src[sj, :3]
+        n += int(((d * d).sum(dim=1) < h2).sum())
+    return n
 
 
 def sweep_inputs(ctx, params, dens=None):
@@ -820,6 +899,323 @@ def coupled_operands(cfg, ctx, params, grid, body):
             "body_density": bdens,
             "mp_body": (cuda_sweep.multiphase_body_sweep,
                         SP.multiphase_body_sweep_plain, (q8b, *rows), {})}
+
+
+def deformed(x0, sp, seed=0):
+    """Reference positions ``x0`` stretched 2 % along x, sheared (x +=
+    0.1·y), rotated 20° about (1, 2, 3) about their centre and perturbed by
+    a seeded noise of ``ELASTIC_NOISE``·``sp`` per component: non-affine,
+    so the hourglass term, exactly 0 on affine motion, is live."""
+    x = x0.double().cpu().numpy()
+    c = x.mean(axis=0)
+    a = np.array([[1.02, 0.1, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    ax = np.array([1.0, 2.0, 3.0]) / np.sqrt(14.0)
+    k = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                  [-ax[1], ax[0], 0]])
+    t = np.deg2rad(20.0)
+    r = np.eye(3) + np.sin(t) * k + (1.0 - np.cos(t)) * (k @ k)
+    x = (x - c) @ (r @ a).T + c
+    x += np.random.default_rng(seed).uniform(
+        -ELASTIC_NOISE, ELASTIC_NOISE, x.shape) * sp
+    return torch.as_tensor(x, dtype=torch.float32, device=x0.device)
+
+
+def elastic_kernel_ops(cfg, params, grid, statics, pos, ep):
+    """ElasticF's and ElasticForceHourglass's operands at positions
+    ``pos``, built by ``solvers/elastic_cuda.py``'s operand functions from
+    the plain F and ``stress_pc``. ``{key: (kernel, plain, args,
+    kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import elastic_cuda
+    from nereus_tpu_torch.solvers.elastic import stress_pc
+    pv = SP.build_pvec(params, cfg, grid)
+    fargs = elastic_cuda.f_gradient_operands(statics, pos, pv)
+    raw = SP.elastic_f_sweep_plain(cfg, *fargs)
+    f = torch.bmm(statics.vol * raw.reshape(-1, 3, 3), statics.corr)
+    pc, _, _ = stress_pc(f, statics.corr, ep)
+    hargs = elastic_cuda.force_operands(statics, pos, pc, f, pv)
+    return {"elastic_f": (cuda_sweep.elastic_f_sweep,
+                          SP.elastic_f_sweep_plain, fargs, {}),
+            "elastic_force_hg": (cuda_sweep.elastic_force_hourglass_sweep,
+                                 SP.elastic_force_hourglass_sweep_plain,
+                                 hargs, {})}
+
+
+def elastic_coupled_ops(cfg, ctx, params, grid, estate, psi):
+    """The operands of every sweep of one fluid–elastic coupled step
+    (density, force, body density, BodyForce, FluidReaction) with the body
+    at ``estate``, built by ``solvers/elastic_coupled.py``'s
+    ``elastic_operands``. ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import elastic_coupled
+    ops = elastic_coupled.elastic_operands(ctx, params, cfg, grid, estate,
+                                           psi)
+    sh = ops.shell
+    rows = (sh.src, sh.seg_start, sh.seg_end, ctx.pvec)
+    return {"density": (cuda_sweep.density_sweep, SP.density_sweep_plain,
+                        ops.dargs, {}),
+            "force": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
+                      ops.fargs, {}),
+            "body_density": (cuda_sweep.body_density_sweep,
+                             SP.density_sweep_plain, (ops.dargs[0], *rows),
+                             {}),
+            "body_force": (cuda_sweep.body_force_sweep,
+                           SP.body_force_sweep_plain, (ops.fargs[0], *rows),
+                           {}),
+            "fluid_reaction": (cuda_sweep.fluid_reaction_sweep,
+                               SP.fluid_reaction_sweep_plain, ops.rargs, {})}
+
+
+def spinning(estate, statics):
+    """``estate`` with every sample moving at ``BODY_VEL`` plus
+    ``BODY_OMEGA`` × (X − centre)."""
+    dev = statics.x0.device
+    r = statics.x0 - statics.x0.mean(dim=0)
+    v = torch.tensor(BODY_VEL, device=dev) + torch.linalg.cross(
+        torch.tensor(BODY_OMEGA, device=dev).expand_as(r), r)
+    return dataclasses.replace(estate, vel=v)
+
+
+def check_reaction(cfg, ops, params, label):
+    """FluidReaction of ``ops`` (:func:`elastic_coupled_ops`) against its
+    plain version, as it is and on its friction alone: the fluid density
+    of the source rows clamped to ρ₀, so the Tait pressure is 0 (the
+    friction is ~1e-9 of the pressure term and a whole sweep cannot show
+    that the kernel reads the sample velocities); fails unless some
+    samples have fluid in their ranges and the friction differs from its
+    result with the samples' velocities at 0."""
+    kern, plain, (q, src, s, e, pv), kw = ops["fluid_reaction"]
+    live = int((e - s).sum(dim=0).gt(0).sum())
+    print(f"  {label}: {live} of {q.shape[0]} body samples have fluid in "
+          "their ranges")
+    if live == 0:
+        fail(f"{label}: no body sample has fluid in its ranges")
+    fric = src.clone()
+    fric[:, 6] = torch.clamp(fric[:, 6], max=float(params.rest_density))
+    compare_kernels(cfg, {"fluid_reaction": ops["fluid_reaction"],
+                          "fluid_reaction_friction": (
+                              kern, plain, (q, fric, s, e, pv), kw)}, label)
+    still = q.clone()
+    still[:, 3:6] = 0.0
+    if torch.equal(kern(cfg, q, fric, s, e, pv), kern(cfg, still, fric, s,
+                                                      e, pv)):
+        fail(f"{label}: the reaction's friction equals the one with the "
+             "samples' velocities at 0")
+
+
+def elastic_block(dev, plastic):
+    """``bench.py:136-163``'s elastic_512k (``plastic``: its
+    elastic_plastic_512k): ``make_params(dt=1e-4)``, an 80³ block at
+    spacing h/2 whose bottom layer sits 0.5·spacing above the penalty
+    floor at y = 0, E = 2e5, ν = 0.3, damping 5 (yield strain 0.02).
+    Returns ``(cfg, params, ep, state, statics, grid, sp)``."""
+    import nereus_tpu_torch as nt
+    cfg = nt.SimConfig()
+    params = nt.make_params(dt=ELASTIC_DT, device=dev)
+    sp = 0.5 * float(params.interaction_radius)
+    side = (ELASTIC_SIDE - 1) * sp
+    pts = nt.sample_box_solid((0.0, 0.5 * sp, 0.0),
+                              (side + 0.1 * sp, 0.5 * sp + side + 0.1 * sp,
+                               side + 0.1 * sp), sp)
+    ep = nt.elastic_params(
+        ELASTIC_E, 0.3, damping=ELASTIC_DAMPING, floor_y=0.0,
+        yield_strain=ELASTIC_YIELD if plastic else float("inf"), device=dev)
+    state, statics, grid = nt.make_elastic_solid(pts, params, cfg, sp,
+                                                 plastic=plastic, device=dev)
+    return cfg, params, ep, state, statics, grid, sp
+
+
+def run_elastic(name, dev, plastic):
+    """``IMPLICIT_STEPS`` elastic steps of :func:`elastic_block`, steps
+    after ``IMPLICIT_TIMED_FROM`` timed. Gates: one ElasticF and one
+    ElasticForceHourglass launch per step and no other kernel; finite
+    positions and velocities; ``seg_overflow`` 0; ``max_stretch`` < 0.1
+    and min y ≥ −0.01·spacing on every step; ``plastic``: E_p finite and
+    traceless within 1e-5·max|E_p|. Then both kernels against their plain
+    versions at the path's shapes (its statics and ranges) on
+    :func:`deformed` positions, timed. Returns ``(timing, launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep
+    t0 = time.perf_counter()
+    cfg, params, ep, state, statics, grid, sp = elastic_block(dev, plastic)
+    torch.cuda.synchronize()
+    n = statics.n
+    print(f"{name}: {n} samples at spacing {sp:.6g}, grid {grid.size}, dt "
+          f"{float(params.dt)}, floor y 0, plastic {plastic}; set-up (sort, "
+          f"ranges, D sweep) {time.perf_counter() - t0:.1f} s")
+    if n != ELASTIC_N:
+        fail(f"{name}: expected {ELASTIC_N:,} samples, got {n}")
+    min_y = []
+
+    def step(s):
+        s, d = nt.elastic_step(s, statics, params, ep, grid, cfg)
+        min_y.append(s.pos[:, 1].min())
+        return s, d
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diags, ms, _, _ = run_steps(step, state, IMPLICIT_STEPS,
+                                       IMPLICIT_TIMED_FROM)
+    t_host = time.perf_counter() - t_host
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    stretch = torch.stack([d.max_stretch for d in diags]).cpu().numpy()
+    energy = torch.stack([d.elastic_energy for d in diags]).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    low = float(torch.stack(min_y).min())
+    print(f"{name}: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, "
+          f"max_stretch max {stretch.max():.6g}, elastic energy last "
+          f"{energy[-1]:.6g} J, min y {low:.6g} (floor 0; the block falls "
+          f"from 0.5·spacing), max speed {float(diags[-1].max_speed):.6g}")
+    check_launches(name, {cuda_sweep.ELASTIC_F: IMPLICIT_STEPS,
+                          cuda_sweep.ELASTIC_FORCE_HG: IMPLICIT_STEPS})
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    if not (bool(torch.isfinite(state.pos).all())
+            and bool(torch.isfinite(state.vel).all())):
+        fail(f"{name}: non-finite positions or velocities")
+    if not stretch.max() < 0.1:
+        fail(f"{name}: max_stretch {stretch.max()} >= 0.1")
+    if not low >= -0.01 * sp:
+        fail(f"{name}: min y {low} below -0.01·spacing")
+    if plastic:
+        ep_max = float(state.plastic.abs().max())
+        tr = float(torch.einsum("naa->n", state.plastic).abs().max())
+        print(f"{name}: max|E_p| {ep_max:.6g}, max|tr E_p| {tr:.3g}")
+        if not (bool(torch.isfinite(state.plastic).all())
+                and tr <= 1e-5 * ep_max):
+            fail(f"{name}: E_p not finite or not traceless ({tr} > "
+                 f"1e-5·{ep_max})")
+    timing = compare_kernels(
+        cfg, elastic_kernel_ops(cfg, params, grid, statics,
+                                deformed(statics.x0, sp), ep),
+        f"{name}: its statics, deformed positions", time_it=True)
+    return timing, launches
+
+
+def wcsph_elastic_scene(dev):
+    """``bench.py:165-198``'s wcsph_elastic_256k: ``dam_break(make_params(),
+    n_target=256_000)`` with its walls, and a 16³ cube at spacing h/2 of
+    400 kg/m³ at E = 1e5, ν = 0.3, damping 5, standing 2·spacing over the
+    floor (its penalty floor) ``WEL_GAP`` downstream of the fluid. Returns
+    ``(cfg, params, state, grid, walls, estate, statics, ep, psi, sp)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    params = nt.make_params(device=dev)
+    state, grid, walls = scene.dam_break(params, cfg, n_target=WEL_N,
+                                         with_boundary=True, device=dev)
+    sp = 0.5 * float(params.interaction_radius)
+    posf = state.pos[:int(state.num_active)]
+    floor_y = float(walls.pos[:, 1].min())
+    cx = float(posf[:, 0].max()) + WEL_GAP
+    cz = float(posf[:, 2].mean())
+    side = WEL_SIDE * sp
+    cube = nt.sample_box_solid(
+        (cx, floor_y + 2 * sp, cz - side / 2),
+        (cx + side + 0.1 * sp, floor_y + 2 * sp + side + 0.1 * sp,
+         cz + side / 2 + 0.1 * sp), sp)
+    ep = nt.elastic_params(WEL_E, 0.3, damping=5.0, floor_y=floor_y,
+                           device=dev)
+    estate, statics, _ = nt.make_elastic_solid(
+        cube, params, cfg, sp, grid=grid, density=WEL_DENSITY, device=dev)
+    psi = nt.elastic_psi(statics, params, cfg)
+    return cfg, params, state, grid, walls, estate, statics, ep, psi, sp
+
+
+def run_wcsph_elastic(name, dev):
+    """``IMPLICIT_STEPS`` coupled steps of :func:`wcsph_elastic_scene` at
+    ``WEL_SUBSTEPS`` substeps, steps after ``IMPLICIT_TIMED_FROM`` timed.
+    Gates per step: one density, force, body density, BodyForce and
+    FluidReaction launch and ``WEL_SUBSTEPS`` ElasticF and
+    ElasticForceHourglass launches, no other kernel; finite fluid and body;
+    mean compression < 0.1; zero overflow. Prints how many body samples
+    feel the fluid at the last step. Then every kernel of the path against
+    its plain version at the path's shapes, timed: the elastic kernels on
+    the body's statics at :func:`deformed` positions; the fluid and contact
+    kernels on the last state with the body moved, at its last velocities,
+    into the middle of the fluid (at its own place the water has not
+    reached it), FluidReaction also on its friction alone. Returns
+    ``(timing, launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import elastic_coupled
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    t0 = time.perf_counter()
+    (cfg, params, state, grid, walls, estate, statics, ep, psi,
+     sp) = wcsph_elastic_scene(dev)
+    nf = int(state.num_active)
+    n = nf + statics.n
+    print(f"{name}: {nf} fluid particles, {walls.num_boundaries} wall "
+          f"samples, a body of {statics.n} samples ({WEL_DENSITY} kg/m³, E "
+          f"{WEL_E}) at x {float(statics.x0[:, 0].min()):.6g} (the fluid's "
+          f"front at {float(state.pos[:nf, 0].max()):.6g}), grid "
+          f"{grid.size}, dt {float(params.dt)}, {WEL_SUBSTEPS} substeps; "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+    held = {"body": estate}
+    mcs = []
+
+    def step(s):
+        s, held["body"], d = nt.wcsph_elastic_step(
+            s, params, grid, cfg, held["body"], statics, ep, psi, walls,
+            substeps=WEL_SUBSTEPS)
+        mcs.append(d.mean_compression)
+        return s, d
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    t_host = time.perf_counter()
+    state, diags, ms, _, _ = run_steps(step, state, IMPLICIT_STEPS,
+                                       IMPLICIT_TIMED_FROM)
+    t_host = time.perf_counter() - t_host
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    body = held["body"]
+    mc = torch.stack(mcs).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    print(f"{name}: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s ({nf} fluid + "
+          f"{statics.n} body)")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, "
+          f"mean_compression max {mc.max():.6g} last {mc[-1]:.6g}, body "
+          f"min y {float(body.pos[:, 1].min()):.6g}, mean velocity "
+          f"{body.vel.mean(dim=0).tolist()}")
+    steps = IMPLICIT_STEPS
+    check_launches(name, {
+        cuda_sweep.DENSITY: steps, cuda_sweep.FORCE: steps,
+        cuda_sweep.BODY_DENSITY: steps, cuda_sweep.BODY_FORCE: steps,
+        cuda_sweep.FLUID_REACTION: steps,
+        cuda_sweep.ELASTIC_F: WEL_SUBSTEPS * steps,
+        cuda_sweep.ELASTIC_FORCE_HG: WEL_SUBSTEPS * steps})
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    finite = [bool(torch.isfinite(t).all()) for t in (
+        state.pos, state.vel, body.pos, body.vel)]
+    if not all(finite):
+        fail(f"{name}: non-finite fluid or body state {finite}")
+    if not mc.max() < 0.1:
+        fail(f"{name}: mean_compression {mc.max()} >= 0.1 at step "
+             f"{int(mc.argmax()) + 1}")
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    rargs = elastic_coupled.elastic_operands(ctx, params, cfg, grid, body,
+                                             psi).rargs
+    felt = int(SP.fluid_reaction_sweep(cfg, *rargs).abs().amax(
+        dim=1).gt(0).sum())
+    print(f"{name}: {felt} of {statics.n} body samples feel the fluid at "
+          "the last step")
+    timing = compare_kernels(
+        cfg, elastic_kernel_ops(cfg, params, grid, statics,
+                                deformed(statics.x0, sp), ep),
+        f"{name}: the body's statics, deformed positions", time_it=True)
+    centre = state.pos[:nf].mean(dim=0)
+    inside = dataclasses.replace(
+        body, pos=body.pos - body.pos.mean(dim=0) + centre)
+    ops = elastic_coupled_ops(cfg, ctx, params, grid, inside, psi)
+    check_reaction(cfg, ops, params, f"{name}: the body in mid-fluid")
+    timing.update(compare_kernels(
+        cfg, ops, f"{name} after {steps} steps, the body in mid-fluid",
+        time_it=True))
+    return timing, launches
 
 
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
@@ -2098,6 +2494,48 @@ def main():
     cpl_timing, cpl_launches = run_coupled("coupled_256k", dev, False)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # -- 27. the elastic kernels and FluidReaction vs plain -----------------
+    print("elastic kernels vs plain: a 12×10×8 block at spacing h/2 "
+          "stretched 2 % along x, sheared, rotated, noise "
+          f"{ELASTIC_NOISE}·spacing; FluidReaction: a 6³ cube moving at "
+          f"{BODY_VEL} m/s and spinning at {BODY_OMEGA} rad/s inside the "
+          "phase-3 dam-break:")
+    for ks in ("MULLER", "MONAGHAN"):
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        params = nt.make_params(dt=ELASTIC_DT, device=dev)
+        sp = 0.5 * float(params.interaction_radius)
+        pts = nt.sample_box_solid((0.0, 0.0, 0.0),
+                                  (11 * sp, 9 * sp, 7 * sp), sp)
+        _, statics, grid = nt.make_elastic_solid(pts, params, cfg, sp,
+                                                 device=dev)
+        ep = nt.elastic_params(ELASTIC_E, device=dev)
+        compare_kernels(cfg, elastic_kernel_ops(
+            cfg, params, grid, statics, deformed(statics.x0, sp), ep),
+            f"elastic {ks} n={statics.n}")
+        params = nt.make_params(device=dev)
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+        c = state.pos[:int(state.num_active)].mean(dim=0).cpu().numpy()
+        cube = nt.sample_box_solid(c - 2.5 * sp, c + 2.5 * sp, sp)
+        estate, statics, _ = nt.make_elastic_solid(cube, params, cfg, sp,
+                                                   grid=grid, device=dev)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        ops = elastic_coupled_ops(cfg, ctx, params, grid,
+                                  spinning(estate, statics),
+                                  nt.elastic_psi(statics, params, cfg))
+        check_reaction(cfg, ops, params, f"FluidReaction {ks} n="
+                       f"{state.capacity} body {statics.n}")
+    torch.cuda.synchronize()
+    del state, ctx, boundary, grid, ops, statics, estate
+
+    # -- 28-29. the elastic paths elastic_512k, elastic_plastic_512k --------
+    el_timing, el_launches = run_elastic("elastic_512k", dev, False)
+    elp_timing, elp_launches = run_elastic("elastic_plastic_512k", dev, True)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # -- 30. the fluid-elastic coupled path wcsph_elastic_256k --------------
+    wel_timing, wel_launches = run_wcsph_elastic("wcsph_elastic_256k", dev)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
@@ -2108,6 +2546,7 @@ def main():
     mpd_src = "nereus_tpu_torch/csrc/dfsph_multiphase_sweep.cu"
     pbf_src = "nereus_tpu_torch/csrc/pbf_sweep.cu"
     cpl_src = "nereus_tpu_torch/csrc/coupled_sweep.cu"
+    el_src = "nereus_tpu_torch/csrc/elastic_sweep.cu"
     rep = "nereus_tpu/ops/pallas_sph.py:"
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
@@ -2141,7 +2580,14 @@ def main():
                                 rep + "710"),
             "body_density": (cuda_sweep.BODY_DENSITY, sph_src, rep + "1193"),
             "body_force": (cuda_sweep.BODY_FORCE, cpl_src, rep + "326"),
-            "mp_body": (cuda_sweep.MP_BODY, cpl_src, rep + "757")}
+            "mp_body": (cuda_sweep.MP_BODY, cpl_src, rep + "757"),
+            "elastic_f": (cuda_sweep.ELASTIC_F, el_src, rep + "1092"),
+            # elastic_force_pair (:1113) and elastic_hourglass_pair
+            # (:1139), fused
+            "elastic_force_hg": (cuda_sweep.ELASTIC_FORCE_HG, el_src,
+                                 rep + "1113"),
+            "fluid_reaction": (cuda_sweep.FLUID_REACTION, el_src,
+                               rep + "409")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -2160,7 +2606,10 @@ def main():
             ("multiphase_1M_wavemaker", mwm_timing, mwm_launches),
             ("dfsph_256k_wavemaker", dwm_timing, dwm_launches),
             ("mp_coupled_256k", mpc_timing, mpc_launches),
-            ("coupled_256k", cpl_timing, cpl_launches)):
+            ("coupled_256k", cpl_timing, cpl_launches),
+            ("elastic_512k", el_timing, el_launches),
+            ("elastic_plastic_512k", elp_timing, elp_launches),
+            ("wcsph_elastic_256k", wel_timing, wel_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:

@@ -4,8 +4,10 @@ The WCSPH step (single phase with optional XSPH and implicit viscosity,
 and multiphase), the single-phase IISPH and PCISPH steps, the DFSPH step
 (single phase with optional implicit viscosity, and multiphase), the PBF
 step (with optional vorticity confinement and XSPH), moving boundaries
-(``move_boundary``) for all of them, and the WCSPH step with two-way
-rigid-body coupling (single phase and multiphase) of
+(``move_boundary``) for all of them, the WCSPH step with two-way
+rigid-body coupling (single phase and multiphase), elastic and
+elastoplastic solids (``elastic_step``) and the WCSPH step with two-way
+fluid–elastic coupling (``wcsph_elastic_step``) of
 ``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
 the ported subset, with the neighbor sweeps as hand-written CUDA kernels
 for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
@@ -29,6 +31,11 @@ from .solvers.pcisph import (pcisph_delta, pcisph_delta_from_denom,
 from .solvers.dfsph import dfsph_step
 from .solvers.pbf import pbf_step
 from .solvers.coupled import wcsph_coupled_step
+from .solvers.elastic import (ElasticDiagnostics, ElasticParams,
+                              ElasticState, ElasticStatics, elastic_params,
+                              elastic_step, make_elastic_solid,
+                              sample_box_solid)
+from .solvers.elastic_coupled import elastic_psi, wcsph_elastic_step
 
 __version__ = "0.1.0"
 
@@ -45,4 +52,7 @@ __all__ = [
     "RigidBody", "make_rigid_box", "body_boundary", "body_body_contact",
     "concat_boundaries", "integrate_rigid", "wall_contact_force",
     "wcsph_coupled_step",
+    "ElasticParams", "ElasticState", "ElasticStatics", "ElasticDiagnostics",
+    "elastic_params", "sample_box_solid", "make_elastic_solid",
+    "elastic_step", "elastic_psi", "wcsph_elastic_step",
 ]

@@ -17,6 +17,8 @@ from .grid import Grid, make_grid
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
                      resolve_device)
 from .rigid import RigidBody
+from .solvers.elastic import (ElasticParams, ElasticState, ElasticStatics,
+                              static_ranges)
 from .state import BoundaryData, FluidState
 
 _ENUMS = {"kernel_set": KernelSet,
@@ -84,3 +86,34 @@ def grid_from_numpy(origin, size, cell, device=None) -> Grid:
     origin = np.asarray(origin)
     return make_grid(origin, size, np.asarray(cell),
                      dtype=_DTYPES[str(origin.dtype)], device=device)
+
+
+def elastic_params_from_numpy(arrays: dict, device=None) -> ElasticParams:
+    """ElasticParams from ``{field: numpy array}`` (every ElasticParams
+    field), dtypes kept."""
+    return ElasticParams(**{f.name: _t(arrays[f.name], device=device)
+                            for f in dataclasses.fields(ElasticParams)})
+
+
+def elastic_state_from_numpy(pos, vel, plastic=None,
+                             device=None) -> ElasticState:
+    """ElasticState from numpy arrays in statics order, dtypes kept."""
+    return ElasticState(
+        pos=_t(pos, device=device), vel=_t(vel, device=device),
+        plastic=None if plastic is None else _t(plastic, device=device))
+
+
+def elastic_statics_from_numpy(x0, corr, fixed, vol, mass, grid: Grid,
+                               device=None) -> ElasticStatics:
+    """ElasticStatics from the JAX body's hash-sorted reference positions,
+    corrections, pinned mask, volume and mass on ``grid`` (the body's,
+    on ``device``). The static ranges are rebuilt from ``x0``; the JAX
+    window plan (``anchors``, ``hash_f32``, ``win``) has no counterpart."""
+    x0 = _t(x0, device=device)
+    sorted_hash, seg_start, seg_end = static_ranges(grid, x0)
+    return ElasticStatics(
+        x0=x0, sorted_hash=sorted_hash, seg_start=seg_start,
+        seg_end=seg_end,
+        miss=torch.zeros((), dtype=torch.int32, device=x0.device),
+        corr=_t(corr, device=device), fixed=_t(fixed, torch.bool, device),
+        vol=_t(vol, device=device), mass=_t(mass, device=device))

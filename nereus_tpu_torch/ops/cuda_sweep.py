@@ -5,7 +5,9 @@
 ``csrc/dfsph_multiphase_sweep.cu`` for multiphase DFSPH,
 ``csrc/viscosity_sweep.cu`` for the implicit viscosity solve,
 ``csrc/pbf_sweep.cu`` for PBF, ``csrc/coupled_sweep.cu`` for the
-rigid-body contact; the counterpart of ``nereus_tpu.ops.pallas_neighbors``).
+rigid-body contact, ``csrc/elastic_sweep.cu`` for the elastic solid and
+its fluid coupling; the counterpart of
+``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
 all at once in parallel, and the objects are linked into one shared
@@ -88,12 +90,17 @@ MP_FORCE_MOVING = Kernel("pair_sweep_kernel<MultiphaseForce,MOVING>")
 BODY_DENSITY = Kernel("density_sweep_kernel<body>")
 BODY_FORCE = Kernel("pair_sweep_kernel<BodyForce>")
 MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
+# the elastic solid's deformation gradient and fused force + hourglass,
+# and the fluid's reaction on an elastic body's samples
+ELASTIC_F = Kernel("pair_sweep_kernel<ElasticF>")
+ELASTIC_FORCE_HG = Kernel("pair_sweep_kernel<ElasticForceHourglass>")
+FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
            XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
            MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
            FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
-           MP_BODY)
+           MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION)
 
 _lock = threading.Lock()
 _lib = None
@@ -245,7 +252,8 @@ _SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
               "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
               "pbf_dp": 0, "pbf_omega": 0, "body_force": 0,
-              "multiphase_body": 0}
+              "multiphase_body": 0, "elastic_f": 0,
+              "elastic_force_hourglass": 0, "fluid_reaction": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -452,3 +460,25 @@ def multiphase_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     body source (Mb, 8), ranges (9, N)."""
     return _sweep(MP_BODY, "multiphase_body", cfg, q, 8, src, 8, seg_start,
                   seg_end, pvec, (9,), 3)
+
+
+def elastic_f_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Deformation-gradient accumulator (N, 9): q and src the body's
+    (N, 8) ``X x 0 0`` rows, its static ranges (9, N)."""
+    return _sweep(ELASTIC_F, "elastic_f", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9,), 9)
+
+
+def elastic_force_hourglass_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                                  pvec):
+    """Elastic and hourglass forces (N, 6), unscaled: q and src the body's
+    (N, 24) ``X x PC F`` rows, its static ranges (9, N)."""
+    return _sweep(ELASTIC_FORCE_HG, "elastic_force_hourglass", cfg, q, 24,
+                  src, 24, seg_start, seg_end, pvec, (9,), 6)
+
+
+def fluid_reaction_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """The fluid's force on each body sample (Mb, 3): q (Mb, 8) ``x y z v_b
+    ψ 0``, src the fluid rows (C, 8) ``x y z v ρ 0``, ranges (9, Mb)."""
+    return _sweep(FLUID_REACTION, "fluid_reaction", cfg, q, 8, src, 8,
+                  seg_start, seg_end, pvec, (9,), 3)

@@ -29,9 +29,11 @@ Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
 sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
 implicit viscosity solve's ``visc_laplacian_sweep``, the three
-multiphase DFSPH sweeps, PBF's λ, Δp and ω sweeps, and the rigid-body
+multiphase DFSPH sweeps, PBF's λ, Δp and ω sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
-``multiphase_body_sweep``) routes by device:
+``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
+``elastic_force_hourglass_sweep``, and the elastic coupling's
+``fluid_reaction_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
 hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
 """
@@ -722,6 +724,125 @@ def pbf_omega_pair(q, s, pv, *, kernel_set):
 
 
 # ---------------------------------------------------------------------------
+# Elastic-solid pair formulas (total-Lagrangian SPH): the geometry, the
+# r² < h² cutoff and the spiky-gradient scale read the REFERENCE positions X
+# (query and source slots 0-2); the current positions x are payload. The
+# force and hourglass sweeps read one (N, 24) row ``X x PC F`` (ELASTIC_*
+# offsets, PC = P·Cᵀ and F row-major); the deformation-gradient sweep an
+# (N, 8) row ``X x 0 0``.
+# ---------------------------------------------------------------------------
+
+ELASTIC_F_WIDTH = 8
+ELASTIC_WIDTH = 24
+ELASTIC_PC = 6      # PC_i, 9 slots
+ELASTIC_F = 15      # F_i, 9 slots
+
+
+def elastic_f_pair(q, s, pv, *, kernel_set):
+    """Deformation-gradient accumulator (x_j − x_i) ⊗ ∇W(X_ij), row-major
+    [3α+β] (α the current offset, β the reference gradient); exactly 0 at
+    the self pair. q, src: ``X x 0 0``. Returns (P, 9)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    sc = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl) * okf
+    g = (sc * dx, sc * dy, sc * dz)
+    dc = (s[:, 3] - q[:, 3], s[:, 4] - q[:, 4], s[:, 5] - q[:, 5])
+    return torch.stack([dc[a] * g[b] for a in range(3) for b in range(3)],
+                       dim=1)
+
+
+def elastic_force_pair(q, s, pv, *, kernel_set):
+    """Variational elastic force (P_iC_iᵀ + P_jC_jᵀ)·∇W(X_ij), pairwise
+    antisymmetric; V² applies outside. q, src: ``X x PC F``. Returns
+    (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    sc = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl) * okf
+    g = (sc * dx, sc * dy, sc * dz)
+    outs = []
+    for a in range(3):
+        acc = None
+        for b in range(3):
+            k = ELASTIC_PC + 3 * a + b
+            t = (q[:, k] + s[:, k]) * g[b]
+            acc = t if acc is None else acc + t
+        outs.append(acc)
+    return torch.stack(outs, dim=1)
+
+
+def elastic_hourglass_pair(q, s, pv, *, kernel_set):
+    """Ganzenmüller hourglass control without its α·V² prefactor:
+    +½·W(X_ij)/|X_ij|²·(δ_i + δ_j)·x̂_ij with δ_k = (F_k X_ij − x_ij)·x̂_ij,
+    so f = +kδx̂ (a stretched pair attracts). The mask (r² < h², r² > 0)
+    multiplies W/|X|² before anything large meets it, so the self pair
+    is exactly 0; the division is exact. q, src: ``X x PC F``. Returns
+    (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    rl, invrl = _rl_invrl(r2)
+    okf = ((r2 < pv[PV_H2]) & (r2 > 0)).to(q.dtype)
+    w = _w_value(kernel_set, r2, rl, pv)
+    inv_x2 = okf * w * (1.0 / torch.clamp(r2, min=_EPS * _EPS))
+    dc = (q[:, 3] - s[:, 3], q[:, 4] - s[:, 4], q[:, 5] - s[:, 5])
+    rc2 = dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2]
+    invrc = torch.rsqrt(torch.clamp(rc2, min=_EPS * _EPS))
+    dX = (dx, dy, dz)
+    raw = None
+    for a in range(3):
+        k = ELASTIC_F + 3 * a
+        fi = q[:, k] * dX[0] + q[:, k + 1] * dX[1] + q[:, k + 2] * dX[2]
+        fj = s[:, k] * dX[0] + s[:, k + 1] * dX[1] + s[:, k + 2] * dX[2]
+        t = (fi + fj - 2.0 * dc[a]) * dc[a]
+        raw = t if raw is None else raw + t
+    coef = 0.5 * inv_x2 * raw * (invrc * invrc)
+    return torch.stack([coef * dc[0], coef * dc[1], coef * dc[2]], dim=1)
+
+
+def elastic_force_hourglass_pair(q, s, pv, *, kernel_set):
+    """The fused force + hourglass pair: (P, 6), the elastic force then the
+    hourglass force, each unscaled (the caller applies V² and α·V²)."""
+    return torch.cat([elastic_force_pair(q, s, pv, kernel_set=kernel_set),
+                      elastic_hourglass_pair(q, s, pv,
+                                             kernel_set=kernel_set)], dim=1)
+
+
+def fluid_reaction_pair(q, s, pv, *, kernel_set):
+    """Reverse Akinci contact: the force ON a body sample (query) FROM a
+    fluid particle (source), the per-sample reaction of the body contact
+    (``boundary_force_pair`` with ``moving=True, include_adhesion=False,
+    pressure_sign=-1, consistent_pressure=True``) with the roles swapped:
+    friction ν·max((v_b − v_i)·d, 0)·ψ·∇W with ν in the fluid density, and
+    −m·ψ·max(pd2_i, 0)·∇W with pd2_i from the Tait EOS of the source
+    density (JAX's ``include_pressure=True``; the friction-only instance
+    comes with the DFSPH coupling). q: ``x y z v_b ψ 0``; src (fluid
+    rows): ``x y z v ρ 0``. Returns (P, 3)."""
+    dx, dy, dz, r2 = _geometry(q, s)
+    if kernel_set == KernelSet.MULLER:
+        rl = invrl = None
+    else:
+        rl, invrl = _rl_invrl(r2)
+    okf = (r2 < pv[PV_H2]).to(q.dtype)
+    psi = q[:, 6]
+    dens_i = torch.clamp(s[:, 6], min=_EPS)
+    inv_dens = 1.0 / dens_i
+    sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
+    nu = ((2.0 * pv[PV_PM] * pv[PV_PM] * pv[PV_VISC] * pv[PV_VISC]
+           * pv[PV_H] * pv[PV_CS]) / (1.0 + 0.01 * pv[PV_H2])) \
+        * (inv_dens * inv_dens)
+    vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
+             + (q[:, 5] - s[:, 5]) * dz)
+    cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
+    ratio = dens_i * (1.0 / pv[PV_RD])
+    ratio2 = ratio * ratio
+    p_i = torch.clamp(pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0),
+                      min=0.0)
+    pd2_i = p_i * inv_dens * inv_dens
+    c = (cfric - pv[PV_PM] * psi * pd2_i * sd) * okf
+    return torch.stack([c * dx, c * dy, c * dz], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Plain sweeps and the dispatchers
 # ---------------------------------------------------------------------------
 
@@ -942,6 +1063,31 @@ def pbf_omega_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 seg_start, seg_end, 3)
 
 
+def elastic_f_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σ_j (x_j − x_i) ⊗ ∇W(X_ij) (N, 9) over a body's static reference
+    ranges (9 rows): q and src the same (N, 8) ``X x 0 0`` rows."""
+    return neighbor_sweep_plain(_bind(elastic_f_pair, cfg, pvec), q, src,
+                                seg_start, seg_end, 9)
+
+
+def elastic_force_hourglass_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                        seg_end, pvec):
+    """(f_el xyz, f_hg xyz) (N, 6), both unscaled, over a body's static
+    reference ranges (9 rows): q and src the same (N, 24) ``X x PC F``
+    rows."""
+    return neighbor_sweep_plain(_bind(elastic_force_hourglass_pair, cfg,
+                                      pvec), q, src, seg_start, seg_end, 6)
+
+
+def fluid_reaction_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                               pvec):
+    """The fluid's force on each body sample (Mb, 3): q (Mb, 8) ``x y z v_b
+    ψ 0``, src the fluid rows (C, 8) ``x y z v ρ 0``, the samples' ranges
+    over the fluid's sorted hashes (9 rows)."""
+    return neighbor_sweep_plain(_bind(fluid_reaction_pair, cfg, pvec), q,
+                                src, seg_start, seg_end, 3)
+
+
 def _route(*tensors) -> str:
     """The sweep route: "plain" for CPU float32/float64 tensors, "cuda"
     for CUDA float32 ones; raises on anything else, or on mixed devices."""
@@ -1015,3 +1161,8 @@ multiphase_kappa_sweep = _dispatcher(multiphase_kappa_sweep_plain,
 pbf_lambda_sweep = _dispatcher(pbf_lambda_sweep_plain, "pbf_lambda_sweep")
 pbf_dp_sweep = _dispatcher(pbf_dp_sweep_plain, "pbf_dp_sweep")
 pbf_omega_sweep = _dispatcher(pbf_omega_sweep_plain, "pbf_omega_sweep")
+elastic_f_sweep = _dispatcher(elastic_f_sweep_plain, "elastic_f_sweep")
+elastic_force_hourglass_sweep = _dispatcher(
+    elastic_force_hourglass_sweep_plain, "elastic_force_hourglass_sweep")
+fluid_reaction_sweep = _dispatcher(fluid_reaction_sweep_plain,
+                                   "fluid_reaction_sweep")

@@ -54,6 +54,9 @@ class SweepCtx:
     pressure: torch.Tensor    # (C,) the state's pressure, unsorted
     b_src: Optional[torch.Tensor] = None   # (Mb, 8) boundary source rows
     coords: Optional[torch.Tensor] = None  # (C, 3) int32 query cells
+    # (C,) int32 ascending: the fluid's hashes, which a sweep with other
+    # queries (the elastic coupling's body samples) searches
+    sorted_hash: Optional[torch.Tensor] = None
     mass: Optional[torch.Tensor] = None    # (C,) hash-sorted phase columns
     rho0: Optional[torch.Tensor] = None    # of a multiphase state
 
@@ -182,5 +185,6 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
         pvec=SP.build_pvec(params, cfg, grid),
         perm=perm, pressure=state.pressure,
         b_src=boundary_src(boundary) if with_b else None, coords=coords,
+        sorted_hash=sorted_hash,
         moving_boundary=with_b and boundary.vel is not None,
         mass=phase[0] if phase else None, rho0=phase[1] if phase else None)

@@ -111,7 +111,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
             "coupled_sweep.cu", "dfsph_multiphase_sweep.cu",
-            "dfsph_sweep.cu", "iisph_sweep.cu",
+            "dfsph_sweep.cu", "elastic_sweep.cu", "iisph_sweep.cu",
             "multiphase_sweep.cu", "pbf_sweep.cu", "sph_sweep.cu",
             "viscosity_sweep.cu")]
 
@@ -166,8 +166,17 @@ COUPLED_SWEEPS = {
     "multiphase_body": (SP.multiphase_body_sweep,
                         cuda_sweep.multiphase_body_sweep, 8, 8, 9),
 }
+ELASTIC_SWEEPS = {
+    "elastic_f": (SP.elastic_f_sweep, cuda_sweep.elastic_f_sweep, 8, 8, 9),
+    "elastic_force_hourglass": (SP.elastic_force_hourglass_sweep,
+                                cuda_sweep.elastic_force_hourglass_sweep,
+                                24, 24, 9),
+    "fluid_reaction": (SP.fluid_reaction_sweep,
+                       cuda_sweep.fluid_reaction_sweep, 8, 8, 9),
+}
 ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
-              **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS, **COUPLED_SWEEPS}
+              **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS, **COUPLED_SWEEPS,
+              **ELASTIC_SWEEPS}
 
 
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
@@ -221,6 +230,11 @@ def test_pbf_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(COUPLED_SWEEPS))
 def test_coupled_dispatchers_route_by_device(key):
     _routes_by_device(*COUPLED_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(ELASTIC_SWEEPS))
+def test_elastic_dispatchers_route_by_device(key):
+    _routes_by_device(*ELASTIC_SWEEPS[key][:2], key)
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -321,7 +335,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 27
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 30
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -404,7 +418,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 21)
+                                                        + [0] * 24)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -439,7 +453,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 21
+    assert launches[8:] == [0] * 24
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -499,7 +513,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 18)
+                                                        + [0] * 21)
 
 
 @pytest.mark.requires_cuda
@@ -520,7 +534,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 15
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 18
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -538,7 +552,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 15
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 18
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -588,7 +602,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 15)
+                                                        + [0] * 18)
 
 
 @pytest.mark.requires_cuda
@@ -604,7 +618,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 15)
+                                                        + [0] * 18)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
@@ -612,7 +626,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 15)
+                                                        + [3] + [0] * 18)
     assert torch.isfinite(state.pos).all()
 
 
@@ -961,3 +975,138 @@ def test_moving_and_coupled_steps_run_kernels_on_cuda(cuda):
             assert torch.isfinite(b.com).all()
             eye = torch.eye(3, device=cuda)
             assert float((b.R @ b.R.T - eye).abs().max()) < 1e-5
+
+
+def _elastic_body(cuda, kernel_set="MULLER", n=(6, 5, 4), **kw):
+    """A small elastic block at spacing h/2 (``test_elastic.py``'s bar
+    widened): ``(cfg, params, state, statics, grid, sp)``."""
+    from nereus_tpu_torch.solvers.elastic import sample_box_solid
+    cfg = nereus_tpu_torch.SimConfig(
+        kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
+    params = nereus_tpu_torch.make_params(dt=1e-4, device=cuda)
+    sp = 0.5 * float(params.interaction_radius)
+    pts = sample_box_solid((0.0, 0.0, 0.0),
+                           tuple((k - 1) * sp for k in n), sp)
+    state, statics, grid = nereus_tpu_torch.make_elastic_solid(
+        pts, params, cfg, sp, device=cuda, **kw)
+    return cfg, params, state, statics, grid, sp
+
+
+def _deformed(x0, sp, seed=0):
+    """``x0`` stretched 2 % along x, sheared (x += 0.1·y), rotated 20°
+    about (1, 2, 3) about its centre and perturbed by a seeded noise of
+    0.05·spacing: non-affine, so the hourglass term is live."""
+    x = x0.double().cpu().numpy()
+    c = x.mean(axis=0)
+    a = np.array([[1.02, 0.1, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    ax = np.array([1.0, 2.0, 3.0]) / np.sqrt(14.0)
+    k = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                  [-ax[1], ax[0], 0]])
+    t = np.deg2rad(20.0)
+    r = np.eye(3) + np.sin(t) * k + (1.0 - np.cos(t)) * (k @ k)
+    x = (x - c) @ (r @ a).T + c
+    x += np.random.default_rng(seed).uniform(-0.05, 0.05, x.shape) * sp
+    return torch.as_tensor(x, dtype=torch.float32, device=x0.device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_elastic_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """ElasticF and ElasticForceHourglass on a deformed block (every output
+    column nonzero, the hourglass half too), and FluidReaction on a moving,
+    spinning cube inside the small dam-break's fluid, as it is and on its
+    friction alone (the fluid density clamped to ρ₀), against their plain
+    versions: max|Δ| ≤ 1e-4·max|ref| per column; the friction reads the
+    sample velocities."""
+    from nereus_tpu_torch.solvers import elastic_coupled, elastic_cuda
+    from nereus_tpu_torch.solvers.elastic import stress_pc
+    cfg, params, state, statics, grid, sp = _elastic_body(cuda, kernel_set)
+    pv = SP.build_pvec(params, cfg, grid)
+    x = _deformed(statics.x0, sp)
+    fargs = elastic_cuda.f_gradient_operands(statics, x, pv)
+    raw = SP.elastic_f_sweep_plain(cfg, *fargs)
+    f = torch.bmm(statics.vol * raw.reshape(-1, 3, 3), statics.corr)
+    ep = nereus_tpu_torch.elastic_params(1e5, device=cuda)
+    pc, _, _ = stress_pc(f, statics.corr, ep)
+    hargs = elastic_cuda.force_operands(statics, x, pc, f, pv)
+
+    fcfg, fparams, fstate, fgrid, _ = _scene(kernel_set, "BECKER", False,
+                                             cuda)
+    centre = fstate.pos.mean(dim=0)
+    _, bstat, _ = nereus_tpu_torch.make_elastic_solid(
+        (statics.x0 - statics.x0.mean(dim=0) + centre).cpu().numpy(),
+        fparams, fcfg, sp, grid=fgrid, device=cuda)
+    r = bstat.x0 - bstat.x0.mean(dim=0)
+    vel = torch.tensor([0.3, -0.5, 0.2], device=cuda) + torch.linalg.cross(
+        torch.tensor([1.0, -2.0, 0.5], device=cuda).expand_as(r), r)
+    body = nereus_tpu_torch.ElasticState(pos=bstat.x0, vel=vel)
+    ctx = build_sweep_ctx(fstate, fparams, fgrid, fcfg, None)
+    psi = nereus_tpu_torch.elastic_psi(bstat, fparams, fcfg)
+    rargs = elastic_coupled.elastic_operands(ctx, fparams, fcfg, fgrid, body,
+                                             psi).rargs
+    q, src, s, e, rpv = rargs
+    assert int((e - s).sum(dim=0).gt(0).sum()) > 0
+    fric = src.clone()
+    fric[:, 6] = torch.clamp(fric[:, 6], max=float(fparams.rest_density))
+    cuda_sweep.reset_launches()
+    for key, dispatch, plain, c, args in (
+            ("elastic F", SP.elastic_f_sweep, SP.elastic_f_sweep_plain, cfg,
+             fargs),
+            ("force+hourglass", SP.elastic_force_hourglass_sweep,
+             SP.elastic_force_hourglass_sweep_plain, cfg, hargs),
+            ("reaction", SP.fluid_reaction_sweep,
+             SP.fluid_reaction_sweep_plain, fcfg, rargs),
+            ("reaction friction", SP.fluid_reaction_sweep,
+             SP.fluid_reaction_sweep_plain, fcfg, (q, fric, s, e, rpv))):
+        got = dispatch(c, *args)
+        _assert_columns_close(got, plain(c, *args), key)
+    still = q.clone()
+    still[:, 3:6] = 0.0
+    assert not torch.equal(SP.fluid_reaction_sweep(fcfg, still, fric, s, e,
+                                                    rpv), got)
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.ELASTIC_F: 1, cuda_sweep.ELASTIC_FORCE_HG: 1,
+                      cuda_sweep.FLUID_REACTION: 3})
+
+
+@pytest.mark.requires_cuda
+def test_elastic_steps_run_kernels_on_cuda(cuda):
+    """Elastic and elastoplastic steps launch one ElasticF and one
+    ElasticForceHourglass per step and nothing else; a coupled step launches
+    the fluid's density and force, the body's ψ-density and contact, one
+    FluidReaction and, per substep, the two elastic kernels."""
+    K = cuda_sweep
+    for plastic in (False, True):
+        cfg, params, state, statics, grid, sp = _elastic_body(
+            cuda, plastic=plastic)
+        ep = nereus_tpu_torch.elastic_params(
+            1e5, yield_strain=0.02 if plastic else float("inf"),
+            device=cuda)
+        s = dataclasses.replace(state, pos=_deformed(statics.x0, sp))
+        cuda_sweep.reset_launches()
+        for _ in range(3):
+            s, d = nereus_tpu_torch.elastic_step(s, statics, params, ep,
+                                                 grid, cfg)
+        _assert_launches({K.ELASTIC_F: 3, K.ELASTIC_FORCE_HG: 3})
+        assert torch.isfinite(s.pos).all() and int(d.seg_overflow) == 0
+        assert (s.plastic is not None) == plastic
+    cfg, params, state, grid, boundary = _scene("MULLER", "BECKER", True,
+                                                cuda)
+    sp = 0.5 * float(params.interaction_radius)
+    from nereus_tpu_torch.solvers.elastic import sample_box_solid
+    c = state.pos.mean(dim=0).cpu().numpy()
+    cube = sample_box_solid(c - 1.5 * sp, c + 1.5 * sp, sp)
+    es, statics, _ = nereus_tpu_torch.make_elastic_solid(
+        cube, params, cfg, sp, grid=grid, density=400.0, device=cuda)
+    ep = nereus_tpu_torch.elastic_params(1e5, damping=5.0, device=cuda)
+    psi = nereus_tpu_torch.elastic_psi(statics, params, cfg)
+    cuda_sweep.reset_launches()
+    s = state
+    for _ in range(2):
+        s, es, diag = nereus_tpu_torch.wcsph_elastic_step(
+            s, params, grid, cfg, es, statics, ep, psi, boundary, substeps=3)
+    _assert_launches({K.DENSITY: 2, K.FORCE: 2, K.BODY_DENSITY: 2,
+                      K.BODY_FORCE: 2, K.FLUID_REACTION: 2, K.ELASTIC_F: 6,
+                      K.ELASTIC_FORCE_HG: 6})
+    assert torch.isfinite(s.pos).all() and torch.isfinite(es.pos).all()
+    assert int(diag.seg_overflow) == 0

@@ -17,7 +17,11 @@ settled ``pbf_256k_settled`` block; wavemaker, mp_wavemaker: the wcsph
 and multiphase scenes under ``chip_smoke.wavemaker`` (the CLI's
 ``--wavemaker x:0.05:2``); coupled, mp_coupled: ``chip_smoke.
 coupled_scene``, ``bench.py``'s mp_coupled_256k and its single-phase
-twin, a rigid box dropped on the settled 256k block), runs
+twin, a rigid box dropped on the settled 256k block; elastic,
+elastic_plastic: ``chip_smoke.elastic_block``, ``bench.py``'s
+elastic_512k and elastic_plastic_512k; wcsph_elastic:
+``chip_smoke.wcsph_elastic_scene``, ``bench.py``'s wcsph_elastic_256k),
+runs
 ``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
 clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
@@ -64,6 +68,24 @@ def build(solver, dev):
 
         def step(s):
             return nt.pbf_step(s, params, grid, cfg, boundary, **kw)
+        return state, step, ()
+    if solver in ("elastic", "elastic_plastic"):
+        cfg, params, ep, state, statics, grid, _ = smoke.elastic_block(
+            dev, solver == "elastic_plastic")
+
+        def step(s):
+            return nt.elastic_step(s, statics, params, ep, grid, cfg)
+        return state, step, ()
+    if solver == "wcsph_elastic":
+        (cfg, params, state, grid, walls, estate, statics, ep, psi,
+         _) = smoke.wcsph_elastic_scene(dev)
+        held = {"body": estate}
+
+        def step(s):
+            s, held["body"], d = nt.wcsph_elastic_step(
+                s, params, grid, cfg, held["body"], statics, ep, psi, walls,
+                substeps=smoke.WEL_SUBSTEPS)
+            return s, d
         return state, step, ()
     if solver in ("coupled", "mp_coupled"):
         cfg, params, state, grid, walls, body = smoke.coupled_scene(
@@ -112,7 +134,8 @@ def main():
     ap.add_argument("--solver", choices=(
         "wcsph", "multiphase", "xsph", "wcsph_visc", "iisph", "pcisph",
         "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled",
-        "wavemaker", "mp_wavemaker", "coupled", "mp_coupled"),
+        "wavemaker", "mp_wavemaker", "coupled", "mp_coupled", "elastic",
+        "elastic_plastic", "wcsph_elastic"),
         required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
@@ -151,7 +174,7 @@ def main():
     start.record()
     for _ in range(args.steps):
         state, diag = step(state)
-        iters.append(diag.solver_iters)
+        iters.append(getattr(diag, "solver_iters", 0))
     end.record()
     t_host = (time.perf_counter() - t0) * 1e3 / args.steps
     torch.cuda.synchronize()
@@ -171,7 +194,7 @@ def main():
         start.record()
         for _ in range(args.steps):
             state, diag = step(state)
-            iters.append(diag.solver_iters)
+            iters.append(getattr(diag, "solver_iters", 0))
         end.record()
         torch.cuda.synchronize()
     ms = start.elapsed_time(end) / args.steps
@@ -198,11 +221,14 @@ def main():
         print(f"{us / 1e3 / args.steps:14.4f} {count / args.steps:10.1f}  "
               f"{key[:100]}")
     groups = {"sweep kernels": 0.0, "sort": 0.0, "searchsorted": 0.0,
-              "copies (cat/stack/index)": 0.0, "other": 0.0}
+              "copies (cat/stack/index)": 0.0,
+              "batched 3x3 products (gemm)": 0.0, "other": 0.0}
     for us, _, key in rows:
         k = key.lower()
         if "sweep_kernel" in k:
             g = "sweep kernels"
+        elif "gemm" in k or "bmm" in k:
+            g = "batched 3x3 products (gemm)"
         elif "sort" in k and "searchsorted" not in k:
             g = "sort"
         elif "searchsorted" in k:
