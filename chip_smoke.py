@@ -211,7 +211,51 @@ Phases, in order; any failure exits non-zero:
     others on the last state with the body moved into the middle of the
     fluid, FluidReaction also on its friction alone.
 
-Phases 21-23 run right after phase 12, on its scene; 24-30 after 20.
+31. the DFSPH couplings' instances against their plain versions, both
+    kernel sets, on phase 7's DFSPH dam-break with a 0.08 box moving at
+    (0.3, −0.5, 0.2) m/s and spinning at (1, −2, 0.5) rad/s in the middle
+    of its fluid (single phase, then its two-phase split) and a 6³ elastic
+    cube moving and spinning alike, each step's first divergence
+    iteration built by the steps' own classes
+    (``solvers/dfsph_coupled_cuda.py``, ``solvers/dfsph_elastic.py``): the
+    body forms of PressureForce (forward, and reverse with the cube's
+    samples as queries), Alpha and the three multiphase DFSPH functors,
+    Alpha and Drho over a shell, and BodyForce, MultiphaseBody and
+    FluidReaction on their friction alone (pressure off, bp at 0); max|Δ|
+    ≤ 1e-4·max|ref| per output column, none all zero but the columns a
+    body form leaves at exactly 0 (``ZERO_COLS``, checked 0), candidates
+    inside the cutoff > 0, and each friction unlike its result with the
+    sample velocities at 0;
+32. ``dfsph_coupled_256k`` (``bench.py:239-268``): the settled block of
+    ``dfsph_params(dt=5e-4)`` calibrated to the 0.8·h lattice (262,144
+    fluid particles) and a 0.15 m box of 400 kg/m³ dropped from 0.1 above
+    the water, 60 ``dfsph_coupled_step`` calls, steps 11-60 timed; gates:
+    the density, α, body density, body-form α, pressure-off force and
+    body friction once per step, Dρ/Dt and Drho over the shell once per
+    launched iteration, PressureForce and its body form once per launched
+    iteration plus the warm start's, no other kernel; zero overflow;
+    finite fluid and body; R orthonormal within 1e-5; each loop of each
+    step within its tolerance or at its cap. The box does not reach the
+    water in 60 steps, so every kernel of the path is then held against
+    its plain version, timed, on the last state with the box moved into
+    the middle of the fluid;
+33. ``dfsph_mp_coupled_256k``: phase 32's block split as phase 25 splits
+    it (the top half by y at 0.4·ρ₀), phase 32's gates on the multiphase
+    DFSPH kernels, their body forms and MultiphaseBody (bp = 0);
+34. ``dfsph_elastic_256k``: phase 32's block and phase 30's 16³ cube
+    (4,096 samples of 400 kg/m³, E = 1e5, ν = 0.3, damping 5, 4
+    substeps) centred in x and z, its bottom 0.5 fluid spacings above the
+    water, 60 ``dfsph_elastic_step`` calls; phase 32's gates with Alpha
+    over the shell in place of the body-form α, the body form of
+    PressureForce twice per correction (forward and reverse),
+    FluidReaction without pressure once per step, ElasticF and
+    ElasticForceHourglass 4 times per step; then every kernel of the path
+    against its plain version, timed, the fluid and contact kernels on the
+    last state with the cube moved into the middle of the fluid, the body
+    form of PressureForce both forward and reverse (two entries of the
+    ``kernels`` line, told apart by ``op``).
+
+Phases 21-23 run right after phase 12, on its scene; 24-34 after 20.
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
 physics cross-check, not a gate. Each launch gate counts one main-path
@@ -292,6 +336,8 @@ WEL_SIDE = 15                    # 400 kg/m³ at E = 1e5, 0.3 m downstream,
 WEL_DENSITY = 400.0              # 4 elastic substeps per step
 WEL_GAP = 0.3
 WEL_SUBSTEPS = 4
+DFSPH_BODY_DENSITY = 400.0       # bench.py:239-268, dfsph_coupled_256k
+DFSPH_COUPLED_DT = 5e-4
 ELASTIC_NOISE = 0.05             # ·spacing: the kernel checks' non-affine
                                  # perturbation
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
@@ -316,11 +362,22 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "force_moving": (71, 44), "force_p0_moving": (52, 40),
             "mp_force_moving": (72, 51), "body_density": (15, 0),
             "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
-            "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0)}
+            "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0),
+            "body_force_p0": (44, 0), "fluid_reaction_p0": (43, 0),
+            "pressure_force_body": (24, 0),
+            "pressure_force_body_rev": (24, 0), "alpha_body": (21, 0),
+            "alpha_shell": (24, 0), "drho_shell": (25, 0),
+            "mp_alpha_body": (21, 0), "mp_drho_body": (25, 0),
+            "mp_kappa_body": (22, 0)}
 # the kernels that return after the geometry and the cutoff compare on a
 # candidate outside the cutoff: those candidates cost this many operations,
 # the others PAIR_OPS's
-GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9}
+GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
+           "fluid_reaction_p0": 9}
+# the output columns a body form leaves at exactly 0 (its pair function
+# writes the other columns): checked 0, and no scale for the tolerance
+ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
+             "mp_drho_body": (0,)}
 
 
 def fail(msg):
@@ -1218,6 +1275,342 @@ def run_wcsph_elastic(name, dev):
     return timing, launches
 
 
+def dfsph_body_ops(cfg, ctx, params, grid, body):
+    """The operands of one coupled DFSPH step's body sweeps with one
+    rigid ``body`` (multiphase on a two-phase ``ctx``), built by
+    ``solvers/dfsph_coupled_cuda.py``'s own classes: the body density, the
+    body form of α, Dρ/Dt (dδ̂/dt) over the shell at the body's sample
+    velocities and the κ correction over the shell, both on the first
+    divergence iteration (κᵛ = max(Dρ/Dt, 0)·α/dt), and the friction
+    alone (pressure off; multiphase: bp at 0) at the state's velocities.
+    ``{key: (kernel, plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import dfsph_coupled_cuda as DC
+    (t,) = DC.body_terms(ctx, grid, (body,))
+    rows = t.ranges(ctx.pvec)
+    bv = (body.vel, body.omega)
+    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    dt = float(params.dt)
+    q4 = ctx.queries(width=4)
+    bdens = (cuda_sweep.body_density_sweep, SP.density_sweep_plain,
+             (q4, t.shell.src, *rows), {})
+    zero = torch.zeros_like(ctx.px)
+    if ctx.mass is None:
+        dens, alpha = DC.coupled_density_alpha(ctx, params, cfg, [t])
+        sw = DC.CoupledSweeps(ctx, params, cfg, dens, [t])
+        drho = torch.clamp(sw.drho(v, [bv]), min=0.0)
+        kq = sw.kappa_operands(drho * alpha / dt)[0].clone()
+        q_v = sw.q_v.clone()
+        q8 = ctx.queries(ctx.vx, ctx.vy, ctx.vz, dens, zero)
+        src_v = t.src_at(bv).clone()
+        return {"body_density": bdens,
+                "alpha_body": (cuda_sweep.alpha_body_sweep,
+                               SP.alpha_body_sweep_plain,
+                               (q4, t.shell.src, *rows), {}),
+                "drho_shell": (cuda_sweep.drho_shell_sweep,
+                               SP.drho_sweep_plain, (q_v, src_v, *rows), {}),
+                "pressure_force_body": (
+                    cuda_sweep.pressure_force_body_sweep,
+                    SP.pressure_force_body_sweep_plain,
+                    (kq, t.shell.src, *rows), {}),
+                "body_force_p0": (cuda_sweep.body_force_sweep,
+                                  SP.body_force_sweep_plain,
+                                  (q8, src_v, *rows),
+                                  {"include_pressure": False})}
+    dens, _, alpha = DC.coupled_density_alpha_multiphase(ctx, params, cfg,
+                                                         [t])
+    sw = DC.MultiphaseCoupledSweeps(ctx, params, cfg, dens, [t])
+    dhat = torch.clamp(sw.drho(v, [bv]), min=0.0)
+    kq = sw.kappa_operands(dhat * alpha / dt)[0].clone()
+    q_v = sw.q_v.clone()
+    inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
+    q8b = ctx.queries(ctx.vx, ctx.vy, ctx.vz, zero,
+                      ctx.mass * inv_rho * inv_rho)
+    src_v = t.src_at(bv).clone()
+    return {"body_density": bdens,
+            "mp_alpha_body": (cuda_sweep.multiphase_alpha_body_sweep,
+                              SP.multiphase_alpha_body_sweep_plain,
+                              (q4, t.src4, *rows), {}),
+            "mp_drho_body": (cuda_sweep.multiphase_drho_body_sweep,
+                             SP.multiphase_drho_body_sweep_plain,
+                             (q_v, src_v, *rows), {}),
+            "mp_kappa_body": (cuda_sweep.multiphase_kappa_body_sweep,
+                              SP.multiphase_kappa_body_sweep_plain,
+                              (kq, t.src4, *rows), {}),
+            "mp_body": (cuda_sweep.multiphase_body_sweep,
+                        SP.multiphase_body_sweep_plain, (q8b, src_v, *rows),
+                        {})}
+
+
+def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
+    """The operands of one coupled DFSPH + elastic step's body sweeps with
+    the body at ``estate``, built by ``solvers/dfsph_elastic.py``'s own
+    classes: the body density, Alpha over the shell (strong coupling),
+    Drho over the shell at the sample velocities, the κ correction of the
+    first divergence iteration forward over the shell and reverse (the
+    samples as queries against the fluid rows, key ``*_rev``), and the
+    friction alone both ways at the state's velocities. ``{key: (kernel,
+    plain, args, kwargs)}``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers import dfsph_elastic as DE
+    from nereus_tpu_torch.solvers.elastic_coupled import elastic_shell
+    es = elastic_shell(ctx, grid, estate, psi)
+    rows = (es.shell.seg_start, es.shell.seg_end, ctx.pvec)
+    rev = (es.r_start, es.r_end, ctx.pvec)
+    dens, alpha = DE.elastic_density_alpha(ctx, params, cfg, es,
+                                           statics.mass)
+    sw = DE.ElasticSweeps(ctx, params, cfg, dens, es, statics.mass)
+    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    vb = es.shell.src[:, 3:6]
+    drho = torch.clamp(sw.drho(v, (vb,)), min=0.0)
+    kq, ksrc = (t.clone() for t in sw.kappa_operands(
+        drho * alpha / float(params.dt))[:2])
+    q_v = sw.q_v.clone()
+    q4 = ctx.queries(width=4)
+    zero = torch.zeros_like(dens)
+    q8 = ctx.queries(ctx.vx, ctx.vy, ctx.vz, dens, zero)
+    src_f = ctx.pack((ctx.vx, ctx.vy, ctx.vz), dens)[:ctx.c]
+    p0 = {"include_pressure": False}
+    kappa = (cuda_sweep.pressure_force_body_sweep,
+             SP.pressure_force_body_sweep_plain)
+    return {"body_density": (cuda_sweep.body_density_sweep,
+                             SP.density_sweep_plain,
+                             (q4, es.shell.src, *rows), {}),
+            "alpha_shell": (cuda_sweep.alpha_shell_sweep,
+                            SP.alpha_sweep_plain, (q4, es.shell.src, *rows),
+                            {}),
+            "drho_shell": (cuda_sweep.drho_shell_sweep, SP.drho_sweep_plain,
+                           (q_v, es.shell.src, *rows), {}),
+            "pressure_force_body": (*kappa, (kq, es.shell.src, *rows), {}),
+            "pressure_force_body_rev": (*kappa, (sw.q_b, ksrc, *rev), {}),
+            "body_force_p0": (cuda_sweep.body_force_sweep,
+                              SP.body_force_sweep_plain,
+                              (q8, es.shell.src, *rows), p0),
+            "fluid_reaction_p0": (cuda_sweep.fluid_reaction_sweep,
+                                  SP.fluid_reaction_sweep_plain,
+                                  (es.shell.src, src_f, *rev), p0)}
+
+
+def check_dfsph_body_ops(cfg, ops, params, label):
+    """Every op of :func:`dfsph_body_ops` / :func:`dfsph_elastic_ops`
+    against its plain version (``compare_kernels``); fails unless each has
+    candidate pairs inside the cutoff and each friction op (BodyForce and
+    FluidReaction without pressure, MultiphaseBody at bp = 0) differs from
+    its result with the sample velocities at 0."""
+    from nereus_tpu_torch.ops.sph_pairs import PV_H2
+    for key, (_, _, (q, src, s, e, pv), _) in ops.items():
+        if cutoff_pairs(q, src, s, e, float(pv[PV_H2])) == 0:
+            fail(f"{label}: {key} has no candidate inside the cutoff")
+    compare_kernels(cfg, ops, label)
+    for key in ("body_force_p0", "mp_body", "fluid_reaction_p0"):
+        if key not in ops:
+            continue
+        kern, _, (q, src, s, e, pv), kw = ops[key]
+        # the samples' velocities: the query rows of the reverse sweep,
+        # the source rows of the forward ones
+        q0, src0 = q.clone(), src.clone()
+        (q0 if key == "fluid_reaction_p0" else src0)[:, 3:6] = 0.0
+        if torch.equal(kern(cfg, q, src, s, e, pv, **kw),
+                       kern(cfg, q0, src0, s, e, pv, **kw)):
+            fail(f"{label}: {key}: the friction equals the one with the "
+                 "sample velocities at 0")
+
+
+def dfsph_coupled_scene(dev, kind):
+    """``bench.py:239-268``'s dfsph_coupled_256k: ``resting_block(n_target=
+    256_000)`` under ``dfsph_params(dt=5e-4)`` calibrated to the 0.8·h
+    lattice, impact velocity −1 m/s, with its wall shell, and a 0.15 m box
+    of 400 kg/m³ centred over the block ``BODY_DROP`` above the water
+    (``kind`` "rigid"); "mp": the block split at its median height with
+    the top half at 0.4·ρ₀ (phase 25's split); "elastic": phase 30's 16³
+    cube (400 kg/m³, E = 1e5, ν = 0.3, damping 5, its penalty floor at the
+    walls' floor) centred in x and z, its bottom 0.5 fluid spacings above
+    the water. Returns ``(cfg, params, state, grid, walls, body)`` with
+    ``body`` the rigid body or ``(estate, statics, ep, psi)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    cfg = nt.SimConfig()
+    base = nt.dfsph_params(dt=DFSPH_COUPLED_DT, device=dev)
+    spacing = 0.8 * float(base.interaction_radius)
+    params = nt.calibrate_mass(base, cfg, spacing=spacing)
+    state, grid, walls = scene.resting_block(
+        params, cfg, n_target=COUPLED_N, spacing=spacing,
+        impact_velocity=-1.0, device=dev)
+    if kind == "mp":
+        state = two_phase(state, params, ratio=COUPLED_RATIO)
+    posf = state.pos[:int(state.num_active)]
+    top = float(posf[:, 1].max())
+    cx, cz = float(posf[:, 0].mean()), float(posf[:, 2].mean())
+    if kind != "elastic":
+        body = nt.make_rigid_box((cx, top + BODY_DROP, cz), (BODY_SIZE,) * 3,
+                                 float(params.particle_radius),
+                                 DFSPH_BODY_DENSITY, params, device=dev)
+        return cfg, params, state, grid, walls, body
+    sp = 0.5 * float(params.interaction_radius)
+    side = WEL_SIDE * sp
+    y0 = top + 0.5 * spacing
+    cube = nt.sample_box_solid(
+        (cx - side / 2, y0, cz - side / 2),
+        (cx + side / 2 + 0.1 * sp, y0 + side + 0.1 * sp,
+         cz + side / 2 + 0.1 * sp), sp)
+    ep = nt.elastic_params(WEL_E, 0.3, damping=5.0,
+                           floor_y=float(walls.pos[:, 1].min()), device=dev)
+    estate, statics, _ = nt.make_elastic_solid(
+        cube, params, cfg, sp, grid=grid, density=WEL_DENSITY, device=dev)
+    psi = nt.elastic_psi(statics, params, cfg)
+    return cfg, params, state, grid, walls, (estate, statics, ep, psi)
+
+
+def run_dfsph_coupled(name, dev, kind):
+    """``IMPLICIT_STEPS`` coupled DFSPH steps of :func:`dfsph_coupled_scene`
+    (``kind`` "rigid", "mp" or "elastic", the last at ``WEL_SUBSTEPS``
+    substeps), steps after ``IMPLICIT_TIMED_FROM`` timed. Gates: each
+    kernel of the path launched once per step, once per launched
+    iteration or once per κ correction as the step says, no other kernel;
+    zero overflow; finite fluid and body; a rigid body's R orthonormal
+    within 1e-5 on every step; each run of both loops within its
+    tolerance or at its cap. Then every kernel of the path against its
+    plain version at the path's shapes, timed: the fluid kernels on the
+    last state, the body kernels with the body moved, at its last
+    velocities, into the middle of the fluid, the elastic kernels on the
+    body's statics at :func:`deformed` positions; the block lowered until
+    its bottom layer lies 0.5·h over the floor (in 60 steps it does not
+    reach the walls' support). Returns ``(timing, launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.solvers import dfsph_cuda
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    t0 = time.perf_counter()
+    cfg, params, state, grid, walls, body = dfsph_coupled_scene(dev, kind)
+    n = int(state.num_active)
+    elastic = kind == "elastic"
+    if elastic:
+        estate, statics, ep, psi = body
+        desc = (f"a {statics.n}-sample cube ({WEL_DENSITY} kg/m³, E "
+                f"{WEL_E}, {WEL_SUBSTEPS} substeps), bottom "
+                f"{float(estate.pos[:, 1].min()):.6g}")
+    else:
+        desc = (f"a box of {body.num_samples} samples at "
+                f"{body.com.tolist()} ({DFSPH_BODY_DENSITY} kg/m³)")
+    print(f"{name}: {n} fluid particles (water top "
+          f"{float(state.pos[:n, 1].max()):.6g}), {walls.num_boundaries} "
+          f"wall samples, {desc}, grid {grid.size}, dt {float(params.dt)}, "
+          f"multiphase {state.multiphase}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n != SETTLED_FLUID:
+        fail(f"{name}: expected {SETTLED_FLUID:,} fluid particles, got {n}")
+    held = {"body": estate if elastic else body}
+    orth = []
+
+    def step(s):
+        if elastic:
+            s, held["body"], d = nt.dfsph_elastic_step(
+                s, params, grid, cfg, held["body"], statics, ep, psi, walls,
+                substeps=WEL_SUBSTEPS, tol=DFSPH_TOL, tol_v=DFSPH_TOL)
+        else:
+            s, held["body"], d = nt.dfsph_coupled_step(
+                s, params, grid, cfg, held["body"], walls, tol=DFSPH_TOL,
+                tol_v=DFSPH_TOL)
+            R = held["body"].R
+            orth.append((R @ R.T - torch.eye(3, device=R.device)).abs().max())
+        return s, d
+    loops = {"divergence": dfsph_cuda.LOOP_V, "density": dfsph_cuda.LOOP}
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    for lp in loops.values():
+        lp.reset()
+    t_host = time.perf_counter()
+    state, diags, ms, window, ends = run_steps(
+        step, state, IMPLICIT_STEPS, IMPLICIT_TIMED_FROM,
+        tuple(loops.values()))
+    t_host = time.perf_counter() - t_host
+    timed = IMPLICIT_STEPS - IMPLICIT_TIMED_FROM
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    b = held["body"]
+    iters = torch.stack([d.solver_iters for d in diags]).cpu().numpy()
+    mcs = torch.stack([d.mean_compression for d in diags]).cpu().numpy()
+    overflow = int(torch.stack([d.seg_overflow for d in diags]).max())
+    it = sum(lp.launched for lp in loops.values())
+    print(f"{name}: {IMPLICIT_STEPS} steps in {t_host:.2f} s host; steps "
+          f"{IMPLICIT_TIMED_FROM + 1}-{IMPLICIT_STEPS}: {ms:.4f} ms/step = "
+          f"{n / (ms * 1e-3):.4g} particle-steps/s; iterations launched "
+          f"{it} for {int(iters.sum())} converged, host syncs "
+          f"{sum(w[1] for w in window) / timed:.4g} per timed step")
+    if elastic:
+        body_desc = (f"body min y {float(b.pos[:, 1].min()):.6g}, mean "
+                     f"velocity {b.vel.mean(dim=0).tolist()}")
+    else:
+        body_desc = (f"body com {b.com.tolist()} vel {b.vel.tolist()} omega "
+                     f"{b.omega.tolist()}, max |R Rᵀ − I| "
+                     f"{float(torch.stack(orth).max()):.3g}")
+    print(f"{name}: launches {launches}, seg_overflow max {overflow}, "
+          f"solver_iters {iters.tolist()}, mean_compression max "
+          f"{mcs.max():.6g} last {mcs[-1]:.6g}, {body_desc}")
+    check_loop_ends(name, loops, ends)
+    steps = IMPLICIT_STEPS
+    corr = it + steps     # the warm start's correction on every step
+    K = cuda_sweep
+    if kind == "mp":
+        want = {K.MP_DENSITY: steps, K.MP_ALPHA: steps,
+                K.BODY_DENSITY: steps, K.MP_ALPHA_BODY: steps,
+                K.MP_DRHO: it, K.MP_DRHO_BODY: it, K.MP_KAPPA: corr,
+                K.MP_KAPPA_BODY: corr, K.MP_FORCE: steps, K.MP_BODY: steps}
+    else:
+        want = {K.DENSITY: steps, K.ALPHA: steps, K.BODY_DENSITY: steps,
+                K.DRHO: it, K.DRHO_SHELL: it, K.PRESSURE_FORCE: corr,
+                K.FORCE_P0: steps, K.BODY_FORCE_P0: steps}
+        if elastic:
+            want.update({K.ALPHA_SHELL: steps,
+                         K.PRESSURE_FORCE_BODY: 2 * corr,
+                         K.FLUID_REACTION_P0: steps,
+                         K.ELASTIC_F: WEL_SUBSTEPS * steps,
+                         K.ELASTIC_FORCE_HG: WEL_SUBSTEPS * steps})
+        else:
+            want.update({K.ALPHA_BODY: steps, K.PRESSURE_FORCE_BODY: corr})
+    check_launches(name, want)
+    if overflow != 0:
+        fail(f"{name}: seg_overflow {overflow}")
+    parts = (state.pos, state.vel, b.pos, b.vel) if elastic else (
+        state.pos, state.vel, b.com, b.vel, b.omega, b.R)
+    finite = [bool(torch.isfinite(t).all()) for t in parts]
+    if not all(finite):
+        fail(f"{name}: non-finite fluid or body state {finite}")
+    if orth and not float(torch.stack(orth).max()) < 1e-5:
+        fail(f"{name}: R drifts from orthonormal")
+    # the block has not reached the walls' support in 60 steps: its
+    # kernels are held on the last state lowered until its bottom layer
+    # lies 0.5·h over the floor, so the wall sums are live
+    h = float(params.interaction_radius)
+    floor = float(walls.pos[:, 1].min())
+    drop = float(state.pos[:n, 1].min()) - (floor + 0.5 * h)
+    low = dataclasses.replace(state, pos=state.pos - torch.tensor(
+        [0.0, max(drop, 0.0), 0.0], device=state.pos.device))
+    ctx = build_sweep_ctx(low, params, grid, cfg, walls)
+    centre = low.pos[:n].mean(dim=0)
+    if kind == "mp":
+        ops = mp_dfsph_operands(cfg, ctx, params)
+    else:
+        ops = dfsph_operands(cfg, ctx, params)
+    if elastic:
+        inside = dataclasses.replace(
+            b, pos=b.pos - b.pos.mean(dim=0) + centre)
+        body_ops = dfsph_elastic_ops(cfg, ctx, params, grid, inside, statics,
+                                     psi)
+        sp = 0.5 * float(params.interaction_radius)
+        ops.update(elastic_kernel_ops(cfg, params, grid, statics,
+                                      deformed(statics.x0, sp), ep))
+    else:
+        body_ops = dfsph_body_ops(cfg, ctx, params, grid,
+                                  dataclasses.replace(b, com=centre))
+    check_dfsph_body_ops(cfg, body_ops, params,
+                         f"{name} after {steps} steps, the body in "
+                         "mid-fluid")
+    ops.update(body_ops)
+    timing = compare_kernels(cfg, ops, f"{name} after {steps} steps",
+                             time_it=True)
+    return timing, launches
+
+
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
@@ -1230,6 +1623,11 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
         got = kern(cfg, *args, **kw)
         ref = plain(cfg, *args, **kw)
         g2, r2 = got.reshape(len(got), -1), ref.reshape(len(ref), -1)
+        zero = list(ZERO_COLS.get(key.removesuffix("_rev"), ()))
+        if zero and (bool(g2[:, zero].any()) or bool(r2[:, zero].any())):
+            fail(f"{label}: {key} writes its zero columns {zero}")
+        live = [c for c in range(g2.shape[1]) if c not in zero]
+        g2, r2 = g2[:, live], r2[:, live]
         err = (g2 - r2).abs().amax(dim=0)
         scale = r2.abs().amax(dim=0)
         if not bool(torch.isfinite(got).all()):
@@ -2536,8 +2934,60 @@ def main():
     wel_timing, wel_launches = run_wcsph_elastic("wcsph_elastic_256k", dev)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # -- 31. the DFSPH couplings' instances vs plain ------------------------
+    print(f"DFSPH coupling kernels vs plain, dam-break n_target={SMALL_N} "
+          "(DFSPH parameters, mass calibrated to the lattice), a 0.08 box "
+          f"and a 6³ cube moving at {BODY_VEL} m/s and spinning at "
+          f"{BODY_OMEGA} rad/s in its middle (multiphase: top half by y at "
+          f"{MP_RATIO}·ρ₀), first divergence iteration:")
+    for ks in ("MULLER", "MONAGHAN"):
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks])
+        base = nt.dfsph_params(device=dev)
+        params = nt.calibrate_mass(
+            base, cfg, spacing=float(base.interaction_radius) - 0.005)
+        state, grid, boundary = small_dam_break(nt, params, cfg, dev)
+        c = state.pos[:int(state.num_active)].mean(dim=0)
+        box = dataclasses.replace(
+            nt.make_rigid_box(c.cpu().numpy(), (0.08,) * 3,
+                              float(params.particle_radius),
+                              DFSPH_BODY_DENSITY, params, device=dev),
+            vel=torch.tensor(BODY_VEL, device=dev),
+            omega=torch.tensor(BODY_OMEGA, device=dev))
+        label = f"{ks} n={state.capacity} nb={boundary.num_boundaries}"
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        check_dfsph_body_ops(cfg, dfsph_body_ops(cfg, ctx, params, grid,
+                                                 box), params,
+                             f"DFSPH coupled {label} box {box.num_samples}")
+        mctx = build_sweep_ctx(two_phase(state, params), params, grid, cfg,
+                               boundary)
+        check_dfsph_body_ops(cfg, dfsph_body_ops(cfg, mctx, params, grid,
+                                                 box), params,
+                             f"multiphase DFSPH coupled {label}")
+        sp = 0.5 * float(params.interaction_radius)
+        cube = nt.sample_box_solid((c - 2.5 * sp).cpu().numpy(),
+                                   (c + 2.5 * sp).cpu().numpy(), sp)
+        estate, statics, _ = nt.make_elastic_solid(cube, params, cfg, sp,
+                                                   grid=grid, device=dev)
+        check_dfsph_body_ops(
+            cfg, dfsph_elastic_ops(cfg, ctx, params, grid,
+                                   spinning(estate, statics), statics,
+                                   nt.elastic_psi(statics, params, cfg)),
+            params, f"DFSPH elastic {label} body {statics.n}")
+    torch.cuda.synchronize()
+    del state, ctx, mctx, boundary, grid, statics, estate
+
+    # -- 32-34. the DFSPH coupled paths ---------------------------------------
+    dcp_timing, dcp_launches = run_dfsph_coupled("dfsph_coupled_256k", dev,
+                                                 "rigid")
+    dmc_timing, dmc_launches = run_dfsph_coupled("dfsph_mp_coupled_256k",
+                                                 dev, "mp")
+    dec_timing, dec_launches = run_dfsph_coupled("dfsph_elastic_256k", dev,
+                                                 "elastic")
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     # one entry per kernel and path: every kernel a path launched is held
-    # against its plain version at that path's shapes and operands
+    # against its plain version at that path's shapes and operands; the
+    # elastic path's κ body instance has two, forward and reverse (``op``)
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
     iisph_src = "nereus_tpu_torch/csrc/iisph_sweep.cu"
     dfsph_src = "nereus_tpu_torch/csrc/dfsph_sweep.cu"
@@ -2587,7 +3037,24 @@ def main():
             "elastic_force_hg": (cuda_sweep.ELASTIC_FORCE_HG, el_src,
                                  rep + "1113"),
             "fluid_reaction": (cuda_sweep.FLUID_REACTION, el_src,
-                               rep + "409")}
+                               rep + "409"),
+            "body_force_p0": (cuda_sweep.BODY_FORCE_P0, cpl_src,
+                              rep + "326"),
+            "fluid_reaction_p0": (cuda_sweep.FLUID_REACTION_P0, el_src,
+                                  rep + "409"),
+            "pressure_force_body": (cuda_sweep.PRESSURE_FORCE_BODY,
+                                    iisph_src, rep + "922"),
+            # the same instance, the elastic samples as queries against
+            # the fluid rows (the reverse κ)
+            "pressure_force_body_rev": (cuda_sweep.PRESSURE_FORCE_BODY,
+                                        iisph_src, rep + "922"),
+            "alpha_body": (cuda_sweep.ALPHA_BODY, dfsph_src, rep + "578"),
+            "alpha_shell": (cuda_sweep.ALPHA_SHELL, dfsph_src, rep + "578"),
+            "drho_shell": (cuda_sweep.DRHO_SHELL, dfsph_src, rep + "903"),
+            "mp_alpha_body": (cuda_sweep.MP_ALPHA_BODY, mpd_src, rep + "820"),
+            "mp_drho_body": (cuda_sweep.MP_DRHO_BODY, mpd_src, rep + "854"),
+            "mp_kappa_body": (cuda_sweep.MP_KAPPA_BODY, mpd_src,
+                              rep + "887")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -2609,7 +3076,10 @@ def main():
             ("coupled_256k", cpl_timing, cpl_launches),
             ("elastic_512k", el_timing, el_launches),
             ("elastic_plastic_512k", elp_timing, elp_launches),
-            ("wcsph_elastic_256k", wel_timing, wel_launches)):
+            ("wcsph_elastic_256k", wel_timing, wel_launches),
+            ("dfsph_coupled_256k", dcp_timing, dcp_launches),
+            ("dfsph_mp_coupled_256k", dmc_timing, dmc_launches),
+            ("dfsph_elastic_256k", dec_timing, dec_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:
@@ -2619,7 +3089,7 @@ def main():
             kern, src, replaces = info[key]
             kernels.append({
                 "name": kern.name, "route": "cuda", "source": src,
-                "replaces": replaces, "path": path,
+                "replaces": replaces, "path": path, "op": key,
                 "launches": path_launches[kern.name], "max_abs_err": err,
                 "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "bound_ranges_ms": brms,

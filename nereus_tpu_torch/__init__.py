@@ -6,8 +6,12 @@ and multiphase), the single-phase IISPH and PCISPH steps, the DFSPH step
 step (with optional vorticity confinement and XSPH), moving boundaries
 (``move_boundary``) for all of them, the WCSPH step with two-way
 rigid-body coupling (single phase and multiphase), elastic and
-elastoplastic solids (``elastic_step``) and the WCSPH step with two-way
-fluid–elastic coupling (``wcsph_elastic_step``) of
+elastoplastic solids (``elastic_step``), the WCSPH step with two-way
+fluid–elastic coupling (``wcsph_elastic_step``), the DFSPH steps with
+two-way rigid-body coupling (``dfsph_coupled_step``, single phase and
+multiphase) and fluid–elastic coupling (``dfsph_elastic_step``), and the
+triangle-mesh boundaries and bodies (``mesh_boundary``,
+``make_rigid_mesh``) of
 ``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
 the ported subset, with the neighbor sweeps as hand-written CUDA kernels
 for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
@@ -36,6 +40,10 @@ from .solvers.elastic import (ElasticDiagnostics, ElasticParams,
                               elastic_step, make_elastic_solid,
                               sample_box_solid)
 from .solvers.elastic_coupled import elastic_psi, wcsph_elastic_step
+from .solvers.dfsph_coupled import dfsph_coupled_step
+from .solvers.dfsph_elastic import dfsph_elastic_step
+from .mesh import (load_obj, make_rigid_mesh, mesh_boundary,
+                   mesh_mass_properties, sample_surface)
 
 __version__ = "0.1.0"
 
@@ -55,4 +63,7 @@ __all__ = [
     "ElasticParams", "ElasticState", "ElasticStatics", "ElasticDiagnostics",
     "elastic_params", "sample_box_solid", "make_elastic_solid",
     "elastic_step", "elastic_psi", "wcsph_elastic_step",
+    "dfsph_coupled_step", "dfsph_elastic_step",
+    "load_obj", "sample_surface", "mesh_mass_properties", "mesh_boundary",
+    "make_rigid_mesh",
 ]

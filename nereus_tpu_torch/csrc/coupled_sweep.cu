@@ -4,8 +4,11 @@
 // as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the two
 // body-contact pair functions of solvers/coupled.py:
 // boundary_force_pair in its body form (moving=True, include_adhesion=False,
-// pressure_sign=-1, consistent_pressure=True; _coupled_step_pallas) and
-// multiphase_body_pair (_coupled_mp_pallas). A body shell's psi-density is
+// pressure_sign=-1, consistent_pressure=True; _coupled_step_pallas), its
+// friction alone (include_pressure=False: the DFSPH couplings'
+// non-pressure stage, solvers/dfsph_coupled.py and dfsph_elastic.py) and
+// multiphase_body_pair (_coupled_mp_pallas, and with bp = 0 the friction
+// of the multiphase DFSPH coupling). A body shell's psi-density is
 // the density kernel of sph_sweep.cu over the body source.
 //
 // Design: one functor each for the range-walk template
@@ -114,6 +117,23 @@ struct MultiphaseBody {
 extern "C" {
 
 NEREUS_PAIR_SWEEP(multiphase_body, MultiphaseBody)
-NEREUS_PAIR_SWEEP(body_force, BodyForce<true>)
+
+// pair_sweep_kernel<BodyForce<include_pressure>> on `stream`; returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set or a
+// switch other than 0 and 1.
+int nereus_body_force_sweep(const float* q, const float* src,
+                            const int* seg_start, const int* seg_end, int n,
+                            int n_rows, const float* pvec, int kernel_set,
+                            int include_pressure, float* out, void* stream) {
+  if (include_pressure == 1) {
+    return nereus_sweep::launch_pair_sweep<BodyForce<true>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  if (include_pressure == 0) {
+    return nereus_sweep::launch_pair_sweep<BodyForce<false>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  return -1;
+}
 
 }  // extern "C"

@@ -5,7 +5,10 @@
 // pair functions of solvers/dfsph_pallas.py::dfsph_multiphase_pallas, on the
 // adapted number-density domain (delta-hat, alpha-hat, kappa V-hat^2):
 // multiphase_alpha_pair / _bpair, multiphase_drho_pair / _bpair and
-// multiphase_kappa_pair / _bpair. Its density and non-pressure force sweeps
+// multiphase_kappa_pair / _bpair, and the three _bpair alone over a body
+// shell (BoundaryForm<...>, rows 0-8: solvers/dfsph_coupled.py::
+// _coupled_mp_pallas; the shell's alpha and kappa source is 4 wide, x y z
+// psi_b). Its density and non-pressure force sweeps
 // are the MultiphaseDensity and MultiphaseForce functors of
 // multiphase_sweep.cu.
 //
@@ -111,5 +114,9 @@ extern "C" {
 NEREUS_PAIR_SWEEP(multiphase_alpha, MultiphaseAlpha)
 NEREUS_PAIR_SWEEP(multiphase_drho, MultiphaseDrho)
 NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)
+// the wall columns alone over a body shell (the multiphase DFSPH coupling)
+NEREUS_PAIR_SWEEP(multiphase_alpha_body, BoundaryForm<MultiphaseAlpha>)
+NEREUS_PAIR_SWEEP(multiphase_drho_body, BoundaryForm<MultiphaseDrho>)
+NEREUS_PAIR_SWEEP(multiphase_kappa_body, BoundaryForm<MultiphaseKappa>)
 
 }  // extern "C"

@@ -5,6 +5,11 @@
 // DFSPH pair functions of pallas_sph.py, alpha_pair and drho_pair
 // (solvers/dfsph_pallas.py::dfsph_step_pallas). Its kappa correction is the
 // PressureForce functor of iisph_sweep.cu with kappa/rho in the pd2 slot.
+// The DFSPH couplings (solvers/dfsph_coupled.py, dfsph_elastic.py) run
+// alpha_pair(include_sq=False) over a body shell alone (BoundaryForm<Alpha>,
+// rows 0-8), and Alpha and Drho as they are over a shell's 9 rows (the
+// elastic body's sum |psi grad W|^2 under strong coupling; the shell's
+// sample velocities in Drho's velocity slots).
 //
 // Design: one functor each for the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh, in the operation order
@@ -67,6 +72,8 @@ struct Drho {
 extern "C" {
 
 NEREUS_PAIR_SWEEP(alpha, Alpha)
+// sum psi grad W of a body shell alone, without the square sum
+NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<Alpha>)
 NEREUS_PAIR_SWEEP(drho, Drho)
 
 }  // extern "C"

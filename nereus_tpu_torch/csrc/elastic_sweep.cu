@@ -6,7 +6,8 @@
 // static reference plan with elastic_f_pair, elastic_force_pair and
 // elastic_hourglass_pair (nereus_tpu/ops/pallas_sph.py), and as
 // generic_sweep launches it with fluid_reaction_pair (the reverse sweep of
-// solvers/elastic_coupled.py::_estep_pallas).
+// solvers/elastic_coupled.py::_estep_pallas; include_pressure=False, the
+// friction alone, in solvers/dfsph_elastic.py::_destep_pallas).
 //
 // Design: functors of the range-walk template pair_sweep_kernel<Pair, KS>
 // of sweep_common.cuh (one thread per query, exact neighbor ranges, rows
@@ -183,6 +184,24 @@ extern "C" {
 
 NEREUS_PAIR_SWEEP(elastic_f, ElasticF)
 NEREUS_PAIR_SWEEP(elastic_force_hourglass, ElasticForceHourglass)
-NEREUS_PAIR_SWEEP(fluid_reaction, FluidReaction<true>)
+
+// pair_sweep_kernel<FluidReaction<include_pressure>> on `stream`; returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set or a
+// switch other than 0 and 1.
+int nereus_fluid_reaction_sweep(const float* q, const float* src,
+                                const int* seg_start, const int* seg_end,
+                                int n, int n_rows, const float* pvec,
+                                int kernel_set, int include_pressure,
+                                float* out, void* stream) {
+  if (include_pressure == 1) {
+    return nereus_sweep::launch_pair_sweep<FluidReaction<true>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  if (include_pressure == 0) {
+    return nereus_sweep::launch_pair_sweep<FluidReaction<false>>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
+  }
+  return -1;
+}
 
 }  // extern "C"

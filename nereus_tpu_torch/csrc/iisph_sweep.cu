@@ -5,7 +5,13 @@
 // IISPH pair functions of pallas_sph.py: dii_rhoadv_pair, aii_pair,
 // sum_dij_pair, jacobi_fluid_pair + jacobi_boundary_pair, and
 // grad_pressure_force_pair (solvers/iisph_pallas.py::iisph_step_pallas; the
-// last is also PCISPH's and DFSPH's pressure / kappa correction).
+// last is also PCISPH's and DFSPH's pressure / kappa correction). Its
+// boundary form alone (grad_pressure_force_pair(boundary=True,
+// boundary_sign=-1) on rows 0-8, BoundaryForm<PressureForce>) is the kappa
+// impulse of solvers/dfsph_coupled.py and dfsph_elastic.py over a body
+// shell, and with the roles swapped (a body's samples as queries, x y z
+// psi_b, against the fluid rows with kappa/rho in slot 6) the per-sample
+// reverse kappa of the elastic coupling: one instance for both.
 //
 // Design: one functor each for the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh. All five use the default
@@ -154,5 +160,9 @@ NEREUS_PAIR_SWEEP(aii, Aii)
 NEREUS_PAIR_SWEEP(sum_dij, SumDij)
 NEREUS_PAIR_SWEEP(jacobi, Jacobi)
 NEREUS_PAIR_SWEEP(pressure_force, PressureForce)
+// the boundary form alone over a body shell (the DFSPH couplings' kappa
+// impulse between fluid and body), or with a body's samples as queries
+// against the fluid rows (the reverse kappa of the elastic coupling)
+NEREUS_PAIR_SWEEP(pressure_force_body, BoundaryForm<PressureForce>)
 
 }  // extern "C"

@@ -233,6 +233,22 @@ pair_sweep_kernel(const float* __restrict__ q, const float* __restrict__ src,
   for (int k = 0; k < P::OW; ++k) out[static_cast<size_t>(i) * P::OW + k] = acc[k];
 }
 
+// The boundary form of a pair functor P over a source of boundary samples
+// alone (a body shell), or over the fluid rows with a body's samples as the
+// queries: P's widths and its B = true formula, on rows 0-8 only (the
+// ranges are (9, N)). A body sweep thus reads 9 range rows, not 18 rows of
+// which 9 are empty.
+template <class P>
+struct BoundaryForm {
+  static constexpr int QW = P::QW, SW = P::SW, OW = P::OW;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    P::template pair<KS, true>(q, src, j, p, acc);
+  }
+};
+
 // Launches pair_sweep_kernel<P, kernel_set> on `stream`; returns
 // cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
 template <class P>

@@ -6,7 +6,8 @@
 ``csrc/viscosity_sweep.cu`` for the implicit viscosity solve,
 ``csrc/pbf_sweep.cu`` for PBF, ``csrc/coupled_sweep.cu`` for the
 rigid-body contact, ``csrc/elastic_sweep.cu`` for the elastic solid and
-its fluid coupling; the counterpart of
+its fluid coupling, and the body forms of the DFSPH sweeps for the DFSPH
+couplings in the files of their functors; the counterpart of
 ``nereus_tpu.ops.pallas_neighbors``).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
@@ -95,12 +96,27 @@ MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
 ELASTIC_F = Kernel("pair_sweep_kernel<ElasticF>")
 ELASTIC_FORCE_HG = Kernel("pair_sweep_kernel<ElasticForceHourglass>")
 FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
+# the DFSPH couplings: the two contacts' friction alone, the body forms of
+# the DFSPH sweeps over a body shell (rows 0-8), and Alpha and Drho as they
+# are over a shell's 9 rows, each counted apart
+BODY_FORCE_P0 = Kernel("pair_sweep_kernel<BodyForce<PRESSURE=0>>")
+FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
+PRESSURE_FORCE_BODY = Kernel("pair_sweep_kernel<BoundaryForm<PressureForce>>")
+ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<Alpha>>")
+ALPHA_SHELL = Kernel("pair_sweep_kernel<Alpha><body>")
+DRHO_SHELL = Kernel("pair_sweep_kernel<Drho><body>")
+MP_ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseAlpha>>")
+MP_DRHO_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseDrho>>")
+MP_KAPPA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseKappa>>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
            XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
            MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
            FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
-           MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION)
+           MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
+           BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
+           ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
+           MP_KAPPA_BODY)
 
 _lock = threading.Lock()
 _lib = None
@@ -251,9 +267,12 @@ _SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
               "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
-              "pbf_dp": 0, "pbf_omega": 0, "body_force": 0,
+              "pbf_dp": 0, "pbf_omega": 0, "body_force": 1,
               "multiphase_body": 0, "elastic_f": 0,
-              "elastic_force_hourglass": 0, "fluid_reaction": 0}
+              "elastic_force_hourglass": 0, "fluid_reaction": 1,
+              "pressure_force_body": 0, "alpha_body": 0,
+              "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
+              "multiphase_kappa_body": 0}
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -448,11 +467,14 @@ def body_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                   seg_end, pvec, (9,), 0)
 
 
-def body_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+def body_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                     include_pressure=True):
     """Rigid-body contact force (N, 3), friction and pressure: q (N, 8),
-    the body source (Mb, 8), ranges (9, N)."""
-    return _sweep(BODY_FORCE, "body_force", cfg, q, 8, src, 8, seg_start,
-                  seg_end, pvec, (9,), 3)
+    the body source (Mb, 8), ranges (9, N); ``include_pressure=False``
+    launches the friction-only instance, counted in ``BODY_FORCE_P0``."""
+    p = bool(include_pressure)
+    return _sweep(BODY_FORCE if p else BODY_FORCE_P0, "body_force", cfg, q,
+                  8, src, 8, seg_start, seg_end, pvec, (9,), 3, int(p))
 
 
 def multiphase_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -477,8 +499,68 @@ def elastic_force_hourglass_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                   src, 24, seg_start, seg_end, pvec, (9,), 6)
 
 
-def fluid_reaction_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+def fluid_reaction_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                         include_pressure=True):
     """The fluid's force on each body sample (Mb, 3): q (Mb, 8) ``x y z v_b
-    ψ 0``, src the fluid rows (C, 8) ``x y z v ρ 0``, ranges (9, Mb)."""
-    return _sweep(FLUID_REACTION, "fluid_reaction", cfg, q, 8, src, 8,
+    ψ 0``, src the fluid rows (C, 8) ``x y z v ρ 0``, ranges (9, Mb);
+    ``include_pressure=False`` launches the friction-only instance, counted
+    in ``FLUID_REACTION_P0``."""
+    p = bool(include_pressure)
+    return _sweep(FLUID_REACTION if p else FLUID_REACTION_P0,
+                  "fluid_reaction", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9,), 3, int(p))
+
+
+def pressure_force_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                              pvec):
+    """The κ impulse −m·ψ_b·pd2_i·∇W of a body shell alone (N, 3): q (N, 4)
+    ``x y z κ/ρ``, the shell (Mb, 8) with ψ_b in slot 6, ranges (9, N); or
+    the reverse, q (Mb, 4) ``x y z ψ_b`` of a body's samples against the
+    fluid rows with κ/ρ in slot 6."""
+    return _sweep(PRESSURE_FORCE_BODY, "pressure_force_body", cfg, q, 4, src,
+                  8, seg_start, seg_end, pvec, (9,), 3)
+
+
+def alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σψ_b∇W of a body shell alone (N, 4), column 3 zero: q (N, 4), the
+    shell (Mb, 8), ranges (9, N)."""
+    return _sweep(ALPHA_BODY, "alpha_body", cfg, q, 4, src, 8, seg_start,
+                  seg_end, pvec, (9,), 4)
+
+
+def alpha_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """The Alpha kernel in its fluid form over a body shell (N, 4):
+    Σψ_b∇W and Σ|ψ_b∇W|², counted in ``ALPHA_SHELL``; ranges (9, N)."""
+    return _sweep(ALPHA_SHELL, "alpha", cfg, q, 4, src, 8, seg_start,
+                  seg_end, pvec, (9,), 4)
+
+
+def drho_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σψ_b(v_i − v_b)·∇W (N,) of a body shell with its sample velocities in
+    slots 3-5, counted in ``DRHO_SHELL``: q (N, 8), ranges (9, N)."""
+    return _sweep(DRHO_SHELL, "drho", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9,), 0)
+
+
+def multiphase_alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                                pvec):
+    """Σψ_b∇W of a body shell alone into columns 4-6 of (N, 7): q (N, 4),
+    the shell (Mb, 4) ``x y z ψ_b``, ranges (9, N)."""
+    return _sweep(MP_ALPHA_BODY, "multiphase_alpha_body", cfg, q, 4, src, 4,
+                  seg_start, seg_end, pvec, (9,), 7)
+
+
+def multiphase_drho_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                               pvec):
+    """Σψ_b(v_i − v_b)·∇W of a body shell alone into column 1 of (N, 2):
+    q (N, 8), the shell (Mb, 8) with its sample velocities, ranges (9, N)."""
+    return _sweep(MP_DRHO_BODY, "multiphase_drho_body", cfg, q, 8, src, 8,
+                  seg_start, seg_end, pvec, (9,), 2)
+
+
+def multiphase_kappa_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                                pvec):
+    """qc_i·Σψ_b∇W of a body shell alone (N, 3): q (N, 8) ``x y z κV̂² qc``,
+    the shell (Mb, 4) ``x y z ψ_b``, ranges (9, N)."""
+    return _sweep(MP_KAPPA_BODY, "multiphase_kappa_body", cfg, q, 8, src, 4,
                   seg_start, seg_end, pvec, (9,), 3)

@@ -32,8 +32,11 @@ implicit viscosity solve's ``visc_laplacian_sweep``, the three
 multiphase DFSPH sweeps, PBF's λ, Δp and ω sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
-``elastic_force_hourglass_sweep``, and the elastic coupling's
-``fluid_reaction_sweep``) routes by device:
+``elastic_force_hourglass_sweep``, the elastic coupling's
+``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
+``pressure_force_body_sweep``, ``alpha_body_sweep``,
+``alpha_shell_sweep``, ``drho_shell_sweep`` and the three
+``multiphase_*_body_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
 hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
 """
@@ -807,16 +810,17 @@ def elastic_force_hourglass_pair(q, s, pv, *, kernel_set):
                                              kernel_set=kernel_set)], dim=1)
 
 
-def fluid_reaction_pair(q, s, pv, *, kernel_set):
+def fluid_reaction_pair(q, s, pv, *, kernel_set, include_pressure=True):
     """Reverse Akinci contact: the force ON a body sample (query) FROM a
     fluid particle (source), the per-sample reaction of the body contact
     (``boundary_force_pair`` with ``moving=True, include_adhesion=False,
     pressure_sign=-1, consistent_pressure=True``) with the roles swapped:
     friction ν·max((v_b − v_i)·d, 0)·ψ·∇W with ν in the fluid density, and
     −m·ψ·max(pd2_i, 0)·∇W with pd2_i from the Tait EOS of the source
-    density (JAX's ``include_pressure=True``; the friction-only instance
-    comes with the DFSPH coupling). q: ``x y z v_b ψ 0``; src (fluid
-    rows): ``x y z v ρ 0``. Returns (P, 3)."""
+    density (dropped with ``include_pressure=False``: the DFSPH elastic
+    coupling's non-pressure stage, where the stiffness solve pushes).
+    q: ``x y z v_b ψ 0``; src (fluid rows): ``x y z v ρ 0``. Returns
+    (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     if kernel_set == KernelSet.MULLER:
         rl = invrl = None
@@ -833,6 +837,9 @@ def fluid_reaction_pair(q, s, pv, *, kernel_set):
     vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
              + (q[:, 5] - s[:, 5]) * dz)
     cfric = nu * torch.clamp(vdotr, min=0.0) * psi * sd
+    if not include_pressure:
+        c = cfric * okf
+        return torch.stack([c * dx, c * dy, c * dz], dim=1)
     ratio = dens_i * (1.0 / pv[PV_RD])
     ratio2 = ratio * ratio
     p_i = torch.clamp(pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0),
@@ -973,13 +980,16 @@ def multiphase_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                         moving=moving_boundary))
 
 
-def body_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+def body_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                           include_pressure=True):
     """Rigid-body contact force (N, 3) on the fluid from one body shell:
     :func:`boundary_force_pair` in its body form over the body source
-    alone (9 range rows). q (N, 8) ``x y z v ρ pd2``, src (Mb, 8)
+    alone (9 range rows); ``include_pressure=False`` the friction alone
+    (the DFSPH couplings). q (N, 8) ``x y z v ρ pd2``, src (Mb, 8)
     ``x y z v_b ψ_b 0``."""
     return neighbor_sweep_plain(
-        _bind(boundary_force_pair, cfg, pvec, moving=True,
+        _bind(boundary_force_pair, cfg, pvec,
+              include_pressure=include_pressure, moving=True,
               include_adhesion=False, pressure_sign=-1.0,
               consistent_pressure=True), q, src, seg_start, seg_end, 3)
 
@@ -1080,11 +1090,65 @@ def elastic_force_hourglass_sweep_plain(cfg: SimConfig, q, src, seg_start,
 
 
 def fluid_reaction_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                               pvec):
+                               pvec, include_pressure=True):
     """The fluid's force on each body sample (Mb, 3): q (Mb, 8) ``x y z v_b
     ψ 0``, src the fluid rows (C, 8) ``x y z v ρ 0``, the samples' ranges
-    over the fluid's sorted hashes (9 rows)."""
-    return neighbor_sweep_plain(_bind(fluid_reaction_pair, cfg, pvec), q,
+    over the fluid's sorted hashes (9 rows); ``include_pressure=False`` the
+    friction alone."""
+    return neighbor_sweep_plain(
+        _bind(fluid_reaction_pair, cfg, pvec,
+              include_pressure=include_pressure), q, src, seg_start, seg_end,
+        3)
+
+
+# The body forms of the DFSPH sweeps: a pair function's boundary formula
+# over a source of boundary samples alone, on 9 range rows (a body shell
+# as the source, or a body's samples as the queries against the fluid rows)
+
+def pressure_force_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                    seg_end, pvec):
+    """The κ impulse (N, 3) of a body shell alone:
+    ``grad_pressure_force_pair(boundary=True, boundary_sign=-1)``,
+    −m·ψ_b·(κ_i/ρ_i)·∇W; q (N, 4) ``x y z κ/ρ``, the shell (Mb, 8) with ψ_b
+    in slot 6. With the roles swapped (q (Mb, 4) ``x y z ψ_b``, the fluid
+    rows with κ/ρ in slot 6) the same formula is the per-sample reaction,
+    exactly antisymmetric to the forward pair force."""
+    return neighbor_sweep_plain(
+        _bind(grad_pressure_force_pair, cfg, pvec, boundary=True,
+              boundary_sign=-1.0), q, src, seg_start, seg_end, 3)
+
+
+def alpha_body_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Σψ_b∇W (N, 4) of a body shell alone, column 3 zero
+    (``alpha_pair(include_sq=False)``): q (N, 4), the shell (Mb, 8)."""
+    return neighbor_sweep_plain(
+        _bind(alpha_pair, cfg, pvec, include_sq=False), q, src, seg_start,
+        seg_end, 4)
+
+
+def multiphase_alpha_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                      seg_end, pvec):
+    """Σψ_b∇W of a body shell alone into columns 4-6 of (N, 7)
+    (``multiphase_alpha_bpair``): q (N, 4), the shell (Mb, 4)
+    ``x y z ψ_b``."""
+    return neighbor_sweep_plain(_bind(multiphase_alpha_bpair, cfg, pvec), q,
+                                src, seg_start, seg_end, 7)
+
+
+def multiphase_drho_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                     seg_end, pvec):
+    """Σψ_b(v_i − v_b)·∇W of a body shell alone into column 1 of (N, 2)
+    (``multiphase_drho_bpair``): q (N, 8), the shell (Mb, 8) with its
+    sample velocities."""
+    return neighbor_sweep_plain(_bind(multiphase_drho_bpair, cfg, pvec), q,
+                                src, seg_start, seg_end, 2)
+
+
+def multiphase_kappa_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                      seg_end, pvec):
+    """qc_i·Σψ_b∇W (N, 3) of a body shell alone (``multiphase_kappa_bpair``):
+    q (N, 8) ``x y z κV̂² qc``, the shell (Mb, 4) ``x y z ψ_b``."""
+    return neighbor_sweep_plain(_bind(multiphase_kappa_bpair, cfg, pvec), q,
                                 src, seg_start, seg_end, 3)
 
 
@@ -1166,3 +1230,18 @@ elastic_force_hourglass_sweep = _dispatcher(
     elastic_force_hourglass_sweep_plain, "elastic_force_hourglass_sweep")
 fluid_reaction_sweep = _dispatcher(fluid_reaction_sweep_plain,
                                    "fluid_reaction_sweep")
+pressure_force_body_sweep = _dispatcher(pressure_force_body_sweep_plain,
+                                        "pressure_force_body_sweep")
+alpha_body_sweep = _dispatcher(alpha_body_sweep_plain, "alpha_body_sweep")
+# Alpha and Drho as they are over a body shell's 9 range rows (their fluid
+# form: Σψ_b²|∇W|², and the shell's sample velocities), counted apart
+alpha_shell_sweep = _dispatcher(alpha_sweep_plain, "alpha_shell_sweep",
+                                name="alpha_shell_sweep")
+drho_shell_sweep = _dispatcher(drho_sweep_plain, "drho_shell_sweep",
+                               name="drho_shell_sweep")
+multiphase_alpha_body_sweep = _dispatcher(multiphase_alpha_body_sweep_plain,
+                                          "multiphase_alpha_body_sweep")
+multiphase_drho_body_sweep = _dispatcher(multiphase_drho_body_sweep_plain,
+                                         "multiphase_drho_body_sweep")
+multiphase_kappa_body_sweep = _dispatcher(multiphase_kappa_body_sweep_plain,
+                                          "multiphase_kappa_body_sweep")

@@ -22,11 +22,15 @@ particle's own ρ₀ (``to_kg`` = m_i·ρ₀/ρ0_i).
 On CUDA tensors the sweeps are the hand-written kernels of ``csrc/``; on
 CPU tensors their plain PyTorch versions.
 
-Both loops are :class:`~.predicated_loop.PredicatedLoop`\\ s that commit
-the velocities (and κ) and read their conditions on the host once per
-:data:`SYNC_EVERY_V` / :data:`SYNC_EVERY` launched iterations from their
-minimum on. The divergence loop's error is dt·mean(max(Dρ/Dt, 0)), the
-density loop's the mean clamped compression, both over active rows.
+Both steps, and the coupled steps of :mod:`.dfsph_coupled_cuda` and
+:mod:`.dfsph_elastic`, run their two loops through :func:`dfsph_solve`,
+which takes the step's sweeps object. The loops are
+:class:`~.predicated_loop.PredicatedLoop`\\ s that commit the velocities,
+κ and whatever else the sweeps carry, and read their conditions on the
+host once per :data:`SYNC_EVERY_V` / :data:`SYNC_EVERY` launched
+iterations from their minimum on. The divergence loop's error is
+dt·mean(max(Dρ/Dt, 0)), the density loop's the mean clamped compression,
+both over active rows.
 """
 
 from __future__ import annotations
@@ -60,16 +64,24 @@ LOOP = LoopCounts()
 
 
 class KappaSweeps:
-    """The two sweeps of a DFSPH iteration on loop-invariant operands:
-    each call writes its columns in place (the velocities into the Dρ/Dt
-    query and the fluid source rows, κ/ρ into the correction's query and
-    fluid slot 6) and launches one sweep."""
+    """The sweeps of a single-phase DFSPH step on loop-invariant operands,
+    in the interface :func:`dfsph_solve` drives: :meth:`drho`,
+    :meth:`correct` and :meth:`nonpressure` each take the fluid velocities
+    and the tuple of other values the solve carries (here none; a coupled
+    step's bodies), and the density loop's ``base`` (ρ), ``target`` (ρ₀)
+    and ``to_kg`` (None: the errors are already in kg/m³). Each call
+    writes its columns in place (the velocities into the Dρ/Dt query and
+    the fluid source rows, κ/ρ into the correction's query and fluid slot
+    6) and launches one sweep."""
 
     def __init__(self, ctx: SweepCtx, params: SimParams, cfg: SimConfig,
                  dens):
         z = torch.zeros_like(dens)
-        self.ctx, self.cfg = ctx, cfg
+        self.ctx, self.params, self.cfg = ctx, params, cfg
+        self.dens, self.zero = dens, z
+        self.base, self.target, self.to_kg = dens, params.rest_density, None
         self.dens_safe = torch.clamp(dens, min=1e-12)
+        self.dt = params.dt
         self.dt_m = params.dt / params.particle_mass
         self.q_v = ctx.queries(z, z, z, width=8)
         self.src_v = ctx.pack((z, z, z), params.particle_mass)
@@ -87,7 +99,7 @@ class KappaSweeps:
         the pd2 slot."""
         return self._pd2_at(kappa / self.dens_safe)
 
-    def drho(self, vel):
+    def drho(self, vel, carry=()):
         """Dρ/Dt (C,) of the (C, 3) velocities ``vel``."""
         return SP.drho_sweep(self.cfg, *self.drho_operands(vel))
 
@@ -97,23 +109,64 @@ class KappaSweeps:
         f = SP.pressure_force_sweep(self.cfg, *self.kappa_operands(kappa))
         return vel + self.dt_m * f
 
+    def correct(self, kappa, vel, carry=()):
+        """One κ correction: ``(v, carry)``."""
+        return self.apply_kappa(kappa, vel), carry
+
+    def forces(self, vel, include_viscosity=True):
+        """``(q8, src, f)``: the non-pressure force sweep's query and
+        source at the (C, 3) velocities ``vel``, and its (C, 3) force."""
+        cols = vel.unbind(1)
+        q8 = self.ctx.queries(*cols, self.dens, self.zero)
+        src = self.ctx.pack(cols, self.dens)
+        f = SP.fluid_force_sweep(self.cfg, q8, src, self.ctx.seg_start,
+                                 self.ctx.seg_end, self.ctx.pvec,
+                                 include_pressure=False,
+                                 include_viscosity=include_viscosity,
+                                 moving_boundary=self.ctx.moving_boundary)
+        return q8, src, f
+
+    def kick(self, vel, f):
+        """v + (dt/m)·(f + m·g)."""
+        pm = self.params.particle_mass
+        return vel + (self.dt / pm) * (f + pm * self.params.gravity)
+
+    def nonpressure(self, vel, carry=()):
+        """The advection forces (pressure off) and gravity on the
+        divergence-free velocities; with ``viscosity_model="implicit"``
+        the implicit viscosity solve on v* owns the viscosity and wall
+        friction. Returns ``(v*, carry)``."""
+        implicit_visc = self.cfg.viscosity_model == "implicit"
+        v = self.kick(vel, self.forces(vel, not implicit_visc)[2])
+        if implicit_visc:
+            v_sol, _, _ = implicit_viscosity(self.ctx, self.params, self.cfg,
+                                             self.dens, v)
+            v = torch.where(self.ctx.active[:, None], v_sol, v)
+        return v, carry
+
 
 class MultiphaseKappaSweeps:
-    """The two sweeps of a multiphase DFSPH iteration on loop-invariant
-    operands, and the adapted-domain columns of the step: each call writes
-    its columns in place (the velocities into the dδ̂/dt query and fluid
-    source rows, κV̂² and (s_i/m_i)·κV̂² into the correction's query and
-    κV̂²_j into its 4-wide fluid source rows) and launches one sweep."""
+    """The sweeps of a multiphase DFSPH step on loop-invariant operands,
+    in :class:`KappaSweeps`' interface on the adapted domain (``base``
+    δ̂ = ρ̃/m_i, ``target`` ρ0_i/m_i, ``to_kg`` m_i·ρ₀/ρ0_i). Each call
+    writes its columns in place (the velocities into the dδ̂/dt query and
+    fluid source rows, κV̂² and (s_i/m_i)·κV̂² into the correction's query
+    and κV̂²_j into its 4-wide fluid source rows) and launches one sweep.
+    ``delta``: the number density δ of the non-pressure stage's volumes."""
 
     def __init__(self, ctx: SweepCtx, params: SimParams, cfg: SimConfig,
-                 dens):
+                 dens, delta=None):
         z = torch.zeros_like(dens)
         mass = ctx.mass
-        self.ctx, self.cfg = ctx, cfg
+        self.ctx, self.params, self.cfg = ctx, params, cfg
+        self.dens, self.delta, self.zero = dens, delta, z
         self.delta_hat = dens / mass
+        self.base, self.target = self.delta_hat, ctx.rho0 / mass
+        self.to_kg = mass * (params.rest_density / ctx.rho0)
         self.vhat2 = 1.0 / torch.clamp(self.delta_hat * self.delta_hat,
                                        min=1e-24)
         self.sm = (ctx.rho0 / params.rest_density) / mass
+        self.dt = params.dt
         self.dt_im = (params.dt * (1.0 / mass))[:, None]
         self.q_v = ctx.queries(z, z, z, width=8)
         self.src_v = ctx.pack((z, z, z), z)
@@ -136,7 +189,7 @@ class MultiphaseKappaSweeps:
         return (self.q_k, self.src_k, self.ctx.seg_start, self.ctx.seg_end,
                 self.ctx.pvec)
 
-    def drho(self, vel):
+    def drho(self, vel, carry=()):
         """dδ̂/dt (C,) of the (C, 3) velocities ``vel``: the fluid sum plus
         the wall sum scaled by s_i/m_i."""
         d = SP.multiphase_drho_sweep(self.cfg, *self.drho_operands(vel))
@@ -146,6 +199,100 @@ class MultiphaseKappaSweeps:
         """(C, 3) v − (dt/m_i)·Σ(κV̂²_i + κV̂²_j)∇W − (dt/m_i)·qc_i·Σψ_b∇W."""
         f = SP.multiphase_kappa_sweep(self.cfg, *self.kappa_operands(kappa))
         return vel - self.dt_im * f
+
+    def correct(self, kappa, vel, carry=()):
+        """One κ̂ correction: ``(v, carry)``."""
+        return self.apply_kappa(kappa, vel), carry
+
+    def forces(self, vel):
+        """``(cols, inv_rho, acc)``: the velocity columns, 1/ρ̃ and the
+        multiphase force sweep's (C, 3) acceleration at zero pressure
+        (volume-form viscosity, β walls, friction)."""
+        cols = vel.unbind(1)
+        vol = 1.0 / torch.clamp(self.delta, min=1e-12)
+        inv_rho = 1.0 / torch.clamp(self.dens, min=1e-12)
+        acc = SP.multiphase_force_sweep(
+            self.cfg, *multiphase_force_args(self.ctx, self.cfg, cols, vol,
+                                             inv_rho, self.zero),
+            moving_boundary=self.ctx.moving_boundary)
+        return cols, inv_rho, acc
+
+    def nonpressure(self, vel, carry=()):
+        """v + dt·(a + g) with the non-pressure acceleration a: ``(v*,
+        carry)``."""
+        acc = self.forces(vel)[2]
+        return vel + self.dt * (acc + self.params.gravity), carry
+
+
+def _commit(loop: PredicatedLoop, new, old):
+    """:meth:`~.predicated_loop.PredicatedLoop.commit` over a tensor or a
+    tuple of them, nested."""
+    if torch.is_tensor(old):
+        return loop.commit(new, old)
+    return tuple(_commit(loop, n, o) for n, o in zip(new, old))
+
+
+def dfsph_solve(state: FluidState, sweeps, alpha, carry=(),
+                tol: float = 1.0, tol_v: float = 1.0):
+    """The two solves of a DFSPH step around its non-pressure stage, on
+    ``sweeps`` (:class:`KappaSweeps`, :class:`MultiphaseKappaSweeps` or a
+    coupled step's subclass): the divergence loop (per iteration the
+    clamped rate, then the correction with κ = rate·α/dt), the
+    non-pressure stage, the warm start (½·κ_prev, one correction of its
+    own), then the density loop (per iteration base* = base + dt·rate,
+    the clamped compression over ``target``, then the correction with
+    κ = comp·α/dt²). ``carry``: a tuple of tensors (or of such tuples)
+    that the corrections and the non-pressure stage advance with the
+    velocities; both loops commit it, the velocities and κ, so an
+    iteration launched after a loop's end changes nothing. Returns
+    ``(new_state, carry, StepDiagnostics)``."""
+    ctx, cfg = sweeps.ctx, sweeps.cfg
+    active = ctx.active
+    zero = sweeps.zero
+    nact = torch.clamp(state.num_active.to(cfg.dtype), min=1.0)
+    dt = sweeps.dt
+
+    def mean_active(x):
+        if sweeps.to_kg is not None:
+            x = x * sweeps.to_kg
+        return torch.sum(torch.where(active, x, zero)) / nact
+
+    # -- divergence-free solve on the incoming velocities -------------------
+    # (C, 3) rows: one launch per elementwise operation, not three
+    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    loop_v = PredicatedLoop(LOOP_V, like=zero, tol=tol_v,
+                            min_iters=cfg.dfsph_min_iters_v,
+                            max_iters=cfg.dfsph_max_iters_v,
+                            sync_every=SYNC_EVERY_V, err0=2.0 * tol_v)
+    for _ in loop_v:
+        drho = torch.clamp(sweeps.drho(v, carry), min=0.0)
+        v, carry = _commit(loop_v, sweeps.correct(drho * alpha / dt, v,
+                                                  carry), (v, carry))
+        loop_v.advance(dt * mean_active(drho))
+
+    v, carry = sweeps.nonpressure(v, carry)
+
+    # -- constant-density solve on v*, warm-started with ½·κ_prev ---------
+    kap = zero
+    if cfg.dfsph_warm_start:
+        kap = 0.5 * torch.clamp(torch.where(active, ctx.pres_prev, zero),
+                                min=0.0)
+        v, carry = sweeps.correct(kap, v, carry)
+    loop = PredicatedLoop(LOOP, like=zero, tol=tol,
+                          min_iters=cfg.dfsph_min_iters,
+                          max_iters=cfg.dfsph_max_iters,
+                          sync_every=SYNC_EVERY, err0=2.0 * tol)
+    for _ in loop:
+        base_star = sweeps.base + dt * sweeps.drho(v, carry)
+        comp = torch.clamp(base_star - sweeps.target, min=0.0)
+        kappa = comp * alpha / (dt * dt)
+        v, carry = _commit(loop, sweeps.correct(kappa, v, carry), (v, carry))
+        kap = loop.commit(kap + kappa, kap)
+        loop.advance(mean_active(comp))
+
+    new_state, diag = _result(state, ctx, sweeps.params, v, kap, sweeps.dens,
+                              loop, loop_v)
+    return new_state, carry, diag
 
 
 def multiphase_alpha_operands(ctx: SweepCtx):
@@ -189,74 +336,20 @@ def dfsph_step_cuda(state: FluidState, params: SimParams,
     """One single-phase DFSPH step; returns ``(new_state,
     StepDiagnostics)`` with the new state in hash-sorted order."""
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-    vel = (ctx.vx, ctx.vy, ctx.vz)
-    active = ctx.active
-    nact = torch.clamp(state.num_active.to(cfg.dtype), min=1.0)
-    dt = params.dt
-    pm = params.particle_mass
-    rest = params.rest_density
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
 
     # -- density + the DFSPH factor α --------------------------------------
     q4 = ctx.queries(width=4)
-    src_psi = ctx.pack(vel, pm)
+    src_psi = ctx.pack((ctx.vx, ctx.vy, ctx.vz), params.particle_mass)
     dens = SP.density_sweep(cfg, q4, src_psi, *rng)
-    zero = torch.zeros_like(dens)
     al = SP.alpha_sweep(cfg, q4, src_psi, *rng)
     denom = (al[:, 0] * al[:, 0] + al[:, 1] * al[:, 1] + al[:, 2] * al[:, 2]
              + al[:, 3])
     alpha = dens / torch.clamp(denom, min=_EPS_DENOM)
-    sweeps = KappaSweeps(ctx, params, cfg, dens)
-
-    def mean_active(x):
-        return torch.sum(torch.where(active, x, zero)) / nact
-
-    # -- divergence-free solve on the incoming velocities -------------------
-    # (C, 3) rows: one launch per elementwise operation, not three
-    vel3 = torch.stack(vel, dim=1)
-    v = vel3
-    loop_v = PredicatedLoop(LOOP_V, like=dens, tol=tol_v,
-                            min_iters=cfg.dfsph_min_iters_v,
-                            max_iters=cfg.dfsph_max_iters_v,
-                            sync_every=SYNC_EVERY_V, err0=2.0 * tol_v)
-    for _ in loop_v:
-        drho = torch.clamp(sweeps.drho(v), min=0.0)
-        v = loop_v.commit(sweeps.apply_kappa(drho * alpha / dt, v), v)
-        loop_v.advance(dt * mean_active(drho))
-
-    # -- non-pressure forces on the divergence-free velocities --------------
-    # (the implicit viscosity solve owns the viscosity and wall friction)
-    implicit_visc = cfg.viscosity_model == "implicit"
-    cols = v.unbind(1)
-    f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*cols, dens, zero),
-                                 ctx.pack(cols, dens), *rng,
-                                 include_pressure=False,
-                                 include_viscosity=not implicit_visc,
-                                 moving_boundary=ctx.moving_boundary)
-    v = v + (dt / pm) * (f_adv + pm * params.gravity)
-    if implicit_visc:
-        v_sol, _, _ = implicit_viscosity(ctx, params, cfg, dens, v)
-        v = torch.where(active[:, None], v_sol, v)
-
-    # -- constant-density solve on v*, warm-started with ½·κ_prev ---------
-    kap = zero
-    if cfg.dfsph_warm_start:
-        kap = 0.5 * torch.clamp(torch.where(active, ctx.pres_prev, zero),
-                                min=0.0)
-        v = sweeps.apply_kappa(kap, v)
-    loop = PredicatedLoop(LOOP, like=dens, tol=tol,
-                          min_iters=cfg.dfsph_min_iters,
-                          max_iters=cfg.dfsph_max_iters,
-                          sync_every=SYNC_EVERY, err0=2.0 * tol)
-    for _ in loop:
-        rho_star = dens + dt * sweeps.drho(v)
-        comp = torch.clamp(rho_star - rest, min=0.0)
-        kappa = comp * alpha / (dt * dt)
-        v = loop.commit(sweeps.apply_kappa(kappa, v), v)
-        kap = loop.commit(kap + kappa, kap)
-        loop.advance(mean_active(comp))
-
-    return _result(state, ctx, params, v, kap, dens, loop, loop_v)
+    new_state, _, diag = dfsph_solve(state, KappaSweeps(ctx, params, cfg,
+                                                        dens),
+                                     alpha, tol=tol, tol_v=tol_v)
+    return new_state, diag
 
 
 def dfsph_step_multiphase_cuda(state: FluidState, params: SimParams,
@@ -267,68 +360,21 @@ def dfsph_step_multiphase_cuda(state: FluidState, params: SimParams,
     ``(new_state, StepDiagnostics)`` with the new state, its ``mass`` and
     ``rho0`` in hash-sorted order, ``pressure`` the accumulated κ̂."""
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-    active = ctx.active
-    nact = torch.clamp(state.num_active.to(cfg.dtype), min=1.0)
-    dt = params.dt
-    rest = params.rest_density
-    mass, rho0 = ctx.mass, ctx.rho0
+    mass = ctx.mass
 
     # -- adapted density + the factor α̂ -------------------------------------
     dout = SP.multiphase_density_sweep(cfg, *multiphase_density_operands(ctx))
     delta = dout[:, 0]
-    dens = mass * delta + (rho0 / rest) * dout[:, 1]
-    zero = torch.zeros_like(dens)
-    sweeps = MultiphaseKappaSweeps(ctx, params, cfg, dens)
-    delta_hat, sm = sweeps.delta_hat, sweeps.sm
-    delta0 = rho0 / mass
-    to_kg = mass * (rest / rho0)
+    dens = mass * delta + (ctx.rho0 / params.rest_density) * dout[:, 1]
+    sweeps = MultiphaseKappaSweeps(ctx, params, cfg, dens, delta)
+    sm = sweeps.sm
     al = SP.multiphase_alpha_sweep(cfg, *multiphase_alpha_operands(ctx))
     ghx = al[:, 0] + sm * al[:, 4]
     ghy = al[:, 1] + sm * al[:, 5]
     ghz = al[:, 2] + sm * al[:, 6]
     denom = ghx * ghx + ghy * ghy + ghz * ghz + mass * al[:, 3]
-    alpha = mass * delta_hat * delta_hat / torch.clamp(denom, min=_EPS_DENOM)
-
-    def mean_active(x):
-        return torch.sum(torch.where(active, x, zero)) / nact
-
-    # -- divergence-free solve on the incoming velocities -------------------
-    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
-    loop_v = PredicatedLoop(LOOP_V, like=dens, tol=tol_v,
-                            min_iters=cfg.dfsph_min_iters_v,
-                            max_iters=cfg.dfsph_max_iters_v,
-                            sync_every=SYNC_EVERY_V, err0=2.0 * tol_v)
-    for _ in loop_v:
-        dhat = torch.clamp(sweeps.drho(v), min=0.0)
-        v = loop_v.commit(sweeps.apply_kappa(dhat * alpha / dt, v), v)
-        loop_v.advance(dt * mean_active(dhat * to_kg))
-
-    # -- non-pressure forces: the multiphase force sweep with zero pressure
-    # (volume-form viscosity, β walls, friction) ---------------------------
-    vol = 1.0 / torch.clamp(delta, min=1e-12)
-    inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
-    acc = SP.multiphase_force_sweep(
-        cfg, *multiphase_force_args(ctx, cfg, v.unbind(1), vol, inv_rho,
-                                    zero),
-        moving_boundary=ctx.moving_boundary)
-    v = v + dt * (acc + params.gravity)
-
-    # -- constant-density solve on v*, warm-started with ½·κ̂_prev ---------
-    kap = zero
-    if cfg.dfsph_warm_start:
-        kap = 0.5 * torch.clamp(torch.where(active, ctx.pres_prev, zero),
-                                min=0.0)
-        v = sweeps.apply_kappa(kap, v)
-    loop = PredicatedLoop(LOOP, like=dens, tol=tol,
-                          min_iters=cfg.dfsph_min_iters,
-                          max_iters=cfg.dfsph_max_iters,
-                          sync_every=SYNC_EVERY, err0=2.0 * tol)
-    for _ in loop:
-        dstar = delta_hat + dt * sweeps.drho(v)
-        comp = torch.clamp(dstar - delta0, min=0.0)
-        kappa = comp * alpha / (dt * dt)
-        v = loop.commit(sweeps.apply_kappa(kappa, v), v)
-        kap = loop.commit(kap + kappa, kap)
-        loop.advance(mean_active(comp * to_kg))
-
-    return _result(state, ctx, params, v, kap, dens, loop, loop_v)
+    alpha = mass * sweeps.delta_hat * sweeps.delta_hat / torch.clamp(
+        denom, min=_EPS_DENOM)
+    new_state, _, diag = dfsph_solve(state, sweeps, alpha, tol=tol,
+                                     tol_v=tol_v)
+    return new_state, diag

@@ -64,6 +64,28 @@ def _body_boundary(estate: ElasticState, psi, grid: gridlib.Grid):
     return BoundaryData(pos=pos, psi=psi_s, sorted_hash=sh, vel=vel), perm
 
 
+class ElasticShell(NamedTuple):
+    """The body as a boundary of one coupled step."""
+
+    shell: Shell          # the body as a source for the fluid queries
+    r_start: torch.Tensor  # (9, Mb) the samples' ranges over the fluid's
+    r_end: torch.Tensor    # sorted hashes (the reverse sweeps)
+    perm: torch.Tensor    # (Mb,) sorted sample → statics row
+
+
+def elastic_shell(ctx: SweepCtx, grid: gridlib.Grid, estate: ElasticState,
+                  psi) -> ElasticShell:
+    """The body at ``estate`` as a hash-sorted moving shell ``x y z v_b ψ
+    0`` with the fluid queries' ranges over it, and its samples' ranges
+    over the fluid's sorted hashes."""
+    bd, perm = _body_boundary(estate, psi, grid)
+    shell = Shell(boundary_src(bd),
+                  *query_ranges(grid, ctx.coords, bd.sorted_hash))
+    r_start, r_end = query_ranges(grid, gridlib.cell_coords(grid, bd.pos),
+                                  ctx.sorted_hash)
+    return ElasticShell(shell, r_start, r_end, perm)
+
+
 class ElasticOperands(NamedTuple):
     """The sweeps' operands of one coupled step."""
 
@@ -84,14 +106,11 @@ def elastic_operands(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     sweep's query is the shell's own rows ``x y z v_b ψ 0`` and its source
     the force sweep's fluid rows ``x y z v ρ 0``, over the samples' ranges
     (9 rows) in the fluid's sorted hashes."""
-    bd, perm = _body_boundary(estate, psi, grid)
-    shell = Shell(boundary_src(bd),
-                  *query_ranges(grid, ctx.coords, bd.sorted_hash))
-    dargs, fargs, dens, pres = coupled_operands(ctx, params, cfg, [shell])
-    r_start, r_end = query_ranges(grid, gridlib.cell_coords(grid, bd.pos),
-                                  ctx.sorted_hash)
-    rargs = (shell.src, fargs[1][:ctx.c], r_start, r_end, ctx.pvec)
-    return ElasticOperands(dargs, fargs, shell, rargs, perm, dens, pres)
+    es = elastic_shell(ctx, grid, estate, psi)
+    dargs, fargs, dens, pres = coupled_operands(ctx, params, cfg, [es.shell])
+    rargs = (es.shell.src, fargs[1][:ctx.c], es.r_start, es.r_end, ctx.pvec)
+    return ElasticOperands(dargs, fargs, es.shell, rargs, es.perm, dens,
+                           pres)
 
 
 def wcsph_elastic_step(state: FluidState, params: SimParams,

@@ -174,9 +174,28 @@ ELASTIC_SWEEPS = {
     "fluid_reaction": (SP.fluid_reaction_sweep,
                        cuda_sweep.fluid_reaction_sweep, 8, 8, 9),
 }
+# the DFSPH couplings' body sweeps over a shell's 9 range rows
+DFSPH_BODY_SWEEPS = {
+    "pressure_force_body": (SP.pressure_force_body_sweep,
+                            cuda_sweep.pressure_force_body_sweep, 4, 8, 9),
+    "alpha_body": (SP.alpha_body_sweep, cuda_sweep.alpha_body_sweep, 4, 8,
+                   9),
+    "alpha_shell": (SP.alpha_shell_sweep, cuda_sweep.alpha_shell_sweep, 4,
+                    8, 9),
+    "drho_shell": (SP.drho_shell_sweep, cuda_sweep.drho_shell_sweep, 8, 8,
+                   9),
+    "multiphase_alpha_body": (SP.multiphase_alpha_body_sweep,
+                              cuda_sweep.multiphase_alpha_body_sweep, 4, 4,
+                              9),
+    "multiphase_drho_body": (SP.multiphase_drho_body_sweep,
+                             cuda_sweep.multiphase_drho_body_sweep, 8, 8, 9),
+    "multiphase_kappa_body": (SP.multiphase_kappa_body_sweep,
+                              cuda_sweep.multiphase_kappa_body_sweep, 8, 4,
+                              9),
+}
 ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
               **VISC_MP_DFSPH_SWEEPS, **PBF_SWEEPS, **COUPLED_SWEEPS,
-              **ELASTIC_SWEEPS}
+              **ELASTIC_SWEEPS, **DFSPH_BODY_SWEEPS}
 
 
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
@@ -235,6 +254,27 @@ def test_coupled_dispatchers_route_by_device(key):
 @pytest.mark.parametrize("key", sorted(ELASTIC_SWEEPS))
 def test_elastic_dispatchers_route_by_device(key):
     _routes_by_device(*ELASTIC_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", sorted(DFSPH_BODY_SWEEPS))
+def test_dfsph_body_dispatchers_route_by_device(key):
+    _routes_by_device(*DFSPH_BODY_SWEEPS[key][:2], key)
+
+
+@pytest.mark.parametrize("key", ["body_force", "fluid_reaction"])
+def test_friction_only_contacts_route_by_device(key):
+    """The body contact and the fluid reaction with
+    ``include_pressure=False`` (the DFSPH couplings' friction) run the
+    plain sweeps on CPU tensors, launching nothing, and their CUDA
+    wrappers refuse them."""
+    dispatch, wrapper = ALL_SWEEPS[key][:2]
+    cfg = nereus_tpu_torch.SimConfig()
+    cuda_sweep.reset_launches()
+    out = dispatch(cfg, *_sweep_inputs(key), include_pressure=False)
+    assert out.shape == (8, 3) and float(out.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(cfg, *_sweep_inputs(key), include_pressure=False)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -335,7 +375,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 30
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 39
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -418,7 +458,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 24)
+                                                        + [0] * 33)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -453,7 +493,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 24
+    assert launches[8:] == [0] * 33
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -513,7 +553,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 21)
+                                                        + [0] * 30)
 
 
 @pytest.mark.requires_cuda
@@ -534,7 +574,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 18
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 27
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -552,7 +592,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 18
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 27
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -602,7 +642,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 18)
+                                                        + [0] * 27)
 
 
 @pytest.mark.requires_cuda
@@ -618,7 +658,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 18)
+                                                        + [0] * 27)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
@@ -626,7 +666,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 18)
+                                                        + [3] + [0] * 27)
     assert torch.isfinite(state.pos).all()
 
 
@@ -1108,5 +1148,208 @@ def test_elastic_steps_run_kernels_on_cuda(cuda):
     _assert_launches({K.DENSITY: 2, K.FORCE: 2, K.BODY_DENSITY: 2,
                       K.BODY_FORCE: 2, K.FLUID_REACTION: 2, K.ELASTIC_F: 6,
                       K.ELASTIC_FORCE_HG: 6})
+    assert torch.isfinite(s.pos).all() and torch.isfinite(es.pos).all()
+    assert int(diag.seg_overflow) == 0
+
+
+def _dfsph_body_cases(cfg, params, state, grid, cuda):
+    """Every body sweep of the DFSPH couplings on the small dam-break with
+    a moving, spinning 0.08 box (single phase, then the two-phase split)
+    and a 3³ elastic cube in its fluid, on each step's first divergence
+    iteration: ``[(key, dispatch, plain, args, kwargs)]``."""
+    from nereus_tpu_torch.solvers import dfsph_coupled_cuda as DC
+    from nereus_tpu_torch.solvers import dfsph_elastic as DE
+    from nereus_tpu_torch.solvers.elastic import sample_box_solid
+    from nereus_tpu_torch.solvers.elastic_coupled import elastic_shell
+    dt = float(params.dt)
+    centre = state.pos.mean(dim=0)
+    body = dataclasses.replace(
+        nereus_tpu_torch.make_rigid_box(centre.cpu().numpy(), (0.08,) * 3,
+                                        float(params.particle_radius), 500.0,
+                                        params, device=cuda),
+        vel=torch.tensor([0.3, -0.5, 0.2], device=cuda),
+        omega=torch.tensor([1.0, -2.0, 0.5], device=cuda))
+    bv = (body.vel, body.omega)
+    cases = []
+    ctx = build_sweep_ctx(state, params, grid, cfg, None)
+    (t,) = DC.body_terms(ctx, grid, (body,))
+    rows = t.ranges(ctx.pvec)
+    dens, alpha = DC.coupled_density_alpha(ctx, params, cfg, [t])
+    sw = DC.CoupledSweeps(ctx, params, cfg, dens, [t])
+    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    kq = sw.kappa_operands(
+        torch.clamp(sw.drho(v, [bv]), min=0.0) * alpha / dt)[0]
+    src_v = t.src_at(bv).clone()
+    q8 = ctx.queries(ctx.vx, ctx.vy, ctx.vz, dens, torch.zeros_like(dens))
+    q4 = ctx.queries(width=4)
+    p0 = dict(include_pressure=False)
+    cases += [
+        ("kappa body", SP.pressure_force_body_sweep,
+         SP.pressure_force_body_sweep_plain, (kq, t.shell.src, *rows), {}),
+        ("alpha body", SP.alpha_body_sweep, SP.alpha_body_sweep_plain,
+         (q4, t.shell.src, *rows), {}),
+        ("alpha shell", SP.alpha_shell_sweep, SP.alpha_sweep_plain,
+         (q4, t.shell.src, *rows), {}),
+        ("drho shell", SP.drho_shell_sweep, SP.drho_sweep_plain,
+         (sw.q_v, src_v, *rows), {}),
+        ("body friction", SP.body_force_sweep, SP.body_force_sweep_plain,
+         (q8, src_v, *rows), p0)]
+    mctx = build_sweep_ctx(_two_phase(state, params, cuda), params, grid,
+                           cfg, None)
+    (mt,) = DC.body_terms(mctx, grid, (body,))
+    mrows = mt.ranges(mctx.pvec)
+    mdens, _, malpha = DC.coupled_density_alpha_multiphase(mctx, params,
+                                                           cfg, [mt])
+    msw = DC.MultiphaseCoupledSweeps(mctx, params, cfg, mdens, [mt])
+    mv = torch.stack([mctx.vx, mctx.vy, mctx.vz], dim=1)
+    mkq = msw.kappa_operands(
+        torch.clamp(msw.drho(mv, [bv]), min=0.0) * malpha / dt)[0]
+    cases += [
+        ("mp alpha body", SP.multiphase_alpha_body_sweep,
+         SP.multiphase_alpha_body_sweep_plain,
+         (mctx.queries(width=4), mt.src4, *mrows), {}),
+        ("mp drho body", SP.multiphase_drho_body_sweep,
+         SP.multiphase_drho_body_sweep_plain,
+         (msw.q_v, mt.src_at(bv).clone(), *mrows), {}),
+        ("mp kappa body", SP.multiphase_kappa_body_sweep,
+         SP.multiphase_kappa_body_sweep_plain, (mkq, mt.src4, *mrows), {})]
+    sp = 0.5 * float(params.interaction_radius)
+    c = centre.cpu().numpy()
+    estate, statics, _ = nereus_tpu_torch.make_elastic_solid(
+        sample_box_solid(c - sp, c + sp, sp), params, cfg, sp, grid=grid,
+        device=cuda)
+    r = statics.x0 - statics.x0.mean(dim=0)
+    estate = dataclasses.replace(estate, vel=body.vel + torch.linalg.cross(
+        body.omega.expand_as(r), r))
+    es = elastic_shell(ctx, grid, estate,
+                       nereus_tpu_torch.elastic_psi(statics, params, cfg))
+    esw = DE.ElasticSweeps(ctx, params, cfg, dens, es, statics.mass)
+    drho = torch.clamp(esw.drho(v, (es.shell.src[:, 3:6],)), min=0.0)
+    src = esw.kappa_operands(drho * alpha / dt)[1]
+    rev = (es.r_start, es.r_end, ctx.pvec)
+    src_f = ctx.pack((ctx.vx, ctx.vy, ctx.vz), dens)[:ctx.c]
+    cases += [
+        ("reverse kappa", SP.pressure_force_body_sweep,
+         SP.pressure_force_body_sweep_plain, (esw.q_b, src, *rev), {}),
+        ("reaction friction", SP.fluid_reaction_sweep,
+         SP.fluid_reaction_sweep_plain, (es.shell.src, src_f, *rev), p0)]
+    return cases
+
+
+# output columns a body form leaves at exactly 0
+_ZERO_COLS = {"alpha body": [3], "mp alpha body": [0, 1, 2, 3],
+              "mp drho body": [0]}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_dfsph_body_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """The DFSPH couplings' instances (the body forms of PressureForce,
+    Alpha and the three multiphase DFSPH functors, Alpha and Drho over a
+    shell, BodyForce and FluidReaction without pressure) against their
+    plain versions on a moving, spinning box and elastic cube in the small
+    dam-break's fluid: max|Δ| ≤ 1e-4·max|ref| per nonzero column, the
+    body forms' other columns exactly 0; the two friction sweeps read the
+    sample velocities."""
+    cfg, params, state, grid, _ = _scene(kernel_set, "NONE", False, cuda)
+    cases = _dfsph_body_cases(cfg, params, state, grid, cuda)
+    cuda_sweep.reset_launches()
+    for key, dispatch, plain, args, kw in cases:
+        got = dispatch(cfg, *args, **kw)
+        ref = plain(cfg, *args, **kw)
+        zero = _ZERO_COLS.get(key, [])
+        live = [k for k in range(got.reshape(len(got), -1).shape[1])
+                if k not in zero]
+        g2, r2 = got.reshape(len(got), -1), ref.reshape(len(ref), -1)
+        _assert_columns_close(g2[:, live], r2[:, live], key)
+        assert not bool(g2[:, zero].any()), key
+        if "friction" in key:
+            q, src, *rest = args
+            if key == "reaction friction":
+                still = (q.clone(), src)
+                still[0][:, 3:6] = 0.0
+            else:
+                still = (q, src.clone())
+                still[1][:, 3:6] = 0.0
+            assert not torch.equal(dispatch(cfg, *still, *rest, **kw),
+                                   got), key
+    torch.cuda.synchronize()
+    K = cuda_sweep
+    _assert_launches({K.PRESSURE_FORCE_BODY: 2, K.ALPHA_BODY: 1,
+                      K.ALPHA_SHELL: 1, K.DRHO_SHELL: 1,
+                      K.BODY_FORCE_P0: 2, K.MP_ALPHA_BODY: 1,
+                      K.MP_DRHO_BODY: 1, K.MP_KAPPA_BODY: 1,
+                      K.FLUID_REACTION_P0: 2})
+
+
+@pytest.mark.requires_cuda
+def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
+    """Two coupled DFSPH steps with two bodies (single phase, then
+    multiphase) and two coupled DFSPH + elastic steps launch each kernel
+    as their loops say: per step one density and α (and per body one body
+    density and body-form α), per launched iteration one Dρ/Dt and one κ
+    correction plus one per body, one more κ correction for the warm
+    start, one pressure-off force and one friction per body; the elastic
+    step also one reverse κ per correction, one reaction friction and
+    the elastic kernels per substep."""
+    from nereus_tpu_torch.solvers import dfsph_cuda
+    from nereus_tpu_torch.solvers.elastic import sample_box_solid
+    K = cuda_sweep
+    cfg, params, state, grid, boundary = _scene("MULLER", "NONE", True, cuda)
+    pos = state.pos.cpu().numpy()
+    body = nereus_tpu_torch.make_rigid_box(
+        pos.mean(axis=0), (0.08,) * 3, float(params.particle_radius), 500.0,
+        params, device=cuda)
+    bodies0 = (body, dataclasses.replace(
+        body, com=body.com + torch.tensor([0.0, 0.2, 0.0], device=cuda)))
+    for fluid, mp in ((state, False), (_two_phase(state, params, cuda),
+                                       True)):
+        cuda_sweep.reset_launches()
+        dfsph_cuda.LOOP.reset()
+        dfsph_cuda.LOOP_V.reset()
+        s, bodies = fluid, bodies0
+        for _ in range(2):
+            s, bodies, diag = nereus_tpu_torch.dfsph_coupled_step(
+                s, params, grid, cfg, bodies, boundary)
+        it = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
+        corr = it + 2
+        if mp:
+            want = {K.MP_DENSITY: 2, K.MP_ALPHA: 2, K.BODY_DENSITY: 4,
+                    K.MP_ALPHA_BODY: 4, K.MP_DRHO: it, K.MP_DRHO_BODY: 2 * it,
+                    K.MP_KAPPA: corr, K.MP_KAPPA_BODY: 2 * corr,
+                    K.MP_FORCE: 2, K.MP_BODY: 4}
+        else:
+            want = {K.DENSITY: 2, K.ALPHA: 2, K.BODY_DENSITY: 4,
+                    K.ALPHA_BODY: 4, K.DRHO: it, K.DRHO_SHELL: 2 * it,
+                    K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: 2 * corr,
+                    K.FORCE_P0: 2, K.BODY_FORCE_P0: 4}
+        _assert_launches(want)
+        assert torch.isfinite(s.pos).all()
+        for b in bodies:
+            assert torch.isfinite(b.vel).all()
+            eye = torch.eye(3, device=cuda)
+            assert float((b.R @ b.R.T - eye).abs().max()) < 1e-5
+    sp = 0.5 * float(params.interaction_radius)
+    c = state.pos.mean(dim=0).cpu().numpy()
+    es, statics, _ = nereus_tpu_torch.make_elastic_solid(
+        sample_box_solid(c - 1.5 * sp, c + 1.5 * sp, sp), params, cfg, sp,
+        grid=grid, density=400.0, device=cuda)
+    ep = nereus_tpu_torch.elastic_params(1e5, damping=5.0, device=cuda)
+    psi = nereus_tpu_torch.elastic_psi(statics, params, cfg)
+    cuda_sweep.reset_launches()
+    dfsph_cuda.LOOP.reset()
+    dfsph_cuda.LOOP_V.reset()
+    s = state
+    for _ in range(2):
+        s, es, diag = nereus_tpu_torch.dfsph_elastic_step(
+            s, params, grid, cfg, es, statics, ep, psi, boundary, substeps=3)
+    it = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
+    corr = it + 2
+    _assert_launches({K.DENSITY: 2, K.ALPHA: 2, K.BODY_DENSITY: 2,
+                      K.ALPHA_SHELL: 2, K.DRHO: it, K.DRHO_SHELL: it,
+                      K.PRESSURE_FORCE: corr,
+                      K.PRESSURE_FORCE_BODY: 2 * corr, K.FORCE_P0: 2,
+                      K.BODY_FORCE_P0: 2, K.FLUID_REACTION_P0: 2,
+                      K.ELASTIC_F: 6, K.ELASTIC_FORCE_HG: 6})
     assert torch.isfinite(s.pos).all() and torch.isfinite(es.pos).all()
     assert int(diag.seg_overflow) == 0

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -100,3 +101,13 @@ def assert_columns_close(got, want, rtol, name=""):
         assert scale > 0.0, (name, col)
         err = np.abs(got[:, col] - want[:, col]).max()
         assert err <= rtol * scale, (name, col, err, scale)
+
+
+def dense_pairs(pair, q, src, pv, **kw):
+    """JAX's pair function ``pair`` summed over every (query, source) pair,
+    its own r² < h² mask the cutoff: the sweep over every source in range.
+    ``q`` (N, Fq) and ``src`` (M, Fs) port tensors; returns (N, out)."""
+    jq = jnp.asarray(q.numpy())
+    js = jnp.asarray(src.numpy().T)
+    return np.asarray(pair(jq, js, jnp.ones((jq.shape[0], js.shape[1]),
+                                            bool), pv, **kw))

@@ -20,8 +20,11 @@ coupled_scene``, ``bench.py``'s mp_coupled_256k and its single-phase
 twin, a rigid box dropped on the settled 256k block; elastic,
 elastic_plastic: ``chip_smoke.elastic_block``, ``bench.py``'s
 elastic_512k and elastic_plastic_512k; wcsph_elastic:
-``chip_smoke.wcsph_elastic_scene``, ``bench.py``'s wcsph_elastic_256k),
-runs
+``chip_smoke.wcsph_elastic_scene``, ``bench.py``'s wcsph_elastic_256k;
+dfsph_coupled, dfsph_mp_coupled, dfsph_elastic:
+``chip_smoke.dfsph_coupled_scene``, ``bench.py``'s dfsph_coupled_256k, its
+two-phase split and the settled block with phase 30's elastic cube over
+it), runs
 ``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
 clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
@@ -87,6 +90,30 @@ def build(solver, dev):
                 substeps=smoke.WEL_SUBSTEPS)
             return s, d
         return state, step, ()
+    if solver in ("dfsph_coupled", "dfsph_mp_coupled", "dfsph_elastic"):
+        kind = {"dfsph_coupled": "rigid", "dfsph_mp_coupled": "mp",
+                "dfsph_elastic": "elastic"}[solver]
+        cfg, params, state, grid, walls, body = smoke.dfsph_coupled_scene(
+            dev, kind)
+        if kind == "elastic":
+            estate, statics, ep, psi = body
+            held = {"body": estate}
+
+            def step(s):
+                s, held["body"], d = nt.dfsph_elastic_step(
+                    s, params, grid, cfg, held["body"], statics, ep, psi,
+                    walls, substeps=smoke.WEL_SUBSTEPS, tol=smoke.DFSPH_TOL,
+                    tol_v=smoke.DFSPH_TOL)
+                return s, d
+        else:
+            held = {"body": body}
+
+            def step(s):
+                s, held["body"], d = nt.dfsph_coupled_step(
+                    s, params, grid, cfg, held["body"], walls,
+                    tol=smoke.DFSPH_TOL, tol_v=smoke.DFSPH_TOL)
+                return s, d
+        return state, step, (dfsph_cuda.LOOP_V, dfsph_cuda.LOOP)
     if solver in ("coupled", "mp_coupled"):
         cfg, params, state, grid, walls, body = smoke.coupled_scene(
             dev, solver == "mp_coupled")
@@ -135,7 +162,8 @@ def main():
         "wcsph", "multiphase", "xsph", "wcsph_visc", "iisph", "pcisph",
         "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled",
         "wavemaker", "mp_wavemaker", "coupled", "mp_coupled", "elastic",
-        "elastic_plastic", "wcsph_elastic"),
+        "elastic_plastic", "wcsph_elastic", "dfsph_coupled",
+        "dfsph_mp_coupled", "dfsph_elastic"),
         required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
