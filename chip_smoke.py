@@ -255,7 +255,41 @@ Phases, in order; any failure exits non-zero:
     form of PressureForce both forward and reverse (two entries of the
     ``kernels`` line, told apart by ``op``).
 
-Phases 21-23 run right after phase 12, on its scene; 24-34 after 20.
+35. ``wcsph_wide12M`` (``bench.py:307-313, 405-411``): the 12,000,000
+    target dam-break without a boundary on the grid stretched along z past
+    2^24 cells (gx, gy, origin kept), 5 warm-up and 20 timed
+    ``wcsph_step`` calls, ms/step, particle-steps/s and peak memory;
+    gates: density and force launched every step, finite, the cell check
+    (``probes/cells.py``) 0 mismatches on the first and the last state,
+    10 steps compact against stretched bit-identical and compact against
+    ``pad_below`` (every hash past 2^24) within 1e-5 m; then the density,
+    force and cell-check kernels against their plain versions, timed;
+36. ``wcsph_1M_lifecycle``: phase 4's dam-break at capacity factor 2 (the
+    CLI's ``--emit`` capacity) on a grid 0.7 m wider than its walls, 200
+    steps with the CLI's 3×3 emitter patch every 10 steps
+    (``add_particles_traced``), its drop cube every 100 (``add_particles``),
+    a drain plane 0.03 m under the fluid (``remove_particles``, every
+    step) and ``refit_grid`` + ``rehash_boundary`` every 50; gates: finite,
+    emit overflow 0, the live count equal to start + emitted + dropped −
+    drained (counted apart), drained > 0, every live particle inside each
+    refit grid with the cell check 0, one step on the old grid against the
+    path's step on the first refit grid (positions 1e-6 m, velocities 1e-5
+    m/s); ms/step and ms per refit + rehash, remove and traced add; then
+    the density, force and cell-check kernels against their plain versions;
+37. the wall-only force (``WallForce``, both pressure instances, driven
+    through ``sph_pairs.boundary_force_sweep``) on phase 4's first-step
+    operands with the fluid lowered to 0.04 m over its floor (1,092,727
+    queries, 99,606 wall samples), against its plain version and fused −
+    fluid-only within FORCE_TOL, timed;
+38. the layout probe (``probes/layout.py``): both layouts against the plain
+    version query by query (``layout.mismatched_queries``: every force
+    element within 1e-3·|ref| + 1e-4, exactly 0 where the plain one is,
+    finite) at m = 2^14 and 2^20 (ws = 192), the check shown to flag two
+    planted faults (pass-1 windows skipped; one median query 1 % off);
+    both timed at 2^20.
+
+Phases 21-23 run right after phase 12, on its scene; 24-34 after 20;
+35-38 after 34.
 Phases 8 and 9 print the mean ``solver_iters`` of steps 1-10 beside the
 JAX package's v5e record (``BASELINE.md``: 41.8 PCISPH, 10.2 DFSPH) as a
 physics cross-check, not a gate. Each launch gate counts one main-path
@@ -340,6 +374,28 @@ DFSPH_BODY_DENSITY = 400.0       # bench.py:239-268, dfsph_coupled_256k
 DFSPH_COUPLED_DT = 5e-4
 ELASTIC_NOISE = 0.05             # ·spacing: the kernel checks' non-affine
                                  # perturbation
+WIDE_N = 12_000_000              # bench.py:307-313, wcsph_wide12M
+WIDE_WARMUP = 5
+WIDE_TIMED = 20
+WIDE_AB_STEPS = 10               # steps of each wide-grid A/B
+PAD_TOL = 1e-5                   # m, compact against pad_below
+LIFE_STEPS = 200                 # wcsph_1M_lifecycle
+LIFE_CAPACITY = 2.0              # the CLI's --emit capacity (cli.py:273-277)
+EMIT_AT = (0.25, 2.6, 0.25)      # the CLI's --emit 3x3 patch (cli.py:955-
+EMIT_VEL = (0.0, -1.0, 0.0)      # 971), 0.5 m over the 1M fluid, falling
+EMIT_EVERY = 10
+DROP_CENTER = (-1.0, 2.5, 0.5)   # the CLI's drop cube (cli.py:940-947), its
+DROP_SIZE = 0.12                 # 0.12 m edge, over the 1M fluid
+DROP_EVERY = 100
+DRAIN_DEPTH = 0.03               # m: the drain plane under the fluid's
+                                 # bottom, which the falling front crosses
+REFIT_EVERY = 50                 # the CLI's --refit-every (cli.py:1036-1046)
+REFIT_PAD = 0.7                  # m: the lifecycle cell starts on a grid this
+                                 # much wider than its walls on every face
+                                 # (tests/test_grid.py:132's oversized frame)
+LAYOUT_WS = 192                  # tools/probe_transposed.py's defaults
+LAYOUT_M = 2 ** 20
+LAYOUT_CHECK_M = 2 ** 14
 # (kernel set, surface-tension model) of the kernel-vs-plain phases
 MODELS = (("MULLER", "BECKER"), ("MULLER", "AKINCI"), ("MULLER", "NONE"),
           ("MONAGHAN", "BECKER"), ("MONAGHAN", "AKINCI"),
@@ -368,7 +424,8 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "pressure_force_body_rev": (24, 0), "alpha_body": (21, 0),
             "alpha_shell": (24, 0), "drho_shell": (25, 0),
             "mp_alpha_body": (21, 0), "mp_drho_body": (25, 0),
-            "mp_kappa_body": (22, 0)}
+            "mp_kappa_body": (22, 0), "wall_force": (53, 0),
+            "wall_force_p0": (49, 0)}
 # the kernels that return after the geometry and the cutoff compare on a
 # candidate outside the cutoff: those candidates cost this many operations,
 # the others PAIR_OPS's
@@ -2253,6 +2310,431 @@ def run_wcsph(cfg, params, state, grid, boundary, xsph_eps=None):
             int(overflow))
 
 
+def flat_bound(nbytes, ops):
+    """(bound_ms, bound_by, bound_ranges_ms) of a kernel that reads no
+    range rows: ``nbytes`` over 3.35 TB/s against ``ops`` over 67 TFLOP/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return b + (b[0],)
+
+
+def cell_check_entry(cfg, ctx, grid, label):
+    """The cell check kernel against its plain version on ``ctx``'s queries,
+    timed: (max_abs_err, ms, plain_ms, bound...); fails on any mismatch."""
+    from nereus_tpu_torch.probes import cells
+    from nereus_tpu_torch.ops import cuda_sweep
+    q = ctx.queries(width=4)
+    got = cuda_sweep.cell_check(q, ctx.pvec, grid)
+    ref = cells.cell_coords_plain(q, ctx.pvec, grid)
+    err = int((got - ref).abs().max())
+    if err:
+        fail(f"{label}: cell check kernel vs grid.cell_coords_cols max|d| "
+             f"{err}")
+    print(f"  {label}: cell check kernel equal to its plain version on "
+          f"{q.shape[0]} queries")
+    nbytes = sum(t.numel() * t.element_size() for t in (q, ctx.pvec, got))
+    # per query and axis: subtract, multiply, floor, max, min, convert
+    times = time_turns("cell_check",
+                       lambda: cuda_sweep.cell_check(q, ctx.pvec, grid),
+                       lambda: cells.cell_coords_plain(q, ctx.pvec, grid))
+    return (float(err), *times, *flat_bound(nbytes, 18 * q.shape[0]))
+
+
+def run_wide(dev):
+    """Phase 35, ``wcsph_wide12M``: the 12M dam-break without a boundary on
+    ``bench.py``'s stretched grid (gx, gy and the origin kept, gz past
+    2²⁴ cells), through ``wcsph_step``; the cell check on the first and the
+    last state; the stretch A/B (bit-identical) and the ``pad_below`` A/B
+    (hashes past 2²⁴, within ``PAD_TOL``); then the density, force and cell
+    check kernels against their plain versions at these shapes. Returns
+    ``(timing, launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.probes import cells
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    t0 = time.perf_counter()
+    cfg = nt.SimConfig()
+    params = nt.make_params(device=dev)
+    state0, grid, _ = scene.dam_break(params, cfg, n_target=WIDE_N,
+                                      with_boundary=False, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    wide = cells.stretch_grid(grid)
+    n = int(state0.num_active)
+    cells_n = int(np.prod(wide.size))
+    print(f"wcsph_wide12M: {n} fluid particles, grid {grid.size} stretched "
+          f"to {wide.size} = {cells_n} cells (2^24 = {cells.HASH24}); "
+          f"set-up (lattice, state on the card) {t_setup:.1f} s")
+    if cells_n <= cells.HASH24:
+        fail(f"wcsph_wide12M: {cells_n} cells, not past 2^24")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.reset_launches()
+    bad0 = cells.cellcheck(state0, params, wide, cfg)
+    state = state0
+    for _ in range(WIDE_WARMUP):
+        state, diag = nt.wcsph_step(state, params, wide, cfg, None)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(WIDE_TIMED):
+        state, diag = nt.wcsph_step(state, params, wide, cfg, None)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / WIDE_TIMED
+    bad1 = cells.cellcheck(state, params, wide, cfg)
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    steps = WIDE_WARMUP + WIDE_TIMED
+    print(f"wcsph_wide12M: steps {WIDE_WARMUP + 1}-{steps}: {ms:.4f} "
+          f"ms/step = {n / (ms * 1e-3):.4g} particle-steps/s; peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes); cell check mismatches "
+          f"{bad0} (first state), {bad1} (last state); max_density "
+          f"{float(diag.max_density):.6g}, mean_compression "
+          f"{float(diag.mean_compression):.6g}")
+    check_launches("wcsph_wide12M", {cuda_sweep.DENSITY: steps,
+                                     cuda_sweep.FORCE: steps,
+                                     cuda_sweep.CELL_CHECK: 2})
+    if bad0 or bad1:
+        fail(f"wcsph_wide12M: cell check mismatches {bad0}, {bad1}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("wcsph_wide12M: non-finite positions")
+    d, identical = cells.steps_ab(state0, params, grid, wide, cfg,
+                                  WIDE_AB_STEPS)
+    print(f"wcsph_wide12M: {WIDE_AB_STEPS} steps compact {grid.size} vs "
+          f"stretched {wide.size}: max|dpos| {d:.6g} m, bit-identical "
+          f"{identical}")
+    if not identical:
+        fail(f"wcsph_wide12M: the stretched grid's positions differ from "
+             f"the compact grid's by {d} m (same hashes: expected 0)")
+    k = cells.HASH24 // (grid.size[0] * grid.size[1]) + 1
+    padded = cells.pad_below(grid, k)
+    d, identical = cells.steps_ab(state0, params, grid, padded, cfg,
+                                  WIDE_AB_STEPS)
+    print(f"wcsph_wide12M: {WIDE_AB_STEPS} steps compact vs pad_below {k} "
+          f"({padded.size}, origin z {float(padded.origin[2]):.6g}, every "
+          f"hash >= {k * grid.size[0] * grid.size[1]}): max|dpos| {d:.6g} "
+          f"m, bit-identical {identical}")
+    if not d <= PAD_TOL:
+        fail(f"wcsph_wide12M: pad_below max|dpos| {d} > {PAD_TOL} m")
+    del state0
+    ctx = build_sweep_ctx(state, params, wide, cfg, None)
+    timing = compare(cfg, ctx, params, f"wcsph_wide12M after {steps} steps",
+                     time_it=True)
+    timing["cell_check"] = cell_check_entry(cfg, ctx, wide,
+                                            "wcsph_wide12M")
+    return timing, launches
+
+
+def unsorted(new_state, perm):
+    """``new_state``'s positions and velocities back in the order of the
+    state the step started from."""
+    return (torch.empty_like(new_state.pos).index_copy_(0, perm,
+                                                        new_state.pos),
+            torch.empty_like(new_state.vel).index_copy_(0, perm,
+                                                        new_state.vel))
+
+
+def emit_patch(params):
+    """The CLI's ``--emit`` patch at ``EMIT_AT``: 3×3 particles two radii
+    apart, across the velocity's dominant axis (y)."""
+    sp = 2.0 * float(params.particle_radius)
+    return np.asarray([[EMIT_AT[0] + a, EMIT_AT[1], EMIT_AT[2] + b]
+                       for a in (-sp, 0.0, sp) for b in (-sp, 0.0, sp)],
+                      np.float32)
+
+
+def run_lifecycle(dev):
+    """Phase 36, ``wcsph_1M_lifecycle``: the ``wcsph_1M`` cell at capacity
+    factor 2 on a grid ``REFIT_PAD`` wider than its walls (the first refit
+    shrinks it to the walls' box, a new origin and extent; the later ones
+    give that box back), 200 steps with the CLI's lifecycle options: the
+    3×3 emitter patch every 10 steps (``add_particles_traced``), a drop
+    cube every 100
+    (``add_particles``), a drain plane every step (``remove_particles``),
+    and every 50 steps ``refit_grid`` + ``rehash_boundary``, in the CLI's
+    order (refit, emit, drop, step, drain). Gates: finite; emit overflow
+    0 (read once, at the end); the final live count equals the start's +
+    emitted + dropped − drained, counted apart; drained > 0; after each
+    refit every live particle inside the new grid and the cell check 0; at
+    the first refit one step on the old grid against the path's step on
+    the new one (positions atol 1e-6 m, velocities 1e-5 m/s,
+    ``tests/test_torch_lifecycle.py``'s refit test). Returns ``(timing,
+    launches)``."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    from nereus_tpu_torch.boundary import rehash_boundary
+    from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.probes import cells
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    cfg = nt.SimConfig()
+    params = nt.make_params(device=dev)
+    state, _, walls = scene.dam_break(params, cfg, n_target=MAIN_N,
+                                      capacity_factor=LIFE_CAPACITY,
+                                      device=dev)
+    h = float(params.interaction_radius)
+    n0 = int(state.num_active)
+    patch = emit_patch(params)
+    cube = scene.particle_cube(DROP_CENTER, (DROP_SIZE,) * 3, h - 0.005)
+    drain_y = float(state.pos[:n0, 1].min()) - DRAIN_DEPTH
+    # the walls pin the live AABB, so a refit of the cell's own grid gives
+    # it back unchanged: start from the oversized frame a refit fixes
+    grid = nt.fit_grid(walls.pos.amin(dim=0).cpu().numpy() - REFIT_PAD,
+                       walls.pos.amax(dim=0).cpu().numpy() + REFIT_PAD, h,
+                       device=dev)
+    walls = rehash_boundary(walls, grid)
+    print(f"wcsph_1M_lifecycle: {n0} fluid particles, capacity "
+          f"{state.capacity}, {walls.num_boundaries} wall samples, grid "
+          f"{grid.size}; emit {len(patch)} every {EMIT_EVERY} steps at "
+          f"{EMIT_AT} m, {EMIT_VEL} m/s; drop {len(cube)} every "
+          f"{DROP_EVERY}; drain below y {drain_y:.6g}; refit every "
+          f"{REFIT_EVERY}")
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    drained = torch.zeros((), dtype=torch.int64, device=dev)
+    emitted = dropped = 0
+    spans = {"wcsph_step": [], "refit+rehash": [], "remove_particles": [],
+             "add_particles_traced": []}
+    t_start = ev()
+    for i in range(LIFE_STEPS):
+        if i and i % REFIT_EVERY == 0:
+            e0 = ev()
+            new_grid = nt.refit_grid(state, h, boundary=walls)
+            new_walls = rehash_boundary(walls, new_grid)
+            spans["refit+rehash"].append((e0, ev()))
+            live = state.pos[state.active_mask()]
+            lo = new_grid.origin
+            hi = lo + torch.tensor(new_grid.size, device=dev) * new_grid.cell
+            if not bool(((live > lo) & (live < hi)).all()):
+                fail(f"wcsph_1M_lifecycle: a live particle outside the grid "
+                     f"refit at step {i}")
+            bad = cells.cellcheck(state, params, new_grid, cfg, new_walls)
+            if bad:
+                fail(f"wcsph_1M_lifecycle: cell check {bad} after the refit "
+                     f"at step {i}")
+            if i == REFIT_EVERY:
+                prev = (grid, walls)
+            print(f"wcsph_1M_lifecycle: step {i}: grid {grid.size} origin "
+                  f"{grid.origin.tolist()} -> {new_grid.size} origin "
+                  f"{new_grid.origin.tolist()}, live {int(state.num_active)}")
+            grid, walls = new_grid, new_walls
+        if i and i % EMIT_EVERY == 0:
+            e0 = ev()
+            state, ovf = nt.add_particles_traced(state, patch, EMIT_VEL)
+            spans["add_particles_traced"].append((e0, ev()))
+            overflow += ovf
+            emitted += len(patch)
+        if i and i % DROP_EVERY == 0:
+            state = nt.add_particles(state, cube)
+            dropped += len(cube)
+        if i == REFIT_EVERY:
+            # the path's step on the refit grid against one on the old grid,
+            # from the same state
+            before = state
+            old, _ = nt.wcsph_step(before, params, prev[0], cfg, prev[1])
+        e0 = ev()
+        state, diag = nt.wcsph_step(state, params, grid, cfg, walls)
+        spans["wcsph_step"].append((e0, ev()))
+        if i == REFIT_EVERY:
+            p_old, v_old = unsorted(old, cells.step_order(before, prev[0]))
+            p_new, v_new = unsorted(state, cells.step_order(before, grid))
+            act = before.active_mask()
+            dp = float((p_old - p_new)[act].abs().max())
+            dv = float((v_old - v_new)[act].abs().max())
+            print(f"wcsph_1M_lifecycle: one step on the old grid vs the "
+                  f"refit grid: max|dpos| {dp:.6g} m, max|dvel| {dv:.6g} m/s")
+            if not (dp <= 1e-6 and dv <= 1e-5):
+                fail(f"wcsph_1M_lifecycle: refit changes the step: "
+                     f"{dp} m, {dv} m/s")
+        drained += ((state.pos[:, 1] < drain_y)
+                    & state.active_mask()).sum()
+        e0 = ev()
+        state = nt.remove_particles(state, state.pos[:, 1] >= drain_y)
+        spans["remove_particles"].append((e0, ev()))
+    t_end = ev()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    ms = t_start.elapsed_time(t_end) / LIFE_STEPS
+    n = int(state.num_active)
+    drained, overflow = int(drained), int(overflow)
+    per = {k: sum(a.elapsed_time(b) for a, b in v) / len(v)
+           for k, v in spans.items()}
+    refits = len(spans["refit+rehash"])
+    print(f"wcsph_1M_lifecycle: {LIFE_STEPS} steps: {ms:.4f} ms/step over "
+          f"the loop (lifecycle and checks included); per call: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
+          + f"; emitted {emitted}, dropped {dropped}, drained {drained}, "
+          f"emit overflow {overflow}, live {n0} -> {n}, refits {refits}; "
+          f"launches {launches}")
+    check_launches("wcsph_1M_lifecycle", {
+        cuda_sweep.DENSITY: LIFE_STEPS + 1, cuda_sweep.FORCE: LIFE_STEPS + 1,
+        cuda_sweep.CELL_CHECK: refits})
+    if overflow:
+        fail(f"wcsph_1M_lifecycle: emit overflow {overflow}")
+    if n != n0 + emitted + dropped - drained:
+        fail(f"wcsph_1M_lifecycle: live {n} != {n0} + {emitted} + "
+             f"{dropped} - {drained}")
+    if not drained > 0:
+        fail("wcsph_1M_lifecycle: nothing drained")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("wcsph_1M_lifecycle: non-finite positions")
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    timing = compare(cfg, ctx, params, f"wcsph_1M_lifecycle after "
+                     f"{LIFE_STEPS} steps", time_it=True)
+    timing["cell_check"] = cell_check_entry(cfg, ctx, grid,
+                                            "wcsph_1M_lifecycle")
+    return timing, launches
+
+
+def lowered(state, boundary, gap):
+    """``state`` moved down so its lowest particle sits ``gap`` over the
+    lowest wall sample."""
+    import nereus_tpu_torch as nt
+    n = int(state.num_active)
+    pos = state.pos[:n].clone()
+    pos[:, 1] += float(boundary.pos[:, 1].min()) + gap - float(
+        pos[:, 1].min())
+    return nt.make_fluid_state(pos.cpu().numpy(), device=state.pos.device)
+
+
+def run_wall_force(cfg, params, state, grid, walls):
+    """Phase 37: the wall-only force on the ``wcsph_1M`` cell's first-step
+    operands, the fluid lowered to 0.04 m over its floor (at the start the
+    walls are 0.17 m away, beyond the support, and every wall force is 0).
+    The port's entry point ``sph_pairs.boundary_force_sweep`` for both
+    pressure switches is the path; then each kernel against its plain
+    version and fused − fluid-only = wall-only within ``FORCE_TOL``.
+    Returns ``(timing, launches)``."""
+    from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    state = lowered(state, walls, 0.04)
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    dargs, _ = sweep_inputs(ctx, params)
+    _, fargs = sweep_inputs(ctx, params, SP.density_sweep_plain(cfg, *dargs))
+    q8, src = fargs[0], fargs[1]
+    w_rng = tuple((r[9:] - ctx.c).contiguous()
+                  for r in (ctx.seg_start, ctx.seg_end))
+    wargs = (q8, ctx.b_src, *w_rng, ctx.pvec)
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    for p in (True, False):
+        SP.boundary_force_sweep(cfg, *wargs, include_pressure=p)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    check_launches("wcsph_1M_wall_force", {cuda_sweep.WALL_FORCE: 1,
+                                           cuda_sweep.WALL_FORCE_P0: 1})
+    inside = cutoff_pairs(q8, ctx.b_src, *w_rng, float(ctx.pvec[SP.PV_H2]))
+    print(f"wall-only force: {ctx.c} queries, {walls.num_boundaries} wall "
+          f"samples, the fluid 0.04 m over its floor: "
+          f"{int(((w_rng[1] - w_rng[0]).sum(dim=0) > 0).sum())} queries with "
+          f"wall candidates, {inside} pairs inside the cutoff")
+    if not inside:
+        fail("wall-only force: no wall pair inside the cutoff")
+    ops = {"wall_force": (cuda_sweep.boundary_force_sweep,
+                          SP.boundary_force_sweep_plain, wargs, {}),
+           "wall_force_p0": (cuda_sweep.boundary_force_sweep,
+                             SP.boundary_force_sweep_plain, wargs,
+                             dict(include_pressure=False))}
+    timing = compare_kernels(cfg, ops, "wall-only force (lowered wcsph_1M)",
+                             time_it=True)
+    fluid_end = ctx.seg_end.clone()
+    fluid_end[9:] = ctx.seg_start[9:]
+    for key, (_, _, _, kw) in ops.items():
+        p = kw.get("include_pressure", True)
+        wall = cuda_sweep.boundary_force_sweep(cfg, *wargs, **kw)
+        diff = (cuda_sweep.force_sweep(cfg, q8, src, ctx.seg_start,
+                                       ctx.seg_end, ctx.pvec,
+                                       include_pressure=p)
+                - cuda_sweep.force_sweep(cfg, q8, src, ctx.seg_start,
+                                         fluid_end, ctx.pvec,
+                                         include_pressure=p))
+        err = (diff - wall).abs().amax(dim=0)
+        scale = wall.abs().amax(dim=0)
+        print(f"  {key}: fused - fluid-only vs wall-only max|d| "
+              f"{err.tolist()} (max|wall| {scale.tolist()})")
+        if not bool((scale > 0).all() & (err <= FORCE_TOL * scale).all()):
+            fail(f"{key}: fused - fluid-only != wall-only: {err.tolist()} "
+                 f"> {FORCE_TOL}*{scale.tolist()}")
+    return timing, launches
+
+
+def layout_mismatches(layout, got, ref, label):
+    """Fails unless the layout probe's output ``got`` (4, m) agrees with
+    ``ref`` query by query (``layout.mismatched_queries``: every element
+    within RTOL·|ref| + ATOL, exactly 0 where ``ref`` is, finite, row 3
+    zero); returns max|got − ref| over the force rows."""
+    bad = layout.mismatched_queries(got, ref)
+    err = float((got[:3] - ref[:3]).abs().max())
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0, 0])
+        fail(f"layout probe {label}: {int(bad.sum())} of {bad.numel()} "
+             f"queries outside {layout.RTOL}*|ref| + {layout.ATOL}, first "
+             f"{i}: got {got[:, i].tolist()} ref {ref[:, i].tolist()}")
+    return err
+
+
+def run_layout(dev):
+    """Phase 38: the layout probe, both layouts against the plain version
+    query by query at m = 2^14 and ws = 192, where two planted faults must
+    be caught by the same check; then the probe's timing entry point at m =
+    2^20 (the path: both layouts timed), each held against the plain
+    version there too. Returns ``(timing, launches)``."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.probes import layout as L
+    a, q, aos, soa = L.device_inputs(LAYOUT_CHECK_M, LAYOUT_WS, dev)
+    ref = L.probe_plain(a, q, aos, LAYOUT_WS)
+    live = int((ref[:3] != 0).any(dim=0).sum())
+    for fault, wrong in L.planted_faults(a, q, aos, LAYOUT_WS, ref).items():
+        caught = int(L.mismatched_queries(wrong, ref).sum())
+        print(f"  layout probe check, planted fault '{fault}': {caught} "
+              f"queries flagged")
+        if caught == 0:
+            fail(f"layout probe check misses the planted fault '{fault}'")
+    for name, src, is_soa in (("AoS", aos, False), ("SoA", soa, True)):
+        got = cuda_sweep.layout_probe(a, q, src, LAYOUT_WS, is_soa)
+        err = layout_mismatches(L, got, ref, f"{name} m={LAYOUT_CHECK_M}")
+        print(f"  layout probe {name} m={LAYOUT_CHECK_M} ws={LAYOUT_WS}: "
+              f"every query within {L.RTOL}*|ref| + {L.ATOL} ({live} with a "
+              f"force), max|d| {err}")
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    ms = L.time_layouts(LAYOUT_M, LAYOUT_WS)
+    launches = {k.name: k.launches for k in cuda_sweep.KERNELS}
+    if not (launches[cuda_sweep.LAYOUT_AOS.name] > 0
+            and launches[cuda_sweep.LAYOUT_SOA.name] > 0):
+        fail(f"layout probe: launches {launches}")
+    a, q, aos, soa = L.device_inputs(LAYOUT_M, LAYOUT_WS, dev)
+    nb = LAYOUT_M // L.B
+    slots_tpu = nb * L.N_ROWS * 1.3 * LAYOUT_WS * L.B
+    slots = L.window_slots(a, LAYOUT_WS)
+    ref = L.probe_plain(a, q, aos, LAYOUT_WS)
+    plain_ms = events_ms(lambda: L.probe_plain(a, q, aos, LAYOUT_WS), 2)
+    timing = {}
+    for key, name, src, is_soa in (("layout_aos", "AoS", aos, False),
+                                   ("layout_soa", "SoA", soa, True)):
+        got = cuda_sweep.layout_probe(a, q, src, LAYOUT_WS, is_soa)
+        err = layout_mismatches(L, got, ref, f"{name} m={LAYOUT_M}")
+        per = ms[name] * 1e-3
+        print(f"layout probe {name} m={LAYOUT_M} ws={LAYOUT_WS}: "
+              f"{ms[name]:.4f} ms/sweep, {slots_tpu / per / 1e9:.1f} G "
+              f"slots/s as the TPU probe counts them ({slots / per / 1e9:.1f}"
+              f" G for the {slots} slots evaluated), "
+              f"{LAYOUT_M / per / 1e6:.2f} M q/s; plain {plain_ms:.4f} ms; "
+              f"every query within {L.RTOL}*|ref| + {L.ATOL}, max|d| {err}")
+        nbytes = sum(t.numel() * t.element_size() for t in (a, q, src, got))
+        timing[key] = (err, ms[name], plain_ms,
+                       *flat_bound(nbytes, slots * L.OPS_PER_SLOT))
+    print(f"layout probe: SoA / AoS time {ms['SoA'] / ms['AoS']:.4f}")
+    return timing, launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures "
@@ -2985,6 +3467,28 @@ def main():
                                                  "elastic")
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # -- 35. the wide grid wcsph_wide12M -----------------------------------
+    t0 = time.perf_counter()
+    wide_timing, wide_launches = run_wide(dev)
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 36. particle lifecycle and grid refit wcsph_1M_lifecycle -----------
+    t0 = time.perf_counter()
+    life_timing, life_launches = run_lifecycle(dev)
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # -- 37. the wall-only force on the wcsph_1M cell -----------------------
+    t0 = time.perf_counter()
+    wall_timing, wall_launches = run_wall_force(*wcsph_main_path(dev))
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s")
+
+    # -- 38. the layout probe ------------------------------------------------
+    t0 = time.perf_counter()
+    layout_timing, layout_launches = run_layout(dev)
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel and path: every kernel a path launched is held
     # against its plain version at that path's shapes and operands; the
     # elastic path's κ body instance has two, forward and reverse (``op``)
@@ -3054,7 +3558,19 @@ def main():
             "mp_alpha_body": (cuda_sweep.MP_ALPHA_BODY, mpd_src, rep + "820"),
             "mp_drho_body": (cuda_sweep.MP_DRHO_BODY, mpd_src, rep + "854"),
             "mp_kappa_body": (cuda_sweep.MP_KAPPA_BODY, mpd_src,
-                              rep + "887")}
+                              rep + "887"),
+            "wall_force": (cuda_sweep.WALL_FORCE, sph_src, rep + "1236"),
+            "wall_force_p0": (cuda_sweep.WALL_FORCE_P0, sph_src,
+                              rep + "1236"),
+            "cell_check": (cuda_sweep.CELL_CHECK,
+                           "nereus_tpu_torch/csrc/cell_check.cu",
+                           "tools/wideprobe.py:35"),
+            "layout_aos": (cuda_sweep.LAYOUT_AOS,
+                           "nereus_tpu_torch/csrc/layout_probe.cu",
+                           "tools/probe_transposed.py:101"),
+            "layout_soa": (cuda_sweep.LAYOUT_SOA,
+                           "nereus_tpu_torch/csrc/layout_probe.cu",
+                           "tools/probe_transposed.py:101")}
     kernels = []
     for path, t, path_launches in (
             ("wcsph_1M", timing, wcsph_launches),
@@ -3079,7 +3595,11 @@ def main():
             ("wcsph_elastic_256k", wel_timing, wel_launches),
             ("dfsph_coupled_256k", dcp_timing, dcp_launches),
             ("dfsph_mp_coupled_256k", dmc_timing, dmc_launches),
-            ("dfsph_elastic_256k", dec_timing, dec_launches)):
+            ("dfsph_elastic_256k", dec_timing, dec_launches),
+            ("wcsph_wide12M", wide_timing, wide_launches),
+            ("wcsph_1M_lifecycle", life_timing, life_launches),
+            ("wcsph_1M_wall_force", wall_timing, wall_launches),
+            ("layout_probe", layout_timing, layout_launches)):
         ran = {k for k, c in path_launches.items() if c}
         held = {info[key][0].name for key in t}
         if ran != held:
@@ -3094,7 +3614,7 @@ def main():
                 "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "bound_ranges_ms": brms,
                 # no single PyTorch call computes a range-walk neighbor
-                # sweep
+                # sweep, a clamped cell index or the probe's windows
                 "library_ms": None})
     print(f"total wall time {time.perf_counter() - t_run:.1f} s")
     print(smi)

@@ -11,7 +11,9 @@ fluid–elastic coupling (``wcsph_elastic_step``), the DFSPH steps with
 two-way rigid-body coupling (``dfsph_coupled_step``, single phase and
 multiphase) and fluid–elastic coupling (``dfsph_elastic_step``), and the
 triangle-mesh boundaries and bodies (``mesh_boundary``,
-``make_rigid_mesh``) of
+``make_rigid_mesh``), and particle lifecycle and grid refit
+(``add_particles``, ``add_particles_traced``, ``remove_particles``,
+``refit_grid``) of
 ``nereus_tpu`` on one NVIDIA GPU: the same public names and semantics for
 the ported subset, with the neighbor sweeps as hand-written CUDA kernels
 for Hopper (``csrc/``) and plain PyTorch versions of them on the CPU.
@@ -22,8 +24,10 @@ and numpy, never JAX.
 from .params import (KernelSet, SimConfig, SimParams, SurfaceTensionModel,
                      calibrate_mass, dfsph_params, iisph_params, make_params,
                      pbf_params, pcisph_params)
-from .grid import Grid, fit_grid, make_grid
-from .state import BoundaryData, FluidState, make_fluid_state
+from .grid import Grid, fit_grid, make_grid, refit_grid
+from .state import (BoundaryData, FluidState, add_particles,
+                    add_particles_traced, make_fluid_state,
+                    remove_particles)
 from .boundary import move_boundary, rehash_boundary, rotation_matrix
 from .rigid import (RigidBody, body_body_contact, body_boundary,
                     concat_boundaries, integrate_rigid, make_rigid_box,
@@ -51,8 +55,9 @@ __all__ = [
     "KernelSet", "SimConfig", "SimParams", "SurfaceTensionModel",
     "calibrate_mass", "make_params", "iisph_params", "pcisph_params",
     "dfsph_params", "pbf_params",
-    "Grid", "fit_grid", "make_grid",
-    "BoundaryData", "FluidState", "make_fluid_state",
+    "Grid", "fit_grid", "make_grid", "refit_grid",
+    "BoundaryData", "FluidState", "make_fluid_state", "add_particles",
+    "add_particles_traced", "remove_particles",
     "StepDiagnostics", "wcsph_step", "tait_pressure", "cfl_dt",
     "iisph_step", "pcisph_step", "pcisph_delta", "pcisph_delta_from_denom",
     "pcisph_grad_denom", "dfsph_step", "pbf_step",

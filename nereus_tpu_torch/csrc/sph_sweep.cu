@@ -4,7 +4,12 @@
 // (launched by neighbor_sweep) together with the three pair functions the
 // WCSPH step runs through it, nereus_tpu/ops/pallas_sph.py::density_pair,
 // fluid_force_pair and boundary_force_pair (reached through
-// pallas_sph.density_sweep and pallas_sph.fluid_force_sweep).
+// pallas_sph.density_sweep and pallas_sph.fluid_force_sweep), and
+// pallas_sph.py::boundary_force_sweep, the wall-only force (the functor
+// WallForce<PRESSURE> of pair_sweep_kernel over the wall rows alone, the
+// same wall formula as the fused force kernel's rows 9-17; the JAX package
+// has no caller of it, the port's is ops/sph_pairs.py::
+// boundary_force_sweep).
 //
 // Design: one thread per query, in hash-sorted order. Each thread walks its
 // exact neighbor ranges over the hash-sorted source matrix: rows 0-8 are
@@ -91,6 +96,63 @@ density_sweep_kernel(const float4* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// The wall pair of boundary_force_pair: Akinci adhesion beta psi W r, the
+// friction nu max(v . r, 0) psi grad W (VISC; MOVING: (v_i - v_b) . r with
+// the wall velocity in slots 3-5 of the source row) and the reference-scale
+// pressure +m^2 psi pd2_i grad W (PRESSURE), summed into f. One formula for
+// the fused force kernel's wall rows and the wall-only WallForce functor.
+// ---------------------------------------------------------------------------
+
+// nu = 2 m^2 mu^2 h c_s / (1 + 0.01 h^2) / max(rho_i, 1e-12)^2
+__device__ __forceinline__ float wall_nu(float dens_i, const Params& p) {
+  const float di = fmaxf(dens_i, 1e-12f);
+  return ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
+          (1.0f + 0.01f * p.h2)) /
+         (di * di);
+}
+
+template <int KS, int PRESSURE, int VISC, int MOVING>
+__device__ __forceinline__ void wall_pair(float qx, float qy, float qz,
+                                          float qvx, float qvy, float qvz,
+                                          float pd2_i, float nu,
+                                          const float4* __restrict__ src,
+                                          int j, const Params& p, float& fx,
+                                          float& fy, float& fz) {
+  const float4 a = __ldg(src + 2 * j);  // x y z vbx
+  float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // vby vbz psi pad
+  if constexpr (MOVING != 0) {
+    b = __ldg(src + 2 * j + 1);
+  } else {
+    b.z = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+  }
+  const float psi = b.z;
+  const float dx = qx - a.x, dy = qy - a.y, dz = qz - a.z;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  float rl = 0.0f, invrl = 0.0f;
+  if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
+  const float okf = r2 < p.h2 ? 1.0f : 0.0f;
+  const float w = w_value<KS>(r2, rl, p);
+  const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
+  float cfric = 0.0f;
+  if constexpr (VISC != 0) {
+    float vdotr;
+    if constexpr (MOVING != 0) {
+      vdotr = (qvx - a.w) * dx + (qvy - b.x) * dy + (qvz - b.y) * dz;
+    } else {
+      vdotr = qvx * dx + qvy * dy + qvz * dz;
+    }
+    cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+  }
+  const float cpb = p.pm * p.pm;
+  const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
+                                   (cfric + cpb * psi * pd2_i * sd)) * okf
+                                : ((p.beta * psi) * w + cfric) * okf;
+  fx += c * dx;
+  fy += c * dy;
+  fz += c * dz;
+}
+
+// ---------------------------------------------------------------------------
 // Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
 // from rho_j) on rows 0-8, wall pairs (adhesion, friction, reference-scale
 // boundary pressure) on rows 9-17; PRESSURE = 0 drops both pressure terms,
@@ -168,44 +230,11 @@ force_sweep_kernel(const float4* __restrict__ q,
   });
 
   if (n_rows > N_ROWS) {
-    const float di = fmaxf(dens_i, 1e-12f);
-    const float nu = VISC != 0 ? ((2.0f * p.pm * p.pm * p.visc * p.visc *
-                                   p.h * p.cs) / (1.0f + 0.01f * p.h2)) /
-                                     (di * di)
-                               : 0.0f;
-    const float cpb = p.pm * p.pm;
+    const float nu = VISC != 0 ? wall_nu(dens_i, p) : 0.0f;
     for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
-      const float4 a = __ldg(src + 2 * j);  // x y z vbx
-      float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // vby vbz psi pad
-      if constexpr (MOVING != 0) {
-        b = __ldg(src + 2 * j + 1);
-      } else {
-        b.z = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
-      }
-      const float psi = b.z;
-      const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      float rl = 0.0f, invrl = 0.0f;
-      if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
-      const float okf = r2 < p.h2 ? 1.0f : 0.0f;
-      const float w = w_value<KS>(r2, rl, p);
-      const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
-      float cfric = 0.0f;
-      if constexpr (VISC != 0) {
-        float vdotr;
-        if constexpr (MOVING != 0) {
-          vdotr = (qa.w - a.w) * dx + (qb.x - b.x) * dy + (qb.y - b.y) * dz;
-        } else {
-          vdotr = qa.w * dx + qb.x * dy + qb.y * dz;
-        }
-        cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
-      }
-      const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
-                                  (cfric + cpb * psi * pd2_i * sd)) * okf
-                               : ((p.beta * psi) * w + cfric) * okf;
-      fx += c * dx;
-      fy += c * dy;
-      fz += c * dz;
+      wall_pair<KS, PRESSURE, VISC, MOVING>(qa.x, qa.y, qa.z, qa.w, qb.x,
+                                            qb.y, pd2_i, nu, src, j, p, fx,
+                                            fy, fz);
     });
   }
   out[3 * i + 0] = fx;
@@ -222,6 +251,31 @@ void launch_force(const float* q, const float* src, const int* s,
       reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
       s, e, n, n_rows, pv, out);
 }
+
+// ---------------------------------------------------------------------------
+// The wall-only force (pallas_sph.py::boundary_force_sweep): the wall pair
+// at the JAX defaults (static wall, adhesion, friction, reference-scale
+// pressure when PRESSURE) over a (9, N) wall-range table and the wall
+// source (M, 8) alone, as a functor of pair_sweep_kernel; nu once per
+// query, in its prologue, as the fused kernel computes it
+// ---------------------------------------------------------------------------
+
+template <int PRESSURE>
+struct WallForce {
+  static constexpr int QW = 8, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  // rho_i (slot 6) is read only for nu: replace it by nu
+  __device__ static void prologue(float (&q)[QW], const Params& p) {
+    q[6] = wall_nu(q[6], p);
+  }
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    wall_pair<KS, PRESSURE, 1, 0>(q[0], q[1], q[2], q[3], q[4], q[5], q[7],
+                                  q[6], reinterpret_cast<const float4*>(src),
+                                  j, p, acc[0], acc[1], acc[2]);
+  }
+};
 
 }  // namespace
 
@@ -280,6 +334,27 @@ int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
   NEREUS_FORCE_ST(MONAGHAN, 0, 1, 1)
 #undef NEREUS_FORCE_ST
 #undef NEREUS_FORCE
+  return -1;
+}
+
+// pair_sweep_kernel<WallForce<include_pressure>> on `stream`: q (N, 8)
+// x y z vx vy vz rho pd2, src (M, 8) the wall rows x y z 0 0 0 psi_b pad,
+// ranges (9, N) into src, out (N, 3); returns cudaGetLastError() (0 on
+// success), or -1 for an unknown kernel set or a switch other than 0, 1.
+int nereus_wall_force_sweep(const float* q, const float* src,
+                            const int* seg_start, const int* seg_end, int n,
+                            int n_rows, const float* pvec, int kernel_set,
+                            int include_pressure, float* out, void* stream) {
+  if (include_pressure == 1) {
+    return launch_pair_sweep<WallForce<1>>(q, src, seg_start, seg_end, n,
+                                           n_rows, pvec, kernel_set, out,
+                                           stream);
+  }
+  if (include_pressure == 0) {
+    return launch_pair_sweep<WallForce<0>>(q, src, seg_start, seg_end, n,
+                                           n_rows, pvec, kernel_set, out,
+                                           stream);
+  }
   return -1;
 }
 

@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace nereus_sweep {
 
 enum {
@@ -206,6 +208,15 @@ __device__ __forceinline__ float4 src_f4(const float* src, int width, int j,
                static_cast<size_t>(j) * (width / 4) + k);
 }
 
+// A pair functor may define `static void prologue(float (&q)[QW], const
+// Params&)`: pair_sweep_kernel calls it once per query, after loading the
+// query row, to turn per-query inputs into the constants pair() reads.
+template <class P, class = void>
+struct HasPrologue : std::false_type {};
+template <class P>
+struct HasPrologue<P, std::void_t<decltype(&P::prologue)>>
+    : std::true_type {};
+
 template <class P, int KS>
 __global__ void __launch_bounds__(THREADS)
 pair_sweep_kernel(const float* __restrict__ q, const float* __restrict__ src,
@@ -217,6 +228,7 @@ pair_sweep_kernel(const float* __restrict__ q, const float* __restrict__ src,
   const Params p = load_params(pv);
   float qv[P::QW];
   load_row<P::QW>(q, i, qv);
+  if constexpr (HasPrologue<P>::value) P::prologue(qv, p);
   float acc[P::OW];
 #pragma unroll
   for (int k = 0; k < P::OW; ++k) acc[k] = 0.0f;

@@ -60,6 +60,27 @@ def fit_grid(lo, hi, cell_size, margin: float = 0.1, dtype=torch.float32,
     return make_grid(origin, size, cell_size, dtype=dtype, device=device)
 
 
+def refit_grid(state, cell_size, boundary=None, margin: float = 0.1,
+               dtype=torch.float32) -> Grid:
+    """A grid fit to the AABB of the live particles (and of ``boundary``'s
+    samples), on the state's device (``SPH::updateGrid``,
+    ``sph/sph.cpp:290-337``). The AABB is a masked min/max on the device,
+    so parked slots (1e9) never inflate it; only its 6 floats reach the
+    host. Stepping on the new grid needs the boundary re-sorted
+    (``boundary.rehash_boundary``)."""
+    pos = state.pos
+    big = torch.finfo(pos.dtype).max
+    act = state.active_mask()[:, None]
+    lo = torch.where(act, pos, big).amin(dim=0)
+    hi = torch.where(act, pos, -big).amax(dim=0)
+    if boundary is not None and boundary.num_boundaries > 0:
+        lo = torch.minimum(lo, boundary.pos.amin(dim=0))
+        hi = torch.maximum(hi, boundary.pos.amax(dim=0))
+    lo, hi = torch.cat([lo, hi]).cpu().numpy().reshape(2, 3)
+    return fit_grid(lo, hi, cell_size, margin=margin, dtype=dtype,
+                    device=pos.device)
+
+
 def _coord(v, origin, inv_cell, g):
     # floor((v − o)·(1/cell)); the clamp happens on the float so positions
     # far outside the grid (parked slots at 1e9) saturate instead of

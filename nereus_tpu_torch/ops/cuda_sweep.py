@@ -8,7 +8,9 @@
 rigid-body contact, ``csrc/elastic_sweep.cu`` for the elastic solid and
 its fluid coupling, and the body forms of the DFSPH sweeps for the DFSPH
 couplings in the files of their functors; the counterpart of
-``nereus_tpu.ops.pallas_neighbors``).
+``nereus_tpu.ops.pallas_neighbors``), and the two probes of
+``nereus_tpu_torch.probes``: ``csrc/cell_check.cu`` (in-kernel cell
+coordinates) and ``csrc/layout_probe.cu`` (the source-layout probe).
 
 Each ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into an object,
 all at once in parallel, and the objects are linked into one shared
@@ -108,6 +110,14 @@ DRHO_SHELL = Kernel("pair_sweep_kernel<Drho><body>")
 MP_ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseAlpha>>")
 MP_DRHO_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseDrho>>")
 MP_KAPPA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseKappa>>")
+# the wall-only force (the JAX package's boundary_force_sweep), with and
+# without the wall pressure
+WALL_FORCE = Kernel("pair_sweep_kernel<WallForce>")
+WALL_FORCE_P0 = Kernel("pair_sweep_kernel<WallForce<PRESSURE=0>>")
+# the probes: the in-kernel cell check and the two source layouts
+CELL_CHECK = Kernel("cell_check_kernel")
+LAYOUT_AOS = Kernel("layout_probe<AoS>")
+LAYOUT_SOA = Kernel("layout_probe<SoA>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
            XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
@@ -116,7 +126,8 @@ KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
            BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
            ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
-           MP_KAPPA_BODY)
+           MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
+           LAYOUT_SOA)
 
 _lock = threading.Lock()
 _lib = None
@@ -211,6 +222,12 @@ def load():
             f.restype = i32
             f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32,
                           *[i32] * n_switches, ptr, ptr]
+        lib.nereus_cell_check.restype = i32
+        lib.nereus_cell_check.argtypes = [ptr, i32, i32, ptr, i32, i32, i32,
+                                          ptr, ptr]
+        lib.nereus_layout_probe.restype = i32
+        lib.nereus_layout_probe.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                            i32, ptr, ptr]
         lib.nereus_cuda_error_string.restype = ctypes.c_char_p
         lib.nereus_cuda_error_string.argtypes = [i32]
         _lib = lib
@@ -272,7 +289,18 @@ _SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
               "elastic_force_hourglass": 0, "fluid_reaction": 1,
               "pressure_force_body": 0, "alpha_body": 0,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
-              "multiphase_kappa_body": 0}
+              "multiphase_kappa_body": 0, "wall_force": 1}
+
+
+def _launch(kernel: Kernel, fn: str, device, *args):
+    """Launches the entry point ``nereus_<fn>`` with ``args`` and the
+    current stream of ``device``; counts and checks the launch."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"nereus_{fn}")(
+            *args, torch.cuda.current_stream().cuda_stream)
+    kernel.launches += 1
+    _raise_on(lib, kernel, rc)
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -287,15 +315,9 @@ def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
     out = torch.empty(shape, dtype=torch.float32, device=q.device)
     if n == 0:
         return out
-    lib = load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"nereus_{fn}_sweep")(
-            q.data_ptr(), src.data_ptr(), seg_start.data_ptr(),
-            seg_end.data_ptr(), n, n_rows, pvec.data_ptr(),
-            cfg.kernel_set.value, *switches, out.data_ptr(), stream)
-    kernel.launches += 1
-    _raise_on(lib, kernel, rc)
+    _launch(kernel, f"{fn}_sweep", q.device, q.data_ptr(), src.data_ptr(),
+            seg_start.data_ptr(), seg_end.data_ptr(), n, n_rows,
+            pvec.data_ptr(), cfg.kernel_set.value, *switches, out.data_ptr())
     return out
 
 
@@ -564,3 +586,60 @@ def multiphase_kappa_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
     the shell (Mb, 4) ``x y z ψ_b``, ranges (9, N)."""
     return _sweep(MP_KAPPA_BODY, "multiphase_kappa_body", cfg, q, 8, src, 4,
                   seg_start, seg_end, pvec, (9,), 3)
+
+
+def boundary_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                         include_pressure=True):
+    """The wall-only force (N, 3), adhesion, friction and (unless
+    ``include_pressure=False``, counted in ``WALL_FORCE_P0``) the
+    reference-scale wall pressure: q (N, 8), the wall source (M, 8),
+    ranges (9, N) into it."""
+    p = bool(include_pressure)
+    return _sweep(WALL_FORCE if p else WALL_FORCE_P0, "wall_force", cfg, q,
+                  8, src, 8, seg_start, seg_end, pvec, (9,), 3, int(p))
+
+
+def cell_check(q, pvec, grid):
+    """In-kernel cell coordinates (N, 4) int32 of the queries q (N, 4 or
+    8): floor((v − o)·(1/cell)) clamped to [0, g − 1] per axis, o and
+    1/cell read from pvec's ``PV_OX``-``PV_INVCELL``, g from ``grid.size``;
+    column 3 is 0."""
+    from .sph_pairs import PV_LEN
+    n, qw = q.shape
+    if qw not in (4, 8):
+        raise ValueError(f"q must be (N, 4) or (N, 8), got {tuple(q.shape)}")
+    _check("q", q, torch.float32, (n, qw))
+    _check("pvec", pvec, torch.float32, (PV_LEN,))
+    if pvec.device != q.device:
+        raise ValueError(f"inputs on several devices: {q.device}, "
+                         f"{pvec.device}")
+    gx, gy, gz = (int(g) for g in grid.size)
+    out = torch.empty((n, 4), dtype=torch.int32, device=q.device)
+    if n:
+        _launch(CELL_CHECK, "cell_check", q.device, q.data_ptr(), n, qw,
+                pvec.data_ptr(), gx, gy, gz, out.data_ptr())
+    return out
+
+
+def layout_probe(anchors, q, src, ws: int, soa: bool):
+    """The source-layout probe's synthetic force sweep (4, m): anchors
+    (m/128·18,) int32, q (8, m), src (M, 8) rows (AoS) or, ``soa``, (8, M)
+    columns, windows of ``ws`` source rows; counted in ``LAYOUT_SOA`` resp.
+    ``LAYOUT_AOS``."""
+    m = q.shape[1]
+    if m % 128 or ws <= 0:
+        raise ValueError(f"m ({m}) must be a multiple of 128 and ws ({ws}) "
+                         "positive")
+    m_src = src.shape[1] if soa else src.shape[0]
+    if m_src < ws:
+        raise ValueError(f"{m_src} source rows < window {ws}")
+    _check("anchors", anchors, torch.int32, (m // 128 * 18,))
+    _check("q", q, torch.float32, (8, m))
+    _check("src", src, torch.float32, (8, m_src) if soa else (m_src, 8))
+    if len({anchors.device, q.device, src.device}) != 1:
+        raise ValueError("inputs on several devices")
+    out = torch.empty((4, m), dtype=torch.float32, device=q.device)
+    _launch(LAYOUT_SOA if soa else LAYOUT_AOS, "layout_probe", q.device,
+            anchors.data_ptr(), q.data_ptr(), src.data_ptr(), m, m_src, ws,
+            int(bool(soa)), out.data_ptr())
+    return out

@@ -36,7 +36,8 @@ coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
 ``pressure_force_body_sweep``, ``alpha_body_sweep``,
 ``alpha_shell_sweep``, ``drho_shell_sweep`` and the three
-``multiphase_*_body_sweep``) routes by device:
+``multiphase_*_body_sweep``, and the wall-only
+``boundary_force_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
 hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
 """
@@ -994,6 +995,20 @@ def body_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
               consistent_pressure=True), q, src, seg_start, seg_end, 3)
 
 
+def boundary_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                               pvec, include_pressure=True):
+    """The wall-only force (N, 3) (``pallas_sph.boundary_force_sweep``):
+    :func:`boundary_force_pair` at its defaults (static wall, adhesion,
+    friction, the reference-scale pressure; ``include_pressure=False``
+    drops the pressure) over the wall rows alone: q (N, 8) ``x y z v ρ
+    pd2``, src (M, 8) ``x y z 0 0 0 ψ_b 0``, ranges (9, N) into src. Equals
+    the fused force sweep's rows 9-17."""
+    return neighbor_sweep_plain(
+        _bind(boundary_force_pair, cfg, pvec,
+              include_pressure=include_pressure), q, src, seg_start,
+        seg_end, 3)
+
+
 def multiphase_body_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                                 pvec):
     """Multiphase rigid-body contact acceleration (N, 3) from one body
@@ -1168,18 +1183,25 @@ def _route(*tensors) -> str:
                     "float32/float64, CUDA takes float32")
 
 
+def dispatch(tensors, plain, kernel_name, *args, **kw):
+    """``plain(*args, **kw)`` when ``tensors`` lie on the CPU, the CUDA
+    kernel's wrapper ``cuda_sweep.<kernel_name>(*args, **kw)`` when they
+    lie on the card; raises as :func:`_route` on anything else."""
+    if _route(*tensors) == "plain":
+        return plain(*args, **kw)
+    from . import cuda_sweep
+    return getattr(cuda_sweep, kernel_name)(*args, **kw)
+
+
 def _dispatcher(plain, kernel_name, name=None):
     """The sweep ``name`` (default: ``plain``'s name without ``_plain``),
-    routed by device: ``plain`` for CPU tensors, the CUDA kernel
-    ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
+    routed by device (:func:`dispatch`): ``plain`` for CPU tensors, the
+    CUDA kernel ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
     (``include_pressure``, ``include_viscosity``, ``moving_boundary``) go
     to both."""
     def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
-        if _route(q, src, pvec, seg_start) == "plain":
-            return plain(cfg, q, src, seg_start, seg_end, pvec, **kw)
-        from . import cuda_sweep
-        return getattr(cuda_sweep, kernel_name)(cfg, q, src, seg_start,
-                                                seg_end, pvec, **kw)
+        return dispatch((q, src, pvec, seg_start), plain, kernel_name, cfg,
+                        q, src, seg_start, seg_end, pvec, **kw)
     sweep.__name__ = name or plain.__name__.removesuffix("_plain")
     sweep.__doc__ = (f"``{plain.__name__}`` on CPU tensors, the CUDA kernel "
                      f"``cuda_sweep.{kernel_name}`` on GPU ones.")
@@ -1211,6 +1233,8 @@ multiphase_force_sweep = _dispatcher(multiphase_force_sweep_plain,
 body_density_sweep = _dispatcher(density_sweep_plain, "body_density_sweep",
                                  name="body_density_sweep")
 body_force_sweep = _dispatcher(body_force_sweep_plain, "body_force_sweep")
+boundary_force_sweep = _dispatcher(boundary_force_sweep_plain,
+                                   "boundary_force_sweep")
 multiphase_body_sweep = _dispatcher(multiphase_body_sweep_plain,
                                     "multiphase_body_sweep")
 xsph_sweep = _dispatcher(xsph_sweep_plain, "xsph_sweep")

@@ -110,10 +110,10 @@ def test_build_without_nvcc_raises(monkeypatch):
         cuda_sweep.build()
     assert cuda_sweep.sources() == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
-            "coupled_sweep.cu", "dfsph_multiphase_sweep.cu",
+            "cell_check.cu", "coupled_sweep.cu", "dfsph_multiphase_sweep.cu",
             "dfsph_sweep.cu", "elastic_sweep.cu", "iisph_sweep.cu",
-            "multiphase_sweep.cu", "pbf_sweep.cu", "sph_sweep.cu",
-            "viscosity_sweep.cu")]
+            "layout_probe.cu", "multiphase_sweep.cu", "pbf_sweep.cu",
+            "sph_sweep.cu", "viscosity_sweep.cu")]
 
 
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
@@ -317,6 +317,85 @@ def test_force_without_viscosity_routes_by_device(include_pressure):
     assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
 
 
+@pytest.mark.parametrize("include_pressure", [True, False])
+def test_wall_force_routes_by_device(include_pressure):
+    """The wall-only force sweep runs the plain sweep on CPU tensors,
+    launching nothing, refuses float16 and 18 range rows, and its CUDA
+    wrapper refuses CPU tensors."""
+    cfg = nereus_tpu_torch.SimConfig()
+    q, src, s, e, pv = _inputs()
+    q8 = torch.zeros((q.shape[0], 8))
+    kw = dict(include_pressure=include_pressure)
+    cuda_sweep.reset_launches()
+    out = SP.boundary_force_sweep(cfg, q8, src, s, e, pv, **kw)
+    assert out.shape == (8, 3) and float(out.abs().max()) == 0.0
+    with pytest.raises(TypeError):
+        SP.boundary_force_sweep(cfg, q8.half(), src.half(), s, e, pv.half(),
+                                **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.boundary_force_sweep(cfg, q8, src, s, e, pv, **kw)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
+
+
+def _probe_scene(device, capacity_extra=16):
+    """A small dam-break with parked slots past its live count."""
+    cfg = nereus_tpu_torch.SimConfig()
+    params = nereus_tpu_torch.make_params(dt=5e-4, device=device)
+    state, grid, boundary = scene.dam_break(
+        params, cfg, cube_size=(0.25,) * 3, cube_center=(-0.3, 0.05, 0.5),
+        box_min=(-0.8, -0.095, 0.0), box_max=(0.2, 0.7, 1.0),
+        boundary_radius=0.04, device=device)
+    pos = state.pos.cpu().numpy()
+    vel = np.random.default_rng(0).uniform(-0.5, 0.5, pos.shape)
+    state = nereus_tpu_torch.make_fluid_state(
+        pos, vel, capacity=len(pos) + capacity_extra, device=device)
+    return cfg, params, state, grid, boundary
+
+
+def test_cell_check_routes_by_device():
+    """The cell check's plain version on CPU tensors (its cells equal
+    ``grid.cell_coords``; parked slots clamp to the last cell), launching
+    nothing; float16 raises; the CUDA wrapper refuses CPU tensors and
+    query widths other than 4 and 8."""
+    from nereus_tpu_torch import grid as gridlib
+    from nereus_tpu_torch.probes import cells
+    cfg, params, state, grid, _ = _probe_scene("cpu")
+    ctx = build_sweep_ctx(state, params, grid, cfg, None)
+    cuda_sweep.reset_launches()
+    q = ctx.queries(width=4)
+    got = cells.cell_coords_in_kernel(q, ctx.pvec, grid)
+    assert got.dtype == torch.int32 and got.shape == (state.capacity, 4)
+    assert torch.equal(got[:, :3], gridlib.cell_coords(grid, q[:, :3]))
+    assert got[-1, :3].tolist() == [g - 1 for g in grid.size]
+    with pytest.raises(TypeError):
+        cells.cell_coords_in_kernel(q.half(), ctx.pvec.half(), grid)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.cell_check(q, ctx.pvec, grid)
+    with pytest.raises(ValueError, match=r"\(N, 4\) or \(N, 8\)"):
+        cuda_sweep.cell_check(torch.zeros((8, 12)), ctx.pvec, grid)
+    assert cells.cellcheck(state, params, grid, cfg, quiet=True) == 0
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
+
+
+def test_layout_probe_routes_by_device():
+    """The layout probe's plain version on CPU tensors, the same for both
+    layouts, launching nothing; the CUDA wrapper refuses CPU tensors and a
+    query count that is not a multiple of 128."""
+    from nereus_tpu_torch.probes import layout
+    anchors, q, src = (torch.from_numpy(a) for a in
+                       layout.build_inputs(256, 16))
+    cuda_sweep.reset_launches()
+    aos = layout.layout_probe(anchors, q, src, 16)
+    soa = layout.layout_probe(anchors, q, src.t().contiguous(), 16, soa=True)
+    assert aos.shape == (4, 256) and torch.equal(aos, soa)
+    assert not aos[3].any() and torch.isfinite(aos).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.layout_probe(anchors, q, src, 16, False)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_sweep.layout_probe(anchors, q[:, :200], src, 16, False)
+    assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
+
+
 # ---------------------------------------------------------------------------
 # On a CUDA card: the kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -375,7 +454,7 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
                                        ctx.seg_end, ctx.pvec)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 39
+    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 44
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -458,7 +537,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         "force_p0")
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 33)
+                                                        + [0] * 38)
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -493,7 +572,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 33
+    assert launches[8:] == [0] * 38
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -553,7 +632,7 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 30)
+                                                        + [0] * 35)
 
 
 @pytest.mark.requires_cuda
@@ -574,7 +653,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 27
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 32
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -592,7 +671,7 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
     assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 27
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 32
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -642,7 +721,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 27)
+                                                        + [0] * 32)
 
 
 @pytest.mark.requires_cuda
@@ -658,7 +737,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 27)
+                                                        + [0] * 32)
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
@@ -666,7 +745,7 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
     assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 27)
+                                                        + [3] + [0] * 32)
     assert torch.isfinite(state.pos).all()
 
 
@@ -1353,3 +1432,77 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
                       K.ELASTIC_F: 6, K.ELASTIC_FORCE_HG: 6})
     assert torch.isfinite(s.pos).all() and torch.isfinite(es.pos).all()
     assert int(diag.seg_overflow) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_wall_force_and_cell_check_match_plain_on_cuda(cuda, kernel_set):
+    """The wall-only force kernel, both pressure instances, against its
+    plain version (max|Δ| ≤ 1e-4·max|ref|) and against fused − fluid-only;
+    the cell check kernel equal to ``grid.cell_coords_cols`` on the live
+    and the parked slots, on the compact and on a padded grid past 2²⁴
+    cells."""
+    from nereus_tpu_torch.probes import cells
+    cfg, params, state, grid, walls = _probe_scene(cuda)
+    cfg = nereus_tpu_torch.SimConfig(
+        kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
+    ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
+                                  ctx.pack(vel, params.particle_mass),
+                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    ds = dens.clamp(min=1e-12)
+    q8 = ctx.queries(*vel, dens,
+                     nereus_tpu_torch.tait_pressure(dens, params) / (ds * ds))
+    src = ctx.pack(vel, dens)
+    w_s = (ctx.seg_start[9:] - ctx.c).contiguous()
+    w_e = (ctx.seg_end[9:] - ctx.c).contiguous()
+    fluid_end = ctx.seg_end.clone()
+    fluid_end[9:] = ctx.seg_start[9:]
+    cuda_sweep.reset_launches()
+    for p in (True, False):
+        got = SP.boundary_force_sweep(cfg, q8, ctx.b_src, w_s, w_e, ctx.pvec,
+                                      include_pressure=p)
+        ref = SP.boundary_force_sweep_plain(cfg, q8, ctx.b_src, w_s, w_e,
+                                            ctx.pvec, include_pressure=p)
+        _assert_columns_close(got, ref, f"wall force {p}")
+        diff = (cuda_sweep.force_sweep(cfg, q8, src, ctx.seg_start,
+                                       ctx.seg_end, ctx.pvec,
+                                       include_pressure=p)
+                - cuda_sweep.force_sweep(cfg, q8, src, ctx.seg_start,
+                                         fluid_end, ctx.pvec,
+                                         include_pressure=p))
+        _assert_columns_close(diff, ref, f"fused - fluid {p}")
+    for g in (grid, cells.pad_below(grid, 2 ** 24 // (grid.size[0]
+                                                      * grid.size[1]) + 1)):
+        gctx = build_sweep_ctx(state, params, g, cfg, None)
+        q4 = gctx.queries(width=4)
+        assert torch.equal(cells.cell_coords_in_kernel(q4, gctx.pvec, g),
+                           cells.cell_coords_plain(q4, gctx.pvec, g))
+        assert cells.cellcheck(state, params, g, cfg, quiet=True) == 0
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.WALL_FORCE: 1, cuda_sweep.WALL_FORCE_P0: 1,
+                      cuda_sweep.FORCE: 2, cuda_sweep.FORCE_P0: 2,
+                      cuda_sweep.CELL_CHECK: 4})
+
+
+@pytest.mark.requires_cuda
+def test_layout_probe_matches_plain_on_cuda(cuda):
+    """Both layouts of the probe kernel against the plain version on the
+    TPU probe's inputs, query by query (``layout.mismatched_queries``:
+    |Δ| ≤ 1e-3·|ref| + 1e-4 per element, exactly 0 where ref is 0, finite,
+    row 3 zero); the same check flags both planted faults."""
+    from nereus_tpu_torch.probes import layout
+    anchors, q, aos, soa = layout.device_inputs(2 ** 12, 64, cuda)
+    ref = layout.probe_plain(anchors, q, aos, 64)
+    assert int((ref[:3] != 0).any(dim=0).sum()) > 100
+    for fault, wrong in layout.planted_faults(anchors, q, aos, 64,
+                                              ref).items():
+        assert layout.mismatched_queries(wrong, ref).any(), fault
+    cuda_sweep.reset_launches()
+    for src, is_soa in ((aos, False), (soa, True)):
+        got = layout.layout_probe(anchors, q, src, 64, is_soa)
+        bad = layout.mismatched_queries(got, ref)
+        assert not bad.any(), (is_soa, int(bad.sum()))
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.LAYOUT_AOS: 1, cuda_sweep.LAYOUT_SOA: 1})

@@ -24,7 +24,11 @@ elastic_512k and elastic_plastic_512k; wcsph_elastic:
 dfsph_coupled, dfsph_mp_coupled, dfsph_elastic:
 ``chip_smoke.dfsph_coupled_scene``, ``bench.py``'s dfsph_coupled_256k, its
 two-phase split and the settled block with phase 30's elastic cube over
-it), runs
+it; wide12M: ``bench.py``'s wcsph_wide12M, the 12M dam-break on its grid
+stretched past 2^24 cells; lifecycle: ``chip_smoke.py``'s
+wcsph_1M_lifecycle without its refits and drop, each step an
+``add_particles_traced`` patch every 10 steps, the step, and
+``remove_particles`` under the drain plane), runs
 ``--warmup`` steps, times ``--steps`` steps with CUDA events and the host
 clock, then profiles the next ``--steps`` steps with
 ``torch.profiler`` and prints, for those steps, the device time per step
@@ -124,6 +128,35 @@ def build(solver, dev):
                 s, params, grid, cfg, held["body"], walls)
             return s, d
         return state, step, ()
+    if solver == "wide12M":
+        from nereus_tpu_torch import scene
+        from nereus_tpu_torch.probes import cells
+        cfg, params = nt.SimConfig(), nt.make_params(device=dev)
+        state, grid, _ = scene.dam_break(params, cfg, n_target=smoke.WIDE_N,
+                                         with_boundary=False, device=dev)
+        grid = cells.stretch_grid(grid)
+
+        def step(s):
+            return nt.wcsph_step(s, params, grid, cfg, None)
+        return state, step, ()
+    if solver == "lifecycle":
+        from nereus_tpu_torch import scene
+        cfg, params = nt.SimConfig(), nt.make_params(device=dev)
+        state, grid, walls = scene.dam_break(
+            params, cfg, n_target=smoke.MAIN_N,
+            capacity_factor=smoke.LIFE_CAPACITY, device=dev)
+        patch = smoke.emit_patch(params)
+        n0 = int(state.num_active)
+        drain_y = float(state.pos[:n0, 1].min()) - smoke.DRAIN_DEPTH
+        count = [0]
+
+        def step(s):
+            count[0] += 1
+            if count[0] % smoke.EMIT_EVERY == 0:
+                s, _ = nt.add_particles_traced(s, patch, smoke.EMIT_VEL)
+            s, d = nt.wcsph_step(s, params, grid, cfg, walls)
+            return nt.remove_particles(s, s.pos[:, 1] >= drain_y), d
+        return state, step, ()
     if solver in ("wavemaker", "mp_wavemaker"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
         if solver == "mp_wavemaker":
@@ -163,7 +196,7 @@ def main():
         "dfsph", "dfsph_visc", "dfsph_mp", "pbf", "pbf_vort", "pbf_settled",
         "wavemaker", "mp_wavemaker", "coupled", "mp_coupled", "elastic",
         "elastic_plastic", "wcsph_elastic", "dfsph_coupled",
-        "dfsph_mp_coupled", "dfsph_elastic"),
+        "dfsph_mp_coupled", "dfsph_elastic", "wide12M", "lifecycle"),
         required=True)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--steps", type=int, default=5)
