@@ -307,6 +307,11 @@ elastic sweeps read one matrix as queries and source: its bytes count
 once.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
+The row-tiled kernels (ViscLaplacian, PressureForce) run over the path's
+tile plan, as the step launches them; where they are timed they also
+print the plan (tiles, CTAs, non-empty spans) and their time at each tile
+size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
+default (their ``kernels`` entries carry these under ``tiled``).
 
 The run's total wall time is printed before the card's name and power
 limit. The last two lines are a JSON object with one entry per kernel and
@@ -317,6 +322,7 @@ version. Without a CUDA device the script fails before it prints either.
 """
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -584,12 +590,22 @@ def start_operands(cfg, ctx, params):
                  off)}, dens, f_adv)
 
 
+def tiled(kern, ctx):
+    """The row-tiled kernel ``kern`` over ``ctx``'s tile plan, as the step
+    launches it (the plain version takes no plan); ``ctx`` rides along for
+    the plan's statistics and the tile-size variants (:func:`tile_stats`)."""
+    k = functools.partial(kern, plan=ctx.tile_plan)
+    k.ctx = ctx
+    return k
+
+
 def laplacian_op(ctx, params, dens, v):
     """The viscous-Laplacian sweep's ``(kernel, plain, args, kwargs)`` at
     the (C, 3) velocities ``v``, built by ``solvers/viscosity.py``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers.viscosity import laplacian_operands
-    return (cuda_sweep.visc_laplacian_sweep, SP.visc_laplacian_sweep_plain,
+    return (tiled(cuda_sweep.visc_laplacian_sweep, ctx),
+            SP.visc_laplacian_sweep_plain,
             laplacian_operands(ctx, params, dens)(v), {})
 
 
@@ -628,7 +644,7 @@ def iisph_operands(cfg, ctx, params):
         "jacobi": (cuda_sweep.jacobi_sweep, SP.jacobi_sweep_plain,
                    (ctx.queries(*sd, dpi * p, width=8),
                     ctx.pack_wide([*dii, p, *sd]), *rng), {}),
-        "pressure_force": (cuda_sweep.pressure_force_sweep,
+        "pressure_force": (tiled(cuda_sweep.pressure_force_sweep, ctx),
                            SP.pressure_force_sweep_plain,
                            (ctx.queries(p * inv_d2), src_pd, *rng), {}),
     }
@@ -658,7 +674,7 @@ def pcisph_operands(cfg, ctx, params):
     x = pos3 + dt * (vel3 + (dt / pm) * (f_adv + pm * params.gravity + f_p))
     return {
         **ops,
-        "pressure_force": (cuda_sweep.pressure_force_sweep,
+        "pressure_force": (tiled(cuda_sweep.pressure_force_sweep, ctx),
                            SP.pressure_force_sweep_plain, pargs, {}),
         "density_pred": (cuda_sweep.predicted_density_sweep,
                          SP.density_sweep_plain,
@@ -693,7 +709,7 @@ def dfsph_operands(cfg, ctx, params):
         "drho": (cuda_sweep.drho_sweep, SP.drho_sweep_plain,
                  sweeps.drho_operands(
                      torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)), {}),
-        "pressure_force": (cuda_sweep.pressure_force_sweep,
+        "pressure_force": (tiled(cuda_sweep.pressure_force_sweep, ctx),
                            SP.pressure_force_sweep_plain,
                            sweeps.kappa_operands(kap), {}),
     }
@@ -1701,8 +1717,46 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
                         *time_turns(key, lambda: kern(cfg, *args, **kw),
                                     lambda: plain(cfg, *args, **kw)),
                         *bound(key, args, got))
+            if hasattr(kern, "ctx"):
+                out[key] += (tile_stats(key, kern, cfg, args, got),)
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
+
+
+TILE_SIZES = (64, 128, 256)
+
+
+def tile_stats(key, kern, cfg, args, got):
+    """The tile plan of a row-tiled kernel's op (T, tiles, CTAs, non-empty
+    spans, every one walked from device memory) and the kernel's time with
+    each tile size of ``TILE_SIZES``, the default's included, timed alike:
+    three rounds, each timing every size in turn over 20 launches, the
+    best round per size. Each plan must give ``got`` bit for bit: the
+    order of summation does not depend on the tiling."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    plan, ctx = kern.keywords["plan"], kern.ctx
+    sp = cuda_sweep.tile_spans(plan, args[2], args[3])
+    stats = {"tile": plan.tile, "tiles": int(plan.n_tiles[0]),
+             "ctas": plan.n_ctas, "spans": int((sp[..., 1] > 0).sum()),
+             "tile_ms": {}}
+    runs = {}
+    for tile in TILE_SIZES:
+        f = functools.partial(kern.func, plan=cuda_sweep.tile_plan(
+            ctx.sorted_hash, ctx.grid_size, tile=tile))
+        if not torch.equal(f(cfg, *args), got):
+            fail(f"{key}: the tiled kernel with T = {tile} differs from "
+                 f"its result with the default plan")
+        runs[tile] = f
+    for _ in range(3):
+        for tile, f in runs.items():
+            ms = events_ms(lambda: f(cfg, *args), 20)
+            stats["tile_ms"][tile] = min(stats["tile_ms"].get(tile, ms), ms)
+    print(f"  {key} tiles: T {plan.tile}, {stats['tiles']} tiles in "
+          f"{plan.n_ctas} CTAs, {stats['spans']} non-empty spans per launch,"
+          f" all walked from device memory; by tile size, bit-identical: "
+          + ", ".join(f"T{k} {v:.4f} ms"
+                      for k, v in stats["tile_ms"].items()))
+    return stats
 
 
 def small_dam_break(nt, params, cfg, dev):
@@ -2768,9 +2822,14 @@ def main():
     log = cuda_sweep.build()
     cuda_sweep.load()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    entry = ""
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else ""
+        elif "registers" in line or "spill" in line:
+            # the row-tiled kernels by name (their shared memory too)
+            tag = f"{entry}: " if "tiled_pair_sweep_kernel" in entry else ""
+            print("  ptxas:", tag + line.strip())
 
     # -- 3. kernel vs plain, every kernel set and surface-tension model -------
     print(f"kernel vs plain, dam-break n_target={SMALL_N}, floor in "
@@ -3605,9 +3664,10 @@ def main():
         if ran != held:
             fail(f"{path}: kernels launched {sorted(ran)} but held against "
                  f"their plain versions {sorted(held)}")
-        for key, (err, kms, pms, bms, by, brms) in t.items():
+        for key, (err, kms, pms, bms, by, brms, *tiles) in t.items():
             kern, src, replaces = info[key]
             kernels.append({
+                **({"tiled": tiles[0]} if tiles else {}),
                 "name": kern.name, "route": "cuda", "source": src,
                 "replaces": replaces, "path": path, "op": key,
                 "launches": path_launches[kern.name], "max_abs_err": err,

@@ -14,9 +14,13 @@
 // reverse kappa of the elastic coupling: one instance for both.
 //
 // Design: one functor each for the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh. All five use the default
-// (poly6 / Monaghan) gradient, which is exactly 0 at the self pair, so
-// self-pairs stay in the ranges. Bound: memory traffic (sweep_common.cuh).
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, except PressureForce,
+// which runs on the row-tiled engine tiled_pair_sweep_kernel<Pair, KS> of
+// tiled_sweep.cuh (PCISPH's corrective loop launches it ~45 times per step
+// over one tile plan; its boundary form stays on pair_sweep_kernel). All
+// five use the default (poly6 / Monaghan) gradient, which is exactly 0 at
+// the self pair, so self-pairs stay in the ranges. Bound: memory traffic
+// (sweep_common.cuh, tiled_sweep.cuh).
 //
 // The Jacobi source is 12 floats wide, not the TPU's 16: fluid rows carry
 // x y z, d_jj (3), p_j and sum_k d_jk p_k (3), 10 values, and the port
@@ -37,7 +41,7 @@
 //   pressure:   q (N, 4) x y z pd2; src (M, 8) slot 6 = pd2_j (fluid) or
 //               psi (boundary); out (N, 3)
 
-#include "sweep_common.cuh"
+#include "tiled_sweep.cuh"
 
 namespace {
 
@@ -159,7 +163,7 @@ NEREUS_PAIR_SWEEP(dii_rhoadv, DiiRhoAdv)
 NEREUS_PAIR_SWEEP(aii, Aii)
 NEREUS_PAIR_SWEEP(sum_dij, SumDij)
 NEREUS_PAIR_SWEEP(jacobi, Jacobi)
-NEREUS_PAIR_SWEEP(pressure_force, PressureForce)
+NEREUS_TILED_SWEEP(pressure_force, PressureForce)
 // the boundary form alone over a body shell (the DFSPH couplings' kappa
 // impulse between fluid and body), or with a body's samples as queries
 // against the fluid rows (the reverse kappa of the elastic coupling)

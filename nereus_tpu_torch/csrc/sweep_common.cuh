@@ -162,8 +162,9 @@ inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 //
 // Bound: memory traffic. Each candidate reads one source row (32 or 48
 // bytes) at a data-dependent address and does ~20-40 flops on it; sorted
-// neighbors share rows, so most reads hit L1/L2. Shared-memory tiling of a
-// cell block's sources is later work.
+// neighbors share rows, so most reads hit L1/L2. tiled_sweep.cuh's
+// tiled_pair_sweep_kernel takes the same functors over tiles of queries
+// that share a cell row.
 
 template <int W>
 __device__ __forceinline__ void load_row(const float* __restrict__ base,

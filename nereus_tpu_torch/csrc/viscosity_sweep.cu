@@ -13,24 +13,26 @@
 // slot 6, rho_i in query column 6; the walls' velocities ride slots 3-5,
 // zero for static walls).
 //
-// Design: one functor for the range-walk template pair_sweep_kernel<Pair,
-// KS> of sweep_common.cuh, fluid and wall rows the B = false / true
-// branches, in the operation order of ops/sph_pairs.py::
-// visc_laplacian_pair: (10 coef s) first, then the velocity dot, then the
-// reciprocal. The default gradient is exactly 0 at the self pair (r^2 is
-// clamped before the rsqrt), so the self pair stays in the ranges. The TPU
-// kernel takes an approximate reciprocal; this one divides exactly, and
-// only where the cutoff mask is 1 (the same +0 elsewhere): an exact
-// division on every candidate costs more than the rest of the pair.
+// Design: one functor for the row-tiled engine tiled_pair_sweep_kernel<
+// Pair, KS> of tiled_sweep.cuh (tiles of queries that share a cell row;
+// the CG launches it 20-30 times per step over one tile plan), fluid and
+// wall rows the B = false / true branches, in the operation order of
+// ops/sph_pairs.py::visc_laplacian_pair: (10 coef s) first, then the
+// velocity dot, then the reciprocal. The default gradient is exactly 0 at
+// the self pair (r^2 is clamped before the rsqrt), so the self pair stays
+// in the ranges. The TPU kernel takes an approximate reciprocal; this one
+// divides exactly, and only where the cutoff mask is 1 (the same +0
+// elsewhere): an exact division on every candidate costs more than the
+// rest of the pair.
 //
-// Bound: memory traffic (sweep_common.cuh): one 32-byte source row per
-// candidate against ~30 operations.
+// Bound: the bytes of the query, source and output rows and of the range
+// rows (tiled_sweep.cuh); ~30 operations per candidate.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   q (N, 8) x y z vx vy vz rho pad; src (M, 8) x y z vx vy vz coef pad
 //   (fluid coef = m / rho_j, wall rows psi_b); out (N, 3)
 
-#include "sweep_common.cuh"
+#include "tiled_sweep.cuh"
 
 namespace {
 
@@ -62,6 +64,6 @@ struct ViscLaplacian {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(visc_laplacian, ViscLaplacian)
+NEREUS_TILED_SWEEP(visc_laplacian, ViscLaplacian)
 
 }  // extern "C"

@@ -29,6 +29,7 @@ a failure.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import glob
 import os
 import shutil
@@ -63,7 +64,7 @@ DII_RHOADV = Kernel("pair_sweep_kernel<DiiRhoAdv>")
 AII = Kernel("pair_sweep_kernel<Aii>")
 SUM_DIJ = Kernel("pair_sweep_kernel<SumDij>")
 JACOBI = Kernel("pair_sweep_kernel<Jacobi>")
-PRESSURE_FORCE = Kernel("pair_sweep_kernel<PressureForce>")
+PRESSURE_FORCE = Kernel("tiled_pair_sweep_kernel<PressureForce>")
 # the density kernel at PCISPH's predicted positions, counted apart
 DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
 ALPHA = Kernel("pair_sweep_kernel<Alpha>")
@@ -75,7 +76,7 @@ XSPH = Kernel("pair_sweep_kernel<Xsph>")
 # implicit viscosity solve owns both): WCSPH's, then DFSPH's pressure-off
 FORCE_V0 = Kernel("force_sweep_kernel<VISC=0>")
 FORCE_P0_V0 = Kernel("force_sweep_kernel<PRESSURE=0,VISC=0>")
-VISC_LAPLACIAN = Kernel("pair_sweep_kernel<ViscLaplacian>")
+VISC_LAPLACIAN = Kernel("tiled_pair_sweep_kernel<ViscLaplacian>")
 MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
 MP_DRHO = Kernel("pair_sweep_kernel<MultiphaseDrho>")
 MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
@@ -222,6 +223,11 @@ def load():
             f.restype = i32
             f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32,
                           *[i32] * n_switches, ptr, ptr]
+        for fn in _TILED_FNS:
+            f = getattr(lib, f"nereus_{fn}_tiled_sweep")
+            f.restype = i32
+            f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32,
+                          i32, ptr, i32, ptr, ptr]
         lib.nereus_cell_check.restype = i32
         lib.nereus_cell_check.argtypes = [ptr, i32, i32, ptr, i32, i32, i32,
                                           ptr, ptr]
@@ -280,9 +286,9 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
-              "sum_dij": 0, "jacobi": 0, "pressure_force": 0, "alpha": 0,
+              "sum_dij": 0, "jacobi": 0, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
-              "xsph": 0, "visc_laplacian": 0, "multiphase_alpha": 0,
+              "xsph": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
               "pbf_dp": 0, "pbf_omega": 0, "body_force": 1,
               "multiphase_body": 0, "elastic_f": 0,
@@ -318,6 +324,114 @@ def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
     _launch(kernel, f"{fn}_sweep", q.device, q.data_ptr(), src.data_ptr(),
             seg_start.data_ptr(), seg_end.data_ptr(), n, n_rows,
             pvec.data_ptr(), cfg.kernel_set.value, *switches, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The row-tiled engine (csrc/tiled_sweep.cuh): its tile plan and launch
+# ---------------------------------------------------------------------------
+
+# the C entry points nereus_<fn>_tiled_sweep of tiled_pair_sweep_kernel
+_TILED_FNS = ("visc_laplacian", "pressure_force")
+# queries per tile (threads per CTA): of 64 / 128 / 256, timed alike by
+# chip_smoke.py's tile_stats on the H100, 128 gives the least launches per
+# step × kernel ms on the two kernels' worst paths, the 1M dam-break's
+# viscosity CG and PCISPH's corrective loop; 64 is faster on the settled
+# DFSPH block's CG (PERF.md §6)
+TILE = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The tiles of a step's hash-sorted queries (:func:`tile_plan`).
+
+    Tile t holds the queries ``bounds[t]`` .. ``bounds[t + 1] − 1`` for t
+    below ``n_tiles`` ((1,) int32 on the device); ``bounds`` is (n_ctas +
+    1,) int32, n for the slots past the tile count. The kernel launches
+    ``n_ctas`` CTAs, an upper bound that needs no host read, and the CTAs
+    past the count exit. ``sorted_hash`` tells the kernel a parked tile."""
+
+    bounds: torch.Tensor
+    n_tiles: torch.Tensor
+    sorted_hash: torch.Tensor
+    tile: int
+
+    @property
+    def n_ctas(self) -> int:
+        return self.bounds.shape[0] - 1
+
+
+def tile_plan(sorted_hash, grid_size, tile: int = TILE) -> TilePlan:
+    """The tile plan of the hash-sorted queries ``sorted_hash`` (N,) int32
+    on a grid of ``grid_size`` cells, in torch on their device, with no
+    host read: a tile starts at each (y, z) cell row's first query (hash
+    // gx; parked slots, ``INT32_MAX``, sort last, a row of their own) and
+    every ``tile`` queries after it, so a row of k queries makes
+    ceil(k / tile) tiles and at most ``min(N, ceil(N / tile) + gy·gz)``
+    tiles exist."""
+    if tile < 32 or tile % 32 or tile > 256:
+        raise ValueError(f"tile must be a multiple of 32 in [32, 256], got "
+                         f"{tile}")
+    n = sorted_hash.shape[0]
+    _, gy, gz = (int(g) for g in grid_size)
+    dev = sorted_hash.device
+    n_ctas = max(1, min(n, -(-n // tile) + gy * gz))
+    key = (sorted_hash // int(grid_size[0])).contiguous()
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    start = (idx - torch.searchsorted(key, key, out_int32=True)) % tile == 0
+    # the 1-based tile number of each query; tile t starts at the first
+    # query numbered t + 1 (n past the last tile)
+    number = torch.cumsum(start, 0, dtype=torch.int32)
+    bounds = torch.searchsorted(
+        number, torch.arange(1, n_ctas + 2, dtype=torch.int32, device=dev),
+        out_int32=True)
+    n_tiles = (number[-1:] if n else torch.zeros(1, dtype=torch.int32,
+                                                 device=dev))
+    return TilePlan(bounds, n_tiles, sorted_hash, tile)
+
+
+def tile_spans(plan: TilePlan, seg_start, seg_end):
+    """(n_tiles, n_rows, 2) int64: per tile and range row the span ``lo``
+    and its length, as the kernel computes them: [s of the tile's first
+    query, e of its last), empty (0, 0) for a parked tile. The plain
+    version of the kernel's span step, for tests and statistics; reads
+    ``n_tiles`` to the host."""
+    from ..grid import INT32_MAX
+    nt = int(plan.n_tiles[0])
+    b = plan.bounds[:nt + 1].long()
+    first, last = b[:-1], b[1:] - 1
+    lo = seg_start.long().index_select(1, first)
+    length = (seg_end.long().index_select(1, last) - lo).clamp(min=0)
+    length = torch.where(plan.sorted_hash[first] == INT32_MAX, 0, length)
+    lo = torch.where(length > 0, lo, 0)
+    return torch.stack([lo, length], dim=-1).transpose(0, 1)
+
+
+def _check_plan(plan, n: int, device):
+    if not isinstance(plan, TilePlan):
+        raise ValueError("the tiled sweeps need a TilePlan "
+                         "(cuda_sweep.tile_plan) of their queries")
+    if plan.sorted_hash.shape[0] != n or plan.bounds.device != device:
+        raise ValueError(f"the tile plan is for {plan.sorted_hash.shape[0]} "
+                         f"queries on {plan.bounds.device}, not {n} on "
+                         f"{device}")
+
+
+def _tiled(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
+           seg_start, seg_end, pvec, plan, out_cols):
+    """Checks and launches one kernel of ``_TILED_FNS`` over ``plan``:
+    q (N, fq), src (M, fs), ranges (9 or 18, N); the output is
+    (N, out_cols)."""
+    n, n_rows = _check_inputs(q, fq, src, seg_start, seg_end, pvec, fs=fs)
+    _check_plan(plan, n, q.device)
+    out = torch.empty((n, out_cols), dtype=torch.float32, device=q.device)
+    if n == 0:
+        return out
+    _launch(kernel, f"{fn}_tiled_sweep", q.device, q.data_ptr(),
+            src.data_ptr(), seg_start.data_ptr(), seg_end.data_ptr(), n,
+            n_rows, plan.bounds.data_ptr(), plan.n_tiles.data_ptr(),
+            plan.sorted_hash.data_ptr(), plan.n_ctas, plan.tile,
+            pvec.data_ptr(), cfg.kernel_set.value, out.data_ptr())
     return out
 
 
@@ -378,10 +492,12 @@ def jacobi_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                   seg_start, seg_end, pvec, (9, 18), 0)
 
 
-def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Implicit-solver pressure force (N, 3): q (N, 4), src (M, 8)."""
-    return _sweep(PRESSURE_FORCE, "pressure_force", cfg, q, 4, src, 8,
-                  seg_start, seg_end, pvec, (9, 18), 3)
+def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                         plan: TilePlan | None = None):
+    """Implicit-solver pressure force (N, 3): q (N, 4), src (M, 8), the
+    row-tiled kernel over ``plan`` (:func:`tile_plan` of the queries)."""
+    return _tiled(PRESSURE_FORCE, "pressure_force", cfg, q, 4, src, 8,
+                  seg_start, seg_end, pvec, plan, 3)
 
 
 def predicted_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
@@ -434,10 +550,12 @@ def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                   pvec, (9,), 3)
 
 
-def visc_laplacian_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Viscous Laplacian L(v) (N, 3): q (N, 8), src (M, 8)."""
-    return _sweep(VISC_LAPLACIAN, "visc_laplacian", cfg, q, 8, src, 8,
-                  seg_start, seg_end, pvec, (9, 18), 3)
+def visc_laplacian_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
+                         plan: TilePlan | None = None):
+    """Viscous Laplacian L(v) (N, 3): q (N, 8), src (M, 8), the row-tiled
+    kernel over ``plan`` (:func:`tile_plan` of the queries)."""
+    return _tiled(VISC_LAPLACIAN, "visc_laplacian", cfg, q, 8, src, 8,
+                  seg_start, seg_end, pvec, plan, 3)
 
 
 def multiphase_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end,

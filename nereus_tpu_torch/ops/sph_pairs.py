@@ -39,7 +39,10 @@ coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_*_body_sweep``, and the wall-only
 ``boundary_force_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
-hand-written kernel (``ops/cuda_sweep.py``); anything else raises.
+hand-written kernel (``ops/cuda_sweep.py``); anything else raises. The
+two sweeps of the row-tiled engine (``pressure_force_sweep``,
+``visc_laplacian_sweep``) take the step's tile plan as ``plan``, which
+only the kernel reads.
 """
 
 from __future__ import annotations
@@ -924,10 +927,11 @@ def jacobi_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def pressure_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                               pvec):
+                               pvec, plan=None):
     """Implicit-solver pressure force (N, 3): q (N, 4) x y z pd2, src
     (M, 8) with pd2_j (fluid) / ψ_b (boundary) in slot 6; the boundary
-    term repels (``boundary_sign=-1``)."""
+    term repels (``boundary_sign=-1``). ``plan``, the CUDA kernel's tile
+    plan, is not read."""
     return neighbor_sweep_plain(
         _bind(grad_pressure_force_pair, cfg, pvec, boundary=False), q, src,
         seg_start, seg_end, 3,
@@ -1026,9 +1030,10 @@ def xsph_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def visc_laplacian_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                              pvec):
+                              pvec, plan=None):
     """Viscous Laplacian L(v) (N, 3): q (N, 8) x y z v ρ pad, src (M, 8)
-    with the velocities and m/ρ_j (fluid) / ψ_b (boundary) in slot 6."""
+    with the velocities and m/ρ_j (fluid) / ψ_b (boundary) in slot 6.
+    ``plan``, the CUDA kernel's tile plan, is not read."""
     return neighbor_sweep_plain(
         _bind(visc_laplacian_pair, cfg, pvec, boundary=False), q, src,
         seg_start, seg_end, 3,
@@ -1197,8 +1202,8 @@ def _dispatcher(plain, kernel_name, name=None):
     """The sweep ``name`` (default: ``plain``'s name without ``_plain``),
     routed by device (:func:`dispatch`): ``plain`` for CPU tensors, the
     CUDA kernel ``cuda_sweep.<kernel_name>`` for GPU ones; keyword switches
-    (``include_pressure``, ``include_viscosity``, ``moving_boundary``) go
-    to both."""
+    (``include_pressure``, ``include_viscosity``, ``moving_boundary``, a
+    tiled kernel's ``plan``) go to both."""
     def sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec, **kw):
         return dispatch((q, src, pvec, seg_start), plain, kernel_name, cfg,
                         q, src, seg_start, seg_end, pvec, **kw)

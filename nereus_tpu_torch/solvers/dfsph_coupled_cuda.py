@@ -144,7 +144,8 @@ class CoupledSweeps(KappaSweeps):
         """One κ correction: fluid and walls, then each body's impulse on
         the fluid and its reaction kick. Returns ``(v, bv)``."""
         args = self.kappa_operands(kappa)
-        v = v + self.dt_m * SP.pressure_force_sweep(self.cfg, *args)
+        v = v + self.dt_m * SP.pressure_force_sweep(
+            self.cfg, *args, plan=self.ctx.tile_plan)
         out = []
         for t, b in zip(self.terms, bv):
             fb = SP.pressure_force_body_sweep(self.cfg, args[0], t.shell.src,

@@ -106,7 +106,8 @@ class KappaSweeps:
     def apply_kappa(self, kappa, vel):
         """(C, 3) v + (dt/m)·F with F = −m²Σ(κ_i/ρ_i + κ_j/ρ_j)∇W over the
         fluid and −mψ_b(κ_i/ρ_i)∇W over the boundary rows."""
-        f = SP.pressure_force_sweep(self.cfg, *self.kappa_operands(kappa))
+        f = SP.pressure_force_sweep(self.cfg, *self.kappa_operands(kappa),
+                                    plan=self.ctx.tile_plan)
         return vel + self.dt_m * f
 
     def correct(self, kappa, vel, carry=()):

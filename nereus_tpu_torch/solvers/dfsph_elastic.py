@@ -79,7 +79,8 @@ class ElasticSweeps(KappaSweeps):
         """One κ correction: fluid and walls plus the body's impulse on the
         fluid, then the per-sample reaction kick. Returns ``(v, (vb,))``."""
         q, src, *rng = self.kappa_operands(kappa)
-        f = SP.pressure_force_sweep(self.cfg, q, src, *rng)
+        f = SP.pressure_force_sweep(self.cfg, q, src, *rng,
+                                    plan=self.ctx.tile_plan)
         fb = SP.pressure_force_body_sweep(self.cfg, q, self.es.shell.src,
                                           *self.rng)
         v = v + self.dt_m * (f + fb)

@@ -128,7 +128,8 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     # -- pressure force + integration --------------------------------------
     pd2 = p * inv_d2
     src_pd[:c, 6] = pd2
-    f_p = SP.pressure_force_sweep(cfg, ctx.queries(pd2), src_pd, *rng)
+    f_p = SP.pressure_force_sweep(cfg, ctx.queries(pd2), src_pd, *rng,
+                                  plan=ctx.tile_plan)
 
     pos = (ctx.px, ctx.py, ctx.pz)
     nv, npos = [], []

@@ -105,7 +105,8 @@ def pcisph_step_cuda(state: FluidState, params: SimParams,
     pd2_at = pd2_operands(ctx)
 
     def pressure_force(p):
-        return SP.pressure_force_sweep(cfg, *pd2_at(p * inv_d2))
+        return SP.pressure_force_sweep(cfg, *pd2_at(p * inv_d2),
+                                       plan=ctx.tile_plan)
 
     # -- warm start: a fraction of the previous step's pressure ------------
     p = zero

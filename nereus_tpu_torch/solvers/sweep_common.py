@@ -18,7 +18,10 @@ the viscous Laplacian, the wall friction) reads the moving wall.
 
 Every sweep of a step walks the ranges built here from the start-of-step
 positions, PCISPH's predicted density at x* included
-(``solvers/pcisph_cuda.py``).
+(``solvers/pcisph_cuda.py``). The sweeps of the row-tiled CUDA engine
+(the pressure force, the viscous Laplacian) also read the step's tile
+plan (:attr:`SweepCtx.tile_plan`), built once from the sorted hashes and
+reused by every launch of the step.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ class SweepCtx:
 
     # the boundary rows carry wall velocities (``BoundaryData.vel`` set)
     moving_boundary: bool = False
+    grid_size: tuple = (1, 1, 1)           # the grid's cell counts
 
     @property
     def c(self) -> int:
@@ -73,6 +77,14 @@ class SweepCtx:
         gathered on first use, so only the implicit solvers' warm starts
         pay for it."""
         return self.pressure.index_select(0, self.perm)
+
+    @functools.cached_property
+    def tile_plan(self):
+        """The tile plan of this step's queries for the row-tiled sweeps
+        (``ops/cuda_sweep.py::tile_plan``): built on first use, on the
+        device, and shared by every launch of the step."""
+        from ..ops.cuda_sweep import tile_plan
+        return tile_plan(self.sorted_hash, self.grid_size)
 
     @property
     def seg_start_f(self):
@@ -185,6 +197,6 @@ def build_sweep_ctx(state: FluidState, params: SimParams,
         pvec=SP.build_pvec(params, cfg, grid),
         perm=perm, pressure=state.pressure,
         b_src=boundary_src(boundary) if with_b else None, coords=coords,
-        sorted_hash=sorted_hash,
+        sorted_hash=sorted_hash, grid_size=grid.size,
         moving_boundary=with_b and boundary.vel is not None,
         mass=phase[0] if phase else None, rho0=phase[1] if phase else None)

@@ -106,5 +106,6 @@ def implicit_viscosity(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     nu_dt = params.viscosity * params.dt
 
     def matvec(v):
-        return v - nu_dt * SP.visc_laplacian_sweep(cfg, *at(v))
+        return v - nu_dt * SP.visc_laplacian_sweep(cfg, *at(v),
+                                                   plan=ctx.tile_plan)
     return cg_solve(matvec, v_star, cfg)

@@ -114,6 +114,26 @@ def test_build_without_nvcc_raises(monkeypatch):
             "dfsph_sweep.cu", "elastic_sweep.cu", "iisph_sweep.cu",
             "layout_probe.cu", "multiphase_sweep.cu", "pbf_sweep.cu",
             "sph_sweep.cu", "viscosity_sweep.cu")]
+    assert [f for f in cuda_sweep._inputs_of_build()
+            if f.endswith(".cuh")] == [
+        os.path.join(PKG_DIR, "csrc", f) for f in (
+            "sweep_common.cuh", "tiled_sweep.cuh")]
+
+
+def test_a_newer_header_rebuilds(monkeypatch, tmp_path):
+    """The library is stale when a shared header (the tiled engine's
+    ``tiled_sweep.cuh``) is newer than it, and fresh when it is newer
+    than every source."""
+    lib = tmp_path / "libnereus_sweep.so"
+    lib.write_bytes(b"")
+    monkeypatch.setattr(cuda_sweep, "LIB_PATH", str(lib))
+    header = os.path.join(PKG_DIR, "csrc", "tiled_sweep.cuh")
+    newest = max(os.path.getmtime(f) for f in cuda_sweep._inputs_of_build())
+    os.utime(lib, (newest + 10, newest + 10))
+    assert not cuda_sweep._stale()
+    old = os.path.getmtime(header) - 10
+    os.utime(lib, (old, old))
+    assert cuda_sweep._stale()
 
 
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
@@ -527,7 +547,8 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
              "pressure_force": SP.pressure_force_sweep_plain}
     cuda_sweep.reset_launches()
     for key, args in cases.items():
-        got = IISPH_SWEEPS[key][0](cfg, *args)
+        kw = {"plan": ctx.tile_plan} if key == "pressure_force" else {}
+        got = IISPH_SWEEPS[key][0](cfg, *args, **kw)
         ref = plain[key](cfg, *args)
         _assert_columns_close(got, ref, key)
     fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rows)
@@ -795,7 +816,9 @@ def test_visc_mp_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
     for key, args in cases.items():
         dispatch = VISC_MP_DFSPH_SWEEPS[key][0]
         plain = getattr(SP, f"{key}_sweep_plain")
-        _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
+        kw = {"plan": ctx.tile_plan} if key == "visc_laplacian" else {}
+        _assert_columns_close(dispatch(cfg, *args, **kw), plain(cfg, *args),
+                              key)
     for p in (True, False):
         kw = dict(include_pressure=p, include_viscosity=False)
         _assert_columns_close(SP.fluid_force_sweep(cfg, *fargs, **kw),
@@ -858,6 +881,67 @@ def test_visc_mp_dfsph_steps_run_kernels_on_cuda(cuda):
                       cuda_sweep.MP_KAPPA: launched + 3})
     assert torch.isfinite(s.pos).all() and s.multiphase
     assert float(s.pressure.min()) >= 0.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_tiled_kernels_match_plain_on_cuda(cuda, kernel_set):
+    """The row-tiled ViscLaplacian and PressureForce against their plain
+    versions (max|Δ| ≤ 1e-4·max|ref| per output column) on the small
+    dam-break with 40 parked slots, its walls moving at (0.8, 0, −0.4) m/s
+    (the Laplacian's wall rows read the wall velocity) and its floor in
+    support, under plans whose tiles end at cell-row boundaries (T = 32,
+    64, 128, 256), and over the fluid rows alone (9 range rows, no wall
+    phase): every plan gives the same bits, parked slots get exactly 0."""
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import viscosity
+    from nereus_tpu_torch.solvers.sweep_common import pd2_operands
+    cfg, params, state, grid, boundary = _scene(kernel_set, "BECKER", True,
+                                                cuda)
+    n = int(state.num_active)
+    state = nereus_tpu_torch.make_fluid_state(
+        state.pos.cpu().numpy(), state.vel.cpu().numpy(), capacity=n + 40,
+        device=cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    ctx = build_sweep_ctx(state, params, grid, cfg, moving)
+    vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
+                                  ctx.pack(vel.unbind(1),
+                                           params.particle_mass),
+                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = torch.where(ctx.active, dens, torch.ones_like(dens))
+    p = torch.where(ctx.active, 1e3 * (ctx.px.abs() + 0.5),
+                    torch.zeros_like(dens))
+    cases = {
+        "visc_laplacian": (cuda_sweep.visc_laplacian_sweep,
+                           SP.visc_laplacian_sweep_plain,
+                           viscosity.laplacian_operands(ctx, params,
+                                                        dens)(vel)),
+        "pressure_force": (cuda_sweep.pressure_force_sweep,
+                           SP.pressure_force_sweep_plain,
+                           pd2_operands(ctx)(p / (dens * dens)))}
+    cuda_sweep.reset_launches()
+    runs = 0
+    for key, (kern, plain, args) in cases.items():
+        q, src, s, e, pv = args
+        for rows in (18, 9):
+            rs, re_ = s[:rows].contiguous(), e[:rows].contiguous()
+            ref = plain(cfg, q, src, rs, re_, pv)
+            first = None
+            for tile in (64, 32, 128, 256):
+                plan = cuda_sweep.tile_plan(ctx.sorted_hash, ctx.grid_size,
+                                            tile=tile)
+                got = kern(cfg, q, src, rs, re_, pv, plan=plan)
+                torch.cuda.synchronize()
+                runs += 1
+                _assert_columns_close(got[:n], ref[:n], f"{key} {rows}")
+                assert int(got[n:].abs().sum()) == 0, key
+                first = got if first is None else first
+                assert torch.equal(got, first), (key, rows, tile)
+    _assert_launches({cuda_sweep.VISC_LAPLACIAN: runs // 2,
+                      cuda_sweep.PRESSURE_FORCE: runs // 2})
+    with pytest.raises(ValueError, match="TilePlan"):
+        cuda_sweep.pressure_force_sweep(cfg, *cases["pressure_force"][2])
 
 
 def _pbf_block(cuda, kernel_set="MULLER", n_target=4000):
