@@ -299,19 +299,27 @@ Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
-over 67 TFLOP/s, the H100 SXM's published float32 peaks. The elastic
-and reaction kernels return after the geometry on a candidate outside
-the cutoff: there only those operations count (``GUARDED``), and the
-candidates inside the cutoff are counted from this run's positions. The
-elastic sweeps read one matrix as queries and source: its bytes count
-once.
+over 67 TFLOP/s, the H100 SXM's published float32 peaks. The elastic,
+reaction, density and force kernels stop after the geometry on a
+candidate outside the cutoff: there only those operations count
+(``GUARDED``), and the candidates inside the cutoff are counted from this
+run's positions. The elastic sweeps read one matrix as queries and
+source, the density and force sweeps one whose first rows are the
+queries: its bytes count once.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
+Kernel times (``ms``) are host-free: ``graph_ms`` captures 20 launches in
+a CUDA graph and times its replay, the better of three rounds; each row
+also prints the kernel's eager time and an empty kernel's (the floor set
+by the host). The plain versions are timed eagerly by CUDA events.
 The row-tiled kernels (ViscLaplacian, PressureForce) run over the path's
 tile plan, as the step launches them; where they are timed they also
 print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
-default (their ``kernels`` entries carry these under ``tiled``).
+default (their ``kernels`` entries carry these under ``tiled``). The
+density and force kernels print the lane-group size G they take and the
+queries with candidates (their entries carry these under ``grouped``),
+and the build prints their registers and spills by G.
 
 The run's total wall time is printed before the card's name and power
 limit. The last two lines are a JSON object with one entry per kernel and
@@ -412,16 +420,16 @@ F32_OPS_PER_S = 67e12
 # formula on the main paths (Muller kernels, Becker surface tension),
 # counted in the CUDA source with every add, multiply, compare, min/max,
 # division and rsqrt as one
-PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
+PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (23, 0),
             "jacobi": (35, 22), "pressure_force": (24, 24),
             "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
-            "force_v0": (51, 32), "force_p0_v0": (32, 28),
+            "force_v0": (39, 31), "force_p0_v0": (31, 27),
             "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
             "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (30, 27),
             "pbf_dp": (31, 22), "pbf_omega": (33, 0),
-            "force_moving": (71, 44), "force_p0_moving": (52, 40),
+            "force_moving": (56, 43), "force_p0_moving": (48, 39),
             "mp_force_moving": (72, 51), "body_density": (15, 0),
             "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
             "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0),
@@ -434,9 +442,15 @@ PAIR_OPS = {"density": (15, 15), "force": (71, 41), "force_p0": (52, 37),
             "wall_force_p0": (49, 0)}
 # the kernels that return after the geometry and the cutoff compare on a
 # candidate outside the cutoff: those candidates cost this many operations,
-# the others PAIR_OPS's
+# the others PAIR_OPS's (the density and force kernels count the test once
+# per candidate and the rest of the pair on the pairs inside the cutoff)
 GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
-           "fluid_reaction_p0": 9}
+           "fluid_reaction_p0": 9, "density": 9, "density_pred": 9,
+           "body_density": 9, "force": 9, "force_p0": 9, "force_v0": 9,
+           "force_p0_v0": 9, "force_moving": 9, "force_p0_moving": 9}
+# the lane-group kernels (csrc/sph_sweep.cu), whose rows name their G
+GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
+           "force_v0", "force_p0_v0", "force_moving", "force_p0_moving")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -467,8 +481,10 @@ def bound(key, args, out):
     the output moved once, against the candidate pairs of these ranges;
     ``bound_ranges_ms`` also reads the range rows."""
     q, src, s, e, pv = args
-    # the elastic sweeps read one matrix as queries and source: once
-    ins = (q, pv, out) if src is q else (q, src, pv, out)
+    # the elastic sweeps read one matrix as queries and source, the density
+    # and force sweeps one whose first rows are the queries: once
+    ins = ((src, pv, out) if q.data_ptr() == src.data_ptr()
+           else (q, src, pv, out))
     nbytes = (sum(t.numel() * t.element_size() for t in ins)
               + 4 * src.shape[0])
     ranges = sum(t.numel() * t.element_size() for t in (s, e))
@@ -477,9 +493,10 @@ def bound(key, args, out):
     ops = int(cand[:9].sum()) * fluid + int(cand[9:].sum()) * bnd
     if key in GUARDED:
         from nereus_tpu_torch.ops.sph_pairs import PV_H2
-        inside = cutoff_pairs(q, src, s, e, float(pv[PV_H2]))
-        ops = int(cand.sum()) * GUARDED[key] + inside * (fluid
-                                                         - GUARDED[key])
+        inside = cutoff_pairs(q, src, s, e, float(pv[PV_H2]), by_row=True)
+        test = GUARDED[key]
+        ops = (int(cand.sum()) * test + sum(inside[:9]) * (fluid - test)
+               + sum(inside[9:]) * (bnd - test))
     t_ops = ops / F32_OPS_PER_S * 1e3
     t_bytes, t_ranges = (b / HBM_BYTES_PER_S * 1e3
                          for b in (nbytes, nbytes + ranges))
@@ -487,32 +504,28 @@ def bound(key, args, out):
             else (t_ops, "operations")) + (max(t_ranges, t_ops),)
 
 
-def cutoff_pairs(q, src, s, e, h2):
+def cutoff_pairs(q, src, s, e, h2, by_row=False):
     """The candidate pairs of the ranges ``s``, ``e`` whose positions
-    (columns 0-2 of ``q`` and ``src``) lie within r² < ``h2``."""
+    (columns 0-2 of ``q`` and ``src``) lie within r² < ``h2``; with
+    ``by_row``, a list of the counts of each range row."""
     from nereus_tpu_torch.ops.neighbors import row_pairs
-    n = 0
+    n = []
     for r in range(s.shape[0]):
         qi, sj = row_pairs(s[r], e[r])
         d = q[qi, :3] - src[sj, :3]
-        n += int(((d * d).sum(dim=1) < h2).sum())
-    return n
+        n.append(int(((d * d).sum(dim=1) < h2).sum()))
+    return n if by_row else sum(n)
 
 
 def sweep_inputs(ctx, params, dens=None):
     """Density and force sweep operands of one step, as the step builds
     them (``solvers/wcsph_cuda.py``)."""
-    from nereus_tpu_torch import tait_pressure
-    vel = (ctx.vx, ctx.vy, ctx.vz)
-    dargs = (ctx.queries(width=4), ctx.pack(vel, params.particle_mass),
-             ctx.seg_start, ctx.seg_end, ctx.pvec)
+    from nereus_tpu_torch.solvers.wcsph import tait_pd2
+    dargs = ctx.density_operands(params.particle_mass)
     if dens is None:
         return dargs, None
-    ds = dens.clamp(min=1e-12)
-    pd2 = tait_pressure(dens, params) / (ds * ds)
-    fargs = (ctx.queries(*vel, dens, pd2), ctx.pack(vel, dens),
-             ctx.seg_start, ctx.seg_end, ctx.pvec)
-    return dargs, fargs
+    return dargs, ctx.force_operands((ctx.vx, ctx.vy, ctx.vz), dens,
+                                     tait_pd2(dens, params))
 
 
 def compare(cfg, ctx, params, label, time_it=False):
@@ -548,22 +561,107 @@ def compare(cfg, ctx, params, label, time_it=False):
              fargs, f_err)):
         out[name] = (err, *time_turns(name, lambda: kern(cfg, *args),
                                       lambda: plain(cfg, *args)),
-                     *bound(name, args, kern(cfg, *args)))
+                     *bound(name, args, kern(cfg, *args)),
+                     group_stats(name, args, {}))
     return out
 
 
+def profiler_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` runs, the sum of the
+    device time ``torch.profiler`` records for them."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    return us / 1e3 / reps
+
+
+def graph_ms(fn, reps=20):
+    """Host-free mean device time of ``fn``: ``reps`` runs captured in one
+    CUDA graph, its replay timed with CUDA events (the better of two
+    replays), so that the host's launch rate does not enter. Where the
+    capture fails, the device time ``torch.profiler`` records
+    (:func:`profiler_ms`). A kernel's wrapper counts its launches at the
+    capture, once per run, and never at a replay."""
+    torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        print(f"  graph capture failed ({exc}); profiler device time")
+        return profiler_ms(fn, reps)
+    graph.replay()
+    best = float("inf")
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    return best
+
+
+def launch_floor(dev):
+    """(graph ms, eager ms) of one empty kernel: the floor under a
+    host-free time, and the host's launch rate that bounds an eager one."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    def empty():
+        cuda_sweep.empty_kernel(dev)
+    return graph_ms(empty), events_ms(empty, 20)
+
+
 def time_turns(name, kern, plain, reps=20):
-    """(kernel ms, plain ms), each the better of two turns in the order
-    plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms): the kernel's host-free time
+    (:func:`graph_ms`), the better of three rounds, and the plain
+    version's by CUDA events, the better of two turns, in the order plain,
+    kernel, kernel, kernel, plain. Prints the kernel's eager time (CUDA
+    events over ``reps`` launches) and an empty kernel's (the floor set by
+    the host) beside them."""
     kern()
     plain()
     p1 = events_ms(plain, 3)
-    k1 = events_ms(kern, reps)
-    k2 = events_ms(kern, reps)
+    ks = [graph_ms(kern, reps) for _ in range(3)]
     p2 = events_ms(plain, 3)
-    print(f"  {name} sweep at main-path shapes: kernel {k1:.4f} / "
-          f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-    return min(k1, k2), min(p1, p2)
+    eager = events_ms(kern, reps)
+    floor_g, floor_e = launch_floor(torch.device("cuda"))
+    print(f"  {name} sweep at main-path shapes: kernel "
+          + " / ".join(f"{k:.4f}" for k in ks)
+          + f" ms host-free ({eager:.4f} eager), plain {p1:.4f} / "
+          f"{p2:.4f} ms; empty kernel {floor_g:.4f} host-free, "
+          f"{floor_e:.4f} eager")
+    return min(ks), min(p1, p2)
+
+
+def group_stats(key, args, kw):
+    """The lane-group size G the kernel's wrapper takes for these operands
+    (``cuda_sweep.density_group``, ``force_group``, ``body_group``) and
+    the queries that have a candidate in their ranges."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    q, src, s, e, _ = args
+    n = q.shape[0]
+    if key.startswith("force"):
+        g = cuda_sweep.force_group(n, kw.get("include_viscosity", True))
+    elif key == "body_density":
+        g = cuda_sweep.body_group(src.shape[0])
+    else:
+        g = cuda_sweep.density_group(n)
+    busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
+    print(f"  {key} lane groups: G {g}; {busy} of {n} queries have "
+          f"candidates")
+    return {"group": g, "queries_with_candidates": busy}
 
 
 def start_operands(cfg, ctx, params):
@@ -574,12 +672,10 @@ def start_operands(cfg, ctx, params):
     "implicit"``): ``(ops, dens, f_adv)`` with ``ops = {key: (kernel,
     plain, args, kwargs)}`` and the plain density and advection force."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
-    vel = (ctx.vx, ctx.vy, ctx.vz)
-    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-    dargs = (ctx.queries(width=4), ctx.pack(vel, params.particle_mass), *rng)
+    dargs = ctx.density_operands(params.particle_mass)
     dens = SP.density_sweep_plain(cfg, *dargs)
-    zero = torch.zeros_like(dens)
-    fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rng)
+    fargs = ctx.force_operands((ctx.vx, ctx.vy, ctx.vz), dens,
+                               torch.zeros_like(dens))
     implicit = cfg.viscosity_model == "implicit"
     off = dict(include_pressure=False, include_viscosity=not implicit)
     f_adv = SP.fluid_force_sweep_plain(cfg, *fargs, **off)
@@ -691,7 +787,7 @@ def dfsph_operands(cfg, ctx, params):
     Laplacian of the CG's first matvec (at v* after the plain advection
     force). ``{key: (kernel, plain, args, kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
-    from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps
+    from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps, alpha_src
     ops, dens, f_adv = start_operands(cfg, ctx, params)
     sweeps = KappaSweeps(ctx, params, cfg, dens)
     kap = 0.5 * torch.clamp(
@@ -705,7 +801,8 @@ def dfsph_operands(cfg, ctx, params):
     return {
         **ops,
         "alpha": (cuda_sweep.alpha_sweep, SP.alpha_sweep_plain,
-                  ops["density"][2], {}),
+                  (ops["density"][2][0], alpha_src(ctx, params),
+                   *ops["density"][2][2:]), {}),
         "drho": (cuda_sweep.drho_sweep, SP.drho_sweep_plain,
                  sweeps.drho_operands(
                      torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)), {}),
@@ -1005,9 +1102,8 @@ def coupled_operands(cfg, ctx, params, grid, body):
     shells = coupled_cuda.body_shells(ctx, grid, (body,))
     sh = shells[0]
     rows = (sh.src, sh.seg_start, sh.seg_end, ctx.pvec)
-    q4 = ctx.queries(width=4)
     bdens = (cuda_sweep.body_density_sweep, SP.density_sweep_plain,
-             (q4, *rows), {})
+             (ctx.queries(width=4), sh.src4, *rows[1:]), {})
     if ctx.mass is None:
         dargs, fargs, _, _ = coupled_cuda.coupled_operands(ctx, params, cfg,
                                                            shells)
@@ -1087,8 +1183,8 @@ def elastic_coupled_ops(cfg, ctx, params, grid, estate, psi):
             "force": (cuda_sweep.force_sweep, SP.fluid_force_sweep_plain,
                       ops.fargs, {}),
             "body_density": (cuda_sweep.body_density_sweep,
-                             SP.density_sweep_plain, (ops.dargs[0], *rows),
-                             {}),
+                             SP.density_sweep_plain,
+                             (ops.dargs[0], sh.src4, *rows[1:]), {}),
             "body_force": (cuda_sweep.body_force_sweep,
                            SP.body_force_sweep_plain, (ops.fargs[0], *rows),
                            {}),
@@ -1366,7 +1462,7 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
     dt = float(params.dt)
     q4 = ctx.queries(width=4)
     bdens = (cuda_sweep.body_density_sweep, SP.density_sweep_plain,
-             (q4, t.shell.src, *rows), {})
+             (q4, t.src4, *rows), {})
     zero = torch.zeros_like(ctx.px)
     if ctx.mass is None:
         dens, alpha = DC.coupled_density_alpha(ctx, params, cfg, [t])
@@ -1448,7 +1544,7 @@ def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
              SP.pressure_force_body_sweep_plain)
     return {"body_density": (cuda_sweep.body_density_sweep,
                              SP.density_sweep_plain,
-                             (q4, es.shell.src, *rows), {}),
+                             (q4, es.shell.src4, *rows), {}),
             "alpha_shell": (cuda_sweep.alpha_shell_sweep,
                             SP.alpha_sweep_plain, (q4, es.shell.src, *rows),
                             {}),
@@ -1719,6 +1815,8 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
                         *bound(key, args, got))
             if hasattr(kern, "ctx"):
                 out[key] += (tile_stats(key, kern, cfg, args, got),)
+            elif key in GROUPED:
+                out[key] += (group_stats(key, args, kw),)
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
 
@@ -1749,7 +1847,7 @@ def tile_stats(key, kern, cfg, args, got):
         runs[tile] = f
     for _ in range(3):
         for tile, f in runs.items():
-            ms = events_ms(lambda: f(cfg, *args), 20)
+            ms = graph_ms(lambda: f(cfg, *args))
             stats["tile_ms"][tile] = min(stats["tile_ms"].get(tile, ms), ms)
     print(f"  {key} tiles: T {plan.tile}, {stats['tiles']} tiles in "
           f"{plan.n_ctas} CTAs, {stats['spans']} non-empty spans per launch,"
@@ -2395,6 +2493,22 @@ def cell_check_entry(cfg, ctx, grid, label):
     return (float(err), *times, *flat_bound(nbytes, 18 * q.shape[0]))
 
 
+def wide_main_path(dev, stretch=True):
+    """``(cfg, params, state, grid, None)`` of ``wcsph_wide12M``: the
+    ``WIDE_N`` dam-break without a boundary on ``bench.py``'s grid
+    stretched along z past 2²⁴ cells (``probes.cells.stretch_grid``;
+    ``stretch=False``: the compact grid it was built on)."""
+    import nereus_tpu_torch as nt
+    from nereus_tpu_torch import scene
+    from nereus_tpu_torch.probes import cells
+    cfg = nt.SimConfig()
+    params = nt.make_params(device=dev)
+    state, grid, _ = scene.dam_break(params, cfg, n_target=WIDE_N,
+                                     with_boundary=False, device=dev)
+    return (cfg, params, state,
+            cells.stretch_grid(grid) if stretch else grid, None)
+
+
 def run_wide(dev):
     """Phase 35, ``wcsph_wide12M``: the 12M dam-break without a boundary on
     ``bench.py``'s stretched grid (gx, gy and the origin kept, gz past
@@ -2404,15 +2518,11 @@ def run_wide(dev):
     check kernels against their plain versions at these shapes. Returns
     ``(timing, launches)``."""
     import nereus_tpu_torch as nt
-    from nereus_tpu_torch import scene
     from nereus_tpu_torch.ops import cuda_sweep
     from nereus_tpu_torch.probes import cells
     from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     t0 = time.perf_counter()
-    cfg = nt.SimConfig()
-    params = nt.make_params(device=dev)
-    state0, grid, _ = scene.dam_break(params, cfg, n_target=WIDE_N,
-                                      with_boundary=False, device=dev)
+    cfg, params, state0, grid, _ = wide_main_path(dev, stretch=False)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     wide = cells.stretch_grid(grid)
@@ -2789,6 +2899,49 @@ def run_layout(dev):
     return timing, launches
 
 
+def ptxas_report(log):
+    """Prints nvcc's ``-Xptxas -v`` lines: the row-tiled kernels by name,
+    and for the lane-group kernels (density, force) by G the range of
+    registers and spill stores over their instances and the main path's
+    instance (Müller kernels, Becker surface tension, pressure, viscosity,
+    static walls)."""
+    import re
+    entry, groups = "", {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else ""
+            continue
+        if not ("registers" in line or "spill" in line):
+            continue
+        m = re.search(r"(density_sweep_kernel|force_sweep_kernel)I((?:L[ib]"
+                      r"-?\d+E)+)E", entry)
+        if m is None:
+            # the row-tiled kernels by name (their shared memory too)
+            tag = f"{entry}: " if "tiled_pair_sweep_kernel" in entry else ""
+            print("  ptxas:", tag + line.strip())
+            continue
+        # template ints <KS[, ST, PRESSURE, VISC, MOVING], G>, then the
+        # force's load-ahead flag
+        targs = tuple(int(v) for v in re.findall(r"Li(-?\d+)E", m[2]))
+        pf = "Lb1E" in m[2]
+        rec = groups.setdefault((m[1], targs[-1], pf),
+                                {"regs": [], "spill": []})
+        main_path = targs[:-1] in ((1,), (1, 1, 1, 1, 0))
+        if "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            rec["regs"].append(regs)
+            if main_path:
+                rec["main"] = line.strip()
+        else:
+            rec["spill"].append(int(re.search(r"(\d+) bytes spill stores",
+                                              line)[1]))
+    for (name, g, pf), rec in sorted(groups.items()):
+        print(f"  ptxas: {name} G={g}{' prefetch' if pf else ''}: "
+              f"{len(rec['regs'])} instances, {min(rec['regs'])}-"
+              f"{max(rec['regs'])} registers, spill stores up to "
+              f"{max(rec['spill'])} bytes; main path: {rec.get('main', '-')}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures "
@@ -2822,14 +2975,7 @@ def main():
     log = cuda_sweep.build()
     cuda_sweep.load()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    entry = ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else ""
-        elif "registers" in line or "spill" in line:
-            # the row-tiled kernels by name (their shared memory too)
-            tag = f"{entry}: " if "tiled_pair_sweep_kernel" in entry else ""
-            print("  ptxas:", tag + line.strip())
+    ptxas_report(log)
 
     # -- 3. kernel vs plain, every kernel set and surface-tension model -------
     print(f"kernel vs plain, dam-break n_target={SMALL_N}, floor in "
@@ -3664,10 +3810,11 @@ def main():
         if ran != held:
             fail(f"{path}: kernels launched {sorted(ran)} but held against "
                  f"their plain versions {sorted(held)}")
-        for key, (err, kms, pms, bms, by, brms, *tiles) in t.items():
+        for key, (err, kms, pms, bms, by, brms, *extra) in t.items():
             kern, src, replaces = info[key]
             kernels.append({
-                **({"tiled": tiles[0]} if tiles else {}),
+                **({("tiled" if "tile" in extra[0] else "grouped"): extra[0]}
+                   if extra else {}),
                 "name": kern.name, "route": "cuda", "source": src,
                 "replaces": replaces, "path": path, "op": key,
                 "launches": path_launches[kern.name], "max_abs_err": err,

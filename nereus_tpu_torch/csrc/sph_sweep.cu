@@ -4,55 +4,85 @@
 // (launched by neighbor_sweep) together with the three pair functions the
 // WCSPH step runs through it, nereus_tpu/ops/pallas_sph.py::density_pair,
 // fluid_force_pair and boundary_force_pair (reached through
-// pallas_sph.density_sweep and pallas_sph.fluid_force_sweep), and
-// pallas_sph.py::boundary_force_sweep, the wall-only force (the functor
-// WallForce<PRESSURE> of pair_sweep_kernel over the wall rows alone, the
-// same wall formula as the fused force kernel's rows 9-17; the JAX package
-// has no caller of it, the port's is ops/sph_pairs.py::
-// boundary_force_sweep).
+// pallas_sph.py:1193 density_sweep and pallas_sph.py:1207
+// fluid_force_sweep), and pallas_sph.py::boundary_force_sweep, the
+// wall-only force (the functor WallForce<PRESSURE> of pair_sweep_kernel
+// over the wall rows alone, the same wall formula as the fused force
+// kernel's rows 9-17; the JAX package has no caller of it, the port's is
+// ops/sph_pairs.py::boundary_force_sweep).
 //
-// Design: one thread per query, in hash-sorted order. Each thread walks its
-// exact neighbor ranges over the hash-sorted source matrix: rows 0-8 are
-// the 9 (dy, dz) runs of the fluid region, rows 9-17 (when present) those
-// of the boundary region. This is the reference's own cell-range design;
-// the TPU's window plan (128-lane windows, SMEM anchors, float hash
-// payloads) exists only for Mosaic and is not carried over. Ranges are
-// computed by the caller (torch.searchsorted), so the kernels never
-// recompute cell coordinates.
+// What bounds the sweeps on this card. Each query walks 9 (18 with walls)
+// short runs of 0-6 hash-sorted candidates; about 15 % of a 27-cell
+// stencil's candidates lie inside the cutoff. One thread per query walking
+// the runs in series (this file's earlier design) waits on latency: a
+// run's bounds load only after the previous run ends, and a warp's lanes
+// diverge on each run's trip count. The density pair is a few operations
+// on one 16-byte row, so its sweep is latency-bound throughout; the force
+// pair is ~60 operations with exact divisions, which a warp runs whenever
+// any of its lanes has a candidate inside the cutoff, so its sweep is
+// bound by instruction throughput as much as by latency (one division in
+// the viscosity, not the plain version's two, measured 3-7 % faster at the
+// chosen G).
 //
-// Bound: memory traffic. Every candidate costs one or two 16-byte reads of
-// a source row at a data-dependent address, and roughly a sixth of the
-// candidates of a 27-cell neighborhood lie inside the cutoff. Neighboring
-// queries share most of their sources, so the reads mostly hit L1/L2. A
-// later change tiles the sources of a cell block through shared memory.
+// Design: a group of G lanes per query (ops/cuda_sweep.py picks G per
+// launch).
+// - Lane r of the group loads the bounds of rows r, r + G, ..., so all
+//   rows' bounds are in flight at once. A prefix sum over the group by
+//   shuffles flattens the runs into one candidate list, kept as a row table
+//   in shared memory (first flat index and source offset of each row);
+//   empty runs add nothing. The group walks the list G candidates at a
+//   time, lane l taking flat indices l, l + G, ...: neighbouring lanes read
+//   neighbouring source rows, and no lane waits on another's run lengths.
+// - A candidate first loads its position and tests r^2 < h^2; the pair
+//   math (the force's second float4 with it) runs only inside the cutoff.
+// - Partial sums reduce over the group with __shfl_xor_sync in a fixed
+//   tree: no atomics, the same order on every run (not the plain
+//   version's order). The force walks the fluid rows and the wall rows as
+//   two lists, so a lane runs one pair formula per list.
+// - G, measured (PERF.md section 6): at 2^18 queries 4 lanes per query fill
+//   the card best for both sweeps; at 2^20 and more the density takes 2,
+//   and the force 1 when the pair carries the viscosity (a lone lane per
+//   query, its next candidate's row loaded before the current pair runs,
+//   keeps 32 queries' divisions in a warp), else 2; a body shell's
+//   psi-density, whose queries' ranges are nearly all empty, takes 2 over
+//   a small shell and 4 over a large one. Only these instances are built.
+//   Larger groups spend
+//   more on the table and the shuffles than they hide; queueing the
+//   inside-cutoff candidates of a warp into full batches of 32 (one lane
+//   per pair) was 1.5-1.8x slower than the parent's kernel and is gone.
 //
 // Numerics: float32, no fast-math. r^2 is clamped to 1e-24 before the
 // rsqrt, so every term except the density self term is exactly 0 at the
 // self pair, and the Müller viscosity bracket (~1e36 at the clamp)
 // multiplies r^2 before its ~1e4 constant (the other order is inf*0 =
-// NaN). The viscosity denominator uses exact division. FMA contraction and
-// rsqrtf change the last bits against the plain PyTorch version. The
-// shared formulas live in sweep_common.cuh.
+// NaN). Divisions are exact. A pair outside the cutoff adds nothing (the
+// earlier design added its terms times 0). FMA contraction, rsqrtf, the
+// merged viscosity division and the order of summation change the last
+// bits against the plain PyTorch version. The shared formulas live in
+// sweep_common.cuh.
 //
-// The force kernel's PRESSURE switch (0 for the IISPH advection forces,
-// fluid_force_sweep(include_pressure=False)) drops the Tait term pd2_i +
-// pd2_j of the fluid rows and the pressure term of the boundary rows. Its
-// VISC switch (0 when the implicit viscosity solve owns viscosity,
-// fluid_force_sweep(include_viscosity=False)) drops the Muller viscosity of
-// the fluid rows and the friction of the boundary rows. Its MOVING switch
-// (1 for a moving boundary, fluid_force_sweep(moving_boundary=True); the
-// moving=True of pallas_sph.py::boundary_force_pair) makes the wall
-// friction read the relative velocity (v_i - v_b) . r, the wall velocity
-// taken from slots 3-5 of the boundary source row; it is instantiated only
-// with VISC = 1, since without friction no wall term reads a velocity.
+// The force kernel's PRESSURE switch (0 for the implicit solvers' advection
+// forces, fluid_force_sweep(include_pressure=False)) drops the Tait term
+// pd2_i + pd2_j of the fluid rows and the pressure term of the boundary
+// rows; pd2_j is read from slot 7 of the source row, the same p/rho^2 the
+// step computes for its queries. Its VISC switch (0 when the implicit
+// viscosity solve owns viscosity, fluid_force_sweep(include_viscosity=
+// False)) drops the Muller viscosity of the fluid rows and the friction of
+// the boundary rows. Its MOVING switch (1 for a moving boundary,
+// fluid_force_sweep(moving_boundary=True); the moving=True of
+// pallas_sph.py::boundary_force_pair) makes the wall friction read the
+// relative velocity (v_i - v_b) . r, the wall velocity taken from slots 3-5
+// of the boundary source row; it is instantiated only with VISC = 1, since
+// without friction no wall term reads a velocity.
 //
 // Layouts (all row-major float32, 16-byte aligned):
-//   density query (N, 4): x y z pad
-//   force query   (N, 8): x y z vx vy vz rho pd2
-//   source        (M, 8): x y z vx vy vz s6 pad (boundary rows: the wall
-//                         velocity, 0 for a static wall, in vx vy vz)
-//     s6 = psi (density: m for fluid, rho0*V_b for boundary rows) or
-//          rho_j (force sweep, fluid rows) / psi_b (boundary rows)
+//   density query  (N, 4): x y z (slot 3 unread)
+//   density source (M, 4): x y z psi (m for fluid, rho0*V_b for boundary
+//                          rows); the fluid rows may be the query itself
+//   force query    (N, 8): x y z vx vy vz rho pd2
+//   force source   (M, 8): fluid rows as the query rows (rho_j, pd2_j);
+//                          boundary rows x y z vbx vby vbz psi_b pad (the
+//                          wall velocity, 0 for a static wall)
 //   seg_start, seg_end (n_rows, N) int32
 //   pvec: the PV_* vector of ops/sph_pairs.py
 
@@ -62,45 +92,171 @@ namespace {
 
 using namespace nereus_sweep;
 
+constexpr unsigned FULL = 0xffffffffu;
+
 // ---------------------------------------------------------------------------
-// Density: rho_i = sum_j s6_j W(r_ij) over all rows, self term included
+// The lane-group walk
 // ---------------------------------------------------------------------------
 
-template <int KS>
+// A group's candidate list in shared memory: row r's candidates are the flat
+// indices pre[r] .. pre[r + 1] - 1 (pre[nr] the total), candidate k of row r
+// the source row k + delta[r].
+template <int NR>
+struct RowTable {
+  int pre[NR + 1];
+  int delta[NR];
+};
+
+// Loads the bounds of rows [row0, row0 + nr) of query i (none when !live),
+// lane `lane` of the G taking rows lane, lane + G, ..., scans their lengths
+// over the group by shuffles and writes the group's table; returns the
+// number of candidates. Every lane of the warp calls it.
+template <int G, int NR>
+__device__ __forceinline__ int build_rows(RowTable<NR>& t, int i, bool live,
+                                          int n, int row0, int nr,
+                                          const int* __restrict__ seg_start,
+                                          const int* __restrict__ seg_end,
+                                          int lane) {
+  int s[(NR + G - 1) / G], len[(NR + G - 1) / G];
+#pragma unroll
+  for (int k = 0; k < (NR + G - 1) / G; ++k) {
+    const int r = k * G + lane;
+    s[k] = 0;
+    len[k] = 0;
+    if (live && r < nr) {
+      const size_t at = static_cast<size_t>(row0 + r) * n + i;
+      s[k] = __ldg(seg_start + at);
+      len[k] = max(__ldg(seg_end + at) - s[k], 0);
+    }
+  }
+  int off = 0;
+#pragma unroll
+  for (int k = 0; k < (NR + G - 1) / G; ++k) {
+    int inc = len[k];
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+      const int up = __shfl_up_sync(FULL, inc, d, G);
+      if (lane >= d) inc += up;
+    }
+    const int r = k * G + lane;
+    if (r < nr) {
+      const int first = off + inc - len[k];
+      t.pre[r] = first;
+      t.delta[r] = s[k] - first;
+    }
+    off += __shfl_sync(FULL, inc, G - 1, G);
+  }
+  if (lane == 0) t.pre[nr] = off;
+  __syncwarp();
+  return off;
+}
+
+// The source row of flat candidate k, for a lane whose k only grows: `r`
+// and `next` (pre[r + 1]) carry the lane's row from one call to the next.
+template <int NR>
+__device__ __forceinline__ int source_of(const RowTable<NR>& t, int k, int& r,
+                                         int& next) {
+  while (k >= next) next = t.pre[++r + 1];
+  return k + t.delta[r];
+}
+
+// The sum of v over the G lanes of each group, in a fixed tree; every lane
+// of the group gets it.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d, G);
+  return v;
+}
+
+// Calls body(j, a) for each candidate of the group's list that falls to
+// lane `lane` (flat indices lane, lane + G, ...), a = src[stride * j] the
+// first float4 of its source row; with PF the next candidate's row is
+// loaded before body runs on this one.
+template <int G, bool PF, int NR, typename Body>
+__device__ __forceinline__ void walk(const RowTable<NR>& t, int total,
+                                     int lane,
+                                     const float4* __restrict__ src,
+                                     int stride, Body&& body) {
+  int r = 0, next = t.pre[1];
+  if constexpr (PF) {
+    int k = lane;
+    if (k >= total) return;
+    int j = source_of(t, k, r, next);
+    float4 a = __ldg(src + stride * j);
+    for (;;) {
+      const int kn = k + G;
+      const bool more = kn < total;
+      int jn = j;
+      float4 an = a;
+      if (more) {
+        jn = source_of(t, kn, r, next);
+        an = __ldg(src + stride * jn);
+      }
+      body(j, a);
+      if (!more) break;
+      k = kn;
+      j = jn;
+      a = an;
+    }
+  } else {
+    for (int k = lane; k < total; k += G) {
+      const int j = source_of(t, k, r, next);
+      body(j, __ldg(src + stride * j));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Density: rho_i = sum_j psi_j W(r_ij) over all rows, self term included
+// ---------------------------------------------------------------------------
+
+template <int KS, int G>
 __global__ void __launch_bounds__(THREADS)
 density_sweep_kernel(const float4* __restrict__ q,
                      const float4* __restrict__ src,
                      const int* __restrict__ seg_start,
                      const int* __restrict__ seg_end, int n, int n_rows,
                      const float* __restrict__ pv, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Params p = load_params(pv);
-  const float4 qi = __ldg(q + i);
+  constexpr int GROUPS = THREADS / G;
+  __shared__ RowTable<2 * N_ROWS> rows[GROUPS];
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int i = blockIdx.x * GROUPS + grp;
+  const bool live = i < n;
+  Params p;
+  p.h2 = __ldg(pv + PV_H2);
+  p.kpoly = __ldg(pv + PV_KPOLY);
+  p.h = __ldg(pv + PV_H);
+  p.sigma = 1.0f / (12.566370614359172f * p.h * p.h * p.h);
+  const float4 qi = live ? __ldg(q + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  RowTable<2 * N_ROWS>& t = rows[grp];
+  const int total = build_rows<G, 2 * N_ROWS>(t, i, live, n, 0, n_rows,
+                                              seg_start, seg_end, lane);
   float acc = 0.0f;
-  for_each_source(i, n, 0, n_rows, seg_start, seg_end, [&](int j) {
-    const float4 a = __ldg(src + 2 * j);
-    const float psi = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
+  walk<G, false>(t, total, lane, src, 1, [&](int, float4 a) {  // x y z psi
     const float dx = qi.x - a.x, dy = qi.y - a.y, dz = qi.z - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
-    if constexpr (KS == MULLER) {
-      const float d = fmaxf(p.h2 - r2, 0.0f);
-      acc += (d * d * d) * (psi * p.kpoly);
-    } else {
-      float rl, invrl;
-      rl_invrl(r2, rl, invrl);
-      if (r2 < p.h2) acc += psi * w_value<KS>(r2, rl, p);
+    if (r2 < p.h2) {
+      if constexpr (KS == MULLER) {
+        const float d = p.h2 - r2;
+        acc += (d * d * d) * (a.w * p.kpoly);
+      } else {
+        float rl, invrl;
+        rl_invrl(r2, rl, invrl);
+        acc += a.w * w_value<KS>(r2, rl, p);
+      }
     }
   });
-  out[i] = acc;
+  acc = group_sum<G>(acc);
+  if (live && lane == 0) out[i] = acc;
 }
 
 // ---------------------------------------------------------------------------
 // The wall pair of boundary_force_pair: Akinci adhesion beta psi W r, the
 // friction nu max(v . r, 0) psi grad W (VISC; MOVING: (v_i - v_b) . r with
 // the wall velocity in slots 3-5 of the source row) and the reference-scale
-// pressure +m^2 psi pd2_i grad W (PRESSURE), summed into f. One formula for
-// the fused force kernel's wall rows and the wall-only WallForce functor.
+// pressure +m^2 psi pd2_i grad W (PRESSURE). One formula for the fused
+// force kernel's wall rows and the wall-only WallForce functor.
 // ---------------------------------------------------------------------------
 
 // nu = 2 m^2 mu^2 h c_s / (1 + 0.01 h^2) / max(rho_i, 1e-12)^2
@@ -109,6 +265,34 @@ __device__ __forceinline__ float wall_nu(float dens_i, const Params& p) {
   return ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
           (1.0f + 0.01f * p.h2)) /
          (di * di);
+}
+
+// c with the wall pair's force c * r, before the cutoff: a = x y z vbx and
+// b = vby vbz psi pad of the wall row
+template <int KS, int PRESSURE, int VISC, int MOVING>
+__device__ __forceinline__ float wall_coef(float qvx, float qvy, float qvz,
+                                          float pd2_i, float nu, float4 a,
+                                          float4 b, float dx, float dy,
+                                          float dz, float r2,
+                                          const Params& p) {
+  const float psi = b.z;
+  float rl = 0.0f, invrl = 0.0f;
+  if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
+  const float w = w_value<KS>(r2, rl, p);
+  const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
+  float cfric = 0.0f;
+  if constexpr (VISC != 0) {
+    float vdotr;
+    if constexpr (MOVING != 0) {
+      vdotr = (qvx - a.w) * dx + (qvy - b.x) * dy + (qvz - b.y) * dz;
+    } else {
+      vdotr = qvx * dx + qvy * dy + qvz * dz;
+    }
+    cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
+  }
+  const float cpb = p.pm * p.pm;
+  return PRESSURE != 0 ? (p.beta * psi) * w + (cfric + cpb * psi * pd2_i * sd)
+                       : (p.beta * psi) * w + cfric;
 }
 
 template <int KS, int PRESSURE, int VISC, int MOVING>
@@ -125,129 +309,152 @@ __device__ __forceinline__ void wall_pair(float qx, float qy, float qz,
   } else {
     b.z = __ldg(reinterpret_cast<const float*>(src) + 8 * j + 6);
   }
-  const float psi = b.z;
   const float dx = qx - a.x, dy = qy - a.y, dz = qz - a.z;
   const float r2 = dx * dx + dy * dy + dz * dz;
-  float rl = 0.0f, invrl = 0.0f;
-  if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
   const float okf = r2 < p.h2 ? 1.0f : 0.0f;
-  const float w = w_value<KS>(r2, rl, p);
-  const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
-  float cfric = 0.0f;
-  if constexpr (VISC != 0) {
-    float vdotr;
-    if constexpr (MOVING != 0) {
-      vdotr = (qvx - a.w) * dx + (qvy - b.x) * dy + (qvz - b.y) * dz;
-    } else {
-      vdotr = qvx * dx + qvy * dy + qvz * dz;
-    }
-    cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
-  }
-  const float cpb = p.pm * p.pm;
-  const float c = PRESSURE != 0 ? ((p.beta * psi) * w +
-                                   (cfric + cpb * psi * pd2_i * sd)) * okf
-                                : ((p.beta * psi) * w + cfric) * okf;
+  const float c = wall_coef<KS, PRESSURE, VISC, MOVING>(
+                      qvx, qvy, qvz, pd2_i, nu, a, b, dx, dy, dz, r2, p) *
+                  okf;
   fx += c * dx;
   fy += c * dy;
   fz += c * dz;
 }
 
 // ---------------------------------------------------------------------------
-// Forces: fluid pairs (viscosity, surface tension, Tait pressure with pd2_j
-// from rho_j) on rows 0-8, wall pairs (adhesion, friction, reference-scale
-// boundary pressure) on rows 9-17; PRESSURE = 0 drops both pressure terms,
-// VISC = 0 the viscosity and the friction, MOVING = 1 makes the friction
-// read the wall velocity
+// The fluid pair, inside the cutoff: viscosity, surface tension, Tait
+// pressure with pd2_j from slot 7 of the source row
 // ---------------------------------------------------------------------------
 
-template <int KS, int ST, int PRESSURE, int VISC, int MOVING>
+template <int KS, int ST, int PRESSURE, int VISC>
+__device__ __forceinline__ void fluid_pair(const float4& qa, const float4& qb,
+                                           const float4& a, const float4& b,
+                                           float dx, float dy, float dz,
+                                           float r2, const Params& p,
+                                           float& fx, float& fy, float& fz) {
+  float rl, invrl;
+  rl_invrl(r2, rl, invrl);
+  float cpd = 0.0f;
+  if constexpr (PRESSURE != 0) {
+    cpd = (qb.w + b.w) * (-p.pm * p.pm) * grad_scale_press<KS>(rl, invrl, p);
+  }
+  if constexpr (ST == ST_BECKER) {
+    cpd += fminf(w_value<KS>(r2, rl, p), p.wdiam) * (-p.kappa);
+  } else if constexpr (ST == ST_AKINCI) {
+    const float hr = fmaxf(p.h - rl, 0.0f);
+    const float cube = hr * hr * hr * rl * rl * rl;
+    float c = 0.0f;
+    if (2.0f * rl > p.h && rl <= p.h) {
+      c = p.ksurf1 * cube;
+    } else if (rl > 1e-12f && 2.0f * rl <= p.h) {
+      c = p.ksurf1 * (2.0f * cube - p.ksurf2);
+    }
+    const float kij = 2.0f * p.rd / (qb.z + fmaxf(b.z, 1e-12f));
+    cpd += (-p.kappa * p.pm * p.pm) * kij * c * invrl;
+  }
+  if constexpr (VISC != 0) {
+    // 2 m mu m (r . grad W_v) / (rho_j (r^2 + 0.01 h^2)): the plain
+    // version's two divisions in one
+    const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
+    const float cvisc = ((2.0f * p.pm * p.visc * p.pm) * av) /
+                        (fmaxf(b.z, 1e-12f) * (r2 + 0.01f * p.h2));
+    fx += cvisc * (qa.w - a.w) + cpd * dx;
+    fy += cvisc * (qb.x - b.x) + cpd * dy;
+    fz += cvisc * (qb.y - b.y) + cpd * dz;
+  } else {
+    fx += cpd * dx;
+    fy += cpd * dy;
+    fz += cpd * dz;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forces: fluid pairs on rows 0-8, wall pairs on rows 9-17, each walked as
+// one list by the query's group
+// ---------------------------------------------------------------------------
+
+// The pair of each candidate inside the cutoff, evaluated by the lane that
+// tested it; the G lanes' sums reduce over the group
+template <int KS, int ST, int PRESSURE, int VISC, int MOVING, int G, bool PF>
 __global__ void __launch_bounds__(THREADS)
 force_sweep_kernel(const float4* __restrict__ q,
                    const float4* __restrict__ src,
                    const int* __restrict__ seg_start,
                    const int* __restrict__ seg_end, int n, int n_rows,
                    const float* __restrict__ pv, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  constexpr int GROUPS = THREADS / G;
+  __shared__ RowTable<N_ROWS> rows[GROUPS];
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int i = blockIdx.x * GROUPS + grp;
+  const bool live = i < n;
   const Params p = load_params(pv);
-  const float4 qa = __ldg(q + 2 * i);      // x y z vx
-  const float4 qb = __ldg(q + 2 * i + 1);  // vy vz rho pd2
-  const float dens_i = qb.z, pd2_i = qb.w;
-  const float kv0 = 2.0f * p.pm * p.visc * p.pm;
-  const float inv_rd = 1.0f / p.rd;
-  const float cp = -p.pm * p.pm;
-  const float bden0 = 0.01f * p.h2;
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 qa = live ? __ldg(q + 2 * i) : zero4;      // x y z vx
+  const float4 qb = live ? __ldg(q + 2 * i + 1) : zero4;  // vy vz rho pd2
+  RowTable<N_ROWS>& t = rows[grp];
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
 
-  for_each_source(i, n, 0, min(n_rows, N_ROWS), seg_start, seg_end,
-                  [&](int j) {
-    const float4 a = __ldg(src + 2 * j);      // x y z vx
-    const float4 b = __ldg(src + 2 * j + 1);  // vy vz rho pad
+  int total = build_rows<G, N_ROWS>(t, i, live, n, 0, min(n_rows, N_ROWS),
+                                    seg_start, seg_end, lane);
+  walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a) {  // x y z vx
     const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
-    float rl, invrl;
-    rl_invrl(r2, rl, invrl);
-    const float okf = r2 < p.h2 ? 1.0f : 0.0f;
-    const float dens_j = fmaxf(b.z, 1e-12f);
-    const float inv_dens = 1.0f / dens_j;
-
-    float cpd = 0.0f;
-    if constexpr (PRESSURE != 0) {
-      const float ratio = dens_j * inv_rd;
-      const float ratio2 = ratio * ratio;
-      const float p_j = p.k * (ratio2 * ratio2 * ratio2 * ratio - 1.0f);
-      const float pd2_j = p_j * inv_dens * inv_dens;
-      cpd = (pd2_i + pd2_j) * cp * grad_scale_press<KS>(rl, invrl, p);
-    }
-
-    if constexpr (ST == ST_BECKER) {
-      cpd += fminf(w_value<KS>(r2, rl, p), p.wdiam) * (-p.kappa);
-    } else if constexpr (ST == ST_AKINCI) {
-      const float hr = fmaxf(p.h - rl, 0.0f);
-      const float cube = hr * hr * hr * rl * rl * rl;
-      float c = 0.0f;
-      if (2.0f * rl > p.h && rl <= p.h) {
-        c = p.ksurf1 * cube;
-      } else if (rl > 1e-12f && 2.0f * rl <= p.h) {
-        c = p.ksurf1 * (2.0f * cube - p.ksurf2);
-      }
-      const float kij = 2.0f * p.rd / (dens_i + dens_j);
-      cpd += (-p.kappa * p.pm * p.pm) * kij * c * invrl;
-    }
-    cpd *= okf;
-    if constexpr (VISC != 0) {
-      const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
-      const float cvisc =
-          (kv0 * inv_dens) * (av * (1.0f / (r2 + bden0))) * okf;
-      fx += cvisc * (qa.w - a.w) + cpd * dx;
-      fy += cvisc * (qb.x - b.x) + cpd * dy;
-      fz += cvisc * (qb.y - b.y) + cpd * dz;
-    } else {
-      fx += cpd * dx;
-      fy += cpd * dy;
-      fz += cpd * dz;
+    if (r2 < p.h2) {
+      const float4 b = __ldg(src + 2 * j + 1);  // vy vz rho pd2
+      fluid_pair<KS, ST, PRESSURE, VISC>(qa, qb, a, b, dx, dy, dz, r2, p, fx,
+                                         fy, fz);
     }
   });
-
   if (n_rows > N_ROWS) {
-    const float nu = VISC != 0 ? wall_nu(dens_i, p) : 0.0f;
-    for_each_source(i, n, N_ROWS, n_rows, seg_start, seg_end, [&](int j) {
-      wall_pair<KS, PRESSURE, VISC, MOVING>(qa.x, qa.y, qa.z, qa.w, qb.x,
-                                            qb.y, pd2_i, nu, src, j, p, fx,
-                                            fy, fz);
+    __syncwarp();
+    total = build_rows<G, N_ROWS>(t, i, live, n, N_ROWS, n_rows - N_ROWS,
+                                  seg_start, seg_end, lane);
+    const float nu = VISC != 0 ? wall_nu(qb.z, p) : 0.0f;
+    walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a) {  // x y z vbx
+      const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      if (r2 < p.h2) {
+        const float4 b = __ldg(src + 2 * j + 1);  // vby vbz psi pad
+        const float c = wall_coef<KS, PRESSURE, VISC, MOVING>(
+            qa.w, qb.x, qb.y, qb.w, nu, a, b, dx, dy, dz, r2, p);
+        fx += c * dx;
+        fy += c * dy;
+        fz += c * dz;
+      }
     });
   }
-  out[3 * i + 0] = fx;
-  out[3 * i + 1] = fy;
-  out[3 * i + 2] = fz;
+  fx = group_sum<G>(fx);
+  fy = group_sum<G>(fy);
+  fz = group_sum<G>(fz);
+  if (live && lane == 0) {
+    out[3 * i + 0] = fx;
+    out[3 * i + 1] = fy;
+    out[3 * i + 2] = fz;
+  }
 }
 
-template <int KS, int ST, int PRESSURE, int VISC, int MOVING>
+// blocks of THREADS lanes, THREADS / G queries each
+template <int G>
+inline int group_blocks(int n) {
+  constexpr int per = THREADS / G;
+  return (n + per - 1) / per;
+}
+
+template <int KS, int G>
+void launch_density(const float* q, const float* src, const int* s,
+                    const int* e, int n, int n_rows, const float* pv,
+                    float* out, cudaStream_t stream) {
+  density_sweep_kernel<KS, G><<<group_blocks<G>(n), THREADS, 0, stream>>>(
+      reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
+      s, e, n, n_rows, pv, out);
+}
+
+// a lone lane per query (G = 1) loads its next candidate's row ahead
+template <int KS, int ST, int PRESSURE, int VISC, int MOVING, int G>
 void launch_force(const float* q, const float* src, const int* s,
                   const int* e, int n, int n_rows, const float* pv,
                   float* out, cudaStream_t stream) {
-  force_sweep_kernel<KS, ST, PRESSURE, VISC, MOVING>
-      <<<blocks_for(n), THREADS, 0, stream>>>(
+  force_sweep_kernel<KS, ST, PRESSURE, VISC, MOVING, G, G == 1>
+      <<<group_blocks<G>(n), THREADS, 0, stream>>>(
       reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(src),
       s, e, n, n_rows, pv, out);
 }
@@ -277,49 +484,57 @@ struct WallForce {
   }
 };
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() (0 on success); an unknown switch value returns -1.
+// `group` is the lanes per query G that ops/cuda_sweep.py picks, and only
+// those instances are built: 2 or 4 for the density kernel; 1 or 4 for a
+// force instance with viscosity, 2 or 4 for one without.
 
 int nereus_density_sweep(const float* q, const float* src,
                          const int* seg_start, const int* seg_end, int n,
                          int n_rows, const float* pvec, int kernel_set,
-                         float* out, void* stream) {
+                         int group, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* q4 = reinterpret_cast<const float4*>(q);
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  if (kernel_set == MULLER) {
-    density_sweep_kernel<MULLER><<<blocks_for(n), THREADS, 0, st>>>(
-        q4, s4, seg_start, seg_end, n, n_rows, pvec, out);
-  } else if (kernel_set == MONAGHAN) {
-    density_sweep_kernel<MONAGHAN><<<blocks_for(n), THREADS, 0, st>>>(
-        q4, s4, seg_start, seg_end, n, n_rows, pvec, out);
-  } else {
-    return -1;
+#define NEREUS_DENSITY(KS, G)                                               \
+  if (kernel_set == KS && group == G) {                                     \
+    launch_density<KS, G>(q, src, seg_start, seg_end, n, n_rows, pvec, out, \
+                          st);                                              \
+    return static_cast<int>(cudaGetLastError());                            \
   }
-  return static_cast<int>(cudaGetLastError());
+  NEREUS_DENSITY(MULLER, 2)
+  NEREUS_DENSITY(MULLER, 4)
+  NEREUS_DENSITY(MONAGHAN, 2)
+  NEREUS_DENSITY(MONAGHAN, 4)
+#undef NEREUS_DENSITY
+  return -1;
 }
 
 int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
                        const int* seg_end, int n, int n_rows,
                        const float* pvec, int kernel_set, int st_model,
-                       int pressure, int visc, int moving, float* out,
-                       void* stream) {
+                       int pressure, int visc, int moving, int group,
+                       float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NEREUS_FORCE(KS, ST, P, V, M)                                        \
+#define NEREUS_FORCE(KS, ST, P, V, M, G)                                     \
   if (kernel_set == KS && st_model == ST && pressure == P && visc == V &&    \
-      moving == M) {                                                         \
-    launch_force<KS, ST, P, V, M>(q, src, seg_start, seg_end, n, n_rows,     \
-                                  pvec, out, st);                            \
+      moving == M && group == G) {                                           \
+    launch_force<KS, ST, P, V, M, G>(q, src, seg_start, seg_end, n, n_rows,  \
+                                     pvec, out, st);                         \
     return static_cast<int>(cudaGetLastError());                             \
   }
-#define NEREUS_FORCE_ST(KS, P, V, M) \
-  NEREUS_FORCE(KS, ST_NONE, P, V, M) \
-  NEREUS_FORCE(KS, ST_BECKER, P, V, M) \
-  NEREUS_FORCE(KS, ST_AKINCI, P, V, M)
+#define NEREUS_FORCE_G(KS, ST, P, V, M)       \
+  NEREUS_FORCE(KS, ST, P, V, M, (V ? 1 : 2)) \
+  NEREUS_FORCE(KS, ST, P, V, M, 4)
+#define NEREUS_FORCE_ST(KS, P, V, M)   \
+  NEREUS_FORCE_G(KS, ST_NONE, P, V, M) \
+  NEREUS_FORCE_G(KS, ST_BECKER, P, V, M) \
+  NEREUS_FORCE_G(KS, ST_AKINCI, P, V, M)
   NEREUS_FORCE_ST(MULLER, 1, 1, 0)
   NEREUS_FORCE_ST(MONAGHAN, 1, 1, 0)
   NEREUS_FORCE_ST(MULLER, 0, 1, 0)
@@ -333,6 +548,7 @@ int nereus_force_sweep(const float* q, const float* src, const int* seg_start,
   NEREUS_FORCE_ST(MULLER, 0, 1, 1)
   NEREUS_FORCE_ST(MONAGHAN, 0, 1, 1)
 #undef NEREUS_FORCE_ST
+#undef NEREUS_FORCE_G
 #undef NEREUS_FORCE
   return -1;
 }
@@ -356,6 +572,13 @@ int nereus_wall_force_sweep(const float* q, const float* src,
                                            stream);
   }
   return -1;
+}
+
+// An empty kernel on `stream`: the floor under a launch, timed beside the
+// sweeps. Returns cudaGetLastError().
+int nereus_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* nereus_cuda_error_string(int code) {

@@ -234,6 +234,8 @@ def load():
         lib.nereus_layout_probe.restype = i32
         lib.nereus_layout_probe.argtypes = [ptr, ptr, ptr, i32, i32, i32,
                                             i32, ptr, ptr]
+        lib.nereus_empty_kernel.restype = i32
+        lib.nereus_empty_kernel.argtypes = [ptr]
         lib.nereus_cuda_error_string.restype = ctypes.c_char_p
         lib.nereus_cuda_error_string.argtypes = [i32]
         _lib = lib
@@ -285,7 +287,7 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # the C entry points nereus_<fn>_sweep(q, src, seg_start, seg_end, n,
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
-_SWEEP_FNS = {"density": 0, "force": 4, "dii_rhoadv": 0, "aii": 0,
+_SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 0, "jacobi": 0, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
               "xsph": 0, "multiphase_alpha": 0,
@@ -435,18 +437,58 @@ def _tiled(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
     return out
 
 
+# lanes per query G of the density and force kernels (csrc/sph_sweep.cu,
+# which builds only the instances these choose), by query count and
+# switches, as measured on the H100 (PERF.md section 6): below ``SMALL_N``
+# queries 4 lanes per query fill the card best; above it the density takes
+# 2, the force 1 (its lone lane loading the next candidate ahead) when the
+# pair carries the viscosity's divisions, else 2. A body shell's
+# ψ-density runs over ranges that are empty for nearly every query (under
+# 1 % on the 256k cells): below ``SMALL_SHELL`` samples (a rigid box's
+# 56) the few busy queries have few candidates, and 2 lanes per query
+# build the empty queries' row tables more cheaply; a larger shell (an
+# elastic cube's 4,096) gives its busy queries many, which 4 lanes split.
+SMALL_N = 2 ** 19
+SMALL_SHELL = 512
+
+
+def density_group(n: int) -> int:
+    """The density kernel's G for ``n`` queries."""
+    return 4 if n < SMALL_N else 2
+
+
+def force_group(n: int, include_viscosity=True) -> int:
+    """The force kernel's G for ``n`` queries."""
+    if n < SMALL_N:
+        return 4
+    return 1 if include_viscosity else 2
+
+
+def body_group(m: int) -> int:
+    """The density kernel's G over a body shell of ``m`` samples."""
+    return 2 if m < SMALL_SHELL else 4
+
+
+def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
+    return _sweep(kernel, "density", cfg, q, 4, src, 4, seg_start, seg_end,
+                  pvec, rows, 0, group)
+
+
 def density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """ρ (N,) from the density kernel: q (N, 4), src (M, 8)."""
-    return _sweep(DENSITY, "density", cfg, q, 4, src, 8, seg_start, seg_end,
-                  pvec, (9, 18), 0)
+    """ρ (N,) from the density kernel: q (N, 4) (slot 3 unread), src (M, 4)
+    ``x y z ψ``."""
+    return _density(DENSITY, cfg, q, src, seg_start, seg_end, pvec,
+                    (9, 18), density_group(q.shape[0]))
 
 
 def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
                 include_pressure=True, include_viscosity=True,
                 moving_boundary=False):
     """Forces (N, 3) from the fused fluid + boundary force kernel:
-    q (N, 8), src (M, 8); ``include_pressure=False`` launches the
-    pressure-off instance (the implicit solvers' advection forces),
+    q (N, 8) ``x y z v ρ pd2``, src (M, 8) with pd2_j in the fluid rows'
+    slot 7 (the fluid rows may be the query itself);
+    ``include_pressure=False`` launches the pressure-off instance (the
+    implicit solvers' advection forces; slot 7 unread),
     ``include_viscosity=False`` the instance without viscosity and wall
     friction (the implicit viscosity solve owns both),
     ``moving_boundary=True`` the instance whose wall friction reads the
@@ -463,7 +505,7 @@ def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
     return _sweep(kernel, "force", cfg, q, 8, src, 8, seg_start, seg_end,
                   pvec, (9, 18), 3, cfg.surface_tension_model.value,
                   int(bool(include_pressure)), int(bool(include_viscosity)),
-                  int(moving))
+                  int(moving), force_group(q.shape[0], include_viscosity))
 
 
 def dii_rhoadv_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -503,10 +545,10 @@ def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
 def predicted_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                             pvec):
     """PCISPH's predicted density ρ* (N,) from the density kernel, counted
-    in ``DENSITY_PRED``: q (N, 4) and the source's fluid rows at the
-    predicted positions, over the start-of-step ranges."""
-    return _sweep(DENSITY_PRED, "density", cfg, q, 4, src, 8, seg_start,
-                  seg_end, pvec, (9, 18), 0)
+    in ``DENSITY_PRED``: q (N, 4) and the source (M, 4) whose fluid rows
+    hold the predicted positions, over the start-of-step ranges."""
+    return _density(DENSITY_PRED, cfg, q, src, seg_start, seg_end, pvec,
+                    (9, 18), density_group(q.shape[0]))
 
 
 def alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -602,9 +644,10 @@ def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 def body_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """A body shell's Σψ_b·W (N,) from the density kernel, counted in
-    ``BODY_DENSITY``: q (N, 4), the body source (Mb, 8), ranges (9, N)."""
-    return _sweep(BODY_DENSITY, "density", cfg, q, 4, src, 8, seg_start,
-                  seg_end, pvec, (9,), 0)
+    ``BODY_DENSITY``: q (N, 4), the shell (Mb, 4) ``x y z ψ_b``, ranges
+    (9, N)."""
+    return _density(BODY_DENSITY, cfg, q, src, seg_start, seg_end, pvec,
+                    (9,), body_group(src.shape[0]))
 
 
 def body_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
@@ -715,6 +758,17 @@ def boundary_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
     p = bool(include_pressure)
     return _sweep(WALL_FORCE if p else WALL_FORCE_P0, "wall_force", cfg, q,
                   8, src, 8, seg_start, seg_end, pvec, (9,), 3, int(p))
+
+
+def empty_kernel(device):
+    """Launches an empty kernel on the current stream of ``device``: the
+    floor under a launch, timed beside the sweeps (not counted)."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = lib.nereus_empty_kernel(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed ({rc}): "
+                           f"{lib.nereus_cuda_error_string(rc).decode()}")
 
 
 def cell_check(q, pvec, grid):

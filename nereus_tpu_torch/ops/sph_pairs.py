@@ -6,14 +6,18 @@ same ``PV_*`` layout as the JAX package): the CUDA kernels read it from
 device memory, the plain formulas index it.
 
 Source matrices are (M, 8) float32 rows ``x y z vx vy vz s6 pad``. Slot 6
-means different things by region: ψ = m (density sweep), ρ_j (force
-sweep) or p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force; κ_j/ρ_j in
-DFSPH's κ correction) for fluid sources, ψ_b = ρ₀·V_b for boundary
-sources. Query matrices are (N, 4) ``x y z pad`` for density and (N, 8)
-``x y z vx vy vz ρ pd2`` for forces. The IISPH Jacobi and the multiphase
-force sweeps read a (M, 12) wide source (``WIDE_WIDTH``): fluid rows
-``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad`` (Jacobi) or ``x y z vx vy vz
-V_j p_j·V_j² [ρ0_j] pad…`` (multiphase), boundary rows with ψ_b in slot 6.
+means different things by region: ρ_j (force sweep; its fluid rows are
+the force queries ``x y z vx vy vz ρ pd2``, pd2_j in slot 7) or
+p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force; κ_j/ρ_j in DFSPH's κ
+correction) for fluid sources, ψ_b = ρ₀·V_b for boundary sources. The
+density sweep reads a (M, 4) source ``x y z ψ`` (ψ = m for fluid rows,
+ψ_b for boundary rows) whose fluid rows may be the density queries
+themselves. Query matrices are (N, 4) ``x y z pad`` for density (slot 3
+unread) and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH Jacobi
+and the multiphase force sweeps read a (M, 12) wide source
+(``WIDE_WIDTH``): fluid rows ``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad``
+(Jacobi) or ``x y z vx vy vz V_j p_j·V_j² [ρ0_j] pad…`` (multiphase),
+boundary rows with ψ_b in slot 6.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
 rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
 sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j, m or λ_j,
@@ -72,7 +76,7 @@ PV_BETA = 10
 PV_VISC = 11
 PV_CS = 12
 PV_RD = 13
-PV_K = 14          # Tait stiffness (pd2_j is recomputed per pair)
+PV_K = 14          # Tait stiffness
 PV_KSURF1 = 15
 PV_KSURF2 = 16
 PV_KPOLY_GRAD = 17
@@ -208,23 +212,26 @@ def _geometry(q, s):
 def density_pair(q, s, pv, *, kernel_set):
     """ψ_j·W(r): one formula for fluid (ψ = m) and boundary (ψ_b) sources
     (``computeCellDensity`` / ``computeBoundaryCellDensity``,
-    ``sph_kernel_impl.cuh:290-360``). Returns (P, 1)."""
+    ``sph_kernel_impl.cuh:290-360``), ψ_j in slot 3 of the (P, 4) source
+    rows ``x y z ψ``. Returns (P, 1)."""
     _, _, _, r2 = _geometry(q, s)
     if kernel_set == KernelSet.MULLER:
         # poly6 vanishes outside the cutoff through the clamp
         d = torch.clamp(pv[PV_H2] - r2, min=0.0)
-        return ((d * d * d) * (s[:, 6] * pv[PV_KPOLY]))[:, None]
+        return ((d * d * d) * (s[:, 3] * pv[PV_KPOLY]))[:, None]
     rl, invrl = _rl_invrl(r2)
     okf = (r2 < pv[PV_H2]).to(q.dtype)
-    return (s[:, 6] * _w_value(kernel_set, r2, rl, pv) * okf)[:, None]
+    return (s[:, 3] * _w_value(kernel_set, r2, rl, pv) * okf)[:, None]
 
 
 def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
                      include_pressure=True, include_viscosity=True):
     """Fluid-source forces: Müller viscosity, Becker or Akinci surface
-    tension, and symmetric Tait pressure with pd2_j recomputed from the
-    source density in slot 6. ``include_pressure=False`` drops the whole
-    Tait term, pd2_i and pd2_j (the implicit solvers' advection forces);
+    tension, and symmetric Tait pressure. The source rows are force query
+    rows ``x y z vx vy vz ρ pd2``: ρ_j in slot 6, pd2_j = p_j/ρ_j² in slot
+    7, the step's own Tait p/ρ² (the JAX pair recomputes it from ρ_j).
+    ``include_pressure=False`` drops the whole Tait term, pd2_i and pd2_j
+    (the implicit solvers' advection forces; slot 7 unread);
     ``include_viscosity=False`` the viscosity (the implicit viscosity solve
     owns it). Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
@@ -233,14 +240,10 @@ def fluid_force_pair(q, s, pv, *, kernel_set, st_model,
     dens_j = torch.clamp(s[:, 6], min=_EPS)
     inv_dens = 1.0 / dens_j
 
-    # pressure: −m²(pd2_i + pd2_j)·∇W_press, pd2_j from the Tait EOS of ρ_j
+    # pressure: −m²(pd2_i + pd2_j)·∇W_press
     if include_pressure:
-        ratio = dens_j * (1.0 / pv[PV_RD])
-        ratio2 = ratio * ratio
-        p_j = pv[PV_K] * (ratio2 * ratio2 * ratio2 * ratio - 1.0)
-        pd2_j = p_j * inv_dens * inv_dens
         sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
-        cpd = (q[:, 7] + pd2_j) * (-pv[PV_PM] * pv[PV_PM]) * sp
+        cpd = (q[:, 7] + s[:, 7]) * (-pv[PV_PM] * pv[PV_PM]) * sp
     else:
         cpd = torch.zeros_like(r2)
 
@@ -859,7 +862,8 @@ def fluid_reaction_pair(q, s, pv, *, kernel_set, include_pressure=True):
 
 def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """ρ_i = Σ_j ψ_j W(r_ij) over the fluid rows and (18 rows) the
-    boundary rows, self term included. Returns (N,)."""
+    boundary rows, self term included: q (N, 4), src (M, 4) ``x y z ψ``.
+    Returns (N,)."""
     def pair(qq, ss):
         return density_pair(qq, ss, pvec, kernel_set=cfg.kernel_set)
     return neighbor_sweep_plain(pair, q, src, seg_start, seg_end, 1,
@@ -869,7 +873,9 @@ def density_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 def fluid_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                             pvec, include_pressure=True,
                             include_viscosity=True, moving_boundary=False):
-    """WCSPH forces: fluid pairs on rows 0-8, wall pairs on rows 9-17;
+    """WCSPH forces: fluid pairs on rows 0-8, wall pairs on rows 9-17:
+    q (N, 8) ``x y z v ρ pd2``, src (M, 8) fluid rows as the queries (pd2_j
+    in slot 7), wall rows ``x y z v_b ψ_b 0``;
     ``include_pressure=False`` drops both pressure terms,
     ``include_viscosity=False`` the viscosity and the wall friction,
     ``moving_boundary=True`` makes the friction read the wall velocities

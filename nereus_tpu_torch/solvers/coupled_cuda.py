@@ -35,8 +35,8 @@ from ..params import SimConfig, SimParams
 from ..rigid import body_boundary, integrate_rigid
 from ..state import BoundaryData, FluidState
 from .coupled import rigid_extras
-from .sweep_common import SweepCtx, boundary_src, build_sweep_ctx
-from .wcsph import tait_pressure
+from .sweep_common import SweepCtx, boundary_src, build_sweep_ctx, psi_rows
+from .wcsph import tait_pd2, tait_pressure
 from .wcsph_cuda import _diagnostics, _integrate, multiphase_force_args
 
 
@@ -46,6 +46,12 @@ class Shell(NamedTuple):
     src: torch.Tensor         # (Mb, 8) x y z v_b ψ_b 0
     seg_start: torch.Tensor   # (9, C) int32
     seg_end: torch.Tensor
+
+    @property
+    def src4(self):
+        """(Mb, 4) ``x y z ψ_b``: the shell as the density sweep's (and the
+        multiphase α and κ sweeps') source."""
+        return psi_rows(self.src)
 
 
 def body_shells(ctx: SweepCtx, grid: gridlib.Grid, bodies):
@@ -77,19 +83,15 @@ def coupled_operands(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     ``(q, src, seg_start, seg_end, pvec)``, the force sweep's (its query
     also the body sweeps'), the density with every shell's ψ-density and
     its pressure. The shells' density sweeps run here."""
-    vel = (ctx.vx, ctx.vy, ctx.vz)
-    q4 = ctx.queries(width=4)
-    dargs = (q4, ctx.pack(vel, params.particle_mass), ctx.seg_start,
-             ctx.seg_end, ctx.pvec)
+    dargs = ctx.density_operands(params.particle_mass)
     dens = SP.density_sweep(cfg, *dargs)
     for sh in shells:
-        dens = dens + SP.body_density_sweep(cfg, q4, sh.src, sh.seg_start,
-                                            sh.seg_end, ctx.pvec)
+        dens = dens + SP.body_density_sweep(cfg, dargs[0], sh.src4,
+                                            sh.seg_start, sh.seg_end,
+                                            ctx.pvec)
     pres = tait_pressure(dens, params)
-    dens_safe = torch.clamp(dens, min=1e-12)
-    pd2 = pres / (dens_safe * dens_safe)
-    fargs = (ctx.queries(*vel, dens, pd2), ctx.pack(vel, dens),
-             ctx.seg_start, ctx.seg_end, ctx.pvec)
+    fargs = ctx.force_operands((ctx.vx, ctx.vy, ctx.vz), dens,
+                               tait_pd2(dens, params))
     return dargs, fargs, dens, pres
 
 
@@ -140,7 +142,7 @@ def coupled_multiphase_operands(ctx: SweepCtx, params: SimParams,
     dout = SP.multiphase_density_sweep(cfg, *dargs)
     delta, bsum = dout[:, 0], dout[:, 1]
     for sh in shells:
-        bsum = bsum + SP.body_density_sweep(cfg, dargs[0], sh.src,
+        bsum = bsum + SP.body_density_sweep(cfg, dargs[0], sh.src4,
                                             sh.seg_start, sh.seg_end,
                                             ctx.pvec)
     dens = mass * delta + (rho0 / params.rest_density) * bsum

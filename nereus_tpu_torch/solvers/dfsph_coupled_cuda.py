@@ -54,7 +54,7 @@ from ..state import BoundaryData, FluidState
 from .coupled import rigid_extras
 from .coupled_cuda import Shell, body_shells, reaction
 from .dfsph_cuda import (_EPS_DENOM, KappaSweeps, MultiphaseKappaSweeps,
-                         dfsph_solve, multiphase_alpha_operands)
+                         alpha_src, dfsph_solve, multiphase_alpha_operands)
 from .sweep_common import SweepCtx, build_sweep_ctx
 from .wcsph_cuda import multiphase_density_operands
 
@@ -75,9 +75,9 @@ class BodyTerms:
 
     @functools.cached_property
     def src4(self):
-        """(Mb, 4) ``x y z ψ_b``: the shell of the multiphase α and κ
-        sweeps."""
-        return self.shell.src[:, [0, 1, 2, 6]].contiguous()
+        """(Mb, 4) ``x y z ψ_b``: the shell of the density and the
+        multiphase α and κ sweeps."""
+        return self.shell.src4
 
     def ranges(self, pvec):
         return self.shell.seg_start, self.shell.seg_end, pvec
@@ -178,14 +178,13 @@ def coupled_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     t·I⁻¹t) in the denominator."""
     pm = params.particle_mass
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-    q4 = ctx.queries(width=4)
-    src_psi = ctx.pack((ctx.vx, ctx.vy, ctx.vz), pm)
-    dens = SP.density_sweep(cfg, q4, src_psi, *rng)
-    al = SP.alpha_sweep(cfg, q4, src_psi, *rng)
+    q4, *dargs = ctx.density_operands(pm)
+    dens = SP.density_sweep(cfg, q4, *dargs)
+    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
     mob = torch.zeros_like(dens)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     for t in terms:
-        dens = dens + SP.body_density_sweep(cfg, q4, t.shell.src,
+        dens = dens + SP.body_density_sweep(cfg, q4, t.src4,
                                             *t.ranges(ctx.pvec))
         alb = SP.alpha_body_sweep(cfg, q4, t.shell.src, *t.ranges(ctx.pvec))
         al = al + alb
@@ -283,7 +282,7 @@ def coupled_density_alpha_multiphase(ctx: SweepCtx, params: SimParams,
     mob = torch.zeros_like(delta)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     for t in terms:
-        bsum = bsum + SP.body_density_sweep(cfg, dargs[0], t.shell.src,
+        bsum = bsum + SP.body_density_sweep(cfg, dargs[0], t.src4,
                                             *t.ranges(ctx.pvec))
         gk = SP.multiphase_alpha_body_sweep(cfg, aargs[0], t.src4,
                                             *t.ranges(ctx.pvec))[:, 4:7]

@@ -117,11 +117,9 @@ class KappaSweeps:
     def forces(self, vel, include_viscosity=True):
         """``(q8, src, f)``: the non-pressure force sweep's query and
         source at the (C, 3) velocities ``vel``, and its (C, 3) force."""
-        cols = vel.unbind(1)
-        q8 = self.ctx.queries(*cols, self.dens, self.zero)
-        src = self.ctx.pack(cols, self.dens)
-        f = SP.fluid_force_sweep(self.cfg, q8, src, self.ctx.seg_start,
-                                 self.ctx.seg_end, self.ctx.pvec,
+        q8, src, *rng = self.ctx.force_operands(vel.unbind(1), self.dens,
+                                                self.zero)
+        f = SP.fluid_force_sweep(self.cfg, q8, src, *rng,
                                  include_pressure=False,
                                  include_viscosity=include_viscosity,
                                  moving_boundary=self.ctx.moving_boundary)
@@ -296,6 +294,12 @@ def dfsph_solve(state: FluidState, sweeps, alpha, carry=(),
     return new_state, carry, diag
 
 
+def alpha_src(ctx: SweepCtx, params: SimParams):
+    """The α sweep's (C [+ Mb], 8) source: fluid rows ψ = m in slot 6,
+    boundary rows ψ_b (the velocity slots are not read)."""
+    return ctx.pack((ctx.vx, ctx.vy, ctx.vz), params.particle_mass)
+
+
 def multiphase_alpha_operands(ctx: SweepCtx):
     """The multiphase α sweep's operands ``(q, src, seg_start, seg_end,
     pvec)``: q ``x y z 1/m_i`` (the kernel reads x y z), the 4-wide source
@@ -339,11 +343,10 @@ def dfsph_step_cuda(state: FluidState, params: SimParams,
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
 
-    # -- density + the DFSPH factor α --------------------------------------
-    q4 = ctx.queries(width=4)
-    src_psi = ctx.pack((ctx.vx, ctx.vy, ctx.vz), params.particle_mass)
-    dens = SP.density_sweep(cfg, q4, src_psi, *rng)
-    al = SP.alpha_sweep(cfg, q4, src_psi, *rng)
+    # -- density + the DFSPH factor α (on the density's queries) -----------
+    q4, *dargs = ctx.density_operands(params.particle_mass)
+    dens = SP.density_sweep(cfg, q4, *dargs)
+    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
     denom = (al[:, 0] * al[:, 0] + al[:, 1] * al[:, 1] + al[:, 2] * al[:, 2]
              + al[:, 3])
     alpha = dens / torch.clamp(denom, min=_EPS_DENOM)

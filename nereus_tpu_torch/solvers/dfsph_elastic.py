@@ -38,11 +38,11 @@ from .. import grid as gridlib
 from ..ops import sph_pairs as SP
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
-from .dfsph_cuda import _EPS_DENOM, KappaSweeps, dfsph_solve
+from .dfsph_cuda import _EPS_DENOM, KappaSweeps, alpha_src, dfsph_solve
 from .elastic import ElasticParams, ElasticState, ElasticStatics
 from .elastic_coupled import ElasticShell, elastic_shell
 from .elastic_cuda import elastic_step_cuda
-from .sweep_common import SweepCtx, build_sweep_ctx
+from .sweep_common import SweepCtx, build_sweep_ctx, psi_rows
 
 
 class ElasticSweeps(KappaSweeps):
@@ -60,7 +60,7 @@ class ElasticSweeps(KappaSweeps):
         self.rev = (es.r_start, es.r_end, ctx.pvec)
         self._src_v = src.clone()
         # x y z ψ_b: the samples as the reverse κ sweep's queries
-        self.q_b = src[:, [0, 1, 2, 6]].contiguous()
+        self.q_b = psi_rows(src)
 
     def src_at(self, vb):
         """The shell's rows with the sample velocities ``vb`` (Mb, 3) in
@@ -110,11 +110,10 @@ def elastic_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     pm = params.particle_mass
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     brng = (es.shell.seg_start, es.shell.seg_end, ctx.pvec)
-    q4 = ctx.queries(width=4)
-    src_psi = ctx.pack((ctx.vx, ctx.vy, ctx.vz), pm)
-    dens = SP.density_sweep(cfg, q4, src_psi, *rng)
-    dens = dens + SP.body_density_sweep(cfg, q4, es.shell.src, *brng)
-    al = SP.alpha_sweep(cfg, q4, src_psi, *rng)
+    q4, *dargs = ctx.density_operands(pm)
+    dens = SP.density_sweep(cfg, q4, *dargs)
+    dens = dens + SP.body_density_sweep(cfg, q4, es.shell.src4, *brng)
+    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
     body_alpha = (SP.alpha_shell_sweep if cfg.dfsph_strong_coupling
                   else SP.alpha_body_sweep)
     alb = body_alpha(cfg, q4, es.shell.src, *brng)

@@ -62,15 +62,16 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
 
     # -- density: fluid ψ = m, boundary ψ_b; self-pairs included -----------
-    q4 = ctx.queries(width=4)
-    dens = SP.density_sweep(cfg, q4, ctx.pack(vel, pm), *rng)
+    # (its query, x y z m, is also Σd_ij·p_j's, which reads x y z)
+    dargs = ctx.density_operands(pm)
+    q4 = dargs[0]
+    dens = SP.density_sweep(cfg, *dargs)
     dens_safe = torch.clamp(dens, min=1e-12)
     inv_d2 = 1.0 / (dens_safe * dens_safe)
 
     # -- non-pressure (advection) forces -----------------------------------
     zero = torch.zeros_like(dens)
-    f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*vel, dens, zero),
-                                 ctx.pack(vel, dens), *rng,
+    f_adv = SP.fluid_force_sweep(cfg, *ctx.force_operands(vel, dens, zero),
                                  include_pressure=False,
                                  moving_boundary=ctx.moving_boundary)
     g = params.gravity

@@ -10,10 +10,10 @@ until max ρ_err ≤ ``tol_frac``·ρ₀ after at least ``pcisph_min_iters`` →
 symplectic Euler. On CUDA tensors the sweeps are the hand-written kernels
 of ``csrc/``; on CPU tensors their plain PyTorch versions.
 
-The predicted density is the density kernel fed x* in the query and the
-fluid source rows (:func:`predicted_density_operands`), over the ranges
-built from the start-of-step positions: a particle whose x* crosses a
-cell edge keeps its frozen neighbors, as the TPU kernel's
+The predicted density is the density kernel fed x* in its one matrix,
+whose fluid rows are also its queries (:func:`predicted_density_operands`),
+over the ranges built from the start-of-step positions: a particle whose
+x* crosses a cell edge keeps its frozen neighbors, as the TPU kernel's
 ``geom_offset=3`` keeps them.
 
 The loop is a :class:`~.predicated_loop.PredicatedLoop` that commits p and
@@ -54,17 +54,17 @@ LOOP = LoopCounts()
 def predicted_density_operands(ctx: SweepCtx, particle_mass):
     """The predicted-density sweep's operands, loop-invariant: returns
     ``at(x_pred) -> (q, src, seg_start, seg_end, pvec)``, which writes the
-    (C, 3) predicted positions in place into the query's and the fluid
-    source rows' columns 0-2. The boundary rows keep their positions and
-    the ranges stay the start-of-step ones."""
-    z = torch.zeros_like(ctx.px)
-    q = ctx.queries(width=4)
-    src = ctx.pack((z, z, z), particle_mass)
+    (C, 3) predicted positions in place into columns 0-2 of the fluid rows
+    of the one (C [+ Mb], 4) matrix ``x y z ψ`` (:meth:`SweepCtx.
+    density_operands`), whose first C rows are the queries. The boundary
+    rows keep their positions and the ranges stay the start-of-step
+    ones."""
+    args = ctx.density_operands(particle_mass)
+    src = args[1]
 
     def at(x_pred):
-        q[:, :3] = x_pred
         src[:ctx.c, :3] = x_pred
-        return q, src, ctx.seg_start, ctx.seg_end, ctx.pvec
+        return args
     return at
 
 
@@ -88,13 +88,11 @@ def pcisph_step_cuda(state: FluidState, params: SimParams,
     delta = torch.as_tensor(delta, dtype=cfg.dtype, device=ctx.px.device)
 
     # -- density + advection forces ----------------------------------------
-    dens = SP.density_sweep(cfg, ctx.queries(width=4), ctx.pack(vel, pm),
-                            *rng)
+    dens = SP.density_sweep(cfg, *ctx.density_operands(pm))
     dens_safe = torch.clamp(dens, min=1e-12)
     inv_d2 = 1.0 / (dens_safe * dens_safe)
     zero = torch.zeros_like(dens)
-    f_adv = SP.fluid_force_sweep(cfg, ctx.queries(*vel, dens, zero),
-                                 ctx.pack(vel, dens), *rng,
+    f_adv = SP.fluid_force_sweep(cfg, *ctx.force_operands(vel, dens, zero),
                                  include_pressure=False,
                                  moving_boundary=ctx.moving_boundary)
     f_adv = f_adv + pm * params.gravity

@@ -5,10 +5,13 @@ coordinates → exact fluid and boundary ranges → packed parameters.
 There is no window plan, no packing into lane-aligned regions and no float
 hash payload: those exist for the TPU's Mosaic compiler. Per-step state
 stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
-the kernels read are built from them per sweep; the IISPH Jacobi and the
-multiphase force sweeps read a (M, 12) wide source
-(:meth:`SweepCtx.pack_wide`), the multiphase density sweep and the
-multiphase DFSPH α and κ sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`).
+the kernels read are built from them per sweep. The density and force
+sweeps read one matrix each (:meth:`SweepCtx.density_operands`,
+:meth:`SweepCtx.force_operands`): the queries are its fluid rows, the
+boundary rows follow them. The IISPH Jacobi and the multiphase force
+sweeps read a (M, 12) wide source (:meth:`SweepCtx.pack_wide`), the
+multiphase density sweep and the multiphase DFSPH α and κ sweeps a (M, 4)
+one (:meth:`SweepCtx.pack_psi`).
 A multiphase state's ``mass`` and ``rho0`` ride the sort with the
 positions. A moving boundary (``BoundaryData.vel`` set) packs its wall
 velocities into slots 3-5 of every 8-wide and wide boundary row, as the
@@ -121,12 +124,44 @@ class SweepCtx:
 
     def pack_psi(self, q4):
         """(C [+ Mb], 4) source of a sweep that reads positions and one
-        scalar: fluid rows ``q4`` (4-wide queries, ``x y z s``: 0 for the
-        multiphase density, 1/m_j or κV̂²_j for multiphase DFSPH), then the
-        boundary rows ``x y z ψ_b``."""
+        scalar: fluid rows ``q4`` (4-wide queries, ``x y z s``: m for the
+        density, 0 for the multiphase density, 1/m_j or κV̂²_j for
+        multiphase DFSPH), then the boundary rows ``x y z ψ_b``."""
         if self.b_src is None:
             return q4
-        return torch.cat([q4, self.b_src[:, [0, 1, 2, 6]]])
+        return torch.cat([q4, self._b_src_psi])
+
+    def density_operands(self, psi):
+        """The density sweep's operands ``(q, src, seg_start, seg_end,
+        pvec)`` on one (C [+ Mb], 4) matrix: fluid rows ``x y z ψ`` (ψ =
+        ``psi``, the particle mass: 0-d or (C,)), then the boundary rows
+        ``x y z ψ_b``; the query is its first C rows (the kernel does not
+        read its slot 3)."""
+        return self._one_matrix([psi.expand(self.c)], self._b_src_psi)
+
+    def force_operands(self, vel, dens, pd2):
+        """The force sweep's operands ``(q, src, seg_start, seg_end,
+        pvec)`` on one (C [+ Mb], 8) matrix: fluid rows ``x y z v ρ pd2``
+        (``vel`` three (C,) columns; ``pd2`` = p/ρ², or 0 for the
+        pressure-off sweep, which does not read it), then the boundary rows
+        as they are; the query is its first C rows, and without a boundary
+        the matrix is the query itself."""
+        return self._one_matrix([*vel, dens, pd2], self.b_src)
+
+    def _one_matrix(self, cols, walls):
+        """``(q, src, seg_start, seg_end, pvec)`` on one (C [+ Mb], 3 +
+        len(cols)) matrix: the fluid rows ``x y z cols`` stacked in place,
+        then ``walls``; ``q`` its first C rows, ``src`` itself without a
+        boundary."""
+        rng = (self.seg_start, self.seg_end, self.pvec)
+        if self.b_src is None:
+            q = self.queries(*cols)
+            return (q, q, *rng)
+        out = self.px.new_empty((self.c + walls.shape[0], 3 + len(cols)))
+        torch.stack([self.px, self.py, self.pz, *cols], dim=1,
+                    out=out[:self.c])
+        out[self.c:] = walls
+        return (out[:self.c], out, *rng)
 
     def pack_wide(self, cols):
         """(C [+ Mb], 12) wide source: fluid rows ``x y z``, then ``cols``
@@ -144,10 +179,22 @@ class SweepCtx:
         return torch.cat([fluid, self._b_src_wide])
 
     @functools.cached_property
+    def _b_src_psi(self):
+        """(Mb, 4) boundary rows ``x y z ψ_b``."""
+        return None if self.b_src is None else psi_rows(self.b_src)
+
+    @functools.cached_property
     def _b_src_wide(self):
         pad = self.b_src.new_zeros((self.b_src.shape[0],
                                     SP.WIDE_WIDTH - SP.SRC_WIDTH))
         return torch.cat([self.b_src, pad], dim=1)
+
+
+def psi_rows(src):
+    """(M, 4) ``x y z ψ`` of (M, 8) source rows with ψ in slot 6. One cat
+    of two slices: indexing the columns with a list would copy the list to
+    the device, which waits for the stream."""
+    return torch.cat([src[:, :3], src[:, 6:7]], dim=1)
 
 
 def pd2_operands(ctx: SweepCtx):

@@ -56,6 +56,19 @@ def tait_pressure(dens, params: SimParams, rho0=None):
     return params.gas_stiffness * (r2 * r2 * r2 * ratio - 1.0)
 
 
+def tait_pd2(dens, params: SimParams):
+    """p/ρ² of the Tait EOS in the operation order of the JAX force pair's
+    pd2_j (``pallas_sph.fluid_force_pair``): ρ clamped to 1e-12, ratio =
+    ρ·(1/ρ₀), p = k(ratio⁷ − 1), then p·(1/ρ)·(1/ρ). The force sweep's
+    query and fluid source rows (one matrix) carry it in slot 7, as pd2_i
+    and pd2_j."""
+    ds = torch.clamp(dens, min=1e-12)
+    ratio = ds * (1.0 / params.rest_density)
+    r2 = ratio * ratio
+    inv = 1.0 / ds
+    return params.gas_stiffness * (r2 * r2 * r2 * ratio - 1.0) * inv * inv
+
+
 def check_multiphase_cfg(cfg: SimConfig):
     """The JAX multiphase steps' (WCSPH and DFSPH) refusals, with their
     reasons."""

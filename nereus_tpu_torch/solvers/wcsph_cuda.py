@@ -2,13 +2,13 @@
 ``nereus_tpu.solvers.wcsph_pallas``).
 
 Single phase (:func:`wcsph_step_cuda`): density sweep (fluid ψ = m and
-boundary ψ_b, self term included) → Tait EOS → pd2 = p/max(ρ, 1e-12)² →
-one fused fluid + boundary force sweep → symplectic Euler under the
-``active`` mask; with ``viscosity_model="implicit"`` the force sweep drops
-the viscosity and the wall friction and the implicit viscosity solve
-(:mod:`.viscosity`) replaces the new velocities of the active rows; with
-``xsph_eps`` one more sweep over the fluid rows smooths the advection
-velocity (Monaghan XSPH).
+boundary ψ_b, self term included) → Tait EOS → pd2 = p/max(ρ, 1e-12)²
+(:func:`~.wcsph.tait_pd2`) → one fused fluid + boundary force sweep →
+symplectic Euler under the ``active`` mask; with
+``viscosity_model="implicit"`` the force sweep drops the viscosity and the
+wall friction and the implicit viscosity solve (:mod:`.viscosity`)
+replaces the new velocities of the active rows; with ``xsph_eps`` one more
+sweep over the fluid rows smooths the advection velocity (Monaghan XSPH).
 
 Multiphase (:func:`wcsph_step_multiphase_cuda`): number-density sweep
 (fluid ΣW and boundary Σψ_bW in two columns) → ρ̃ = m·δ + (ρ0_i/ρ0_ref)·
@@ -31,7 +31,8 @@ from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
 from .sweep_common import SweepCtx, build_sweep_ctx
 from .viscosity import implicit_viscosity
-from .wcsph import StepDiagnostics, density_errors, tait_pressure
+from .wcsph import (StepDiagnostics, density_errors, tait_pd2,
+                    tait_pressure)
 
 
 class Sweeps(NamedTuple):
@@ -94,19 +95,14 @@ def wcsph_step_cuda(state: FluidState, params: SimParams,
     pm = params.particle_mass
 
     # -- density: fluid ψ = m, boundary ψ_b; self-pairs included -----------
-    q4 = ctx.queries(width=4)
-    dens = sweeps.density(cfg, q4, ctx.pack(vel, pm), ctx.seg_start,
-                          ctx.seg_end, ctx.pvec)
+    dens = sweeps.density(cfg, *ctx.density_operands(pm))
     pres = tait_pressure(dens, params)
 
     # -- forces: viscosity + surface tension + pressure + boundary terms ---
     # (the implicit viscosity solve owns the viscosity and wall friction)
     implicit_visc = cfg.viscosity_model == "implicit"
-    dens_safe = torch.clamp(dens, min=1e-12)
-    pd2 = pres / (dens_safe * dens_safe)
-    q8 = ctx.queries(*vel, dens, pd2)
-    force = sweeps.force(cfg, q8, ctx.pack(vel, dens), ctx.seg_start,
-                         ctx.seg_end, ctx.pvec,
+    force = sweeps.force(cfg, *ctx.force_operands(vel, dens,
+                                                  tait_pd2(dens, params)),
                          include_viscosity=not implicit_visc,
                          moving_boundary=ctx.moving_boundary)
 

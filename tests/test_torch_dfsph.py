@@ -174,9 +174,8 @@ def test_apply_kappa_conserves_momentum():
     grid = pt.fit_grid(pos.min(0), pos.max(0), h, device="cpu")
     ctx = build_sweep_ctx(state, params, grid, cfg, None)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    dens = SP.density_sweep(cfg, ctx.queries(width=4),
-                            ctx.pack(vel, params.particle_mass),
-                            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep(cfg, *ctx.density_operands(
+        params.particle_mass))
     sweeps = dfsph_cuda.KappaSweeps(ctx, params, cfg, dens)
     kappa = torch.abs(ctx.px) + 0.5
     v0 = torch.stack(vel, 1)

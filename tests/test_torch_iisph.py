@@ -158,15 +158,15 @@ def _port_sweeps(pcfg, pparams, pstate, pgrid_, pbnd, ref):
     vel = (ctx.vx, ctx.vy, ctx.vz)
     pm = pparams.particle_mass
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-    q4 = ctx.queries(width=4)
+    dargs = ctx.density_operands(pm)
+    q4 = dargs[0]
     dens = t["dens"]
     ds = dens.clamp(min=1e-12)
     inv_d2 = 1.0 / (ds * ds)
     zero = torch.zeros_like(dens)
-    got = {"dens": SP.density_sweep(pcfg, q4, ctx.pack(vel, pm), *rng)}
+    got = {"dens": SP.density_sweep(pcfg, *dargs)}
     got["f_adv"] = SP.fluid_force_sweep(
-        pcfg, ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rng,
-        include_pressure=False)
+        pcfg, *ctx.force_operands(vel, dens, zero), include_pressure=False)
     vel_adv = t["vel_adv"].unbind(1)
     src_p = ctx.pack(vel_adv, pm)
     got["pr"] = SP.dii_rhoadv_sweep(

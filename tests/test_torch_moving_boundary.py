@@ -318,8 +318,8 @@ def test_force_sweep_moving_matches_jax(exact_reciprocal):
     d = torch.from_numpy(np.asarray(dens)[:c].copy())
     dsp = d.clamp(min=1e-12)
     pvel = (pctx.vx, pctx.vy, pctx.vz)
-    args = (pctx.queries(*pvel, d, pt.tait_pressure(d, pparams) / (dsp * dsp)),
-            pctx.pack(pvel, d), pctx.seg_start, pctx.seg_end, pctx.pvec)
+    args = pctx.force_operands(pvel, d,
+                               pt.tait_pressure(d, pparams) / (dsp * dsp))
     got = SP.fluid_force_sweep(pcfg, *args, moving_boundary=True)
     assert_columns_close(got.numpy(), np.asarray(want)[:c], 1e-5, "force")
     # the friction alone (~1e-10 of the wall force at these parameters)

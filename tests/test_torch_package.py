@@ -24,6 +24,7 @@ from nereus_tpu_torch.ops import cuda_sweep
 from nereus_tpu_torch.ops import sph_pairs as SP
 from nereus_tpu_torch.solvers import pcisph_cuda
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+from nereus_tpu_torch.solvers.wcsph import tait_pd2
 
 torch.set_num_threads(1)
 
@@ -149,7 +150,7 @@ IISPH_SWEEPS = {
 }
 PCISPH_DFSPH_SWEEPS = {
     "predicted_density": (SP.predicted_density_sweep,
-                          cuda_sweep.predicted_density_sweep, 4, 8, 18),
+                          cuda_sweep.predicted_density_sweep, 4, 4, 18),
     "alpha": (SP.alpha_sweep, cuda_sweep.alpha_sweep, 4, 8, 18),
     "drho": (SP.drho_sweep, cuda_sweep.drho_sweep, 8, 8, 18),
 }
@@ -180,7 +181,7 @@ PBF_SWEEPS = {
 }
 COUPLED_SWEEPS = {
     "body_density": (SP.body_density_sweep, cuda_sweep.body_density_sweep,
-                     4, 8, 9),
+                     4, 4, 9),
     "body_force": (SP.body_force_sweep, cuda_sweep.body_force_sweep, 8, 8,
                    9),
     "multiphase_body": (SP.multiphase_body_sweep,
@@ -452,32 +453,75 @@ def _scene(kernel_set, st, with_boundary, device):
 @pytest.mark.parametrize("kernel_set,st", MODELS)
 def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     """Density rtol 1e-5; forces max|Δf| ≤ 1e-4·max|f| (FMA contraction,
-    rsqrtf and the order of the plain version's atomic index_add_)."""
+    rsqrtf and the order of summation), each sweep on its one operand
+    matrix (the queries its first rows, the matrix itself without walls)."""
     cfg, params, state, grid, boundary = _scene(kernel_set, st,
                                                 with_boundary, cuda)
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    q4 = ctx.queries(width=4)
-    src_d = ctx.pack(vel, params.particle_mass)
+    dargs = ctx.density_operands(params.particle_mass)
+    assert dargs[0].data_ptr() == dargs[1].data_ptr()
     cuda_sweep.reset_launches()
-    dens = SP.density_sweep(cfg, q4, src_d, ctx.seg_start, ctx.seg_end,
-                            ctx.pvec)
-    ref = SP.density_sweep_plain(cfg, q4, src_d, ctx.seg_start,
-                                 ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep(cfg, *dargs)
+    ref = SP.density_sweep_plain(cfg, *dargs)
     torch.testing.assert_close(dens, ref, rtol=1e-5, atol=0)
-    ds = dens.clamp(min=1e-12)
-    pd2 = nereus_tpu_torch.tait_pressure(dens, params) / (ds * ds)
-    q8 = ctx.queries(*vel, dens, pd2)
-    src_f = ctx.pack(vel, dens)
-    f = SP.fluid_force_sweep(cfg, q8, src_f, ctx.seg_start, ctx.seg_end,
-                             ctx.pvec)
-    f_ref = SP.fluid_force_sweep_plain(cfg, q8, src_f, ctx.seg_start,
-                                       ctx.seg_end, ctx.pvec)
+    fargs = ctx.force_operands(vel, dens, tait_pd2(dens, params))
+    assert (fargs[0] is fargs[1]) == (not with_boundary)
+    f = SP.fluid_force_sweep(cfg, *fargs)
+    f_ref = SP.fluid_force_sweep_plain(cfg, *fargs)
     torch.cuda.synchronize()
     assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 44
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set,st", MODELS[:2])
+def test_lane_groups_match_plain_on_cuda(cuda, kernel_set, st, large,
+                                         monkeypatch):
+    """At each lane-group size G the wrappers choose (``SMALL_N`` and
+    ``SMALL_SHELL`` set so that the small scene takes the G of a large one
+    and the box's shell that of a small one when ``large``, and the other
+    way round when not): the density kernel on the small dam-break's one
+    matrix and on a body shell's ``x y z ψ_b`` rows, and every force
+    instance (pressure and viscosity each on and off, static and moving
+    walls) against their plain versions: density rtol 1e-5, forces
+    max|Δ| ≤ 1e-4·max|ref| per column."""
+    monkeypatch.setattr(cuda_sweep, "SMALL_N", 0 if large else 2 ** 31)
+    monkeypatch.setattr(cuda_sweep, "SMALL_SHELL", 2 ** 31 if large else 0)
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import coupled_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, st, True, cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    for walls in (boundary, moving):
+        ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+        dargs = ctx.density_operands(params.particle_mass)
+        dens = cuda_sweep.density_sweep(cfg, *dargs)
+        torch.testing.assert_close(dens, SP.density_sweep_plain(cfg, *dargs),
+                                   rtol=1e-5, atol=0)
+        fargs = ctx.force_operands((ctx.vx, ctx.vy, ctx.vz), dens,
+                                   tait_pd2(dens, params))
+        for p in (True, False):
+            for v in (True, False):
+                kw = dict(include_pressure=p, include_viscosity=v,
+                          moving_boundary=walls is moving)
+                _assert_columns_close(
+                    cuda_sweep.force_sweep(cfg, *fargs, **kw),
+                    SP.fluid_force_sweep_plain(cfg, *fargs, **kw),
+                    f"force G={cuda_sweep.force_group(len(fargs[0]), v)} "
+                    f"{kw}")
+    box = nereus_tpu_torch.make_rigid_box(
+        state.pos.mean(dim=0).cpu().numpy(), (0.08,) * 3,
+        float(params.particle_radius), 500.0, params, device=cuda)
+    (sh,) = coupled_cuda.body_shells(ctx, grid, (box,))
+    bargs = (dargs[0], sh.src4, sh.seg_start, sh.seg_end, ctx.pvec)
+    got = cuda_sweep.body_density_sweep(cfg, *bargs)
+    ref = SP.density_sweep_plain(cfg, *bargs)
+    assert float(ref.max()) > 0.0
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.requires_cuda
@@ -490,9 +534,10 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
         cuda_sweep.density_sweep(cfg, torch.zeros((4, 8), device=cuda).t(),
                                  src, s, e, pv)
     with pytest.raises(ValueError, match="shape"):
-        cuda_sweep.density_sweep(cfg, q, src[:, :4].contiguous(), s, e, pv)
+        cuda_sweep.density_sweep(cfg, q, src, s, e, pv)
     np.testing.assert_array_equal(
-        cuda_sweep.density_sweep(cfg, q, src, s, e, pv).cpu().numpy(),
+        cuda_sweep.density_sweep(cfg, q, src[:, :4].contiguous(), s, e,
+                                 pv).cpu().numpy(),
         np.zeros(8, np.float32))
 
 
@@ -524,8 +569,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
     zero = torch.zeros_like(ctx.px)
     vel = (ctx.vx, ctx.vy, ctx.vz)
     pm = params.particle_mass
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack(vel, pm), *rows)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(pm))
     inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
     p = 0.5 * ctx.pres_prev
     dii = (vel[0] * 1e-3, vel[1] * 1e-3, vel[2] * 1e-3)
@@ -551,7 +595,7 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got = IISPH_SWEEPS[key][0](cfg, *args, **kw)
         ref = plain[key](cfg, *args)
         _assert_columns_close(got, ref, key)
-    fargs = (ctx.queries(*vel, dens, zero), ctx.pack(vel, dens), *rows)
+    fargs = ctx.force_operands(vel, dens, zero)
     got = SP.fluid_force_sweep(cfg, *fargs, include_pressure=False)
     _assert_columns_close(
         got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
@@ -728,10 +772,8 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
     fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, cfg,
                                                        dout)
     ctx1 = build_sweep_ctx(state, params, grid, cfg, boundary)
-    dens = SP.density_sweep_plain(cfg, ctx1.queries(width=4),
-                                  ctx1.pack((ctx1.vx, ctx1.vy, ctx1.vz),
-                                            params.particle_mass),
-                                  ctx1.seg_start, ctx1.seg_end, ctx1.pvec)
+    dens = SP.density_sweep_plain(cfg, *ctx1.density_operands(
+        params.particle_mass))
     xargs = wcsph_cuda.xsph_operands(ctx1, (ctx1.vx, ctx1.vy, ctx1.vz),
                                      dens)
     cuda_sweep.reset_launches()
@@ -791,11 +833,9 @@ def test_visc_mp_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     vel = (ctx.vx, ctx.vy, ctx.vz)
     rows = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack(vel, params.particle_mass), *rows)
-    ds = dens.clamp(min=1e-12)
-    pd2 = nereus_tpu_torch.tait_pressure(dens, params) / (ds * ds)
-    fargs = (ctx.queries(*vel, dens, pd2), ctx.pack(vel, dens), *rows)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
+    fargs = ctx.force_operands(vel, dens, tait_pd2(dens, params))
     mp = build_sweep_ctx(_two_phase(state, params, cuda), params, grid, cfg,
                          boundary)
     dout = SP.multiphase_density_sweep_plain(
@@ -905,10 +945,8 @@ def test_tiled_kernels_match_plain_on_cuda(cuda, kernel_set):
     moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
     ctx = build_sweep_ctx(state, params, grid, cfg, moving)
     vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack(vel.unbind(1),
-                                           params.particle_mass),
-                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
     dens = torch.where(ctx.active, dens, torch.ones_like(dens))
     p = torch.where(ctx.active, 1e3 * (ctx.px.abs() + 0.5),
                     torch.zeros_like(dens))
@@ -1532,13 +1570,9 @@ def test_wall_force_and_cell_check_match_plain_on_cuda(cuda, kernel_set):
         kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
     ctx = build_sweep_ctx(state, params, grid, cfg, walls)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack(vel, params.particle_mass),
-                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
-    ds = dens.clamp(min=1e-12)
-    q8 = ctx.queries(*vel, dens,
-                     nereus_tpu_torch.tait_pressure(dens, params) / (ds * ds))
-    src = ctx.pack(vel, dens)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
+    q8, src = ctx.force_operands(vel, dens, tait_pd2(dens, params))[:2]
     w_s = (ctx.seg_start[9:] - ctx.c).contiguous()
     w_e = (ctx.seg_end[9:] - ctx.c).contiguous()
     fluid_end = ctx.seg_end.clone()

@@ -241,10 +241,8 @@ def test_emulated_walk_reproduces_visc_laplacian_plain(tile):
     cfg, params, state, grid, walls = _shear()
     ctx = build_sweep_ctx(state, params, grid, cfg, walls)
     vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack(vel.unbind(1),
-                                           params.particle_mass),
-                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
     args = viscosity.laplacian_operands(ctx, params, dens)(vel)
     plan = cuda_sweep.tile_plan(ctx.sorted_hash, ctx.grid_size, tile=tile)
     ref = SP.visc_laplacian_sweep_plain(cfg, *args)
@@ -265,10 +263,8 @@ def test_emulated_walk_reproduces_pressure_force_plain(tile):
     ``pressure_force_sweep_plain``."""
     cfg, params, state, grid, walls = _block()
     ctx = build_sweep_ctx(state, params, grid, cfg, walls)
-    dens = SP.density_sweep_plain(cfg, ctx.queries(width=4),
-                                  ctx.pack((ctx.vx, ctx.vy, ctx.vz),
-                                           params.particle_mass),
-                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
     p = torch.from_numpy(np.random.default_rng(0).uniform(
         0.0, 2e3, ctx.c).astype(np.float32))
     args = pd2_operands(ctx)(p / (dens * dens))

@@ -106,8 +106,7 @@ def test_sweeps_match_jax(exact_reciprocal, kernel_set, include_pressure):
     d = torch.from_numpy(np.asarray(dens).copy())
     ds = d.clamp(min=1e-12)
     pd2 = pt.tait_pressure(d, pparams) / (ds * ds)
-    fargs = (ctx.queries(*vel, d, pd2), ctx.pack(vel, d), ctx.seg_start,
-             ctx.seg_end, ctx.pvec)
+    fargs = ctx.force_operands(vel, d, pd2)
     got = SP.fluid_force_sweep(pcfg, *fargs, include_pressure=include_pressure,
                                include_viscosity=False)
     assert_columns_close(got.numpy(), np.asarray(force), 1e-5, "force")
@@ -201,10 +200,8 @@ def _blob(n=500, seed=2, viscosity=0.05):
 def _port_solve(params, grid, state, cfg, v=None):
     pcfg, pparams, pstate, pg, _ = to_port(cfg, params, state, grid, None)
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, None)
-    dens = SP.density_sweep(pcfg, ctx.queries(width=4),
-                            ctx.pack((ctx.vx, ctx.vy, ctx.vz),
-                                     pparams.particle_mass),
-                            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep(pcfg, *ctx.density_operands(
+        pparams.particle_mass))
     v_star = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1) if v is None else v
     return ctx, pparams, pcfg, dens, viscosity.implicit_viscosity(
         ctx, pparams, pcfg, dens, v_star)

@@ -72,9 +72,8 @@ def _operands(kernel_set):
                                                 walls)
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pwalls)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    dens = SP.density_sweep_plain(pcfg, ctx.queries(width=4),
-                                  ctx.pack(vel, pparams.particle_mass),
-                                  ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep_plain(pcfg, *ctx.density_operands(
+        pparams.particle_mass))
     ds = dens.clamp(min=1e-12)
     pd2 = pt.tait_pressure(dens, pparams) / (ds * ds)
     q8 = ctx.queries(*vel, dens, pd2)
@@ -128,8 +127,7 @@ def test_fused_minus_fluid_is_wall_force(kernel_set):
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pwalls)
     np.testing.assert_array_equal((ctx.seg_start[9:] - ctx.c).numpy(),
                                   w_start.numpy())
-    src = torch.cat([ctx.pack((ctx.vx, ctx.vy, ctx.vz), q8[:, 6],
-                              boundary=False), b_src])
+    src = torch.cat([q8, b_src])
     fluid_end = ctx.seg_end.clone()
     fluid_end[9:] = ctx.seg_start[9:]
     walls_only = {}

@@ -108,14 +108,11 @@ def test_density_and_forces_match_oracle(with_boundary):
     cfg = pt.SimConfig()
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    dens = SP.density_sweep(cfg, ctx.queries(width=4),
-                            ctx.pack(vel, params.particle_mass),
-                            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    dens = SP.density_sweep(cfg, *ctx.density_operands(
+        params.particle_mass))
     pres = pt.tait_pressure(dens, params)
     pd2 = pres / dens.clamp(min=1e-12) ** 2
-    force = SP.fluid_force_sweep(cfg, ctx.queries(*vel, dens, pd2),
-                                 ctx.pack(vel, dens), ctx.seg_start,
-                                 ctx.seg_end, ctx.pvec)
+    force = SP.fluid_force_sweep(cfg, *ctx.force_operands(vel, dens, pd2))
     force = force + params.particle_mass * params.gravity
 
     spos = torch.stack([ctx.px, ctx.py, ctx.pz], 1).double().numpy()

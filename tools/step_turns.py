@@ -1,55 +1,115 @@
 """The main-path step time of two checkouts of the PyTorch port, in turns
-on one CUDA card, and a hash of each run's final state.
+on one CUDA card, their kernels' times on the final state, and how far
+the two final states lie apart.
 
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR [--pairs N]
-        [--solver wcsph|iisph|wcsph_visc|pcisph]
+        [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph]
+    python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
+        [--log DIR]
 
 Each run is a fresh process in the root of one checkout, so that it
 imports that checkout's package and builds its CUDA kernels (the first
 run of a checkout compiles them, the later ones load the library). Both
-sides are driven by this repository's ``chip_smoke.py``: wcsph, its
-``wcsph_main_path`` (``dam_break(n_target=2**20)`` with its boundary
-shell, 1,092,727 fluid particles) and ``run_wcsph`` (300 steps, steps
-51-300 timed with CUDA events); wcsph_visc, the same at ν = 5 with the
+sides' scenes and steps are driven by this repository's ``chip_smoke.py``:
+wcsph, its ``wcsph_main_path`` (``dam_break(n_target=2**20)`` with its
+boundary shell, 1,092,727 fluid particles) and ``run_wcsph`` (300 steps,
+steps 51-300 timed with CUDA events); wcsph_wide12M, its
+``wide_main_path`` (``bench.py``'s 12M dam-break on the grid stretched past
+2^24 cells) and ``WIDE_WARMUP`` + ``WIDE_TIMED`` steps, the last
+``WIDE_TIMED`` timed; wcsph_visc, the 1M dam-break at ν = 5 with the
 implicit viscosity solve (``wcsph_1M_visc``; prints the CG iterations
-launched); iisph, its ``settled_main_path`` (the settled
-1,092,727-particle block) and ``run_steps`` (60 steps, steps 11-60
-timed); pcisph, the settled 262,144-particle block of
-``pcisph_256k_settled`` and ``run_steps`` (60 steps, steps 11-60 timed);
-the implicit ones also print the run's total ``solver_iters``. Every run
-prints a SHA-256 prefix of its final positions and velocities. After the
-steps, the runs of wcsph_visc, iisph and pcisph also time their
-solver's kernel on the final state, built as the step builds its
-operands (the viscous Laplacian at the state's velocities; the pressure
-force at its pressure, p/ρ²), by CUDA events over 2 × 20 launches, the
-better of two, and print a hash of its output: the parent's kernel
-against the change's at the same operands when the states agree. Pair k
-runs the parent first when k is even and the change first when k is
-odd. Prints every run, then each side's median and quartiles and whether
-the two sides' final states and kernel outputs are bit-identical.
+launched); iisph, its ``settled_main_path`` (the settled 1,092,727-particle
+block) and ``run_steps`` (60 steps, steps 11-60 timed); pcisph, the
+settled 262,144-particle block of ``pcisph_256k_settled`` and ``run_steps``
+(60 steps, steps 11-60 timed); the implicit ones also print the run's
+total ``solver_iters``.
+
+After the steps each run times its own kernels on its final state with the
+operands built by its own checkout's ``chip_smoke.py`` (its
+``sweep_inputs``, ``wcsph_visc_operands``, ``iisph_operands`` or
+``pcisph_operands``, so that each side feeds its kernels in its own
+contract): the density and force kernels on every path, and the
+Laplacian (wcsph_visc) or the pressure force (iisph, pcisph), each
+host-free (20 launches captured in a CUDA graph, the replay timed with
+CUDA events, the better of two), and prints a hash of each output. Pair k
+runs the parent first when k is even and the change first when k is odd.
+Prints every run, then each side's median and quartiles, and the largest
+position and velocity difference between the two sides' final states of
+the first pair: each particle of the parent's state against the nearest
+particle of the change's (the states come out in hash order, which a
+difference of rounding may change). Every run prints a SHA-256 prefix of
+its final positions and velocities.
+
+With ``--smoke`` each run is instead the checkout's own ``chip_smoke.py``,
+whole: wherever it times a kernel (its ``time_turns``), the kernel is also
+timed host-free here, the better of three, on that run's operands, and
+recorded under the label of the path (the ``label`` its ``compare`` or
+``compare_kernels`` was called with) and the kernel's key. So each side
+builds its operands by its own contract and calls its own wrappers, and
+the parent's kernels are timed host-free on every path where its smoke run
+times them (a kernel whose launches cannot be captured in a graph is left
+out). Prints, per path and kernel, the better of each side's runs (the
+pairs interleaved as above) and their ratio; the smoke runs' own output
+goes to ``--log`` DIR, and a failed smoke run stops the tool.
 """
 
 import argparse
+import itertools
+import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
+
+import torch
 
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "chip_smoke.py")
 
-# run in the checkout's root: its package comes first on sys.path
+# host-free mean ms of fn: reps launches captured in a CUDA graph, its
+# replay timed with CUDA events, the better of two
+GRAPH_MS = r"""
+def graph_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    best = float("inf")
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+"""
+
+# run in the checkout's root: its package comes first on sys.path; argv:
+# this repository's chip_smoke.py, the solver, the file for the final state
 RUN = r"""
-import dataclasses, hashlib, importlib.util, sys
+import dataclasses, hashlib, importlib.util, json, os, sys
 import torch
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
+
+
+def load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = load("chip_smoke", sys.argv[1])
+own = load("own_smoke", os.path.join(os.getcwd(), "chip_smoke.py"))
 import nereus_tpu_torch as nt
 from nereus_tpu_torch.ops import sph_pairs as SP
 from nereus_tpu_torch.solvers import viscosity
-from nereus_tpu_torch.solvers.sweep_common import (build_sweep_ctx,
-                                                   pd2_operands)
+from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
 
 
 def sha(*tensors):
@@ -57,8 +117,11 @@ def sha(*tensors):
                                    for t in tensors)).hexdigest()[:16]
 
 
+GRAPH_MS
+
 dev = torch.device("cuda")
 solver = sys.argv[2]
+iters = 0
 if solver in ("wcsph", "wcsph_visc"):
     cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
     if solver == "wcsph_visc":
@@ -67,6 +130,18 @@ if solver in ("wcsph", "wcsph_visc"):
     viscosity.LOOP.reset()
     state, _, ms, _ = smoke.run_wcsph(cfg, params, state, grid, boundary)
     iters = viscosity.LOOP.launched
+elif solver == "wcsph_wide12M":
+    cfg, params, state, grid, boundary = smoke.wide_main_path(dev)
+    for _ in range(smoke.WIDE_WARMUP):
+        state, _ = nt.wcsph_step(state, params, grid, cfg, None)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(smoke.WIDE_TIMED):
+        state, _ = nt.wcsph_step(state, params, grid, cfg, None)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / smoke.WIDE_TIMED
 else:
     n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
     cfg, params, state, grid, boundary, step = smoke.settled_main_path(
@@ -75,55 +150,167 @@ else:
                                            smoke.IMPLICIT_TIMED_FROM)
     iters = sum(int(d.solver_iters) for d in diags)
 assert bool(torch.isfinite(state.pos).all())
-kernel_ms, kernel_sha = 0.0, "-"
-if solver != "wcsph":
-    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-    # the change's tiled kernels take the step's tile plan, the parent's
-    # kernels none
-    kw = {"plan": ctx.tile_plan} if hasattr(ctx, "tile_plan") else {}
-    vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
-    dens = SP.density_sweep(cfg, ctx.queries(width=4),
-                            ctx.pack(vel.unbind(1), params.particle_mass),
-                            ctx.seg_start, ctx.seg_end, ctx.pvec)
-    if solver == "wcsph_visc":
-        sweep = SP.visc_laplacian_sweep
-        args = viscosity.laplacian_operands(ctx, params, dens)(vel)
-    else:
-        sweep = SP.pressure_force_sweep
-        ds = dens.clamp(min=1e-12)
-        args = pd2_operands(ctx)(ctx.pres_prev / (ds * ds))
-    out = sweep(cfg, *args, **kw)
-    kernel_sha = sha(out)
-    times = []
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            sweep(cfg, *args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 20)
-    kernel_ms = min(times)
-print(ms, iters, sha(state.pos, state.vel), kernel_ms, kernel_sha)
-"""
+live = state.active_mask()
+torch.save({"pos": state.pos[live].cpu(), "vel": state.vel[live].cpu(),
+            "h": float(params.interaction_radius)}, sys.argv[3])
+ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+if solver in ("wcsph", "wcsph_wide12M"):
+    dargs, _ = own.sweep_inputs(ctx, params)
+    _, fargs = own.sweep_inputs(ctx, params,
+                                SP.density_sweep(cfg, *dargs))
+    ops = {"density": (SP.density_sweep, dargs, {}),
+           "force": (SP.fluid_force_sweep, fargs, {})}
+else:
+    operands_of = {"wcsph_visc": own.wcsph_visc_operands,
+                   "iisph": own.iisph_operands,
+                   "pcisph": own.pcisph_operands}[solver]
+    keep = {"wcsph_visc": ("density", "force_v0", "visc_laplacian"),
+            "iisph": ("density", "force_p0", "pressure_force"),
+            "pcisph": ("density", "force_p0", "density_pred",
+                       "pressure_force")}[solver]
+    ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
+           in operands_of(cfg, ctx, params).items() if k in keep}
+kernels = {}
+for key, (kern, args, kw) in ops.items():
+    out = kern(cfg, *args, **kw)
+    kernels[key] = [graph_ms(lambda: kern(cfg, *args, **kw)), sha(out)]
+print(json.dumps({"ms": ms, "iters": iters,
+                  "state": sha(state.pos, state.vel), "kernels": kernels}))
+""".replace("GRAPH_MS\n", GRAPH_MS)
 
-SOLVERS = ("wcsph", "iisph", "wcsph_visc", "pcisph")
+# run in the checkout's root: its own chip_smoke.py, whole, each kernel it
+# times also timed here; prints {"label: key": ms} as its last line
+RUN_SMOKE = r"""
+import importlib.util, inspect, json, sys
+import torch
+
+spec = importlib.util.spec_from_file_location("own_smoke", "chip_smoke.py")
+own = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(own)
+GRAPH_MS
+times, where = {}, [None]
 
 
-def run(root, solver):
-    """(ms/step, iterations, state hash, kernel ms, kernel output hash) of
-    one run in the checkout ``root``: the total ``solver_iters`` (CG
-    iterations launched for wcsph_visc, 0 for wcsph; no kernel timed for
-    wcsph)."""
-    res = subprocess.run([sys.executable, "-c", RUN, SMOKE, solver],
-                         cwd=root, capture_output=True, text=True,
-                         timeout=900)
+def labelled(orig):
+    sig = inspect.signature(orig)
+
+    def wrapped(*a, **kw):
+        where[0] = sig.bind(*a, **kw).arguments["label"]
+        try:
+            return orig(*a, **kw)
+        finally:
+            where[0] = None
+    return wrapped
+
+
+def timed(orig):
+    def wrapped(name, kern, plain, *a, **kw):
+        if where[0] is not None:
+            key = f"{where[0]}: {name}"
+            try:
+                ms = min(graph_ms(kern) for _ in range(3))
+                times[key] = min(times.get(key, ms), ms)
+            except RuntimeError:   # a wrapper that cannot be captured
+                torch.cuda.synchronize()
+        return orig(name, kern, plain, *a, **kw)
+    return wrapped
+
+
+own.compare = labelled(own.compare)
+own.compare_kernels = labelled(own.compare_kernels)
+own.time_turns = timed(own.time_turns)
+sys.stdout = sys.stderr
+own.main()
+sys.stdout = sys.__stdout__
+print(json.dumps(times))
+""".replace("GRAPH_MS\n", GRAPH_MS)
+
+SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph")
+
+
+def run(root, solver, state_file):
+    """The run's record: ms/step, iterations (the total ``solver_iters``;
+    CG iterations launched for wcsph_visc, 0 for the WCSPH paths), state
+    hash, and per kernel [host-free ms, output hash]; its final live
+    positions and velocities go to ``state_file``."""
+    res = subprocess.run([sys.executable, "-c", RUN, SMOKE, solver,
+                          state_file], cwd=root, capture_output=True,
+                         text=True, timeout=900)
     if res.returncode != 0:
         sys.exit(f"step_turns: run in {root} failed:\n{res.stderr}")
-    ms, iters, digest, kms, kdigest = \
-        res.stdout.strip().splitlines()[-1].split()
-    return float(ms), int(iters), digest, float(kms), kdigest
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def run_smoke(root, log=None):
+    """``{"label: key": host-free ms}`` of one whole smoke run of the
+    checkout in ``root``; its own output goes to the file ``log``."""
+    res = subprocess.run([sys.executable, "-c", RUN_SMOKE], cwd=root,
+                         capture_output=True, text=True, timeout=1500)
+    if log:
+        with open(log, "w") as f:
+            f.write(res.stderr)
+    if res.returncode != 0:
+        sys.exit(f"step_turns: smoke run in {root} failed:\n"
+                 f"{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def smoke_turns(roots, pairs, log_dir=None):
+    """Both checkouts' smoke runs in turns; prints each kernel's better
+    time of each side and the ratio. Each run's own output goes to
+    ``log_dir``/SIDE-K.log when given."""
+    best = {"parent": {}, "change": {}}
+    for k in range(pairs):
+        order = ("parent", "change") if k % 2 == 0 else ("change", "parent")
+        for side in order:
+            log = log_dir and os.path.join(log_dir, f"{side}-{k + 1}.log")
+            for key, ms in run_smoke(roots[side], log).items():
+                best[side][key] = min(best[side].get(key, ms), ms)
+            print(f"pair {k + 1} {side}: {len(best[side])} kernels timed",
+                  flush=True)
+    for key in sorted(best["parent"].keys() | best["change"].keys()):
+        p, c = best["parent"].get(key), best["change"].get(key)
+        ratio = f", ratio {c / p:.3f}" if p and c else ""
+        print(f"{key}: parent {p if p is None else f'{p:.4f}'} ms, change "
+              f"{c if c is None else f'{c:.4f}'} ms host-free{ratio}")
+
+
+def state_difference(a, b):
+    """(max|Δx|, max|Δv|) of every particle of state ``a`` against the
+    nearest particle of state ``b``, searched in the 27 cells of size h
+    around it (``a``, ``b``: the saved live positions and velocities)."""
+    dev = torch.device("cuda")
+    pa, va = a["pos"].to(dev), a["vel"].to(dev)
+    pb, vb = b["pos"].to(dev), b["vel"].to(dev)
+    h = a["h"]
+    lo = torch.minimum(pa.min(0).values, pb.min(0).values) - h
+    ca = ((pa - lo) / h).long() + 1
+    cb = ((pb - lo) / h).long() + 1
+    dims = torch.maximum(ca.max(0).values, cb.max(0).values) + 2
+
+    def key(c):
+        return (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    kb, order = torch.sort(key(cb))
+    pb, vb = pb[order], vb[order]
+    best = torch.full((len(pa),), float("inf"), device=dev)
+    match = torch.zeros(len(pa), dtype=torch.long, device=dev)
+    for off in itertools.product((-1, 0, 1), repeat=3):
+        k = key(ca + torch.tensor(off, device=dev))
+        s = torch.searchsorted(kb, k)
+        cnt = torch.searchsorted(kb, k, right=True) - s
+        qi = torch.repeat_interleave(torch.arange(len(pa), device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = s[qi] + torch.arange(len(qi), device=dev) - first[qi]
+        d = ((pa[qi] - pb[j]) ** 2).sum(dim=1)
+        m = torch.full_like(best, float("inf")).scatter_reduce(
+            0, qi, d, "amin")
+        better = m < best
+        hit = better[qi] & (d == m[qi])
+        match[qi[hit]] = j[hit]
+        best = torch.where(better, m, best)
+    dx = float(best.max().sqrt())
+    dv = float((va - vb[match]).abs().max())
+    return dx, dv
 
 
 def main():
@@ -132,40 +319,59 @@ def main():
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--solver", choices=SOLVERS, default="wcsph")
+    ap.add_argument("--smoke", action="store_true",
+                    help="time every kernel of each side's own smoke run")
+    ap.add_argument("--log", help="with --smoke: a directory for the smoke "
+                    "runs' own output")
     args = ap.parse_args()
     roots = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
-    times = {"parent": [], "change": []}
-    kernel = {"parent": [], "change": []}
-    hashes = {"parent": set(), "change": set()}
-    khashes = {"parent": set(), "change": set()}
-    for k in range(args.pairs):
-        order = ("parent", "change") if k % 2 == 0 else ("change", "parent")
-        for side in order:
-            ms, iters, digest, kms, kdigest = run(roots[side], args.solver)
-            times[side].append(ms)
-            kernel[side].append(kms)
-            hashes[side].add(digest)
-            khashes[side].add(kdigest)
-            print(f"pair {k + 1} {side}: {args.solver} {ms:.4f} ms/step, "
-                  f"iterations {iters}, state {digest}, kernel {kms:.4f} "
-                  f"ms, output {kdigest}", flush=True)
+    if args.smoke:
+        if args.log:
+            os.makedirs(args.log, exist_ok=True)
+        smoke_turns(roots, args.pairs, args.log)
+        return
+    recs = {"parent": [], "change": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(args.pairs):
+            order = (("parent", "change") if k % 2 == 0
+                     else ("change", "parent"))
+            for side in order:
+                rec = run(roots[side], args.solver,
+                          os.path.join(tmp, f"{side}{k}.pt"))
+                recs[side].append(rec)
+                kern = ", ".join(f"{key} {ms:.4f} ms ({h})" for key, (ms, h)
+                                 in rec["kernels"].items())
+                print(f"pair {k + 1} {side}: {args.solver} {rec['ms']:.4f} "
+                      f"ms/step, iterations {rec['iters']}, state "
+                      f"{rec['state']}; kernels host-free: {kern}",
+                      flush=True)
+        dx, dv = state_difference(
+            torch.load(os.path.join(tmp, "parent0.pt")),
+            torch.load(os.path.join(tmp, "change0.pt")))
+
     def quartiles(x):
         return statistics.quantiles(x, n=4)[::2] if len(x) > 1 else x * 2
 
-    for side, t in times.items():
+    for side, rs in recs.items():
+        t = [r["ms"] for r in rs]
         q1, q3 = quartiles(t)
-        kq1, kq3 = quartiles(kernel[side])
+        kern = []
+        for key in rs[0]["kernels"]:
+            km = [r["kernels"][key][0] for r in rs]
+            kq1, kq3 = quartiles(km)
+            kern.append(f"{key} median {statistics.median(km):.4f} ms "
+                        f"({kq1:.4f}-{kq3:.4f}), hashes "
+                        f"{sorted({r['kernels'][key][1] for r in rs})}")
         print(f"{side}: {args.solver} median {statistics.median(t):.4f} "
-              f"ms/step, quartiles {q1:.4f}-{q3:.4f}, runs {len(t)}, "
-              f"state hashes {sorted(hashes[side])}; kernel median "
-              f"{statistics.median(kernel[side]):.4f} ms, quartiles "
-              f"{kq1:.4f}-{kq3:.4f}, output hashes {sorted(khashes[side])}")
-    for what, h in (("final positions and velocities", hashes),
-                    ("kernel outputs", khashes)):
-        same = h["parent"] == h["change"] and len(h["parent"]) == 1
-        print(f"{args.solver}: {what} "
-              + ("bit-identical on both sides" if same else "differ"))
+              f"ms/step, quartiles {q1:.4f}-{q3:.4f}, runs {len(t)}, state "
+              f"hashes {sorted({r['state'] for r in rs})}; " + "; ".join(kern))
+    same = ({r["state"] for r in recs["parent"]}
+            == {r["state"] for r in recs["change"]})
+    print(f"{args.solver}: final states of pair 1, change against parent: "
+          f"max|dx| {dx:.6g} m, max|dv| {dv:.6g} m/s (each parent particle "
+          f"against the nearest change particle); state hashes "
+          + ("equal" if same else "differ"))
 
 
 if __name__ == "__main__":
