@@ -300,12 +300,13 @@ neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
 over 67 TFLOP/s, the H100 SXM's published float32 peaks. The elastic,
-reaction, density and force kernels stop after the geometry on a
-candidate outside the cutoff: there only those operations count
-(``GUARDED``), and the candidates inside the cutoff are counted from this
-run's positions. The elastic sweeps read one matrix as queries and
-source, the density and force sweeps one whose first rows are the
-queries: its bytes count once.
+reaction, density, force, SumDij and Jacobi kernels stop after the
+geometry on a candidate outside the cutoff: there only those operations
+count (``GUARDED``), and the candidates inside the cutoff are counted from
+this run's positions. The elastic and SumDij sweeps read one matrix as
+queries and source, the density and force sweeps one whose first rows are
+the queries: its bytes count once. SumDij and Jacobi count only the
+columns their pairs read (``READ_BYTES``) and no cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step.
 Kernel times (``ms``) are host-free: ``graph_ms`` captures 20 launches in
@@ -317,9 +318,11 @@ tile plan, as the step launches them; where they are timed they also
 print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
 default (their ``kernels`` entries carry these under ``tiled``). The
-density and force kernels print the lane-group size G they take and the
-queries with candidates (their entries carry these under ``grouped``),
-and the build prints their registers and spills by G.
+lane-group kernels (density, force, SumDij, Jacobi) print the lane-group
+size G they take and the queries with candidates (their entries carry
+these under ``grouped``); the build prints the density and force
+kernels' registers and spills by G, and each instance of
+``group_pair_sweep_kernel``'s.
 
 The run's total wall time is printed before the card's name and power
 limit. The last two lines are a JSON object with one entry per kernel and
@@ -421,8 +424,8 @@ F32_OPS_PER_S = 67e12
 # counted in the CUDA source with every add, multiply, compare, min/max,
 # division and rsqrt as one
 PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
-            "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (23, 0),
-            "jacobi": (35, 22), "pressure_force": (24, 24),
+            "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (22, 0),
+            "jacobi": (28, 21), "pressure_force": (24, 24),
             "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
             "force_v0": (39, 31), "force_p0_v0": (31, 27),
@@ -447,10 +450,21 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
 GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
            "fluid_reaction_p0": 9, "density": 9, "density_pred": 9,
            "body_density": 9, "force": 9, "force_p0": 9, "force_v0": 9,
-           "force_p0_v0": 9, "force_moving": 9, "force_p0_moving": 9}
-# the lane-group kernels (csrc/sph_sweep.cu), whose rows name their G
+           "force_p0_v0": 9, "force_moving": 9, "force_p0_moving": 9,
+           "sum_dij": 9, "jacobi": 9}
+# bytes each pair reads of a query row, a fluid source row and a wall
+# source row, for the kernels whose rows carry columns their pair never
+# reads: SumDij's one matrix x y z p/rho^2 (queries and source), Jacobi's
+# query x y z sd (m/rho^2)p (not its pad), fluid rows x y z e (not the two
+# zero slots), wall rows x y z psi_b (not v_b, not the pad). Their bound
+# counts these and no cell key: the port's ranges are exact, so no kernel
+# reads a key.
+READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16)}
+# the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
+# of csrc/group_sweep.cuh), whose rows name their G
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
-           "force_v0", "force_p0_v0", "force_moving", "force_p0_moving")
+           "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
+           "sum_dij", "jacobi")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -477,16 +491,24 @@ def events_ms(fn, reps):
 def bound(key, args, out):
     """(bound_ms, bound_by, bound_ranges_ms) of one sweep call on
     ``args = (q, src, seg_start, seg_end, pvec)`` with output ``out``:
-    the queries, each source row once with its 4-byte cell key, pvec and
-    the output moved once, against the candidate pairs of these ranges;
-    ``bound_ranges_ms`` also reads the range rows."""
+    the queries, each source row once with its 4-byte cell key (for the
+    kernels of ``READ_BYTES``, the columns their pairs read and no key),
+    pvec and the output moved once, against the candidate pairs of these
+    ranges; ``bound_ranges_ms`` also reads the range rows."""
     q, src, s, e, pv = args
     # the elastic sweeps read one matrix as queries and source, the density
     # and force sweeps one whose first rows are the queries: once
-    ins = ((src, pv, out) if q.data_ptr() == src.data_ptr()
-           else (q, src, pv, out))
-    nbytes = (sum(t.numel() * t.element_size() for t in ins)
-              + 4 * src.shape[0])
+    shared = q.data_ptr() == src.data_ptr()
+    if key in READ_BYTES:
+        # the source's first rows are the queries' fluid rows, then walls
+        qb, fb, wb = READ_BYTES[key]
+        n, m = q.shape[0], src.shape[0]
+        nbytes = (fb * m if shared else qb * n + fb * n + wb * (m - n))
+        nbytes += sum(t.numel() * t.element_size() for t in (pv, out))
+    else:
+        ins = (src, pv, out) if shared else (q, src, pv, out)
+        nbytes = (sum(t.numel() * t.element_size() for t in ins)
+                  + 4 * src.shape[0])
     ranges = sum(t.numel() * t.element_size() for t in (s, e))
     cand = (e - s).clamp(min=0).sum(dim=1, dtype=torch.int64)
     fluid, bnd = PAIR_OPS[key]
@@ -647,8 +669,9 @@ def time_turns(name, kern, plain, reps=20):
 
 def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
-    (``cuda_sweep.density_group``, ``force_group``, ``body_group``) and
-    the queries that have a candidate in their ranges."""
+    (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
+    ``SUM_DIJ_G``, ``JACOBI_G``) and the queries that have a candidate
+    in their ranges."""
     from nereus_tpu_torch.ops import cuda_sweep
     q, src, s, e, _ = args
     n = q.shape[0]
@@ -656,6 +679,10 @@ def group_stats(key, args, kw):
         g = cuda_sweep.force_group(n, kw.get("include_viscosity", True))
     elif key == "body_density":
         g = cuda_sweep.body_group(src.shape[0])
+    elif key == "sum_dij":
+        g = cuda_sweep.SUM_DIJ_G
+    elif key == "jacobi":
+        g = cuda_sweep.JACOBI_G
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -707,42 +734,49 @@ def laplacian_op(ctx, params, dens, v):
 
 def iisph_operands(cfg, ctx, params):
     """The operands of every sweep of one IISPH step from ``ctx`` (with
-    p = ½·p_prev), built as ``solvers/iisph_cuda.py`` builds them, each
-    from the plain versions' upstream results: ``{key: (kernel, plain,
-    args, kwargs)}``."""
+    p = ½·p_prev), built by ``solvers/iisph_cuda.py``'s own operand
+    functions as the step builds them, each from the plain versions'
+    upstream results: ``{key: (kernel, plain, args, kwargs)}``. The
+    Σd_ij·p_j matrix is also the pressure force's query, and (a copy of)
+    the Jacobi source, through ``pressure_source``, its source."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
+    from nereus_tpu_torch.solvers.iisph_cuda import (jacobi_operands,
+                                                     pressure_source,
+                                                     sum_dij_operands)
     vel = (ctx.vx, ctx.vy, ctx.vz)
     pm, dt = params.particle_mass, params.dt
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-    q4 = ctx.queries(width=4)
     ops, dens, f_adv = start_operands(cfg, ctx, params)
     ds = dens.clamp(min=1e-12)
     inv_d2 = 1.0 / (ds * ds)
-    zero = torch.zeros_like(dens)
     vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * params.gravity[k])
                     for k, v in enumerate(vel))
     src_p = ctx.pack(vel_adv, pm)
     dargs = (ctx.queries(*vel_adv, *vel, inv_d2, width=12), src_p, *rng)
-    dii = SP.dii_rhoadv_sweep_plain(cfg, *dargs)[:, :3].unbind(1)
+    dii = SP.dii_rhoadv_sweep_plain(cfg, *dargs)[:, :3]
     dpi = pm * inv_d2
     p = 0.5 * ctx.pres_prev
-    src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
-    sargs = (q4, src_pd, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec)
-    sd = SP.sum_dij_sweep_plain(cfg, *sargs).unbind(1)
+    sargs = sum_dij_operands(ctx, inv_d2)(p)
+    sd = SP.sum_dij_sweep_plain(cfg, *sargs)
+    pq = sargs[0]
+    jacobi_at, jsrc = jacobi_operands(ctx, dii, dpi)
+    jargs = jacobi_at(p, sd)
     return {
         **ops,
         "dii_rhoadv": (cuda_sweep.dii_rhoadv_sweep,
                        SP.dii_rhoadv_sweep_plain, dargs, {}),
         "aii": (cuda_sweep.aii_sweep, SP.aii_sweep_plain,
-                (ctx.queries(*dii, dpi, width=8), src_p, *rng), {}),
+                (ctx.queries(*dii.unbind(1), dpi, width=8), src_p, *rng),
+                {}),
         "sum_dij": (cuda_sweep.sum_dij_sweep, SP.sum_dij_sweep_plain, sargs,
                     {}),
-        "jacobi": (cuda_sweep.jacobi_sweep, SP.jacobi_sweep_plain,
-                   (ctx.queries(*sd, dpi * p, width=8),
-                    ctx.pack_wide([*dii, p, *sd]), *rng), {}),
+        "jacobi": (cuda_sweep.jacobi_sweep, SP.jacobi_sweep_plain, jargs,
+                   {}),
+        # a copy: the Jacobi check reads its source as the loop leaves it
         "pressure_force": (tiled(cuda_sweep.pressure_force_sweep, ctx),
                            SP.pressure_force_sweep_plain,
-                           (ctx.queries(p * inv_d2), src_pd, *rng), {}),
+                           (pq, pressure_source(jsrc.clone(), pq), *rng),
+                           {}),
     }
 
 
@@ -2917,7 +2951,8 @@ def ptxas_report(log):
                       r"-?\d+E)+)E", entry)
         if m is None:
             # the row-tiled kernels by name (their shared memory too)
-            tag = f"{entry}: " if "tiled_pair_sweep_kernel" in entry else ""
+            tag = (f"{entry}: " if "tiled_pair_sweep_kernel" in entry
+                   or "group_pair_sweep_kernel" in entry else "")
             print("  ptxas:", tag + line.strip())
             continue
         # template ints <KS[, ST, PRESSURE, VISC, MOVING], G>, then the

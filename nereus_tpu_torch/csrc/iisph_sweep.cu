@@ -13,34 +13,54 @@
 // psi_b, against the fluid rows with kappa/rho in slot 6) the per-sample
 // reverse kappa of the elastic coupling: one instance for both.
 //
-// Design: one functor each for the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, except PressureForce,
-// which runs on the row-tiled engine tiled_pair_sweep_kernel<Pair, KS> of
-// tiled_sweep.cuh (PCISPH's corrective loop launches it ~45 times per step
-// over one tile plan; its boundary form stays on pair_sweep_kernel). All
-// five use the default (poly6 / Monaghan) gradient, which is exactly 0 at
-// the self pair, so self-pairs stay in the ranges. Bound: memory traffic
-// (sweep_common.cuh, tiled_sweep.cuh).
+// Design: one functor each. DiiRhoAdv and Aii (once per step) run on the
+// range-walk template pair_sweep_kernel<Pair, KS> of sweep_common.cuh;
+// PressureForce on the row-tiled engine tiled_pair_sweep_kernel<Pair, KS>
+// of tiled_sweep.cuh (PCISPH's corrective loop launches it ~45 times per
+// step over one tile plan; its boundary form stays on pair_sweep_kernel).
+// All five use the default (poly6 / Monaghan) gradient, which is exactly 0
+// at the self pair, so self-pairs stay in the ranges.
 //
-// The Jacobi source is 12 floats wide, not the TPU's 16: fluid rows carry
-// x y z, d_jj (3), p_j and sum_k d_jk p_k (3), 10 values, and the port
-// needs no hash payload in the source (its ranges are exact), so 12 is the
-// least multiple of 4 (one float4 load each) that holds them; 16 would
-// read a third more bytes per candidate for nothing.
+// SumDij and Jacobi, the relaxed-Jacobi solve's two sweeps (launched once
+// per iteration, 2-7 times per step), run on the lane-group engine
+// group_pair_sweep_kernel<Pair, KS, G> of group_sweep.cuh. What bounds
+// them on this card: one thread per query walking 9 or 18 runs of 0-6
+// candidates in series waits on each run's bounds and diverges on trip
+// counts, and loading each candidate's whole source row (SumDij 32 B,
+// Jacobi 48 B in the earlier layouts) for a pair that only ~15 % of them
+// pass wastes most of the bytes. What the design does: G lanes per query
+// walk the flattened runs (group_sweep.cuh); each candidate loads one
+// float4, x y z and one value, and tests the cutoff; only a pair inside it
+// runs, and only Jacobi's loads a second float4 (e_y e_z, or psi_b on a
+// wall row); Jacobi's fluid and wall rows are one list. Measured at
+// 1,092,727 queries (PERF.md section 6): SumDij 35 % and Jacobi 32 % under
+// the earlier one-thread-per-query kernels. The operands are narrow, and
+// each iteration writes them once (solvers/iisph_cuda.py):
+// - SumDij reads one (C, 4) matrix x y z p/rho^2 as query and source;
+//   after the loop, holding the final p/rho^2, it is the pressure force's
+//   query.
+// - Jacobi's fluid source rows carry e_j = d_jj p_j + sum_k d_jk p_k,
+//   written by one elementwise pass per iteration, so the pair no longer
+//   forms d_jj p_j + sum_k d_jk p_k once per (i, j): it computes
+//   sd_i - e_j, where the reference computes (sd_i - d_jj p_j) - sd_j (the
+//   same terms rounded in another order).
+// G per kernel: ops/cuda_sweep.py (SUM_DIJ_G, JACOBI_G); only those
+// instances are built.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   dii_rhoadv: q (N, 12) x y z vax vay vaz vx vy vz inv_rho2 pad pad;
 //               src (M, 8) x y z vax vay vaz psi pad; out (N, 4)
 //   aii:        q (N, 8) x y z diix diiy diiz m/rho2 pad; src as above;
 //               out (N,)
-//   sum_dij:    q (N, 4) x y z pad; src (M, 8) slot 6 = p/rho2; fluid
-//               rows only (n_rows = 9); out (N, 3)
+//   sum_dij:    q = src (C, 4) x y z p/rho2, the same matrix; fluid rows
+//               only (n_rows = 9); out (N, 3)
 //   jacobi:     q (N, 8) x y z sdx sdy sdz (m/rho2)*p pad;
-//               src (M, 12) fluid x y z djj(3) p sd(3) pad pad,
-//               boundary x y z 0 0 0 psi 0 0 0 0 0; out (N,)
+//               src (M, 8) fluid x y z ex ey ez 0 0, boundary
+//               x y z v_b psi 0 (the step's wall rows); out (N,)
 //   pressure:   q (N, 4) x y z pd2; src (M, 8) slot 6 = pd2_j (fluid) or
 //               psi (boundary); out (N, 3)
 
+#include "group_sweep.cuh"
 #include "tiled_sweep.cuh"
 
 namespace {
@@ -87,46 +107,45 @@ struct Aii {
   }
 };
 
-// sum_j d_ij p_j = -sum_j m (p_j / rho_j^2) grad W, fluid rows only
+// sum_j d_ij p_j = -sum_j m (p_j / rho_j^2) grad W, fluid rows only; the
+// engine calls it inside the cutoff, with a = x y z p/rho^2 of row j
 struct SumDij {
-  static constexpr int QW = 4, SW = 8, OW = 3;
+  static constexpr int QW = 4, SW = 4, OW = 3;
   static constexpr bool BOUNDARY_ROWS = false;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);
-    const float pd2 = src_f4(src, SW, j, 1).z;
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
     const Geom g = default_geom<KS>(q, a, p);
-    const float c = -p.pm * pd2 * g.s * g.okf;
+    const float c = -p.pm * a.w * g.s;
     acc[0] += c * g.dx;
     acc[1] += c * g.dy;
     acc[2] += c * g.dz;
   }
 };
 
-// Jacobi off-diagonal sum: fluid m (sd_i - d_jj p_j - sd_j) . grad W +
-// (m/rho_i^2) p_i s^2 r^2; boundary psi sd_i . grad W
+// Jacobi off-diagonal sum: fluid m (s (sd_i - e_j) . r + (m/rho_i^2) p_i
+// s^2 r^2) with e_j = d_jj p_j + sd_j; boundary psi s sd_i . r. The engine
+// calls it inside the cutoff, with a = x y z e_x (fluid) or x y z v_bx
+// (wall) of row j.
 struct Jacobi {
-  static constexpr int QW = 8, SW = 12, OW = 1;
+  static constexpr int QW = 8, SW = 8, OW = 1;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z djjx
-    const float4 b = src_f4(src, SW, j, 1);  // djjy djjz p_j|psi sdx
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
     const Geom g = default_geom<KS>(q, a, p);
     if constexpr (B) {
-      const float dot = g.s * (q[3] * g.dx + q[4] * g.dy + q[5] * g.dz);
-      acc[0] += b.z * dot * g.okf;
+      const float psi = __ldg(src + static_cast<size_t>(j) * SW + 6);
+      acc[0] += psi * (g.s * (q[3] * g.dx + q[4] * g.dy + q[5] * g.dz));
     } else {
-      const float4 c = src_f4(src, SW, j, 2);  // sdy sdz pad pad
-      const float p_j = b.z;
-      const float ix = q[3] - a.w * p_j - b.w;
-      const float iy = q[4] - b.x * p_j - c.x;
-      const float iz = q[5] - b.y * p_j - c.y;
+      const float4 b = src_f4(src, SW, j, 1);  // ey ez 0 0
+      const float ix = q[3] - a.w;
+      const float iy = q[4] - b.x;
+      const float iz = q[5] - b.y;
       const float inner = g.s * (ix * g.dx + iy * g.dy + iz * g.dz) +
                           q[6] * g.s * g.s * g.r2;
-      acc[0] += p.pm * inner * g.okf;
+      acc[0] += p.pm * inner;
     }
   }
 };
@@ -161,8 +180,9 @@ extern "C" {
 
 NEREUS_PAIR_SWEEP(dii_rhoadv, DiiRhoAdv)
 NEREUS_PAIR_SWEEP(aii, Aii)
-NEREUS_PAIR_SWEEP(sum_dij, SumDij)
-NEREUS_PAIR_SWEEP(jacobi, Jacobi)
+// the G of ops/cuda_sweep.py at every query count: SumDij 2, Jacobi 4
+NEREUS_GROUP_SWEEP(sum_dij, SumDij, 2)
+NEREUS_GROUP_SWEEP(jacobi, Jacobi, 4)
 NEREUS_TILED_SWEEP(pressure_force, PressureForce)
 // the boundary form alone over a body shell (the DFSPH couplings' kappa
 // impulse between fluid and body), or with a body's samples as queries

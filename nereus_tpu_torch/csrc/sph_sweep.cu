@@ -24,21 +24,17 @@
 // the viscosity, not the plain version's two, measured 3-7 % faster at the
 // chosen G).
 //
-// Design: a group of G lanes per query (ops/cuda_sweep.py picks G per
-// launch).
-// - Lane r of the group loads the bounds of rows r, r + G, ..., so all
-//   rows' bounds are in flight at once. A prefix sum over the group by
-//   shuffles flattens the runs into one candidate list, kept as a row table
-//   in shared memory (first flat index and source offset of each row);
-//   empty runs add nothing. The group walks the list G candidates at a
-//   time, lane l taking flat indices l, l + G, ...: neighbouring lanes read
-//   neighbouring source rows, and no lane waits on another's run lengths.
+// Design: the lane-group walk of group_sweep.cuh, G lanes per query
+// (ops/cuda_sweep.py picks G per launch).
+// - The group's lanes load all range rows' bounds at once, a shuffle scan
+//   flattens the runs into one candidate list (a row table in shared
+//   memory), and lane l walks flat indices l, l + G, ...
 // - A candidate first loads its position and tests r^2 < h^2; the pair
 //   math (the force's second float4 with it) runs only inside the cutoff.
 // - Partial sums reduce over the group with __shfl_xor_sync in a fixed
-//   tree: no atomics, the same order on every run (not the plain
-//   version's order). The force walks the fluid rows and the wall rows as
-//   two lists, so a lane runs one pair formula per list.
+//   tree (not the plain version's order). The density walks all rows as
+//   one list; the force walks the fluid rows and the wall rows as two, so
+//   a lane runs one pair formula per list.
 // - G, measured (PERF.md section 6): at 2^18 queries 4 lanes per query fill
 //   the card best for both sweeps; at 2^20 and more the density takes 2,
 //   and the force 1 when the pair carries the viscosity (a lone lane per
@@ -86,126 +82,11 @@
 //   seg_start, seg_end (n_rows, N) int32
 //   pvec: the PV_* vector of ops/sph_pairs.py
 
-#include "sweep_common.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
 using namespace nereus_sweep;
-
-constexpr unsigned FULL = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// The lane-group walk
-// ---------------------------------------------------------------------------
-
-// A group's candidate list in shared memory: row r's candidates are the flat
-// indices pre[r] .. pre[r + 1] - 1 (pre[nr] the total), candidate k of row r
-// the source row k + delta[r].
-template <int NR>
-struct RowTable {
-  int pre[NR + 1];
-  int delta[NR];
-};
-
-// Loads the bounds of rows [row0, row0 + nr) of query i (none when !live),
-// lane `lane` of the G taking rows lane, lane + G, ..., scans their lengths
-// over the group by shuffles and writes the group's table; returns the
-// number of candidates. Every lane of the warp calls it.
-template <int G, int NR>
-__device__ __forceinline__ int build_rows(RowTable<NR>& t, int i, bool live,
-                                          int n, int row0, int nr,
-                                          const int* __restrict__ seg_start,
-                                          const int* __restrict__ seg_end,
-                                          int lane) {
-  int s[(NR + G - 1) / G], len[(NR + G - 1) / G];
-#pragma unroll
-  for (int k = 0; k < (NR + G - 1) / G; ++k) {
-    const int r = k * G + lane;
-    s[k] = 0;
-    len[k] = 0;
-    if (live && r < nr) {
-      const size_t at = static_cast<size_t>(row0 + r) * n + i;
-      s[k] = __ldg(seg_start + at);
-      len[k] = max(__ldg(seg_end + at) - s[k], 0);
-    }
-  }
-  int off = 0;
-#pragma unroll
-  for (int k = 0; k < (NR + G - 1) / G; ++k) {
-    int inc = len[k];
-#pragma unroll
-    for (int d = 1; d < G; d <<= 1) {
-      const int up = __shfl_up_sync(FULL, inc, d, G);
-      if (lane >= d) inc += up;
-    }
-    const int r = k * G + lane;
-    if (r < nr) {
-      const int first = off + inc - len[k];
-      t.pre[r] = first;
-      t.delta[r] = s[k] - first;
-    }
-    off += __shfl_sync(FULL, inc, G - 1, G);
-  }
-  if (lane == 0) t.pre[nr] = off;
-  __syncwarp();
-  return off;
-}
-
-// The source row of flat candidate k, for a lane whose k only grows: `r`
-// and `next` (pre[r + 1]) carry the lane's row from one call to the next.
-template <int NR>
-__device__ __forceinline__ int source_of(const RowTable<NR>& t, int k, int& r,
-                                         int& next) {
-  while (k >= next) next = t.pre[++r + 1];
-  return k + t.delta[r];
-}
-
-// The sum of v over the G lanes of each group, in a fixed tree; every lane
-// of the group gets it.
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int d = G / 2; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d, G);
-  return v;
-}
-
-// Calls body(j, a) for each candidate of the group's list that falls to
-// lane `lane` (flat indices lane, lane + G, ...), a = src[stride * j] the
-// first float4 of its source row; with PF the next candidate's row is
-// loaded before body runs on this one.
-template <int G, bool PF, int NR, typename Body>
-__device__ __forceinline__ void walk(const RowTable<NR>& t, int total,
-                                     int lane,
-                                     const float4* __restrict__ src,
-                                     int stride, Body&& body) {
-  int r = 0, next = t.pre[1];
-  if constexpr (PF) {
-    int k = lane;
-    if (k >= total) return;
-    int j = source_of(t, k, r, next);
-    float4 a = __ldg(src + stride * j);
-    for (;;) {
-      const int kn = k + G;
-      const bool more = kn < total;
-      int jn = j;
-      float4 an = a;
-      if (more) {
-        jn = source_of(t, kn, r, next);
-        an = __ldg(src + stride * jn);
-      }
-      body(j, a);
-      if (!more) break;
-      k = kn;
-      j = jn;
-      a = an;
-    }
-  } else {
-    for (int k = lane; k < total; k += G) {
-      const int j = source_of(t, k, r, next);
-      body(j, __ldg(src + stride * j));
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Density: rho_i = sum_j psi_j W(r_ij) over all rows, self term included
@@ -233,7 +114,8 @@ density_sweep_kernel(const float4* __restrict__ q,
   const int total = build_rows<G, 2 * N_ROWS>(t, i, live, n, 0, n_rows,
                                               seg_start, seg_end, lane);
   float acc = 0.0f;
-  walk<G, false>(t, total, lane, src, 1, [&](int, float4 a) {  // x y z psi
+  // a: x y z psi
+  walk<G, false>(t, total, lane, src, 1, [&](int, float4 a, int) {
     const float dx = qi.x - a.x, dy = qi.y - a.y, dz = qi.z - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (r2 < p.h2) {
@@ -395,7 +277,8 @@ force_sweep_kernel(const float4* __restrict__ q,
 
   int total = build_rows<G, N_ROWS>(t, i, live, n, 0, min(n_rows, N_ROWS),
                                     seg_start, seg_end, lane);
-  walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a) {  // x y z vx
+  // a: x y z vx
+  walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a, int) {
     const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (r2 < p.h2) {
@@ -409,7 +292,8 @@ force_sweep_kernel(const float4* __restrict__ q,
     total = build_rows<G, N_ROWS>(t, i, live, n, N_ROWS, n_rows - N_ROWS,
                                   seg_start, seg_end, lane);
     const float nu = VISC != 0 ? wall_nu(qb.z, p) : 0.0f;
-    walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a) {  // x y z vbx
+    // a: x y z vbx
+    walk<G, PF>(t, total, lane, src, 2, [&](int j, float4 a, int) {
       const float dx = qa.x - a.x, dy = qa.y - a.y, dz = qa.z - a.z;
       const float r2 = dx * dx + dy * dy + dz * dz;
       if (r2 < p.h2) {
@@ -430,13 +314,6 @@ force_sweep_kernel(const float4* __restrict__ q,
     out[3 * i + 1] = fy;
     out[3 * i + 2] = fz;
   }
-}
-
-// blocks of THREADS lanes, THREADS / G queries each
-template <int G>
-inline int group_blocks(int n) {
-  constexpr int per = THREADS / G;
-  return (n + per - 1) / per;
 }
 
 template <int KS, int G>

@@ -62,8 +62,8 @@ FORCE = Kernel("force_sweep_kernel")
 FORCE_P0 = Kernel("force_sweep_kernel<PRESSURE=0>")
 DII_RHOADV = Kernel("pair_sweep_kernel<DiiRhoAdv>")
 AII = Kernel("pair_sweep_kernel<Aii>")
-SUM_DIJ = Kernel("pair_sweep_kernel<SumDij>")
-JACOBI = Kernel("pair_sweep_kernel<Jacobi>")
+SUM_DIJ = Kernel("group_pair_sweep_kernel<SumDij>")
+JACOBI = Kernel("group_pair_sweep_kernel<Jacobi>")
 PRESSURE_FORCE = Kernel("tiled_pair_sweep_kernel<PressureForce>")
 # the density kernel at PCISPH's predicted positions, counted apart
 DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
@@ -288,7 +288,7 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
-              "sum_dij": 0, "jacobi": 0, "alpha": 0,
+              "sum_dij": 1, "jacobi": 1, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
               "xsph": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
@@ -469,6 +469,18 @@ def body_group(m: int) -> int:
     return 2 if m < SMALL_SHELL else 4
 
 
+# lanes per query G of the IISPH Jacobi loop's two kernels
+# (``csrc/iisph_sweep.cu``, which builds only these), one each at every
+# query count, as measured on the H100 at 1,092,727 queries (PERF.md
+# section 6): SumDij, a 16-byte row and a few operations per pair over 9
+# rows like the density's, takes the density's G 2 there (4 took 9 % and 1
+# 15 % more time); Jacobi, whose 18 rows the engine walks as one list,
+# takes 4 (2 took 7 % and 8 lanes 27 % more time). No path runs IISPH
+# below ``SMALL_N`` queries, where the density takes 4.
+SUM_DIJ_G = 2
+JACOBI_G = 4
+
+
 def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
     return _sweep(kernel, "density", cfg, q, 4, src, 4, seg_start, seg_end,
                   pvec, rows, 0, group)
@@ -521,17 +533,17 @@ def aii_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def sum_dij_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Σd_ij·p_j (N, 3) over the fluid rows only: q (N, 4), src (M, 8),
-    ranges (9, N)."""
-    return _sweep(SUM_DIJ, "sum_dij", cfg, q, 4, src, 8, seg_start,
-                  seg_end, pvec, (9,), 3)
+    """Σd_ij·p_j (N, 3) over the fluid rows only: q (N, 4) and src (M, 4)
+    ``x y z p/ρ²`` (the step's one matrix), ranges (9, N)."""
+    return _sweep(SUM_DIJ, "sum_dij", cfg, q, 4, src, 4, seg_start,
+                  seg_end, pvec, (9,), 3, SUM_DIJ_G)
 
 
 def jacobi_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Jacobi off-diagonal sum (N,): q (N, 8), wide src (M, 12)."""
-    from .sph_pairs import WIDE_WIDTH
-    return _sweep(JACOBI, "jacobi", cfg, q, 8, src, WIDE_WIDTH,
-                  seg_start, seg_end, pvec, (9, 18), 0)
+    """Jacobi off-diagonal sum (N,): q (N, 8), src (M, 8) with
+    e_j = d_jj·p_j + Σd_jk·p_k in the fluid rows' slots 3-5."""
+    return _sweep(JACOBI, "jacobi", cfg, q, 8, src, 8, seg_start, seg_end,
+                  pvec, (9, 18), 0, JACOBI_G)
 
 
 def pressure_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,

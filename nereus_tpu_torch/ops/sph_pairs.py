@@ -8,16 +8,17 @@ device memory, the plain formulas index it.
 Source matrices are (M, 8) float32 rows ``x y z vx vy vz s6 pad``. Slot 6
 means different things by region: ρ_j (force sweep; its fluid rows are
 the force queries ``x y z vx vy vz ρ pd2``, pd2_j in slot 7) or
-p_j/ρ_j² (IISPH Σd_ij·p_j and pressure force; κ_j/ρ_j in DFSPH's κ
+p_j/ρ_j² (the implicit solvers' pressure force; κ_j/ρ_j in DFSPH's κ
 correction) for fluid sources, ψ_b = ρ₀·V_b for boundary sources. The
 density sweep reads a (M, 4) source ``x y z ψ`` (ψ = m for fluid rows,
 ψ_b for boundary rows) whose fluid rows may be the density queries
-themselves. Query matrices are (N, 4) ``x y z pad`` for density (slot 3
-unread) and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH Jacobi
-and the multiphase force sweeps read a (M, 12) wide source
-(``WIDE_WIDTH``): fluid rows ``x y z d_jj(3) p_j Σd_jk·p_k(3) pad pad``
-(Jacobi) or ``x y z vx vy vz V_j p_j·V_j² [ρ0_j] pad…`` (multiphase),
-boundary rows with ψ_b in slot 6.
+themselves, IISPH's Σd_ij·p_j one (C, 4) matrix ``x y z p/ρ²`` as its
+queries and source. Query matrices are (N, 4) ``x y z pad`` for density
+(slot 3 unread) and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH
+Jacobi sum reads an 8-wide source whose fluid rows carry
+e_j = d_jj·p_j + Σd_jk·p_k in slots 3-5. The multiphase force sweep reads
+a (M, 12) wide source (``WIDE_WIDTH``): fluid rows ``x y z vx vy vz V_j
+p_j·V_j² [ρ0_j] pad…``, boundary rows with ψ_b in slot 6.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
 rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
 sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j, m or λ_j,
@@ -381,25 +382,26 @@ def aii_pair(q, s, pv, *, kernel_set):
 
 def sum_dij_pair(q, s, pv, *, kernel_set):
     """Σ_j d_ij·p_j = −Σ_j m·(p_j/ρ_j²)·∇W (``dijpjcell``,
-    ``sph_kernel_impl.cuh:1224-1253``); slot 6 of the source carries
-    p_j/ρ_j². q: x y z pad. Returns (P, 3)."""
+    ``sph_kernel_impl.cuh:1224-1253``); slot 3 of the (P, 4) source rows
+    ``x y z p/ρ²`` carries p_j/ρ_j². q: x y z (slot 3 unread). Returns
+    (P, 3)."""
     dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
-    c = -pv[PV_PM] * s[:, 6] * sg * okf
+    c = -pv[PV_PM] * s[:, 3] * sg * okf
     return torch.stack([c * dx, c * dy, c * dz], dim=1)
 
 
 def jacobi_fluid_pair(q, s, pv, *, kernel_set):
     """Jacobi off-diagonal sum over fluid sources (``computePressure``
     fluid loop, ``sph_kernel_impl.cuh:1330-1445``):
-    m·(Σd_ij p_j − d_jj p_j − (Σd_jk p_k − d_ji p_i))·∇W, with d_ji·p_i
-    as the IISPH paper has it. Wide source (``WIDE_WIDTH``) slots 3-5
-    d_jj, 6 p_j, 7-9 Σd_jk·p_k. q: x y z Σd_ij·p_j(3) (m/ρ_i²)·p_i pad.
-    Returns (P, 1)."""
+    m·(Σd_ij p_j − e_j)·∇W + m·(m/ρ_i²)·p_i·s²·r² with
+    e_j = d_jj p_j + Σd_jk p_k in slots 3-5 of the 8-wide source, and
+    d_ji·p_i as the IISPH paper has it. The reference subtracts d_jj p_j
+    and Σd_jk p_k one after the other: the same terms, another rounding.
+    q: x y z Σd_ij·p_j(3) (m/ρ_i²)·p_i pad. Returns (P, 1)."""
     dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
-    p_j = s[:, 6]
-    ix = q[:, 3] - s[:, 3] * p_j - s[:, 7]
-    iy = q[:, 4] - s[:, 4] * p_j - s[:, 8]
-    iz = q[:, 5] - s[:, 5] * p_j - s[:, 9]
+    ix = q[:, 3] - s[:, 3]
+    iy = q[:, 4] - s[:, 4]
+    iz = q[:, 5] - s[:, 5]
     inner = sg * (ix * dx + iy * dy + iz * dz) + q[:, 6] * sg * sg * r2
     return (pv[PV_PM] * inner * okf)[:, None]
 
@@ -919,14 +921,15 @@ def aii_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def sum_dij_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Σd_ij·p_j (N, 3) over the fluid rows only: ranges (9, N), q (N, 4),
-    src (M, 8) with p/ρ² in slot 6."""
+    """Σd_ij·p_j (N, 3) over the fluid rows only: ranges (9, N), q (N, 4)
+    and src (M, 4) ``x y z p/ρ²`` (the step's one matrix)."""
     return neighbor_sweep_plain(_bind(sum_dij_pair, cfg, pvec), q, src,
                                 seg_start, seg_end, 3)
 
 
 def jacobi_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Jacobi off-diagonal sum (N,): q (N, 8), src (M, 12)."""
+    """Jacobi off-diagonal sum (N,): q (N, 8), src (M, 8), fluid rows
+    ``x y z e 0 0``, boundary rows ``x y z v_b ψ_b 0``."""
     return neighbor_sweep_plain(
         _bind(jacobi_fluid_pair, cfg, pvec), q, src, seg_start, seg_end, 1,
         pair_fn_b=_bind(jacobi_boundary_pair, cfg, pvec))[:, 0]

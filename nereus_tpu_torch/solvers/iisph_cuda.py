@@ -15,8 +15,14 @@ is a :class:`~.predicated_loop.PredicatedLoop` that commits ``p`` and
 only synchronisation in the step. Launches therefore count iterations
 launched, which may exceed ``solver_iters`` by up to ``SYNC_EVERY − 1``.
 
-The loop-invariant source and query matrices are built once per step;
-each iteration writes its pressure-dependent columns into them in place.
+The loop-invariant source and query matrices are built once per step by
+:func:`sum_dij_operands` and :func:`jacobi_operands`; each iteration
+writes its pressure-dependent columns into them in place, each once.
+Σd_ij·p_j reads one (C, 4) matrix ``x y z p/ρ²`` as queries and source,
+which after the loop, holding the final p/ρ², is the pressure force's
+query. The Jacobi source carries e_j = d_jj·p_j + Σd_jk·p_k in its fluid
+rows' slots 3-5; after the loop, with p/ρ² in their slot 6
+(:func:`pressure_source`), it is the pressure force's source.
 """
 
 from __future__ import annotations
@@ -45,6 +51,50 @@ SYNC_EVERY = 2
 LOOP = LoopCounts()
 
 
+def sum_dij_operands(ctx, inv_d2):
+    """The Σd_ij·p_j sweep's operands on one (C, 4) matrix ``x y z p/ρ²``:
+    returns ``at(p) -> (q, src, seg_start, seg_end, pvec)``, which writes
+    p·(1/ρ²) (``inv_d2``) in place into slot 3; ``q`` and ``src`` are the
+    matrix, the ranges its 9 fluid rows."""
+    m = ctx.queries(torch.zeros_like(ctx.px))
+
+    def at(p):
+        torch.mul(p, inv_d2, out=m[:, 3])
+        return m, m, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec
+    return at
+
+
+def jacobi_operands(ctx, dii, dpi):
+    """The Jacobi sweep's operands: the (C, 8) query ``x y z Σd_ij·p_j
+    (m/ρ²)·p 0`` and the 8-wide source, fluid rows ``x y z e 0 0``, then
+    the wall rows as they are (``x y z v_b ψ_b 0``). Returns ``(at, src)``:
+    ``at(p, sum_dij) -> (q, src, seg_start, seg_end, pvec)`` writes
+    e = d_jj·p + Σd_jk·p_k (``dii`` (C, 3), one elementwise pass over the
+    three columns), Σd_ij·p_j and (m/ρ²)·p (``dpi`` = m/ρ²) in place;
+    ``src`` is the source, which :func:`pressure_source` turns into the
+    pressure force's after the loop."""
+    zero = torch.zeros_like(ctx.px)
+    q = ctx.queries(zero, zero, zero, zero, width=8)
+    src = ctx.pack((zero, zero, zero), zero)
+    c = ctx.c
+
+    def at(p, sum_dij):
+        torch.addcmul(sum_dij, dii, p[:, None], out=src[:c, 3:6])
+        q[:, 3:6] = sum_dij
+        torch.mul(dpi, p, out=q[:, 6])
+        return q, src, ctx.seg_start, ctx.seg_end, ctx.pvec
+    return at, src
+
+
+def pressure_source(src, pq):
+    """The pressure force's (C + Mb, 8) source after the loop: the Jacobi
+    source ``src`` with the final p/ρ² (slot 3 of the Σd_ij·p_j matrix
+    ``pq``) written into its fluid rows' slot 6, in place. The wall rows
+    carry ψ_b there already, and the force reads x y z and slot 6 alone."""
+    src[:pq.shape[0], 6] = pq[:, 3]
+    return src
+
+
 def iisph_step_cuda(state: FluidState, params: SimParams,
                     grid: gridlib.Grid, cfg: SimConfig,
                     boundary: Optional[BoundaryData] = None,
@@ -62,10 +112,7 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
 
     # -- density: fluid ψ = m, boundary ψ_b; self-pairs included -----------
-    # (its query, x y z m, is also Σd_ij·p_j's, which reads x y z)
-    dargs = ctx.density_operands(pm)
-    q4 = dargs[0]
-    dens = SP.density_sweep(cfg, *dargs)
+    dens = SP.density_sweep(cfg, *ctx.density_operands(pm))
     dens_safe = torch.clamp(dens, min=1e-12)
     inv_d2 = 1.0 / (dens_safe * dens_safe)
 
@@ -82,10 +129,11 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     src_p = ctx.pack(vel_adv, pm)
     pr = SP.dii_rhoadv_sweep(cfg, ctx.queries(*vel_adv, *vel, inv_d2,
                                               width=12), src_p, *rng)
-    dii = (pr[:, 0], pr[:, 1], pr[:, 2])
+    dii = pr[:, :3]
     rho_adv = dens + pr[:, 3]
     dpi = pm * inv_d2
-    aii = SP.aii_sweep(cfg, ctx.queries(*dii, dpi, width=8), src_p, *rng)
+    aii = SP.aii_sweep(cfg, ctx.queries(*dii.unbind(1), dpi, width=8), src_p,
+                       *rng)
 
     p = 0.5 * ctx.pres_prev   # p⁰ = ½·p_prev (sph_kernel_impl.cuh:1197)
 
@@ -95,27 +143,17 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     live = torch.abs(denom) > 1e-12
     w_denom = omega / denom
     b = rest - rho_adv
-    # loop-invariant operands; each iteration writes its columns in place:
-    # src_pd slot 6 = p/ρ² (fluid rows; the boundary rows keep ψ_b for the
-    # pressure force), src_j slots 6-9 = p, Σd_jk·p_k, qj cols 3-6 =
-    # Σd_ij·p_j, (m/ρ²)·p
-    src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
-    src_j = ctx.pack_wide([*dii, p, zero, zero, zero])
-    qj = ctx.queries(zero, zero, zero, zero, width=8)
+    # loop-invariant operands, each column written once per iteration
+    sum_dij_at = sum_dij_operands(ctx, inv_d2)
+    jacobi_at, jacobi_src = jacobi_operands(ctx, dii, dpi)
 
     loop = PredicatedLoop(LOOP, like=dens, tol=tol,
                           min_iters=cfg.iisph_min_iters,
                           max_iters=cfg.iisph_max_iters,
                           sync_every=SYNC_EVERY, err0=2.0 * tol)
     for _ in loop:
-        torch.mul(p, inv_d2, out=src_pd[:c, 6])
-        sum_dij = SP.sum_dij_sweep(cfg, q4, src_pd, ctx.seg_start_f,
-                                   ctx.seg_end_f, ctx.pvec)
-        src_j[:c, 6] = p
-        src_j[:c, 7:10] = sum_dij
-        qj[:, 3:6] = sum_dij
-        torch.mul(dpi, p, out=qj[:, 6])
-        fb = SP.jacobi_sweep(cfg, qj, src_j, *rng)
+        sum_dij = SP.sum_dij_sweep(cfg, *sum_dij_at(p))
+        fb = SP.jacobi_sweep(cfg, *jacobi_at(p, sum_dij))
 
         p_new = torch.where(live, (1.0 - omega) * p
                             + w_denom * (b - dt2 * fb), zero)
@@ -127,10 +165,11 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
         loop.advance(err_new)
 
     # -- pressure force + integration --------------------------------------
-    pd2 = p * inv_d2
-    src_pd[:c, 6] = pd2
-    f_p = SP.pressure_force_sweep(cfg, ctx.queries(pd2), src_pd, *rng,
-                                  plan=ctx.tile_plan)
+    # the Σd_ij·p_j matrix at the final p is the query x y z p/ρ²; the
+    # Jacobi source, its fluid rows' slot 6 the same p/ρ², the source
+    pq = sum_dij_at(p)[0]
+    f_p = SP.pressure_force_sweep(cfg, pq, pressure_source(jacobi_src, pq),
+                                  *rng, plan=ctx.tile_plan)
 
     pos = (ctx.px, ctx.py, ctx.pz)
     nv, npos = [], []

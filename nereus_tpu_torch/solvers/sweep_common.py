@@ -8,9 +8,8 @@ stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
 the kernels read are built from them per sweep. The density and force
 sweeps read one matrix each (:meth:`SweepCtx.density_operands`,
 :meth:`SweepCtx.force_operands`): the queries are its fluid rows, the
-boundary rows follow them. The IISPH Jacobi and the multiphase force
-sweeps read a (M, 12) wide source (:meth:`SweepCtx.pack_wide`), the
-multiphase density sweep and the multiphase DFSPH α and κ sweeps a (M, 4)
+boundary rows follow them. The multiphase force sweep reads a (M, 12)
+wide source (:meth:`SweepCtx.pack_wide`), the multiphase density sweep and the multiphase DFSPH α and κ sweeps a (M, 4)
 one (:meth:`SweepCtx.pack_psi`).
 A multiphase state's ``mass`` and ``rho0`` ride the sort with the
 positions. A moving boundary (``BoundaryData.vel`` set) packs its wall
@@ -165,8 +164,8 @@ class SweepCtx:
 
     def pack_wide(self, cols):
         """(C [+ Mb], 12) wide source: fluid rows ``x y z``, then ``cols``
-        and zero pads (Jacobi: d_jj xyz, p_j, Σd_jk·p_k xyz; multiphase
-        force: vx vy vz V_j p_j·V_j² [ρ0_j]); boundary rows
+        and zero pads (the multiphase force: vx vy vz V_j p_j·V_j²
+        [ρ0_j]); boundary rows
         ``x y z v_b ψ_b 0 0 0 0 0`` (v_b = 0 for a static wall)."""
         if len(cols) > SP.WIDE_WIDTH - 3:
             raise ValueError(f"pack_wide takes at most {SP.WIDE_WIDTH - 3} "

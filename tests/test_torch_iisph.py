@@ -5,7 +5,11 @@ sweeps).
   ``generic_sweep`` / ``fluid_force_sweep`` in interpret mode, fed the
   same sorted operands of one IISPH step: max|Δ| ≤ 1e-5·max|ref| per
   output column (float32 sums in another order: windows on one side,
-  per-row ``index_add_`` on the other).
+  per-row ``index_add_`` on the other), each on the step's own operand
+  builders (``iisph_cuda.sum_dij_operands``, ``jacobi_operands``).
+* The Jacobi twin on its e-source against the reference's per-pair order
+  (1e-6·max|ref|), and the step's Σd_ij·p_j matrix as the pressure
+  force's query.
 * ``iisph_step`` against ``iisph_step_pallas`` (interpret) and the jnp
   segment step, with the tolerances of ``tests/test_pallas_implicit.py``
   (positions atol 1e-6, velocities atol 2e-5, mean density error rtol
@@ -159,7 +163,6 @@ def _port_sweeps(pcfg, pparams, pstate, pgrid_, pbnd, ref):
     pm = pparams.particle_mass
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     dargs = ctx.density_operands(pm)
-    q4 = dargs[0]
     dens = t["dens"]
     ds = dens.clamp(min=1e-12)
     inv_d2 = 1.0 / (ds * ds)
@@ -177,14 +180,14 @@ def _port_sweeps(pcfg, pparams, pstate, pgrid_, pbnd, ref):
                               *rng)
     p = t["p"]
     torch.testing.assert_close(0.5 * ctx.pres_prev, p, rtol=0, atol=0)
-    src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
-    got["sum_dij"] = SP.sum_dij_sweep(pcfg, q4, src_pd, ctx.seg_start_f,
-                                      ctx.seg_end_f, ctx.pvec)
-    sd = t["sum_dij"].unbind(1)
-    got["fb"] = SP.jacobi_sweep(pcfg, ctx.queries(*sd, dpi * p, width=8),
-                                ctx.pack_wide([*dii, p, *sd]), *rng)
-    got["f_p"] = SP.pressure_force_sweep(pcfg, ctx.queries(p * inv_d2),
-                                         src_pd, *rng)
+    # the step's own operand builders (solvers/iisph_cuda.py)
+    sum_dij_at = iisph_cuda.sum_dij_operands(ctx, inv_d2)
+    got["sum_dij"] = SP.sum_dij_sweep(pcfg, *sum_dij_at(p))
+    jacobi_at, jsrc = iisph_cuda.jacobi_operands(ctx, t["pr"][:, :3], dpi)
+    got["fb"] = SP.jacobi_sweep(pcfg, *jacobi_at(p, t["sum_dij"]))
+    pq = sum_dij_at(p)[0]
+    got["f_p"] = SP.pressure_force_sweep(
+        pcfg, pq, iisph_cuda.pressure_source(jsrc, pq), *rng)
     return {k: v.numpy() for k, v in got.items()}, ctx.seg_start.shape[0]
 
 
@@ -207,6 +210,97 @@ def test_iisph_sweeps_match_jax(exact_reciprocal, kernel_set, st,
             assert scale > 0.0, (name, col)
             err = np.abs(g[:, col] - want[:, col]).max()
             assert err <= 1e-5 * scale, (name, col, err, scale)
+
+
+def _reference_order_pair(q, s, pv, *, kernel_set):
+    """The Jacobi fluid pair in the reference's order on its 12-wide rows
+    (``pallas_sph.py::jacobi_fluid_pair``: d_jj in slots 3-5, p_j in 6,
+    Σd_jk·p_k in 7-9): (Σd_ij·p_j − d_jj·p_j) − Σd_jk·p_k per pair."""
+    dx, dy, dz, r2, sg, okf = SP._default_grad(q, s, pv, kernel_set)
+    p_j = s[:, 6]
+    ix = q[:, 3] - s[:, 3] * p_j - s[:, 7]
+    iy = q[:, 4] - s[:, 4] * p_j - s[:, 8]
+    iz = q[:, 5] - s[:, 5] * p_j - s[:, 9]
+    inner = sg * (ix * dx + iy * dy + iz * dz) + q[:, 6] * sg * sg * r2
+    return (pv[SP.PV_PM] * inner * okf)[:, None]
+
+
+@pytest.mark.parametrize("kernel_set,st", MODELS[:2], ids=MODEL_IDS[:2])
+def test_jacobi_e_source_matches_reference_order(kernel_set, st):
+    """The Jacobi twin on the step's 8-wide source (e_j = d_jj·p_j +
+    Σd_jk·p_k written once per iteration, sd_i − e_j per pair) against
+    the reference's per-pair order on the 12-wide rows, on one step's
+    operands with live walls and a real warm-start pressure: max|Δ| ≤
+    1e-6·max|ref| (the same terms rounded in another order, measured
+    0.8-1.7e-7 on this scene; the wall rows are the same formula on the
+    same ψ_b)."""
+    from nereus_tpu_torch.ops.neighbors import neighbor_sweep_plain
+    pcfg, pparams, pstate, pg, pb = to_port(*_implicit_scene(
+        True, kernel_set, st, floor=-0.115, seed=1, calibrated=True))
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    pm = pparams.particle_mass
+    dens = SP.density_sweep(pcfg, *ctx.density_operands(pm))
+    inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    dii = SP.dii_rhoadv_sweep(pcfg, ctx.queries(*vel, *vel, inv_d2,
+                                                width=12),
+                              ctx.pack(vel, pm), ctx.seg_start, ctx.seg_end,
+                              ctx.pvec)[:, :3]
+    p = 0.5 * ctx.pres_prev
+    sd = SP.sum_dij_sweep(pcfg, *iisph_cuda.sum_dij_operands(ctx, inv_d2)(p))
+    q, src, s, e, pv = iisph_cuda.jacobi_operands(ctx, dii, pm * inv_d2)[0](
+        p, sd)
+    assert src.shape == (ctx.c + pb.num_boundaries, 8)
+    got = SP.jacobi_sweep(pcfg, q, src, s, e, pv)
+    wide = ctx.pack_wide([*dii.unbind(1), p, *sd.unbind(1)])
+    want = neighbor_sweep_plain(
+        SP._bind(_reference_order_pair, pcfg, pv), q, wide, s, e, 1,
+        pair_fn_b=SP._bind(SP.jacobi_boundary_pair, pcfg, pv))[:, 0]
+    walls = neighbor_sweep_plain(
+        SP._bind(SP.jacobi_boundary_pair, pcfg, pv), q, src, s[9:], e[9:], 1)
+    assert float(walls.abs().max()) > 0.0 and float(p.max()) > 0.0
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * scale, (err, scale)
+
+
+def test_sum_dij_matrix_is_the_pressure_query(monkeypatch):
+    """In the step, Σd_ij·p_j reads one (C, 4) matrix ``x y z p/ρ²`` as its
+    queries and source, the same storage in every iteration, and after the
+    loop that matrix is the pressure force's query, its slot 3 the p/ρ²
+    of the source's fluid rows; the Jacobi sum reads an 8-wide source
+    whose wall rows are the step's ``x y z v_b ψ_b 0``, the same storage
+    in every iteration, and after the loop that source is the pressure
+    force's."""
+    seen = {"sum_dij": [], "jacobi": [], "pressure": []}
+
+    def record(name, sweep):
+        def wrapped(cfg, q, src, *rest, **kw):
+            seen[name].append((q, src, q.clone(), src.clone()))
+            return sweep(cfg, q, src, *rest, **kw)
+        return wrapped
+    for name, attr in (("sum_dij", "sum_dij_sweep"),
+                       ("jacobi", "jacobi_sweep"),
+                       ("pressure", "pressure_force_sweep")):
+        monkeypatch.setattr(SP, attr, record(name, getattr(SP, attr)))
+    pcfg, pparams, pstate, pg, pb = to_port(*_implicit_scene(
+        True, calibrated=True))
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    pt.iisph_step(pstate, pparams, pg, pcfg, pb)
+    c = ctx.c
+    pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
+    assert len(seen["sum_dij"]) == len(seen["jacobi"]) > 1
+    (m, _, _, _), = seen["sum_dij"][:1]
+    for q, src, qv, _ in seen["sum_dij"]:
+        assert q is src and q.data_ptr() == m.data_ptr()
+        assert q.shape == (c, 4) and torch.equal(qv[:, :3], pos)
+    (pq, psrc, pqv, psrcv), = seen["pressure"]
+    assert pq.data_ptr() == m.data_ptr() and pq.shape == (c, 4)
+    assert torch.equal(pqv[:, 3], psrcv[:c, 6]) and float(pqv[:, 3].max()) > 0
+    for q, src, _, srcv in seen["jacobi"]:
+        assert q.shape == (c, 8) and src.shape == (c + pb.num_boundaries, 8)
+        assert torch.equal(srcv[c:], ctx.b_src)
+        assert src.data_ptr() == psrc.data_ptr()
 
 
 # ---------------------------------------------------------------------------

@@ -118,7 +118,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     assert [f for f in cuda_sweep._inputs_of_build()
             if f.endswith(".cuh")] == [
         os.path.join(PKG_DIR, "csrc", f) for f in (
-            "sweep_common.cuh", "tiled_sweep.cuh")]
+            "group_sweep.cuh", "sweep_common.cuh", "tiled_sweep.cuh")]
 
 
 def test_a_newer_header_rebuilds(monkeypatch, tmp_path):
@@ -143,8 +143,8 @@ IISPH_SWEEPS = {
     "dii_rhoadv": (SP.dii_rhoadv_sweep, cuda_sweep.dii_rhoadv_sweep, 12, 8,
                    18),
     "aii": (SP.aii_sweep, cuda_sweep.aii_sweep, 8, 8, 18),
-    "sum_dij": (SP.sum_dij_sweep, cuda_sweep.sum_dij_sweep, 4, 8, 9),
-    "jacobi": (SP.jacobi_sweep, cuda_sweep.jacobi_sweep, 8, 12, 18),
+    "sum_dij": (SP.sum_dij_sweep, cuda_sweep.sum_dij_sweep, 4, 4, 9),
+    "jacobi": (SP.jacobi_sweep, cuda_sweep.jacobi_sweep, 8, 8, 18),
     "pressure_force": (SP.pressure_force_sweep,
                        cuda_sweep.pressure_force_sweep, 4, 8, 18),
 }
@@ -487,8 +487,9 @@ def test_lane_groups_match_plain_on_cuda(cuda, kernel_set, st, large,
     way round when not): the density kernel on the small dam-break's one
     matrix and on a body shell's ``x y z ψ_b`` rows, and every force
     instance (pressure and viscosity each on and off, static and moving
-    walls) against their plain versions: density rtol 1e-5, forces
-    max|Δ| ≤ 1e-4·max|ref| per column."""
+    walls), and the IISPH Jacobi loop's SumDij and Jacobi on the step's
+    operand builders, against their plain versions: density rtol 1e-5,
+    the others max|Δ| ≤ 1e-4·max|ref| per column."""
     monkeypatch.setattr(cuda_sweep, "SMALL_N", 0 if large else 2 ** 31)
     monkeypatch.setattr(cuda_sweep, "SMALL_SHELL", 2 ** 31 if large else 0)
     from nereus_tpu_torch import boundary as B
@@ -512,6 +513,23 @@ def test_lane_groups_match_plain_on_cuda(cuda, kernel_set, st, large,
                     SP.fluid_force_sweep_plain(cfg, *fargs, **kw),
                     f"force G={cuda_sweep.force_group(len(fargs[0]), v)} "
                     f"{kw}")
+    # the IISPH Jacobi loop's two kernels on the step's operand builders,
+    # at a seeded pressure and d_ii standing in for Σd_ij·p_j
+    from nereus_tpu_torch.solvers import iisph_cuda
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
+    p = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.0, 2000.0, ctx.c).astype(np.float32)).to(cuda)
+    sargs = iisph_cuda.sum_dij_operands(ctx, inv_d2)(p)
+    sd = SP.sum_dij_sweep_plain(cfg, *sargs)
+    _assert_columns_close(cuda_sweep.sum_dij_sweep(cfg, *sargs), sd,
+                          f"sum_dij G={cuda_sweep.SUM_DIJ_G}")
+    dii = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1) * 1e-3
+    jargs = iisph_cuda.jacobi_operands(
+        ctx, dii, params.particle_mass * inv_d2)[0](p, sd)
+    _assert_columns_close(cuda_sweep.jacobi_sweep(cfg, *jargs),
+                          SP.jacobi_sweep_plain(cfg, *jargs),
+                          f"jacobi G={cuda_sweep.JACOBI_G}")
     box = nereus_tpu_torch.make_rigid_box(
         state.pos.mean(dim=0).cpu().numpy(), (0.08,) * 3,
         float(params.particle_radius), 500.0, params, device=cuda)
@@ -573,17 +591,18 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
     inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
     p = 0.5 * ctx.pres_prev
     dii = (vel[0] * 1e-3, vel[1] * 1e-3, vel[2] * 1e-3)
-    src_pd = ctx.pack((zero, zero, zero), p * inv_d2)
+    dii3 = torch.stack(dii, dim=1)
     cases = {
         "dii_rhoadv": (ctx.queries(*vel, *vel, inv_d2, width=12),
                        ctx.pack(vel, pm), *rows),
         "aii": (ctx.queries(*dii, pm * inv_d2, width=8), ctx.pack(vel, pm),
                 *rows),
-        "sum_dij": (ctx.queries(width=4), src_pd, ctx.seg_start_f,
-                    ctx.seg_end_f, ctx.pvec),
-        "jacobi": (ctx.queries(*dii, pm * inv_d2 * p, width=8),
-                   ctx.pack_wide([*dii, p, *dii]), *rows),
-        "pressure_force": (ctx.queries(p * inv_d2), src_pd, *rows),
+        # the step's operand builders, d_ii standing in for Σd_ij·p_j
+        "sum_dij": iisph_cuda.sum_dij_operands(ctx, inv_d2)(p),
+        "jacobi": iisph_cuda.jacobi_operands(ctx, dii3, pm * inv_d2)[0](
+            p, dii3),
+        "pressure_force": (ctx.queries(p * inv_d2),
+                           ctx.pack((zero, zero, zero), p * inv_d2), *rows),
     }
     plain = {"dii_rhoadv": SP.dii_rhoadv_sweep_plain,
              "aii": SP.aii_sweep_plain, "sum_dij": SP.sum_dij_sweep_plain,

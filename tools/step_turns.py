@@ -29,7 +29,8 @@ operands built by its own checkout's ``chip_smoke.py`` (its
 ``sweep_inputs``, ``wcsph_visc_operands``, ``iisph_operands`` or
 ``pcisph_operands``, so that each side feeds its kernels in its own
 contract): the density and force kernels on every path, and the
-Laplacian (wcsph_visc) or the pressure force (iisph, pcisph), each
+Laplacian (wcsph_visc), the pressure force (iisph, pcisph), and the
+Jacobi loop's Σd_ij·p_j and Jacobi sums (iisph), each
 host-free (20 launches captured in a CUDA graph, the replay timed with
 CUDA events, the better of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
@@ -165,7 +166,8 @@ else:
                    "iisph": own.iisph_operands,
                    "pcisph": own.pcisph_operands}[solver]
     keep = {"wcsph_visc": ("density", "force_v0", "visc_laplacian"),
-            "iisph": ("density", "force_p0", "pressure_force"),
+            "iisph": ("density", "force_p0", "sum_dij", "jacobi",
+                      "pressure_force"),
             "pcisph": ("density", "force_p0", "density_pred",
                        "pressure_force")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
