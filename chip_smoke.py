@@ -99,15 +99,16 @@ Phases, in order; any failure exits non-zero:
     the multiphase kernels (none of the single-phase DFSPH kernels) and
     the light phase's mean height above the heavy phase's; then its
     kernels against their plain versions, timed;
-17. the three PBF kernels (λ sums, Δp, ω) and the λ kernel on the fluid
-    rows alone (vorticity confinement's N) against their plain versions
-    on a ~32k-particle settled block (PBF parameters, mass calibrated to
-    the 0.8·h lattice, impact velocity −1 m/s, so λ ≠ 0 from the first
+17. the four PBF kernels ((ρ, λ), Δp, ω and vorticity confinement's N,
+    the λ sums over the fluid rows) against their plain versions on a
+    ~32k-particle settled block (PBF parameters, mass calibrated to the
+    0.8·h lattice, impact velocity −1 m/s, so λ ≠ 0 from the first
     iteration; seeded at 0.7·h under Monaghan kernels), fed the first
     step's operands built by the step's own operand functions
     (``solvers/pbf_cuda.py``): the first iteration's λ and Δp, then ω and
     N at the velocities after the iterations, both kernel sets (max|Δ| ≤
-    1e-4·max|ref| per output column, and finite);
+    1e-4·max|ref| per output column, and finite; λ as
+    :func:`check_lambda`);
 18. the PBF path ``pbf_1M`` (``bench.py:355``, built as ``bench.py:392-
     393, 112``): ``dam_break(calibrate_mass(pbf_params()), n_target=
     2**20)`` with its boundary shell, 300 ``pbf_step`` calls at dt = 1e-3,
@@ -123,9 +124,8 @@ Phases, in order; any failure exits non-zero:
 20. the PBF path ``pbf_1M_vort_xsph``: phase 18's dam-break with
     ``xsph_eps = 0.02`` and ``vorticity_eps = 0.01`` (the CLI's ``--solver
     pbf --xsph 0.02 --vorticity 0.01``), 300 steps, phase 18's gates with
-    λ launched ``pbf_iters + 1`` times per step (N), Δp ``pbf_iters``, ω
-    and XSPH once; then the λ, Δp, ω and XSPH kernels against their plain
-    versions at these shapes, timed (and N untimed).
+    N, ω and XSPH launched once per step; then the λ, Δp, N, ω and XSPH
+    kernels against their plain versions at these shapes, timed.
 
 21. the moving-wall kernels against their plain versions on the phase-3
     dam-break with its walls moving at (0.8, 0, −0.4) m/s
@@ -430,8 +430,8 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
             "force_v0": (39, 31), "force_p0_v0": (31, 27),
             "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
-            "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (30, 27),
-            "pbf_dp": (31, 22), "pbf_omega": (33, 0),
+            "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (28, 25),
+            "pbf_dp": (30, 21), "pbf_grad": (28, 0), "pbf_omega": (33, 0),
             "force_moving": (56, 43), "force_p0_moving": (48, 39),
             "mp_force_moving": (72, 51), "body_density": (15, 0),
             "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
@@ -451,20 +451,26 @@ GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
            "fluid_reaction_p0": 9, "density": 9, "density_pred": 9,
            "body_density": 9, "force": 9, "force_p0": 9, "force_v0": 9,
            "force_p0_v0": 9, "force_moving": 9, "force_p0_moving": 9,
-           "sum_dij": 9, "jacobi": 9}
+           "sum_dij": 9, "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9,
+           "pbf_grad": 9}
 # bytes each pair reads of a query row, a fluid source row and a wall
 # source row, for the kernels whose rows carry columns their pair never
 # reads: SumDij's one matrix x y z p/rho^2 (queries and source), Jacobi's
 # query x y z sd (m/rho^2)p (not its pad), fluid rows x y z e (not the two
-# zero slots), wall rows x y z psi_b (not v_b, not the pad). Their bound
-# counts these and no cell key: the port's ranges are exact, so no kernel
-# reads a key.
-READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16)}
+# zero slots), wall rows x y z psi_b (not v_b, not the pad); PBF's one
+# matrix, its fluid rows the queries: lambda reads x y z of a fluid row (m
+# is a parameter) and x y z psi_b of a wall row, Delta p x y z lambda and
+# x y z psi_b; N's x y z psi. Their bound counts these and no cell key:
+# the port's ranges are exact, so no kernel reads a key. Where the queries
+# are the source's first rows they are read once.
+READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
+              "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
+              "pbf_grad": (16, 16, 0)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
 # of csrc/group_sweep.cuh), whose rows name their G
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
-           "sum_dij", "jacobi")
+           "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -503,7 +509,7 @@ def bound(key, args, out):
         # the source's first rows are the queries' fluid rows, then walls
         qb, fb, wb = READ_BYTES[key]
         n, m = q.shape[0], src.shape[0]
-        nbytes = (fb * m if shared else qb * n + fb * n + wb * (m - n))
+        nbytes = (0 if shared else qb * n) + fb * n + wb * (m - n)
         nbytes += sum(t.numel() * t.element_size() for t in (pv, out))
     else:
         ins = (src, pv, out) if shared else (q, src, pv, out)
@@ -670,8 +676,9 @@ def time_turns(name, kern, plain, reps=20):
 def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
-    ``SUM_DIJ_G``, ``JACOBI_G``) and the queries that have a candidate
-    in their ranges."""
+    ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``, ``pbf_dp_group``,
+    ``PBF_GRAD_G``) and the queries that have a candidate in their
+    ranges."""
     from nereus_tpu_torch.ops import cuda_sweep
     q, src, s, e, _ = args
     n = q.shape[0]
@@ -683,6 +690,12 @@ def group_stats(key, args, kw):
         g = cuda_sweep.SUM_DIJ_G
     elif key == "jacobi":
         g = cuda_sweep.JACOBI_G
+    elif key == "pbf_lambda":
+        g = cuda_sweep.PBF_LAMBDA_G
+    elif key == "pbf_dp":
+        g = cuda_sweep.pbf_dp_group(n)
+    elif key == "pbf_grad":
+        g = cuda_sweep.PBF_GRAD_G
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -973,10 +986,10 @@ def pbf_path_operands(cfg, ctx, params, vorticity=False):
     """The operands of every sweep of one PBF step from ``ctx`` (built at
     x*, ``pbf_cuda.advected``), by ``solvers/pbf_cuda.py``'s own operand
     functions, each from the plain versions' upstream results: the first
-    iteration's λ and Δp; with ``vorticity``, also ω and N (key
-    ``pbf_lambda_n``) at the velocities after the ``pbf_iters`` plain
-    iterations, and XSPH at those after the plain confinement.
-    ``{key: (kernel, plain, args, kwargs)}``."""
+    iteration's λ and Δp (its λ from the plain λ); with
+    ``vorticity``, also ω and N (key ``pbf_grad``) at the velocities after
+    the ``pbf_iters`` plain iterations, and XSPH at those after the plain
+    confinement. ``{key: (kernel, plain, args, kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers import pbf_cuda, wcsph_cuda
     rest, pm = params.rest_density, params.particle_mass
@@ -986,17 +999,18 @@ def pbf_path_operands(cfg, ctx, params, vorticity=False):
     ops = {}
     for _ in range(cfg.pbf_iters):
         largs = lam_at(x)
-        dens, lam = pbf_cuda.lambda_of(
-            SP.pbf_lambda_sweep_plain(cfg, *largs), rest, cfg)
+        dens, lam = SP.pbf_lambda_sweep_plain(cfg, *largs).unbind(1)
         dargs = dp_at(lam)
         if not ops:
             # the first iteration's operands, kept from the in-place writes
+            # (the λ sweeps do not read the λ in the fluid rows' slot 3),
+            # the queries still the first rows of the source
+            src = dargs[1].clone()
+            args = (src[:ctx.c], src, *dargs[2:])
             ops = {"pbf_lambda": (cuda_sweep.pbf_lambda_sweep,
-                                  SP.pbf_lambda_sweep_plain,
-                                  tuple(t.clone() for t in largs), {}),
+                                  SP.pbf_lambda_sweep_plain, args, {}),
                    "pbf_dp": (cuda_sweep.pbf_dp_sweep,
-                              SP.pbf_dp_sweep_plain,
-                              tuple(t.clone() for t in dargs), {})}
+                              SP.pbf_dp_sweep_plain, args, {})}
             if not vorticity:
                 return ops
         dp = SP.pbf_dp_sweep_plain(cfg, *dargs)
@@ -1009,7 +1023,7 @@ def pbf_path_operands(cfg, ctx, params, vorticity=False):
     ox, oy, oz = om.unbind(1)
     nargs = pbf_cuda.grad_operands(
         ctx, mrho * torch.sqrt(ox * ox + oy * oy + oz * oz))
-    al = SP.pbf_lambda_sweep_plain(cfg, *nargs)
+    al = SP.pbf_grad_sweep_plain(cfg, *nargs)
     nx, ny, nz = al[:, 1], al[:, 2], al[:, 3]
     ninv = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
     k = params.dt * PBF_VORTICITY_EPS
@@ -1019,8 +1033,8 @@ def pbf_path_operands(cfg, ctx, params, vorticity=False):
     return {**ops,
             "pbf_omega": (cuda_sweep.pbf_omega_sweep,
                           SP.pbf_omega_sweep_plain, oargs, {}),
-            "pbf_lambda_n": (cuda_sweep.pbf_lambda_sweep,
-                             SP.pbf_lambda_sweep_plain, nargs, {}),
+            "pbf_grad": (cuda_sweep.pbf_grad_sweep, SP.pbf_grad_sweep_plain,
+                         nargs, {}),
             "xsph": (cuda_sweep.xsph_sweep, SP.xsph_sweep_plain,
                      wcsph_cuda.xsph_operands(ctx, v, dens), {})}
 
@@ -1817,7 +1831,8 @@ def run_dfsph_coupled(name, dev, kind):
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
     """Each kernel of ``ops`` (``{key: (kernel, plain, args, kwargs)}``;
     ``keys``, default all) against its plain version on the same operands:
-    max|Δ| ≤ FORCE_TOL·max|ref| per output column, and finite. Returns
+    max|Δ| ≤ FORCE_TOL·max|ref| per output column (the λ of PBF's (ρ, λ)
+    by :func:`check_lambda`), and finite. Returns
     per-kernel (max_abs_err, ms, plain_ms, bound_ms, bound_by,
     bound_ranges_ms) when timed."""
     out, msg = {}, []
@@ -1829,7 +1844,11 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
         zero = list(ZERO_COLS.get(key.removesuffix("_rev"), ()))
         if zero and (bool(g2[:, zero].any()) or bool(r2[:, zero].any())):
             fail(f"{label}: {key} writes its zero columns {zero}")
-        live = [c for c in range(g2.shape[1]) if c not in zero]
+        # the λ column of (ρ, λ) is held by check_lambda
+        apart = (1,) if key == "pbf_lambda" else ()
+        if apart:
+            check_lambda(got, ref, args[4], f"{label}: {key}")
+        live = [c for c in range(g2.shape[1]) if c not in zero + list(apart)]
         g2, r2 = g2[:, live], r2[:, live]
         err = (g2 - r2).abs().amax(dim=0)
         scale = r2.abs().amax(dim=0)
@@ -1853,6 +1872,28 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
                 out[key] += (group_stats(key, args, kw),)
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
+
+
+def check_lambda(got, ref, pvec, label):
+    """The λ kernel's (ρ, λ) against its plain version's: λ within
+    FORCE_TOL·max|λ| plus what the two ρ's difference and two float32 ulps
+    of ρ/ρ₀ make of it (λ = −max(ρ/ρ₀ − 1, 0)/(denom + ε) resolves ρ/ρ₀
+    to its ulp, over ε), and finite. ρ is held by :func:`compare_kernels`'
+    column check. A state under ρ₀ everywhere has λ = 0, and the check
+    then holds the clamp alone: phase 17 gates λ < 0 on its operands."""
+    from nereus_tpu_torch.ops.sph_pairs import PV_PBF_EPS, PV_RD
+    rd, eps = float(pvec[PV_RD]), float(pvec[PV_PBF_EPS])
+    floor = ((got[:, 0] - ref[:, 0]).abs()
+             + 2.0 * float(np.finfo(np.float32).eps) * ref[:, 0]) / rd / eps
+    err = (got[:, 1] - ref[:, 1]).abs()
+    scale = float(ref[:, 1].abs().max())
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: kernel output not finite")
+    if not bool((err <= FORCE_TOL * scale + floor).all()):
+        fail(f"{label}: λ max|d| {float(err.max()):.3g} > {FORCE_TOL}·"
+             f"max|λ| {scale:.3g} + the ρ rounding floor")
+    print(f"  {label}: λ max|d| {float(err.max()):.3g}/{scale:.4g} (floor "
+          f"≤ {float(floor.max()):.3g}), min λ {float(ref[:, 1].min()):.4g}")
 
 
 TILE_SIZES = (64, 128, 256)
@@ -2177,12 +2218,12 @@ def run_settled_path(solver, dev, loops, cg=None):
 def run_pbf_path(name, scene, n_steps, timed_from, **kw):
     """``n_steps`` ``pbf_step`` calls on ``scene`` (``(cfg, params, state,
     grid, boundary)``) with ``kw`` (``xsph_eps``, ``vorticity_eps``), the
-    steps after ``timed_from`` timed with CUDA events. Gates: λ launched
-    ``pbf_iters`` times per step (once more with vorticity, for N), Δp
-    ``pbf_iters`` times, ω and XSPH once with their options, no other
-    kernel; ``solver_iters`` = ``pbf_iters``; zero overflow; finite
-    positions; nothing below the floor; mean compression < 0.1 on every
-    step. Returns ``(state, launches)``."""
+    steps after ``timed_from`` timed with CUDA events. Gates: λ and Δp
+    launched ``pbf_iters`` times per step, N and ω once with vorticity
+    confinement, XSPH once with its option, no other kernel;
+    ``solver_iters`` = ``pbf_iters``; zero overflow; finite positions;
+    nothing below the floor; mean compression < 0.1 on every step.
+    Returns ``(state, launches)``."""
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
     cfg, params, state, grid, boundary = scene
@@ -2213,11 +2254,11 @@ def run_pbf_path(name, scene, n_steps, timed_from, **kw):
           f"{float(diags[-1].max_density):.6g}, min λ "
           f"{float(state.pressure.min()):.6g}")
     it = cfg.pbf_iters
-    vort = kw.get("vorticity_eps") is not None
-    want = {cuda_sweep.PBF_LAMBDA: n_steps * (it + vort),
+    want = {cuda_sweep.PBF_LAMBDA: n_steps * it,
             cuda_sweep.PBF_DP: n_steps * it}
-    if vort:
+    if kw.get("vorticity_eps") is not None:
         want[cuda_sweep.PBF_OMEGA] = n_steps
+        want[cuda_sweep.PBF_GRAD] = n_steps
     if kw.get("xsph_eps") is not None:
         want[cuda_sweep.XSPH] = n_steps
     check_launches(name, want)
@@ -3545,7 +3586,7 @@ def main():
                         f"{boundary.num_boundaries} min λ "
                         f"{float(lam.min()):.4g}",
                         keys=("pbf_lambda", "pbf_dp", "pbf_omega",
-                              "pbf_lambda_n"))
+                              "pbf_grad"))
     torch.cuda.synchronize()
     del state, ctx, boundary, grid, ops
 
@@ -3586,16 +3627,11 @@ def main():
         xsph_eps=PBF_XSPH_EPS, vorticity_eps=PBF_VORTICITY_EPS)
     ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
                           cfg, boundary)
-    ops = pbf_path_operands(cfg, ctx, params, vorticity=True)
-    # the λ kernel of the N sweep, untimed: the path's λ entry is the
-    # iterations' shapes
-    compare_kernels(cfg, ops, f"pbf_1M_vort_xsph after {N_STEPS} steps, N",
-                    keys=("pbf_lambda_n",))
     pbfv_timing = compare_kernels(
-        cfg, ops, f"pbf_1M_vort_xsph after {N_STEPS} steps",
-        keys=("pbf_lambda", "pbf_dp", "pbf_omega", "xsph"), time_it=True)
+        cfg, pbf_path_operands(cfg, ctx, params, vorticity=True),
+        f"pbf_1M_vort_xsph after {N_STEPS} steps", time_it=True)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del state, ctx, ops, pbf_1m, boundary, grid
+    del state, ctx, pbf_1m, boundary, grid
 
     # -- 24. the DFSPH path under the wavemaker ------------------------------
     cfg, params, state, grid, boundary, _, dwm_launches = run_settled_path(
@@ -3767,6 +3803,8 @@ def main():
             "pbf_lambda": (cuda_sweep.PBF_LAMBDA, pbf_src, rep + "949"),
             "pbf_dp": (cuda_sweep.PBF_DP, pbf_src, rep + "1044"),
             "pbf_omega": (cuda_sweep.PBF_OMEGA, pbf_src, rep + "1019"),
+            # N: pbf_lambda_pair's sums over the fluid rows
+            "pbf_grad": (cuda_sweep.PBF_GRAD, pbf_src, rep + "949"),
             "force_moving": (cuda_sweep.FORCE_MOVING, sph_src, rep + "326"),
             "force_p0_moving": (cuda_sweep.FORCE_P0_MOVING, sph_src,
                                 rep + "326"),

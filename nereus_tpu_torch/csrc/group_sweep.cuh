@@ -8,7 +8,8 @@
 // nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel as
 // nereus_tpu/ops/pallas_sph.py::generic_sweep launches it, for the pair
 // functions whose functors it runs (iisph_sweep.cu: sum_dij_pair,
-// jacobi_fluid_pair + jacobi_boundary_pair).
+// jacobi_fluid_pair + jacobi_boundary_pair; pbf_sweep.cu: pbf_lambda_pair,
+// pbf_dp_pair).
 //
 // What bounds a range-walk sweep on this card. Each query walks 9 (18 with
 // walls) short runs of 0-6 hash-sorted candidates; about 15 % of a 27-cell
@@ -28,6 +29,7 @@
 //   empty runs add nothing. The group walks the list G candidates at a
 //   time, lane l taking flat indices l, l + G, ...: neighbouring lanes read
 //   neighbouring source rows, and no lane waits on another's run lengths.
+//   A lone lane (G 1) loads the next candidate's row ahead.
 // - A candidate first loads the first float4 of its source row (x y z and
 //   one value) and tests r^2 < h^2. The pair runs only inside the cutoff,
 //   and loads any further float4 of the row only there.
@@ -45,9 +47,12 @@
 // Functors: pair_sweep_kernel's interface (QW, SW, OW, BOUNDARY_ROWS,
 // template <int KS, bool B> pair, an optional prologue), for a pair that
 // adds nothing outside the cutoff, with the pair handed the first float4
-// of the candidate's row that the engine loaded:
-// pair(q, a, src, j, params, acc). A pair_sweep_kernel functor moves here
-// with one NEREUS_GROUP_SWEEP line and its first load replaced by `a`.
+// of the candidate's row that the engine loaded: pair(q, a, src, j,
+// params, acc). A pair_sweep_kernel functor moves here with one
+// NEREUS_GROUP_SWEEP line and its first load replaced by `a`. A functor
+// may define OUTW and epilogue(acc, params, o): lane 0 turns the group's
+// sums into OUTW values, written as (OUTW, N) planes (PbfLambda's rho and
+// lambda), where a functor without one writes its sums as (N, OW) rows.
 //
 // Numerics: float32, no fast-math; the functors keep the r^2 clamp before
 // rsqrtf (sweep_common.cuh).
@@ -180,10 +185,17 @@ inline int group_blocks(int n) {
 // The engine for pair functors
 // ---------------------------------------------------------------------------
 
+template <class P, class = void>
+struct HasEpilogue : std::false_type {};
+template <class P>
+struct HasEpilogue<P, std::void_t<decltype(&P::epilogue)>>
+    : std::true_type {};
+
 // The range walk of a pair functor P by groups of G lanes per query: rows
 // 0-8 and (BOUNDARY_ROWS, 18 range rows) rows 9-17 as one list, each
 // candidate inside the cutoff taking the fluid formula on rows 0-8 and the
-// wall formula on rows 9-17; out (N, OW).
+// wall formula on rows 9-17; out (N, OW), or (OUTW, N) planes from P's
+// epilogue.
 template <class P, int KS, int G>
 __global__ void __launch_bounds__(THREADS)
 group_pair_sweep_kernel(const float* __restrict__ q,
@@ -213,8 +225,8 @@ group_pair_sweep_kernel(const float* __restrict__ q,
   RowTable<NR>& t = rows[grp];
   const int total = build_rows<G, NR>(t, i, live, n, 0, min(n_rows, NR),
                                       seg_start, seg_end, lane);
-  walk<G, false>(t, total, lane, reinterpret_cast<const float4*>(src),
-                 P::SW / 4, [&](int j, float4 a, int r) {
+  walk<G, G == 1>(t, total, lane, reinterpret_cast<const float4*>(src),
+                  P::SW / 4, [&](int j, float4 a, int r) {
     const float dx = qv[0] - a.x, dy = qv[1] - a.y, dz = qv[2] - a.z;
     if (dx * dx + dy * dy + dz * dz < p.h2) {
       if (!P::BOUNDARY_ROWS || r < N_ROWS) {
@@ -227,23 +239,28 @@ group_pair_sweep_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int k = 0; k < P::OW; ++k) acc[k] = group_sum<G>(acc[k]);
   if (live && lane == 0) {
+    if constexpr (HasEpilogue<P>::value) {
+      float o[P::OUTW];
+      P::epilogue(acc, p, o);
 #pragma unroll
-    for (int k = 0; k < P::OW; ++k) {
-      out[static_cast<size_t>(i) * P::OW + k] = acc[k];
+      for (int k = 0; k < P::OUTW; ++k) {
+        out[static_cast<size_t>(k) * n + i] = o[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < P::OW; ++k) {
+        out[static_cast<size_t>(i) * P::OW + k] = acc[k];
+      }
     }
   }
 }
 
-// Launches group_pair_sweep_kernel<P, kernel_set, G> on `stream`, G the
-// one lane count ops/cuda_sweep.py picks for P; returns cudaGetLastError()
-// (0 on success), or -1 for an unknown kernel set or another group.
+// Launches group_pair_sweep_kernel<P, kernel_set, G> on `st`; returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
 template <class P, int G>
-int launch_group_sweep(const float* q, const float* src, const int* seg_start,
-                       const int* seg_end, int n, int n_rows,
-                       const float* pvec, int kernel_set, int group,
-                       float* out, void* stream) {
-  if (group != G) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch_group_at(const float* q, const float* src, const int* seg_start,
+                    const int* seg_end, int n, int n_rows, const float* pvec,
+                    int kernel_set, float* out, cudaStream_t st) {
 #define NEREUS_GROUP(KS)                                                     \
   if (kernel_set == KS) {                                                    \
     group_pair_sweep_kernel<P, KS, G>                                        \
@@ -257,19 +274,39 @@ int launch_group_sweep(const float* q, const float* src, const int* seg_start,
   return -1;
 }
 
+// Launches group_pair_sweep_kernel<P, kernel_set, group> on `stream`, the
+// group one of the lane counts Gs that ops/cuda_sweep.py can pick for P;
+// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
+// set or another group.
+template <class P, int... Gs>
+int launch_group_sweep(const float* q, const float* src, const int* seg_start,
+                       const int* seg_end, int n, int n_rows,
+                       const float* pvec, int kernel_set, int group,
+                       float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = -1;
+  ((group == Gs ? (rc = launch_group_at<P, Gs>(q, src, seg_start, seg_end, n,
+                                               n_rows, pvec, kernel_set, out,
+                                               st),
+                   true)
+                : false) ||
+   ...);
+  return rc;
+}
+
 }  // namespace nereus_sweep
 
 // The C entry point nereus_<NAME>_sweep of group_pair_sweep_kernel<PAIR>,
-// for use inside an extern "C" block, built for G lanes per query (the one
-// group size its wrapper picks): launches one kernel on `stream` and
-// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
-// set or another group.
-#define NEREUS_GROUP_SWEEP(NAME, PAIR, G)                                    \
+// for use inside an extern "C" block, built for the lane counts given
+// after PAIR (those its wrapper can pick): launches one kernel on `stream`
+// and returns cudaGetLastError() (0 on success), or -1 for an unknown
+// kernel set or another group.
+#define NEREUS_GROUP_SWEEP(NAME, PAIR, ...)                                  \
   int nereus_##NAME##_sweep(const float* q, const float* src,               \
                             const int* seg_start, const int* seg_end, int n, \
                             int n_rows, const float* pvec, int kernel_set,   \
                             int group, float* out, void* stream) {           \
-    return nereus_sweep::launch_group_sweep<PAIR, G>(                        \
+    return nereus_sweep::launch_group_sweep<PAIR, __VA_ARGS__>(             \
         q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, group, out, \
         stream);                                                             \
   }

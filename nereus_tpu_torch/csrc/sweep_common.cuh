@@ -20,7 +20,7 @@ enum {
   PV_KVISC_DEN = 5, PV_H = 6, PV_KAPPA = 7, PV_WDIAM = 8, PV_BETA = 10,
   PV_VISC = 11, PV_CS = 12, PV_RD = 13, PV_K = 14, PV_KSURF1 = 15,
   PV_KSURF2 = 16, PV_KPOLY_GRAD = 17, PV_DT = 22, PV_SCORR_S = 23,
-  PV_STX = 24
+  PV_STX = 24, PV_PBF_EPS = 25
 };
 
 // KernelSet and SurfaceTensionModel enum values of params.py
@@ -38,6 +38,7 @@ struct Params {
       visc, cs, rd, k, ksurf1, ksurf2, kpoly_grad, dt;
   float scorr_s;  // PBF k^(1/4) / W(dq h): scorr = -(W scorr_s)^4
   float stx;    // cross-phase Becker cohesion factor (SimConfig.st_cross)
+  float pbf_eps;  // PBF constraint relaxation (SimConfig.pbf_eps)
   float sigma;  // Monaghan 1/(4 pi h^3)
 };
 
@@ -63,6 +64,7 @@ __device__ __forceinline__ Params load_params(const float* __restrict__ pv) {
   p.dt = __ldg(pv + PV_DT);
   p.scorr_s = __ldg(pv + PV_SCORR_S);
   p.stx = __ldg(pv + PV_STX);
+  p.pbf_eps = __ldg(pv + PV_PBF_EPS);
   p.sigma = 1.0f / (12.566370614359172f * p.h * p.h * p.h);
   return p;
 }

@@ -80,10 +80,12 @@ VISC_LAPLACIAN = Kernel("tiled_pair_sweep_kernel<ViscLaplacian>")
 MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
 MP_DRHO = Kernel("pair_sweep_kernel<MultiphaseDrho>")
 MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
-# PBF's λ sums (also vorticity confinement's N), Δp and ω
-PBF_LAMBDA = Kernel("pair_sweep_kernel<PbfLambda>")
-PBF_DP = Kernel("pair_sweep_kernel<PbfDp>")
+# PBF's (ρ, λ), Δp and ω, and vorticity confinement's N (the λ sums over
+# the fluid rows), each counted apart
+PBF_LAMBDA = Kernel("group_pair_sweep_kernel<PbfLambda>")
+PBF_DP = Kernel("group_pair_sweep_kernel<PbfDp>")
 PBF_OMEGA = Kernel("pair_sweep_kernel<PbfOmega>")
+PBF_GRAD = Kernel("group_pair_sweep_kernel<PbfGrad>")
 # the force kernels whose wall friction reads a moving wall's velocity:
 # WCSPH's, then the implicit solvers' pressure-off one; the multiphase one
 FORCE_MOVING = Kernel("force_sweep_kernel<MOVING=1>")
@@ -128,7 +130,7 @@ KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
            ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
            MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
-           LAYOUT_SOA)
+           LAYOUT_SOA, PBF_GRAD)
 
 _lock = threading.Lock()
 _lib = None
@@ -291,8 +293,8 @@ _SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 1, "jacobi": 1, "alpha": 0,
               "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
               "xsph": 0, "multiphase_alpha": 0,
-              "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 0,
-              "pbf_dp": 0, "pbf_omega": 0, "body_force": 1,
+              "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 1,
+              "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
               "multiphase_body": 0, "elastic_f": 0,
               "elastic_force_hourglass": 0, "fluid_reaction": 1,
               "pressure_force_body": 0, "alpha_body": 0,
@@ -312,21 +314,23 @@ def _launch(kernel: Kernel, fn: str, device, *args):
 
 
 def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
-           seg_start, seg_end, pvec, rows, out_cols, *switches):
+           seg_start, seg_end, pvec, rows, out_cols, *switches,
+           planes=False):
     """Checks and launches one kernel of ``_SWEEP_FNS``: q (N, fq),
     src (M, fs), ranges with a row count in ``rows``, the entry point's
     int ``switches``; the output is (N, out_cols), or (N,) for
-    out_cols 0."""
+    out_cols 0, or with ``planes`` the (N, out_cols) transpose of the
+    (out_cols, N) planes the kernel writes (each column contiguous)."""
     n, n_rows = _check_inputs(q, fq, src, seg_start, seg_end, pvec, fs=fs,
                               rows=rows)
-    shape = (n, out_cols) if out_cols else (n,)
+    shape = (out_cols, n) if planes else (n, out_cols) if out_cols else (n,)
     out = torch.empty(shape, dtype=torch.float32, device=q.device)
-    if n == 0:
-        return out
-    _launch(kernel, f"{fn}_sweep", q.device, q.data_ptr(), src.data_ptr(),
-            seg_start.data_ptr(), seg_end.data_ptr(), n, n_rows,
-            pvec.data_ptr(), cfg.kernel_set.value, *switches, out.data_ptr())
-    return out
+    if n:
+        _launch(kernel, f"{fn}_sweep", q.device, q.data_ptr(),
+                src.data_ptr(), seg_start.data_ptr(), seg_end.data_ptr(), n,
+                n_rows, pvec.data_ptr(), cfg.kernel_set.value, *switches,
+                out.data_ptr())
+    return out.t() if planes else out
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +483,23 @@ def body_group(m: int) -> int:
 # below ``SMALL_N`` queries, where the density takes 4.
 SUM_DIJ_G = 2
 JACOBI_G = 4
+
+
+# lanes per query G of the PBF loop's λ and Δp kernels and of N
+# (``csrc/pbf_sweep.cu``, which builds only these), as measured on the
+# H100 (``tools/group_scan.py``; PERF.md section 6): λ takes 2 at every
+# query count (4 took 6 % more time at 1,092,727 queries and 1 % less at
+# 262,144); Δp 4 below ``SMALL_N`` queries and 2 above, as the density (4
+# lost 7 % above, 2 lost 4 % below); N, the λ sums over the 9 fluid rows
+# of ``pbf_1M_vort_xsph``'s 1,092,727 queries, 2 (4 and 1 lost 14 % and
+# 11 %).
+PBF_LAMBDA_G = 2
+PBF_GRAD_G = 2
+
+
+def pbf_dp_group(n: int) -> int:
+    """The Δp kernel's G for ``n`` queries."""
+    return 4 if n < SMALL_N else 2
 
 
 def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
@@ -634,17 +655,18 @@ def multiphase_kappa_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 
 
 def pbf_lambda_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """PBF constraint sums (ρ, Σψ∇W, Σ|ψ∇W|²) (N, 5): q (N, 4),
-    src (M, 4); 9 range rows for the fluid sums alone (vorticity
-    confinement's N)."""
+    """PBF (ρ, λ) (N, 2), each column a contiguous (N,) plane: q (N, 4),
+    src (M, 4) whose first N rows are the queries (ψ = m, slot 3 unread),
+    then the wall rows ``x y z ψ_b``."""
     return _sweep(PBF_LAMBDA, "pbf_lambda", cfg, q, 4, src, 4, seg_start,
-                  seg_end, pvec, (9, 18), 5)
+                  seg_end, pvec, (9, 18), 2, PBF_LAMBDA_G, planes=True)
 
 
 def pbf_dp_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """PBF position correction Δp·ρ₀ (N, 3): q (N, 4), src (M, 4)."""
+    """PBF position correction Δp·ρ₀ (N, 3): q (N, 4) ``x y z λ_i``,
+    src (M, 4) fluid rows ``x y z λ_j``, wall rows ``x y z ψ_b``."""
     return _sweep(PBF_DP, "pbf_dp", cfg, q, 4, src, 4, seg_start, seg_end,
-                  pvec, (9, 18), 3)
+                  pvec, (9, 18), 3, pbf_dp_group(q.shape[0]))
 
 
 def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -652,6 +674,14 @@ def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     src (M, 8), ranges (9, N)."""
     return _sweep(PBF_OMEGA, "pbf_omega", cfg, q, 8, src, 8, seg_start,
                   seg_end, pvec, (9,), 3)
+
+
+def pbf_grad_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """Vorticity confinement's N: the λ sums (ρ, Σψ∇W, Σ|ψ∇W|²) (N, 5)
+    over the fluid rows only, q and src one (N, 4) ``x y z ψ`` matrix,
+    ranges (9, N)."""
+    return _sweep(PBF_GRAD, "pbf_grad", cfg, q, 4, src, 4, seg_start,
+                  seg_end, pvec, (9,), 5, PBF_GRAD_G)
 
 
 def body_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):

@@ -21,8 +21,8 @@ a (M, 12) wide source (``WIDE_WIDTH``): fluid rows ``x y z vx vy vz V_j
 p_j·V_j² [ρ0_j] pad…``, boundary rows with ψ_b in slot 6.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
 rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
-sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j, m or λ_j,
-boundary s = ψ_b).
+sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j or λ_j,
+boundary s = ψ_b; PBF's λ sweep reads its fluid ψ = m from pvec).
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -34,7 +34,7 @@ Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
 sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
 implicit viscosity solve's ``visc_laplacian_sweep``, the three
-multiphase DFSPH sweeps, PBF's λ, Δp and ω sweeps, the rigid-body
+multiphase DFSPH sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
 ``elastic_force_hourglass_sweep``, the elastic coupling's
@@ -62,7 +62,8 @@ from .neighbors import neighbor_sweep_plain
 
 _EPS = 1e-12
 
-# pvec layout (shared with the JAX package and csrc/sph_sweep.cu)
+# pvec layout (the JAX package's, and csrc/sweep_common.cuh's, which
+# adds PV_PBF_EPS)
 PV_H2 = 0
 PV_PM = 1
 PV_KPOLY = 2
@@ -88,7 +89,8 @@ PV_INVCELL = 21
 PV_DT = 22
 PV_SCORR_S = 23
 PV_STX = 24
-PV_LEN = 25
+PV_PBF_EPS = 25    # PBF's λ relaxation ε (the λ kernel's epilogue)
+PV_LEN = 26
 
 SRC_WIDTH = 8
 WIDE_WIDTH = 12
@@ -135,6 +137,7 @@ def build_pvec(params: SimParams, cfg: SimConfig, grid):
     else:
         vals[PV_SCORR_S] = zero
     vals[PV_STX] = torch.full_like(h, cfg.st_cross)
+    vals[PV_PBF_EPS] = torch.full_like(h, cfg.pbf_eps)
     return torch.stack([v.to(device=h.device, dtype=cfg.dtype)
                         for v in vals])
 
@@ -705,6 +708,19 @@ def pbf_lambda_pair(q, s, pv, *, kernel_set, include_sq):
     return torch.stack([d, c * dx, c * dy, c * dz, sq], dim=1)
 
 
+def pbf_lambda_of(al, pv):
+    """(ρ, λ) (N, 2) from the λ sums ``al`` (N, 5), in the JAX step's
+    order (``pbf_pallas.py:71-75``): λ = −max(ρ/ρ₀ − 1, 0) / ((|Σψ∇W|² +
+    Σ|ψ∇W|²)/ρ₀² + ε), ρ₀ and ε from ``pv``; the λ kernel's epilogue. The
+    columns are contiguous (N,) planes, as the kernel writes them."""
+    rd = pv[PV_RD]
+    dens = al[:, 0]
+    comp = torch.clamp(dens / rd - 1.0, min=0.0)
+    denom = (al[:, 1] ** 2 + al[:, 2] ** 2 + al[:, 3] ** 2
+             + al[:, 4]) / (rd * rd)
+    return torch.stack([dens, -comp / (denom + pv[PV_PBF_EPS])]).t()
+
+
 def pbf_dp_pair(q, s, pv, *, kernel_set, boundary):
     """PBF position correction (unscaled by 1/ρ₀): fluid sources
     m(λ_i + λ_j + scorr)∇W with scorr = −(W·s_corr)⁴ (``PV_SCORR_S``),
@@ -1076,15 +1092,29 @@ def multiphase_kappa_sweep_plain(cfg: SimConfig, q, src, seg_start,
         3, pair_fn_b=_bind(multiphase_kappa_bpair, cfg, pvec))
 
 
-def pbf_lambda_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
-                           pvec):
-    """(ρ, Σψ∇W xyz, Σ|ψ∇W|²) (N, 5): q (N, 4), src (M, 4) fluid rows
-    ``x y z ψ``, boundary rows ``x y z ψ_b``; the square sum over the
-    fluid rows only (9 range rows: the fluid sums alone)."""
+def pbf_grad_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """The λ sums (ρ, Σψ∇W xyz, Σ|ψ∇W|²) (N, 5): q (N, 4), src (M, 4)
+    ``x y z ψ``; the walls (18 range rows, ψ_b) add to ρ and Σψ∇W, not to
+    the square sum. On 9 range rows, one (N, 4) matrix as q and src:
+    vorticity confinement's N (the CUDA kernel takes 9 rows only)."""
     return neighbor_sweep_plain(
         _bind(pbf_lambda_pair, cfg, pvec, include_sq=True), q, src,
         seg_start, seg_end, 5,
         pair_fn_b=_bind(pbf_lambda_pair, cfg, pvec, include_sq=False))
+
+
+def pbf_lambda_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                           pvec):
+    """PBF (ρ, λ) (N, 2), each column a contiguous plane:
+    :func:`pbf_lambda_of` of the λ sums (:func:`pbf_grad_sweep_plain`)
+    with ψ = m (``PV_PM``) on the fluid rows; q (N, 4), src (M, 4) whose
+    first N rows are the queries (their slot 3 unread), then the boundary
+    rows ``x y z ψ_b``."""
+    n = q.shape[0]
+    fluid = torch.cat([src[:n, :3], pvec[PV_PM].expand(n, 1)], dim=1)
+    return pbf_lambda_of(pbf_grad_sweep_plain(
+        cfg, q, torch.cat([fluid, src[n:]]), seg_start, seg_end, pvec),
+        pvec)
 
 
 def pbf_dp_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -1263,6 +1293,7 @@ multiphase_kappa_sweep = _dispatcher(multiphase_kappa_sweep_plain,
 pbf_lambda_sweep = _dispatcher(pbf_lambda_sweep_plain, "pbf_lambda_sweep")
 pbf_dp_sweep = _dispatcher(pbf_dp_sweep_plain, "pbf_dp_sweep")
 pbf_omega_sweep = _dispatcher(pbf_omega_sweep_plain, "pbf_omega_sweep")
+pbf_grad_sweep = _dispatcher(pbf_grad_sweep_plain, "pbf_grad_sweep")
 elastic_f_sweep = _dispatcher(elastic_f_sweep_plain, "elastic_f_sweep")
 elastic_force_hourglass_sweep = _dispatcher(
     elastic_force_hourglass_sweep_plain, "elastic_force_hourglass_sweep")

@@ -4,18 +4,21 @@
 Advection v* = v + dt·g, x* = x + dt·v* on active rows → one sweep
 context on x*, whose ranges every sweep of the step walks (the
 frozen-neighborhood contract of PCISPH's predicted density) →
-``cfg.pbf_iters`` iterations, each a λ sweep at the iterate x (ρ, Σψ∇W,
-Σ|ψ∇W|²; λ = −max(ρ/ρ₀ − 1, 0)/((|Σψ∇W|² + Σ|ψ∇W|²)/ρ₀² + ε)) and a Δp
-sweep at the same x (x += Δp/ρ₀ on active rows) → v = v* + (x − x*)/dt
-→ optional vorticity confinement (ω sweep, then N = Σ(m/ρ_j·|ω_j|)∇W
-through the λ kernel on the fluid rows, both at x*) → optional XSPH (the
-XSPH kernel at x*). The ρ the step reports, and that vorticity and XSPH
-read, is the last λ sweep's: the density at the iterate before the last
-correction, as in JAX. On CUDA tensors the sweeps are the hand-written
-kernels of ``csrc/``; on CPU tensors their plain PyTorch versions.
+``cfg.pbf_iters`` iterations, each a λ sweep at the iterate x (ρ and
+λ = −max(ρ/ρ₀ − 1, 0)/((|Σψ∇W|² + Σ|ψ∇W|²)/ρ₀² + ε), formed in the
+kernel) and a Δp sweep at the same x on that λ (x += Δp/ρ₀ on active
+rows) → v = v* + (x − x*)/dt → optional vorticity confinement (ω sweep,
+then N = Σ(m/ρ_j·|ω_j|)∇W, the λ sums over the fluid rows, both at x*) →
+optional XSPH (the XSPH kernel at x*). The ρ the step reports, and that
+vorticity and XSPH read, is the last λ sweep's: the density at the
+iterate before the last correction, as in JAX. On CUDA tensors the sweeps
+are the hand-written kernels of ``csrc/``; on CPU tensors their plain
+PyTorch versions.
 
-The iterations are a plain loop with no host read. Their operands are
-built once per step and written in place (:func:`pbf_operands`).
+The iterations are a plain loop with no host read: per iteration the
+iterate and then λ are written into the step's one operand matrix
+(:func:`pbf_operands`), around the λ kernel, then the Δp kernel and the
+x update.
 """
 
 from __future__ import annotations
@@ -35,37 +38,26 @@ from .wcsph_cuda import xsph_operands
 
 
 def pbf_operands(ctx: SweepCtx, particle_mass):
-    """The λ and Δp sweeps' operands, loop-invariant: returns
-    ``(lam_at, dp_at)``. ``lam_at(x)`` writes the (C, 3) iterate in place
-    into the 4-wide queries and the fluid rows of the λ source ``x y z m``
-    and returns ``(q, src, seg_start, seg_end, pvec)``; ``dp_at(lam)``
-    writes λ into query column 3 and returns the Δp sweep's operands, whose
-    source's fluid rows are the queries ``x y z λ`` themselves. Boundary
-    rows ``x y z ψ_b``; the ranges stay the context's, built at x*."""
-    c = ctx.c
-    src_lam = ctx.pack_psi(ctx.queries(particle_mass.expand(c)))
-    src_dp = ctx.pack_psi(ctx.queries(width=4))
-    q = src_dp[:c]
-    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    """The λ and Δp sweeps' operands on one (C [+ Mb], 4) matrix built
+    once per step, fluid rows ``x y z m``, then the boundary rows
+    ``x y z ψ_b`` (:meth:`SweepCtx.density_operands`); returns ``(lam_at,
+    dp_at)``. ``lam_at(x)`` writes the (C, 3) iterate into the fluid
+    rows' x y z, in place, and returns ``(q, src, seg_start, seg_end,
+    pvec)``: q the fluid rows, src the whole matrix, the ranges the
+    context's, built at x*; the λ sweep's operands (it takes ψ = m from
+    pvec). ``dp_at(lam)`` writes λ into the fluid rows' slot 3 and
+    returns the same tuple, now the Δp sweep's operands ``x y z λ``."""
+    args = ctx.density_operands(particle_mass)
+    q = args[0]
 
     def lam_at(x):
         q[:, :3] = x
-        src_lam[:c, :3] = x
-        return (q, src_lam, *rng)
+        return args
 
     def dp_at(lam):
         q[:, 3] = lam
-        return (q, src_dp, *rng)
+        return args
     return lam_at, dp_at
-
-
-def lambda_of(al, rest_density, cfg: SimConfig):
-    """(ρ, λ) from the λ sweep's (N, 5) output, in the JAX step's order."""
-    dens = al[:, 0]
-    comp = torch.clamp(dens / rest_density - 1.0, min=0.0)
-    denom = (al[:, 1] ** 2 + al[:, 2] ** 2 + al[:, 3] ** 2
-             + al[:, 4]) / (rest_density * rest_density)
-    return dens, -comp / (denom + cfg.pbf_eps)
 
 
 def omega_operands(ctx: SweepCtx, v, mrho):
@@ -77,7 +69,7 @@ def omega_operands(ctx: SweepCtx, v, mrho):
 
 
 def grad_operands(ctx: SweepCtx, psi):
-    """The operands of N = Σψ_j∇W at x* (the λ kernel on the fluid
+    """The operands of N = Σψ_j∇W at x* (the λ sums on the fluid
     ranges): one (C, 4) matrix ``x y z ψ`` as query and source."""
     n4 = ctx.queries(psi)
     return n4, n4, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec
@@ -92,7 +84,7 @@ def confinement(ctx: SweepCtx, cfg: SimConfig, params: SimParams, v, dens,
     om = SP.pbf_omega_sweep(cfg, *omega_operands(ctx, v, mrho))
     ox, oy, oz = om.unbind(1)
     omn = torch.sqrt(ox * ox + oy * oy + oz * oz)
-    al = SP.pbf_lambda_sweep(cfg, *grad_operands(ctx, mrho * omn))
+    al = SP.pbf_grad_sweep(cfg, *grad_operands(ctx, mrho * omn))
     nx, ny, nz = al[:, 1], al[:, 2], al[:, 3]
     ninv = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
     f = ((ny * oz - nz * oy) * ninv, (nz * ox - nx * oz) * ninv,
@@ -131,8 +123,7 @@ def pbf_step_cuda(state: FluidState, params: SimParams, grid: gridlib.Grid,
     x = x0
     dens = lam = torch.zeros_like(ctx.px)
     for _ in range(cfg.pbf_iters):
-        dens, lam = lambda_of(SP.pbf_lambda_sweep(cfg, *lam_at(x)), rest,
-                              cfg)
+        dens, lam = SP.pbf_lambda_sweep(cfg, *lam_at(x)).unbind(1)
         dp = SP.pbf_dp_sweep(cfg, *dp_at(lam))
         x = torch.where(act, x + dp / rest, x)
 

@@ -178,6 +178,7 @@ PBF_SWEEPS = {
                    18),
     "pbf_dp": (SP.pbf_dp_sweep, cuda_sweep.pbf_dp_sweep, 4, 4, 18),
     "pbf_omega": (SP.pbf_omega_sweep, cuda_sweep.pbf_omega_sweep, 8, 8, 9),
+    "pbf_grad": (SP.pbf_grad_sweep, cuda_sweep.pbf_grad_sweep, 4, 4, 9),
 }
 COUPLED_SWEEPS = {
     "body_density": (SP.body_density_sweep, cuda_sweep.body_density_sweep,
@@ -219,13 +220,18 @@ ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
               **ELASTIC_SWEEPS, **DFSPH_BODY_SWEEPS}
 
 
-def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=5):
+def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=8):
+    """Zero operands (q, src, seg_start, seg_end, pvec) of the sweep
+    ``key``, with ρ₀ and PBF's ε set in pvec (λ's formula divides by
+    them)."""
     _, _, fq, fs, rows = ALL_SWEEPS[key]
+    pv = torch.zeros((SP.PV_LEN,), dtype=dtype, device=device)
+    pv[SP.PV_RD] = 1000.0
+    pv[SP.PV_PBF_EPS] = 100.0
     return (torch.zeros((n, fq), dtype=dtype, device=device),
             torch.zeros((m, fs), dtype=dtype, device=device),
             torch.zeros((rows, n), dtype=torch.int32, device=device),
-            torch.zeros((rows, n), dtype=torch.int32, device=device),
-            torch.zeros((SP.PV_LEN,), dtype=dtype, device=device))
+            torch.zeros((rows, n), dtype=torch.int32, device=device), pv)
 
 
 def _routes_by_device(dispatch, wrapper, key):
@@ -470,7 +476,8 @@ def test_kernels_match_plain_on_cuda(cuda, kernel_set, st, with_boundary):
     f = SP.fluid_force_sweep(cfg, *fargs)
     f_ref = SP.fluid_force_sweep_plain(cfg, *fargs)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == [1, 1] + [0] * 44
+    assert ([k.launches for k in cuda_sweep.KERNELS]
+            == [1, 1] + [0] * (N_KERNELS - 2))
     assert torch.isfinite(f).all()
     err = float((f - f_ref).abs().max())
     assert err <= 1e-4 * float(f_ref.abs().max()), err
@@ -620,8 +627,8 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
         "force_p0")
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([0, 0] + [1] * 6
-                                                        + [0] * 38)
+    assert [k.launches for k in cuda_sweep.KERNELS] == (
+        [0, 0] + [1] * 6 + [0] * (N_KERNELS - 8))
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -656,7 +663,7 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
     assert iters > 3 * cfg.iisph_min_iters
     launches = [k.launches for k in cuda_sweep.KERNELS]
     assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * 38
+    assert launches[8:] == [0] * (N_KERNELS - 8)
     assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
@@ -715,8 +722,8 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 8 + [1] * 3
-                                                        + [0] * 35)
+    assert [k.launches for k in cuda_sweep.KERNELS] == (
+        [0] * 8 + [1] * 3 + [0] * (N_KERNELS - 11))
 
 
 @pytest.mark.requires_cuda
@@ -736,8 +743,9 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
         iters += int(diag.solver_iters)
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
-    assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0] + [0] * 32
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([
+        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0]
+        + [0] * (N_KERNELS - 14))
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -754,8 +762,9 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
-    assert [k.launches for k in cuda_sweep.KERNELS] == [
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0] + [0] * 32
+    assert [k.launches for k in cuda_sweep.KERNELS] == ([
+        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0]
+        + [0] * (N_KERNELS - 14))
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -802,8 +811,8 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         plain = getattr(SP, f"{key}_sweep_plain")
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [1] * 3
-                                                        + [0] * 32)
+    assert [k.launches for k in cuda_sweep.KERNELS] == (
+        [0] * 11 + [1] * 3 + [0] * (N_KERNELS - 14))
 
 
 @pytest.mark.requires_cuda
@@ -818,16 +827,16 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
     for _ in range(3):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([0] * 11 + [3, 3, 0]
-                                                        + [0] * 32)
+    assert [k.launches for k in cuda_sweep.KERNELS] == (
+        [0] * 11 + [3, 3, 0] + [0] * (N_KERNELS - 14))
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
     for _ in range(3):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([3, 3] + [0] * 11
-                                                        + [3] + [0] * 32)
+    assert [k.launches for k in cuda_sweep.KERNELS] == (
+        [3, 3] + [0] * 11 + [3] + [0] * (N_KERNELS - 14))
     assert torch.isfinite(state.pos).all()
 
 
@@ -1021,23 +1030,45 @@ def _pbf_block(cuda, kernel_set="MULLER", n_target=4000):
     return cfg, params, state, grid, boundary
 
 
+def _assert_lambda_close(got, ref, pvec, key):
+    """(ρ, λ) (N, 2) of the λ kernel against its plain version: ρ within
+    rtol 1e-5 (the density kernel's), λ within 1e-4·max|λ| plus what the
+    two ρ's difference and two float32 ulps of ρ/ρ₀ make of it (λ =
+    −max(ρ/ρ₀ − 1, 0)/(denom + ε) resolves ρ/ρ₀ to its ulp, over ε), and
+    λ < 0 somewhere."""
+    rd, eps = float(pvec[SP.PV_RD]), float(pvec[SP.PV_PBF_EPS])
+    torch.testing.assert_close(got[:, 0], ref[:, 0], rtol=1e-5, atol=0,
+                               msg=key)
+    floor = ((got[:, 0] - ref[:, 0]).abs()
+             + 2.0 * float(np.finfo(np.float32).eps) * ref[:, 0]) / rd / eps
+    err = (got[:, 1] - ref[:, 1]).abs()
+    scale = float(ref[:, 1].abs().max())
+    assert float(ref[:, 1].min()) < 0.0, key
+    assert bool((err <= 1e-4 * scale + floor).all()), (key, float(err.max()),
+                                                       scale)
+
+
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
 @pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
-def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set):
-    """The λ, Δp, ω and N (the λ kernel on the fluid rows) kernels against
-    their plain versions on the first PBF step's operands of the small
-    settled block, built by the step's own operand functions, with seeded
-    velocities for ω: max|Δ| ≤ 1e-4·max|ref| per output column."""
+def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set, large,
+                                         monkeypatch):
+    """The λ, Δp, ω and N kernels against their plain versions on the
+    first PBF step's operands of the small settled block, built by the
+    step's own operand functions, with seeded velocities for ω, at each
+    lane-group size G the wrappers choose (``SMALL_N`` set so that the
+    small block takes the G of a large one when ``large``): (ρ, λ) as
+    :func:`_assert_lambda_close`, the others max|Δ| ≤ 1e-4·max|ref| per
+    output column."""
     from nereus_tpu_torch.solvers import pbf_cuda
+    monkeypatch.setattr(cuda_sweep, "SMALL_N", 0 if large else 2 ** 31)
     cfg, params, state, grid, boundary = _pbf_block(cuda, kernel_set)
     ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
                           cfg, boundary)
     x = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     lam_at, dp_at = pbf_cuda.pbf_operands(ctx, params.particle_mass)
     largs = tuple(t.clone() for t in lam_at(x))
-    dens, lam = pbf_cuda.lambda_of(SP.pbf_lambda_sweep_plain(cfg, *largs),
-                                   params.rest_density, cfg)
-    assert float(lam.min()) < 0.0
+    dens, lam = SP.pbf_lambda_sweep_plain(cfg, *largs).unbind(1)
     dargs = dp_at(lam)
     vel = torch.from_numpy(np.random.default_rng(0).uniform(
         -0.5, 0.5, (ctx.c, 3))).float().to(cuda)
@@ -1047,35 +1078,74 @@ def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set):
     om = SP.pbf_omega_sweep_plain(cfg, *oargs)
     nargs = pbf_cuda.grad_operands(ctx, mrho * om.norm(dim=1))
     cuda_sweep.reset_launches()
-    for key, args, cols in (("pbf_lambda", largs, 5), ("pbf_dp", dargs, 3),
-                            ("pbf_omega", oargs, 3), ("pbf_lambda", nargs,
-                                                      4)):
-        dispatch = PBF_SWEEPS[key][0]
-        plain = getattr(SP, f"{key}_sweep_plain")
-        _assert_columns_close(dispatch(cfg, *args)[:, :cols],
-                              plain(cfg, *args)[:, :cols], key)
+    _assert_lambda_close(SP.pbf_lambda_sweep(cfg, *largs),
+                         SP.pbf_lambda_sweep_plain(cfg, *largs), ctx.pvec,
+                         f"pbf_lambda G={cuda_sweep.PBF_LAMBDA_G}")
+    _assert_columns_close(SP.pbf_dp_sweep(cfg, *dargs),
+                          SP.pbf_dp_sweep_plain(cfg, *dargs),
+                          f"pbf_dp G={cuda_sweep.pbf_dp_group(ctx.c)}")
+    _assert_columns_close(SP.pbf_omega_sweep(cfg, *oargs), om, "pbf_omega")
+    _assert_columns_close(SP.pbf_grad_sweep(cfg, *nargs)[:, :4],
+                          SP.pbf_grad_sweep_plain(cfg, *nargs)[:, :4],
+                          f"pbf_grad G={cuda_sweep.PBF_GRAD_G}")
     torch.cuda.synchronize()
-    _assert_launches({cuda_sweep.PBF_LAMBDA: 2, cuda_sweep.PBF_DP: 1,
-                      cuda_sweep.PBF_OMEGA: 1})
+    _assert_launches({cuda_sweep.PBF_LAMBDA: 1, cuda_sweep.PBF_DP: 1,
+                      cuda_sweep.PBF_OMEGA: 1, cuda_sweep.PBF_GRAD: 1})
+
+
+@pytest.mark.requires_cuda
+def test_group_sweeps_build_only_their_g(cuda):
+    """Each entry point of the lane-group engine launches at the G its
+    wrapper can pick (below and above ``SMALL_N`` queries) and returns −1
+    for any other group value, launching nothing."""
+    lib = cuda_sweep.load()
+    picks = {
+        "sum_dij": {cuda_sweep.SUM_DIJ_G},
+        "jacobi": {cuda_sweep.JACOBI_G},
+        "pbf_lambda": {cuda_sweep.PBF_LAMBDA_G},
+        "pbf_dp": {cuda_sweep.pbf_dp_group(1),
+                   cuda_sweep.pbf_dp_group(cuda_sweep.SMALL_N)},
+        "pbf_grad": {cuda_sweep.PBF_GRAD_G}}
+    n = 8
+    q = torch.zeros((n, 8), device=cuda)
+    seg = torch.zeros((18, n), dtype=torch.int32, device=cuda)
+    pv = _sweep_inputs("pbf_lambda", device=cuda)[4]
+    out = torch.zeros((n, 8), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, want in picks.items():
+        rows = 9 if fn in ("sum_dij", "pbf_grad") else 18
+        built = set()
+        for g in (1, 2, 4, 8, 16, 32, 3):
+            rc = getattr(lib, f"nereus_{fn}_sweep")(
+                q.data_ptr(), q.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                n, rows, pv.data_ptr(),
+                nereus_tpu_torch.KernelSet.MULLER.value, g, out.data_ptr(),
+                stream)
+            assert rc in (0, -1), (fn, g, rc)
+            if rc == 0:
+                built.add(g)
+        assert built == want, (fn, built, want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.requires_cuda
 def test_pbf_steps_run_kernels_on_cuda(cuda):
     """A few PBF steps of the small settled block launch the λ and Δp
     kernels ``pbf_iters`` times each per step and nothing else; with
-    vorticity confinement and XSPH one more λ launch (N), one ω and one
-    XSPH launch per step."""
+    vorticity confinement and XSPH one N, one ω and one XSPH launch per
+    step."""
     cfg, params, state, grid, boundary = _pbf_block(cuda)
     it = cfg.pbf_iters
     for kw, extra in (({}, {}),
                       (dict(xsph_eps=0.02, vorticity_eps=0.01),
-                       {cuda_sweep.PBF_OMEGA: 3, cuda_sweep.XSPH: 3})):
+                       {cuda_sweep.PBF_OMEGA: 3, cuda_sweep.PBF_GRAD: 3,
+                        cuda_sweep.XSPH: 3})):
         cuda_sweep.reset_launches()
         s = state
         for _ in range(3):
             s, diag = nereus_tpu_torch.pbf_step(s, params, grid, cfg,
                                                 boundary, **kw)
-        _assert_launches({cuda_sweep.PBF_LAMBDA: 3 * (it + bool(kw)),
+        _assert_launches({cuda_sweep.PBF_LAMBDA: 3 * it,
                           cuda_sweep.PBF_DP: 3 * it, **extra})
         assert torch.isfinite(s.pos).all()
         assert int(diag.solver_iters) == it

@@ -74,8 +74,11 @@ def test_build_pvec_matches_jax(kernel_set, st):
     pcfg, pparams, _, pg, _ = to_port(cfg, params, state, grid, boundary)
     want = np.asarray(PS.build_pvec(params, cfg, grid))
     got = SP.build_pvec(pparams, pcfg, pg).numpy()
-    assert got.shape == (SP.PV_LEN,)
-    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    # the port's vector is JAX's with PBF's ε appended (read by the λ
+    # kernel's epilogue)
+    assert got.shape == (SP.PV_LEN,) == (len(want) + 1,)
+    np.testing.assert_array_max_ulp(got[:SP.PV_PBF_EPS], want, maxulp=1)
+    assert got[SP.PV_PBF_EPS] == np.float32(cfg.pbf_eps)
 
 
 KERNEL_FNS = {

@@ -1,16 +1,21 @@
 """The port's PBF step and its three sweeps vs the JAX package (CPU, plain
 sweeps), on ``tests/test_pbf.py``'s settle scene.
 
-* The λ, Δp and ω plain sweeps (and the λ sweep on the fluid rows alone,
-  vorticity confinement's N) against interpret-mode ``generic_sweep`` with
-  ``pbf_lambda_pair`` (``include_sq`` on the fluid rows, not on the wall
-  rows), ``pbf_dp_pair`` (``boundary`` False / True) and
-  ``pbf_omega_pair``, on the same sorted operands: the cube resting on the
-  floor and against two walls, the iterate displaced from x* by up to
-  0.1·h, seeded λ ≤ 0 and velocities, both kernel sets; max|Δ| ≤
-  1e-5·max|ref| per output column (float32 sums in another order), no
-  column all zero. With ``pbf_scorr_k = 0`` the Δp sweep matches JAX's
-  too, and differs from the one with scorr.
+* The λ, Δp, ω and N plain sweeps against interpret-mode
+  ``generic_sweep`` with ``pbf_lambda_pair`` (``include_sq`` on the fluid
+  rows, not on the wall rows; N on the fluid rows alone),
+  ``pbf_dp_pair`` (``boundary`` False / True) and ``pbf_omega_pair``, on
+  the same sorted operands: the cube resting on the floor and against two
+  walls, the iterate displaced from x* by up to 0.1·h, seeded λ ≤ 0 and
+  velocities, both kernel sets; max|Δ| ≤ 1e-5·max|ref| per output column
+  (float32 sums in another order), no column all zero. The λ sweep
+  returns (ρ, λ), held against JAX's sums put through
+  ``pbf_pallas.py:71-75``'s formula here (λ within 1e-5·max|λ| plus its
+  float32 resolution ``LAM_FLOOR``); Δp reads λ from the matrix. With
+  ``pbf_scorr_k = 0`` the Δp sweep matches JAX's too, and differs from
+  the one with scorr. λ is exactly 0 on a block under ρ₀ and negative on
+  an over-dense one, as JAX's. The step's one operand matrix carries the
+  iterate in its fluid rows and keeps its wall rows.
 * ``pbf_step`` against ``pbf_step_pallas`` (interpret) and the jnp segment
   step over three steps of ``_settle_scene(nside=7)``, without and with
   ``xsph_eps = 0.02, vorticity_eps = 0.01``, the port's own trajectory
@@ -125,6 +130,28 @@ def _jax_sweeps(cfg, params, state, grid, boundary, disp, lam, vel):
             al_n[:c, :4])
 
 
+def _jax_lambda(al, params, cfg):
+    """(ρ, λ) from JAX's λ sums (N, 5) by ``pbf_pallas.py:71-75``'s
+    formula, in float32."""
+    rd = params.rest_density
+    dens = al[:, 0]
+    comp = jnp.maximum(dens / rd - 1.0, 0.0)
+    denom = (al[:, 1] ** 2 + al[:, 2] ** 2 + al[:, 3] ** 2
+             + al[:, 4]) / (rd * rd)
+    return np.stack([np.asarray(dens), np.asarray(-comp
+                                                  / (denom + cfg.pbf_eps))],
+                    axis=1)
+
+
+def _assert_lambda_close(got, want, name):
+    """(ρ, λ) against JAX's: ρ within 1e-5·max|ρ|, λ within
+    1e-5·max|λ| plus its float32 resolution ``LAM_FLOOR``."""
+    assert_columns_close(got[:, :1], want[:, :1], 1e-5, f"{name} rho")
+    err = float(np.abs(got[:, 1] - want[:, 1]).max())
+    assert err <= 1e-5 * float(np.abs(want[:, 1]).max()) + LAM_FLOOR, (
+        name, err)
+
+
 def _port_sweeps(scene, disp, lam, vel, mrho, psi_n):
     """The same four sweeps on the port's plain dispatchers, operands from
     the step's own operand functions."""
@@ -133,14 +160,14 @@ def _port_sweeps(scene, disp, lam, vel, mrho, psi_n):
     assert ctx.seg_start.shape[0] == 18
     x = torch.stack([ctx.px, ctx.py, ctx.pz], 1) + torch.from_numpy(disp)
     lam_at, dp_at = pbf_cuda.pbf_operands(ctx, pparams.particle_mass)
-    al = SP.pbf_lambda_sweep(pcfg, *lam_at(x))
+    rl = SP.pbf_lambda_sweep(pcfg, *lam_at(x))
     dp = SP.pbf_dp_sweep(pcfg, *dp_at(torch.from_numpy(lam)))
     v = tuple(torch.from_numpy(vel[:, k].copy()) for k in range(3))
     om = SP.pbf_omega_sweep(pcfg, *pbf_cuda.omega_operands(
         ctx, v, torch.from_numpy(mrho.copy())))
-    al_n = SP.pbf_lambda_sweep(pcfg, *pbf_cuda.grad_operands(
+    al_n = SP.pbf_grad_sweep(pcfg, *pbf_cuda.grad_operands(
         ctx, torch.from_numpy(psi_n.copy())))
-    return al, dp, om, al_n, ctx
+    return rl, dp, om, al_n, ctx
 
 
 def _scene_sweeps(kernel_set, scorr_k=None):
@@ -161,19 +188,29 @@ def _scene_sweeps(kernel_set, scorr_k=None):
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
                                         jt.KernelSet.MONAGHAN])
 def test_pbf_sweeps_match_jax(kernel_set):
-    ref, (al, dp, om, al_n), ctx = _scene_sweeps(kernel_set)
+    ref, (rl, dp, om, al_n), ctx = _scene_sweeps(kernel_set)
     j_al, j_dp, _, j_om, _, j_al_n = ref
-    assert_columns_close(al.numpy(), j_al, 1e-5, "lambda")
+    cfg = pt.SimConfig(kernel_set=pt.KernelSet[kernel_set.name])
+    _assert_lambda_close(rl.numpy(), _jax_lambda(j_al, _contact_scene(
+        kernel_set)[1], cfg), "lambda")
+    if kernel_set == jt.KernelSet.MULLER:
+        # under Monaghan kernels the cube sits under ρ₀ (its mass is
+        # calibrated over the 2h support) and λ is 0:
+        # test_lambda_epilogue_matches_jax squeezes it
+        assert float(rl[:, 1].min()) < -1e3 * LAM_FLOOR
     assert_columns_close(dp.numpy(), j_dp, 1e-5, "dp")
     assert_columns_close(om.numpy(), j_om, 1e-5, "omega")
     assert_columns_close(al_n[:, :4].numpy(), j_al_n, 1e-5, "N")
-    # the walls add to ρ and Σψ∇W, not to the square sum
+    # λ is the formula of the sums; the walls add to ρ and Σψ∇W, not to
+    # the square sum
     lam_at, _ = pbf_cuda.pbf_operands(ctx, ctx.pvec[SP.PV_PM])
     q, src, _, _, pv = lam_at(torch.stack([ctx.px, ctx.py, ctx.pz], 1))
-    cfg = pt.SimConfig(kernel_set=pt.KernelSet[kernel_set.name])
-    both = SP.pbf_lambda_sweep(cfg, q, src, ctx.seg_start, ctx.seg_end, pv)
-    fluid = SP.pbf_lambda_sweep(cfg, q, src, ctx.seg_start[:9],
-                                ctx.seg_end[:9], pv)
+    both = SP.pbf_grad_sweep(cfg, q, src, ctx.seg_start, ctx.seg_end, pv)
+    fluid = SP.pbf_grad_sweep(cfg, q, src, ctx.seg_start[:9],
+                              ctx.seg_end[:9], pv)
+    assert torch.equal(SP.pbf_lambda_sweep(cfg, q, src, ctx.seg_start,
+                                           ctx.seg_end, pv),
+                       SP.pbf_lambda_of(both, pv))
     assert torch.equal(both[:, 4], fluid[:, 4])
     assert not torch.equal(both[:, 0], fluid[:, 0])
     assert not torch.equal(both[:, 2], fluid[:, 2])
@@ -198,6 +235,93 @@ def test_dp_sweep_without_scorr_matches_jax():
            + torch.from_numpy(disp))
     dp_k = SP.pbf_dp_sweep(pcfg, *dp_at(torch.from_numpy(lam)))
     assert float((dp_k - dp).abs().max()) > 1e-3 * float(dp.abs().max())
+
+
+@pytest.mark.parametrize("kernel_set,squeeze", [
+    (jt.KernelSet.MULLER, 1.25), (jt.KernelSet.MULLER, 0.9),
+    (jt.KernelSet.MONAGHAN, 0.75)],
+    ids=["under-rest", "over-dense", "monaghan-over-dense"])
+def test_lambda_epilogue_matches_jax(kernel_set, squeeze):
+    """The 5³ settle cube stretched ×1.25 about its centre, clear of
+    the walls (under ρ₀ everywhere), or the contact scene's cube squeezed
+    about its wall corner (over-dense inside: ×0.9, and ×0.75 under
+    Monaghan kernels, where the unsqueezed cube sits at 0.58·ρ₀), at x*:
+    the λ sweep's λ is exactly 0 on the whole stretched block, as JAX's
+    formula gives it, and negative inside a squeezed one where JAX's is;
+    (ρ, λ) against JAX's sums through ``pbf_pallas.py:71-75``'s formula as
+    in :func:`test_pbf_sweeps_match_jax`."""
+    cfg, params, grid, boundary, state = _contact_scene(kernel_set)
+    pos = np.asarray(state.pos)
+    if squeeze > 1.0:
+        pos = np.asarray(_settle_scene(nside=5)[4].pos)
+        mid = pos.mean(axis=0)
+    else:
+        mid = 0.6 * 2.0 * float(params.particle_radius)
+    pos = mid + (pos - mid) * squeeze
+    state = jt.make_fluid_state(pos.astype(np.float32))
+
+    def sums(s):
+        ctx = build_pallas_ctx(s, params, grid, cfg, boundary)
+        zeros = jnp.zeros((ctx.cb,), ctx.dtype)
+        pm = jnp.full((ctx.c,), 1.0, ctx.dtype) * params.particle_mass
+        return PS.generic_sweep(
+            cfg, PS.pbf_lambda_pair, ctx.queries(zeros, ctx.px, ctx.py,
+                                                 ctx.pz, width=8),
+            ctx.pack(slot6=pm), ctx.anchors, ctx.pvec, ctx.gsize,
+            out_width=8, n_rows=ctx.n_rows, include_sq=True,
+            pair_fn_b=PS.pbf_lambda_pair, pair_b_kw=dict(include_sq=False),
+            interpret=True)[:ctx.c, :5]
+    want = _jax_lambda(np.asarray(jax.jit(sums)(state)), params, cfg)
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid,
+                                            boundary)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    lam_at, _ = pbf_cuda.pbf_operands(ctx, pparams.particle_mass)
+    rl = SP.pbf_lambda_sweep(pcfg, *lam_at(torch.stack(
+        [ctx.px, ctx.py, ctx.pz], 1))).numpy()
+    if squeeze > 1.0:
+        assert float(want[:, 0].max()) < float(params.rest_density)
+        assert (want[:, 1] == 0.0).all() and (rl[:, 1] == 0.0).all()
+    else:
+        assert float(rl[:, 1].min()) < -1e3 * LAM_FLOOR
+        np.testing.assert_array_equal(rl[:, 1] < 0.0, want[:, 1] < 0.0)
+    _assert_lambda_close(rl, want, f"squeeze {squeeze}")
+
+
+def test_operand_matrix_keeps_wall_rows():
+    """:func:`pbf_cuda.pbf_operands` builds one matrix per step: in each
+    iteration ``lam_at(x)`` writes the iterate into its fluid rows' x y z
+    and ``dp_at(λ)`` λ into their slot 3, in place, and both leave the
+    wall rows ``x y z ψ_b`` as they are; q is its fluid rows, and every
+    iteration gets the same tensors. The λ sweep does not read the fluid
+    rows' slot 3 (ψ = m from pvec), the Δp sweep reads λ there."""
+    cfg, params, grid, boundary, state = _contact_scene()
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid,
+                                            boundary)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    c = ctx.c
+    lam_at, dp_at = pbf_cuda.pbf_operands(ctx, pparams.particle_mass)
+    x0 = torch.stack([ctx.px, ctx.py, ctx.pz], 1)
+    q, src, s, e, pv = lam_at(x0)
+    walls = src[c:].clone()
+    assert walls.shape[0] == boundary.num_boundaries
+    assert torch.equal(walls, ctx.density_operands(
+        pparams.particle_mass)[1][c:])
+    assert q.data_ptr() == src.data_ptr() and q.shape == (c, 4)
+    rl0 = SP.pbf_lambda_sweep(pcfg, q, src, s, e, pv)
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        x = x0 + torch.from_numpy(rng.uniform(-1e-3, 1e-3, (c, 3)).astype(
+            np.float32))
+        lam = torch.from_numpy(-rng.uniform(0.0, 1e-4, c).astype(np.float32))
+        args = lam_at(x)
+        assert all(a is b for a, b in zip(args, (q, src, s, e, pv)))
+        assert torch.equal(src[:c, :3], x)
+        assert torch.equal(src[c:], walls)
+        assert all(a is b for a, b in zip(dp_at(lam), args))
+        assert torch.equal(src[:c, :3], x) and torch.equal(src[:c, 3], lam)
+        assert torch.equal(src[c:], walls)
+    lam_at(x0)
+    assert torch.equal(SP.pbf_lambda_sweep(pcfg, q, src, s, e, pv), rl0)
 
 
 # ---------------------------------------------------------------------------

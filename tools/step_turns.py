@@ -3,7 +3,8 @@ on one CUDA card, their kernels' times on the final state, and how far
 the two final states lie apart.
 
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR [--pairs N]
-        [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph]
+        [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph|pbf|
+                  pbf_settled|pbf_vort_xsph]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
         [--log DIR]
 
@@ -22,15 +23,24 @@ launched); iisph, its ``settled_main_path`` (the settled 1,092,727-particle
 block) and ``run_steps`` (60 steps, steps 11-60 timed); pcisph, the
 settled 262,144-particle block of ``pcisph_256k_settled`` and ``run_steps``
 (60 steps, steps 11-60 timed); the implicit ones also print the run's
-total ``solver_iters``.
+total ``solver_iters``. pbf, its ``pbf_main_path`` (``pbf_1M``, the
+1,092,727-particle dam-break with its 119,688-sample shell) and
+``run_steps`` over ``pbf_step`` as ``run_pbf_path`` drives it (300 steps,
+steps 51-300 timed); pbf_settled, ``pbf_main_path(settled=True)``
+(``pbf_256k_settled``, 60 steps, steps 11-60 timed); pbf_vort_xsph,
+``pbf_1M`` with ``PBF_XSPH_EPS`` and ``PBF_VORTICITY_EPS``
+(``pbf_1M_vort_xsph``).
 
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
-``sweep_inputs``, ``wcsph_visc_operands``, ``iisph_operands`` or
-``pcisph_operands``, so that each side feeds its kernels in its own
-contract): the density and force kernels on every path, and the
-Laplacian (wcsph_visc), the pressure force (iisph, pcisph), and the
-Jacobi loop's Σd_ij·p_j and Jacobi sums (iisph), each
+``sweep_inputs``, ``wcsph_visc_operands``, ``iisph_operands``,
+``pcisph_operands`` or ``pbf_path_operands``, so that each side feeds its
+kernels in its own contract): the density and force kernels on the
+WCSPH, IISPH and PCISPH paths, and the Laplacian (wcsph_visc), the
+pressure force (iisph, pcisph), the Jacobi loop's Σd_ij·p_j and Jacobi
+sums (iisph), and the PBF loop's λ and Δp kernels and, with vorticity
+confinement, N (key ``pbf_grad``, which an earlier checkout computes with
+its λ kernel) and ω, at the state advected from the final one (pbf*), each
 host-free (20 launches captured in a CUDA graph, the replay timed with
 CUDA events, the better of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
@@ -109,7 +119,7 @@ smoke = load("chip_smoke", sys.argv[1])
 own = load("own_smoke", os.path.join(os.getcwd(), "chip_smoke.py"))
 import nereus_tpu_torch as nt
 from nereus_tpu_torch.ops import sph_pairs as SP
-from nereus_tpu_torch.solvers import viscosity
+from nereus_tpu_torch.solvers import pbf_cuda, viscosity
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
 
 
@@ -143,6 +153,18 @@ elif solver == "wcsph_wide12M":
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / smoke.WIDE_TIMED
+elif solver.startswith("pbf"):
+    settled = solver == "pbf_settled"
+    cfg, params, state, grid, boundary = smoke.pbf_main_path(dev, settled)
+    kw = (dict(xsph_eps=smoke.PBF_XSPH_EPS,
+               vorticity_eps=smoke.PBF_VORTICITY_EPS)
+          if solver == "pbf_vort_xsph" else {})
+    steps = ((smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM) if settled
+             else (smoke.N_STEPS, smoke.TIMED_FROM))
+    state, diags, ms, *_ = smoke.run_steps(
+        lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw), state,
+        *steps)
+    iters = sum(int(d.solver_iters) for d in diags)
 else:
     n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
     cfg, params, state, grid, boundary, step = smoke.settled_main_path(
@@ -154,13 +176,19 @@ assert bool(torch.isfinite(state.pos).all())
 live = state.active_mask()
 torch.save({"pos": state.pos[live].cpu(), "vel": state.vel[live].cpu(),
             "h": float(params.interaction_radius)}, sys.argv[3])
-ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+ctx = build_sweep_ctx(pbf_cuda.advected(state, params) if solver.startswith(
+    "pbf") else state, params, grid, cfg, boundary)
 if solver in ("wcsph", "wcsph_wide12M"):
     dargs, _ = own.sweep_inputs(ctx, params)
     _, fargs = own.sweep_inputs(ctx, params,
                                 SP.density_sweep(cfg, *dargs))
     ops = {"density": (SP.density_sweep, dargs, {}),
            "force": (SP.fluid_force_sweep, fargs, {})}
+elif solver.startswith("pbf"):
+    ops = {{"pbf_lambda_n": "pbf_grad"}.get(k, k): (kern, args, kw)
+           for k, (kern, _, args, kw) in own.pbf_path_operands(
+               cfg, ctx, params, vorticity=solver == "pbf_vort_xsph").items()
+           if k != "xsph"}
 else:
     operands_of = {"wcsph_visc": own.wcsph_visc_operands,
                    "iisph": own.iisph_operands,
@@ -227,12 +255,14 @@ sys.stdout = sys.__stdout__
 print(json.dumps(times))
 """.replace("GRAPH_MS\n", GRAPH_MS)
 
-SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph")
+SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph", "pbf",
+           "pbf_settled", "pbf_vort_xsph")
 
 
 def run(root, solver, state_file):
-    """The run's record: ms/step, iterations (the total ``solver_iters``;
-    CG iterations launched for wcsph_visc, 0 for the WCSPH paths), state
+    """The run's record: ms/step, iterations (the total ``solver_iters``,
+    for PBF ``pbf_iters`` per step; CG iterations launched for wcsph_visc,
+    0 for the WCSPH paths), state
     hash, and per kernel [host-free ms, output hash]; its final live
     positions and velocities go to ``state_file``."""
     res = subprocess.run([sys.executable, "-c", RUN, SMOKE, solver,
