@@ -175,7 +175,8 @@ Phases, in order; any failure exits non-zero:
     force, body density and BodyForce kernels (BodyForce on its friction
     alone with pd2 at 0);
 27. the elastic kernels against their plain versions, both kernel sets:
-    ElasticF and ElasticForceHourglass on a 12×10×8 block at spacing h/2
+    ElasticF and ElasticForceHourglass (over the block's static pair
+    list) on a 12×10×8 block at spacing h/2
     stretched 2 % along x, sheared, rotated and perturbed by a seeded
     noise of 0.05·spacing (the hourglass term is exactly 0 on affine
     motion); FluidReaction on a 6³ cube moving at (0.3, −0.5, 0.2) m/s and
@@ -299,16 +300,21 @@ Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
-over 67 TFLOP/s, the H100 SXM's published float32 peaks. The elastic,
-reaction, density, force, SumDij and Jacobi kernels stop after the
-geometry on a candidate outside the cutoff: there only those operations
-count (``GUARDED``), and the candidates inside the cutoff are counted from
-this run's positions. The elastic and SumDij sweeps read one matrix as
-queries and source, the density and force sweeps one whose first rows are
-the queries: its bytes count once. SumDij and Jacobi count only the
-columns their pairs read (``READ_BYTES``) and no cell key.
+over 67 TFLOP/s, the H100 SXM's published float32 peaks. ElasticF, the
+reaction, density, force, SumDij, Jacobi, PBF and Dρ/Dt kernels stop
+after the geometry on a candidate outside the cutoff: there only those
+operations count (``GUARDED``), and the candidates inside the cutoff are
+counted from this run's positions. The elastic force + hourglass kernel
+walks the body's static pair list, every pair inside the cutoff
+(``LISTED``): its operations are the list's pairs × the pair's, the work
+inside the cutoff whatever walks it. The elastic and SumDij sweeps read
+one matrix as queries and source, the density, force, PBF and Dρ/Dt
+sweeps one whose first rows are the queries: its bytes count once.
+SumDij, Jacobi, PBF's, Dρ/Dt and the elastic force + hourglass count only
+the columns their pairs read (``READ_BYTES``) and no cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
-also reads the (9 or 18, N) int32 range rows the port builds per step.
+also reads the (9 or 18, N) int32 range rows the port builds per step
+(the pair list of a ``LISTED`` kernel).
 Kernel times (``ms``) are host-free: ``graph_ms`` captures 20 launches in
 a CUDA graph and times its replay, the better of three rounds; each row
 also prints the kernel's eager time and an empty kernel's (the floor set
@@ -318,11 +324,12 @@ tile plan, as the step launches them; where they are timed they also
 print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
 default (their ``kernels`` entries carry these under ``tiled``). The
-lane-group kernels (density, force, SumDij, Jacobi) print the lane-group
-size G they take and the queries with candidates (their entries carry
-these under ``grouped``); the build prints the density and force
-kernels' registers and spills by G, and each instance of
-``group_pair_sweep_kernel``'s.
+lane-group kernels (density, force, SumDij, Jacobi, PBF's, Dρ/Dt, the
+elastic force + hourglass over its list) print the lane-group size G
+they take and the queries with candidates (their entries carry these
+under ``grouped``); the build prints the density and force kernels'
+registers and spills by G, and each instance of
+``group_pair_sweep_kernel``'s and ``group_list_sweep_kernel``'s.
 
 The run's total wall time is printed before the card's name and power
 limit. The last two lines are a JSON object with one entry per kernel and
@@ -447,12 +454,18 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
 # candidate outside the cutoff: those candidates cost this many operations,
 # the others PAIR_OPS's (the density and force kernels count the test once
 # per candidate and the rest of the pair on the pairs inside the cutoff)
-GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
-           "fluid_reaction_p0": 9, "density": 9, "density_pred": 9,
-           "body_density": 9, "force": 9, "force_p0": 9, "force_v0": 9,
-           "force_p0_v0": 9, "force_moving": 9, "force_p0_moving": 9,
-           "sum_dij": 9, "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9,
-           "pbf_grad": 9}
+GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
+           "density": 9, "density_pred": 9, "body_density": 9, "force": 9,
+           "force_p0": 9, "force_v0": 9, "force_p0_v0": 9,
+           "force_moving": 9, "force_p0_moving": 9, "sum_dij": 9,
+           "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
+           "drho": 9}
+# the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
+# instead of ranges: every pair of the list is inside the cutoff, so their
+# operations are the list's pairs × PAIR_OPS, the same work a range walk
+# of the same body does inside the cutoff (its test of the candidates
+# outside is the walk's own cost, not the function's)
+LISTED = ("elastic_force_hg",)
 # bytes each pair reads of a query row, a fluid source row and a wall
 # source row, for the kernels whose rows carry columns their pair never
 # reads: SumDij's one matrix x y z p/rho^2 (queries and source), Jacobi's
@@ -460,17 +473,23 @@ GUARDED = {"elastic_f": 9, "elastic_force_hg": 9, "fluid_reaction": 9,
 # zero slots), wall rows x y z psi_b (not v_b, not the pad); PBF's one
 # matrix, its fluid rows the queries: lambda reads x y z of a fluid row (m
 # is a parameter) and x y z psi_b of a wall row, Delta p x y z lambda and
-# x y z psi_b; N's x y z psi. Their bound counts these and no cell key:
-# the port's ranges are exact, so no kernel reads a key. Where the queries
-# are the source's first rows they are read once.
+# x y z psi_b; N's x y z psi; D rho / Dt x y z v of a query (not its slot
+# 6 or pad), x y z v psi of a fluid row and x y z v_b psi_b of a wall row;
+# the elastic force + hourglass the whole 24-wide row X x PC F of its one
+# matrix. Their bound counts these and no cell key: the port's ranges are
+# exact, so no kernel reads a key. Where the queries are the source's
+# first rows they are read once.
 READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
-              "pbf_grad": (16, 16, 0)}
+              "pbf_grad": (16, 16, 0), "drho": (24, 28, 28),
+              "elastic_force_hg": (96, 96, 0)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
-# of csrc/group_sweep.cuh), whose rows name their G
+# and group_list_sweep_kernel of csrc/group_sweep.cuh), whose rows name
+# their G
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
-           "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad")
+           "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
+           "elastic_force_hg")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -500,7 +519,9 @@ def bound(key, args, out):
     the queries, each source row once with its 4-byte cell key (for the
     kernels of ``READ_BYTES``, the columns their pairs read and no key),
     pvec and the output moved once, against the candidate pairs of these
-    ranges; ``bound_ranges_ms`` also reads the range rows."""
+    ranges (a ``LISTED`` kernel's args carry its pair list in the ranges'
+    places, and its pairs are the list's); ``bound_ranges_ms`` also reads
+    the range rows (the list)."""
     q, src, s, e, pv = args
     # the elastic sweeps read one matrix as queries and source, the density
     # and force sweeps one whose first rows are the queries: once
@@ -516,9 +537,13 @@ def bound(key, args, out):
         nbytes = (sum(t.numel() * t.element_size() for t in ins)
                   + 4 * src.shape[0])
     ranges = sum(t.numel() * t.element_size() for t in (s, e))
-    cand = (e - s).clamp(min=0).sum(dim=1, dtype=torch.int64)
     fluid, bnd = PAIR_OPS[key]
-    ops = int(cand[:9].sum()) * fluid + int(cand[9:].sum()) * bnd
+    if key in LISTED:
+        # s, e: the pair list nbr_start (N + 1,), nbr (P,)
+        ops = e.shape[0] * fluid
+    else:
+        cand = (e - s).clamp(min=0).sum(dim=1, dtype=torch.int64)
+        ops = int(cand[:9].sum()) * fluid + int(cand[9:].sum()) * bnd
     if key in GUARDED:
         from nereus_tpu_torch.ops.sph_pairs import PV_H2
         inside = cutoff_pairs(q, src, s, e, float(pv[PV_H2]), by_row=True)
@@ -677,11 +702,19 @@ def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``, ``pbf_dp_group``,
-    ``PBF_GRAD_G``) and the queries that have a candidate in their
-    ranges."""
+    ``PBF_GRAD_G``, ``DRHO_G``, ``elastic_group``) and the queries
+    that have a candidate in their ranges (pairs in the list of a
+    ``LISTED`` kernel)."""
     from nereus_tpu_torch.ops import cuda_sweep
     q, src, s, e, _ = args
     n = q.shape[0]
+    if key in LISTED:
+        g = cuda_sweep.elastic_group(n)
+        busy = int((s[1:] > s[:-1]).sum())
+        print(f"  {key} lane groups: G {g}; {busy} of {n} queries have "
+              f"pairs in the list ({e.shape[0]} pairs)")
+        return {"group": g, "queries_with_candidates": busy,
+                "list_pairs": int(e.shape[0])}
     if key.startswith("force"):
         g = cuda_sweep.force_group(n, kw.get("include_viscosity", True))
     elif key == "body_density":
@@ -696,6 +729,8 @@ def group_stats(key, args, kw):
         g = cuda_sweep.pbf_dp_group(n)
     elif key == "pbf_grad":
         g = cuda_sweep.PBF_GRAD_G
+    elif key == "drho":
+        g = cuda_sweep.DRHO_G
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -2993,7 +3028,8 @@ def ptxas_report(log):
         if m is None:
             # the row-tiled kernels by name (their shared memory too)
             tag = (f"{entry}: " if "tiled_pair_sweep_kernel" in entry
-                   or "group_pair_sweep_kernel" in entry else "")
+                   or "group_pair_sweep_kernel" in entry
+                   or "group_list_sweep_kernel" in entry else "")
             print("  ptxas:", tag + line.strip())
             continue
         # template ints <KS[, ST, PRESSURE, VISC, MOVING], G>, then the

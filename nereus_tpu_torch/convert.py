@@ -103,17 +103,20 @@ def elastic_state_from_numpy(pos, vel, plastic=None,
         plastic=None if plastic is None else _t(plastic, device=device))
 
 
-def elastic_statics_from_numpy(x0, corr, fixed, vol, mass, grid: Grid,
+def elastic_statics_from_numpy(x0, corr, fixed, vol, mass, grid: Grid, h,
                                device=None) -> ElasticStatics:
     """ElasticStatics from the JAX body's hash-sorted reference positions,
     corrections, pinned mask, volume and mass on ``grid`` (the body's,
-    on ``device``). The static ranges are rebuilt from ``x0``; the JAX
+    on ``device``). The static ranges and the pair list within the
+    interaction radius ``h`` (the params' ``interaction_radius``, as
+    ``make_elastic_solid`` takes it) are rebuilt from ``x0``; the JAX
     window plan (``anchors``, ``hash_f32``, ``win``) has no counterpart."""
     x0 = _t(x0, device=device)
-    sorted_hash, seg_start, seg_end = static_ranges(grid, x0)
+    sorted_hash, seg_start, seg_end, nbr_start, nbr = static_ranges(
+        grid, x0, h)
     return ElasticStatics(
         x0=x0, sorted_hash=sorted_hash, seg_start=seg_start,
-        seg_end=seg_end,
+        seg_end=seg_end, nbr_start=nbr_start, nbr=nbr,
         miss=torch.zeros((), dtype=torch.int32, device=x0.device),
         corr=_t(corr, device=device), fixed=_t(fixed, torch.bool, device),
         vol=_t(vol, device=device), mass=_t(mass, device=device))

@@ -11,21 +11,42 @@
 // elastic body's sum |psi grad W|^2 under strong coupling; the shell's
 // sample velocities in Drho's velocity slots).
 //
-// Design: one functor each for the range-walk template
+// Design. Alpha (once per step) is a functor of the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh, in the operation order
-// of ops/sph_pairs.py. Both use the default (poly6 / Monaghan) gradient,
+// of ops/sph_pairs.py; it uses the default (poly6 / Monaghan) gradient,
 // which is exactly 0 at the self pair only because r^2 is clamped before
 // the rsqrt, so self-pairs stay in the ranges; the Muller gradient skips
 // the rsqrt. Bound: memory traffic (sweep_common.cuh): one 32-byte source
 // row per candidate against ~20 flops.
 //
+// Drho runs once per iteration of both solver loops (~4 times per step)
+// on the lane-group engine group_pair_sweep_kernel<Drho, KS, G> of
+// group_sweep.cuh. What held it back on pair_sweep_kernel: one thread per
+// query walking 18 runs in series, and every candidate loading both
+// float4s of its 32-byte row and running the whole pair, multiplied by 0
+// outside the cutoff (~85 % of the candidates). What the design does: G
+// lanes per query walk the flattened fluid and wall runs as one list; a
+// candidate loads x y z vx, tests the cutoff, and only inside it loads
+// vy vz psi and runs the pair. Its operands are one (C + Mb, 8) matrix
+// x y z vx | vy vz psi pad whose first C rows are the queries
+// (solvers/dfsph_cuda.py::KappaSweeps), so each iteration writes the
+// velocities once. G: ops/cuda_sweep.py::DRHO_G (the one instance
+// built). Drho over a rigid or elastic shell (the
+// DFSPH couplings) stays on pair_sweep_kernel, MaskedForm<Drho>, the
+// parent's unguarded walk: a shell's ranges are empty for nearly every
+// query, and a lane group's row scan of an empty query costs more than
+// one thread's (the rigid shells' density, +14-34 %: PERF.md section 6).
+//
 // Layouts (row-major float32, 16-byte aligned rows):
 //   alpha: q (N, 4) x y z pad; src (M, 8) x y z 0 0 0 psi pad;
 //          out (N, 4) sum psi grad W (3), sum |psi grad W|^2 (fluid rows)
-//   drho:  q (N, 8) x y z vx vy vz pad pad; src (M, 8) x y z vx vy vz psi
-//          pad (boundary velocities 0); out (N,)
+//   drho:  src (C + Mb, 8) x y z vx vy vz psi pad (fluid rows psi = m,
+//          wall rows their velocities, 0 for a static wall, and psi_b);
+//          q its first C rows (slots 0-5 read); out (N,)
+//   drho_shell: q (N, 8) x y z vx vy vz (slots 0-5 read); src a shell's
+//          (Mb, 8) rows x y z v_b psi_b 0; ranges (9, N); out (N,)
 
-#include "sweep_common.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
@@ -50,20 +71,22 @@ struct Alpha {
   }
 };
 
-// D rho / Dt = sum psi_j (v_q - v_j) . grad W, one formula for both regions
+// D rho / Dt = sum psi_j (v_q - v_j) . grad W, one formula for both
+// regions; the engine calls it inside the cutoff, with a = x y z vx of
+// row j
 struct Drho {
   static constexpr int QW = 8, SW = 8, OW = 1;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
     const float4 b = src_f4(src, SW, j, 1);  // vy vz psi pad
     const Geom g = default_geom<KS>(q, a, p);
     const float dvx = q[3] - a.w;
     const float dvy = q[4] - b.x;
     const float dvz = q[5] - b.y;
-    acc[0] += b.z * g.s * (dvx * g.dx + dvy * g.dy + dvz * g.dz) * g.okf;
+    acc[0] += b.z * g.s * (dvx * g.dx + dvy * g.dy + dvz * g.dz);
   }
 };
 
@@ -74,6 +97,9 @@ extern "C" {
 NEREUS_PAIR_SWEEP(alpha, Alpha)
 // sum psi grad W of a body shell alone, without the square sum
 NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<Alpha>)
-NEREUS_PAIR_SWEEP(drho, Drho)
+// the G of ops/cuda_sweep.py::DRHO_G
+NEREUS_GROUP_SWEEP(drho, Drho, 4)
+// over a body shell's 9 rows, one thread per query
+NEREUS_PAIR_SWEEP(drho_shell, MaskedForm<Drho>)
 
 }  // extern "C"

@@ -9,7 +9,11 @@
 // nereus_tpu/ops/pallas_sph.py::generic_sweep launches it, for the pair
 // functions whose functors it runs (iisph_sweep.cu: sum_dij_pair,
 // jacobi_fluid_pair + jacobi_boundary_pair; pbf_sweep.cu: pbf_lambda_pair,
-// pbf_dp_pair).
+// pbf_dp_pair; dfsph_sweep.cu: drho_pair). Its list form,
+// group_list_sweep_kernel<P, KS, G>, walks a static pair list instead of
+// the ranges: the elastic solid's reference pairs (elastic_sweep.cu,
+// elastic_force_pair + elastic_hourglass_pair as
+// nereus_tpu/solvers/elastic_pallas.py::_sweep launches them).
 //
 // What bounds a range-walk sweep on this card. Each query walks 9 (18 with
 // walls) short runs of 0-6 hash-sorted candidates; about 15 % of a 27-cell
@@ -53,6 +57,19 @@
 // may define OUTW and epilogue(acc, params, o): lane 0 turns the group's
 // sums into OUTW values, written as (OUTW, N) planes (PbfLambda's rho and
 // lambda), where a functor without one writes its sums as (N, OW) rows.
+// MaskedForm<P> runs such a functor on pair_sweep_kernel (one thread per
+// query; the pair on every candidate, masked): a body shell's Drho, whose
+// queries are nearly all without candidates.
+//
+// The list form. A sweep whose pairs never change (an elastic body's
+// neighbors in its reference positions X) walks a list built once, when
+// the body is made: query i's sources nbr[nbr_start[i]] ..
+// nbr[nbr_start[i + 1] - 1], each a pair inside the cutoff (self pair
+// included). The group's lanes take neighbouring list entries (one 4-byte
+// index load each, coalesced over the group), so there are no range rows,
+// no row table and no cutoff test: on the 80^3 body at spacing h/2 a
+// query's 9 runs hold ~216 candidates of which ~29 lie inside h, and the
+// range walk tests the other ~85 % on every step.
 //
 // Numerics: float32, no fast-math; the functors keep the r^2 clamp before
 // rsqrtf (sweep_common.cuh).
@@ -255,6 +272,29 @@ group_pair_sweep_kernel(const float* __restrict__ q,
   }
 }
 
+// The pair_sweep_kernel form of a lane-group functor P (without a
+// prologue, one output sum) that adds nothing outside the cutoff: P's pair
+// on every candidate, its sum multiplied by the cutoff mask, with no
+// branch. A shell's few busy queries then run in step: measured on the
+// DFSPH couplings' shell Drho, the cutoff test as a branch took 4-7 % more
+// time (PERF.md section 6).
+template <class P>
+struct MaskedForm {
+  static_assert(P::OW == 1, "MaskedForm takes a pair with one output sum");
+  static constexpr int QW = P::QW, SW = P::SW, OW = 1;
+  static constexpr bool BOUNDARY_ROWS = P::BOUNDARY_ROWS;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const Params& p, float (&acc)[OW]) {
+    const float4 a = src_f4(src, SW, j, 0);
+    const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
+    const float okf = dx * dx + dy * dy + dz * dz < p.h2 ? 1.0f : 0.0f;
+    float t[1] = {0.0f};
+    P::template pair<KS, B>(q, a, src, j, p, t);
+    acc[0] += t[0] * okf;
+  }
+};
+
 // Launches group_pair_sweep_kernel<P, kernel_set, G> on `st`; returns
 // cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
 template <class P, int G>
@@ -294,7 +334,106 @@ int launch_group_sweep(const float* q, const float* src, const int* seg_start,
   return rc;
 }
 
+// ---------------------------------------------------------------------------
+// The list form: a static pair list
+// ---------------------------------------------------------------------------
+
+// The walk of a static pair list by groups of G lanes per query: query i's
+// sources are nbr[nbr_start[i]] .. nbr[nbr_start[i + 1] - 1], every one a
+// pair P takes (the list holds the pairs inside the cutoff and no other,
+// so there is no test), lane l taking list entries l, l + G, ...; P's
+// fluid formula (B = false), sums reduced over the group in a fixed tree,
+// out (N, OW).
+template <class P, int KS, int G>
+__global__ void __launch_bounds__(THREADS)
+group_list_sweep_kernel(const float* __restrict__ q,
+                        const float* __restrict__ src,
+                        const int* __restrict__ nbr_start,
+                        const int* __restrict__ nbr, int n,
+                        const float* __restrict__ pv,
+                        float* __restrict__ out) {
+  constexpr int GROUPS = THREADS / G;
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int i = blockIdx.x * GROUPS + grp;
+  const bool live = i < n;
+  const Params p = load_params(pv);
+  float qv[P::QW];
+  float acc[P::OW];
+#pragma unroll
+  for (int k = 0; k < P::OW; ++k) acc[k] = 0.0f;
+  if (live) {
+    load_row<P::QW>(q, i, qv);
+    const int e = __ldg(nbr_start + i + 1);
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int k = __ldg(nbr_start + i) + lane; k < e; k += G) {
+      const int j = __ldg(nbr + k);
+      P::template pair<KS, false>(
+          qv, __ldg(s4 + static_cast<size_t>(j) * (P::SW / 4)), src, j, p,
+          acc);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P::OW; ++k) acc[k] = group_sum<G>(acc[k]);
+  if (live && lane == 0) {
+#pragma unroll
+    for (int k = 0; k < P::OW; ++k) {
+      out[static_cast<size_t>(i) * P::OW + k] = acc[k];
+    }
+  }
+}
+
+// Launches group_list_sweep_kernel<P, kernel_set, G> on `st`; returns
+// cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
+template <class P, int G>
+int launch_list_at(const float* q, const float* src, const int* nbr_start,
+                   const int* nbr, int n, const float* pvec, int kernel_set,
+                   float* out, cudaStream_t st) {
+#define NEREUS_LIST(KS)                                                      \
+  if (kernel_set == KS) {                                                    \
+    group_list_sweep_kernel<P, KS, G>                                        \
+        <<<group_blocks<G>(n), THREADS, 0, st>>>(q, src, nbr_start, nbr, n,  \
+                                                 pvec, out);                 \
+    return static_cast<int>(cudaGetLastError());                             \
+  }
+  NEREUS_LIST(MULLER)
+  NEREUS_LIST(MONAGHAN)
+#undef NEREUS_LIST
+  return -1;
+}
+
+// Launches group_list_sweep_kernel<P, kernel_set, group> on `stream`, the
+// group one of the lane counts Gs that ops/cuda_sweep.py can pick for P;
+// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
+// set or another group.
+template <class P, int... Gs>
+int launch_list_sweep(const float* q, const float* src, const int* nbr_start,
+                      const int* nbr, int n, const float* pvec,
+                      int kernel_set, int group, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = -1;
+  ((group == Gs ? (rc = launch_list_at<P, Gs>(q, src, nbr_start, nbr, n,
+                                              pvec, kernel_set, out, st),
+                   true)
+                : false) ||
+   ...);
+  return rc;
+}
+
 }  // namespace nereus_sweep
+
+// The C entry point nereus_<NAME>_list_sweep of
+// group_list_sweep_kernel<PAIR>, for use inside an extern "C" block, built
+// for the lane counts given after PAIR (those its wrapper can pick):
+// launches one kernel on `stream` and returns cudaGetLastError() (0 on
+// success), or -1 for an unknown kernel set or another group.
+#define NEREUS_LIST_SWEEP(NAME, PAIR, ...)                                   \
+  int nereus_##NAME##_list_sweep(const float* q, const float* src,          \
+                                 const int* nbr_start, const int* nbr,      \
+                                 int n, const float* pvec, int kernel_set,  \
+                                 int group, float* out, void* stream) {     \
+    return nereus_sweep::launch_list_sweep<PAIR, __VA_ARGS__>(              \
+        q, src, nbr_start, nbr, n, pvec, kernel_set, group, out, stream);   \
+  }
 
 // The C entry point nereus_<NAME>_sweep of group_pair_sweep_kernel<PAIR>,
 // for use inside an extern "C" block, built for the lane counts given

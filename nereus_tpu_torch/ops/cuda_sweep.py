@@ -68,7 +68,7 @@ PRESSURE_FORCE = Kernel("tiled_pair_sweep_kernel<PressureForce>")
 # the density kernel at PCISPH's predicted positions, counted apart
 DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
 ALPHA = Kernel("pair_sweep_kernel<Alpha>")
-DRHO = Kernel("pair_sweep_kernel<Drho>")
+DRHO = Kernel("group_pair_sweep_kernel<Drho>")
 MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
 MP_FORCE = Kernel("pair_sweep_kernel<MultiphaseForce>")
 XSPH = Kernel("pair_sweep_kernel<Xsph>")
@@ -96,14 +96,17 @@ MP_FORCE_MOVING = Kernel("pair_sweep_kernel<MultiphaseForce,MOVING>")
 BODY_DENSITY = Kernel("density_sweep_kernel<body>")
 BODY_FORCE = Kernel("pair_sweep_kernel<BodyForce>")
 MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
-# the elastic solid's deformation gradient and fused force + hourglass,
-# and the fluid's reaction on an elastic body's samples
+# the elastic solid's deformation gradient and fused force + hourglass
+# (over the body's static pair list), and the fluid's reaction on an
+# elastic body's samples
 ELASTIC_F = Kernel("pair_sweep_kernel<ElasticF>")
-ELASTIC_FORCE_HG = Kernel("pair_sweep_kernel<ElasticForceHourglass>")
+ELASTIC_FORCE_HG = Kernel(
+    "group_list_sweep_kernel<ElasticForceHourglass>")
 FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # the DFSPH couplings: the two contacts' friction alone, the body forms of
 # the DFSPH sweeps over a body shell (rows 0-8), and Alpha and Drho as they
-# are over a shell's 9 rows, each counted apart
+# are over a shell's 9 rows (Drho one thread per query), each counted
+# apart
 BODY_FORCE_P0 = Kernel("pair_sweep_kernel<BodyForce<PRESSURE=0>>")
 FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
 PRESSURE_FORCE_BODY = Kernel("pair_sweep_kernel<BoundaryForm<PressureForce>>")
@@ -225,6 +228,10 @@ def load():
             f.restype = i32
             f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32,
                           *[i32] * n_switches, ptr, ptr]
+        for fn in _LIST_FNS:
+            f = getattr(lib, f"nereus_{fn}_list_sweep")
+            f.restype = i32
+            f.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32, ptr, ptr]
         for fn in _TILED_FNS:
             f = getattr(lib, f"nereus_{fn}_tiled_sweep")
             f.restype = i32
@@ -291,12 +298,12 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 1, "jacobi": 1, "alpha": 0,
-              "drho": 0, "multiphase_density": 0, "multiphase_force": 2,
+              "drho": 1, "drho_shell": 0, "multiphase_density": 0,
+              "multiphase_force": 2,
               "xsph": 0, "multiphase_alpha": 0,
               "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
-              "multiphase_body": 0, "elastic_f": 0,
-              "elastic_force_hourglass": 0, "fluid_reaction": 1,
+              "multiphase_body": 0, "elastic_f": 0, "fluid_reaction": 1,
               "pressure_force_body": 0, "alpha_body": 0,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
               "multiphase_kappa_body": 0, "wall_force": 1}
@@ -331,6 +338,34 @@ def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
                 n_rows, pvec.data_ptr(), cfg.kernel_set.value, *switches,
                 out.data_ptr())
     return out.t() if planes else out
+
+
+# the C entry points nereus_<fn>_list_sweep(q, src, nbr_start, nbr, n,
+# pvec, kernel_set, group, out, stream) of group_list_sweep_kernel
+_LIST_FNS = ("elastic_force_hourglass",)
+
+
+def _list(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
+          nbr_start, nbr, pvec, out_cols, group):
+    """Checks and launches one kernel of ``_LIST_FNS`` at lane-group size
+    ``group``: q (N, fq), src (M, fs), the static pair list nbr_start
+    (N + 1,) and nbr (P,) int32; the output is (N, out_cols)."""
+    from .sph_pairs import PV_LEN
+    n = q.shape[0]
+    _check("q", q, torch.float32, (n, fq))
+    _check("src", src, torch.float32, (src.shape[0], fs))
+    _check("nbr_start", nbr_start, torch.int32, (n + 1,))
+    _check("nbr", nbr, torch.int32, (nbr.shape[0],))
+    _check("pvec", pvec, torch.float32, (PV_LEN,))
+    devs = {t.device for t in (q, src, nbr_start, nbr, pvec)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    out = torch.empty((n, out_cols), dtype=torch.float32, device=q.device)
+    if n:
+        _launch(kernel, f"{fn}_list_sweep", q.device, q.data_ptr(),
+                src.data_ptr(), nbr_start.data_ptr(), nbr.data_ptr(), n,
+                pvec.data_ptr(), cfg.kernel_set.value, group, out.data_ptr())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +537,27 @@ def pbf_dp_group(n: int) -> int:
     return 4 if n < SMALL_N else 2
 
 
+# lanes per query G of DFSPH's Dρ/Dt kernel (``csrc/dfsph_sweep.cu``, which
+# builds only this one), as measured on the H100 at the settled
+# 262,144-particle block (``tools/group_scan.py --solver dfsph``; PERF.md
+# section 6: 2 took 19 % and 8 22 % more time).
+DRHO_G = 4
+
+
+# lanes per query G of the elastic force + hourglass kernel over its pair
+# list (``csrc/elastic_sweep.cu``, which builds only these), as measured on
+# the H100 (``tools/group_scan.py --solver elastic`` and ``wcsph_elastic``;
+# PERF.md section 6): 16 below ``SMALL_BODY`` queries (a 16³ cube's 4,096:
+# 8 took 13 % and 32 13 % more time), 4 above (the 80³ block's 512,000: 2
+# took 6 % and 8 10 % more); between the two sizes not measured.
+SMALL_BODY = 2 ** 16
+
+
+def elastic_group(n: int) -> int:
+    """The elastic force + hourglass kernel's G for ``n`` queries."""
+    return 16 if n < SMALL_BODY else 4
+
+
 def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
     return _sweep(kernel, "density", cfg, q, 4, src, 4, seg_start, seg_end,
                   pvec, rows, 0, group)
@@ -591,9 +647,11 @@ def alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """DFSPH Dρ/Dt (N,): q (N, 8), src (M, 8)."""
+    """DFSPH Dρ/Dt (N,): q (N, 8) ``x y z v`` (slots 0-5 read), src (M, 8)
+    ``x y z v ψ 0`` (on the step's path one matrix, the queries its first
+    rows, ``KappaSweeps.drho_operands``)."""
     return _sweep(DRHO, "drho", cfg, q, 8, src, 8, seg_start, seg_end,
-                  pvec, (9, 18), 0)
+                  pvec, (9, 18), 0, DRHO_G)
 
 
 def multiphase_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
@@ -716,12 +774,13 @@ def elastic_f_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                   seg_end, pvec, (9,), 9)
 
 
-def elastic_force_hourglass_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+def elastic_force_hourglass_sweep(cfg: SimConfig, q, src, nbr_start, nbr,
                                   pvec):
     """Elastic and hourglass forces (N, 6), unscaled: q and src the body's
-    (N, 24) ``X x PC F`` rows, its static ranges (9, N)."""
-    return _sweep(ELASTIC_FORCE_HG, "elastic_force_hourglass", cfg, q, 24,
-                  src, 24, seg_start, seg_end, pvec, (9,), 6)
+    (N, 24) ``X x PC F`` rows, its static pair list ``nbr_start`` (N + 1,),
+    ``nbr`` (P,) (``ElasticStatics``)."""
+    return _list(ELASTIC_FORCE_HG, "elastic_force_hourglass", cfg, q, 24,
+                 src, 24, nbr_start, nbr, pvec, 6, elastic_group(q.shape[0]))
 
 
 def fluid_reaction_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
@@ -763,8 +822,8 @@ def alpha_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 def drho_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Σψ_b(v_i − v_b)·∇W (N,) of a body shell with its sample velocities in
     slots 3-5, counted in ``DRHO_SHELL``: q (N, 8), ranges (9, N)."""
-    return _sweep(DRHO_SHELL, "drho", cfg, q, 8, src, 8, seg_start, seg_end,
-                  pvec, (9,), 0)
+    return _sweep(DRHO_SHELL, "drho_shell", cfg, q, 8, src, 8, seg_start,
+                  seg_end, pvec, (9,), 0)
 
 
 def multiphase_alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,

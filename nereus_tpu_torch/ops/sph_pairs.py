@@ -37,7 +37,9 @@ implicit viscosity solve's ``visc_laplacian_sweep``, the three
 multiphase DFSPH sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
-``elastic_force_hourglass_sweep``, the elastic coupling's
+``elastic_force_hourglass_sweep`` (over the body's static pair list,
+``nbr_start`` and ``nbr`` in the places of the ranges), the elastic
+coupling's
 ``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
 ``pressure_force_body_sweep``, ``alpha_body_sweep``,
 ``alpha_shell_sweep``, ``drho_shell_sweep`` and the three
@@ -58,7 +60,7 @@ import torch
 
 from .. import kernels as K
 from ..params import KernelSet, SimConfig, SimParams, SurfaceTensionModel
-from .neighbors import neighbor_sweep_plain
+from .neighbors import list_sweep_plain, neighbor_sweep_plain
 
 _EPS = 1e-12
 
@@ -1139,13 +1141,14 @@ def elastic_f_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 seg_start, seg_end, 9)
 
 
-def elastic_force_hourglass_sweep_plain(cfg: SimConfig, q, src, seg_start,
-                                        seg_end, pvec):
+def elastic_force_hourglass_sweep_plain(cfg: SimConfig, q, src, nbr_start,
+                                        nbr, pvec):
     """(f_el xyz, f_hg xyz) (N, 6), both unscaled, over a body's static
-    reference ranges (9 rows): q and src the same (N, 24) ``X x PC F``
+    pair list (``ElasticStatics.nbr_start``, ``nbr``: the pairs of its
+    reference ranges within h): q and src the same (N, 24) ``X x PC F``
     rows."""
-    return neighbor_sweep_plain(_bind(elastic_force_hourglass_pair, cfg,
-                                      pvec), q, src, seg_start, seg_end, 6)
+    return list_sweep_plain(_bind(elastic_force_hourglass_pair, cfg, pvec),
+                            q, src, nbr_start, nbr, 6)
 
 
 def fluid_reaction_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,

@@ -70,9 +70,9 @@ class KappaSweeps:
     and the tuple of other values the solve carries (here none; a coupled
     step's bodies), and the density loop's ``base`` (ρ), ``target`` (ρ₀)
     and ``to_kg`` (None: the errors are already in kg/m³). Each call
-    writes its columns in place (the velocities into the Dρ/Dt query and
-    the fluid source rows, κ/ρ into the correction's query and fluid slot
-    6) and launches one sweep."""
+    writes its columns in place (the velocities into the fluid rows of the
+    Dρ/Dt sweep's one matrix, whose first C rows are its queries; κ/ρ into
+    the correction's query and fluid slot 6) and launches one sweep."""
 
     def __init__(self, ctx: SweepCtx, params: SimParams, cfg: SimConfig,
                  dens):
@@ -83,14 +83,17 @@ class KappaSweeps:
         self.dens_safe = torch.clamp(dens, min=1e-12)
         self.dt = params.dt
         self.dt_m = params.dt / params.particle_mass
-        self.q_v = ctx.queries(z, z, z, width=8)
+        # one (C [+ Mb], 8) matrix x y z v ψ 0 (fluid ψ = m), the walls as
+        # they are; its first C rows are the queries (a contiguous view)
         self.src_v = ctx.pack((z, z, z), params.particle_mass)
+        self.q_v = self.src_v[:ctx.c]
         self._pd2_at = pd2_operands(ctx)
 
     def drho_operands(self, vel):
-        """The Dρ/Dt sweep's operands at the (C, 3) velocities ``vel``."""
+        """The Dρ/Dt sweep's operands at the (C, 3) velocities ``vel``,
+        written once into the fluid rows of its one matrix: ``(q, src,
+        seg_start, seg_end, pvec)``, q the matrix's first C rows."""
         self.q_v[:, 3:6] = vel
-        self.src_v[:self.ctx.c, 3:6] = vel
         return (self.q_v, self.src_v, self.ctx.seg_start, self.ctx.seg_end,
                 self.ctx.pvec)
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import grid as gridlib
-from ..ops.neighbors import query_ranges
+from ..ops.neighbors import cutoff_list, query_ranges
 from ..params import SimConfig, SimParams, resolve_device
 
 
@@ -103,7 +103,9 @@ class ElasticState:
 class ElasticStatics:
     """What is solved once, when the body is made: the hash-sorted
     reference positions, their exact cell ranges (9, N) over themselves,
-    and the gradient corrections C_i.
+    the static pair list of those ranges within h (the force + hourglass
+    sweep walks it; derived from ``x0`` and h, never stored in a
+    checkpoint), and the gradient corrections C_i.
 
     The JAX package keeps a TPU window plan here (``anchors``, ``hash_f32``
     and the window width ``win``): solid lattices at spacing h/2 hold ~8
@@ -116,6 +118,8 @@ class ElasticStatics:
     sorted_hash: torch.Tensor  # (N,) int32, ascending
     seg_start: torch.Tensor    # (9, N) int32 reference ranges
     seg_end: torch.Tensor
+    nbr_start: torch.Tensor    # (N + 1,) int32: query i's pairs are
+    nbr: torch.Tensor          # nbr[nbr_start[i]:nbr_start[i + 1]] (P,)
     miss: torch.Tensor         # () int32, 0: the ranges are exact
     corr: torch.Tensor         # (N, 3, 3) C_i = D_i⁻¹
     fixed: torch.Tensor        # (N,) bool, kinematically pinned
@@ -218,14 +222,18 @@ def strain_energy(e, ep: ElasticParams, vol):
     return vol * torch.sum(ep.mu * ee + 0.5 * ep.lam * tr * tr)
 
 
-def static_ranges(grid: gridlib.Grid, x0):
-    """``(sorted_hash, seg_start, seg_end)`` of hash-sorted reference
-    positions: the cell hashes and each particle's exact ranges (9, N) over
-    the body itself."""
+def static_ranges(grid: gridlib.Grid, x0, h):
+    """``(sorted_hash, seg_start, seg_end, nbr_start, nbr)`` of hash-sorted
+    reference positions: the cell hashes, each particle's exact ranges
+    (9, N) over the body itself, and the pair list of those ranges within
+    the interaction radius ``h`` (0-d tensor; r² < h·h, as the sweeps'
+    parameter vector holds it)."""
     sorted_hash = gridlib.hash_positions(grid, x0)
     seg_start, seg_end = query_ranges(grid, gridlib.cell_coords(grid, x0),
                                       sorted_hash)
-    return sorted_hash, seg_start, seg_end
+    h = torch.as_tensor(h, dtype=x0.dtype, device=x0.device)
+    nbr_start, nbr = cutoff_list(x0, seg_start, seg_end, h * h)
+    return sorted_hash, seg_start, seg_end, nbr_start, nbr
 
 
 def make_elastic_solid(positions, params: SimParams, cfg: SimConfig,
@@ -242,7 +250,8 @@ def make_elastic_solid(positions, params: SimParams, cfg: SimConfig,
     lattice constant (V = spacing³, m = ρV); ``fixed`` (N,) bool of pinned
     particles; ``density`` the body's (default the fluid ρ₀); ``grid`` by
     default ``fit_grid`` around the reference box with a 2h margin (the
-    ranges live in reference space, so the body may move anywhere)."""
+    ranges and the pair list live in reference space, so the body may move
+    anywhere)."""
     from .elastic_cuda import f_gradient_sweep
     device = resolve_device(device)
     pos = torch.as_tensor(np.asarray(positions)).to(dtype=cfg.dtype,
@@ -257,7 +266,8 @@ def make_elastic_solid(positions, params: SimParams, cfg: SimConfig,
           else torch.as_tensor(np.asarray(fixed, bool), device=device))
     hashes = gridlib.hash_positions(grid, pos)
     _, _, (x0, fxs) = gridlib.sort_by_hash(hashes, pos, fx)
-    sorted_hash, seg_start, seg_end = static_ranges(grid, x0)
+    sorted_hash, seg_start, seg_end, nbr_start, nbr = static_ranges(
+        grid, x0, params.interaction_radius)
     sp = torch.tensor(spacing, dtype=cfg.dtype, device=device)
     vol = sp * sp * sp
     rho = (params.rest_density if density is None
@@ -265,7 +275,7 @@ def make_elastic_solid(positions, params: SimParams, cfg: SimConfig,
     eye = torch.eye(3, dtype=cfg.dtype, device=device)
     statics = ElasticStatics(
         x0=x0, sorted_hash=sorted_hash, seg_start=seg_start,
-        seg_end=seg_end,
+        seg_end=seg_end, nbr_start=nbr_start, nbr=nbr,
         miss=torch.zeros((), dtype=torch.int32, device=device),
         corr=eye.expand(n, 3, 3).contiguous(), fixed=fxs, vol=vol,
         mass=rho * vol)

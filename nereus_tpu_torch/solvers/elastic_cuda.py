@@ -10,8 +10,10 @@ Mosaic tiles a rank-3 array's trailing (3, 3) to a full (8, 128) tile; on
 the GPU the batched form is a handful of launches.
 
 Both sweeps read one row per particle, the query and the source being the
-same matrix: ``X x 0 0`` (8 wide) for F, ``X x PC F`` (24 wide) for the
-forces. On CUDA tensors the sweeps are the hand-written kernels of
+same matrix: ``X x 0 0`` (8 wide) for F, over the body's static ranges;
+``X x PC F`` (24 wide) for the forces, over its static pair list (the
+ranges' pairs within h, ``ElasticStatics.nbr_start``, ``nbr``). On CUDA
+tensors the sweeps are the hand-written kernels of
 ``csrc/elastic_sweep.cu``; on CPU tensors their plain PyTorch versions.
 """
 
@@ -44,12 +46,13 @@ def f_gradient_sweep(statics: ElasticStatics, cur, params: SimParams,
 
 
 def force_operands(statics: ElasticStatics, pos, pc, f, pvec):
-    """The fused force + hourglass sweep's ``(q, src, seg_start, seg_end,
-    pvec)``: one (N, 24) ``X x PC F`` matrix as both query and source."""
+    """The fused force + hourglass sweep's ``(q, src, nbr_start, nbr,
+    pvec)``: one (N, 24) ``X x PC F`` matrix as both query and source, and
+    the body's static pair list."""
     n = statics.n
     q = torch.cat([statics.x0, pos, pc.reshape(n, 9), f.reshape(n, 9)],
                   dim=1)
-    return q, q, statics.seg_start, statics.seg_end, pvec
+    return q, q, statics.nbr_start, statics.nbr, pvec
 
 
 def elastic_step_cuda(state: ElasticState, statics: ElasticStatics,

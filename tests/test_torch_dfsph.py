@@ -112,6 +112,40 @@ def test_alpha_drho_sweeps_match_jax(kernel_set):
     assert not torch.equal(fluid_only[:, 1], got_al[:, 1])
 
 
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_one_matrix_drho_operands_match_jax(kernel_set):
+    """``KappaSweeps.drho_operands``: one (C + Mb, 8) matrix, its first C
+    rows the queries (a view: the velocities are written once per call),
+    the wall rows as the step packs them; through the plain twin it gives
+    JAX's ``generic_sweep`` with ``drho_pair`` and walls at the tolerance
+    of ``test_alpha_drho_sweeps_match_jax``, after a call at other
+    velocities has written the matrix first."""
+    scene = _dam_scene(True, kernel_set)
+    cfg, params, state, grid, boundary = scene
+    _, drho = jax.jit(lambda s: _jax_sweeps(cfg, params, s, grid,
+                                            boundary))(state)
+    n = state.capacity
+    pcfg, pparams, pstate, pg, pb = to_port(*scene)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    dens = SP.density_sweep(pcfg, *ctx.density_operands(
+        pparams.particle_mass))
+    sweeps = dfsph_cuda.KappaSweeps(ctx, pparams, pcfg, dens)
+    first = SP.drho_sweep(pcfg, *sweeps.drho_operands(-vel))
+    q, src, s, e, pv = sweeps.drho_operands(vel)
+    assert src.shape == (ctx.c + pb.num_boundaries, 8)
+    assert q.data_ptr() == src.data_ptr() and q.shape == (ctx.c, 8)
+    assert q.is_contiguous() and torch.equal(q, src[:ctx.c])
+    assert torch.equal(src[ctx.c:], ctx.b_src)
+    assert torch.equal(src[:ctx.c, 3:6], vel)
+    got = SP.drho_sweep(pcfg, q, src, s, e, pv)
+    assert s.shape[0] == 18 and not torch.equal(first, got)
+    assert_columns_close(got.numpy()[:, None], np.asarray(drho)[:n, None],
+                         1e-5, "drho")
+    assert torch.equal(got, sweeps.drho(vel))
+
+
 # ---------------------------------------------------------------------------
 # The step against dfsph_step_pallas and the segment step
 # ---------------------------------------------------------------------------

@@ -73,12 +73,12 @@ def _ep_to_port(ep):
         {f: np.asarray(getattr(ep, f)) for f in EP_FIELDS}, device="cpu")
 
 
-def _statics_to_port(statics, grid):
+def _statics_to_port(statics, grid, params):
     pgrid = convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
                                     device="cpu")
     return convert.elastic_statics_from_numpy(
         statics.x0, statics.corr, statics.fixed, statics.vol, statics.mass,
-        pgrid, device="cpu"), pgrid
+        pgrid, float(params.interaction_radius), device="cpu"), pgrid
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +110,7 @@ def test_make_elastic_solid_matches_jax():
     assert pstat.seg_start.shape == (9, pstat.n)
     assert int(pstat.miss) == 0 and pstate.plastic is None
     np.testing.assert_array_equal(pstate.pos.numpy(), pstat.x0.numpy())
-    conv, _ = _statics_to_port(statics, grid)
+    conv, _ = _statics_to_port(statics, grid, params)
     for f in ("sorted_hash", "seg_start", "seg_end", "fixed"):
         assert torch.equal(getattr(conv, f), getattr(pstat, f)), f
 
@@ -144,7 +144,7 @@ def _operands(kernel_set, seed=0):
     pstat, fargs, hargs, jax pieces)``."""
     cfg = dataclasses.replace(ORACLE, kernel_set=kernel_set)
     pos, params, sp, _, (state, statics, grid) = _bar(cfg)
-    pstat, pgrid = _statics_to_port(statics, grid)
+    pstat, pgrid = _statics_to_port(statics, grid, params)
     pcfg, pparams = _port_cfg(cfg), params_to_port(params)
     ppv = SP.build_pvec(pparams, pcfg, pgrid)
     x = _deformed(torch.from_numpy(np.asarray(statics.x0)), sp, seed)
@@ -183,14 +183,70 @@ def test_pair_twins_match_jax(exact_reciprocal, kernel_set):
     got = SP.elastic_force_hourglass_sweep_plain(pcfg, *hargs).numpy()
     assert_columns_close(got[:, :3], want_el[:, :3], 1e-5, "elastic force")
     assert_columns_close(got[:, 3:], want_hg[:, :3], 1e-5, "hourglass")
-    # the fused sweep is the two pair functions side by side
+    # the fused sweep is the two pair functions side by side, over the
+    # body's pair list
     pv_t = hargs[4]
     for k, pair in ((slice(0, 3), SP.elastic_force_pair),
                     (slice(3, 6), SP.elastic_hourglass_pair)):
-        alone = pt.ops.neighbors.neighbor_sweep_plain(
+        alone = pt.ops.neighbors.list_sweep_plain(
             lambda a, b: pair(a, b, pv_t, kernel_set=pcfg.kernel_set),
             hargs[0], hargs[1], hargs[2], hargs[3], 3)
         assert torch.equal(alone, torch.from_numpy(got[:, k]))
+
+
+def _list_pairs(nbr_start, nbr):
+    """The set of (i, j) pairs of a static pair list."""
+    counts = (nbr_start[1:] - nbr_start[:-1]).long()
+    qi = torch.repeat_interleave(torch.arange(len(counts)), counts)
+    return set(zip(qi.tolist(), nbr.tolist()))
+
+
+def test_pair_list_holds_the_pairs_within_h():
+    """The body's static pair list holds exactly the pairs with |X_ij|² <
+    h² in float32 (self pairs included), found here by an all-pairs
+    search, each once and grouped by query; ``convert`` rebuilds the same
+    list from JAX's body, given the params' h."""
+    pos, params, sp, _, (state, statics, grid) = _bar()
+    pparams = params_to_port(params)
+    _, pstat, _ = pt.make_elastic_solid(pos, pparams, _port_cfg(ORACLE), sp,
+                                        device="cpu")
+    x = pstat.x0.numpy()
+    d = x[:, None, :] - x[None, :, :]
+    h = np.float32(np.asarray(params.interaction_radius))
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    want = set(zip(*map(np.ndarray.tolist, np.nonzero(r2 < h * h))))
+    ns, nb = pstat.nbr_start, pstat.nbr
+    assert ns.dtype == nb.dtype == torch.int32
+    assert int(ns[0]) == 0 and int(ns[-1]) == nb.shape[0] == len(want)
+    assert bool((ns[1:] >= ns[:-1]).all())
+    assert _list_pairs(ns, nb) == want
+    assert all((i, i) in want for i in range(pstat.n))
+    conv = convert.elastic_statics_from_numpy(
+        statics.x0, statics.corr, statics.fixed, statics.vol, statics.mass,
+        convert.grid_from_numpy(grid.origin, grid.size, grid.cell,
+                                device="cpu"),
+        pparams.interaction_radius, device="cpu")
+    assert torch.equal(conv.nbr_start, ns) and torch.equal(conv.nbr, nb)
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_pair_list_sweep_matches_the_range_walk(kernel_set):
+    """The fused force + hourglass sweep over the pair list equals the
+    same pair function walked over the body's (9, N) ranges (every pair
+    outside h adds exactly 0 there) on the deformed bar, both kernel
+    sets."""
+    pcfg, fargs, hargs, _, _ = _operands(kernel_set)
+    q, src, ns, nb, pv = hargs
+    got = SP.elastic_force_hourglass_sweep(pcfg, *hargs)
+    walk = pt.ops.neighbors.neighbor_sweep_plain(
+        lambda a, b: SP.elastic_force_hourglass_pair(
+            a, b, pv, kernel_set=pcfg.kernel_set), q, src, fargs[2],
+        fargs[3], 6)
+    assert int(nb.shape[0]) < int((fargs[3] - fargs[2]).sum())
+    assert float(got[:, 3:].abs().max()) > 0.0
+    torch.testing.assert_close(got, walk, rtol=1e-6,
+                               atol=1e-6 * float(walk.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +302,7 @@ def test_step_matches_jax_pallas(exact_reciprocal):
     jbody = jt.make_elastic_solid(np.asarray(ostat.x0), params, PALLAS, sp,
                                   grid=grid)
     assert int(jbody[1].miss) == 0
-    pstat, pgrid = _statics_to_port(jbody[1], grid)
+    pstat, pgrid = _statics_to_port(jbody[1], grid, params)
     pstate = convert.elastic_state_from_numpy(
         jbody[0].pos, jbody[0].vel, device="cpu")
     ep = jt.elastic_params(1e5, 0.3, damping=0.0)

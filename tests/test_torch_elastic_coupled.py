@@ -80,7 +80,7 @@ def _to_port(cfg, params, grid, state, estate, statics, ep):
     pcfg, pparams, pstate, pgrid, _ = to_port(cfg, params, state, grid, None)
     pstat = convert.elastic_statics_from_numpy(
         statics.x0, statics.corr, statics.fixed, statics.vol, statics.mass,
-        pgrid, device="cpu")
+        pgrid, pparams.interaction_radius, device="cpu")
     pest = convert.elastic_state_from_numpy(estate.pos, estate.vel,
                                             device="cpu")
     pep = convert.elastic_params_from_numpy(

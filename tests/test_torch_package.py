@@ -190,9 +190,10 @@ COUPLED_SWEEPS = {
 }
 ELASTIC_SWEEPS = {
     "elastic_f": (SP.elastic_f_sweep, cuda_sweep.elastic_f_sweep, 8, 8, 9),
+    # 0 range rows: a static pair list (nbr_start, nbr) in their places
     "elastic_force_hourglass": (SP.elastic_force_hourglass_sweep,
                                 cuda_sweep.elastic_force_hourglass_sweep,
-                                24, 24, 9),
+                                24, 24, 0),
     "fluid_reaction": (SP.fluid_reaction_sweep,
                        cuda_sweep.fluid_reaction_sweep, 8, 8, 9),
 }
@@ -223,15 +224,18 @@ ALL_SWEEPS = {**IISPH_SWEEPS, **PCISPH_DFSPH_SWEEPS, **MULTIPHASE_XSPH_SWEEPS,
 def _sweep_inputs(key, device="cpu", dtype=torch.float32, n=8, m=8):
     """Zero operands (q, src, seg_start, seg_end, pvec) of the sweep
     ``key``, with ρ₀ and PBF's ε set in pvec (λ's formula divides by
-    them)."""
+    them); for a list sweep (0 range rows) an empty pair list
+    (nbr_start, nbr) in the ranges' places."""
     _, _, fq, fs, rows = ALL_SWEEPS[key]
     pv = torch.zeros((SP.PV_LEN,), dtype=dtype, device=device)
     pv[SP.PV_RD] = 1000.0
     pv[SP.PV_PBF_EPS] = 100.0
+    i32 = dict(dtype=torch.int32, device=device)
+    ranges = ((torch.zeros((n + 1,), **i32), torch.zeros((0,), **i32))
+              if rows == 0 else (torch.zeros((rows, n), **i32),
+                                 torch.zeros((rows, n), **i32)))
     return (torch.zeros((n, fq), dtype=dtype, device=device),
-            torch.zeros((m, fs), dtype=dtype, device=device),
-            torch.zeros((rows, n), dtype=torch.int32, device=device),
-            torch.zeros((rows, n), dtype=torch.int32, device=device), pv)
+            torch.zeros((m, fs), dtype=dtype, device=device), *ranges, pv)
 
 
 def _routes_by_device(dispatch, wrapper, key):
@@ -1105,22 +1109,34 @@ def test_group_sweeps_build_only_their_g(cuda):
         "pbf_lambda": {cuda_sweep.PBF_LAMBDA_G},
         "pbf_dp": {cuda_sweep.pbf_dp_group(1),
                    cuda_sweep.pbf_dp_group(cuda_sweep.SMALL_N)},
-        "pbf_grad": {cuda_sweep.PBF_GRAD_G}}
+        "pbf_grad": {cuda_sweep.PBF_GRAD_G},
+        "drho": {cuda_sweep.DRHO_G},
+        # the list form: the elastic force + hourglass over its pair list
+        "elastic_force_hourglass_list": {
+            cuda_sweep.elastic_group(1),
+            cuda_sweep.elastic_group(cuda_sweep.SMALL_BODY)}}
     n = 8
-    q = torch.zeros((n, 8), device=cuda)
+    q = torch.zeros((n, 24), device=cuda)
     seg = torch.zeros((18, n), dtype=torch.int32, device=cuda)
     pv = _sweep_inputs("pbf_lambda", device=cuda)[4]
     out = torch.zeros((n, 8), device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
+    ks = nereus_tpu_torch.KernelSet.MULLER.value
     for fn, want in picks.items():
         rows = 9 if fn in ("sum_dij", "pbf_grad") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
-            rc = getattr(lib, f"nereus_{fn}_sweep")(
-                q.data_ptr(), q.data_ptr(), seg.data_ptr(), seg.data_ptr(),
-                n, rows, pv.data_ptr(),
-                nereus_tpu_torch.KernelSet.MULLER.value, g, out.data_ptr(),
-                stream)
+            if fn.endswith("_list"):
+                # an empty list: nbr_start all 0
+                rc = lib.nereus_elastic_force_hourglass_list_sweep(
+                    q.data_ptr(), q.data_ptr(), seg.data_ptr(),
+                    seg.data_ptr(), n, pv.data_ptr(), ks, g, out.data_ptr(),
+                    stream)
+            else:
+                rc = getattr(lib, f"nereus_{fn}_sweep")(
+                    q.data_ptr(), q.data_ptr(), seg.data_ptr(),
+                    seg.data_ptr(), n, rows, pv.data_ptr(), ks, g,
+                    out.data_ptr(), stream)
             assert rc in (0, -1), (fn, g, rc)
             if rc == 0:
                 built.add(g)
@@ -1397,6 +1413,81 @@ def test_elastic_kernels_match_plain_on_cuda(cuda, kernel_set):
     torch.cuda.synchronize()
     _assert_launches({cuda_sweep.ELASTIC_F: 1, cuda_sweep.ELASTIC_FORCE_HG: 1,
                       cuda_sweep.FLUID_REACTION: 3})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("side", [16, 80])
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_elastic_list_kernel_groups_match_plain_on_cuda(cuda, kernel_set,
+                                                        large, side,
+                                                        monkeypatch):
+    """The elastic force + hourglass kernel over its pair list on a
+    deformed side³ block at spacing h/2 (16: a coupled cell's 4,096
+    samples; 80: elastic_512k's 512,000), at each lane-group size G its
+    wrapper can pick (``SMALL_BODY`` set so that the block takes the G of
+    a large body when ``large``, of a small one when not), against its plain
+    version: max|Δ| ≤ 1e-4·max|ref| per column, the hourglass half live;
+    the list holds as many pairs as the ranges hold within h."""
+    from nereus_tpu_torch.solvers import elastic_cuda
+    from nereus_tpu_torch.solvers.elastic import stress_pc
+    cfg, params, state, statics, grid, sp = _elastic_body(
+        cuda, kernel_set, n=(side,) * 3)
+    monkeypatch.setattr(cuda_sweep, "SMALL_BODY", 0 if large else 2 ** 31)
+    pv = SP.build_pvec(params, cfg, grid)
+    ns, nb = statics.nbr_start, statics.nbr
+    s, e = statics.seg_start, statics.seg_end
+    from nereus_tpu_torch.ops.neighbors import row_pairs
+    inside = 0
+    for r in range(9):
+        qi, sj = row_pairs(s[r], e[r])
+        d = statics.x0[qi] - statics.x0[sj]
+        inside += int(((d * d).sum(dim=1) < pv[SP.PV_H2]).sum())
+    assert int(ns[-1]) == nb.shape[0] == inside
+    x = _deformed(statics.x0, sp)
+    raw = SP.elastic_f_sweep_plain(
+        cfg, *elastic_cuda.f_gradient_operands(statics, x, pv))
+    f = torch.bmm(statics.vol * raw.reshape(-1, 3, 3), statics.corr)
+    pc, _, _ = stress_pc(f, statics.corr,
+                         nereus_tpu_torch.elastic_params(1e5, device=cuda))
+    hargs = elastic_cuda.force_operands(statics, x, pc, f, pv)
+    cuda_sweep.reset_launches()
+    got = cuda_sweep.elastic_force_hourglass_sweep(cfg, *hargs)
+    ref = SP.elastic_force_hourglass_sweep_plain(cfg, *hargs)
+    _assert_columns_close(got, ref, f"elastic_force_hg n={statics.n} G="
+                          f"{cuda_sweep.elastic_group(statics.n)}")
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.ELASTIC_FORCE_HG: 1})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_drho_groups_match_plain_on_cuda(cuda, kernel_set):
+    """The Dρ/Dt kernel at its lane-group size ``DRHO_G`` on the step's
+    one operand matrix (``KappaSweeps.drho_operands``, the queries its
+    first rows) with static and moving walls, and on a separate query
+    matrix, against its plain version: max|Δ| ≤ 1e-4·max|ref|."""
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import dfsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, "NONE", True,
+                                                cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    cuda_sweep.reset_launches()
+    for walls in (boundary, moving):
+        ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+        vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+        dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+            params.particle_mass))
+        sweeps = dfsph_cuda.KappaSweeps(ctx, params, cfg, dens)
+        args = sweeps.drho_operands(vel)
+        assert args[0].data_ptr() == args[1].data_ptr()
+        sep = (ctx.queries(ctx.vx, ctx.vy, ctx.vz, width=8), *args[1:])
+        for a in (args, sep):
+            _assert_columns_close(
+                cuda_sweep.drho_sweep(cfg, *a), SP.drho_sweep_plain(cfg, *a),
+                f"drho G={cuda_sweep.DRHO_G}")
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.DRHO: 4})
 
 
 @pytest.mark.requires_cuda

@@ -1,21 +1,33 @@
-"""Time the PBF loop's lane-group kernels of the PyTorch port at several
-lane counts G on one path's operands, on one CUDA card.
+"""Time the lane-group kernels of the PyTorch port at several lane counts G
+on one path's operands, on one CUDA card.
 
-    python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph]
-        [--groups 1 2 4] [--keys pbf_lambda pbf_dp pbf_grad]
+    python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph|
+                                 elastic|wcsph_elastic|dfsph|dfsph_visc]
+        [--groups 1 2 4] [--keys pbf_lambda pbf_dp pbf_grad drho
+                                 elastic_force_hg]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
-pick. This tool compiles a library of its own from the same sources: one
-file that includes ``csrc/pbf_sweep.cu`` (its functors) and adds one entry
-point per key, built for every G asked for (``NEREUS_GROUP_SWEEP`` of
-``csrc/group_sweep.cuh``; G 1 loads the next candidate's row ahead), into
-``nereus_tpu_torch/build/scan/``, and prints ptxas's registers and spills
-of each instance. It drives the path as ``tools/step_turns.py`` does
-(``chip_smoke.py``'s ``pbf_main_path`` and ``run_steps``), builds the
-kernels' operands at the state advected from the final one with
-``chip_smoke.py``'s ``pbf_path_operands``, checks each G's output against
-the wrapper's (``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤
-1e-4·max|ref| per column for the others) and times it host-free
+pick. This tool compiles libraries of its own from the same sources: per
+source file of the keys asked for, one file that includes it (its
+functors) and adds one entry point per key, built for every G asked for,
+into ``nereus_tpu_torch/build/scan/``, all compiled at once, and prints
+ptxas's registers and spills of each instance. A key names a functor and
+an engine (``FUNCTORS``): the range walk ``NEREUS_GROUP_SWEEP`` of
+``csrc/group_sweep.cuh`` (G 1 loads the next candidate's row ahead), or
+its list form ``NEREUS_LIST_SWEEP`` over a static pair list.
+``elastic_force_hg`` is the elastic force + hourglass kernel over the
+body's pair list.
+
+It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
+``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
+the kernels' operands with ``chip_smoke.py``'s ``pbf_path_operands`` (at
+the state advected from the final one) or ``dfsph_operands`` (at the final
+state); the elastic paths build their body (``elastic_block``, the 80³
+block of elastic_512k, or ``wcsph_elastic_scene``'s 16³ cube) and take
+``elastic_kernel_ops`` at ``deformed`` positions, as ``chip_smoke.py``
+holds the kernel, without steps. Each G's output is checked against the
+wrapper's (``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤
+1e-4·max|ref| per column for the others) and timed host-free
 (``chip_smoke.graph_ms``) in three interleaved rounds, the better of each.
 """
 
@@ -36,77 +48,151 @@ from nereus_tpu_torch.ops import cuda_sweep  # noqa: E402
 from nereus_tpu_torch.solvers import pbf_cuda  # noqa: E402
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx  # noqa
 
-# key → the functor of csrc/pbf_sweep.cu it launches
-FUNCTORS = {"pbf_lambda": "PbfLambda", "pbf_dp": "PbfDp",
-            "pbf_grad": "PbfGrad"}
+# key → (source of its functor, functor, engine: "ranges" or "list")
+FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", "PbfLambda", "ranges"),
+            "pbf_dp": ("pbf_sweep.cu", "PbfDp", "ranges"),
+            "pbf_grad": ("pbf_sweep.cu", "PbfGrad", "ranges"),
+            "drho": ("dfsph_sweep.cu", "Drho", "ranges"),
+            "elastic_force_hg": ("elastic_sweep.cu", "ElasticForceHourglass",
+                                 "list")}
+# the keys each path's operands feed
+PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
+             "dfsph": ("drho",),
+             "elastic": ("elastic_force_hg",)}
 SCAN_DIR = os.path.join(cuda_sweep.BUILD_DIR, "scan")
 
 
 def build(keys, groups):
-    """The scan library's path: entry ``nereus_scan_<key>_sweep`` per key,
-    built for ``groups``; prints ptxas's report of its instances."""
+    """``{key: ctypes function}``: entry ``nereus_scan_<key>_sweep`` (or
+    ``_list_sweep``) per key, built for ``groups``, one library per source
+    file, compiled at once; prints ptxas's report of their instances."""
     os.makedirs(SCAN_DIR, exist_ok=True)
-    src = os.path.join(SCAN_DIR, "scan.cu")
     gs = ", ".join(str(g) for g in groups)
-    with open(src, "w") as f:
-        f.write(f'#include "{os.path.join(cuda_sweep.CSRC, "pbf_sweep.cu")}"'
-                '\nextern "C" {\n')
-        for key in keys:
-            f.write(f"NEREUS_GROUP_SWEEP(scan_{key}, {FUNCTORS[key]}, {gs})\n")
-        f.write("}\n")
-    lib = os.path.join(SCAN_DIR, "libscan.so")
-    res = subprocess.run(
-        [cuda_sweep.nvcc_path(), *cuda_sweep.NVCC_FLAGS, "-Xptxas", "-v",
-         "-shared", "-o", lib, src], capture_output=True, text=True,
-        timeout=900)
-    if res.returncode != 0:
-        sys.exit(f"group_scan: nvcc failed:\n{res.stdout}{res.stderr}")
-    smoke.ptxas_report(res.stdout + res.stderr)
-    return lib
+    by_src = {}
+    for key in keys:
+        by_src.setdefault(FUNCTORS[key][0], []).append(key)
+    cmds, libs = [], {}
+    for src, ks in by_src.items():
+        stem = os.path.splitext(src)[0]
+        cu = os.path.join(SCAN_DIR, f"scan_{stem}.cu")
+        with open(cu, "w") as f:
+            f.write(f'#include "{os.path.join(cuda_sweep.CSRC, src)}"\n'
+                    'extern "C" {\n')
+            for key in ks:
+                _, functor, engine = FUNCTORS[key]
+                macro = ("NEREUS_LIST_SWEEP" if engine == "list"
+                         else "NEREUS_GROUP_SWEEP")
+                f.write(f"{macro}(scan_{key}, {functor}, {gs})\n")
+            f.write("}\n")
+        lib = os.path.join(SCAN_DIR, f"libscan_{stem}.so")
+        cmds.append([cuda_sweep.nvcc_path(), *cuda_sweep.NVCC_FLAGS,
+                     "-Xptxas", "-v", "-shared", "-o", lib, cu])
+        libs[src] = lib
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = ""
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate(timeout=900)
+        if p.returncode != 0:
+            sys.exit(f"group_scan: nvcc failed:\n{' '.join(c)}\n{out}")
+        log += out
+    smoke.ptxas_report(log)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for src, ks in by_src.items():
+        lib = ctypes.CDLL(libs[src])
+        for key in ks:
+            if FUNCTORS[key][2] == "list":
+                f = getattr(lib, f"nereus_scan_{key}_list_sweep")
+                f.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
+                              ptr]
+            else:
+                f = getattr(lib, f"nereus_scan_{key}_sweep")
+                f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32,
+                              ptr, ptr]
+            f.restype = i32
+            fns[key] = f
+    return fns
+
+
+def path_operands(solver, keys, dev):
+    """``(cfg, {key: (wrapper, args, kwargs)}, description)``: the path's
+    operands of each key, each with the wrapper of the port's own
+    kernel."""
+    if solver.startswith("pbf"):
+        settled = solver == "pbf_settled"
+        cfg, params, state, grid, boundary = smoke.pbf_main_path(dev,
+                                                                 settled)
+        kw = (dict(xsph_eps=smoke.PBF_XSPH_EPS,
+                   vorticity_eps=smoke.PBF_VORTICITY_EPS)
+              if solver == "pbf_vort_xsph" else {})
+        steps = ((smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM)
+                 if settled else (smoke.N_STEPS, smoke.TIMED_FROM))
+        state, _, ms, *_ = smoke.run_steps(
+            lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw),
+            state, *steps)
+        ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params,
+                              grid, cfg, boundary)
+        ops = smoke.pbf_path_operands(cfg, ctx, params,
+                                      vorticity="pbf_grad" in keys)
+        return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
+                     }, f"{ctx.c} queries, {ms:.4f} ms/step"
+    if solver.startswith("dfsph"):
+        cfg, params, state, grid, boundary, step = smoke.settled_main_path(
+            solver, dev, smoke.SETTLED_N)
+        state, _, ms, *_ = smoke.run_steps(step, state, smoke.IMPLICIT_STEPS,
+                                           smoke.IMPLICIT_TIMED_FROM)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        ops = smoke.dfsph_operands(cfg, ctx, params)
+        return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
+                     }, f"{ctx.c} queries, {ms:.4f} ms/step"
+    if solver == "elastic":
+        cfg, params, ep, _, statics, grid, sp = smoke.elastic_block(dev,
+                                                                    False)
+    else:
+        (cfg, params, _, grid, _, _, statics, ep, _,
+         sp) = smoke.wcsph_elastic_scene(dev)
+    ops = smoke.elastic_kernel_ops(cfg, params, grid, statics,
+                                   smoke.deformed(statics.x0, sp), ep)
+    kern, _, a, kw = ops["elastic_force_hg"]
+    return cfg, {"elastic_force_hg": (kern, a, kw)}, (
+        f"{statics.n} queries, {int(a[3].shape[0])} pairs in the list")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
-                    choices=("pbf", "pbf_settled", "pbf_vort_xsph"))
+                    choices=("pbf", "pbf_settled", "pbf_vort_xsph",
+                             "elastic", "wcsph_elastic", "dfsph",
+                             "dfsph_visc"))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
-    ap.add_argument("--keys", nargs="+", default=["pbf_lambda", "pbf_dp"],
-                    choices=sorted(FUNCTORS))
+    ap.add_argument("--keys", nargs="+", choices=sorted(FUNCTORS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("group_scan: needs a CUDA card")
-    lib = ctypes.CDLL(build(args.keys, args.groups))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    family = ("pbf" if args.solver.startswith("pbf") else "dfsph"
+              if args.solver.startswith("dfsph") else "elastic")
+    keys = args.keys or list(PATH_KEYS[family][:2])
+    if not set(keys) <= set(PATH_KEYS[family]):
+        sys.exit(f"group_scan: --solver {args.solver} feeds the keys "
+                 f"{PATH_KEYS[family]}, not {keys}")
+    fns = build(keys, args.groups)
     dev = torch.device("cuda")
-    settled = args.solver == "pbf_settled"
-    cfg, params, state, grid, boundary = smoke.pbf_main_path(dev, settled)
-    kw = (dict(xsph_eps=smoke.PBF_XSPH_EPS,
-               vorticity_eps=smoke.PBF_VORTICITY_EPS)
-          if args.solver == "pbf_vort_xsph" else {})
-    steps = ((smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM) if settled
-             else (smoke.N_STEPS, smoke.TIMED_FROM))
-    state, _, ms, *_ = smoke.run_steps(
-        lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw), state,
-        *steps)
-    ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params, grid,
-                          cfg, boundary)
-    ops = smoke.pbf_path_operands(cfg, ctx, params,
-                                  vorticity="pbf_grad" in args.keys)
-    print(f"{args.solver}: {ctx.c} queries, {ms:.4f} ms/step over the "
-          f"timed steps; {torch.cuda.get_device_name(0)}")
-    for key in args.keys:
-        kern, _, a, kwk = ops[key]
+    cfg, ops, desc = path_operands(args.solver, keys, dev)
+    print(f"{args.solver}: {desc}; {torch.cuda.get_device_name(0)}")
+    for key in keys:
+        kern, a, kwk = ops[key]
         q, src, s, e, pv = a
         ref = kern(cfg, *a, **kwk)
-        f = getattr(lib, f"nereus_scan_{key}_sweep")
-        f.restype = i32
-        f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32, ptr, ptr]
+        f = fns[key]
 
         def launch(g, out):
-            rc = f(q.data_ptr(), src.data_ptr(), s.data_ptr(),
-                   e.data_ptr(), q.shape[0], s.shape[0], pv.data_ptr(),
-                   cfg.kernel_set.value, g, out.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
+            lead = ((q.data_ptr(), src.data_ptr(), s.data_ptr(),
+                     e.data_ptr(), q.shape[0])
+                    + (() if FUNCTORS[key][2] == "list" else (s.shape[0],)))
+            rc = f(*lead, pv.data_ptr(), cfg.kernel_set.value, g,
+                   out.data_ptr(), torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 sys.exit(f"group_scan: {key} G {g} launch failed ({rc})")
         outs = {}
@@ -119,8 +205,9 @@ def main():
                 torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=1e-5,
                                            atol=0)
             else:
-                err = (out - ref).abs().amax(dim=0)
-                if not bool((err <= 1e-4 * ref.abs().amax(dim=0)).all()):
+                o2, r2 = out.reshape(len(out), -1), ref.reshape(len(ref), -1)
+                err = (o2 - r2).abs().amax(dim=0)
+                if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
                     sys.exit(f"group_scan: {key} G {g} differs from the "
                              f"wrapper's output by {err.tolist()}")
             outs[g] = out

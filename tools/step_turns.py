@@ -4,7 +4,8 @@ the two final states lie apart.
 
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR [--pairs N]
         [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph|pbf|
-                  pbf_settled|pbf_vort_xsph]
+                  pbf_settled|pbf_vort_xsph|dfsph|dfsph_visc|elastic|
+                  wcsph_elastic|dfsph_elastic]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
         [--log DIR]
 
@@ -29,7 +30,14 @@ total ``solver_iters``. pbf, its ``pbf_main_path`` (``pbf_1M``, the
 steps 51-300 timed); pbf_settled, ``pbf_main_path(settled=True)``
 (``pbf_256k_settled``, 60 steps, steps 11-60 timed); pbf_vort_xsph,
 ``pbf_1M`` with ``PBF_XSPH_EPS`` and ``PBF_VORTICITY_EPS``
-(``pbf_1M_vort_xsph``).
+(``pbf_1M_vort_xsph``); dfsph and dfsph_visc, ``settled_main_path``'s
+262,144-particle blocks of ``dfsph_256k_settled`` and
+``dfsph_visc_256k_settled`` and ``run_steps`` (60 steps, steps 11-60
+timed); elastic, ``elastic_block`` (``elastic_512k``, the 80³ block) and
+``run_steps`` over ``elastic_step`` (60 steps, steps 11-60 timed);
+wcsph_elastic, ``wcsph_elastic_scene`` (``wcsph_elastic_256k``, 4
+substeps) and dfsph_elastic, ``dfsph_coupled_scene(kind="elastic")``
+(``dfsph_elastic_256k``), each 60 steps, steps 11-60 timed.
 
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
@@ -38,13 +46,19 @@ operands built by its own checkout's ``chip_smoke.py`` (its
 kernels in its own contract): the density and force kernels on the
 WCSPH, IISPH and PCISPH paths, and the Laplacian (wcsph_visc), the
 pressure force (iisph, pcisph), the Jacobi loop's Σd_ij·p_j and Jacobi
-sums (iisph), and the PBF loop's λ and Δp kernels and, with vorticity
+sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
 confinement, N (key ``pbf_grad``, which an earlier checkout computes with
-its λ kernel) and ω, at the state advected from the final one (pbf*), each
+its λ kernel) and ω, at the state advected from the final one (pbf*),
+Dρ/Dt (dfsph*, ``dfsph_operands``), and the elastic kernels on the body's
+statics at ``deformed`` positions (elastic, wcsph_elastic, dfsph_elastic,
+``elastic_kernel_ops``), each
 host-free (20 launches captured in a CUDA graph, the replay timed with
 CUDA events, the better of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
-Prints every run, then each side's median and quartiles, and the largest
+On the paths driven by ``run_steps`` (all but wcsph, wcsph_visc and
+wcsph_wide12M) each run also times its host loop on the host's clock:
+ms/step from the first timed step's call to the last step's return, the
+last enqueue, before the wait for the card. Prints every run, then each side's median and quartiles, and the largest
 position and velocity difference between the two sides' final states of
 the first pair: each particle of the parent's state against the nearest
 particle of the change's (the states come out in hash order, which a
@@ -104,7 +118,7 @@ def graph_ms(fn, reps=20):
 # run in the checkout's root: its package comes first on sys.path; argv:
 # this repository's chip_smoke.py, the solver, the file for the final state
 RUN = r"""
-import dataclasses, hashlib, importlib.util, json, os, sys
+import dataclasses, hashlib, importlib.util, json, os, sys, time
 import torch
 
 
@@ -129,6 +143,23 @@ def sha(*tensors):
 
 
 GRAPH_MS
+# the host's clock over the timed steps: from the first timed step's call
+# to the last step's return, before run_steps waits for the card
+host = {"calls": 0, "t0": None, "t1": None, "timed_from": None}
+
+
+def clocked(step, timed_from):
+    host["timed_from"] = timed_from
+
+    def wrapped(s):
+        if host["calls"] == timed_from:
+            host["t0"] = time.perf_counter()
+        out = step(s)
+        host["calls"] += 1
+        host["t1"] = time.perf_counter()
+        return out
+    return wrapped
+
 
 dev = torch.device("cuda")
 solver = sys.argv[2]
@@ -162,23 +193,66 @@ elif solver.startswith("pbf"):
     steps = ((smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM) if settled
              else (smoke.N_STEPS, smoke.TIMED_FROM))
     state, diags, ms, *_ = smoke.run_steps(
-        lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw), state,
-        *steps)
+        clocked(lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw),
+                steps[1]), state, *steps)
     iters = sum(int(d.solver_iters) for d in diags)
+elif solver in ("elastic", "wcsph_elastic", "dfsph_elastic"):
+    if solver == "elastic":
+        cfg, params, ep, state, statics, grid, sp = smoke.elastic_block(
+            dev, False)
+        boundary = None
+
+        def step(s):
+            return nt.elastic_step(s, statics, params, ep, grid, cfg)
+    else:
+        if solver == "wcsph_elastic":
+            (cfg, params, state, grid, boundary, estate, statics, ep, psi,
+             sp) = smoke.wcsph_elastic_scene(dev)
+            fn, kw = nt.wcsph_elastic_step, {}
+        else:
+            cfg, params, state, grid, boundary, body = (
+                smoke.dfsph_coupled_scene(dev, "elastic"))
+            estate, statics, ep, psi = body
+            sp = 0.5 * float(params.interaction_radius)
+            fn, kw = nt.dfsph_elastic_step, dict(tol=smoke.DFSPH_TOL,
+                                                 tol_v=smoke.DFSPH_TOL)
+        held = {"body": estate}
+
+        def step(s):
+            s, held["body"], d = fn(s, params, grid, cfg, held["body"],
+                                    statics, ep, psi, boundary,
+                                    substeps=smoke.WEL_SUBSTEPS, **kw)
+            return s, d
+    state, diags, ms, *_ = smoke.run_steps(
+        clocked(step, smoke.IMPLICIT_TIMED_FROM), state, smoke.IMPLICIT_STEPS,
+        smoke.IMPLICIT_TIMED_FROM)
+    if solver == "dfsph_elastic":
+        iters = sum(int(d.solver_iters) for d in diags)
 else:
     n = smoke.MAIN_N if solver == "iisph" else smoke.SETTLED_N
     cfg, params, state, grid, boundary, step = smoke.settled_main_path(
         solver, dev, n)
-    state, diags, ms, *_ = smoke.run_steps(step, state, smoke.IMPLICIT_STEPS,
-                                           smoke.IMPLICIT_TIMED_FROM)
+    state, diags, ms, *_ = smoke.run_steps(
+        clocked(step, smoke.IMPLICIT_TIMED_FROM), state, smoke.IMPLICIT_STEPS,
+        smoke.IMPLICIT_TIMED_FROM)
     iters = sum(int(d.solver_iters) for d in diags)
 assert bool(torch.isfinite(state.pos).all())
-live = state.active_mask()
+live = (torch.ones(len(state.pos), dtype=torch.bool, device=dev)
+        if solver == "elastic" else state.active_mask())
 torch.save({"pos": state.pos[live].cpu(), "vel": state.vel[live].cpu(),
             "h": float(params.interaction_radius)}, sys.argv[3])
-ctx = build_sweep_ctx(pbf_cuda.advected(state, params) if solver.startswith(
-    "pbf") else state, params, grid, cfg, boundary)
-if solver in ("wcsph", "wcsph_wide12M"):
+ctx = None if solver == "elastic" else build_sweep_ctx(
+    pbf_cuda.advected(state, params) if solver.startswith("pbf") else state,
+    params, grid, cfg, boundary)
+if solver.endswith("elastic"):
+    ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
+           in own.elastic_kernel_ops(cfg, params, grid, statics,
+                                     own.deformed(statics.x0, sp),
+                                     ep).items()}
+    if solver == "dfsph_elastic":
+        kern, _, args, kw = own.dfsph_operands(cfg, ctx, params)["drho"]
+        ops["drho"] = (kern, args, kw)
+elif solver in ("wcsph", "wcsph_wide12M"):
     dargs, _ = own.sweep_inputs(ctx, params)
     _, fargs = own.sweep_inputs(ctx, params,
                                 SP.density_sweep(cfg, *dargs))
@@ -192,19 +266,25 @@ elif solver.startswith("pbf"):
 else:
     operands_of = {"wcsph_visc": own.wcsph_visc_operands,
                    "iisph": own.iisph_operands,
-                   "pcisph": own.pcisph_operands}[solver]
+                   "pcisph": own.pcisph_operands,
+                   "dfsph": own.dfsph_operands,
+                   "dfsph_visc": own.dfsph_operands}[solver]
     keep = {"wcsph_visc": ("density", "force_v0", "visc_laplacian"),
             "iisph": ("density", "force_p0", "sum_dij", "jacobi",
                       "pressure_force"),
             "pcisph": ("density", "force_p0", "density_pred",
-                       "pressure_force")}[solver]
+                       "pressure_force"),
+            "dfsph": ("drho", "pressure_force"),
+            "dfsph_visc": ("drho", "visc_laplacian")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
            in operands_of(cfg, ctx, params).items() if k in keep}
 kernels = {}
 for key, (kern, args, kw) in ops.items():
     out = kern(cfg, *args, **kw)
     kernels[key] = [graph_ms(lambda: kern(cfg, *args, **kw)), sha(out)]
-print(json.dumps({"ms": ms, "iters": iters,
+host_ms = (None if host["t0"] is None else (host["t1"] - host["t0"]) * 1e3
+           / (host["calls"] - host["timed_from"]))
+print(json.dumps({"ms": ms, "host_ms": host_ms, "iters": iters,
                   "state": sha(state.pos, state.vel), "kernels": kernels}))
 """.replace("GRAPH_MS\n", GRAPH_MS)
 
@@ -256,13 +336,15 @@ print(json.dumps(times))
 """.replace("GRAPH_MS\n", GRAPH_MS)
 
 SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph", "pbf",
-           "pbf_settled", "pbf_vort_xsph")
+           "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc", "elastic",
+           "wcsph_elastic", "dfsph_elastic")
 
 
 def run(root, solver, state_file):
-    """The run's record: ms/step, iterations (the total ``solver_iters``,
+    """The run's record: ms/step, the host loop's ms/step (None on the
+    WCSPH paths), iterations (the total ``solver_iters``,
     for PBF ``pbf_iters`` per step; CG iterations launched for wcsph_visc,
-    0 for the WCSPH paths), state
+    0 for the WCSPH, elastic and wcsph_elastic paths), state
     hash, and per kernel [host-free ms, output hash]; its final live
     positions and velocities go to ``state_file``."""
     res = subprocess.run([sys.executable, "-c", RUN, SMOKE, solver,
@@ -374,8 +456,10 @@ def main():
                 recs[side].append(rec)
                 kern = ", ".join(f"{key} {ms:.4f} ms ({h})" for key, (ms, h)
                                  in rec["kernels"].items())
+                hm = rec["host_ms"]
+                hm = "" if hm is None else f" (host loop {hm:.4f})"
                 print(f"pair {k + 1} {side}: {args.solver} {rec['ms']:.4f} "
-                      f"ms/step, iterations {rec['iters']}, state "
+                      f"ms/step{hm}, iterations {rec['iters']}, state "
                       f"{rec['state']}; kernels host-free: {kern}",
                       flush=True)
         dx, dv = state_difference(
@@ -395,9 +479,15 @@ def main():
             kern.append(f"{key} median {statistics.median(km):.4f} ms "
                         f"({kq1:.4f}-{kq3:.4f}), hashes "
                         f"{sorted({r['kernels'][key][1] for r in rs})}")
+        hm = [r["host_ms"] for r in rs if r["host_ms"] is not None]
+        if hm:
+            h1, h3 = quartiles(hm)
+            hm = (f", host loop median {statistics.median(hm):.4f} ms/step, "
+                  f"quartiles {h1:.4f}-{h3:.4f}")
         print(f"{side}: {args.solver} median {statistics.median(t):.4f} "
-              f"ms/step, quartiles {q1:.4f}-{q3:.4f}, runs {len(t)}, state "
-              f"hashes {sorted({r['state'] for r in rs})}; " + "; ".join(kern))
+              f"ms/step, quartiles {q1:.4f}-{q3:.4f}{hm or ''}, runs "
+              f"{len(t)}, state hashes {sorted({r['state'] for r in rs})}; "
+              + "; ".join(kern))
     same = ({r["state"] for r in recs["parent"]}
             == {r["state"] for r in recs["change"]})
     print(f"{args.solver}: final states of pair 1, change against parent: "
