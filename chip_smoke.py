@@ -301,17 +301,18 @@ neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
 over 67 TFLOP/s, the H100 SXM's published float32 peaks. ElasticF, the
-reaction, density, force, SumDij, Jacobi, PBF and Dρ/Dt kernels stop
-after the geometry on a candidate outside the cutoff: there only those
-operations count (``GUARDED``), and the candidates inside the cutoff are
-counted from this run's positions. The elastic force + hourglass kernel
+reaction, density, force, SumDij, Jacobi, PBF, Dρ/Dt, multiphase force
+and dδ̂/dt kernels stop after the geometry on a candidate outside the
+cutoff: there only those operations count (``GUARDED``), and the
+candidates inside the cutoff are counted from this run's positions. The elastic force + hourglass kernel
 walks the body's static pair list, every pair inside the cutoff
 (``LISTED``): its operations are the list's pairs × the pair's, the work
 inside the cutoff whatever walks it. The elastic and SumDij sweeps read
-one matrix as queries and source, the density, force, PBF and Dρ/Dt
-sweeps one whose first rows are the queries: its bytes count once.
-SumDij, Jacobi, PBF's, Dρ/Dt and the elastic force + hourglass count only
-the columns their pairs read (``READ_BYTES``) and no cell key.
+one matrix as queries and source, the density, force, PBF, Dρ/Dt,
+multiphase force and dδ̂/dt sweeps one whose first rows are the queries:
+its bytes count once. SumDij, Jacobi, PBF's, Dρ/Dt, the multiphase force,
+dδ̂/dt and the elastic force + hourglass count only the columns their
+pairs read (``READ_BYTES``) and no cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step
 (the pair list of a ``LISTED`` kernel).
@@ -325,8 +326,8 @@ print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
 default (their ``kernels`` entries carry these under ``tiled``). The
 lane-group kernels (density, force, SumDij, Jacobi, PBF's, Dρ/Dt, the
-elastic force + hourglass over its list) print the lane-group size G
-they take and the queries with candidates (their entries carry these
+multiphase force and dδ̂/dt, the elastic force + hourglass over its list)
+print the lane-group size G they take and the queries with candidates (their entries carry these
 under ``grouped``); the build prints the density and force kernels'
 registers and spills by G, and each instance of
 ``group_pair_sweep_kernel``'s and ``group_list_sweep_kernel``'s.
@@ -459,7 +460,7 @@ GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "force_p0": 9, "force_v0": 9, "force_p0_v0": 9,
            "force_moving": 9, "force_p0_moving": 9, "sum_dij": 9,
            "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
-           "drho": 9}
+           "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -476,20 +477,27 @@ LISTED = ("elastic_force_hg",)
 # x y z psi_b; N's x y z psi; D rho / Dt x y z v of a query (not its slot
 # 6 or pad), x y z v psi of a fluid row and x y z v_b psi_b of a wall row;
 # the elastic force + hourglass the whole 24-wide row X x PC F of its one
-# matrix. Their bound counts these and no cell key: the port's ranges are
-# exact, so no kernel reads a key. Where the queries are the source's
-# first rows they are read once.
+# matrix; the multiphase force's one matrix, its fluid rows the queries:
+# a query row all but its slot 6 (V_i), a fluid row x y z v V pV^2 rho0
+# (the union with the query: the whole 48-byte row), a wall row x y z
+# psi_b (static) or x y z v_b psi_b (MOVING); d delta-hat / dt's x y z v
+# s/m of a query, x y z v of a fluid row (the union: 28 bytes) and
+# x y z v_b psi_b of a wall row. Their bound counts these and no cell key:
+# the port's ranges are exact, so no kernel reads a key. Where the queries
+# are the source's first rows they are read once.
 READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
               "pbf_grad": (16, 16, 0), "drho": (24, 28, 28),
-              "elastic_force_hg": (96, 96, 0)}
+              "elastic_force_hg": (96, 96, 0),
+              "mp_force": (44, 48, 16), "mp_force_moving": (44, 48, 28),
+              "mp_drho": (28, 28, 28)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
 # and group_list_sweep_kernel of csrc/group_sweep.cuh), whose rows name
 # their G
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
-           "elastic_force_hg")
+           "elastic_force_hg", "mp_force", "mp_force_moving", "mp_drho")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -702,7 +710,8 @@ def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``, ``pbf_dp_group``,
-    ``PBF_GRAD_G``, ``DRHO_G``, ``elastic_group``) and the queries
+    ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
+    ``elastic_group``) and the queries
     that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
     from nereus_tpu_torch.ops import cuda_sweep
@@ -731,6 +740,10 @@ def group_stats(key, args, kw):
         g = cuda_sweep.PBF_GRAD_G
     elif key == "drho":
         g = cuda_sweep.DRHO_G
+    elif key.startswith("mp_force"):
+        g = cuda_sweep.mp_force_group(n, kw.get("moving_boundary", False))
+    elif key == "mp_drho":
+        g = cuda_sweep.MP_DRHO_G
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -922,8 +935,7 @@ def multiphase_operands(cfg, ctx, params):
     from nereus_tpu_torch.solvers import wcsph_cuda
     dargs = wcsph_cuda.multiphase_density_operands(ctx)
     dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
-    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, cfg,
-                                                       dout)
+    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, dout)
     return {"mp_density": (cuda_sweep.multiphase_density_sweep,
                            SP.multiphase_density_sweep_plain, dargs, {}),
             "mp_force": (cuda_sweep.multiphase_force_sweep,
@@ -999,10 +1011,9 @@ def mp_dfsph_operands(cfg, ctx, params):
     vel = (ctx.vx, ctx.vy, ctx.vz)
     vargs = sweeps.drho_operands(torch.stack(vel, dim=1))
     d = SP.multiphase_drho_sweep_plain(cfg, *vargs)
-    kappa = torch.clamp(d[:, 0] + sweeps.sm * d[:, 1], min=0.0) * alpha \
-        / params.dt
+    kappa = torch.clamp(d, min=0.0) * alpha / params.dt
     fargs = wcsph_cuda.multiphase_force_args(
-        ctx, cfg, vel, 1.0 / torch.clamp(delta, min=1e-12),
+        ctx, vel, 1.0 / torch.clamp(delta, min=1e-12),
         1.0 / torch.clamp(dens, min=1e-12), torch.zeros_like(dens))
     return {"mp_density": (cuda_sweep.multiphase_density_sweep,
                            SP.multiphase_density_sweep_plain, dargs, {}),
@@ -1125,10 +1136,11 @@ def moving_wall_operands(cfg, ctx, params):
 def moving_wall_mp_operands(cfg, ctx, params):
     """On a two-phase ``ctx`` with a moving wall: MultiphaseForce<MOVING>,
     also on its friction alone, and the unchanged dδ̂/dt kernel."""
+    from nereus_tpu_torch.ops.sph_pairs import MP_INV_M
     ops = {"mp_force_moving": moving(multiphase_operands(cfg, ctx,
                                                          params)["mp_force"])}
     ops["mp_force_moving_friction"] = friction_only(ops["mp_force_moving"],
-                                                    7)
+                                                    MP_INV_M)
     ops["mp_drho"] = mp_dfsph_operands(cfg, ctx, params)["mp_drho"]
     return ops
 
@@ -3062,6 +3074,7 @@ def main():
     # alone in a directory) the run fails with no output
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
+    from nereus_tpu_torch.ops.sph_pairs import MP_INV_M
     from nereus_tpu_torch.solvers import (dfsph_cuda, iisph_cuda, pbf_cuda,
                                           pcisph_cuda, viscosity)
     from nereus_tpu_torch.boundary import move_boundary
@@ -3487,7 +3500,7 @@ def main():
               "mp_force_moving": moving(ops["mp_force"])},
         f"multiphase_1M_wavemaker after {N_STEPS} steps", time_it=True)
     fric = {"mp_force_moving_friction": friction_only(
-        moving(ops["mp_force"]), 7)}
+        moving(ops["mp_force"]), MP_INV_M)}
     compare_kernels(cfg, fric,
                     f"multiphase_1M_wavemaker after {N_STEPS} steps")
     check_reads_wall_velocity(cfg, fric, "multiphase_1M_wavemaker")

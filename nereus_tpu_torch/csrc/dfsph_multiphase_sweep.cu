@@ -19,7 +19,29 @@
 // gradient, exactly 0 at the self pair (r^2 is clamped before the rsqrt),
 // so self-pairs stay in the ranges; the Muller gradient skips the rsqrt.
 // The wall sums the caller rescales by each query's s_i / m_i (alpha's
-// B vector, drho's wall column) keep columns of their own.
+// B vector) keep columns of their own.
+//
+// d delta-hat / dt runs once per iteration of both solver loops on the
+// lane-group engine group_pair_sweep_kernel<MultiphaseDrho, KS, G> of
+// group_sweep.cuh. What held it back on pair_sweep_kernel: one thread per
+// query walking 18 runs in series, every candidate loading both float4s
+// of its 32-byte row and running the whole pair, multiplied by 0 outside
+// the cutoff (~85 % of the candidates), and two output columns that the
+// caller combined in two more launches. What the design does: G lanes per
+// query walk the flattened fluid and wall runs as one list; a candidate
+// loads x y z vx, tests the cutoff, and only inside it loads vy vz psi_b
+// and runs the pair; lane 0's epilogue writes the one rate
+// sum_fluid + (s_i / m_i) sum_wall, the query's s_i / m_i read from slot 6
+// of its row (dfsph_pallas.py's d[:, 0] + sm * d[:, 1]). Its operands are
+// one (C + Mb, 8) matrix whose first C rows are the queries
+// (solvers/dfsph_cuda.py::MultiphaseKappaSweeps), so each iteration
+// writes the velocities once. G: ops/cuda_sweep.py::MP_DRHO_G (the one
+// instance built). Over a rigid body's shell (the multiphase DFSPH
+// coupling) the wall formula alone keeps the parent's one-thread walk,
+// BoundaryForm<MaskedForm<MultiphaseDrho>> (the two sums, no epilogue): a
+// shell's ranges are empty for nearly every query, and a lane group's row
+// scan of an empty query costs more than one thread's (PERF.md section 6,
+// the DFSPH couplings' shell Drho).
 //
 // Bound: memory traffic (sweep_common.cuh). The alpha and kappa sources
 // are 16-byte rows (x y z and one scalar: 1 / m_j or kappa V-hat_j^2 on
@@ -30,15 +52,19 @@
 //   alpha: q (N, 4) x y z pad; src (M, 4) fluid x y z 1/m_j, wall x y z
 //          psi_b; out (N, 7) sum grad W (3), sum |grad W|^2 / m_j (fluid
 //          rows), sum psi_b grad W (3, wall rows)
-//   drho:  q (N, 8) x y z vx vy vz pad pad; src (M, 8) x y z vx vy vz s6
-//          pad (fluid s6 unread, wall rows velocity 0 and psi_b);
-//          out (N, 2) sum (v_i - v_j) . grad W (fluid rows, no mass
-//          weight), sum psi_b (v_i - v_b) . grad W (wall rows)
+//   drho:  src (C + Mb, 8) fluid rows x y z vx vy vz s_i/m_i 0, wall rows
+//          x y z vb vb vb psi_b 0 (the wall velocity 0 for a static wall);
+//          q its first C rows (slots 0-6 read); out (N,)
+//          sum (v_i - v_j) . grad W (fluid rows, no mass weight)
+//          + (s_i / m_i) sum psi_b (v_i - v_b) . grad W (wall rows)
+//   drho_body: q (N, 8) x y z vx vy vz (slots 0-5 read); src a shell's
+//          (Mb, 8) rows x y z v_b psi_b 0; ranges (9, N); out (N, 2), the
+//          shell's sum in column 1 and column 0 exactly 0
 //   kappa: q (N, 8) x y z kv2_i qc_i pad pad pad; src (M, 4) fluid x y z
 //          kv2_j, wall x y z psi_b; out (N, 3)
 //          sum (kv2_i + kv2_j) grad W + qc_i sum psi_b grad W
 
-#include "sweep_common.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
@@ -69,24 +95,31 @@ struct MultiphaseAlpha {
   }
 };
 
-// d delta-hat / dt: sum (v_i - v_j) . grad W over the fluid rows (column 0),
-// sum psi_b (v_i - v_b) . grad W over the wall rows (column 1)
+// d delta-hat / dt: sum (v_i - v_j) . grad W over the fluid rows (acc 0),
+// sum psi_b (v_i - v_b) . grad W over the wall rows (acc 1), combined by
+// lane 0 as acc0 + (s_i / m_i) acc1; the engine calls the pair inside the
+// cutoff, with a = x y z vx of row j
 struct MultiphaseDrho {
-  static constexpr int QW = 8, SW = 8, OW = 2;
+  static constexpr int QW = 8, SW = 8, OW = 2, OUTW = 1;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
-    const float4 b = src_f4(src, SW, j, 1);  // vy vz psi_b pad
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz (psi_b) pad
     const Geom g = default_geom<KS>(q, a, p);
     const float dv = (q[3] - a.w) * g.dx + (q[4] - b.x) * g.dy +
                      (q[5] - b.y) * g.dz;
     if constexpr (B) {
-      acc[1] += b.z * g.s * dv * g.okf;
+      acc[1] += b.z * g.s * dv;
     } else {
-      acc[0] += g.s * dv * g.okf;
+      acc[0] += g.s * dv;
     }
+  }
+  __device__ static void epilogue(const float (&q)[QW],
+                                  const float (&acc)[OW], const Params&,
+                                  float (&o)[OUTW]) {
+    o[0] = acc[0] + q[6] * acc[1];
   }
 };
 
@@ -112,11 +145,13 @@ struct MultiphaseKappa {
 extern "C" {
 
 NEREUS_PAIR_SWEEP(multiphase_alpha, MultiphaseAlpha)
-NEREUS_PAIR_SWEEP(multiphase_drho, MultiphaseDrho)
+// the G of ops/cuda_sweep.py::MP_DRHO_G
+NEREUS_GROUP_SWEEP(multiphase_drho, MultiphaseDrho, 4)
 NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)
 // the wall columns alone over a body shell (the multiphase DFSPH coupling)
 NEREUS_PAIR_SWEEP(multiphase_alpha_body, BoundaryForm<MultiphaseAlpha>)
-NEREUS_PAIR_SWEEP(multiphase_drho_body, BoundaryForm<MultiphaseDrho>)
+NEREUS_PAIR_SWEEP(multiphase_drho_body,
+                  BoundaryForm<MaskedForm<MultiphaseDrho>>)
 NEREUS_PAIR_SWEEP(multiphase_kappa_body, BoundaryForm<MultiphaseKappa>)
 
 }  // extern "C"

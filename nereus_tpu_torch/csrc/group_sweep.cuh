@@ -9,7 +9,9 @@
 // nereus_tpu/ops/pallas_sph.py::generic_sweep launches it, for the pair
 // functions whose functors it runs (iisph_sweep.cu: sum_dij_pair,
 // jacobi_fluid_pair + jacobi_boundary_pair; pbf_sweep.cu: pbf_lambda_pair,
-// pbf_dp_pair; dfsph_sweep.cu: drho_pair). Its list form,
+// pbf_dp_pair; dfsph_sweep.cu: drho_pair; multiphase_sweep.cu:
+// multiphase_force_pair + multiphase_boundary_pair;
+// dfsph_multiphase_sweep.cu: multiphase_drho_pair + _bpair). Its list form,
 // group_list_sweep_kernel<P, KS, G>, walks a static pair list instead of
 // the ranges: the elastic solid's reference pairs (elastic_sweep.cu,
 // elastic_force_pair + elastic_hourglass_pair as
@@ -54,12 +56,14 @@
 // of the candidate's row that the engine loaded: pair(q, a, src, j,
 // params, acc). A pair_sweep_kernel functor moves here with one
 // NEREUS_GROUP_SWEEP line and its first load replaced by `a`. A functor
-// may define OUTW and epilogue(acc, params, o): lane 0 turns the group's
-// sums into OUTW values, written as (OUTW, N) planes (PbfLambda's rho and
-// lambda), where a functor without one writes its sums as (N, OW) rows.
+// may define OUTW and epilogue(q, acc, params, o): lane 0 turns the
+// group's sums and the query row into OUTW values, written as (OUTW, N)
+// planes (PbfLambda's rho and lambda; MultiphaseDrho's one (N,) rate, its
+// wall sum scaled by the query's s_i / m_i), where a functor without one
+// writes its sums as (N, OW) rows.
 // MaskedForm<P> runs such a functor on pair_sweep_kernel (one thread per
-// query; the pair on every candidate, masked): a body shell's Drho, whose
-// queries are nearly all without candidates.
+// query; the pair on every candidate, masked): a body shell's Drho and
+// multiphase Drho, whose queries are nearly all without candidates.
 //
 // The list form. A sweep whose pairs never change (an elastic body's
 // neighbors in its reference positions X) walks a list built once, when
@@ -258,7 +262,7 @@ group_pair_sweep_kernel(const float* __restrict__ q,
   if (live && lane == 0) {
     if constexpr (HasEpilogue<P>::value) {
       float o[P::OUTW];
-      P::epilogue(acc, p, o);
+      P::epilogue(qv, acc, p, o);
 #pragma unroll
       for (int k = 0; k < P::OUTW; ++k) {
         out[static_cast<size_t>(k) * n + i] = o[k];
@@ -273,15 +277,14 @@ group_pair_sweep_kernel(const float* __restrict__ q,
 }
 
 // The pair_sweep_kernel form of a lane-group functor P (without a
-// prologue, one output sum) that adds nothing outside the cutoff: P's pair
-// on every candidate, its sum multiplied by the cutoff mask, with no
-// branch. A shell's few busy queries then run in step: measured on the
-// DFSPH couplings' shell Drho, the cutoff test as a branch took 4-7 % more
-// time (PERF.md section 6).
+// prologue; its OW sums, any epilogue left out) that adds nothing outside
+// the cutoff: P's pair on every candidate, each of its sums multiplied by
+// the cutoff mask, with no branch. A shell's few busy queries then run in
+// step: measured on the DFSPH couplings' shell Drho, the cutoff test as a
+// branch took 4-7 % more time (PERF.md section 6).
 template <class P>
 struct MaskedForm {
-  static_assert(P::OW == 1, "MaskedForm takes a pair with one output sum");
-  static constexpr int QW = P::QW, SW = P::SW, OW = 1;
+  static constexpr int QW = P::QW, SW = P::SW, OW = P::OW;
   static constexpr bool BOUNDARY_ROWS = P::BOUNDARY_ROWS;
   template <int KS, bool B>
   __device__ static void pair(const float (&q)[QW], const float* src, int j,
@@ -289,9 +292,10 @@ struct MaskedForm {
     const float4 a = src_f4(src, SW, j, 0);
     const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
     const float okf = dx * dx + dy * dy + dz * dz < p.h2 ? 1.0f : 0.0f;
-    float t[1] = {0.0f};
+    float t[OW] = {};
     P::template pair<KS, B>(q, a, src, j, p, t);
-    acc[0] += t[0] * okf;
+#pragma unroll
+    for (int k = 0; k < OW; ++k) acc[k] += t[k] * okf;
   }
 };
 

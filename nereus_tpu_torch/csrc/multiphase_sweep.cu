@@ -11,7 +11,7 @@
 // velocity in slots 3-5 of the boundary source row), and xsph_pair
 // (wcsph_step_pallas with xsph_eps).
 //
-// Design: one functor each for the range-walk template
+// Design. The density and XSPH functors run on the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
 // hash-sorted query, exact neighbor ranges), in the operation order of
 // nereus_tpu_torch/ops/sph_pairs.py. The self pair stays in the ranges:
@@ -20,28 +20,44 @@
 // finite and multiply r = 0; dv = 0; Becker's r is 0). The viscosity
 // bracket multiplies r^2 before its kernel constant (visc_rdotgrad) and the
 // viscosity denominator divides exactly. The same-phase test of Becker
-// cohesion is an exact float compare of two copies of one sorted rho0
-// column.
+// cohesion is an exact float compare of the query's and the source's copy
+// of one rho0 column (slot 8 of the same matrix).
 //
-// Bound: memory traffic (sweep_common.cuh). The multiphase force sweep
-// reads 48-byte wide source rows (two per-source scalars, V_j and p_j V_j^2,
-// plus rho0_j) where the single-phase force sweep reads 32-byte rows; the
-// multiphase density sweep reads 16-byte rows (position and psi_b only),
-// the XSPH sweep 32-byte rows.
+// The force (once per step on every multiphase path) runs on the
+// lane-group engine group_pair_sweep_kernel<MultiphaseForce, KS, G> of
+// group_sweep.cuh. What held it back on pair_sweep_kernel: one thread per
+// query walking 18 runs in series, and every candidate loading two or three
+// float4s of its 48-byte row and running the heaviest pair of the port (72
+// operations on a fluid row with an exact division, 48-51 on a wall row),
+// multiplied by 0 outside the cutoff (~85 % of the candidates). What the
+// design does: G lanes per query walk the flattened fluid and wall runs as
+// one list; a candidate loads x y z vx, tests the cutoff, and only inside
+// it loads vy vz V pV^2 (wall: vb_y vb_z psi_b) and, for a fluid pair
+// under Becker cohesion, rho0_j. Its operands are one (C + Mb, 12) matrix
+// whose first C rows are the queries (solvers/wcsph_cuda.py::
+// multiphase_force_args), so a step writes the positions and velocities
+// once. G: ops/cuda_sweep.py::mp_force_group (only those instances are
+// built).
+//
+// Bound: memory traffic (sweep_common.cuh). The multiphase density sweep
+// reads 16-byte rows (position and psi_b only), the XSPH sweep 32-byte
+// rows.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   multiphase density: q (N, 4) x y z pad; src (M, 4) fluid x y z 0,
 //       boundary x y z psi_b; out (N, 2) sum W (fluid rows), sum psi_b W
 //       (boundary rows)
-//   multiphase force: q (N, 12) x y z vx vy vz p_iV_i^2 1/m_i m_i 1/rho_i
-//       [rho0_i] pad; src (M, 12) fluid x y z vx vy vz V_j p_jV_j^2
-//       [rho0_j] pad pad pad, boundary x y z vb_x vb_y vb_z psi_b 0...
-//       (the wall velocity 0 for a static wall); out (N, 3) acceleration
+//   multiphase force: src (C + Mb, 12), fluid rows x y z vx | vy vz V p V^2
+//       | rho0 1/m m 1/rho~ (V = 1/delta, p V^2 0 for DFSPH's non-pressure
+//       forces, rho0 read only under Becker cohesion), then the boundary
+//       rows x y z vb_x | vb_y vb_z psi_b 0 | 0 0 0 0 (the wall velocity 0
+//       for a static wall); q its first C rows (every slot read but 6);
+//       out (N, 3) acceleration
 //   xsph: q (N, 8) x y z vx vy vz rho pad; src (M, 8) x y z vx vy vz rho
 //       pad, fluid rows only (9 range rows); out (N, 3), scaled by eps
 //       outside
 
-#include "sweep_common.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
@@ -87,30 +103,32 @@ struct MultiphaseDensity {
 
 // acceleration in the adapted-density volume form; BECKER adds phase-pair
 // cohesion. Boundary rows: wall penalty and friction, no pressure term;
-// MOVING makes the friction read the wall velocity.
+// MOVING makes the friction read the wall velocity. The engine calls it
+// inside the cutoff (okf = 1), with a = x y z vx of row j.
 template <bool BECKER, bool MOVING>
 struct MultiphaseForce {
   static constexpr int QW = 12, SW = 12, OW = 3;
   static constexpr bool BOUNDARY_ROWS = true;
+  // query slots: 1/m_i, m_i, 1/rho~_i, p_i V_i^2, rho0_i
+  static constexpr int INV_M = 9, MASS = 10, INV_RHO = 11, PV2 = 7, RHO0 = 8;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
     const float4 b = src_f4(src, SW, j, 1);  // vy vz V_j pV2_j (psi_b 0)
     const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
-    const float okf = r2 < p.h2 ? 1.0f : 0.0f;
     if constexpr (B) {
       float rl = 0.0f, invrl = 0.0f;
       if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
       const float psi = b.z;
-      const float inv_rho = q[9];
+      const float inv_rho = q[INV_RHO];
       const float w = w_value<KS>(r2, rl, p);
       const float sd = grad_scale_default<KS>(r2, rl, invrl, p);
-      const float cadh = (p.beta * psi) * q[7] * w;
+      const float cadh = (p.beta * psi) * q[INV_M] * w;
       const float nu = ((2.0f * p.visc * p.visc * p.h * p.cs) /
                         (1.0f + 0.01f * p.h2)) *
-                       q[8] * (inv_rho * inv_rho);
+                       q[MASS] * (inv_rho * inv_rho);
       float vdotr;
       if constexpr (MOVING) {
         vdotr = (q[3] - a.w) * dx + (q[4] - b.x) * dy + (q[5] - b.y) * dz;
@@ -118,7 +136,7 @@ struct MultiphaseForce {
         vdotr = q[3] * dx + q[4] * dy + q[5] * dz;
       }
       const float cfric = nu * fmaxf(vdotr, 0.0f) * psi * sd;
-      const float c = (cadh + cfric) * okf;
+      const float c = cadh + cfric;
       acc[0] += c * dx;
       acc[1] += c * dy;
       acc[2] += c * dz;
@@ -127,15 +145,15 @@ struct MultiphaseForce {
       rl_invrl(r2, rl, invrl);
       const float av = visc_rdotgrad<KS>(r2, rl, invrl, p);
       const float bden = r2 + 0.01f * p.h2;
-      const float cvisc = (2.0f * p.visc) * b.z * (av * (1.0f / bden)) * okf;
+      const float cvisc = (2.0f * p.visc) * b.z * (av * (1.0f / bden));
       const float sp = grad_scale_press<KS>(rl, invrl, p);
-      float cp = -q[7] * (q[6] + b.w) * sp * okf;
+      float cp = -q[INV_M] * (q[PV2] + b.w) * sp;
       if constexpr (BECKER) {
         const float w_eff = fminf(w_value<KS>(r2, rl, p), p.wdiam);
         const float rho0_j = src_f4(src, SW, j, 2).x;
-        const float same = q[10] == rho0_j ? 1.0f : 0.0f;
+        const float same = q[RHO0] == rho0_j ? 1.0f : 0.0f;
         const float keff = p.kappa * (same + (1.0f - same) * p.stx);
-        cp = cp - (keff * q[7]) * w_eff * okf;
+        cp = cp - (keff * q[INV_M]) * w_eff;
       }
       acc[0] += cvisc * (q[3] - a.w) + cp * dx;
       acc[1] += cvisc * (q[4] - b.x) + cp * dy;
@@ -172,25 +190,28 @@ extern "C" {
 NEREUS_PAIR_SWEEP(multiphase_density, MultiphaseDensity)
 NEREUS_PAIR_SWEEP(xsph, Xsph)
 
-// pair_sweep_kernel<MultiphaseForce<st_model == BECKER, moving>> on
+// group_pair_sweep_kernel<MultiphaseForce<st_model == BECKER, moving>> at
+// lane-group size `group` (the G of ops/cuda_sweep.py::mp_force_group) on
 // `stream`; returns cudaGetLastError() (0 on success), or -1 for an unknown
-// kernel set, a surface-tension model other than NONE and BECKER, or a
-// moving switch other than 0 and 1.
+// kernel set, a surface-tension model other than NONE and BECKER, a moving
+// switch other than 0 and 1, or another group.
 int nereus_multiphase_force_sweep(const float* q, const float* src,
                                   const int* seg_start, const int* seg_end,
                                   int n, int n_rows, const float* pvec,
                                   int kernel_set, int st_model, int moving,
-                                  float* out, void* stream) {
-#define NEREUS_MP_FORCE(ST, BECKER, M, MOVING)                               \
+                                  int group, float* out, void* stream) {
+// static walls take G 2 or 4, moving walls G 4 only
+#define NEREUS_MP_FORCE(ST, BECKER, M, MOVING, ...)                          \
   if (st_model == ST && moving == M) {                                       \
-    return nereus_sweep::launch_pair_sweep<MultiphaseForce<BECKER, MOVING>>( \
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,        \
+    return nereus_sweep::launch_group_sweep<MultiphaseForce<BECKER, MOVING>, \
+                                            __VA_ARGS__>(                    \
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, group, out, \
         stream);                                                             \
   }
-  NEREUS_MP_FORCE(ST_BECKER, true, 0, false)
-  NEREUS_MP_FORCE(ST_NONE, false, 0, false)
-  NEREUS_MP_FORCE(ST_BECKER, true, 1, true)
-  NEREUS_MP_FORCE(ST_NONE, false, 1, true)
+  NEREUS_MP_FORCE(ST_BECKER, true, 0, false, 2, 4)
+  NEREUS_MP_FORCE(ST_NONE, false, 0, false, 2, 4)
+  NEREUS_MP_FORCE(ST_BECKER, true, 1, true, 4)
+  NEREUS_MP_FORCE(ST_NONE, false, 1, true, 4)
 #undef NEREUS_MP_FORCE
   return -1;
 }

@@ -115,7 +115,8 @@ struct PbfGrad : PbfSums<false> {
 struct PbfLambda : PbfSums<true> {
   static constexpr bool BOUNDARY_ROWS = true;
   static constexpr int OUTW = 2;
-  __device__ static void epilogue(const float (&acc)[OW], const Params& p,
+  __device__ static void epilogue(const float (&)[QW],
+                                  const float (&acc)[OW], const Params& p,
                                   float (&o)[OUTW]) {
     const float comp = fmaxf(acc[0] / p.rd - 1.0f, 0.0f);
     const float denom =

@@ -70,7 +70,7 @@ DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
 ALPHA = Kernel("pair_sweep_kernel<Alpha>")
 DRHO = Kernel("group_pair_sweep_kernel<Drho>")
 MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
-MP_FORCE = Kernel("pair_sweep_kernel<MultiphaseForce>")
+MP_FORCE = Kernel("group_pair_sweep_kernel<MultiphaseForce>")
 XSPH = Kernel("pair_sweep_kernel<Xsph>")
 # the force kernel without the viscosity and the wall friction (the
 # implicit viscosity solve owns both): WCSPH's, then DFSPH's pressure-off
@@ -78,7 +78,7 @@ FORCE_V0 = Kernel("force_sweep_kernel<VISC=0>")
 FORCE_P0_V0 = Kernel("force_sweep_kernel<PRESSURE=0,VISC=0>")
 VISC_LAPLACIAN = Kernel("tiled_pair_sweep_kernel<ViscLaplacian>")
 MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
-MP_DRHO = Kernel("pair_sweep_kernel<MultiphaseDrho>")
+MP_DRHO = Kernel("group_pair_sweep_kernel<MultiphaseDrho>")
 MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
 # PBF's (ρ, λ), Δp and ω, and vorticity confinement's N (the λ sums over
 # the fluid rows), each counted apart
@@ -90,7 +90,8 @@ PBF_GRAD = Kernel("group_pair_sweep_kernel<PbfGrad>")
 # WCSPH's, then the implicit solvers' pressure-off one; the multiphase one
 FORCE_MOVING = Kernel("force_sweep_kernel<MOVING=1>")
 FORCE_P0_MOVING = Kernel("force_sweep_kernel<PRESSURE=0,MOVING=1>")
-MP_FORCE_MOVING = Kernel("pair_sweep_kernel<MultiphaseForce,MOVING>")
+MP_FORCE_MOVING = Kernel(
+    "group_pair_sweep_kernel<MultiphaseForce,MOVING>")
 # the rigid-body coupling: a body shell's ψ-density (the density kernel
 # over the body source, counted apart) and the two contact sweeps
 BODY_DENSITY = Kernel("density_sweep_kernel<body>")
@@ -299,9 +300,9 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
               "sum_dij": 1, "jacobi": 1, "alpha": 0,
               "drho": 1, "drho_shell": 0, "multiphase_density": 0,
-              "multiphase_force": 2,
+              "multiphase_force": 3,
               "xsph": 0, "multiphase_alpha": 0,
-              "multiphase_drho": 0, "multiphase_kappa": 0, "pbf_lambda": 1,
+              "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
               "multiphase_body": 0, "elastic_f": 0, "fluid_reaction": 1,
               "pressure_force_body": 0, "alpha_body": 0,
@@ -544,6 +545,24 @@ def pbf_dp_group(n: int) -> int:
 DRHO_G = 4
 
 
+# lanes per query G of the multiphase force kernel
+# (``csrc/multiphase_sweep.cu``, which builds only these), as measured on
+# the H100 (``tools/group_scan.py``; PERF.md section 6): 4 below
+# ``SMALL_N`` queries (the 262,144-particle multiphase DFSPH and coupled
+# cells: G 1, 2 and 8 took 4-19 % more time); above it (``multiphase_1M``,
+# 1,092,727) 2 with static walls, as fast as G 1, whose instances spill,
+# and 4 with moving walls (G 2 took 6 % more time there). And of
+# multiphase DFSPH's dδ̂/dt kernel (``csrc/dfsph_multiphase_sweep.cu``,
+# the one instance built), 4 at every query count (G 2 took 10 % and G 8
+# 24 % more time at 262,144 queries; no path runs it above ``SMALL_N``).
+MP_DRHO_G = 4
+
+
+def mp_force_group(n: int, moving_boundary=False) -> int:
+    """The multiphase force kernel's G for ``n`` queries."""
+    return 4 if n < SMALL_N or moving_boundary else 2
+
+
 # lanes per query G of the elastic force + hourglass kernel over its pair
 # list (``csrc/elastic_sweep.cu``, which builds only these), as measured on
 # the H100 (``tools/group_scan.py --solver elastic`` and ``wcsph_elastic``;
@@ -663,17 +682,21 @@ def multiphase_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 
 def multiphase_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                            pvec, moving_boundary=False):
-    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12); the
-    BECKER instance for Becker surface tension, the plain one for NONE
-    (AKINCI raises); ``moving_boundary=True`` the MOVING instance (wall
-    friction against the wall velocities), counted in ``MP_FORCE_MOVING``."""
+    """Multiphase acceleration (N, 3): q (N, 12), src (M, 12), on the
+    step's path one matrix whose first N rows are the queries (fluid rows
+    ``x y z v V pV² ρ0 1/m m 1/ρ̃``, then the walls,
+    ``wcsph_cuda.multiphase_force_args``); the BECKER instance for Becker
+    surface tension, the plain one for NONE (AKINCI raises);
+    ``moving_boundary=True`` the MOVING instance (wall friction against the
+    wall velocities), counted in ``MP_FORCE_MOVING``."""
     from .sph_pairs import WIDE_WIDTH, _st_becker
     _st_becker(cfg)
     moving = bool(moving_boundary)
     return _sweep(MP_FORCE_MOVING if moving else MP_FORCE,
                   "multiphase_force", cfg, q, 12, src, WIDE_WIDTH, seg_start,
                   seg_end, pvec, (9, 18), 3,
-                  cfg.surface_tension_model.value, int(moving))
+                  cfg.surface_tension_model.value, int(moving),
+                  mp_force_group(q.shape[0], moving))
 
 
 def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -699,10 +722,13 @@ def multiphase_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 
 
 def multiphase_drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Adapted number-density rate, fluid and wall sums (N, 2): q (N, 8),
-    src (M, 8)."""
+    """Adapted number-density rate dδ̂/dt (N,): the fluid sum plus the wall
+    sum scaled by the query's s_i/m_i (slot 6), q (N, 8) ``x y z v s/m``,
+    src (M, 8) ``x y z v`` with ψ_b in the wall rows' slot 6 (on the step's
+    path one matrix, the queries its first rows,
+    ``MultiphaseKappaSweeps.drho_operands``)."""
     return _sweep(MP_DRHO, "multiphase_drho", cfg, q, 8, src, 8, seg_start,
-                  seg_end, pvec, (9, 18), 2)
+                  seg_end, pvec, (9, 18), 0, MP_DRHO_G)
 
 
 def multiphase_kappa_sweep(cfg: SimConfig, q, src, seg_start, seg_end,

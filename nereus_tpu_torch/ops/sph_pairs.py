@@ -17,8 +17,11 @@ queries and source. Query matrices are (N, 4) ``x y z pad`` for density
 (slot 3 unread) and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH
 Jacobi sum reads an 8-wide source whose fluid rows carry
 e_j = d_jj·p_j + Σd_jk·p_k in slots 3-5. The multiphase force sweep reads
-a (M, 12) wide source (``WIDE_WIDTH``): fluid rows ``x y z vx vy vz V_j
-p_j·V_j² [ρ0_j] pad…``, boundary rows with ψ_b in slot 6.
+one (C + Mb, 12) wide matrix (``WIDE_WIDTH``) whose first C rows are its
+queries: fluid rows ``x y z vx vy vz V p·V² ρ0 1/m m 1/ρ̃``, boundary rows
+``x y z v_b ψ_b 0…``. Multiphase DFSPH's dδ̂/dt reads one (C + Mb, 8)
+matrix, its queries the first C rows: fluid rows ``x y z v s/m 0`` (s_i/m_i
+read from the query alone), boundary rows ``x y z v_b ψ_b 0``.
 The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
 rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
 sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j or λ_j,
@@ -96,6 +99,10 @@ PV_LEN = 26
 
 SRC_WIDTH = 8
 WIDE_WIDTH = 12
+# slots of the multiphase force's one (C + Mb, WIDE_WIDTH) matrix past
+# x y z vx vy vz, in ``wcsph_cuda.multiphase_force_args``' column order (the
+# kernel's MultiphaseForce in ``csrc/multiphase_sweep.cu`` names the same)
+MP_V, MP_PV2, MP_RHO0, MP_INV_M, MP_MASS, MP_INV_RHO = range(6, 12)
 
 
 def build_pvec(params: SimParams, cfg: SimConfig, grid):
@@ -501,24 +508,23 @@ def multiphase_force_pair(q, s, pv, *, kernel_set, st_becker=False):
     + 2μV_j(r·∇W_visc)/(r² + 0.01h²)(v_i − v_j), and with ``st_becker``
     −κ_eff(1/m_i)·min(W, W_diam)·r⃗ with κ_eff = κ·(ρ0_i == ρ0_j ? 1 :
     st_cross). Exact division (``_fast_recip`` in JAX).
-    q: x y z vx vy vz p_iV_i² 1/m_i m_i 1/ρ̃_i [ρ0_i] pad; wide src: x y z
-    vx vy vz V_j p_jV_j² [ρ0_j] pad pad pad (the ρ0 columns exact copies
-    of one sorted tensor, so the same-phase compare is exact).
-    Returns (P, 3)."""
+    q and s rows of one matrix: x y z vx vy vz V pV² ρ0 1/m m 1/ρ̃ (q reads
+    every slot but 6, s slots 0-8; ρ0_i and ρ0_j are one column, so the
+    same-phase compare is exact). Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     rl, invrl = _rl_invrl(r2)
     okf = (r2 < pv[PV_H2]).to(q.dtype)
     a = _visc_rdotgrad(kernel_set, r2, rl, pv, invrl)
     bden = r2 + 0.01 * pv[PV_H2]
-    cvisc = (2.0 * pv[PV_VISC]) * s[:, 6] * (a * (1.0 / bden)) * okf
+    cvisc = (2.0 * pv[PV_VISC]) * s[:, MP_V] * (a * (1.0 / bden)) * okf
     sp = _w_grad_scale_press(kernel_set, r2, rl, pv, invrl)
-    cp = -q[:, 7] * (q[:, 6] + s[:, 7]) * sp * okf
+    cp = -q[:, MP_INV_M] * (q[:, MP_PV2] + s[:, MP_PV2]) * sp * okf
     if st_becker:
         w_eff = torch.minimum(_w_value(kernel_set, r2, rl, pv),
                               pv[PV_WDIAM])
-        same = (q[:, 10] == s[:, 8]).to(q.dtype)
+        same = (q[:, MP_RHO0] == s[:, MP_RHO0]).to(q.dtype)
         keff = pv[PV_KAPPA] * (same + (1.0 - same) * pv[PV_STX])
-        cp = cp - (keff * q[:, 7]) * w_eff * okf
+        cp = cp - (keff * q[:, MP_INV_M]) * w_eff * okf
     return torch.stack([cvisc * (q[:, 3] - s[:, 3]) + cp * dx,
                         cvisc * (q[:, 4] - s[:, 4]) + cp * dy,
                         cvisc * (q[:, 5] - s[:, 5]) + cp * dz], dim=1)
@@ -529,8 +535,8 @@ def multiphase_boundary_pair(q, s, pv, *, kernel_set, moving=False):
     wall penalty (β/m_i)ψ_b·W·r⃗ (ψ unscaled) and the friction
     2μ²h·c_s/(1 + 0.01h²)·m_i/ρ̃_i²·max(v_i·r⃗, 0)·ψ_b·∇W_dflt, with
     (v_i − v_b)·r⃗ when ``moving`` (wall velocities in source slots 3-5);
-    no boundary pressure term. q as :func:`multiphase_force_pair`, src ψ_b
-    in slot 6. Returns (P, 3)."""
+    no boundary pressure term. q as :func:`multiphase_force_pair` (1/m_i,
+    m_i, 1/ρ̃_i in slots 9-11), src ψ_b in slot 6. Returns (P, 3)."""
     dx, dy, dz, r2 = _geometry(q, s)
     if kernel_set == KernelSet.MULLER:
         rl = invrl = None
@@ -538,12 +544,12 @@ def multiphase_boundary_pair(q, s, pv, *, kernel_set, moving=False):
         rl, invrl = _rl_invrl(r2)
     okf = (r2 < pv[PV_H2]).to(q.dtype)
     psi = s[:, 6]
-    inv_rho = q[:, 9]
+    inv_rho = q[:, MP_INV_RHO]
     w = _w_value(kernel_set, r2, rl, pv)
     sd = _w_grad_scale_default(kernel_set, r2, rl, pv, invrl)
-    cadh = (pv[PV_BETA] * psi) * q[:, 7] * w
+    cadh = (pv[PV_BETA] * psi) * q[:, MP_INV_M] * w
     nu = ((2.0 * pv[PV_VISC] * pv[PV_VISC] * pv[PV_H] * pv[PV_CS])
-          / (1.0 + 0.01 * pv[PV_H2])) * q[:, 8] * (inv_rho * inv_rho)
+          / (1.0 + 0.01 * pv[PV_H2])) * q[:, MP_MASS] * (inv_rho * inv_rho)
     if moving:
         vdotr = ((q[:, 3] - s[:, 3]) * dx + (q[:, 4] - s[:, 4]) * dy
                  + (q[:, 5] - s[:, 5]) * dz)
@@ -1002,9 +1008,10 @@ def _st_becker(cfg: SimConfig) -> bool:
 
 def multiphase_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                                  pvec, moving_boundary=False):
-    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12);
-    ``moving_boundary=True`` makes the wall friction read the wall
-    velocities of source slots 3-5."""
+    """Multiphase acceleration (N, 3): q (N, 12), wide src (M, 12) (the
+    layout of :func:`multiphase_force_pair`; on the step's path one matrix,
+    the queries its first rows); ``moving_boundary=True`` makes the wall
+    friction read the wall velocities of source slots 3-5."""
     return neighbor_sweep_plain(
         _bind(multiphase_force_pair, cfg, pvec, st_becker=_st_becker(cfg)),
         q, src, seg_start, seg_end, 3,
@@ -1078,11 +1085,14 @@ def multiphase_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start,
 
 def multiphase_drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                                 pvec):
-    """(Σ(v_i − v_j)·∇W, Σψ_b(v_i − v_b)·∇W) (N, 2): q (N, 8), src (M, 8)
-    with the velocities, ψ_b in the boundary rows' slot 6."""
-    return neighbor_sweep_plain(
+    """dδ̂/dt (N,) = Σ(v_i − v_j)·∇W + (s_i/m_i)·Σψ_b(v_i − v_b)·∇W, the
+    wall sum scaled by query slot 6 (``dfsph_pallas.py``'s
+    ``d[:, 0] + sm * d[:, 1]``): q (N, 8) ``x y z v s/m``, src (M, 8) with
+    the velocities, ψ_b in the boundary rows' slot 6."""
+    d = neighbor_sweep_plain(
         _bind(multiphase_drho_pair, cfg, pvec), q, src, seg_start, seg_end,
         2, pair_fn_b=_bind(multiphase_drho_bpair, cfg, pvec))
+    return d[:, 0] + q[:, 6] * d[:, 1]
 
 
 def multiphase_kappa_sweep_plain(cfg: SimConfig, q, src, seg_start,

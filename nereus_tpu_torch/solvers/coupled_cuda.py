@@ -150,8 +150,7 @@ def coupled_multiphase_operands(ctx: SweepCtx, params: SimParams,
     inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
     vol = 1.0 / torch.clamp(delta, min=1e-12)
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    fargs = multiphase_force_args(ctx, cfg, vel, vol, inv_rho,
-                                  pres * vol * vol)
+    fargs = multiphase_force_args(ctx, vel, vol, inv_rho, pres * vol * vol)
     inv_r2 = inv_rho * inv_rho
     bp = (rho0 / params.rest_density) * torch.clamp(pres, min=0.0) * inv_r2
     q8b = ctx.queries(*vel, bp, mass * inv_r2)

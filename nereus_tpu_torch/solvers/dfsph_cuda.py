@@ -151,9 +151,11 @@ class MultiphaseKappaSweeps:
     """The sweeps of a multiphase DFSPH step on loop-invariant operands,
     in :class:`KappaSweeps`' interface on the adapted domain (``base``
     δ̂ = ρ̃/m_i, ``target`` ρ0_i/m_i, ``to_kg`` m_i·ρ₀/ρ0_i). Each call
-    writes its columns in place (the velocities into the dδ̂/dt query and
-    fluid source rows, κV̂² and (s_i/m_i)·κV̂² into the correction's query
-    and κV̂²_j into its 4-wide fluid source rows) and launches one sweep.
+    writes its columns in place (the velocities into the fluid rows of the
+    dδ̂/dt sweep's one matrix, whose first C rows are its queries and whose
+    slot 6 holds s_i/m_i; κV̂² and (s_i/m_i)·κV̂² into the correction's
+    query and κV̂²_j into its 4-wide fluid source rows) and launches one
+    sweep.
     ``delta``: the number density δ of the non-pressure stage's volumes."""
 
     def __init__(self, ctx: SweepCtx, params: SimParams, cfg: SimConfig,
@@ -170,15 +172,18 @@ class MultiphaseKappaSweeps:
         self.sm = (ctx.rho0 / params.rest_density) / mass
         self.dt = params.dt
         self.dt_im = (params.dt * (1.0 / mass))[:, None]
-        self.q_v = ctx.queries(z, z, z, width=8)
-        self.src_v = ctx.pack((z, z, z), z)
+        # one (C [+ Mb], 8) matrix x y z v s/m 0, the walls as they are;
+        # its first C rows are the queries (a contiguous view)
+        self.src_v = ctx.pack((z, z, z), self.sm)
+        self.q_v = self.src_v[:ctx.c]
         self.q_k = ctx.queries(z, z, width=8)
         self.src_k = ctx.pack_psi(ctx.queries(z))
 
     def drho_operands(self, vel):
-        """The dδ̂/dt sweep's operands at the (C, 3) velocities ``vel``."""
+        """The dδ̂/dt sweep's operands at the (C, 3) velocities ``vel``,
+        written once into the fluid rows of its one matrix: ``(q, src,
+        seg_start, seg_end, pvec)``, q the matrix's first C rows."""
         self.q_v[:, 3:6] = vel
-        self.src_v[:self.ctx.c, 3:6] = vel
         return (self.q_v, self.src_v, self.ctx.seg_start, self.ctx.seg_end,
                 self.ctx.pvec)
 
@@ -193,9 +198,8 @@ class MultiphaseKappaSweeps:
 
     def drho(self, vel, carry=()):
         """dδ̂/dt (C,) of the (C, 3) velocities ``vel``: the fluid sum plus
-        the wall sum scaled by s_i/m_i."""
-        d = SP.multiphase_drho_sweep(self.cfg, *self.drho_operands(vel))
-        return d[:, 0] + self.sm * d[:, 1]
+        the wall sum scaled by s_i/m_i, formed in the sweep."""
+        return SP.multiphase_drho_sweep(self.cfg, *self.drho_operands(vel))
 
     def apply_kappa(self, kappa, vel):
         """(C, 3) v − (dt/m_i)·Σ(κV̂²_i + κV̂²_j)∇W − (dt/m_i)·qc_i·Σψ_b∇W."""
@@ -214,8 +218,8 @@ class MultiphaseKappaSweeps:
         vol = 1.0 / torch.clamp(self.delta, min=1e-12)
         inv_rho = 1.0 / torch.clamp(self.dens, min=1e-12)
         acc = SP.multiphase_force_sweep(
-            self.cfg, *multiphase_force_args(self.ctx, self.cfg, cols, vol,
-                                             inv_rho, self.zero),
+            self.cfg, *multiphase_force_args(self.ctx, cols, vol, inv_rho,
+                                             self.zero),
             moving_boundary=self.ctx.moving_boundary)
         return cols, inv_rho, acc
 

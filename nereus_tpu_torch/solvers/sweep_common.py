@@ -8,9 +8,10 @@ stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
 the kernels read are built from them per sweep. The density and force
 sweeps read one matrix each (:meth:`SweepCtx.density_operands`,
 :meth:`SweepCtx.force_operands`): the queries are its fluid rows, the
-boundary rows follow them. The multiphase force sweep reads a (M, 12)
-wide source (:meth:`SweepCtx.pack_wide`), the multiphase density sweep and the multiphase DFSPH α and κ sweeps a (M, 4)
-one (:meth:`SweepCtx.pack_psi`).
+boundary rows follow them. The multiphase force sweep reads one
+(C [+ Mb], 12) wide matrix (:meth:`SweepCtx.pack_wide`), its queries the
+fluid rows, the multiphase density sweep and the multiphase DFSPH α and κ
+sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`).
 A multiphase state's ``mass`` and ``rho0`` ride the sort with the
 positions. A moving boundary (``BoundaryData.vel`` set) packs its wall
 velocities into slots 3-5 of every 8-wide and wide boundary row, as the
@@ -163,19 +164,16 @@ class SweepCtx:
         return (out[:self.c], out, *rng)
 
     def pack_wide(self, cols):
-        """(C [+ Mb], 12) wide source: fluid rows ``x y z``, then ``cols``
-        and zero pads (the multiphase force: vx vy vz V_j p_j·V_j²
-        [ρ0_j]); boundary rows
-        ``x y z v_b ψ_b 0 0 0 0 0`` (v_b = 0 for a static wall)."""
+        """(C [+ Mb], 12) wide matrix: fluid rows ``x y z``, then ``cols``
+        and zero pads, stacked in place (the multiphase force: vx vy vz V
+        pV² ρ0 1/m m 1/ρ̃, whose first C rows are its queries); boundary
+        rows ``x y z v_b ψ_b 0 0 0 0 0`` (v_b = 0 for a static wall)."""
         if len(cols) > SP.WIDE_WIDTH - 3:
             raise ValueError(f"pack_wide takes at most {SP.WIDE_WIDTH - 3} "
                              f"columns, got {len(cols)}")
         z = torch.zeros_like(self.px)
         pads = [z] * (SP.WIDE_WIDTH - 3 - len(cols))
-        fluid = torch.stack([self.px, self.py, self.pz, *cols, *pads], dim=1)
-        if self.b_src is None:
-            return fluid
-        return torch.cat([fluid, self._b_src_wide])
+        return self._one_matrix([*cols, *pads], self._b_src_wide)[1]
 
     @functools.cached_property
     def _b_src_psi(self):
@@ -184,6 +182,9 @@ class SweepCtx:
 
     @functools.cached_property
     def _b_src_wide(self):
+        """(Mb, 12) boundary rows ``x y z v_b ψ_b 0 0 0 0 0``."""
+        if self.b_src is None:
+            return None
         pad = self.b_src.new_zeros((self.b_src.shape[0],
                                     SP.WIDE_WIDTH - SP.SRC_WIDTH))
         return torch.cat([self.b_src, pad], dim=1)

@@ -137,27 +137,22 @@ def multiphase_density_operands(ctx: SweepCtx):
     return q, ctx.pack_psi(q), ctx.seg_start, ctx.seg_end, ctx.pvec
 
 
-def multiphase_force_args(ctx: SweepCtx, cfg: SimConfig, vel, vol, inv_rho,
-                          pv2):
+def multiphase_force_args(ctx: SweepCtx, vel, vol, inv_rho, pv2):
     """The multiphase force sweep's operands ``(q, src, seg_start,
     seg_end, pvec)`` from the velocities ``vel`` (three (C,) columns), the
-    volume V = 1/δ, 1/ρ̃ and pV² (0 in DFSPH's non-pressure forces):
-    q ``x y z v pV²_i 1/m_i m_i 1/ρ̃_i [ρ0_i]``, wide src ``x y z v V_j
-    pV²_j [ρ0_j]`` (ρ0 for Becker cohesion, the same sorted tensor on both
-    sides)."""
-    from ..params import SurfaceTensionModel
-    mass, rho0 = ctx.mass, ctx.rho0
-    qcols = [*vel, pv2, 1.0 / mass, mass, inv_rho]
-    wcols = [*vel, vol, pv2]
-    if cfg.surface_tension_model == SurfaceTensionModel.BECKER:
-        qcols.append(rho0)
-        wcols.append(rho0)
-    return (ctx.queries(*qcols, width=12), ctx.pack_wide(wcols),
-            ctx.seg_start, ctx.seg_end, ctx.pvec)
+    volume V = 1/δ, 1/ρ̃ and pV² (0 in DFSPH's non-pressure forces), on
+    one (C [+ Mb], 12) matrix: fluid rows ``x y z v V pV² ρ0 1/m m 1/ρ̃``
+    (ρ0 for Becker cohesion, the query's and the source's one column),
+    then the walls' wide rows; q is its first C rows, so the positions and
+    velocities are written once, and without walls the matrix itself."""
+    mass = ctx.mass
+    src = ctx.pack_wide([*vel, vol, pv2, ctx.rho0, 1.0 / mass, mass,
+                         inv_rho])
+    q = src if ctx.b_src is None else src[:ctx.c]
+    return q, src, ctx.seg_start, ctx.seg_end, ctx.pvec
 
 
-def multiphase_force_operands(ctx: SweepCtx, params: SimParams,
-                              cfg: SimConfig, dout):
+def multiphase_force_operands(ctx: SweepCtx, params: SimParams, dout):
     """The multiphase force sweep's operands from the density sweep's
     (C, 2) output: ``(args, dens, pres)`` with ``args`` those of
     :func:`multiphase_force_args` on the state's velocities, and the
@@ -170,7 +165,7 @@ def multiphase_force_operands(ctx: SweepCtx, params: SimParams,
     inv_rho = 1.0 / torch.clamp(dens, min=1e-12)
     vol = 1.0 / torch.clamp(delta, min=1e-12)
     pv2 = pres * vol * vol
-    args = multiphase_force_args(ctx, cfg, (ctx.vx, ctx.vy, ctx.vz), vol,
+    args = multiphase_force_args(ctx, (ctx.vx, ctx.vy, ctx.vz), vol,
                                  inv_rho, pv2)
     return args, dens, pres
 
@@ -187,7 +182,7 @@ def wcsph_step_multiphase_cuda(state: FluidState, params: SimParams,
 
     dout = SP.multiphase_density_sweep(cfg,
                                        *multiphase_density_operands(ctx))
-    args, dens, pres = multiphase_force_operands(ctx, params, cfg, dout)
+    args, dens, pres = multiphase_force_operands(ctx, params, dout)
     acc = SP.multiphase_force_sweep(cfg, *args,
                                     moving_boundary=ctx.moving_boundary)
 

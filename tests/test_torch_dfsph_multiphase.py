@@ -8,7 +8,10 @@ phases at a ρ₀ ratio 1 : 0.4, settled until the floor lies inside h).
   ``multiphase_drho_pair``/``_bpair`` and ``multiphase_kappa_pair``/
   ``_bpair`` on the same sorted operands, walls in contact, both kernel
   sets: max|Δ| ≤ 1e-5·max|ref| per output column (float32 sums in another
-  order).
+  order). dδ̂/dt on its one matrix (``MultiphaseKappaSweeps.
+  drho_operands``, the queries a view of its first rows) against JAX's
+  ``d[:, 0] + sm * d[:, 1]``, also with the light phase's mass scaled so
+  that s_i/m_i differs by phase.
 * ``dfsph_step`` on a multiphase state against JAX's Pallas step
   (interpret) over two steps, in one canonical order: positions rtol 2e-4
   / atol 2e-6, velocities rtol 2e-3 / atol 2e-4, mass and ρ₀ equal,
@@ -76,7 +79,7 @@ def _jax_sweeps(cfg, params, state, grid, boundary):
                          ctx.queries(kv2, 0.7 * kv2), ctx.pack(slot6=kv2),
                          *geo, out_width=4,
                          pair_fn_b=PS.multiphase_kappa_bpair, **kw)
-    return al[:c, :7], d[:c, :2], f[:c, :3]
+    return (al[:c, :7], d[:c, :2], f[:c, :3], ctx.rho0[:c], ctx.mass[:c])
 
 
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
@@ -85,19 +88,44 @@ def test_multiphase_dfsph_sweeps_match_jax(contact, kernel_set):
     state, params, grid, walls = contact
     cfg = jt.SimConfig(engine="pallas", kernel_set=kernel_set,
                        surface_tension_model=ST.NONE)
-    al, d, f = jax.jit(lambda s: _jax_sweeps(cfg, params, s, grid,
-                                             walls))(state)
+    al, d, f, rho0, mass = jax.jit(lambda s: _jax_sweeps(
+        cfg, params, s, grid, walls))(state)
     pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid, walls)
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
     assert ctx.seg_start.shape[0] == 18
     got = SP.multiphase_alpha_sweep(pcfg,
                                     *dfsph_cuda.multiphase_alpha_operands(ctx))
     assert_columns_close(got.numpy(), np.asarray(al), 1e-5, "alpha")
-    sweeps = dfsph_cuda.MultiphaseKappaSweeps(ctx, pparams, pcfg,
-                                              torch.ones_like(ctx.px))
-    dargs = sweeps.drho_operands(torch.stack([ctx.vx, ctx.vy, ctx.vz], 1))
-    got = SP.multiphase_drho_sweep(pcfg, *dargs)
-    assert_columns_close(got.numpy(), np.asarray(d), 1e-5, "drho")
+    # dδ̂/dt at s_i/m_i = 1/m (m ∝ ρ0), then with the light phase's mass
+    # scaled by 1.5: s_i/m_i then differs by phase, so a wrong slot 6
+    # shows; JAX's d does not read the mass, its sm does
+    vel = torch.stack([ctx.vx, ctx.vy, ctx.vz], 1)
+    got_by_mass = []
+    for scale in (1.0, 1.5):
+        light = jnp.where(rho0 < jnp.max(rho0), scale, 1.0)
+        sm = (rho0 / params.rest_density) / (mass * light)
+        want = np.asarray(d[:, 0] + sm * d[:, 1])
+        pmass = pstate.mass * torch.where(
+            pstate.rho0 < pstate.rho0.max(), scale, 1.0)
+        mctx = build_sweep_ctx(dataclasses.replace(pstate, mass=pmass),
+                               pparams, pg, pcfg, pb)
+        sweeps = dfsph_cuda.MultiphaseKappaSweeps(mctx, pparams, pcfg,
+                                                  torch.ones_like(ctx.px))
+        first = SP.multiphase_drho_sweep(pcfg, *sweeps.drho_operands(-vel))
+        q, src, s, e, pv = sweeps.drho_operands(vel)
+        # one write: the queries are a view of the matrix's first C rows,
+        # the walls as the step packs them
+        assert q.data_ptr() == src.data_ptr() and q.shape == (ctx.c, 8)
+        assert torch.equal(src[:ctx.c, 3:6], vel)
+        assert torch.equal(src[ctx.c:], mctx.b_src)
+        got = SP.multiphase_drho_sweep(pcfg, q, src, s, e, pv)
+        assert not torch.equal(first, got)
+        assert_columns_close(got.numpy()[:, None], want[:, None], 1e-5,
+                             f"drho, light phase's mass ×{scale}")
+        assert torch.equal(got, sweeps.drho(vel))
+        got_by_mass.append(got)
+    assert len(np.unique(np.asarray(sm)[:int(state.num_active)])) == 2
+    assert not torch.equal(*got_by_mass)
     kv2 = _kv2(ctx.px)
     q = ctx.queries(kv2, 0.7 * kv2, width=8)
     src = ctx.pack_psi(ctx.queries(kv2))

@@ -370,16 +370,18 @@ def test_multiphase_force_sweep_moving_matches_jax(exact_reciprocal,
     wc = torch.from_numpy(np.asarray(jnp.stack(wcols, 1))[:n].copy())
     assert torch.equal(qc[:, 0], pctx.vx) and torch.equal(qc[:, 5],
                                                           pctx.mass)
-    args = (pctx.queries(*qc.unbind(1), width=12),
-            pctx.pack_wide(list(wc.unbind(1))), pctx.seg_start,
-            pctx.seg_end, pctx.pvec)
+    # laid out as the port's one matrix, its first n rows the queries
+    src = pctx.pack_wide([*qc[:, :3].unbind(1), wc[:, 3], wc[:, 4],
+                          pctx.rho0, *qc[:, 4:7].unbind(1)])
+    args = (src[:n], src, pctx.seg_start, pctx.seg_end, pctx.pvec)
     got = SP.multiphase_force_sweep(pcfg, *args, moving_boundary=True)
     assert_columns_close(got.numpy(), np.asarray(want)[:n, :3], 1e-5,
                          "multiphase force")
-    # the friction alone: 1/m_i (query column 7) at 0 drops the penalty
+    # the friction alone: 1/m_i (JAX's query column 7, the port's slot
+    # MP_INV_M) at 0 drops the penalty
     jq = ctx.queries(*qcols).at[:, 7].set(0.0)
     pq = args[0].clone()
-    pq[:, 7] = 0.0
+    pq[:, SP.MP_INV_M] = 0.0
     fric = _friction_only(cfg, ctx, pctx, jq, ctx.pack_wide(wcols, rows=16),
                           pq, args[1], PS.multiphase_boundary_pair,
                           SP.multiphase_boundary_pair)
@@ -500,8 +502,7 @@ def test_moving_force_operands_carry_wall_velocity():
                        want)
     dargs = wcsph_cuda.multiphase_density_operands(ctx)
     dout = SP.multiphase_density_sweep(pcfg, *dargs)
-    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, pparams, pcfg,
-                                                       dout)
+    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, pparams, dout)
     assert torch.equal(fargs[1][c:, 3:6], want)
     assert dargs[1].shape[1] == 4
     assert torch.equal(dargs[1][c:, 3], pb.psi)

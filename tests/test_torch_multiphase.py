@@ -127,13 +127,16 @@ def test_multiphase_sweeps_match_jax(exact_reciprocal, contact, kernel_set,
         pcfg, *wcsph_cuda.multiphase_density_operands(ctx))
     assert_columns_close(got.numpy(), np.asarray(dout)[:n, :2], 1e-5,
                          "density")
-    # the force sweep on JAX's own operand columns
+    # the force sweep on JAX's own operand columns, laid out as the port's
+    # one matrix (its first n rows the queries)
     qc = torch.from_numpy(np.asarray(qcols)[:n].copy())
     wc = torch.from_numpy(np.asarray(wcols)[:n].copy())
     # both packages sort stably by the same hash, phase columns with it
     assert torch.equal(qc[:, 0], ctx.vx) and torch.equal(qc[:, 5], ctx.mass)
-    q = ctx.queries(*qc.unbind(1), width=12)
-    src = ctx.pack_wide(list(wc.unbind(1)))
+    rho0 = qc[:, 7] if st == ST.BECKER else ctx.rho0
+    src = ctx.pack_wide([*qc[:, :3].unbind(1), wc[:, 3], wc[:, 4], rho0,
+                         *qc[:, 4:7].unbind(1)])
+    q = src[:n]
     got = SP.multiphase_force_sweep(pcfg, q, src, ctx.seg_start,
                                     ctx.seg_end, ctx.pvec)
     assert_columns_close(got.numpy(), np.asarray(acc)[:n, :3], 1e-5,
@@ -142,6 +145,34 @@ def test_multiphase_sweeps_match_jax(exact_reciprocal, contact, kernel_set,
     fluid_only = SP.multiphase_force_sweep(pcfg, q, src, ctx.seg_start[:9],
                                            ctx.seg_end[:9], ctx.pvec)
     assert not torch.equal(fluid_only, got)
+
+
+@pytest.mark.parametrize("solver", ["wcsph", "dfsph"])
+def test_multiphase_step_without_walls(contact, solver):
+    """A multiphase step with no walls, as ``boundary=None`` and as a
+    boundary set of no rows: the force sweep's one matrix is its query
+    itself, and both steps give the same finite state."""
+    state, params, grid, _ = contact
+    cfg = _cfg(jt.KernelSet.MULLER, ST.BECKER, 0.25)
+    pcfg, pparams, pstate, pg, _ = to_port(cfg, params, state, grid, None)
+    empty = pt.BoundaryData(pos=torch.zeros((0, 3)), psi=torch.zeros(0),
+                            sorted_hash=torch.zeros(0, dtype=torch.int32))
+    step = pt.wcsph_step if solver == "wcsph" else pt.dfsph_step
+    outs = []
+    for walls in (None, empty):
+        ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, walls)
+        assert ctx.b_src is None and ctx.seg_start.shape[0] == 9
+        dout = SP.multiphase_density_sweep(
+            pcfg, *wcsph_cuda.multiphase_density_operands(ctx))
+        args = wcsph_cuda.multiphase_force_operands(ctx, pparams, dout)[0]
+        assert args[0] is args[1]
+        assert args[0].shape == (ctx.c, SP.WIDE_WIDTH)
+        s, _ = step(pstate, pparams, pg, pcfg, walls)
+        assert np.isfinite(s.pos.numpy()).all()
+        assert np.isfinite(s.vel.numpy()).all()
+        outs.append(s)
+    assert torch.equal(outs[0].pos, outs[1].pos)
+    assert torch.equal(outs[0].vel, outs[1].vel)
 
 
 def canon(state, n):
@@ -286,7 +317,6 @@ def test_multiphase_refusals():
     ctx = build_sweep_ctx(s, pparams, pg, pcfg, pb)
     dout = SP.multiphase_density_sweep(
         pcfg, *wcsph_cuda.multiphase_density_operands(ctx))
-    args, _, _ = wcsph_cuda.multiphase_force_operands(ctx, pparams, pcfg,
-                                                      dout)
+    args, _, _ = wcsph_cuda.multiphase_force_operands(ctx, pparams, dout)
     with pytest.raises(ValueError, match="AKINCI"):
         SP.multiphase_force_sweep(cases[2][0], *args)

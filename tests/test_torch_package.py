@@ -801,8 +801,7 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
                           cfg, boundary)
     dargs = wcsph_cuda.multiphase_density_operands(ctx)
     dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
-    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, cfg,
-                                                       dout)
+    fargs, _, _ = wcsph_cuda.multiphase_force_operands(ctx, params, dout)
     ctx1 = build_sweep_ctx(state, params, grid, cfg, boundary)
     dens = SP.density_sweep_plain(cfg, *ctx1.density_operands(
         params.particle_mass))
@@ -1111,6 +1110,12 @@ def test_group_sweeps_build_only_their_g(cuda):
                    cuda_sweep.pbf_dp_group(cuda_sweep.SMALL_N)},
         "pbf_grad": {cuda_sweep.PBF_GRAD_G},
         "drho": {cuda_sweep.DRHO_G},
+        "multiphase_drho": {cuda_sweep.MP_DRHO_G},
+        # the multiphase force's four instances (st_model, moving)
+        **{("multiphase_force", st, m): {
+            cuda_sweep.mp_force_group(1, bool(m)),
+            cuda_sweep.mp_force_group(cuda_sweep.SMALL_N, bool(m))}
+           for st in (0, 1) for m in (0, 1)},
         # the list form: the elastic force + hourglass over its pair list
         "elastic_force_hourglass_list": {
             cuda_sweep.elastic_group(1),
@@ -1126,7 +1131,12 @@ def test_group_sweeps_build_only_their_g(cuda):
         rows = 9 if fn in ("sum_dij", "pbf_grad") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
-            if fn.endswith("_list"):
+            if isinstance(fn, tuple):
+                rc = lib.nereus_multiphase_force_sweep(
+                    q.data_ptr(), q.data_ptr(), seg.data_ptr(),
+                    seg.data_ptr(), n, rows, pv.data_ptr(), ks, *fn[1:], g,
+                    out.data_ptr(), stream)
+            elif fn.endswith("_list"):
                 # an empty list: nbr_start all 0
                 rc = lib.nereus_elastic_force_hourglass_list_sweep(
                     q.data_ptr(), q.data_ptr(), seg.data_ptr(),
@@ -1246,8 +1256,8 @@ def test_moving_and_body_kernels_match_plain_on_cuda(cuda, kernel_set):
     cases += [("mp force", SP.multiphase_force_sweep,
                SP.multiphase_force_sweep_plain, margs, mkw),
               ("mp force friction", SP.multiphase_force_sweep,
-               SP.multiphase_force_sweep_plain, _friction_args(margs, 7),
-               mkw),
+               SP.multiphase_force_sweep_plain,
+               _friction_args(margs, SP.MP_INV_M), mkw),
               ("body", SP.body_force_sweep, SP.body_force_sweep_plain,
                bargs, {}),
               ("body friction", SP.body_force_sweep,
@@ -1488,6 +1498,68 @@ def test_drho_groups_match_plain_on_cuda(cuda, kernel_set):
                 f"drho G={cuda_sweep.DRHO_G}")
     torch.cuda.synchronize()
     _assert_launches({cuda_sweep.DRHO: 4})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("st", ["NONE", "BECKER"])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_multiphase_groups_match_plain_on_cuda(cuda, kernel_set, st, large,
+                                               monkeypatch):
+    """The multiphase force kernel at each G its wrapper picks
+    (``SMALL_N`` set so that the small two-phase dam-break takes the G of
+    ``multiphase_1M`` when ``large`` and that of the 256k cells when not),
+    static and MOVING, on the step's one operand matrix (the queries its
+    first rows) and the MOVING one on its wall friction alone; and the
+    dδ̂/dt kernel at ``MP_DRHO_G`` on its one matrix, with the light phase's
+    mass scaled so that s_i/m_i differs by phase, and on a separate query
+    matrix; static and moving walls, st_cross 0.25: max|Δ| ≤ 1e-4·max|ref|
+    per column, and the MOVING friction differs from the static one's."""
+    monkeypatch.setattr(cuda_sweep, "SMALL_N", 0 if large else 2 ** 31)
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, st, True, cuda)
+    cfg = dataclasses.replace(cfg, st_cross=0.25)
+    mp = _two_phase(state, params, cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    cuda_sweep.reset_launches()
+    for walls in (boundary, moving):
+        ctx = build_sweep_ctx(mp, params, grid, cfg, walls)
+        dout = SP.multiphase_density_sweep_plain(
+            cfg, *wcsph_cuda.multiphase_density_operands(ctx))
+        fargs, dens, _ = wcsph_cuda.multiphase_force_operands(ctx, params,
+                                                              dout)
+        assert fargs[0].data_ptr() == fargs[1].data_ptr()
+        g = cuda_sweep.mp_force_group(ctx.c, walls is moving)
+        kw = dict(moving_boundary=walls is moving)
+        cases = [(f"mp force G={g} {kw}", fargs, kw)]
+        if walls is moving:
+            cases.append((f"mp force friction G={g}",
+                          _friction_args(fargs, SP.MP_INV_M), kw))
+        for key, args, kwk in cases:
+            got = cuda_sweep.multiphase_force_sweep(cfg, *args, **kwk)
+            _assert_columns_close(
+                got, SP.multiphase_force_sweep_plain(cfg, *args, **kwk), key)
+            if "friction" in key:
+                assert not torch.equal(
+                    cuda_sweep.multiphase_force_sweep(cfg, *args), got), key
+        light = ctx.rho0 < ctx.rho0.max()
+        sctx = dataclasses.replace(
+            ctx, mass=ctx.mass * torch.where(light, 1.5, 1.0))
+        sweeps = dfsph_cuda.MultiphaseKappaSweeps(sctx, params, cfg, dens)
+        assert len(torch.unique(sweeps.sm)) == 2
+        args = sweeps.drho_operands(torch.stack([ctx.vx, ctx.vy, ctx.vz],
+                                                dim=1))
+        assert args[0].data_ptr() == args[1].data_ptr()
+        sep = (args[0].clone(), *args[1:])
+        for a in (args, sep):
+            _assert_columns_close(
+                cuda_sweep.multiphase_drho_sweep(cfg, *a),
+                SP.multiphase_drho_sweep_plain(cfg, *a),
+                f"mp drho G={cuda_sweep.MP_DRHO_G} {kw}")
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.MP_FORCE: 2, cuda_sweep.MP_FORCE_MOVING: 2,
+                      cuda_sweep.MP_DRHO: 4})
 
 
 @pytest.mark.requires_cuda

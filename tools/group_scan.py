@@ -2,9 +2,12 @@
 on one path's operands, on one CUDA card.
 
     python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph|
-                                 elastic|wcsph_elastic|dfsph|dfsph_visc]
+                                 elastic|wcsph_elastic|dfsph|dfsph_visc|
+                                 multiphase|multiphase_wavemaker|dfsph_mp|
+                                 mp_coupled|dfsph_mp_coupled]
         [--groups 1 2 4] [--keys pbf_lambda pbf_dp pbf_grad drho
-                                 elastic_force_hg]
+                                 elastic_force_hg mp_force mp_force_moving
+                                 mp_drho mp_drho_cols]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -16,13 +19,25 @@ an engine (``FUNCTORS``): the range walk ``NEREUS_GROUP_SWEEP`` of
 ``csrc/group_sweep.cuh`` (G 1 loads the next candidate's row ahead), or
 its list form ``NEREUS_LIST_SWEEP`` over a static pair list.
 ``elastic_force_hg`` is the elastic force + hourglass kernel over the
-body's pair list.
+body's pair list; ``mp_force`` and ``mp_force_moving`` the multiphase
+force's Becker instances (static and moving walls); ``mp_drho`` the
+dδ̂/dt kernel, which forms its one (N,) rate in its epilogue, and
+``mp_drho_cols`` the same walk without the epilogue, writing the fluid
+and wall sums as two columns, timed with the multiply and add that then
+form the rate (``d[:, 0] + q[:, 6] * d[:, 1]``) and checked after them.
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
 the kernels' operands with ``chip_smoke.py``'s ``pbf_path_operands`` (at
 the state advected from the final one) or ``dfsph_operands`` (at the final
-state); the elastic paths build their body (``elastic_block``, the 80³
+state). The multiphase paths run ``multiphase_1M`` (``wcsph_main_path``
+split by ``two_phase``, ``N_STEPS`` steps), ``multiphase_1M_wavemaker``
+(the same under ``wavemaker``), ``dfsph_mp_256k_settled``
+(``settled_main_path``), ``mp_coupled_256k`` (``coupled_scene``) or
+``dfsph_mp_coupled_256k`` (``dfsph_coupled_scene(kind="mp")``, the final
+state lowered to 0.5·h over the floor as ``run_dfsph_coupled`` holds its
+fluid kernels) and build their operands with ``multiphase_operands``,
+``mp_dfsph_operands`` or ``coupled_operands``; the elastic paths build their body (``elastic_block``, the 80³
 block of elastic_512k, or ``wcsph_elastic_scene``'s 16³ cube) and take
 ``elastic_kernel_ops`` at ``deformed`` positions, as ``chip_smoke.py``
 holds the kernel, without steps. Each G's output is checked against the
@@ -32,6 +47,7 @@ wrapper's (``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤
 """
 
 import argparse
+import dataclasses
 import ctypes
 import os
 import subprocess
@@ -54,11 +70,41 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", "PbfLambda", "ranges"),
             "pbf_grad": ("pbf_sweep.cu", "PbfGrad", "ranges"),
             "drho": ("dfsph_sweep.cu", "Drho", "ranges"),
             "elastic_force_hg": ("elastic_sweep.cu", "ElasticForceHourglass",
-                                 "list")}
+                                 "list"),
+            "mp_force": ("multiphase_sweep.cu",
+                         "MultiphaseForce<true, false>", "ranges"),
+            "mp_force_moving": ("multiphase_sweep.cu",
+                                "MultiphaseForce<true, true>", "ranges"),
+            "mp_drho": ("dfsph_multiphase_sweep.cu", "MultiphaseDrho",
+                        "ranges"),
+            "mp_drho_cols": ("dfsph_multiphase_sweep.cu", "MultiphaseDrhoCols",
+                             "ranges")}
+# functors the scan file defines: dδ̂/dt's pair without its epilogue
+SCAN_FUNCTORS = {"MultiphaseDrhoCols": """
+struct MultiphaseDrhoCols {
+  static constexpr int QW = MultiphaseDrho::QW, SW = MultiphaseDrho::SW,
+                       OW = MultiphaseDrho::OW;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    MultiphaseDrho::pair<KS, B>(q, a, src, j, p, acc);
+  }
+};
+"""}
 # the keys each path's operands feed
 PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
              "dfsph": ("drho",),
-             "elastic": ("elastic_force_hg",)}
+             "elastic": ("elastic_force_hg",),
+             "multiphase": ("mp_force",),
+             "multiphase_wavemaker": ("mp_force_moving",),
+             "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols"),
+             "mp_coupled": ("mp_force",),
+             "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols")}
+MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
+              "dfsph_mp_coupled")
 SCAN_DIR = os.path.join(cuda_sweep.BUILD_DIR, "scan")
 
 
@@ -76,13 +122,16 @@ def build(keys, groups):
         stem = os.path.splitext(src)[0]
         cu = os.path.join(SCAN_DIR, f"scan_{stem}.cu")
         with open(cu, "w") as f:
-            f.write(f'#include "{os.path.join(cuda_sweep.CSRC, src)}"\n'
-                    'extern "C" {\n')
+            f.write(f'#include "{os.path.join(cuda_sweep.CSRC, src)}"\n')
             for key in ks:
-                _, functor, engine = FUNCTORS[key]
-                macro = ("NEREUS_LIST_SWEEP" if engine == "list"
+                _, functor, _ = FUNCTORS[key]
+                f.write(SCAN_FUNCTORS.get(functor, ""))
+                f.write(f"using scan_{key}_t = {functor};\n")
+            f.write('extern "C" {\n')
+            for key in ks:
+                macro = ("NEREUS_LIST_SWEEP" if FUNCTORS[key][2] == "list"
                          else "NEREUS_GROUP_SWEEP")
-                f.write(f"{macro}(scan_{key}, {functor}, {gs})\n")
+                f.write(f"{macro}(scan_{key}, scan_{key}_t, {gs})\n")
             f.write("}\n")
         lib = os.path.join(SCAN_DIR, f"libscan_{stem}.so")
         cmds.append([cuda_sweep.nvcc_path(), *cuda_sweep.NVCC_FLAGS,
@@ -120,6 +169,8 @@ def path_operands(solver, keys, dev):
     """``(cfg, {key: (wrapper, args, kwargs)}, description)``: the path's
     operands of each key, each with the wrapper of the port's own
     kernel."""
+    if solver in MP_SOLVERS:
+        return mp_operands(solver, dev)
     if solver.startswith("pbf"):
         settled = solver == "pbf_settled"
         cfg, params, state, grid, boundary = smoke.pbf_main_path(dev,
@@ -160,18 +211,85 @@ def path_operands(solver, keys, dev):
         f"{statics.n} queries, {int(a[3].shape[0])} pairs in the list")
 
 
+def mp_operands(solver, dev):
+    """``path_operands`` of the multiphase paths (``MP_SOLVERS``): the
+    multiphase force (``mp_force``; ``mp_force_moving`` under the
+    wavemaker) and, on the DFSPH paths, dδ̂/dt (``mp_drho``, and
+    ``mp_drho_cols`` on the same operands)."""
+    lowered = False
+    if solver.startswith("multiphase"):
+        cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+        state = smoke.two_phase(state, params)
+        steps = (smoke.N_STEPS, smoke.TIMED_FROM)
+        bd_at = None
+        if solver == "multiphase_wavemaker":
+            grid, bd_at = smoke.wavemaker(grid, boundary, params)
+
+        def step(s):
+            return nt.wcsph_step(s, params, grid, cfg,
+                                 bd_at() if bd_at else boundary)
+    elif solver == "dfsph_mp":
+        cfg, params, state, grid, boundary, step = smoke.settled_main_path(
+            solver, dev, smoke.SETTLED_N)
+        steps = (smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM)
+    else:
+        if solver == "mp_coupled":
+            cfg, params, state, grid, boundary, body = smoke.coupled_scene(
+                dev, True)
+            fn = nt.wcsph_coupled_step
+            kw = {}
+        else:
+            cfg, params, state, grid, boundary, body = (
+                smoke.dfsph_coupled_scene(dev, "mp"))
+            fn = nt.dfsph_coupled_step
+            kw = dict(tol=smoke.DFSPH_TOL, tol_v=smoke.DFSPH_TOL)
+            lowered = True
+        held = {"body": body}
+
+        def step(s):
+            s, held["body"], d = fn(s, params, grid, cfg, held["body"],
+                                    boundary, **kw)
+            return s, d
+        steps = (smoke.IMPLICIT_STEPS, smoke.IMPLICIT_TIMED_FROM)
+    state, _, ms, *_ = smoke.run_steps(step, state, *steps)
+    if solver == "multiphase_wavemaker":
+        boundary = bd_at.last[0]
+    if lowered:
+        # as run_dfsph_coupled holds its fluid kernels: the block lowered
+        # until its bottom layer lies 0.5·h over the floor
+        n = int(state.num_active)
+        h = float(params.interaction_radius)
+        drop = (float(state.pos[:n, 1].min())
+                - (float(boundary.pos[:, 1].min()) + 0.5 * h))
+        state = dataclasses.replace(state, pos=state.pos - torch.tensor(
+            [0.0, max(drop, 0.0), 0.0], device=dev))
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    if solver.startswith("multiphase"):
+        ops = smoke.multiphase_operands(cfg, ctx, params)
+        if solver == "multiphase_wavemaker":
+            ops = {"mp_force_moving": smoke.moving(ops["mp_force"])}
+    elif solver == "mp_coupled":
+        ops = smoke.coupled_operands(cfg, ctx, params, grid, held["body"])
+    else:
+        ops = smoke.mp_dfsph_operands(cfg, ctx, params)
+        ops["mp_drho_cols"] = ops["mp_drho"]
+    return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
+                 }, f"{ctx.c} queries, {ms:.4f} ms/step"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
                     choices=("pbf", "pbf_settled", "pbf_vort_xsph",
                              "elastic", "wcsph_elastic", "dfsph",
-                             "dfsph_visc"))
+                             "dfsph_visc", *MP_SOLVERS))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--keys", nargs="+", choices=sorted(FUNCTORS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("group_scan: needs a CUDA card")
-    family = ("pbf" if args.solver.startswith("pbf") else "dfsph"
+    family = (args.solver if args.solver in MP_SOLVERS
+              else "pbf" if args.solver.startswith("pbf") else "dfsph"
               if args.solver.startswith("dfsph") else "elastic")
     keys = args.keys or list(PATH_KEYS[family][:2])
     if not set(keys) <= set(PATH_KEYS[family]):
@@ -186,6 +304,7 @@ def main():
         q, src, s, e, pv = a
         ref = kern(cfg, *a, **kwk)
         f = fns[key]
+        cols = key == "mp_drho_cols"
 
         def launch(g, out):
             lead = ((q.data_ptr(), src.data_ptr(), s.data_ptr(),
@@ -195,17 +314,20 @@ def main():
                    out.data_ptr(), torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 sys.exit(f"group_scan: {key} G {g} launch failed ({rc})")
+            # the two-column form: the rate formed after the kernel
+            return out[:, 0] + q[:, 6] * out[:, 1] if cols else out
         outs = {}
         for g in args.groups:
-            out = torch.empty_like(ref)
-            launch(g, out)
+            out = (q.new_empty((q.shape[0], 2)) if cols
+                   else torch.empty_like(ref))
+            got = launch(g, out)
             torch.cuda.synchronize()
             if key == "pbf_lambda":
                 smoke.check_lambda(out, ref, pv, f"{key} G {g}")
                 torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=1e-5,
                                            atol=0)
             else:
-                o2, r2 = out.reshape(len(out), -1), ref.reshape(len(ref), -1)
+                o2, r2 = got.reshape(len(got), -1), ref.reshape(len(ref), -1)
                 err = (o2 - r2).abs().amax(dim=0)
                 if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
                     sys.exit(f"group_scan: {key} G {g} differs from the "

@@ -5,9 +5,12 @@ the two final states lie apart.
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR [--pairs N]
         [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph|pbf|
                   pbf_settled|pbf_vort_xsph|dfsph|dfsph_visc|elastic|
-                  wcsph_elastic|dfsph_elastic]
+                  wcsph_elastic|dfsph_elastic|multiphase|
+                  multiphase_wavemaker|dfsph_mp]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
         [--log DIR]
+    python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --drift STEPS
+        [--solver ...]
 
 Each run is a fresh process in the root of one checkout, so that it
 imports that checkout's package and builds its CUDA kernels (the first
@@ -37,7 +40,12 @@ timed); elastic, ``elastic_block`` (``elastic_512k``, the 80³ block) and
 ``run_steps`` over ``elastic_step`` (60 steps, steps 11-60 timed);
 wcsph_elastic, ``wcsph_elastic_scene`` (``wcsph_elastic_256k``, 4
 substeps) and dfsph_elastic, ``dfsph_coupled_scene(kind="elastic")``
-(``dfsph_elastic_256k``), each 60 steps, steps 11-60 timed.
+(``dfsph_elastic_256k``), each 60 steps, steps 11-60 timed; multiphase,
+``wcsph_main_path`` split by ``two_phase`` (``multiphase_1M``), and
+multiphase_wavemaker, the same under ``wavemaker``
+(``multiphase_1M_wavemaker``), each 300 steps, steps 51-300 timed;
+dfsph_mp, ``settled_main_path``'s two-phase block
+(``dfsph_mp_256k_settled``), 60 steps, steps 11-60 timed.
 
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
@@ -49,14 +57,18 @@ pressure force (iisph, pcisph), the Jacobi loop's Σd_ij·p_j and Jacobi
 sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
 confinement, N (key ``pbf_grad``, which an earlier checkout computes with
 its λ kernel) and ω, at the state advected from the final one (pbf*),
-Dρ/Dt (dfsph*, ``dfsph_operands``), and the elastic kernels on the body's
+Dρ/Dt (dfsph*, ``dfsph_operands``), the multiphase density and force
+(multiphase, ``multiphase_operands``; MultiphaseForce<MOVING> under the
+wavemaker) and the multiphase force and dδ̂/dt (dfsph_mp,
+``mp_dfsph_operands``), and the elastic kernels on the body's
 statics at ``deformed`` positions (elastic, wcsph_elastic, dfsph_elastic,
 ``elastic_kernel_ops``), each
 host-free (20 launches captured in a CUDA graph, the replay timed with
 CUDA events, the better of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
 On the paths driven by ``run_steps`` (all but wcsph, wcsph_visc and
-wcsph_wide12M) each run also times its host loop on the host's clock:
+wcsph_wide12M; multiphase and multiphase_wavemaker too) each run also
+times its host loop on the host's clock:
 ms/step from the first timed step's call to the last step's return, the
 last enqueue, before the wait for the card. Prints every run, then each side's median and quartiles, and the largest
 position and velocity difference between the two sides' final states of
@@ -64,6 +76,13 @@ the first pair: each particle of the parent's state against the nearest
 particle of the change's (the states come out in hash order, which a
 difference of rounding may change). Every run prints a SHA-256 prefix of
 its final positions and velocities.
+
+With ``--drift 1,10,300`` each checkout runs once, and the change once
+more with every live position one float32 ulp up before the first step;
+after each of the steps named, the change's live state is held against
+the parent's and against the nudged run's. The nudged run shows how far
+the path carries a difference of one rounding, to set beside the distance
+between the two checkouts.
 
 With ``--smoke`` each run is instead the checkout's own ``chip_smoke.py``,
 whole: wherever it times a kernel (its ``time_turns``), the kernel is also
@@ -117,6 +136,9 @@ def graph_ms(fn, reps=20):
 
 # run in the checkout's root: its package comes first on sys.path; argv:
 # this repository's chip_smoke.py, the solver, the file for the final state
+# and, for --drift, the steps after which the live state is saved too (to
+# that file's name + ".<step>") and "1" to move every live position one
+# float32 ulp up before the first step
 RUN = r"""
 import dataclasses, hashlib, importlib.util, json, os, sys, time
 import torch
@@ -146,17 +168,32 @@ GRAPH_MS
 # the host's clock over the timed steps: from the first timed step's call
 # to the last step's return, before run_steps waits for the card
 host = {"calls": 0, "t0": None, "t1": None, "timed_from": None}
+marks = ({int(k) for k in sys.argv[4].split(",")} if len(sys.argv) > 4
+         else set())
+nudge = len(sys.argv) > 5 and sys.argv[5] == "1"
+
+
+def save(state, path):
+    live = state.active_mask()
+    torch.save({"pos": state.pos[live].cpu(), "vel": state.vel[live].cpu(),
+                "h": float(params.interaction_radius)}, path)
 
 
 def clocked(step, timed_from):
     host["timed_from"] = timed_from
 
     def wrapped(s):
+        if nudge and host["calls"] == 0:
+            up = torch.nextafter(s.pos, torch.full_like(s.pos, float("inf")))
+            s = dataclasses.replace(s, pos=torch.where(
+                s.active_mask()[:, None], up, s.pos))
         if host["calls"] == timed_from:
             host["t0"] = time.perf_counter()
         out = step(s)
         host["calls"] += 1
         host["t1"] = time.perf_counter()
+        if host["calls"] in marks:
+            save(out[0], f"{sys.argv[3]}.{host['calls']}")
         return out
     return wrapped
 
@@ -184,6 +221,18 @@ elif solver == "wcsph_wide12M":
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / smoke.WIDE_TIMED
+elif solver.startswith("multiphase"):
+    cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+    state = smoke.two_phase(state, params)
+    bd_at = None
+    if solver == "multiphase_wavemaker":
+        grid, bd_at = smoke.wavemaker(grid, boundary, params)
+    state, _, ms, *_ = smoke.run_steps(
+        clocked(lambda s: nt.wcsph_step(s, params, grid, cfg,
+                                        bd_at() if bd_at else boundary),
+                smoke.TIMED_FROM), state, smoke.N_STEPS, smoke.TIMED_FROM)
+    if bd_at:
+        boundary = bd_at.last[0]
 elif solver.startswith("pbf"):
     settled = solver == "pbf_settled"
     cfg, params, state, grid, boundary = smoke.pbf_main_path(dev, settled)
@@ -268,16 +317,26 @@ else:
                    "iisph": own.iisph_operands,
                    "pcisph": own.pcisph_operands,
                    "dfsph": own.dfsph_operands,
-                   "dfsph_visc": own.dfsph_operands}[solver]
+                   "dfsph_visc": own.dfsph_operands,
+                   "multiphase": own.multiphase_operands,
+                   "multiphase_wavemaker": own.multiphase_operands,
+                   "dfsph_mp": own.mp_dfsph_operands}[solver]
     keep = {"wcsph_visc": ("density", "force_v0", "visc_laplacian"),
             "iisph": ("density", "force_p0", "sum_dij", "jacobi",
                       "pressure_force"),
             "pcisph": ("density", "force_p0", "density_pred",
                        "pressure_force"),
             "dfsph": ("drho", "pressure_force"),
-            "dfsph_visc": ("drho", "visc_laplacian")}[solver]
+            "dfsph_visc": ("drho", "visc_laplacian"),
+            "multiphase": ("mp_density", "mp_force"),
+            "multiphase_wavemaker": ("mp_density", "mp_force"),
+            "dfsph_mp": ("mp_force", "mp_drho")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
            in operands_of(cfg, ctx, params).items() if k in keep}
+    if solver == "multiphase_wavemaker":
+        kern, args, kw = ops.pop("mp_force")
+        ops["mp_force_moving"] = (kern, args,
+                                  {**kw, "moving_boundary": True})
 kernels = {}
 for key, (kern, args, kw) in ops.items():
     out = kern(cfg, *args, **kw)
@@ -337,19 +396,21 @@ print(json.dumps(times))
 
 SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph", "pbf",
            "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc", "elastic",
-           "wcsph_elastic", "dfsph_elastic")
+           "wcsph_elastic", "dfsph_elastic", "multiphase",
+           "multiphase_wavemaker", "dfsph_mp")
 
 
-def run(root, solver, state_file):
+def run(root, solver, state_file, *drift):
     """The run's record: ms/step, the host loop's ms/step (None on the
     WCSPH paths), iterations (the total ``solver_iters``,
     for PBF ``pbf_iters`` per step; CG iterations launched for wcsph_visc,
     0 for the WCSPH, elastic and wcsph_elastic paths), state
     hash, and per kernel [host-free ms, output hash]; its final live
-    positions and velocities go to ``state_file``."""
+    positions and velocities go to ``state_file``. ``drift``: the steps
+    to save the state after and the nudge switch, as in :func:`drift`."""
     res = subprocess.run([sys.executable, "-c", RUN, SMOKE, solver,
-                          state_file], cwd=root, capture_output=True,
-                         text=True, timeout=900)
+                          state_file, *drift], cwd=root,
+                         capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         sys.exit(f"step_turns: run in {root} failed:\n{res.stderr}")
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -427,6 +488,30 @@ def state_difference(a, b):
     return dx, dv
 
 
+def drift(roots, solver, marks):
+    """One run of each checkout and one of the change with every live
+    position one float32 ulp up before the first step (``nudged``); prints,
+    after each step of ``marks`` ("1,10,..."), how far the change's state
+    lies from the parent's and from the nudged run's, as
+    :func:`state_difference` measures it: how a difference of one rounding
+    grows along the path, beside the one between the two checkouts."""
+    sides = {"parent": ("parent", "0"), "change": ("change", "0"),
+             "nudged": ("change", "1")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (side, nudged) in sides.items():
+            rec = run(roots[side], solver, os.path.join(tmp, name), marks,
+                      nudged)
+            print(f"{name}: {solver}, state {rec['state']}", flush=True)
+        for k in marks.split(","):
+            got = {name: torch.load(os.path.join(tmp, f"{name}.{k}"))
+                   for name in sides}
+            pdx, pdv = state_difference(got["parent"], got["change"])
+            ndx, ndv = state_difference(got["nudged"], got["change"])
+            print(f"{solver} after step {k}: change against parent max|dx| "
+                  f"{pdx:.6g} m, max|dv| {pdv:.6g} m/s; against the nudged "
+                  f"change max|dx| {ndx:.6g} m, max|dv| {ndv:.6g} m/s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
@@ -437,9 +522,16 @@ def main():
                     help="time every kernel of each side's own smoke run")
     ap.add_argument("--log", help="with --smoke: a directory for the smoke "
                     "runs' own output")
+    ap.add_argument("--drift", metavar="STEPS",
+                    help="instead of timing, the states' distances after "
+                    "each of these steps (\"1,10,300\"), and those from a "
+                    "run of the change nudged by one ulp")
     args = ap.parse_args()
     roots = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
+    if args.drift:
+        drift(roots, args.solver, args.drift)
+        return
     if args.smoke:
         if args.log:
             os.makedirs(args.log, exist_ok=True)
