@@ -301,8 +301,8 @@ neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
 over 67 TFLOP/s, the H100 SXM's published float32 peaks. ElasticF, the
-reaction, density, force, SumDij, Jacobi, PBF, Dρ/Dt, multiphase force
-and dδ̂/dt kernels stop after the geometry on a candidate outside the
+reaction, density, force, SumDij, Jacobi, PBF, Dρ/Dt, multiphase force,
+dδ̂/dt and κ impulse kernels stop after the geometry on a candidate outside the
 cutoff: there only those operations count (``GUARDED``), and the
 candidates inside the cutoff are counted from this run's positions. The elastic force + hourglass kernel
 walks the body's static pair list, every pair inside the cutoff
@@ -311,8 +311,9 @@ inside the cutoff whatever walks it. The elastic and SumDij sweeps read
 one matrix as queries and source, the density, force, PBF, Dρ/Dt,
 multiphase force and dδ̂/dt sweeps one whose first rows are the queries:
 its bytes count once. SumDij, Jacobi, PBF's, Dρ/Dt, the multiphase force,
-dδ̂/dt and the elastic force + hourglass count only the columns their
-pairs read (``READ_BYTES``) and no cell key.
+dδ̂/dt, the κV̂² correction, the κ impulse and the elastic force +
+hourglass count only the columns their pairs read (``READ_BYTES``) and no
+cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step
 (the pair list of a ``LISTED`` kernel).
@@ -445,8 +446,8 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
             "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0),
             "body_force_p0": (44, 0), "fluid_reaction_p0": (43, 0),
-            "pressure_force_body": (24, 0),
-            "pressure_force_body_rev": (24, 0), "alpha_body": (21, 0),
+            "pressure_force_body": (23, 0),
+            "pressure_force_body_rev": (23, 0), "alpha_body": (21, 0),
             "alpha_shell": (24, 0), "drho_shell": (25, 0),
             "mp_alpha_body": (21, 0), "mp_drho_body": (25, 0),
             "mp_kappa_body": (22, 0), "wall_force": (53, 0),
@@ -460,7 +461,8 @@ GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "force_p0": 9, "force_v0": 9, "force_p0_v0": 9,
            "force_moving": 9, "force_p0_moving": 9, "sum_dij": 9,
            "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
-           "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9}
+           "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9,
+           "pressure_force_body": 9, "pressure_force_body_rev": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -482,22 +484,30 @@ LISTED = ("elastic_force_hg",)
 # (the union with the query: the whole 48-byte row), a wall row x y z
 # psi_b (static) or x y z v_b psi_b (MOVING); d delta-hat / dt's x y z v
 # s/m of a query, x y z v of a fluid row (the union: 28 bytes) and
-# x y z v_b psi_b of a wall row. Their bound counts these and no cell key:
-# the port's ranges are exact, so no kernel reads a key. Where the queries
-# are the source's first rows they are read once.
+# x y z v_b psi_b of a wall row; the kappa-V-hat^2 correction x y z kv2 qc
+# of a query and x y z kv2_j or x y z psi_b of a source row; the kappa
+# impulse over a body shell x y z kappa/rho of a query and x y z psi_b of a
+# shell row, its reverse x y z psi_b of a sample and x y z kappa/rho of a
+# fluid row (a body sweep's source rows all of one kind: no wall bytes,
+# None). Their bound counts these and no cell key: the port's ranges are
+# exact, so no kernel reads a key. Where the queries are the source's first
+# rows they are read once.
 READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
               "pbf_grad": (16, 16, 0), "drho": (24, 28, 28),
               "elastic_force_hg": (96, 96, 0),
               "mp_force": (44, 48, 16), "mp_force_moving": (44, 48, 28),
-              "mp_drho": (28, 28, 28)}
+              "mp_drho": (28, 28, 28), "mp_kappa": (20, 16, 16),
+              "pressure_force_body": (16, 16, None),
+              "pressure_force_body_rev": (16, 16, None)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
 # and group_list_sweep_kernel of csrc/group_sweep.cuh), whose rows name
 # their G
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
-           "elastic_force_hg", "mp_force", "mp_force_moving", "mp_drho")
+           "elastic_force_hg", "mp_force", "mp_force_moving", "mp_drho",
+           "pressure_force_body", "pressure_force_body_rev")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -535,10 +545,12 @@ def bound(key, args, out):
     # and force sweeps one whose first rows are the queries: once
     shared = q.data_ptr() == src.data_ptr()
     if key in READ_BYTES:
-        # the source's first rows are the queries' fluid rows, then walls
+        # the source's first rows are the queries' fluid rows, then walls;
+        # a body sweep's source rows are all of one kind
         qb, fb, wb = READ_BYTES[key]
         n, m = q.shape[0], src.shape[0]
-        nbytes = (0 if shared else qb * n) + fb * n + wb * (m - n)
+        nbytes = ((0 if shared else qb * n) + fb * m if wb is None
+                  else (0 if shared else qb * n) + fb * n + wb * (m - n))
         nbytes += sum(t.numel() * t.element_size() for t in (pv, out))
     else:
         ins = (src, pv, out) if shared else (q, src, pv, out)
@@ -711,8 +723,8 @@ def group_stats(key, args, kw):
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``, ``pbf_dp_group``,
     ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
-    ``elastic_group``) and the queries
-    that have a candidate in their ranges (pairs in the list of a
+    ``elastic_group``, ``body_kappa_group``, ``BODY_REV_G``) and the
+    queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
     from nereus_tpu_torch.ops import cuda_sweep
     q, src, s, e, _ = args
@@ -744,6 +756,10 @@ def group_stats(key, args, kw):
         g = cuda_sweep.mp_force_group(n, kw.get("moving_boundary", False))
     elif key == "mp_drho":
         g = cuda_sweep.MP_DRHO_G
+    elif key == "pressure_force_body_rev":
+        g = cuda_sweep.BODY_REV_G
+    elif key == "pressure_force_body":
+        g = cuda_sweep.body_kappa_group(src.shape[0])
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -1635,8 +1651,7 @@ def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
     q8 = ctx.queries(ctx.vx, ctx.vy, ctx.vz, dens, zero)
     src_f = ctx.pack((ctx.vx, ctx.vy, ctx.vz), dens)[:ctx.c]
     p0 = {"include_pressure": False}
-    kappa = (cuda_sweep.pressure_force_body_sweep,
-             SP.pressure_force_body_sweep_plain)
+    plain = SP.pressure_force_body_sweep_plain
     return {"body_density": (cuda_sweep.body_density_sweep,
                              SP.density_sweep_plain,
                              (q4, es.shell.src4, *rows), {}),
@@ -1645,8 +1660,11 @@ def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
                             {}),
             "drho_shell": (cuda_sweep.drho_shell_sweep, SP.drho_sweep_plain,
                            (q_v, es.shell.src, *rows), {}),
-            "pressure_force_body": (*kappa, (kq, es.shell.src, *rows), {}),
-            "pressure_force_body_rev": (*kappa, (sw.q_b, ksrc, *rev), {}),
+            "pressure_force_body": (cuda_sweep.pressure_force_body_sweep,
+                                    plain, (kq, es.shell.src, *rows), {}),
+            "pressure_force_body_rev": (
+                cuda_sweep.pressure_force_body_rev_sweep, plain,
+                (sw.q_b, ksrc, *rev), {}),
             "body_force_p0": (cuda_sweep.body_force_sweep,
                               SP.body_force_sweep_plain,
                               (q8, es.shell.src, *rows), p0),
@@ -1743,7 +1761,6 @@ def run_dfsph_coupled(name, dev, kind):
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
     from nereus_tpu_torch.solvers import dfsph_cuda
-    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
     t0 = time.perf_counter()
     cfg, params, state, grid, walls, body = dfsph_coupled_scene(dev, kind)
     n = int(state.num_active)
@@ -1825,7 +1842,8 @@ def run_dfsph_coupled(name, dev, kind):
                 K.FORCE_P0: steps, K.BODY_FORCE_P0: steps}
         if elastic:
             want.update({K.ALPHA_SHELL: steps,
-                         K.PRESSURE_FORCE_BODY: 2 * corr,
+                         K.PRESSURE_FORCE_BODY: corr,
+                         K.PRESSURE_FORCE_BODY_REV: corr,
                          K.FLUID_REACTION_P0: steps,
                          K.ELASTIC_F: WEL_SUBSTEPS * steps,
                          K.ELASTIC_FORCE_HG: WEL_SUBSTEPS * steps})
@@ -1841,9 +1859,31 @@ def run_dfsph_coupled(name, dev, kind):
         fail(f"{name}: non-finite fluid or body state {finite}")
     if orth and not float(torch.stack(orth).max()) < 1e-5:
         fail(f"{name}: R drifts from orthonormal")
-    # the block has not reached the walls' support in 60 steps: its
-    # kernels are held on the last state lowered until its bottom layer
-    # lies 0.5·h over the floor, so the wall sums are live
+    ops, body_ops = dfsph_coupled_held_ops(cfg, params, state, grid, walls,
+                                           held["body"], body, kind)
+    check_dfsph_body_ops(cfg, body_ops, params,
+                         f"{name} after {steps} steps, the body in "
+                         "mid-fluid")
+    ops.update(body_ops)
+    timing = compare_kernels(cfg, ops, f"{name} after {steps} steps",
+                             time_it=True)
+    return timing, launches
+
+
+def dfsph_coupled_held_ops(cfg, params, state, grid, walls, b, body, kind):
+    """``(ops, body_ops)`` of a DFSPH coupled path (``kind`` as
+    :func:`dfsph_coupled_scene`'s) at its final ``state`` and body ``b``,
+    as :func:`run_dfsph_coupled` holds them: the block has not reached the
+    walls' support in 60 steps, so its fluid kernels are held on the state
+    lowered until its bottom layer lies 0.5·h over the floor (the wall sums
+    live; ``dfsph_operands`` or ``mp_dfsph_operands``), and its body
+    kernels with the body moved, at its last velocities, into the middle of
+    that fluid (``dfsph_body_ops``, ``dfsph_elastic_ops``, which with the
+    elastic kernels on the body's statics at :func:`deformed` positions
+    join ``ops``); ``body`` the scene's (an elastic one's statics, ep,
+    psi)."""
+    from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx
+    n = int(state.num_active)
     h = float(params.interaction_radius)
     floor = float(walls.pos[:, 1].min())
     drop = float(state.pos[:n, 1].min()) - (floor + 0.5 * h)
@@ -1855,24 +1895,18 @@ def run_dfsph_coupled(name, dev, kind):
         ops = mp_dfsph_operands(cfg, ctx, params)
     else:
         ops = dfsph_operands(cfg, ctx, params)
-    if elastic:
+    if kind == "elastic":
+        _, statics, ep, psi = body
         inside = dataclasses.replace(
             b, pos=b.pos - b.pos.mean(dim=0) + centre)
         body_ops = dfsph_elastic_ops(cfg, ctx, params, grid, inside, statics,
                                      psi)
-        sp = 0.5 * float(params.interaction_radius)
         ops.update(elastic_kernel_ops(cfg, params, grid, statics,
-                                      deformed(statics.x0, sp), ep))
+                                      deformed(statics.x0, 0.5 * h), ep))
     else:
         body_ops = dfsph_body_ops(cfg, ctx, params, grid,
                                   dataclasses.replace(b, com=centre))
-    check_dfsph_body_ops(cfg, body_ops, params,
-                         f"{name} after {steps} steps, the body in "
-                         "mid-fluid")
-    ops.update(body_ops)
-    timing = compare_kernels(cfg, ops, f"{name} after {steps} steps",
-                             time_it=True)
-    return timing, launches
+    return ops, body_ops
 
 
 def compare_kernels(cfg, ops, label, keys=None, time_it=False):
@@ -3041,7 +3075,8 @@ def ptxas_report(log):
             # the row-tiled kernels by name (their shared memory too)
             tag = (f"{entry}: " if "tiled_pair_sweep_kernel" in entry
                    or "group_pair_sweep_kernel" in entry
-                   or "group_list_sweep_kernel" in entry else "")
+                   or "group_list_sweep_kernel" in entry
+                   or "thread_sweep_kernel" in entry else "")
             print("  ptxas:", tag + line.strip())
             continue
         # template ints <KS[, ST, PRESSURE, VISC, MOVING], G>, then the
@@ -3815,8 +3850,7 @@ def main():
     print(f"phase 38: {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel and path: every kernel a path launched is held
-    # against its plain version at that path's shapes and operands; the
-    # elastic path's κ body instance has two, forward and reverse (``op``)
+    # against its plain version at that path's shapes and operands
     sph_src = "nereus_tpu_torch/csrc/sph_sweep.cu"
     iisph_src = "nereus_tpu_torch/csrc/iisph_sweep.cu"
     dfsph_src = "nereus_tpu_torch/csrc/dfsph_sweep.cu"
@@ -3875,9 +3909,9 @@ def main():
                                   rep + "409"),
             "pressure_force_body": (cuda_sweep.PRESSURE_FORCE_BODY,
                                     iisph_src, rep + "922"),
-            # the same instance, the elastic samples as queries against
-            # the fluid rows (the reverse κ)
-            "pressure_force_body_rev": (cuda_sweep.PRESSURE_FORCE_BODY,
+            # the same pair, the elastic samples as queries against the
+            # fluid rows (the reverse κ)
+            "pressure_force_body_rev": (cuda_sweep.PRESSURE_FORCE_BODY_REV,
                                         iisph_src, rep + "922"),
             "alpha_body": (cuda_sweep.ALPHA_BODY, dfsph_src, rep + "578"),
             "alpha_shell": (cuda_sweep.ALPHA_SHELL, dfsph_src, rep + "578"),

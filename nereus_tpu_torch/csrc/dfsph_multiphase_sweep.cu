@@ -43,6 +43,19 @@
 // scan of an empty query costs more than one thread's (PERF.md section 6,
 // the DFSPH couplings' shell Drho).
 //
+// The kappa-V-hat^2 correction, once per correction of both loops (5.2
+// launches per step), stays on pair_sweep_kernel, one thread per query and
+// every candidate masked by the cutoff: on group_pair_sweep_kernel at its
+// best G, 4, it took 4 % more at DM, G 2 and 8 more still (PERF.md
+// section 6). Its
+// source is one 16-byte row per candidate (x y z kv2_j, wall rows x y z
+// psi_b), which both walks load once, and the 18 range rows and the
+// candidate gathers are most of its time; a pair this cheap gains nothing
+// from the guard. Over a shell (the wall formula alone) the same pair
+// inside the cutoff, masked after it (BoundaryForm<MaskedForm<
+// MultiphaseKappa>>, as d delta-hat / dt), took 10 % less than the
+// one-thread walk's masked pair.
+//
 // Bound: memory traffic (sweep_common.cuh). The alpha and kappa sources
 // are 16-byte rows (x y z and one scalar: 1 / m_j or kappa V-hat_j^2 on
 // fluid rows, psi_b on wall rows), the drho source a 32-byte row (the
@@ -124,16 +137,33 @@ struct MultiphaseDrho {
 };
 
 // the stiffness correction sum (kv2_i + kv2_j) grad W over the fluid rows
-// plus qc_i sum psi_b grad W over the wall rows, into the same columns
+// plus qc_i sum psi_b grad W over the wall rows, into the same columns;
+// source row j is x y z kv2_j (fluid) or x y z psi_b (wall). Two forms of
+// one formula: pair_sweep_kernel's, on every candidate, masked by the
+// cutoff; and MaskedForm's, inside the cutoff, with a the row j it loaded.
 struct MultiphaseKappa {
   static constexpr int QW = 8, SW = 4, OW = 3;
   static constexpr bool BOUNDARY_ROWS = true;
+  template <bool B>
+  __device__ static float coef(const float (&q)[QW], float4 a,
+                               const Geom& g) {
+    return B ? q[4] * a.w * g.s : (q[3] + a.w) * g.s;
+  }
   template <int KS, bool B>
   __device__ static void pair(const float (&q)[QW], const float* src, int j,
                               const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z (kv2_j or psi_b)
+    const float4 a = src_f4(src, SW, j, 0);
     const Geom g = default_geom<KS>(q, a, p);
-    const float c = B ? q[4] * a.w * g.s * g.okf : (q[3] + a.w) * g.s * g.okf;
+    const float c = coef<B>(q, a, g) * g.okf;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+  }
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
+    const Geom g = default_geom<KS>(q, a, p);
+    const float c = coef<B>(q, a, g);
     acc[0] += c * g.dx;
     acc[1] += c * g.dy;
     acc[2] += c * g.dz;
@@ -152,6 +182,7 @@ NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)
 NEREUS_PAIR_SWEEP(multiphase_alpha_body, BoundaryForm<MultiphaseAlpha>)
 NEREUS_PAIR_SWEEP(multiphase_drho_body,
                   BoundaryForm<MaskedForm<MultiphaseDrho>>)
-NEREUS_PAIR_SWEEP(multiphase_kappa_body, BoundaryForm<MultiphaseKappa>)
+NEREUS_PAIR_SWEEP(multiphase_kappa_body,
+                  BoundaryForm<MaskedForm<MultiphaseKappa>>)
 
 }  // extern "C"

@@ -7,17 +7,17 @@
 // grad_pressure_force_pair (solvers/iisph_pallas.py::iisph_step_pallas; the
 // last is also PCISPH's and DFSPH's pressure / kappa correction). Its
 // boundary form alone (grad_pressure_force_pair(boundary=True,
-// boundary_sign=-1) on rows 0-8, BoundaryForm<PressureForce>) is the kappa
-// impulse of solvers/dfsph_coupled.py and dfsph_elastic.py over a body
-// shell, and with the roles swapped (a body's samples as queries, x y z
-// psi_b, against the fluid rows with kappa/rho in slot 6) the per-sample
-// reverse kappa of the elastic coupling: one instance for both.
+// boundary_sign=-1) on rows 0-8, BodyPressureForce) is the kappa impulse
+// of solvers/dfsph_coupled.py and dfsph_elastic.py over a body shell, and
+// with the roles swapped (a body's samples as queries, x y z psi_b,
+// against the fluid rows with kappa/rho in slot 6) the per-sample reverse
+// kappa of the elastic coupling: one functor, two entry points.
 //
 // Design: one functor each. DiiRhoAdv and Aii (once per step) run on the
 // range-walk template pair_sweep_kernel<Pair, KS> of sweep_common.cuh;
 // PressureForce on the row-tiled engine tiled_pair_sweep_kernel<Pair, KS>
 // of tiled_sweep.cuh (PCISPH's corrective loop launches it ~45 times per
-// step over one tile plan; its boundary form stays on pair_sweep_kernel).
+// step over one tile plan).
 // All five use the default (poly6 / Monaghan) gradient, which is exactly 0
 // at the self pair, so self-pairs stay in the ranges.
 //
@@ -46,6 +46,22 @@
 //   same terms rounded in another order).
 // G per kernel: ops/cuda_sweep.py (SUM_DIJ_G, JACOBI_G); only those
 // instances are built.
+//
+// The kappa impulse over a body shell, once per correction of both DFSPH
+// loops (5.2 launches per step), was BoundaryForm<PressureForce> on
+// pair_sweep_kernel: one thread per query, both float4s of every
+// candidate's 32-byte row loaded and the pair run masked. Two shapes want
+// opposite designs (PERF.md section 6). Forward, the 262,144 fluid rows
+// over a shell: nearly every query's runs are empty. Over a rigid box's 56
+// samples (under SMALL_SHELL) it runs thread_sweep_kernel of
+// group_sweep.cuh (one thread per query, all bounds in flight, the pair
+// only inside the cutoff); over an elastic cube's 4,096 samples in
+// mid-fluid, whose few thousand busy queries fill whole warps, the
+// lane-group engine at G 8.
+// Reverse, a body's 4,096 samples over the fluid rows: one thread per
+// sample put 32 blocks on the card; G 16 lanes per sample fill it.
+// BodyPressureForce loads kappa/rho or psi_b (slot 6) only inside the
+// cutoff.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   dii_rhoadv: q (N, 12) x y z vax vay vaz vx vy vz inv_rho2 pad pad;
@@ -150,6 +166,27 @@ struct Jacobi {
   }
 };
 
+// the kappa impulse of a body shell alone, -1 m psi_b pd2_i grad W
+// (PressureForce's boundary formula in its order): forward q x y z kappa/rho
+// over the shell's rows, psi_b in slot 6; reverse q x y z psi_b of a body's
+// samples over the fluid rows, kappa/rho in slot 6. The engine calls it
+// inside the cutoff with a = x y z . of row j; slot 6 is loaded here.
+struct BodyPressureForce {
+  static constexpr int QW = 4, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float s6 = __ldg(src + static_cast<size_t>(j) * SW + 6);
+    const Geom g = default_geom<KS>(q, a, p);
+    const float c = -1.0f * p.pm * s6 * q[3] * g.s;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+  }
+};
+
 // pressure force: fluid -m^2 (pd2_i + pd2_j) grad W; boundary -m psi pd2_i
 // grad W (boundary_sign = -1)
 struct PressureForce {
@@ -184,9 +221,27 @@ NEREUS_PAIR_SWEEP(aii, Aii)
 NEREUS_GROUP_SWEEP(sum_dij, SumDij, 2)
 NEREUS_GROUP_SWEEP(jacobi, Jacobi, 4)
 NEREUS_TILED_SWEEP(pressure_force, PressureForce)
-// the boundary form alone over a body shell (the DFSPH couplings' kappa
-// impulse between fluid and body), or with a body's samples as queries
-// against the fluid rows (the reverse kappa of the elastic coupling)
-NEREUS_PAIR_SWEEP(pressure_force_body, BoundaryForm<PressureForce>)
+// the DFSPH couplings' kappa impulse of a body shell on the fluid, the
+// fluid rows as queries, by the shell's size (ops/cuda_sweep.py::
+// body_kappa_group): group 1, thread_sweep_kernel (one thread per query);
+// group 8, lane groups. Returns cudaGetLastError() (0 on success), or -1
+// for an unknown kernel set or group.
+int nereus_pressure_force_body_sweep(const float* q, const float* src,
+                                     const int* seg_start,
+                                     const int* seg_end, int n, int n_rows,
+                                     const float* pvec, int kernel_set,
+                                     int group, float* out, void* stream) {
+  if (group == 1) {
+    return nereus_sweep::launch_thread_sweep<BodyPressureForce>(
+        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,
+        stream);
+  }
+  return nereus_sweep::launch_group_sweep<BodyPressureForce, 8>(
+      q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, group, out,
+      stream);
+}
+// the reverse kappa of the elastic coupling: a body's samples as queries
+// against the fluid rows, at ops/cuda_sweep.py::BODY_REV_G
+NEREUS_GROUP_SWEEP(pressure_force_body_rev, BodyPressureForce, 16)
 
 }  // extern "C"

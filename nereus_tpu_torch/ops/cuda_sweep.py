@@ -107,10 +107,15 @@ FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # the DFSPH couplings: the two contacts' friction alone, the body forms of
 # the DFSPH sweeps over a body shell (rows 0-8), and Alpha and Drho as they
 # are over a shell's 9 rows (Drho one thread per query), each counted
-# apart
+# apart; the κ impulse forward (the fluid rows as queries over a shell)
+# and reverse (a body's samples as queries over the fluid rows) apart
 BODY_FORCE_P0 = Kernel("pair_sweep_kernel<BodyForce<PRESSURE=0>>")
 FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
-PRESSURE_FORCE_BODY = Kernel("pair_sweep_kernel<BoundaryForm<PressureForce>>")
+PRESSURE_FORCE_BODY = Kernel(
+    "thread_sweep_kernel<BodyPressureForce> (G 1) / "
+    "group_pair_sweep_kernel<BodyPressureForce> (G 8)")
+PRESSURE_FORCE_BODY_REV = Kernel(
+    "group_pair_sweep_kernel<BodyPressureForce>")
 ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<Alpha>>")
 ALPHA_SHELL = Kernel("pair_sweep_kernel<Alpha><body>")
 DRHO_SHELL = Kernel("pair_sweep_kernel<Drho><body>")
@@ -134,7 +139,7 @@ KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
            BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
            ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
            MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
-           LAYOUT_SOA, PBF_GRAD)
+           LAYOUT_SOA, PBF_GRAD, PRESSURE_FORCE_BODY_REV)
 
 _lock = threading.Lock()
 _lib = None
@@ -305,7 +310,8 @@ _SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
               "multiphase_body": 0, "elastic_f": 0, "fluid_reaction": 1,
-              "pressure_force_body": 0, "alpha_body": 0,
+              "pressure_force_body": 1, "pressure_force_body_rev": 1,
+              "alpha_body": 0,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
               "multiphase_kappa_body": 0, "wall_force": 1}
 
@@ -577,6 +583,27 @@ def elastic_group(n: int) -> int:
     return 16 if n < SMALL_BODY else 4
 
 
+# The DFSPH couplings' κ impulse (``csrc/iisph_sweep.cu``, which builds only
+# these), as measured on the H100 (``tools/group_scan.py --solver
+# dfsph_elastic``, ``dfsph_coupled``; PERF.md section 6). Forward, the
+# fluid rows as queries over a body shell, by the shell's size: under
+# ``SMALL_SHELL`` samples (the rigid boxes' 56) G 1, one thread per query
+# with its 9 bounds loaded at once (``thread_sweep_kernel``; lane groups G
+# 4 took 14 % and G 8 96 % more than the parent's walk); over a larger
+# shell (an elastic cube's 4,096, in mid-fluid, whose busy queries fill
+# whole warps) G 8 (40 % under the parent's walk). Reverse, a body's
+# samples as queries over the fluid rows: 16 lanes per sample at the 16³
+# cube's 4,096, the one body size a path runs (G 4 took 86 %, G 8 29 % and
+# G 32 3 % more); the one instance built.
+BODY_REV_G = 16
+
+
+def body_kappa_group(m: int) -> int:
+    """The forward κ impulse's G over a shell of ``m`` samples (1: one
+    thread per query)."""
+    return 1 if m < SMALL_SHELL else 8
+
+
 def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
     return _sweep(kernel, "density", cfg, q, 4, src, 4, seg_start, seg_end,
                   pvec, rows, 0, group)
@@ -733,7 +760,8 @@ def multiphase_drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 def multiphase_kappa_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                            pvec):
-    """Multiphase stiffness correction (N, 3): q (N, 8), src (M, 4)."""
+    """Multiphase stiffness correction (N, 3): q (N, 8) ``x y z κV̂² qc``,
+    src (M, 4) fluid rows ``x y z κV̂²_j``, wall rows ``x y z ψ_b``."""
     return _sweep(MP_KAPPA, "multiphase_kappa", cfg, q, 8, src, 4, seg_start,
                   seg_end, pvec, (9, 18), 3)
 
@@ -824,11 +852,20 @@ def fluid_reaction_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
 def pressure_force_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                               pvec):
     """The κ impulse −m·ψ_b·pd2_i·∇W of a body shell alone (N, 3): q (N, 4)
-    ``x y z κ/ρ``, the shell (Mb, 8) with ψ_b in slot 6, ranges (9, N); or
-    the reverse, q (Mb, 4) ``x y z ψ_b`` of a body's samples against the
-    fluid rows with κ/ρ in slot 6."""
+    ``x y z κ/ρ``, the shell (Mb, 8) with ψ_b in slot 6, ranges (9, N);
+    G by the shell's size (``body_kappa_group``)."""
     return _sweep(PRESSURE_FORCE_BODY, "pressure_force_body", cfg, q, 4, src,
-                  8, seg_start, seg_end, pvec, (9,), 3)
+                  8, seg_start, seg_end, pvec, (9,), 3,
+                  body_kappa_group(src.shape[0]))
+
+
+def pressure_force_body_rev_sweep(cfg: SimConfig, q, src, seg_start,
+                                  seg_end, pvec):
+    """The reverse κ impulse (Mb, 3), the same formula: q (Mb, 4)
+    ``x y z ψ_b`` of a body's samples, the fluid rows (C, 8) with κ/ρ in
+    slot 6, ranges (9, Mb); counted in ``PRESSURE_FORCE_BODY_REV``."""
+    return _sweep(PRESSURE_FORCE_BODY_REV, "pressure_force_body_rev", cfg, q,
+                  4, src, 8, seg_start, seg_end, pvec, (9,), 3, BODY_REV_G)
 
 
 def alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):

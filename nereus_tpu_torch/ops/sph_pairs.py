@@ -44,7 +44,8 @@ coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``nbr_start`` and ``nbr`` in the places of the ranges), the elastic
 coupling's
 ``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
-``pressure_force_body_sweep``, ``alpha_body_sweep``,
+``pressure_force_body_sweep`` (and its reverse,
+``pressure_force_body_rev_sweep``), ``alpha_body_sweep``,
 ``alpha_shell_sweep``, ``drho_shell_sweep`` and the three
 ``multiphase_*_body_sweep``, and the wall-only
 ``boundary_force_sweep``) routes by device:
@@ -1314,6 +1315,11 @@ fluid_reaction_sweep = _dispatcher(fluid_reaction_sweep_plain,
                                    "fluid_reaction_sweep")
 pressure_force_body_sweep = _dispatcher(pressure_force_body_sweep_plain,
                                         "pressure_force_body_sweep")
+# the reverse κ impulse (a body's samples as queries against the fluid
+# rows): the same formula and plain sweep, its kernel counted apart
+pressure_force_body_rev_sweep = _dispatcher(
+    pressure_force_body_sweep_plain, "pressure_force_body_rev_sweep",
+    name="pressure_force_body_rev_sweep")
 alpha_body_sweep = _dispatcher(alpha_body_sweep_plain, "alpha_body_sweep")
 # Alpha and Drho as they are over a body shell's 9 range rows (their fluid
 # form: Σψ_b²|∇W|², and the shell's sample velocities), counted apart

@@ -8,7 +8,8 @@ loops — with the reaction distributed PER SAMPLE: each κ correction runs
 one reverse sweep, the samples ``x y z ψ_b`` as queries against the fluid
 rows with κ/ρ in slot 6. ``grad_pressure_force_pair(boundary=True,
 boundary_sign=-1)`` is its own reverse form, so the forward and the
-reverse sweep are one kernel (``pressure_force_body_sweep``) and the
+reverse sweep are one formula (``pressure_force_body_sweep`` and
+``pressure_force_body_rev_sweep``, one plain sweep, two kernels) and the
 per-pair forces are exactly antisymmetric: momentum is conserved to the
 pair.
 
@@ -84,8 +85,8 @@ class ElasticSweeps(KappaSweeps):
         fb = SP.pressure_force_body_sweep(self.cfg, q, self.es.shell.src,
                                           *self.rng)
         v = v + self.dt_m * (f + fb)
-        fbs = SP.pressure_force_body_sweep(self.cfg, self.q_b, src,
-                                           *self.rev)
+        fbs = SP.pressure_force_body_rev_sweep(self.cfg, self.q_b, src,
+                                               *self.rev)
         return v, (carry[0] + self.dt_mb * fbs,)
 
     def nonpressure(self, v, carry=()):

@@ -6,13 +6,16 @@ plain sweeps), mirroring ``tests/test_dfsph_elastic.py``.
   cube moving at (0.3, −0.5, 0.2) m/s and spinning at (1, −2, 0.5) rad/s
   inside a fluid block (``test_torch_elastic_coupled._immersed``), its
   first divergence iteration, both kernel sets, max|Δ| ≤ 1e-5·max|ref|
-  per column: the reverse κ (the samples ``x y z ψ_b`` as queries
-  against the fluid rows with κ/ρ in slot 6,
-  ``grad_pressure_force_pair(boundary=True, boundary_sign=-1)``), the
+  per column: the κ impulse forward (the fluid rows over the shell) and
+  reverse (the samples ``x y z ψ_b`` as queries against the fluid rows
+  with κ/ρ in slot 6), both ``grad_pressure_force_pair(boundary=True,
+  boundary_sign=-1)`` through their own wrappers' CPU routes, the
   Alpha kernel in its fluid form over the shell (Σψ_b∇W, Σψ_b²|∇W|²:
   ``alpha_pair(include_sq=True)``), and the per-sample friction
   (``fluid_reaction_pair(include_pressure=False)``), which reads the
   sample velocities.
+* On the same operands the forward impulse summed over the fluid equals
+  minus the reverse summed over the samples (1e-5·max|row|).
 * ``dfsph_elastic_step`` against JAX's Pallas step (interpret mode) on
   ``_free_space_scene``, as it is and with the body moved to 0.015 from
   the blob (the contact live), 2 steps at ``substeps=2``: equal
@@ -76,8 +79,12 @@ def test_body_twins_match_jax(kernel_set):
     q4 = ctx.queries(width=4)
     brng = (es.shell.seg_start, es.shell.seg_end, ctx.pvec)
     cases = (
+        ("forward kappa",
+         SP.pressure_force_body_sweep(pcfg, q, es.shell.src, *brng),
+         dense_pairs(PS.grad_pressure_force_pair, q, es.shell.src, pv,
+                     kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
         ("reverse kappa",
-         SP.pressure_force_body_sweep(pcfg, sweeps.q_b, src, *rev),
+         SP.pressure_force_body_rev_sweep(pcfg, sweeps.q_b, src, *rev),
          dense_pairs(PS.grad_pressure_force_pair, sweeps.q_b, src, pv,
                      kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
         ("alpha shell", SP.alpha_shell_sweep(pcfg, q4, es.shell.src, *brng),
@@ -97,6 +104,35 @@ def test_body_twins_match_jax(kernel_set):
                                     include_pressure=False)
     assert float((other - fric).abs().max()) > 1e-2 * float(
         fric.abs().max())
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_kappa_impulse_forward_reverse_antisymmetric(kernel_set):
+    """On the immersed body's first divergence iteration, the forward κ
+    impulse (the fluid rows over the shell, ``pressure_force_body_sweep``)
+    summed over the fluid equals minus the reverse (the samples over the
+    fluid rows, ``pressure_force_body_rev_sweep``) summed over the samples:
+    each pair's two forces are one formula with the roles swapped. The
+    totals (in float64) agree to 1e-5·max|row| of either sweep."""
+    _, (pcfg, pparams, pgrid, ctx, pest, psi) = _immersed(kernel_set)
+    es = elastic_shell(ctx, pgrid, pest, psi)
+    mbm = torch.tensor(1.0)
+    dens, alpha = DE.elastic_density_alpha(ctx, pparams, pcfg, es, mbm)
+    sweeps = DE.ElasticSweeps(ctx, pparams, pcfg, dens, es, mbm)
+    v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
+    drho = torch.clamp(sweeps.drho(v, (es.shell.src[:, 3:6],)), min=0.0)
+    q, src, *_ = sweeps.kappa_operands(drho * alpha / float(pparams.dt))
+    fwd = SP.pressure_force_body_sweep(pcfg, q, es.shell.src,
+                                       es.shell.seg_start, es.shell.seg_end,
+                                       ctx.pvec)
+    rev = SP.pressure_force_body_rev_sweep(pcfg, sweeps.q_b, src,
+                                           es.r_start, es.r_end, ctx.pvec)
+    scale = max(float(fwd.abs().max()), float(rev.abs().max()))
+    assert scale > 0.0
+    total = fwd.double().sum(dim=0) + rev.double().sum(dim=0)
+    assert float(total.abs().max()) <= 1e-5 * scale, (total, scale)
+    assert float(fwd.double().sum(dim=0).abs().max()) > 1e-3 * scale
 
 
 @pytest.fixture(scope="module")

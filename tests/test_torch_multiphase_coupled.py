@@ -188,8 +188,11 @@ def test_dfsph_mp_body_twins_match_jax(contact, kernel_set):
     spinning) against JAX's pair functions over every pair within h: the
     body forms ``multiphase_alpha_bpair`` (columns 4-6; 0-3 exactly 0),
     ``multiphase_drho_bpair`` (column 1; column 0 exactly 0) and
-    ``multiphase_kappa_bpair`` over the shell alone, and the friction
-    (``multiphase_body_pair`` at bp = 0), max|Δ| ≤ 1e-5·max|ref|."""
+    ``multiphase_kappa_bpair`` over the shell alone, the friction
+    (``multiphase_body_pair`` at bp = 0), and the fluid and wall κV̂²
+    correction (``multiphase_kappa_sweep``: ``multiphase_kappa_pair`` over
+    the fluid rows plus ``multiphase_kappa_bpair`` over the walls),
+    max|Δ| ≤ 1e-5·max|ref|."""
     from nereus_tpu_torch.solvers import dfsph_coupled_cuda as DC
     state, params, grid, walls = contact
     cfg = jt.SimConfig(engine="pallas", surface_tension_model=ST.NONE,
@@ -215,6 +218,10 @@ def test_dfsph_mp_body_twins_match_jax(contact, kernel_set):
     q4 = ctx.queries(width=4)
     pv = PS.build_pvec(params, cfg, grid)
     ks = kernel_set
+    # the correction's (C + Mb, 4) source with its scalar in JAX's slot 6
+    src8 = torch.zeros((kargs[1].shape[0], 8))
+    src8[:, :3] = kargs[1][:, :3]
+    src8[:, 6] = kargs[1][:, 3]
     al = SP.multiphase_alpha_body_sweep(pcfg, q4, t.src4, *rows)
     dr = SP.multiphase_drho_body_sweep(pcfg, sweeps.q_v, src_v, *rows)
     fric = SP.multiphase_body_sweep(pcfg, q8b, src_v, *rows)
@@ -231,7 +238,12 @@ def test_dfsph_mp_body_twins_match_jax(contact, kernel_set):
                      kernel_set=ks)[:, :3]),
         ("friction", fric,
          dense_pairs(PS.multiphase_body_pair, q8b, src_v, pv,
-                     kernel_set=ks)[:, :3]))
+                     kernel_set=ks)[:, :3]),
+        ("kappa fluid and walls", SP.multiphase_kappa_sweep(pcfg, *kargs),
+         dense_pairs(PS.multiphase_kappa_pair, kargs[0], src8[:ctx.c], pv,
+                     kernel_set=ks)[:, :3]
+         + dense_pairs(PS.multiphase_kappa_bpair, kargs[0], src8[ctx.c:],
+                       pv, kernel_set=ks)[:, :3]))
     for name, got, want in cases:
         assert_columns_close(got.numpy(), want, 1e-5, name)
     assert float(al[:, :4].abs().max()) == 0.0

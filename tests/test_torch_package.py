@@ -201,6 +201,9 @@ ELASTIC_SWEEPS = {
 DFSPH_BODY_SWEEPS = {
     "pressure_force_body": (SP.pressure_force_body_sweep,
                             cuda_sweep.pressure_force_body_sweep, 4, 8, 9),
+    "pressure_force_body_rev": (SP.pressure_force_body_rev_sweep,
+                                cuda_sweep.pressure_force_body_rev_sweep, 4,
+                                8, 9),
     "alpha_body": (SP.alpha_body_sweep, cuda_sweep.alpha_body_sweep, 4, 8,
                    9),
     "alpha_shell": (SP.alpha_shell_sweep, cuda_sweep.alpha_shell_sweep, 4,
@@ -1099,8 +1102,9 @@ def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set, large,
 @pytest.mark.requires_cuda
 def test_group_sweeps_build_only_their_g(cuda):
     """Each entry point of the lane-group engine launches at the G its
-    wrapper can pick (below and above ``SMALL_N`` queries) and returns −1
-    for any other group value, launching nothing."""
+    wrapper can pick (below and above ``SMALL_N`` queries; the forward κ
+    impulse's G 1 is its one-thread walk) and returns −1 for any other
+    group value, launching nothing."""
     lib = cuda_sweep.load()
     picks = {
         "sum_dij": {cuda_sweep.SUM_DIJ_G},
@@ -1111,6 +1115,11 @@ def test_group_sweeps_build_only_their_g(cuda):
         "pbf_grad": {cuda_sweep.PBF_GRAD_G},
         "drho": {cuda_sweep.DRHO_G},
         "multiphase_drho": {cuda_sweep.MP_DRHO_G},
+        # the κ impulse: forward by shell size, reverse at one G
+        "pressure_force_body": {
+            cuda_sweep.body_kappa_group(1),
+            cuda_sweep.body_kappa_group(cuda_sweep.SMALL_SHELL)},
+        "pressure_force_body_rev": {cuda_sweep.BODY_REV_G},
         # the multiphase force's four instances (st_model, moving)
         **{("multiphase_force", st, m): {
             cuda_sweep.mp_force_group(1, bool(m)),
@@ -1128,7 +1137,8 @@ def test_group_sweeps_build_only_their_g(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     ks = nereus_tpu_torch.KernelSet.MULLER.value
     for fn, want in picks.items():
-        rows = 9 if fn in ("sum_dij", "pbf_grad") else 18
+        rows = 9 if fn in ("sum_dij", "pbf_grad", "pressure_force_body",
+                           "pressure_force_body_rev") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
             if isinstance(fn, tuple):
@@ -1682,7 +1692,7 @@ def _dfsph_body_cases(cfg, params, state, grid, cuda):
     rev = (es.r_start, es.r_end, ctx.pvec)
     src_f = ctx.pack((ctx.vx, ctx.vy, ctx.vz), dens)[:ctx.c]
     cases += [
-        ("reverse kappa", SP.pressure_force_body_sweep,
+        ("reverse kappa", SP.pressure_force_body_rev_sweep,
          SP.pressure_force_body_sweep_plain, (esw.q_b, src, *rev), {}),
         ("reaction friction", SP.fluid_reaction_sweep,
          SP.fluid_reaction_sweep_plain, (es.shell.src, src_f, *rev), p0)]
@@ -1728,11 +1738,91 @@ def test_dfsph_body_kernels_match_plain_on_cuda(cuda, kernel_set):
                                    got), key
     torch.cuda.synchronize()
     K = cuda_sweep
-    _assert_launches({K.PRESSURE_FORCE_BODY: 2, K.ALPHA_BODY: 1,
+    _assert_launches({K.PRESSURE_FORCE_BODY: 1,
+                      K.PRESSURE_FORCE_BODY_REV: 1, K.ALPHA_BODY: 1,
                       K.ALPHA_SHELL: 1, K.DRHO_SHELL: 1,
                       K.BODY_FORCE_P0: 2, K.MP_ALPHA_BODY: 1,
                       K.MP_DRHO_BODY: 1, K.MP_KAPPA_BODY: 1,
                       K.FLUID_REACTION_P0: 2})
+
+
+def _warp_mix_operands(cuda, fq, fs, rows, n=101, m=1024, seed=0):
+    """Synthetic operands of a range sweep whose warps hold queries with
+    few candidates, a mix of few and many, and many, then a partial warp:
+    ``(q, src, seg_start, seg_end)``, q (n, fq) and src (m, fs), positions
+    uniform in [−h/2, h/2]³ and [−h, h]³ of the small dam-break's h (about
+    half the candidates inside the cutoff), the other columns uniform in
+    [0.5, 1.5). Candidates per query: warp 0 all under 32, warp 1 32, 31,
+    0 and one from 32 to 216 in turns, warp 2 all from 32 to 216, the rest
+    from 0 to 216; each count split into ``rows`` runs of contiguous source
+    rows (rows 9-17 in the last quarter, the wall rows)."""
+    t = 32
+    rng = np.random.default_rng(seed)
+    h = float(nereus_tpu_torch.make_params(device="cpu").interaction_radius)
+    turns = np.array([t, t - 1, 0, 0])
+    counts = np.concatenate([
+        rng.integers(0, t, 32), np.where(np.arange(32) % 4 == 3,
+                                         rng.integers(t, 217, 32),
+                                         turns[np.arange(32) % 4]),
+        rng.integers(t, 217, 32), rng.integers(0, 217, n - 96)])
+    counts[0], counts[64] = t - 1, t
+    walls = 3 * m // 4 if rows == 18 else m
+    start = np.zeros((rows, n), np.int32)
+    end = np.zeros((rows, n), np.int32)
+    for i, c in enumerate(counts):
+        cuts = np.sort(rng.integers(0, c + 1, rows - 1))
+        lens = np.diff(np.concatenate([[0], cuts, [c]]))
+        for r, ln in enumerate(lens):
+            lo, hi = (0, walls) if r < 9 else (walls, m)
+            start[r, i] = rng.integers(lo, hi - ln + 1)
+            end[r, i] = start[r, i] + ln
+    q = rng.uniform(0.5, 1.5, (n, fq))
+    q[:, :3] = rng.uniform(-0.5 * h, 0.5 * h, (n, 3))
+    src = rng.uniform(0.5, 1.5, (m, fs))
+    src[:, :3] = rng.uniform(-h, h, (m, 3))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=cuda)
+                 for a in (q, src)) + tuple(
+        torch.tensor(a, device=cuda) for a in (start, end))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_kappa_kernels_match_plain_on_cuda(cuda, kernel_set, large,
+                                           monkeypatch):
+    """On :func:`_warp_mix_operands`: the forward κ impulse at each G its
+    wrapper picks (``SMALL_SHELL`` set so that the 1,024-row source takes
+    the lane groups of a large shell when ``large`` and the one-thread
+    walk when not), twice, bit for bit; the reverse at ``BODY_REV_G``; the
+    multiphase κ correction over 18 rows: max|Δ| ≤ 1e-4·max|ref| per
+    column of each warp."""
+    monkeypatch.setattr(cuda_sweep, "SMALL_SHELL", 0 if large else 2 ** 31)
+    cfg, params, _, grid, _ = _scene(kernel_set, "NONE", False, cuda)
+    pv = SP.build_pvec(params, cfg, grid)
+    body = _warp_mix_operands(cuda, 4, 8, 9)
+    kappa = _warp_mix_operands(cuda, 8, 4, 18, seed=1)
+    cuda_sweep.reset_launches()
+    fwd = SP.pressure_force_body_sweep(cfg, *body, pv)
+    assert torch.equal(SP.pressure_force_body_sweep(cfg, *body, pv), fwd)
+    cases = [
+        (f"forward G={cuda_sweep.body_kappa_group(1024)}", fwd,
+         SP.pressure_force_body_sweep_plain(cfg, *body, pv)),
+        (f"reverse G={cuda_sweep.BODY_REV_G}",
+         SP.pressure_force_body_rev_sweep(cfg, *body, pv),
+         SP.pressure_force_body_sweep_plain(cfg, *body, pv)),
+        ("mp kappa", SP.multiphase_kappa_sweep(cfg, *kappa, pv),
+         SP.multiphase_kappa_sweep_plain(cfg, *kappa, pv))]
+    for key, got, ref in cases:
+        assert torch.isfinite(got).all(), key
+        assert float(ref.abs().max()) > 0.0, key
+        for w in range(0, len(ref), 32):
+            err = (got[w:w + 32] - ref[w:w + 32]).abs().amax(dim=0)
+            scale = ref[w:w + 32].abs().amax(dim=0)
+            assert bool((err <= 1e-4 * scale).all()), (key, w, err, scale)
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.PRESSURE_FORCE_BODY: 2,
+                      cuda_sweep.PRESSURE_FORCE_BODY_REV: 1,
+                      cuda_sweep.MP_KAPPA: 1})
 
 
 @pytest.mark.requires_cuda
@@ -1743,8 +1833,8 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
     density and body-form α), per launched iteration one Dρ/Dt and one κ
     correction plus one per body, one more κ correction for the warm
     start, one pressure-off force and one friction per body; the elastic
-    step also one reverse κ per correction, one reaction friction and
-    the elastic kernels per substep."""
+    step also one reverse κ per correction (its own counter), one
+    reaction friction and the elastic kernels per substep."""
     from nereus_tpu_torch.solvers import dfsph_cuda
     from nereus_tpu_torch.solvers.elastic import sample_box_solid
     K = cuda_sweep
@@ -1800,8 +1890,8 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
     corr = it + 2
     _assert_launches({K.DENSITY: 2, K.ALPHA: 2, K.BODY_DENSITY: 2,
                       K.ALPHA_SHELL: 2, K.DRHO: it, K.DRHO_SHELL: it,
-                      K.PRESSURE_FORCE: corr,
-                      K.PRESSURE_FORCE_BODY: 2 * corr, K.FORCE_P0: 2,
+                      K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: corr,
+                      K.PRESSURE_FORCE_BODY_REV: corr, K.FORCE_P0: 2,
                       K.BODY_FORCE_P0: 2, K.FLUID_REACTION_P0: 2,
                       K.ELASTIC_F: 6, K.ELASTIC_FORCE_HG: 6})
     assert torch.isfinite(s.pos).all() and torch.isfinite(es.pos).all()

@@ -1,30 +1,42 @@
 """Time the lane-group kernels of the PyTorch port at several lane counts G
-on one path's operands, on one CUDA card.
+on one path's operands, beside the one-thread walks they replace, on one
+CUDA card.
 
     python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph|
                                  elastic|wcsph_elastic|dfsph|dfsph_visc|
                                  multiphase|multiphase_wavemaker|dfsph_mp|
-                                 mp_coupled|dfsph_mp_coupled]
-        [--groups 1 2 4] [--keys pbf_lambda pbf_dp pbf_grad drho
-                                 elastic_force_hg mp_force mp_force_moving
-                                 mp_drho mp_drho_cols]
+                                 mp_coupled|dfsph_mp_coupled|dfsph_coupled|
+                                 dfsph_elastic]
+        [--groups 1 2 4]
+        [--keys pbf_lambda pbf_dp pbf_grad drho elastic_force_hg mp_force
+                mp_force_moving mp_drho mp_drho_cols mp_kappa
+                pressure_force_body pressure_force_body_rev]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
 source file of the keys asked for, one file that includes it (its
-functors) and adds one entry point per key, built for every G asked for,
-into ``nereus_tpu_torch/build/scan/``, all compiled at once, and prints
-ptxas's registers and spills of each instance. A key names a functor and
-an engine (``FUNCTORS``): the range walk ``NEREUS_GROUP_SWEEP`` of
-``csrc/group_sweep.cuh`` (G 1 loads the next candidate's row ahead), or
-its list form ``NEREUS_LIST_SWEEP`` over a static pair list.
-``elastic_force_hg`` is the elastic force + hourglass kernel over the
-body's pair list; ``mp_force`` and ``mp_force_moving`` the multiphase
-force's Becker instances (static and moving walls); ``mp_drho`` the
-dδ̂/dt kernel, which forms its one (N,) rate in its epilogue, and
-``mp_drho_cols`` the same walk without the epilogue, writing the fluid
-and wall sums as two columns, timed with the multiply and add that then
-form the rate (``d[:, 0] + q[:, 6] * d[:, 1]``) and checked after them.
+functors) and adds one entry point per variant of each key, built for
+every G asked for, into ``nereus_tpu_torch/build/scan/``, all
+compiled at once, and prints ptxas's registers and spills of each
+instance. A key names its variants (``FUNCTORS``), each a functor and an
+engine: the range walk ``NEREUS_GROUP_SWEEP`` of ``csrc/group_sweep.cuh``
+(G 1 loads the next candidate's row ahead), its list form
+``NEREUS_LIST_SWEEP`` over a static pair list, the one-thread walk with
+all bounds loaded at once ``NEREUS_THREAD_SWEEP`` ("thread"), or
+``pair_sweep_kernel``'s one-thread walk ``NEREUS_PAIR_SWEEP`` (the
+parent's, "parent"; another functor's, "masked"). ``elastic_force_hg`` is the elastic
+force + hourglass kernel over the body's pair list; ``mp_force`` and
+``mp_force_moving`` the multiphase force's Becker instances (static and
+moving walls); ``mp_drho`` the dδ̂/dt kernel, which forms its one (N,)
+rate in its epilogue, and ``mp_drho_cols`` the same walk without the
+epilogue, writing the fluid and wall sums as two columns, timed with the
+multiply and add that then form the rate (``d[:, 0] + q[:, 6] * d[:, 1]``)
+and checked after them; ``mp_kappa`` the κV̂² correction (the lane groups
+by G beside the port's one-thread walk); ``pressure_force_body`` the κ
+impulse of a body shell on the fluid (the one-thread walk, the lane groups
+by G, ``MaskedForm<BodyPressureForce>`` on ``pair_sweep_kernel``, the
+parent's ``BoundaryForm<PressureForce>``) and ``pressure_force_body_rev``
+its reverse, a body's samples over the fluid rows.
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
@@ -37,13 +49,17 @@ split by ``two_phase``, ``N_STEPS`` steps), ``multiphase_1M_wavemaker``
 ``dfsph_mp_coupled_256k`` (``dfsph_coupled_scene(kind="mp")``, the final
 state lowered to 0.5·h over the floor as ``run_dfsph_coupled`` holds its
 fluid kernels) and build their operands with ``multiphase_operands``,
-``mp_dfsph_operands`` or ``coupled_operands``; the elastic paths build their body (``elastic_block``, the 80³
-block of elastic_512k, or ``wcsph_elastic_scene``'s 16³ cube) and take
-``elastic_kernel_ops`` at ``deformed`` positions, as ``chip_smoke.py``
-holds the kernel, without steps. Each G's output is checked against the
-wrapper's (``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤
-1e-4·max|ref| per column for the others) and timed host-free
-(``chip_smoke.graph_ms``) in three interleaved rounds, the better of each.
+``mp_dfsph_operands`` or ``coupled_operands``; the elastic paths build
+their body (``elastic_block``, the 80³ block of elastic_512k, or
+``wcsph_elastic_scene``'s 16³ cube) and take ``elastic_kernel_ops`` at
+``deformed`` positions, as ``chip_smoke.py`` holds the kernel, without
+steps; the DFSPH couplings ``dfsph_coupled_256k`` and
+``dfsph_elastic_256k`` (``dfsph_coupled_scene``, 60 steps) take the body
+sweeps' operands of ``dfsph_coupled_held_ops``, the body in the middle of
+the lowered fluid. Each variant's output is checked against the wrapper's
+(``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤ 1e-4·max|ref| per
+column for the others) and timed host-free (``chip_smoke.graph_ms``) in
+three interleaved rounds, the better of each.
 """
 
 import argparse
@@ -64,21 +80,38 @@ from nereus_tpu_torch.ops import cuda_sweep  # noqa: E402
 from nereus_tpu_torch.solvers import pbf_cuda  # noqa: E402
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx  # noqa
 
-# key → (source of its functor, functor, engine: "ranges" or "list")
-FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", "PbfLambda", "ranges"),
-            "pbf_dp": ("pbf_sweep.cu", "PbfDp", "ranges"),
-            "pbf_grad": ("pbf_sweep.cu", "PbfGrad", "ranges"),
-            "drho": ("dfsph_sweep.cu", "Drho", "ranges"),
-            "elastic_force_hg": ("elastic_sweep.cu", "ElasticForceHourglass",
-                                 "list"),
+# key → (source of its functor, [(variant, engine, functor)]): engine
+# "ranges" (NEREUS_GROUP_SWEEP) or "list" (NEREUS_LIST_SWEEP), scanned over
+# --groups; "thread" (NEREUS_THREAD_SWEEP) or "pair" (NEREUS_PAIR_SWEEP),
+# the one-thread walks, once
+FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
+            "pbf_dp": ("pbf_sweep.cu", [("G", "ranges", "PbfDp")]),
+            "pbf_grad": ("pbf_sweep.cu", [("G", "ranges", "PbfGrad")]),
+            "drho": ("dfsph_sweep.cu", [("G", "ranges", "Drho")]),
+            "elastic_force_hg": ("elastic_sweep.cu",
+                                 [("G", "list", "ElasticForceHourglass")]),
             "mp_force": ("multiphase_sweep.cu",
-                         "MultiphaseForce<true, false>", "ranges"),
-            "mp_force_moving": ("multiphase_sweep.cu",
-                                "MultiphaseForce<true, true>", "ranges"),
-            "mp_drho": ("dfsph_multiphase_sweep.cu", "MultiphaseDrho",
-                        "ranges"),
-            "mp_drho_cols": ("dfsph_multiphase_sweep.cu", "MultiphaseDrhoCols",
-                             "ranges")}
+                         [("G", "ranges", "MultiphaseForce<true, false>")]),
+            "mp_force_moving": ("multiphase_sweep.cu", [
+                ("G", "ranges", "MultiphaseForce<true, true>")]),
+            "mp_drho": ("dfsph_multiphase_sweep.cu",
+                        [("G", "ranges", "MultiphaseDrho")]),
+            "mp_drho_cols": ("dfsph_multiphase_sweep.cu",
+                             [("G", "ranges", "MultiphaseDrhoCols")]),
+            "mp_kappa": ("dfsph_multiphase_sweep.cu", [
+                ("G", "ranges", "MultiphaseKappa"),
+                ("parent", "pair", "MultiphaseKappa")]),
+            "pressure_force_body": ("iisph_sweep.cu", [
+                ("thread", "thread", "BodyPressureForce"),
+                ("G", "ranges", "BodyPressureForce"),
+                ("masked", "pair",
+                 "nereus_sweep::MaskedForm<BodyPressureForce>"),
+                ("parent", "pair",
+                 "nereus_sweep::BoundaryForm<PressureForce>")]),
+            "pressure_force_body_rev": ("iisph_sweep.cu", [
+                ("G", "ranges", "BodyPressureForce"),
+                ("parent", "pair",
+                 "nereus_sweep::BoundaryForm<PressureForce>")])}
 # functors the scan file defines: dδ̂/dt's pair without its epilogue
 SCAN_FUNCTORS = {"MultiphaseDrhoCols": """
 struct MultiphaseDrhoCols {
@@ -100,20 +133,29 @@ PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
              "elastic": ("elastic_force_hg",),
              "multiphase": ("mp_force",),
              "multiphase_wavemaker": ("mp_force_moving",),
-             "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols"),
+             "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols", "mp_kappa"),
              "mp_coupled": ("mp_force",),
-             "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols")}
+             "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols",
+                                  "mp_kappa"),
+             "dfsph_coupled": ("pressure_force_body",),
+             "dfsph_elastic": ("pressure_force_body",
+                               "pressure_force_body_rev")}
 MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
               "dfsph_mp_coupled")
+BODY_SOLVERS = ("dfsph_coupled", "dfsph_elastic")
 SCAN_DIR = os.path.join(cuda_sweep.BUILD_DIR, "scan")
+MACROS = {"ranges": "NEREUS_GROUP_SWEEP", "list": "NEREUS_LIST_SWEEP",
+          "thread": "NEREUS_THREAD_SWEEP", "pair": "NEREUS_PAIR_SWEEP"}
 
 
 def build(keys, groups):
-    """``{key: ctypes function}``: entry ``nereus_scan_<key>_sweep`` (or
-    ``_list_sweep``) per key, built for ``groups``, one library per source
-    file, compiled at once; prints ptxas's report of their instances."""
+    """``{(key, variant): ctypes function}``: entry
+    ``nereus_scan_<key>_<k>_sweep`` (``_list_sweep``) per variant k of each
+    key, built for ``groups`` (the one-thread walks once),
+    one library per source file, compiled at once; prints ptxas's report of
+    their instances."""
     os.makedirs(SCAN_DIR, exist_ok=True)
-    gs = ", ".join(str(g) for g in groups)
+    values = {"ranges": groups, "list": groups}
     by_src = {}
     for key in keys:
         by_src.setdefault(FUNCTORS[key][0], []).append(key)
@@ -123,16 +165,15 @@ def build(keys, groups):
         cu = os.path.join(SCAN_DIR, f"scan_{stem}.cu")
         with open(cu, "w") as f:
             f.write(f'#include "{os.path.join(cuda_sweep.CSRC, src)}"\n')
+            lines = []
             for key in ks:
-                _, functor, _ = FUNCTORS[key]
-                f.write(SCAN_FUNCTORS.get(functor, ""))
-                f.write(f"using scan_{key}_t = {functor};\n")
-            f.write('extern "C" {\n')
-            for key in ks:
-                macro = ("NEREUS_LIST_SWEEP" if FUNCTORS[key][2] == "list"
-                         else "NEREUS_GROUP_SWEEP")
-                f.write(f"{macro}(scan_{key}, scan_{key}_t, {gs})\n")
-            f.write("}\n")
+                for k, (_, engine, functor) in enumerate(FUNCTORS[key][1]):
+                    f.write(SCAN_FUNCTORS.get(functor, ""))
+                    f.write(f"using scan_{key}_{k}_t = {functor};\n")
+                    args = [f"scan_{key}_{k}", f"scan_{key}_{k}_t",
+                            *map(str, values.get(engine, ()))]
+                    lines.append(f"{MACROS[engine]}({', '.join(args)})\n")
+            f.write('extern "C" {\n' + "".join(lines) + "}\n")
         lib = os.path.join(SCAN_DIR, f"libscan_{stem}.so")
         cmds.append([cuda_sweep.nvcc_path(), *cuda_sweep.NVCC_FLAGS,
                      "-Xptxas", "-v", "-shared", "-o", lib, cu])
@@ -152,16 +193,19 @@ def build(keys, groups):
     for src, ks in by_src.items():
         lib = ctypes.CDLL(libs[src])
         for key in ks:
-            if FUNCTORS[key][2] == "list":
-                f = getattr(lib, f"nereus_scan_{key}_list_sweep")
-                f.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
-                              ptr]
-            else:
-                f = getattr(lib, f"nereus_scan_{key}_sweep")
-                f.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32,
-                              ptr, ptr]
-            f.restype = i32
-            fns[key] = f
+            for k, (variant, engine, _) in enumerate(FUNCTORS[key][1]):
+                if engine == "list":
+                    f = getattr(lib, f"nereus_scan_{key}_{k}_list_sweep")
+                    f.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32,
+                                  ptr, ptr]
+                else:
+                    f = getattr(lib, f"nereus_scan_{key}_{k}_sweep")
+                    f.argtypes = ([ptr, ptr, ptr, ptr, i32, i32, ptr, i32]
+                                  + ([] if engine in ("pair", "thread")
+                                     else [i32])
+                                  + [ptr, ptr])
+                f.restype = i32
+                fns[key, variant] = (f, engine, values.get(engine, [None]))
     return fns
 
 
@@ -171,6 +215,8 @@ def path_operands(solver, keys, dev):
     kernel."""
     if solver in MP_SOLVERS:
         return mp_operands(solver, dev)
+    if solver in BODY_SOLVERS:
+        return body_operands(solver, dev)
     if solver.startswith("pbf"):
         settled = solver == "pbf_settled"
         cfg, params, state, grid, boundary = smoke.pbf_main_path(dev,
@@ -277,18 +323,51 @@ def mp_operands(solver, dev):
                  }, f"{ctx.c} queries, {ms:.4f} ms/step"
 
 
+def body_operands(solver, dev):
+    """``path_operands`` of ``dfsph_coupled_256k`` and
+    ``dfsph_elastic_256k`` (``dfsph_coupled_scene``, ``kind`` "rigid" and
+    "elastic", 60 steps): the κ impulse forward (``pressure_force_body``)
+    and, on the elastic path, reverse (``pressure_force_body_rev``), with
+    the body moved into the middle of the lowered fluid as
+    ``run_dfsph_coupled`` holds them (``dfsph_coupled_held_ops``)."""
+    kind = "elastic" if solver == "dfsph_elastic" else "rigid"
+    cfg, params, state, grid, walls, body = smoke.dfsph_coupled_scene(dev,
+                                                                      kind)
+    held = {"body": body[0] if kind == "elastic" else body}
+    kw = dict(tol=smoke.DFSPH_TOL, tol_v=smoke.DFSPH_TOL)
+
+    def step(s):
+        if kind == "elastic":
+            _, statics, ep, psi = body
+            s, held["body"], d = nt.dfsph_elastic_step(
+                s, params, grid, cfg, held["body"], statics, ep, psi, walls,
+                substeps=smoke.WEL_SUBSTEPS, **kw)
+        else:
+            s, held["body"], d = nt.dfsph_coupled_step(
+                s, params, grid, cfg, held["body"], walls, **kw)
+        return s, d
+    state, _, ms, *_ = smoke.run_steps(step, state, smoke.IMPLICIT_STEPS,
+                                       smoke.IMPLICIT_TIMED_FROM)
+    _, ops = smoke.dfsph_coupled_held_ops(cfg, params, state, grid, walls,
+                                          held["body"], body, kind)
+    q, src = ops["pressure_force_body"][2][:2]
+    return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()}, (
+        f"{q.shape[0]} queries over {src.shape[0]} body samples, "
+        f"{ms:.4f} ms/step")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
                     choices=("pbf", "pbf_settled", "pbf_vort_xsph",
                              "elastic", "wcsph_elastic", "dfsph",
-                             "dfsph_visc", *MP_SOLVERS))
+                             "dfsph_visc", *MP_SOLVERS, *BODY_SOLVERS))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--keys", nargs="+", choices=sorted(FUNCTORS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("group_scan: needs a CUDA card")
-    family = (args.solver if args.solver in MP_SOLVERS
+    family = (args.solver if args.solver in MP_SOLVERS + BODY_SOLVERS
               else "pbf" if args.solver.startswith("pbf") else "dfsph"
               if args.solver.startswith("dfsph") else "elastic")
     keys = args.keys or list(PATH_KEYS[family][:2])
@@ -303,44 +382,50 @@ def main():
         kern, a, kwk = ops[key]
         q, src, s, e, pv = a
         ref = kern(cfg, *a, **kwk)
-        f = fns[key]
         cols = key == "mp_drho_cols"
 
-        def launch(g, out):
+        def launch(f, engine, v, out):
             lead = ((q.data_ptr(), src.data_ptr(), s.data_ptr(),
                      e.data_ptr(), q.shape[0])
-                    + (() if FUNCTORS[key][2] == "list" else (s.shape[0],)))
-            rc = f(*lead, pv.data_ptr(), cfg.kernel_set.value, g,
-                   out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                    + (() if engine == "list" else (s.shape[0],)))
+            rc = f(*lead, pv.data_ptr(), cfg.kernel_set.value,
+                   *(() if v is None else (v,)), out.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
             if rc != 0:
-                sys.exit(f"group_scan: {key} G {g} launch failed ({rc})")
+                sys.exit(f"group_scan: {key} {engine} {v} launch failed "
+                         f"({rc})")
             # the two-column form: the rate formed after the kernel
             return out[:, 0] + q[:, 6] * out[:, 1] if cols else out
-        outs = {}
-        for g in args.groups:
-            out = (q.new_empty((q.shape[0], 2)) if cols
-                   else torch.empty_like(ref))
-            got = launch(g, out)
-            torch.cuda.synchronize()
-            if key == "pbf_lambda":
-                smoke.check_lambda(out, ref, pv, f"{key} G {g}")
-                torch.testing.assert_close(out[:, 0], ref[:, 0], rtol=1e-5,
-                                           atol=0)
-            else:
-                o2, r2 = got.reshape(len(got), -1), ref.reshape(len(ref), -1)
-                err = (o2 - r2).abs().amax(dim=0)
-                if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
-                    sys.exit(f"group_scan: {key} G {g} differs from the "
-                             f"wrapper's output by {err.tolist()}")
-            outs[g] = out
+        runs = {}
+        for (k, variant), (f, engine, vals) in fns.items():
+            if k != key:
+                continue
+            for v in vals:
+                out = (q.new_empty((q.shape[0], 2)) if cols
+                       else torch.empty_like(ref))
+                got = launch(f, engine, v, out)
+                torch.cuda.synchronize()
+                label = variant + ("" if v is None else f"{v}")
+                if key == "pbf_lambda":
+                    smoke.check_lambda(out, ref, pv, f"{key} {label}")
+                    torch.testing.assert_close(out[:, 0], ref[:, 0],
+                                               rtol=1e-5, atol=0)
+                else:
+                    o2 = got.reshape(len(got), -1)
+                    r2 = ref.reshape(len(ref), -1)
+                    err = (o2 - r2).abs().amax(dim=0)
+                    if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
+                        sys.exit(f"group_scan: {key} {label} differs from "
+                                 f"the wrapper's output by {err.tolist()}")
+                runs[label] = (f, engine, v, out)
         best = {}
         for _ in range(3):
-            for g in args.groups:
-                t = smoke.graph_ms(lambda: launch(g, outs[g]))
-                best[g] = min(best.get(g, t), t)
+            for label, (f, engine, v, out) in runs.items():
+                t = smoke.graph_ms(lambda: launch(f, engine, v, out))
+                best[label] = min(best.get(label, t), t)
         wrapper = smoke.graph_ms(lambda: kern(cfg, *a, **kwk))
-        print(f"{key} at {args.solver}: host-free ms by G: "
-              + ", ".join(f"G{g} {t:.4f}" for g, t in best.items())
+        print(f"{key} at {args.solver}: host-free ms: "
+              + ", ".join(f"{label} {t:.4f}" for label, t in best.items())
               + f"; the wrapper's own {wrapper:.4f}")
 
 

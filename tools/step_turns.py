@@ -6,7 +6,8 @@ the two final states lie apart.
         [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph|pbf|
                   pbf_settled|pbf_vort_xsph|dfsph|dfsph_visc|elastic|
                   wcsph_elastic|dfsph_elastic|multiphase|
-                  multiphase_wavemaker|dfsph_mp]
+                  multiphase_wavemaker|dfsph_mp|dfsph_coupled|
+                  dfsph_mp_coupled]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
         [--log DIR]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --drift STEPS
@@ -45,7 +46,10 @@ substeps) and dfsph_elastic, ``dfsph_coupled_scene(kind="elastic")``
 multiphase_wavemaker, the same under ``wavemaker``
 (``multiphase_1M_wavemaker``), each 300 steps, steps 51-300 timed;
 dfsph_mp, ``settled_main_path``'s two-phase block
-(``dfsph_mp_256k_settled``), 60 steps, steps 11-60 timed.
+(``dfsph_mp_256k_settled``), 60 steps, steps 11-60 timed; dfsph_coupled
+and dfsph_mp_coupled, ``dfsph_coupled_scene`` with its rigid box
+(``dfsph_coupled_256k``, ``dfsph_mp_coupled_256k``), 60 steps, steps 11-60
+timed.
 
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
@@ -57,13 +61,13 @@ pressure force (iisph, pcisph), the Jacobi loop's Σd_ij·p_j and Jacobi
 sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
 confinement, N (key ``pbf_grad``, which an earlier checkout computes with
 its λ kernel) and ω, at the state advected from the final one (pbf*),
-Dρ/Dt (dfsph*, ``dfsph_operands``), the multiphase density and force
-(multiphase, ``multiphase_operands``; MultiphaseForce<MOVING> under the
-wavemaker) and the multiphase force and dδ̂/dt (dfsph_mp,
-``mp_dfsph_operands``), and the elastic kernels on the body's
-statics at ``deformed`` positions (elastic, wcsph_elastic, dfsph_elastic,
-``elastic_kernel_ops``), each
-host-free (20 launches captured in a CUDA graph, the replay timed with
+Dρ/Dt (dfsph*, ``dfsph_operands``; with the pressure force at
+dfsph_coupled), the multiphase density and force (multiphase,
+``multiphase_operands``; MultiphaseForce<MOVING> under the wavemaker) and
+the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
+dfsph_mp_coupled, ``mp_dfsph_operands``), and the elastic kernels on the
+body's statics at ``deformed`` positions (elastic, wcsph_elastic,
+dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches captured in a CUDA graph, the replay timed with
 CUDA events, the better of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
 On the paths driven by ``run_steps`` (all but wcsph, wcsph_visc and
@@ -245,6 +249,20 @@ elif solver.startswith("pbf"):
         clocked(lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw),
                 steps[1]), state, *steps)
     iters = sum(int(d.solver_iters) for d in diags)
+elif solver in ("dfsph_coupled", "dfsph_mp_coupled"):
+    cfg, params, state, grid, boundary, body = smoke.dfsph_coupled_scene(
+        dev, "rigid" if solver == "dfsph_coupled" else "mp")
+    held = {"body": body}
+
+    def step(s):
+        s, held["body"], d = nt.dfsph_coupled_step(
+            s, params, grid, cfg, held["body"], boundary,
+            tol=smoke.DFSPH_TOL, tol_v=smoke.DFSPH_TOL)
+        return s, d
+    state, diags, ms, *_ = smoke.run_steps(
+        clocked(step, smoke.IMPLICIT_TIMED_FROM), state, smoke.IMPLICIT_STEPS,
+        smoke.IMPLICIT_TIMED_FROM)
+    iters = sum(int(d.solver_iters) for d in diags)
 elif solver in ("elastic", "wcsph_elastic", "dfsph_elastic"):
     if solver == "elastic":
         cfg, params, ep, state, statics, grid, sp = smoke.elastic_block(
@@ -318,6 +336,8 @@ else:
                    "pcisph": own.pcisph_operands,
                    "dfsph": own.dfsph_operands,
                    "dfsph_visc": own.dfsph_operands,
+                   "dfsph_coupled": own.dfsph_operands,
+                   "dfsph_mp_coupled": own.mp_dfsph_operands,
                    "multiphase": own.multiphase_operands,
                    "multiphase_wavemaker": own.multiphase_operands,
                    "dfsph_mp": own.mp_dfsph_operands}[solver]
@@ -328,9 +348,11 @@ else:
                        "pressure_force"),
             "dfsph": ("drho", "pressure_force"),
             "dfsph_visc": ("drho", "visc_laplacian"),
+            "dfsph_coupled": ("drho", "pressure_force"),
+            "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_kappa"),
             "multiphase": ("mp_density", "mp_force"),
             "multiphase_wavemaker": ("mp_density", "mp_force"),
-            "dfsph_mp": ("mp_force", "mp_drho")}[solver]
+            "dfsph_mp": ("mp_force", "mp_drho", "mp_kappa")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
            in operands_of(cfg, ctx, params).items() if k in keep}
     if solver == "multiphase_wavemaker":
@@ -397,7 +419,8 @@ print(json.dumps(times))
 SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph", "pbf",
            "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc", "elastic",
            "wcsph_elastic", "dfsph_elastic", "multiphase",
-           "multiphase_wavemaker", "dfsph_mp")
+           "multiphase_wavemaker", "dfsph_mp", "dfsph_coupled",
+           "dfsph_mp_coupled")
 
 
 def run(root, solver, state_file, *drift):
