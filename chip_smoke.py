@@ -20,10 +20,10 @@ Phases, in order; any failure exits non-zero:
    these shapes, timed, and one plain-sweep step timed at the same size;
 5. the IISPH kernels against their plain versions on the phase-3
    dam-break (IISPH parameters, mass calibrated to the lattice), fed the
-   operands of one real IISPH step: the five IISPH sweeps for both kernel
-   sets and the pressure-off force sweep for all six kernel-set ×
-   surface-tension combinations (max|Δ| ≤ 1e-4·max|ref| per output
-   column, and finite);
+   operands of one real IISPH step: the four IISPH sweeps for both kernel
+   sets, and the pressure-off force sweep and the d_ii, ρ_adv and a_ii
+   sweep for all six kernel-set × surface-tension combinations (max|Δ| ≤
+   1e-4·max|ref| per output column, and finite);
 6. the IISPH main path: ``resting_block(n_target=2**20)`` (1,092,727
    fluid particles on the floor of a tight box, impact velocity −1 m/s,
    mass calibrated to the 0.8·h lattice), 60 ``iisph_step`` calls with
@@ -136,7 +136,8 @@ Phases, in order; any failure exits non-zero:
     terms zeroed: the friction is ~1e-10 of the wall force, so only this
     shows the wall velocity is read, and the static instance must differ
     there), and the unchanged kernels that read the wall rows' velocity
-    slots (DiiRhoAdv, Drho, MultiphaseDrho, ViscLaplacian);
+    slots (DiiAii, under all three surface-tension models, Drho,
+    MultiphaseDrho, ViscLaplacian);
 22. the wavemaker path ``wcsph_1M_wavemaker``: phase 4's dam-break under
     the CLI's ``--wavemaker x:0.05:2`` (``nereus_tpu/app/cli.py:285-297,
     776-788``: the grid widened by A + cell along x, the walls re-sorted
@@ -433,7 +434,7 @@ F32_OPS_PER_S = 67e12
 # counted in the CUDA source with every add, multiply, compare, min/max,
 # division and rsqrt as one
 PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
-            "dii_rhoadv": (36, 36), "aii": (26, 26), "sum_dij": (22, 0),
+            "dii_aii": (33, 33), "sum_dij": (22, 0),
             "jacobi": (28, 21), "pressure_force": (24, 24),
             "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
@@ -462,7 +463,8 @@ GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "force_moving": 9, "force_p0_moving": 9, "sum_dij": 9,
            "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
            "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9,
-           "pressure_force_body": 9, "pressure_force_body_rev": 9}
+           "pressure_force_body": 9, "pressure_force_body_rev": 9,
+           "dii_aii": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -489,9 +491,25 @@ LISTED = ("elastic_force_hg",)
 # impulse over a body shell x y z kappa/rho of a query and x y z psi_b of a
 # shell row, its reverse x y z psi_b of a sample and x y z kappa/rho of a
 # fluid row (a body sweep's source rows all of one kind: no wall bytes,
-# None). Their bound counts these and no cell key: the port's ranges are
-# exact, so no kernel reads a key. Where the queries are the source's first
-# rows they are read once.
+# None); IISPH's d_ii, rho_adv and a_ii one matrix, its fluid rows the
+# queries: x y z v_adv m v 1/rho^2 of a fluid row (the union with the
+# query: 44 bytes), x y z v_b psi_b of a wall row. The one-thread walks:
+# alpha x y z of a query, x y z psi of a fluid or wall row (over a shell
+# alpha_body and alpha_shell the same); the shell's D rho / Dt x y z v of
+# a query, x y z v_b psi_b of a shell row; XSPH x y z v rho of a query
+# and of a fluid row; omega's one matrix x y z v m/rho; the multiphase
+# density x y z of a query and a fluid row, x y z psi_b of a wall row;
+# the multiphase alpha sums x y z of a query, x y z 1/m_j or x y z psi_b
+# of a source row (over a shell the same); the shell's multiphase
+# d delta-hat / dt x y z v of a query, x y z v_b psi_b of a shell row;
+# the shell's kappa-V-hat^2 x y z qc of a query, x y z psi_b of a shell
+# row; the body contact x y z v rho pd2 of a query (no pd2 without the
+# pressure), x y z v_b psi_b of a shell row; the multiphase body contact
+# x y z v bp fr of a query; the fluid reaction x y z v_b psi of a sample,
+# x y z v rho of a fluid row; ElasticF X x of its one matrix. Their bound
+# counts these and no cell key: the port's ranges are exact, so no kernel
+# reads a key. Where the queries are the source's first rows they are
+# read once.
 READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
               "pbf_grad": (16, 16, 0), "drho": (24, 28, 28),
@@ -499,7 +517,18 @@ READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "mp_force": (44, 48, 16), "mp_force_moving": (44, 48, 28),
               "mp_drho": (28, 28, 28), "mp_kappa": (20, 16, 16),
               "pressure_force_body": (16, 16, None),
-              "pressure_force_body_rev": (16, 16, None)}
+              "pressure_force_body_rev": (16, 16, None),
+              "dii_aii": (44, 44, 28), "alpha": (12, 16, 16),
+              "alpha_body": (12, 16, None), "alpha_shell": (12, 16, None),
+              "drho_shell": (24, 28, None), "xsph": (28, 28, 0),
+              "pbf_omega": (24, 28, 0), "mp_density": (12, 12, 16),
+              "mp_alpha": (12, 16, 16), "mp_alpha_body": (12, 16, None),
+              "mp_drho_body": (24, 28, None),
+              "mp_kappa_body": (16, 16, None), "body_force": (32, 28, None),
+              "body_force_p0": (28, 28, None), "mp_body": (32, 28, None),
+              "fluid_reaction": (28, 28, None),
+              "fluid_reaction_p0": (28, 28, None),
+              "elastic_f": (24, 24, 0)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
 # and group_list_sweep_kernel of csrc/group_sweep.cuh), whose rows name
 # their G
@@ -507,7 +536,7 @@ GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
            "elastic_force_hg", "mp_force", "mp_force_moving", "mp_drho",
-           "pressure_force_body", "pressure_force_body_rev")
+           "pressure_force_body", "pressure_force_body_rev", "dii_aii")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -721,8 +750,8 @@ def time_turns(name, kern, plain, reps=20):
 def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
-    ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``, ``pbf_dp_group``,
-    ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
+    ``DII_AII_G``, ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``,
+    ``pbf_dp_group``, ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
     ``elastic_group``, ``body_kappa_group``, ``BODY_REV_G``) and the
     queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
@@ -740,6 +769,8 @@ def group_stats(key, args, kw):
         g = cuda_sweep.force_group(n, kw.get("include_viscosity", True))
     elif key == "body_density":
         g = cuda_sweep.body_group(src.shape[0])
+    elif key == "dii_aii":
+        g = cuda_sweep.DII_AII_G
     elif key == "sum_dij":
         g = cuda_sweep.SUM_DIJ_G
     elif key == "jacobi":
@@ -817,7 +848,8 @@ def iisph_operands(cfg, ctx, params):
     Σd_ij·p_j matrix is also the pressure force's query, and (a copy of)
     the Jacobi source, through ``pressure_source``, its source."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
-    from nereus_tpu_torch.solvers.iisph_cuda import (jacobi_operands,
+    from nereus_tpu_torch.solvers.iisph_cuda import (dii_aii_operands,
+                                                     jacobi_operands,
                                                      pressure_source,
                                                      sum_dij_operands)
     vel = (ctx.vx, ctx.vy, ctx.vz)
@@ -828,9 +860,8 @@ def iisph_operands(cfg, ctx, params):
     inv_d2 = 1.0 / (ds * ds)
     vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * params.gravity[k])
                     for k, v in enumerate(vel))
-    src_p = ctx.pack(vel_adv, pm)
-    dargs = (ctx.queries(*vel_adv, *vel, inv_d2, width=12), src_p, *rng)
-    dii = SP.dii_rhoadv_sweep_plain(cfg, *dargs)[:, :3]
+    dargs = dii_aii_operands(ctx, vel_adv, pm, inv_d2)
+    dii = SP.dii_aii_sweep_plain(cfg, *dargs)[:, :3]
     dpi = pm * inv_d2
     p = 0.5 * ctx.pres_prev
     sargs = sum_dij_operands(ctx, inv_d2)(p)
@@ -840,11 +871,8 @@ def iisph_operands(cfg, ctx, params):
     jargs = jacobi_at(p, sd)
     return {
         **ops,
-        "dii_rhoadv": (cuda_sweep.dii_rhoadv_sweep,
-                       SP.dii_rhoadv_sweep_plain, dargs, {}),
-        "aii": (cuda_sweep.aii_sweep, SP.aii_sweep_plain,
-                (ctx.queries(*dii.unbind(1), dpi, width=8), src_p, *rng),
-                {}),
+        "dii_aii": (cuda_sweep.dii_aii_sweep, SP.dii_aii_sweep_plain,
+                    dargs, {}),
         "sum_dij": (cuda_sweep.sum_dij_sweep, SP.sum_dij_sweep_plain, sargs,
                     {}),
         "jacobi": (cuda_sweep.jacobi_sweep, SP.jacobi_sweep_plain, jargs,
@@ -1132,7 +1160,8 @@ def moving_wall_operands(cfg, ctx, params):
     instances (pressure on: the WCSPH step's operands; off: the implicit
     solvers' advection operands), each also on its friction alone, and the
     unchanged kernels that read the wall rows' velocity slots (IISPH's
-    d_ii/ρ_adv, DFSPH's Dρ/Dt, the viscous Laplacian), each from the plain
+    d_ii, ρ_adv and a_ii, DFSPH's Dρ/Dt, the viscous Laplacian), each from
+    the plain
     versions' upstream results. ``{key: (kernel, plain, args, kwargs)}``."""
     dens_ops = xsph_path_operands(cfg, ctx, params)
     iisph = iisph_operands(cfg, ctx, params)
@@ -1142,7 +1171,7 @@ def moving_wall_operands(cfg, ctx, params):
                                                  beta0=True)
     ops["force_p0_moving_friction"] = friction_only(ops["force_p0_moving"],
                                                     7, beta0=True)
-    ops["dii_rhoadv"] = iisph["dii_rhoadv"]
+    ops["dii_aii"] = iisph["dii_aii"]
     ops["drho"] = dfsph_operands(cfg, ctx, params)["drho"]
     ops["visc_laplacian"] = wcsph_visc_operands(cfg, ctx,
                                                 params)["visc_laplacian"]
@@ -3233,9 +3262,10 @@ def main():
         state, diag = nt.iisph_step(state, params, grid, cfg, boundary,
                                     tol=IISPH_TOL, omega=IISPH_OMEGA)
         ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-        # the pressure-off force sweep for every model, the five IISPH
-        # sweeps (which read no surface-tension model) once per kernel set
-        keys = None if st == "BECKER" else ("force_p0",)
+        # the pressure-off force sweep and the d_ii, rho_adv and a_ii sweep
+        # for every model, the other IISPH sweeps (which read no
+        # surface-tension model) once per kernel set
+        keys = None if st == "BECKER" else ("force_p0", "dii_aii")
         compare_kernels(cfg, iisph_operands(cfg, ctx, params),
                         f"{ks}+{st} n={state.capacity} "
                         f"nb={boundary.num_boundaries} iters "
@@ -3304,7 +3334,7 @@ def main():
              f"{int(iters.sum())} converged")
     check_launches("IISPH main path", {
         cuda_sweep.DENSITY: IMPLICIT_STEPS, cuda_sweep.FORCE_P0: IMPLICIT_STEPS,
-        cuda_sweep.DII_RHOADV: IMPLICIT_STEPS, cuda_sweep.AII: IMPLICIT_STEPS,
+        cuda_sweep.DII_AII: IMPLICIT_STEPS,
         cuda_sweep.PRESSURE_FORCE: IMPLICIT_STEPS,
         cuda_sweep.SUM_DIJ: iisph_cuda.LOOP.launched,
         cuda_sweep.JACOBI: iisph_cuda.LOOP.launched})
@@ -3499,6 +3529,12 @@ def main():
         ops = moving_wall_operands(cfg, ctx, params)
         compare_kernels(cfg, ops, label)
         check_reads_wall_velocity(cfg, ops, label)
+        # the d_ii, rho_adv and a_ii sweep under the other two models
+        for st in ("AKINCI", "NONE"):
+            scfg = dataclasses.replace(
+                cfg, surface_tension_model=nt.SurfaceTensionModel[st])
+            compare_kernels(scfg, {"dii_aii": ops["dii_aii"]},
+                            f"{label} {st}")
         ctx = build_sweep_ctx(two_phase(state, params), params, grid, cfg,
                               moved)
         ops = moving_wall_mp_operands(cfg, ctx, params)
@@ -3864,8 +3900,8 @@ def main():
     info = {"density": (cuda_sweep.DENSITY, sph_src, rep + "1193"),
             "force": (cuda_sweep.FORCE, sph_src, rep + "1207"),
             "force_p0": (cuda_sweep.FORCE_P0, sph_src, rep + "1207"),
-            "dii_rhoadv": (cuda_sweep.DII_RHOADV, iisph_src, rep + "475"),
-            "aii": (cuda_sweep.AII, iisph_src, rep + "506"),
+            # dii_rhoadv_pair (:475) and aii_pair (:506), fused
+            "dii_aii": (cuda_sweep.DII_AII, iisph_src, rep + "475,506"),
             "sum_dij": (cuda_sweep.SUM_DIJ, iisph_src, rep + "524"),
             "jacobi": (cuda_sweep.JACOBI, iisph_src, rep + "543"),
             "pressure_force": (cuda_sweep.PRESSURE_FORCE, iisph_src,

@@ -2,40 +2,51 @@
 //
 // Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
 // as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the five
-// IISPH pair functions of pallas_sph.py: dii_rhoadv_pair, aii_pair,
-// sum_dij_pair, jacobi_fluid_pair + jacobi_boundary_pair, and
-// grad_pressure_force_pair (solvers/iisph_pallas.py::iisph_step_pallas; the
-// last is also PCISPH's and DFSPH's pressure / kappa correction). Its
-// boundary form alone (grad_pressure_force_pair(boundary=True,
-// boundary_sign=-1) on rows 0-8, BodyPressureForce) is the kappa impulse
-// of solvers/dfsph_coupled.py and dfsph_elastic.py over a body shell, and
-// with the roles swapped (a body's samples as queries, x y z psi_b,
-// against the fluid rows with kappa/rho in slot 6) the per-sample reverse
-// kappa of the elastic coupling: one functor, two entry points.
+// IISPH pair functions of pallas_sph.py: dii_rhoadv_pair and aii_pair (two
+// TPU sweeps, one kernel here), sum_dij_pair, jacobi_fluid_pair +
+// jacobi_boundary_pair, and grad_pressure_force_pair
+// (solvers/iisph_pallas.py::iisph_step_pallas; the last is also PCISPH's
+// and DFSPH's pressure / kappa correction). Its boundary form alone
+// (grad_pressure_force_pair(boundary=True, boundary_sign=-1) on rows 0-8,
+// BodyPressureForce) is the kappa impulse of solvers/dfsph_coupled.py and
+// dfsph_elastic.py over a body shell, and with the roles swapped (a body's
+// samples as queries, x y z psi_b, against the fluid rows with kappa/rho
+// in slot 6) the per-sample reverse kappa of the elastic coupling: one
+// functor, two entry points.
 //
-// Design: one functor each. DiiRhoAdv and Aii (once per step) run on the
-// range-walk template pair_sweep_kernel<Pair, KS> of sweep_common.cuh;
-// PressureForce on the row-tiled engine tiled_pair_sweep_kernel<Pair, KS>
-// of tiled_sweep.cuh (PCISPH's corrective loop launches it ~45 times per
-// step over one tile plan).
-// All five use the default (poly6 / Monaghan) gradient, which is exactly 0
-// at the self pair, so self-pairs stay in the ranges.
+// Design: PressureForce runs on the row-tiled engine
+// tiled_pair_sweep_kernel<Pair, KS> of tiled_sweep.cuh (PCISPH's
+// corrective loop launches it ~45 times per step over one tile plan); the
+// other functors on the lane-group engine group_pair_sweep_kernel<Pair,
+// KS, G> of group_sweep.cuh. All use the default (poly6 / Monaghan)
+// gradient, whose terms are exactly 0 at the self pair, so self-pairs stay
+// in the ranges.
+//
+// What bounds a range-walk sweep on this card: one thread per query
+// walking 9 or 18 runs of 0-6 candidates in series waits on each run's
+// bounds and diverges on trip counts, and loading each candidate's whole
+// source row for a pair that only ~15 % of them pass wastes most of the
+// bytes. What the engine does: G lanes per query walk the flattened runs
+// (group_sweep.cuh); each candidate loads one float4, x y z and one value,
+// and tests the cutoff; only a pair inside it runs and loads the rest of
+// the row it reads; fluid and wall rows are one list.
+//
+// DiiAii (once per step) replaces the two sweeps that ran the TPU's
+// dii_rhoadv_pair and aii_pair over the same pairs, one after the other.
+// d_ii is the query's own value, so a_ii needs no second walk: with
+// S = sum psi s r, T = sum psi s^2 r^2 and R = sum psi s (v_q - v_j) . r
+// over one walk (grad W = s r), the epilogue forms
+// d_ii = -inv_rho2 S, rho_adv's sum dt R and a_ii = d_ii . S - (m inv_rho2) T
+// (the reference's sum of psi (s d_ii . r - (m/rho_i^2) s^2 r^2), its two
+// terms summed apart). Its operands are one (C + Mb, 12) matrix whose
+// first C rows are the queries (solvers/iisph_cuda.py::dii_aii_operands);
+// a candidate reads x y z v_x, and inside the cutoff v_y v_z psi.
 //
 // SumDij and Jacobi, the relaxed-Jacobi solve's two sweeps (launched once
-// per iteration, 2-7 times per step), run on the lane-group engine
-// group_pair_sweep_kernel<Pair, KS, G> of group_sweep.cuh. What bounds
-// them on this card: one thread per query walking 9 or 18 runs of 0-6
-// candidates in series waits on each run's bounds and diverges on trip
-// counts, and loading each candidate's whole source row (SumDij 32 B,
-// Jacobi 48 B in the earlier layouts) for a pair that only ~15 % of them
-// pass wastes most of the bytes. What the design does: G lanes per query
-// walk the flattened runs (group_sweep.cuh); each candidate loads one
-// float4, x y z and one value, and tests the cutoff; only a pair inside it
-// runs, and only Jacobi's loads a second float4 (e_y e_z, or psi_b on a
-// wall row); Jacobi's fluid and wall rows are one list. Measured at
-// 1,092,727 queries (PERF.md section 6): SumDij 35 % and Jacobi 32 % under
-// the earlier one-thread-per-query kernels. The operands are narrow, and
-// each iteration writes them once (solvers/iisph_cuda.py):
+// per iteration, 2-7 times per step): measured at 1,092,727 queries
+// (PERF.md section 6) 35 % and 32 % under the earlier one-thread-per-query
+// kernels. Their operands are narrow, and each iteration writes them once
+// (solvers/iisph_cuda.py):
 // - SumDij reads one (C, 4) matrix x y z p/rho^2 as query and source;
 //   after the loop, holding the final p/rho^2, it is the pressure force's
 //   query.
@@ -43,9 +54,10 @@
 //   written by one elementwise pass per iteration, so the pair no longer
 //   forms d_jj p_j + sum_k d_jk p_k once per (i, j): it computes
 //   sd_i - e_j, where the reference computes (sd_i - d_jj p_j) - sd_j (the
-//   same terms rounded in another order).
-// G per kernel: ops/cuda_sweep.py (SUM_DIJ_G, JACOBI_G); only those
-// instances are built.
+//   same terms rounded in another order). Only its fluid pairs load a
+//   second float4 (e_y e_z), its wall pairs psi_b alone.
+// G per kernel: ops/cuda_sweep.py (DII_AII_G, SUM_DIJ_G, JACOBI_G); only
+// those instances are built.
 //
 // The kappa impulse over a body shell, once per correction of both DFSPH
 // loops (5.2 launches per step), was BoundaryForm<PressureForce> on
@@ -64,10 +76,10 @@
 // cutoff.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
-//   dii_rhoadv: q (N, 12) x y z vax vay vaz vx vy vz inv_rho2 pad pad;
-//               src (M, 8) x y z vax vay vaz psi pad; out (N, 4)
-//   aii:        q (N, 8) x y z diix diiy diiz m/rho2 pad; src as above;
-//               out (N,)
+//   dii_aii:    src (C + Mb, 12) fluid rows x y z vax | vay vaz m vx |
+//               vy vz inv_rho2 0 (v_adv, the pre-advection v, 1/rho^2),
+//               wall rows x y z v_b | psi_b 0 ...; q its first C rows;
+//               out (5, N) planes d_ii xyz, rho_adv's sum, a_ii
 //   sum_dij:    q = src (C, 4) x y z p/rho2, the same matrix; fluid rows
 //               only (n_rows = 9); out (N, 3)
 //   jacobi:     q (N, 8) x y z sdx sdy sdz (m/rho2)*p pad;
@@ -83,43 +95,42 @@ namespace {
 
 using namespace nereus_sweep;
 
-// d_ii += -psi inv_rho2_i grad W ; rho_adv += dt psi (v_q - v_j) . grad W
-struct DiiRhoAdv {
-  static constexpr int QW = 12, SW = 8, OW = 4;
+// S = sum psi s r (acc 0-2), T = sum psi s^2 r^2 (acc 3) and
+// R = sum psi s (v_q - v_j) . r (acc 4), one formula for fluid (psi = m)
+// and wall rows (psi_b); the query velocity is v_adv (slots 3-5) on fluid
+// rows and the pre-advection v (slots 7-9) on wall rows, whose v_j is the
+// wall's. The engine calls it inside the cutoff, with a = x y z vx of row
+// j; the epilogue forms d_ii, rho_adv's sum and a_ii from the sums.
+struct DiiAii {
+  static constexpr int QW = 12, SW = 12, OW = 5, OUTW = 5;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
-    const float4 b = src_f4(src, SW, j, 1);  // vy vz psi pad
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz psi .
     const Geom g = default_geom<KS>(q, a, p);
-    const float psi = b.z;
-    const float cdii = -psi * q[9] * g.s * g.okf;
-    constexpr int o = B ? 6 : 3;  // v (boundary rows) or v_adv (fluid)
+    const float c = b.z * g.s;
+    constexpr int o = B ? 7 : 3;
     const float dvx = q[o] - a.w;
     const float dvy = q[o + 1] - b.x;
     const float dvz = q[o + 2] - b.y;
-    const float cr = p.dt * psi * g.s *
-                     (dvx * g.dx + dvy * g.dy + dvz * g.dz) * g.okf;
-    acc[0] += cdii * g.dx;
-    acc[1] += cdii * g.dy;
-    acc[2] += cdii * g.dz;
-    acc[3] += cr;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+    acc[3] += c * g.s * g.r2;
+    acc[4] += c * (dvx * g.dx + dvy * g.dy + dvz * g.dz);
   }
-};
-
-// a_ii += psi (s d_ii . r - (m/rho_i^2) s^2 r^2), fluid and boundary alike
-struct Aii {
-  static constexpr int QW = 8, SW = 8, OW = 1;
-  static constexpr bool BOUNDARY_ROWS = true;
-  template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);
-    const float psi = src_f4(src, SW, j, 1).z;
-    const Geom g = default_geom<KS>(q, a, p);
-    const float dii_dot_r = q[3] * g.dx + q[4] * g.dy + q[5] * g.dz;
-    acc[0] += psi * (g.s * dii_dot_r - q[6] * g.s * g.s * g.r2) * g.okf;
+  __device__ static void epilogue(const float (&q)[QW],
+                                  const float (&acc)[OW], const Params& p,
+                                  float (&o)[OUTW]) {
+    const float inv = q[10];
+    o[0] = -inv * acc[0];
+    o[1] = -inv * acc[1];
+    o[2] = -inv * acc[2];
+    o[3] = p.dt * acc[4];
+    o[4] = (o[0] * acc[0] + o[1] * acc[1] + o[2] * acc[2]) -
+           (p.pm * inv) * acc[3];
   }
 };
 
@@ -215,9 +226,9 @@ struct PressureForce {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(dii_rhoadv, DiiRhoAdv)
-NEREUS_PAIR_SWEEP(aii, Aii)
-// the G of ops/cuda_sweep.py at every query count: SumDij 2, Jacobi 4
+// the G of ops/cuda_sweep.py at every query count: DiiAii 4, SumDij 2,
+// Jacobi 4
+NEREUS_GROUP_SWEEP(dii_aii, DiiAii, 4)
 NEREUS_GROUP_SWEEP(sum_dij, SumDij, 2)
 NEREUS_GROUP_SWEEP(jacobi, Jacobi, 4)
 NEREUS_TILED_SWEEP(pressure_force, PressureForce)

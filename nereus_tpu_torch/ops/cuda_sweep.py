@@ -60,8 +60,8 @@ class Kernel:
 DENSITY = Kernel("density_sweep_kernel")
 FORCE = Kernel("force_sweep_kernel")
 FORCE_P0 = Kernel("force_sweep_kernel<PRESSURE=0>")
-DII_RHOADV = Kernel("pair_sweep_kernel<DiiRhoAdv>")
-AII = Kernel("pair_sweep_kernel<Aii>")
+# IISPH's d_ii, ρ_adv and a_ii: one walk, a_ii formed in its epilogue
+DII_AII = Kernel("group_pair_sweep_kernel<DiiAii>")
 SUM_DIJ = Kernel("group_pair_sweep_kernel<SumDij>")
 JACOBI = Kernel("group_pair_sweep_kernel<Jacobi>")
 PRESSURE_FORCE = Kernel("tiled_pair_sweep_kernel<PressureForce>")
@@ -130,16 +130,16 @@ WALL_FORCE_P0 = Kernel("pair_sweep_kernel<WallForce<PRESSURE=0>>")
 CELL_CHECK = Kernel("cell_check_kernel")
 LAYOUT_AOS = Kernel("layout_probe<AoS>")
 LAYOUT_SOA = Kernel("layout_probe<SoA>")
-KERNELS = (DENSITY, FORCE, FORCE_P0, DII_RHOADV, AII, SUM_DIJ, JACOBI,
-           PRESSURE_FORCE, DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE,
-           XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO,
-           MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
-           FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
-           MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
-           BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
-           ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
-           MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
-           LAYOUT_SOA, PBF_GRAD, PRESSURE_FORCE_BODY_REV)
+KERNELS = (DENSITY, FORCE, FORCE_P0, DII_AII, SUM_DIJ, JACOBI, PRESSURE_FORCE,
+           DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE, XSPH, FORCE_V0,
+           FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO, MP_KAPPA,
+           PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING, FORCE_P0_MOVING,
+           MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE, MP_BODY, ELASTIC_F,
+           ELASTIC_FORCE_HG, FLUID_REACTION, BODY_FORCE_P0, FLUID_REACTION_P0,
+           PRESSURE_FORCE_BODY, ALPHA_BODY, ALPHA_SHELL, DRHO_SHELL,
+           MP_ALPHA_BODY, MP_DRHO_BODY, MP_KAPPA_BODY, WALL_FORCE,
+           WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS, LAYOUT_SOA, PBF_GRAD,
+           PRESSURE_FORCE_BODY_REV)
 
 _lock = threading.Lock()
 _lib = None
@@ -302,10 +302,9 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # the C entry points nereus_<fn>_sweep(q, src, seg_start, seg_end, n,
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
-_SWEEP_FNS = {"density": 1, "force": 5, "dii_rhoadv": 0, "aii": 0,
-              "sum_dij": 1, "jacobi": 1, "alpha": 0,
-              "drho": 1, "drho_shell": 0, "multiphase_density": 0,
-              "multiphase_force": 3,
+_SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
+              "jacobi": 1, "alpha": 0, "drho": 1, "drho_shell": 0,
+              "multiphase_density": 0, "multiphase_force": 3,
               "xsph": 0, "multiphase_alpha": 0,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
@@ -525,6 +524,12 @@ def body_group(m: int) -> int:
 # below ``SMALL_N`` queries, where the density takes 4.
 SUM_DIJ_G = 2
 JACOBI_G = 4
+# And of the pre-loop sweep of d_ii, ρ_adv and a_ii, once per step: 4
+# (``tools/group_scan.py --solver iisph``: 2 took 2.6 % and 8 21 % more
+# time). Its Müller instance spills 4 bytes, the parameter vector's
+# pointer, stored once before the row scan and reloaded after it, outside
+# the candidate loop.
+DII_AII_G = 4
 
 
 # lanes per query G of the PBF loop's λ and Δp kernels and of N
@@ -643,16 +648,14 @@ def force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
                   int(moving), force_group(q.shape[0], include_viscosity))
 
 
-def dii_rhoadv_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """(d_ii xyz, Δρ_adv) (N, 4): q (N, 12), src (M, 8)."""
-    return _sweep(DII_RHOADV, "dii_rhoadv", cfg, q, 12, src, 8,
-                  seg_start, seg_end, pvec, (9, 18), 4)
-
-
-def aii_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """a_ii (N,): q (N, 8), src (M, 8)."""
-    return _sweep(AII, "aii", cfg, q, 8, src, 8, seg_start, seg_end,
-                  pvec, (9, 18), 0)
+def dii_aii_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """(d_ii xyz, Δρ_adv, a_ii) (N, 5), each column a contiguous (N,)
+    plane: src (M, 12), fluid rows ``x y z v_adv m v 1/ρ² 0``, then the
+    wall rows ``x y z v_b ψ_b 0…``; q (N, 12) its first N rows
+    (``iisph_cuda.dii_aii_operands``)."""
+    from .sph_pairs import WIDE_WIDTH
+    return _sweep(DII_AII, "dii_aii", cfg, q, 12, src, WIDE_WIDTH, seg_start,
+                  seg_end, pvec, (9, 18), 5, DII_AII_G, planes=True)
 
 
 def sum_dij_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):

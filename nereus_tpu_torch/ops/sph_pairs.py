@@ -16,7 +16,9 @@ themselves, IISPH's Σd_ij·p_j one (C, 4) matrix ``x y z p/ρ²`` as its
 queries and source. Query matrices are (N, 4) ``x y z pad`` for density
 (slot 3 unread) and (N, 8) ``x y z vx vy vz ρ pd2`` for forces. The IISPH
 Jacobi sum reads an 8-wide source whose fluid rows carry
-e_j = d_jj·p_j + Σd_jk·p_k in slots 3-5. The multiphase force sweep reads
+e_j = d_jj·p_j + Σd_jk·p_k in slots 3-5; its d_ii, ρ_adv and a_ii sweep
+one (C + Mb, 12) wide matrix whose first C rows are its queries, fluid
+rows ``x y z v_adv m v 1/ρ² 0``. The multiphase force sweep reads
 one (C + Mb, 12) wide matrix (``WIDE_WIDTH``) whose first C rows are its
 queries: fluid rows ``x y z vx vy vz V p·V² ρ0 1/m m 1/ρ̃``, boundary rows
 ``x y z v_b ψ_b 0…``. Multiphase DFSPH's dδ̂/dt reads one (C + Mb, 8)
@@ -34,10 +36,11 @@ viscosity bracket (~1e36 at the clamp) multiplies r² before its ~1e4
 constant.
 
 Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
-five IISPH sweeps, PCISPH's ``predicted_density_sweep``, the two DFSPH
-sweeps, the multiphase density and force sweeps, ``xsph_sweep``, the
-implicit viscosity solve's ``visc_laplacian_sweep``, the three
-multiphase DFSPH sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
+four IISPH sweeps (``dii_aii_sweep`` the TPU's two pre-loop sweeps in
+one), PCISPH's ``predicted_density_sweep``, the two DFSPH sweeps, the
+multiphase density and force sweeps, ``xsph_sweep``, the implicit
+viscosity solve's ``visc_laplacian_sweep``, the three multiphase DFSPH
+sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
 ``elastic_force_hourglass_sweep`` (over the body's static pair list,
@@ -945,6 +948,26 @@ def aii_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 pair_fn_b=pair)[:, 0]
 
 
+def dii_aii_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """(d_ii xyz, Δρ_adv, a_ii) (N, 5), each column a contiguous plane, in
+    the reference's order: :func:`dii_rhoadv_sweep_plain`, then
+    :func:`aii_sweep_plain` on its d_ii, as the JAX step runs the two
+    sweeps. src (M, 12), fluid rows ``x y z v_adv m v 1/ρ² 0`` (ψ = m in
+    slot 6), then the wall rows ``x y z v_b ψ_b 0…``; q (N, 12) its first
+    N rows."""
+    n = q.shape[0]
+    z2 = q.new_zeros((n, 2))
+    # the two sweeps' own layouts: q x y z v_adv v 1/ρ² 0 0, src slots 0-7
+    pr = dii_rhoadv_sweep_plain(
+        cfg, torch.cat([q[:, :6], q[:, 7:11], z2], dim=1), src[:, :8],
+        seg_start, seg_end, pvec)
+    dpi = pvec[PV_PM] * q[:, 10]
+    aii = aii_sweep_plain(
+        cfg, torch.cat([q[:, :3], pr[:, :3], dpi[:, None], z2[:, :1]],
+                       dim=1), src[:, :8], seg_start, seg_end, pvec)
+    return torch.stack([*pr.unbind(1), aii]).t()
+
+
 def sum_dij_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Σd_ij·p_j (N, 3) over the fluid rows only: ranges (9, N), q (N, 4)
     and src (M, 4) ``x y z p/ρ²`` (the step's one matrix)."""
@@ -1268,8 +1291,7 @@ def _dispatcher(plain, kernel_name, name=None):
 
 density_sweep = _dispatcher(density_sweep_plain, "density_sweep")
 fluid_force_sweep = _dispatcher(fluid_force_sweep_plain, "force_sweep")
-dii_rhoadv_sweep = _dispatcher(dii_rhoadv_sweep_plain, "dii_rhoadv_sweep")
-aii_sweep = _dispatcher(aii_sweep_plain, "aii_sweep")
+dii_aii_sweep = _dispatcher(dii_aii_sweep_plain, "dii_aii_sweep")
 sum_dij_sweep = _dispatcher(sum_dij_sweep_plain, "sum_dij_sweep")
 jacobi_sweep = _dispatcher(jacobi_sweep_plain, "jacobi_sweep")
 pressure_force_sweep = _dispatcher(pressure_force_sweep_plain,

@@ -1,12 +1,12 @@
 """The IISPH step on the sweep kernels (the counterpart of
 ``nereus_tpu.solvers.iisph_pallas.iisph_step_pallas``).
 
-Density → advection forces (pressure off) → fused d_ii + ρ_adv → a_ii →
-relaxed-Jacobi loop (per iteration: Σd_ij·p_j over the fluid rows, then
-the fused fluid + boundary Jacobi sum) → pressure force → symplectic
-Euler. On CUDA tensors the sweeps are the hand-written kernels of
-``csrc/sph_sweep.cu`` and ``csrc/iisph_sweep.cu``; on CPU tensors their
-plain PyTorch versions.
+Density → advection forces (pressure off) → d_ii, ρ_adv and a_ii in one
+fused fluid + boundary sweep → relaxed-Jacobi loop (per iteration:
+Σd_ij·p_j over the fluid rows, then the fused fluid + boundary Jacobi
+sum) → pressure force → symplectic Euler. On CUDA tensors the sweeps are
+the hand-written kernels of ``csrc/sph_sweep.cu`` and
+``csrc/iisph_sweep.cu``; on CPU tensors their plain PyTorch versions.
 
 The JAX step runs the solve as one on-device ``lax.while_loop``; here it
 is a :class:`~.predicated_loop.PredicatedLoop` that commits ``p`` and
@@ -15,6 +15,10 @@ is a :class:`~.predicated_loop.PredicatedLoop` that commits ``p`` and
 only synchronisation in the step. Launches therefore count iterations
 launched, which may exceed ``solver_iters`` by up to ``SYNC_EVERY − 1``.
 
+The pre-loop sweep reads one (C + Mb, 12) matrix
+(:func:`dii_aii_operands`) whose first C rows are its queries; the JAX
+step runs it as two sweeps, d_ii + ρ_adv and then a_ii on that d_ii, and
+the kernel forms a_ii from the same neighbour sums in its epilogue.
 The loop-invariant source and query matrices are built once per step by
 :func:`sum_dij_operands` and :func:`jacobi_operands`; each iteration
 writes its pressure-dependent columns into them in place, each once.
@@ -49,6 +53,16 @@ SYNC_EVERY = 2
 
 # Jacobi iterations launched and host reads of their condition
 LOOP = LoopCounts()
+
+
+def dii_aii_operands(ctx, vel_adv, pm, inv_d2):
+    """The d_ii, ρ_adv and a_ii sweep's operands ``(q, src, seg_start,
+    seg_end, pvec)`` on one (C + Mb, 12) matrix: fluid rows ``x y z v_adv
+    m v 1/ρ² 0`` (``vel_adv`` and the state's v three (C,) columns each,
+    ``pm`` the particle mass, ``inv_d2`` = 1/ρ²), then the wall rows
+    ``x y z v_b ψ_b 0…``; ``q`` its first C rows."""
+    m = ctx.pack_wide([*vel_adv, pm, ctx.vx, ctx.vy, ctx.vz, inv_d2])
+    return m[:ctx.c], m, ctx.seg_start, ctx.seg_end, ctx.pvec
 
 
 def sum_dij_operands(ctx, inv_d2):
@@ -125,15 +139,14 @@ def iisph_step_cuda(state: FluidState, params: SimParams,
     vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * g[k])
                     for k, v in enumerate(vel))
 
-    # -- d_ii + ρ_adv (fused fluid + boundary), then a_ii -------------------
-    src_p = ctx.pack(vel_adv, pm)
-    pr = SP.dii_rhoadv_sweep(cfg, ctx.queries(*vel_adv, *vel, inv_d2,
-                                              width=12), src_p, *rng)
-    dii = pr[:, :3]
-    rho_adv = dens + pr[:, 3]
+    # -- d_ii, ρ_adv and a_ii: one fluid + boundary sweep -------------------
+    # (N, 5) columns, each a contiguous plane: dii below is a strided view
+    # that the loop's one addcmul reads as it is
+    da = SP.dii_aii_sweep(cfg, *dii_aii_operands(ctx, vel_adv, pm, inv_d2))
+    dii = da[:, :3]
+    rho_adv = dens + da[:, 3]
+    aii = da[:, 4]
     dpi = pm * inv_d2
-    aii = SP.aii_sweep(cfg, ctx.queries(*dii.unbind(1), dpi, width=8), src_p,
-                       *rng)
 
     p = 0.5 * ctx.pres_prev   # p⁰ = ½·p_prev (sph_kernel_impl.cuh:1197)
 

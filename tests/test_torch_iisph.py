@@ -6,7 +6,10 @@ sweeps).
   same sorted operands of one IISPH step: max|Δ| ≤ 1e-5·max|ref| per
   output column (float32 sums in another order: windows on one side,
   per-row ``index_add_`` on the other), each on the step's own operand
-  builders (``iisph_cuda.sum_dij_operands``, ``jacobi_operands``).
+  builders (``iisph_cuda.dii_aii_operands``, ``sum_dij_operands``,
+  ``jacobi_operands``); the fused d_ii, ρ_adv and a_ii sweep also in the
+  CUDA kernel's formulation (its three sums over one walk, then its
+  epilogue), with static and with moving walls.
 * The Jacobi twin on its e-source against the reference's per-pair order
   (1e-6·max|ref|), and the step's Σd_ij·p_j matrix as the pressure
   force's query.
@@ -93,16 +96,18 @@ def _implicit_scene(with_boundary, kernel_set=jt.KernelSet.MULLER,
 # Each IISPH sweep against JAX's interpret-mode sweep
 # ---------------------------------------------------------------------------
 
-def _jax_sweeps(cfg, params, state, grid, boundary):
+def _jax_sweeps(cfg, params, state, grid, boundary, pre_loop=False):
     """The sweeps of ``iisph_step_pallas`` on one state (jitted), with
     p = ½·p_prev for the pressure-dependent ones; returns every sweep's
-    output and the intermediate operands, sliced to the capacity."""
+    output and the intermediate operands, sliced to the capacity. With
+    ``pre_loop``, only the density, d_ii + ρ_adv and a_ii, on v_adv = v
+    (no advection force)."""
     out = jax.jit(lambda s: _jax_sweep_chain(cfg, params, s, grid,
-                                             boundary))(state)
+                                             boundary, pre_loop))(state)
     return {k: np.asarray(v)[:state.capacity] for k, v in out.items()}
 
 
-def _jax_sweep_chain(cfg, params, state, grid, boundary):
+def _jax_sweep_chain(cfg, params, state, grid, boundary, pre_loop=False):
     ctx = build_pallas_ctx(state, params, grid, cfg, boundary)
     c = ctx.c
     vel = (ctx.vx, ctx.vy, ctx.vz)
@@ -115,11 +120,16 @@ def _jax_sweep_chain(cfg, params, state, grid, boundary):
     dens = PS.density_sweep(cfg, q4, ctx.pack(slot6=psi), *geo, **kw)
     ds = jnp.maximum(dens, 1e-12)
     inv_d2 = 1.0 / (ds * ds)
-    f_adv = PS.fluid_force_sweep(
-        cfg, ctx.queries(*vel, dens, jnp.zeros((ctx.cb,), ctx.dtype)),
-        ctx.pack(vel=vel, slot6=dens), *geo, include_pressure=False, **kw)
-    vel_adv = tuple(v + (dt / pm) * (f_adv[:, k] + pm * params.gravity[k])
-                    for k, v in enumerate(vel))
+    if pre_loop:
+        vel_adv = vel
+    else:
+        f_adv = PS.fluid_force_sweep(
+            cfg, ctx.queries(*vel, dens, jnp.zeros((ctx.cb,), ctx.dtype)),
+            ctx.pack(vel=vel, slot6=dens), *geo, include_pressure=False,
+            **kw)
+        vel_adv = tuple(v + (dt / pm) * (f_adv[:, k]
+                                         + pm * params.gravity[k])
+                        for k, v in enumerate(vel))
     src_p = ctx.pack(vel=vel_adv, slot6=psi)
     pr = PS.generic_sweep(cfg, PS.dii_rhoadv_pair,
                           ctx.queries(*vel_adv, *vel, inv_d2, width=12),
@@ -131,6 +141,9 @@ def _jax_sweep_chain(cfg, params, state, grid, boundary):
     aii = PS.generic_sweep(cfg, PS.aii_pair,
                            ctx.queries(*dii, dpi, width=8), src_p, *geo,
                            out_width=1, **kw)
+    if pre_loop:
+        return dict(dens=dens, vel_adv=jnp.stack(vel_adv, 1), pr=pr,
+                    aii=aii[:, 0])
     p = 0.5 * ctx.pres_prev
     pd2 = p * inv_d2
     sum_dij = PS.generic_sweep(cfg, PS.sum_dij_pair, q4,
@@ -154,9 +167,41 @@ def _jax_sweep_chain(cfg, params, state, grid, boundary):
                 f_p=f_p[:, :3])
 
 
+def _fused_pair(q, s, pv, *, kernel_set, vel_q_offset):
+    """The pair of the fused d_ii, ρ_adv and a_ii kernel
+    (``csrc/iisph_sweep.cu::DiiAii``) on its one 12-wide matrix: ψ·s·r⃗,
+    ψ·s²·r² and ψ·s·(v_q − v_j)·r⃗ (``vel_q_offset`` 3: v_adv, fluid rows;
+    7: the pre-advection v, wall rows), masked by the cutoff where the
+    kernel skips the pair. Returns (P, 5)."""
+    dx, dy, dz, r2, sg, okf = SP._default_grad(q, s, pv, kernel_set)
+    c = s[:, 6] * sg * okf
+    o = vel_q_offset
+    dv = ((q[:, o] - s[:, 3]) * dx + (q[:, o + 1] - s[:, 4]) * dy
+          + (q[:, o + 2] - s[:, 5]) * dz)
+    return torch.stack([c * dx, c * dy, c * dz, c * sg * r2, c * dv], dim=1)
+
+
+def _fused_dii_aii(cfg, q, src, seg_start, seg_end, pv):
+    """The fused kernel's formulation in torch: its five sums S = Σψ·s·r⃗,
+    T = Σψ·s²·r², R = Σψ·s·(v_q − v_j)·r⃗ over one walk, then its
+    epilogue d_ii = −(1/ρ²)·S, Δρ_adv = dt·R, a_ii = d_ii·S − (m/ρ²)·T.
+    Returns (N, 5) d_ii xyz, Δρ_adv, a_ii."""
+    from nereus_tpu_torch.ops.neighbors import neighbor_sweep_plain
+    sums = neighbor_sweep_plain(
+        SP._bind(_fused_pair, cfg, pv, vel_q_offset=3), q, src, seg_start,
+        seg_end, 5, pair_fn_b=SP._bind(_fused_pair, cfg, pv,
+                                       vel_q_offset=7))
+    inv = q[:, 10]
+    dii = -inv[:, None] * sums[:, :3]
+    aii = (dii * sums[:, :3]).sum(dim=1) - (pv[SP.PV_PM] * inv) * sums[:, 3]
+    return torch.cat([dii, (pv[SP.PV_DT] * sums[:, 4])[:, None],
+                      aii[:, None]], dim=1)
+
+
 def _port_sweeps(pcfg, pparams, pstate, pgrid_, pbnd, ref):
     """The port's dispatchers on the same sorted operands, each fed the
-    JAX side's upstream results so that every sweep is held on its own."""
+    JAX side's upstream results so that every sweep is held on its own;
+    only the pre-loop sweeps where ``ref`` has no pressure."""
     ctx = build_sweep_ctx(pstate, pparams, pgrid_, pcfg, pbnd)
     t = {k: torch.from_numpy(v.copy()) for k, v in ref.items()}
     vel = (ctx.vx, ctx.vy, ctx.vz)
@@ -168,16 +213,18 @@ def _port_sweeps(pcfg, pparams, pstate, pgrid_, pbnd, ref):
     inv_d2 = 1.0 / (ds * ds)
     zero = torch.zeros_like(dens)
     got = {"dens": SP.density_sweep(pcfg, *dargs)}
-    got["f_adv"] = SP.fluid_force_sweep(
-        pcfg, *ctx.force_operands(vel, dens, zero), include_pressure=False)
+    if "f_adv" in t:
+        got["f_adv"] = SP.fluid_force_sweep(
+            pcfg, *ctx.force_operands(vel, dens, zero),
+            include_pressure=False)
     vel_adv = t["vel_adv"].unbind(1)
-    src_p = ctx.pack(vel_adv, pm)
-    got["pr"] = SP.dii_rhoadv_sweep(
-        pcfg, ctx.queries(*vel_adv, *vel, inv_d2, width=12), src_p, *rng)
-    dii = t["pr"][:, :3].unbind(1)
+    dargs = iisph_cuda.dii_aii_operands(ctx, vel_adv, pm, inv_d2)
+    da = SP.dii_aii_sweep(pcfg, *dargs)
+    got["pr"], got["aii"] = da[:, :4], da[:, 4]
+    got["dii_aii_fused"] = _fused_dii_aii(pcfg, *dargs)
+    if "p" not in t:
+        return {k: v.numpy() for k, v in got.items()}, ctx.seg_start.shape[0]
     dpi = pm * inv_d2
-    got["aii"] = SP.aii_sweep(pcfg, ctx.queries(*dii, dpi, width=8), src_p,
-                              *rng)
     p = t["p"]
     torch.testing.assert_close(0.5 * ctx.pres_prev, p, rtol=0, atol=0)
     # the step's own operand builders (solvers/iisph_cuda.py)
@@ -201,6 +248,15 @@ def test_iisph_sweeps_match_jax(exact_reciprocal, kernel_set, st,
     ref = _jax_sweeps(*scene)
     got, rows = _port_sweeps(*to_port(*scene), ref)
     assert rows == (18 if with_boundary else 9)
+    _assert_columns_match(got, ref)
+
+
+def _assert_columns_match(got, ref):
+    """Each output column of the port's sweeps within 1e-5·max|ref| of
+    JAX's, finite, and not all zero; the fused formulation against JAX's
+    d_ii + ρ_adv and a_ii sweeps."""
+    ref = {**ref, "dii_aii_fused": np.concatenate(
+        [ref["pr"], ref["aii"][:, None]], axis=1)}
     for name, g in got.items():
         want = ref[name].reshape(len(ref[name]), -1)
         g = g.reshape(len(g), -1)
@@ -210,6 +266,32 @@ def test_iisph_sweeps_match_jax(exact_reciprocal, kernel_set, st,
             assert scale > 0.0, (name, col)
             err = np.abs(g[:, col] - want[:, col]).max()
             assert err <= 1e-5 * scale, (name, col, err, scale)
+
+
+@pytest.mark.parametrize("kernel_set,st", MODELS[:1], ids=MODEL_IDS[:1])
+def test_iisph_sweeps_match_jax_moving_walls(exact_reciprocal, kernel_set,
+                                             st):
+    """``test_iisph_sweeps_match_jax``'s density and pre-loop sweeps (on
+    v_adv = v, which the wall pairs do not read) with the walls moving at
+    (0.8, 0, −0.4) m/s (``tests/test_moving_boundary.py``'s wall
+    velocity): the wall rows' v_b enters ρ_adv's sum in both packages and
+    in the fused formulation, whose wall pairs read the pre-advection v."""
+    cfg, params, state, grid, boundary = _implicit_scene(
+        True, kernel_set, st, floor=-0.115, seed=1)
+    boundary = dataclasses.replace(boundary, vel=jnp.broadcast_to(
+        jnp.asarray([0.8, 0.0, -0.4], jnp.float32), boundary.pos.shape))
+    ref = _jax_sweeps(cfg, params, state, grid, boundary, pre_loop=True)
+    got, rows = _port_sweeps(*to_port(cfg, params, state, grid, boundary),
+                             ref)
+    assert rows == 18 and sorted(got) == ["aii", "dens", "dii_aii_fused",
+                                          "pr"]
+    _assert_columns_match(got, ref)
+    # the same on the walls at rest: only ρ_adv's sum moves with them
+    still, _ = _port_sweeps(*to_port(cfg, params, state, grid, dataclasses
+                                     .replace(boundary, vel=None)), ref)
+    for name in ("pr", "dii_aii_fused"):
+        np.testing.assert_array_equal(still[name][:, :3], got[name][:, :3])
+        assert not np.array_equal(still[name][:, 3], got[name][:, 3])
 
 
 def _reference_order_pair(q, s, pv, *, kernel_set):
@@ -242,10 +324,8 @@ def test_jacobi_e_source_matches_reference_order(kernel_set, st):
     dens = SP.density_sweep(pcfg, *ctx.density_operands(pm))
     inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
     vel = (ctx.vx, ctx.vy, ctx.vz)
-    dii = SP.dii_rhoadv_sweep(pcfg, ctx.queries(*vel, *vel, inv_d2,
-                                                width=12),
-                              ctx.pack(vel, pm), ctx.seg_start, ctx.seg_end,
-                              ctx.pvec)[:, :3]
+    dii = SP.dii_aii_sweep(pcfg, *iisph_cuda.dii_aii_operands(
+        ctx, vel, pm, inv_d2))[:, :3]
     p = 0.5 * ctx.pres_prev
     sd = SP.sum_dij_sweep(pcfg, *iisph_cuda.sum_dij_operands(ctx, inv_d2)(p))
     q, src, s, e, pv = iisph_cuda.jacobi_operands(ctx, dii, pm * inv_d2)[0](
@@ -301,6 +381,69 @@ def test_sum_dij_matrix_is_the_pressure_query(monkeypatch):
         assert q.shape == (c, 8) and src.shape == (c + pb.num_boundaries, 8)
         assert torch.equal(srcv[c:], ctx.b_src)
         assert src.data_ptr() == psrc.data_ptr()
+
+
+@pytest.mark.parametrize("walls", ["none", "static", "moving"])
+def test_step_reads_one_dii_aii_matrix(monkeypatch, walls):
+    """The step runs d_ii, ρ_adv and a_ii as one sweep on one (C + Mb, 12)
+    matrix, its queries the first C rows ``x y z v_adv m v 1/ρ² 0`` and
+    its wall rows the step's ``x y z v_b ψ_b 0…``; the Jacobi operands
+    take d_ii from that sweep's first three columns; its plain version
+    gives the bits of the two sweeps it replaces, each on its own
+    operands."""
+    seen = {"dii_aii": [], "jacobi": []}
+    sweep = SP.dii_aii_sweep
+
+    def dii_aii(cfg, q, src, *rest):
+        out = sweep(cfg, q, src, *rest)
+        seen["dii_aii"].append((q, src, src.clone(), out))
+        return out
+    jacobi_operands = iisph_cuda.jacobi_operands
+
+    def jacobi(ctx, dii, dpi):
+        seen["jacobi"].append(dii)
+        return jacobi_operands(ctx, dii, dpi)
+    monkeypatch.setattr(SP, "dii_aii_sweep", dii_aii)
+    monkeypatch.setattr(iisph_cuda, "jacobi_operands", jacobi)
+    pcfg, pparams, pstate, pg, pb = to_port(*_implicit_scene(
+        walls != "none", floor=-0.115, seed=1, calibrated=True))
+    if walls == "moving":
+        pb = dataclasses.replace(pb, vel=torch.tensor(
+            [0.8, 0.0, -0.4]).expand_as(pb.pos).contiguous())
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    pt.iisph_step(pstate, pparams, pg, pcfg, pb)
+    c, pm = ctx.c, pparams.particle_mass
+    (q, m, src, out), = seen["dii_aii"]
+    (dii,) = seen["jacobi"]
+    mb = 0 if pb is None else pb.num_boundaries
+    assert q.data_ptr() == m.data_ptr()
+    assert q.shape == (c, 12) and src.shape == (c + mb, 12)
+    assert torch.equal(q, src[:c])
+    torch.testing.assert_close(
+        src[:c, [0, 1, 2, 6, 7, 8, 9, 11]],
+        torch.stack([ctx.px, ctx.py, ctx.pz, pm.expand(c), ctx.vx, ctx.vy,
+                     ctx.vz, torch.zeros_like(ctx.px)], dim=1),
+        rtol=0, atol=0)
+    dens = SP.density_sweep(pcfg, *ctx.density_operands(pm))
+    torch.testing.assert_close(src[:c, 10], 1.0 / dens.clamp(min=1e-12) ** 2,
+                               rtol=0, atol=0)
+    if mb:
+        assert torch.equal(src[c:, :8], ctx.b_src)
+        assert not src[c:, 8:].any()
+        assert bool(src[c:, 3:6].any()) == (walls == "moving")
+    assert out.shape == (c, 5) and torch.equal(dii, out[:, :3])
+    assert float(out[:, 4].abs().max()) > 0.0
+    # the parent's two sweeps on their own operands give the same bits
+    vel_adv = src[:c, 3:6].unbind(1)
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    src_p = ctx.pack(vel_adv, pm)
+    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+    pr = SP.dii_rhoadv_sweep_plain(
+        pcfg, ctx.queries(*vel_adv, *vel, src[:c, 10], width=12), src_p,
+        *rng)
+    aii = SP.aii_sweep_plain(pcfg, ctx.queries(
+        *pr[:, :3].unbind(1), pm * src[:c, 10], width=8), src_p, *rng)
+    assert torch.equal(out[:, :4], pr) and torch.equal(out[:, 4], aii)
 
 
 # ---------------------------------------------------------------------------

@@ -140,9 +140,7 @@ def test_a_newer_header_rebuilds(monkeypatch, tmp_path):
 # the IISPH sweeps, then PCISPH's and DFSPH's: (dispatcher, CUDA wrapper,
 # query width, source width, range rows)
 IISPH_SWEEPS = {
-    "dii_rhoadv": (SP.dii_rhoadv_sweep, cuda_sweep.dii_rhoadv_sweep, 12, 8,
-                   18),
-    "aii": (SP.aii_sweep, cuda_sweep.aii_sweep, 8, 8, 18),
+    "dii_aii": (SP.dii_aii_sweep, cuda_sweep.dii_aii_sweep, 12, 12, 18),
     "sum_dij": (SP.sum_dij_sweep, cuda_sweep.sum_dij_sweep, 4, 4, 9),
     "jacobi": (SP.jacobi_sweep, cuda_sweep.jacobi_sweep, 8, 8, 18),
     "pressure_force": (SP.pressure_force_sweep,
@@ -604,22 +602,20 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
     dens = SP.density_sweep_plain(cfg, *ctx.density_operands(pm))
     inv_d2 = 1.0 / dens.clamp(min=1e-12) ** 2
     p = 0.5 * ctx.pres_prev
-    dii = (vel[0] * 1e-3, vel[1] * 1e-3, vel[2] * 1e-3)
-    dii3 = torch.stack(dii, dim=1)
+    dii3 = torch.stack(vel, dim=1) * 1e-3
+    # v_adv: the state's v nudged, so the fluid and wall pairs read apart
+    vel_adv = tuple(v + 0.1 * float(k + 1) for k, v in enumerate(vel))
     cases = {
-        "dii_rhoadv": (ctx.queries(*vel, *vel, inv_d2, width=12),
-                       ctx.pack(vel, pm), *rows),
-        "aii": (ctx.queries(*dii, pm * inv_d2, width=8), ctx.pack(vel, pm),
-                *rows),
         # the step's operand builders, d_ii standing in for Σd_ij·p_j
+        "dii_aii": iisph_cuda.dii_aii_operands(ctx, vel_adv, pm, inv_d2),
         "sum_dij": iisph_cuda.sum_dij_operands(ctx, inv_d2)(p),
         "jacobi": iisph_cuda.jacobi_operands(ctx, dii3, pm * inv_d2)[0](
             p, dii3),
         "pressure_force": (ctx.queries(p * inv_d2),
                            ctx.pack((zero, zero, zero), p * inv_d2), *rows),
     }
-    plain = {"dii_rhoadv": SP.dii_rhoadv_sweep_plain,
-             "aii": SP.aii_sweep_plain, "sum_dij": SP.sum_dij_sweep_plain,
+    plain = {"dii_aii": SP.dii_aii_sweep_plain,
+             "sum_dij": SP.sum_dij_sweep_plain,
              "jacobi": SP.jacobi_sweep_plain,
              "pressure_force": SP.pressure_force_sweep_plain}
     cuda_sweep.reset_launches()
@@ -634,8 +630,9 @@ def test_iisph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got, SP.fluid_force_sweep_plain(cfg, *fargs, include_pressure=False),
         "force_p0")
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == (
-        [0, 0] + [1] * 6 + [0] * (N_KERNELS - 8))
+    _assert_launches({k: 1 for k in (
+        cuda_sweep.FORCE_P0, cuda_sweep.DII_AII, cuda_sweep.SUM_DIJ,
+        cuda_sweep.JACOBI, cuda_sweep.PRESSURE_FORCE)})
     assert iisph_cuda.SYNC_EVERY >= 1
 
 
@@ -668,10 +665,12 @@ def test_iisph_step_runs_kernels_on_cuda(cuda):
                                                   boundary)
         iters += int(diag.solver_iters)
     assert iters > 3 * cfg.iisph_min_iters
-    launches = [k.launches for k in cuda_sweep.KERNELS]
-    assert launches[:5] == [3, 0, 3, 3, 3] and launches[7] == 3
-    assert launches[8:] == [0] * (N_KERNELS - 8)
-    assert launches[5] == launches[6] == iisph_cuda.LOOP.launched >= iters
+    launched = iisph_cuda.LOOP.launched
+    assert launched >= iters
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE_P0: 3,
+                      cuda_sweep.DII_AII: 3, cuda_sweep.PRESSURE_FORCE: 3,
+                      cuda_sweep.SUM_DIJ: launched,
+                      cuda_sweep.JACOBI: launched})
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -729,8 +728,8 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
         got = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
         _assert_columns_close(got, plain[key](cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == (
-        [0] * 8 + [1] * 3 + [0] * (N_KERNELS - 11))
+    _assert_launches({cuda_sweep.DENSITY_PRED: 1, cuda_sweep.ALPHA: 1,
+                      cuda_sweep.DRHO: 1})
 
 
 @pytest.mark.requires_cuda
@@ -750,9 +749,9 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
         iters += int(diag.solver_iters)
     launched = pcisph_cuda.LOOP.launched
     assert launched >= iters > 3 * cfg.pcisph_min_iters
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([
-        3, 0, 3, 0, 0, 0, 0, launched + 3, launched, 0, 0, 0, 0, 0]
-        + [0] * (N_KERNELS - 14))
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE_P0: 3,
+                      cuda_sweep.PRESSURE_FORCE: launched + 3,
+                      cuda_sweep.DENSITY_PRED: launched})
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -769,9 +768,9 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
-    assert [k.launches for k in cuda_sweep.KERNELS] == ([
-        3, 0, 3, 0, 0, 0, 0, launched + 3, 0, 3, launched, 0, 0, 0]
-        + [0] * (N_KERNELS - 14))
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE_P0: 3,
+                      cuda_sweep.PRESSURE_FORCE: launched + 3,
+                      cuda_sweep.ALPHA: 3, cuda_sweep.DRHO: launched})
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -817,8 +816,8 @@ def test_multiphase_xsph_kernels_match_plain_on_cuda(cuda, kernel_set, st):
         plain = getattr(SP, f"{key}_sweep_plain")
         _assert_columns_close(dispatch(cfg, *args), plain(cfg, *args), key)
     torch.cuda.synchronize()
-    assert [k.launches for k in cuda_sweep.KERNELS] == (
-        [0] * 11 + [1] * 3 + [0] * (N_KERNELS - 14))
+    _assert_launches({cuda_sweep.MP_DENSITY: 1, cuda_sweep.MP_FORCE: 1,
+                      cuda_sweep.XSPH: 1})
 
 
 @pytest.mark.requires_cuda
@@ -833,16 +832,15 @@ def test_multiphase_xsph_steps_run_kernels_on_cuda(cuda):
     for _ in range(3):
         mp, diag = nereus_tpu_torch.wcsph_step(mp, params, grid, cfg,
                                                boundary)
-    assert [k.launches for k in cuda_sweep.KERNELS] == (
-        [0] * 11 + [3, 3, 0] + [0] * (N_KERNELS - 14))
+    _assert_launches({cuda_sweep.MP_DENSITY: 3, cuda_sweep.MP_FORCE: 3})
     assert torch.isfinite(mp.pos).all() and mp.multiphase
     assert float(diag.mean_compression) < 0.1
     cuda_sweep.reset_launches()
     for _ in range(3):
         state, _ = nereus_tpu_torch.wcsph_step(state, params, grid, cfg,
                                                boundary, xsph_eps=0.3)
-    assert [k.launches for k in cuda_sweep.KERNELS] == (
-        [3, 3] + [0] * 11 + [3] + [0] * (N_KERNELS - 14))
+    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE: 3,
+                      cuda_sweep.XSPH: 3})
     assert torch.isfinite(state.pos).all()
 
 
@@ -1107,6 +1105,7 @@ def test_group_sweeps_build_only_their_g(cuda):
     group value, launching nothing."""
     lib = cuda_sweep.load()
     picks = {
+        "dii_aii": {cuda_sweep.DII_AII_G},
         "sum_dij": {cuda_sweep.SUM_DIJ_G},
         "jacobi": {cuda_sweep.JACOBI_G},
         "pbf_lambda": {cuda_sweep.PBF_LAMBDA_G},

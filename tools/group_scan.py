@@ -3,14 +3,15 @@ on one path's operands, beside the one-thread walks they replace, on one
 CUDA card.
 
     python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph|
-                                 elastic|wcsph_elastic|dfsph|dfsph_visc|
+                                 iisph|elastic|wcsph_elastic|dfsph|
+                                 dfsph_visc|
                                  multiphase|multiphase_wavemaker|dfsph_mp|
                                  mp_coupled|dfsph_mp_coupled|dfsph_coupled|
                                  dfsph_elastic]
         [--groups 1 2 4]
         [--keys pbf_lambda pbf_dp pbf_grad drho elastic_force_hg mp_force
                 mp_force_moving mp_drho mp_drho_cols mp_kappa
-                pressure_force_body pressure_force_body_rev]
+                pressure_force_body pressure_force_body_rev dii_aii]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -36,14 +37,22 @@ by G beside the port's one-thread walk); ``pressure_force_body`` the κ
 impulse of a body shell on the fluid (the one-thread walk, the lane groups
 by G, ``MaskedForm<BodyPressureForce>`` on ``pair_sweep_kernel``, the
 parent's ``BoundaryForm<PressureForce>``) and ``pressure_force_body_rev``
-its reverse, a body's samples over the fluid rows.
+its reverse, a body's samples over the fluid rows; ``dii_aii`` IISPH's
+pre-loop sweep of d_ii, ρ_adv and a_ii on the port's one (C + Mb, 12)
+matrix ("G") and on the parent's two operands ("split": a (C, 12) query
+``x y z v_adv v 1/ρ² 0 0`` beside an 8-wide source ``x y z v_adv m 0``,
+walls ``x y z v_b ψ_b 0``), each at every G, and each also timed with
+its operands built as a step builds them ("columns": the one matrix
+stacked column by column into its rows).
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
 the kernels' operands with ``chip_smoke.py``'s ``pbf_path_operands`` (at
 the state advected from the final one) or ``dfsph_operands`` (at the final
-state). The multiphase paths run ``multiphase_1M`` (``wcsph_main_path``
-split by ``two_phase``, ``N_STEPS`` steps), ``multiphase_1M_wavemaker``
+state); iisph runs ``iisph_1M_settled`` (``settled_main_path``, 60 steps)
+and takes ``iisph_operands`` at the final state. The multiphase paths run
+``multiphase_1M`` (``wcsph_main_path`` split by ``two_phase``,
+``N_STEPS`` steps), ``multiphase_1M_wavemaker``
 (the same under ``wavemaker``), ``dfsph_mp_256k_settled``
 (``settled_main_path``), ``mp_coupled_256k`` (``coupled_scene``) or
 ``dfsph_mp_coupled_256k`` (``dfsph_coupled_scene(kind="mp")``, the final
@@ -111,7 +120,11 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
             "pressure_force_body_rev": ("iisph_sweep.cu", [
                 ("G", "ranges", "BodyPressureForce"),
                 ("parent", "pair",
-                 "nereus_sweep::BoundaryForm<PressureForce>")])}
+                 "nereus_sweep::BoundaryForm<PressureForce>")]),
+            "dii_aii": ("iisph_sweep.cu", [
+                ("G", "ranges", "DiiAii"),
+                ("columns", "ranges", "DiiAii"),
+                ("split", "ranges", "DiiAiiSplit")])}
 # functors the scan file defines: dδ̂/dt's pair without its epilogue
 SCAN_FUNCTORS = {"MultiphaseDrhoCols": """
 struct MultiphaseDrhoCols {
@@ -126,7 +139,91 @@ struct MultiphaseDrhoCols {
     MultiphaseDrho::pair<KS, B>(q, a, src, j, p, acc);
   }
 };
+""", "DiiAiiSplit": """
+struct DiiAiiSplit {
+  static constexpr int QW = 12, SW = 8, OW = 5, OUTW = 5;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = nereus_sweep::src_f4(src, SW, j, 1);
+    const nereus_sweep::Geom g = nereus_sweep::default_geom<KS>(q, a, p);
+    const float c = b.z * g.s;
+    constexpr int o = B ? 6 : 3;
+    const float dvx = q[o] - a.w;
+    const float dvy = q[o + 1] - b.x;
+    const float dvz = q[o + 2] - b.y;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+    acc[3] += c * g.s * g.r2;
+    acc[4] += c * (dvx * g.dx + dvy * g.dy + dvz * g.dz);
+  }
+  __device__ static void epilogue(const float (&q)[QW],
+                                  const float (&acc)[OW],
+                                  const nereus_sweep::Params& p,
+                                  float (&o)[OUTW]) {
+    const float inv = q[9];
+    o[0] = -inv * acc[0];
+    o[1] = -inv * acc[1];
+    o[2] = -inv * acc[2];
+    o[3] = p.dt * acc[4];
+    o[4] = (o[0] * acc[0] + o[1] * acc[1] + o[2] * acc[2]) -
+           (p.pm * inv) * acc[3];
+  }
+};
 """}
+
+
+def split_operands(args):
+    """The parent's two operands of the d_ii, ρ_adv and a_ii sweep from the
+    port's one (C + Mb, 12) matrix: the (C, 12) query ``x y z v_adv v 1/ρ²
+    0 0`` and the (C + Mb, 8) source ``x y z v_adv m 0`` (walls ``x y z v_b
+    ψ_b 0``)."""
+    q, src, s, e, pv = args
+    z = q.new_zeros((q.shape[0], 2))
+    src8 = src[:, :8].clone()
+    src8[:, 7] = 0.0
+    return (torch.cat([q[:, :6], q[:, 7:11], z], dim=1), src8, s, e, pv)
+
+
+# variants fed other operands than the wrapper's: functor → converter
+VARIANT_OPERANDS = {"DiiAiiSplit": split_operands}
+
+
+def dii_aii_builders(ctx, params, args):
+    """``{variant: build}`` of the d_ii, ρ_adv and a_ii sweep: ``build()``
+    makes the variant's operands as a step would, from the step's columns
+    (v_adv, 1/ρ², taken from the one matrix ``args``, and the sorted
+    state's v): "G" by ``iisph_cuda.dii_aii_operands`` (through planes,
+    ``SweepCtx.pack_wide``), "columns" the same matrix stacked column by
+    column into its rows (``SweepCtx._one_matrix``), "split" its query
+    and its source each stacked in place (the walls copied behind)."""
+    from nereus_tpu_torch.solvers import iisph_cuda
+    c, src = ctx.c, args[1]
+    vel_adv = [src[:c, k].clone() for k in (3, 4, 5)]
+    inv = src[:c, 10].clone()
+    pm = params.particle_mass
+    vel = (ctx.vx, ctx.vy, ctx.vz)
+    z = torch.zeros_like(inv)
+
+    def split():
+        q = ctx.queries(*vel_adv, *vel, inv, width=12)
+        return (q, ctx._one_matrix([*vel_adv, pm.expand(c), z],
+                                   ctx.b_src)[1], *args[2:])
+
+    def columns():
+        m = ctx._one_matrix([*vel_adv, pm.expand(c), *vel, inv, z],
+                            ctx._b_src_wide)[1]
+        return (m[:c], m, *args[2:])
+    return {"G": lambda: iisph_cuda.dii_aii_operands(ctx, vel_adv, pm, inv),
+            "split": split, "columns": columns}
+
+
+# per key, the builders of its variants' operands (time with the build)
+BUILDERS = {}
 # the keys each path's operands feed
 PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
              "dfsph": ("drho",),
@@ -139,7 +236,8 @@ PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
                                   "mp_kappa"),
              "dfsph_coupled": ("pressure_force_body",),
              "dfsph_elastic": ("pressure_force_body",
-                               "pressure_force_body_rev")}
+                               "pressure_force_body_rev"),
+             "iisph": ("dii_aii",)}
 MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
               "dfsph_mp_coupled")
 BODY_SOLVERS = ("dfsph_coupled", "dfsph_elastic")
@@ -193,7 +291,8 @@ def build(keys, groups):
     for src, ks in by_src.items():
         lib = ctypes.CDLL(libs[src])
         for key in ks:
-            for k, (variant, engine, _) in enumerate(FUNCTORS[key][1]):
+            for k, (variant, engine, functor) in enumerate(
+                    FUNCTORS[key][1]):
                 if engine == "list":
                     f = getattr(lib, f"nereus_scan_{key}_{k}_list_sweep")
                     f.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32,
@@ -205,7 +304,8 @@ def build(keys, groups):
                                      else [i32])
                                   + [ptr, ptr])
                 f.restype = i32
-                fns[key, variant] = (f, engine, values.get(engine, [None]))
+                fns[key, variant] = (f, engine, values.get(engine, [None]),
+                                     VARIANT_OPERANDS.get(functor))
     return fns
 
 
@@ -233,6 +333,17 @@ def path_operands(solver, keys, dev):
                               grid, cfg, boundary)
         ops = smoke.pbf_path_operands(cfg, ctx, params,
                                       vorticity="pbf_grad" in keys)
+        return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
+                     }, f"{ctx.c} queries, {ms:.4f} ms/step"
+    if solver == "iisph":
+        cfg, params, state, grid, boundary, step = smoke.settled_main_path(
+            solver, dev, smoke.MAIN_N)
+        state, _, ms, *_ = smoke.run_steps(step, state, smoke.IMPLICIT_STEPS,
+                                           smoke.IMPLICIT_TIMED_FROM)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        ops = smoke.iisph_operands(cfg, ctx, params)
+        BUILDERS["dii_aii"] = dii_aii_builders(ctx, params,
+                                               ops["dii_aii"][2])
         return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                      }, f"{ctx.c} queries, {ms:.4f} ms/step"
     if solver.startswith("dfsph"):
@@ -359,7 +470,7 @@ def body_operands(solver, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
-                    choices=("pbf", "pbf_settled", "pbf_vort_xsph",
+                    choices=("pbf", "pbf_settled", "pbf_vort_xsph", "iisph",
                              "elastic", "wcsph_elastic", "dfsph",
                              "dfsph_visc", *MP_SOLVERS, *BODY_SOLVERS))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
@@ -369,7 +480,8 @@ def main():
         sys.exit("group_scan: needs a CUDA card")
     family = (args.solver if args.solver in MP_SOLVERS + BODY_SOLVERS
               else "pbf" if args.solver.startswith("pbf") else "dfsph"
-              if args.solver.startswith("dfsph") else "elastic")
+              if args.solver.startswith("dfsph") else "iisph"
+              if args.solver == "iisph" else "elastic")
     keys = args.keys or list(PATH_KEYS[family][:2])
     if not set(keys) <= set(PATH_KEYS[family]):
         sys.exit(f"group_scan: --solver {args.solver} feeds the keys "
@@ -380,11 +492,11 @@ def main():
     print(f"{args.solver}: {desc}; {torch.cuda.get_device_name(0)}")
     for key in keys:
         kern, a, kwk = ops[key]
-        q, src, s, e, pv = a
         ref = kern(cfg, *a, **kwk)
         cols = key == "mp_drho_cols"
 
-        def launch(f, engine, v, out):
+        def launch(f, engine, v, out, vargs):
+            q, src, s, e, pv = vargs
             lead = ((q.data_ptr(), src.data_ptr(), s.data_ptr(),
                      e.data_ptr(), q.shape[0])
                     + (() if engine == "list" else (s.shape[0],)))
@@ -397,17 +509,18 @@ def main():
             # the two-column form: the rate formed after the kernel
             return out[:, 0] + q[:, 6] * out[:, 1] if cols else out
         runs = {}
-        for (k, variant), (f, engine, vals) in fns.items():
+        for (k, variant), (f, engine, vals, convert) in fns.items():
             if k != key:
                 continue
+            vargs = convert(a) if convert else a
             for v in vals:
-                out = (q.new_empty((q.shape[0], 2)) if cols
+                out = (a[0].new_empty((a[0].shape[0], 2)) if cols
                        else torch.empty_like(ref))
-                got = launch(f, engine, v, out)
+                got = launch(f, engine, v, out, vargs)
                 torch.cuda.synchronize()
                 label = variant + ("" if v is None else f"{v}")
                 if key == "pbf_lambda":
-                    smoke.check_lambda(out, ref, pv, f"{key} {label}")
+                    smoke.check_lambda(out, ref, a[4], f"{key} {label}")
                     torch.testing.assert_close(out[:, 0], ref[:, 0],
                                                rtol=1e-5, atol=0)
                 else:
@@ -417,16 +530,25 @@ def main():
                     if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
                         sys.exit(f"group_scan: {key} {label} differs from "
                                  f"the wrapper's output by {err.tolist()}")
-                runs[label] = (f, engine, v, out)
-        best = {}
+                runs[label] = (f, engine, v, out, vargs, variant)
+        best, built = {}, {}
         for _ in range(3):
-            for label, (f, engine, v, out) in runs.items():
-                t = smoke.graph_ms(lambda: launch(f, engine, v, out))
+            for label, (f, engine, v, out, vargs, variant) in runs.items():
+                t = smoke.graph_ms(lambda: launch(f, engine, v, out, vargs))
                 best[label] = min(best.get(label, t), t)
+                make = BUILDERS.get(key, {}).get(variant)
+                if make:
+                    t = smoke.graph_ms(
+                        lambda: launch(f, engine, v, out, make()))
+                    built[label] = min(built.get(label, t), t)
         wrapper = smoke.graph_ms(lambda: kern(cfg, *a, **kwk))
         print(f"{key} at {args.solver}: host-free ms: "
               + ", ".join(f"{label} {t:.4f}" for label, t in best.items())
               + f"; the wrapper's own {wrapper:.4f}")
+        if built:
+            print(f"{key} at {args.solver}: host-free ms with the operands "
+                  "built: " + ", ".join(f"{label} {t:.4f}"
+                                        for label, t in built.items()))
 
 
 if __name__ == "__main__":

@@ -57,7 +57,9 @@ operands built by its own checkout's ``chip_smoke.py`` (its
 ``pcisph_operands`` or ``pbf_path_operands``, so that each side feeds its
 kernels in its own contract): the density and force kernels on the
 WCSPH, IISPH and PCISPH paths, and the Laplacian (wcsph_visc), the
-pressure force (iisph, pcisph), the Jacobi loop's Σd_ij·p_j and Jacobi
+pressure force (iisph, pcisph), the pre-loop sweep of d_ii, ρ_adv and
+a_ii (key ``dii_aii``, which an earlier checkout runs as two, keys
+``dii_rhoadv`` and ``aii``) and the Jacobi loop's Σd_ij·p_j and Jacobi
 sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
 confinement, N (key ``pbf_grad``, which an earlier checkout computes with
 its λ kernel) and ω, at the state advected from the final one (pbf*),
@@ -342,8 +344,10 @@ else:
                    "multiphase_wavemaker": own.multiphase_operands,
                    "dfsph_mp": own.mp_dfsph_operands}[solver]
     keep = {"wcsph_visc": ("density", "force_v0", "visc_laplacian"),
-            "iisph": ("density", "force_p0", "sum_dij", "jacobi",
-                      "pressure_force"),
+            # dii_rhoadv and aii: the two sweeps an earlier checkout runs
+            # where a later one runs dii_aii
+            "iisph": ("density", "force_p0", "dii_rhoadv", "aii", "dii_aii",
+                      "sum_dij", "jacobi", "pressure_force"),
             "pcisph": ("density", "force_p0", "density_pred",
                        "pressure_force"),
             "dfsph": ("drho", "pressure_force"),
