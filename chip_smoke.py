@@ -176,7 +176,7 @@ Phases, in order; any failure exits non-zero:
     force, body density and BodyForce kernels (BodyForce on its friction
     alone with pd2 at 0);
 27. the elastic kernels against their plain versions, both kernel sets:
-    ElasticF and ElasticForceHourglass (over the block's static pair
+    ElasticF and ElasticForceHourglass (both over the block's static pair
     list) on a 12×10×8 block at spacing h/2
     stretched 2 % along x, sheared, rotated and perturbed by a seeded
     noise of 0.05·spacing (the hourglass term is exactly 0 on affine
@@ -193,10 +193,11 @@ Phases, in order; any failure exits non-zero:
     per step and no other kernel, finite positions and velocities,
     ``seg_overflow`` 0, ``max_stretch`` < 0.1 and min y ≥ −0.01·spacing on
     every step; then both kernels against their plain versions at the
-    path's shapes, timed. The block starts 0.5·spacing above its floor
-    and falls freely for ~480 steps, so over these 60 its F is I to
-    rounding: the kernels are held on its statics and ranges at the
-    deformed positions of phase 27;
+    path's shapes, timed, and ElasticF also under each of the six
+    (kernel set, surface-tension model) pairs of ``MODELS``. The block
+    starts 0.5·spacing above its floor and falls freely for ~480 steps, so
+    over these 60 its F is I to rounding: the kernels are held on its
+    statics and pair list at the deformed positions of phase 27;
 29. ``elastic_plastic_512k``: phase 28 with ``plastic=True`` and
     ``yield_strain=0.02``; E_p also finite and traceless within
     1e-5·max|E_p|;
@@ -209,9 +210,10 @@ Phases, in order; any failure exits non-zero:
     fluid and body, mean compression < 0.1, zero overflow; prints how many
     samples feel the fluid at the last step (the water may not reach the
     cube in 60 steps); then every kernel of the path against its plain
-    version, timed: the elastic ones on the body's deformed positions, the
-    others on the last state with the body moved into the middle of the
-    fluid, FluidReaction also on its friction alone.
+    version, timed: the elastic ones on the body's deformed positions
+    (ElasticF also under each model of ``MODELS``), the others on the last
+    state with the body moved into the middle of the fluid, FluidReaction
+    also on its friction alone.
 
 31. the DFSPH couplings' instances against their plain versions, both
     kernel sets, on phase 7's DFSPH dam-break with a 0.08 box moving at
@@ -240,7 +242,8 @@ Phases, in order; any failure exits non-zero:
     step within its tolerance or at its cap. The box does not reach the
     water in 60 steps, so every kernel of the path is then held against
     its plain version, timed, on the last state with the box moved into
-    the middle of the fluid;
+    the middle of the fluid, and Drho over its 56-sample shell (G 2)
+    also under each model of ``MODELS``;
 33. ``dfsph_mp_coupled_256k``: phase 32's block split as phase 25 splits
     it (the top half by y at 0.4·ρ₀), phase 32's gates on the multiphase
     DFSPH kernels, their body forms and MultiphaseBody (bp = 0);
@@ -255,7 +258,9 @@ Phases, in order; any failure exits non-zero:
     against its plain version, timed, the fluid and contact kernels on the
     last state with the cube moved into the middle of the fluid, the body
     form of PressureForce both forward and reverse (two entries of the
-    ``kernels`` line, told apart by ``op``).
+    ``kernels`` line, told apart by ``op``); Drho over the cube's
+    4,096-sample shell (G 8) and ElasticF also under each model
+    of ``MODELS``.
 
 35. ``wcsph_wide12M`` (``bench.py:307-313, 405-411``): the 12,000,000
     target dam-break without a boundary on the grid stretched along z past
@@ -301,20 +306,21 @@ Each kernel's bound (``bound_ms``) is the larger of the bytes the
 neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
-over 67 TFLOP/s, the H100 SXM's published float32 peaks. ElasticF, the
-reaction, density, force, SumDij, Jacobi, PBF, Dρ/Dt, multiphase force,
-dδ̂/dt and κ impulse kernels stop after the geometry on a candidate outside the
-cutoff: there only those operations count (``GUARDED``), and the
-candidates inside the cutoff are counted from this run's positions. The elastic force + hourglass kernel
-walks the body's static pair list, every pair inside the cutoff
-(``LISTED``): its operations are the list's pairs × the pair's, the work
-inside the cutoff whatever walks it. The elastic and SumDij sweeps read
-one matrix as queries and source, the density, force, PBF, Dρ/Dt,
-multiphase force and dδ̂/dt sweeps one whose first rows are the queries:
-its bytes count once. SumDij, Jacobi, PBF's, Dρ/Dt, the multiphase force,
-dδ̂/dt, the κV̂² correction, the κ impulse and the elastic force +
-hourglass count only the columns their pairs read (``READ_BYTES``) and no
-cell key.
+over 67 TFLOP/s, the H100 SXM's published float32 peaks. The reaction,
+density, force, SumDij, Jacobi, PBF, Dρ/Dt (over the fluid and walls and
+over a shell), multiphase force, dδ̂/dt and κ impulse kernels stop after
+the geometry on a candidate outside the cutoff: there only those
+operations count (``GUARDED``), and the candidates inside the cutoff are
+counted from this run's positions. The two elastic kernels (ElasticF and
+the force + hourglass) walk the body's static pair list, every pair
+inside the cutoff (``LISTED``): their operations are the list's pairs ×
+the pair's, the work inside the cutoff whatever walks it. The elastic
+and SumDij sweeps read one matrix as queries and source, the density,
+force, PBF, Dρ/Dt, multiphase force and dδ̂/dt sweeps one whose first
+rows are the queries: its bytes count once. SumDij, Jacobi, PBF's,
+Dρ/Dt, the multiphase force, dδ̂/dt, the κV̂² correction, the κ impulse,
+the two elastic kernels and the one-thread walks count only the columns
+their pairs read (``READ_BYTES``) and no cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step
 (the pair list of a ``LISTED`` kernel).
@@ -327,11 +333,12 @@ tile plan, as the step launches them; where they are timed they also
 print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
 default (their ``kernels`` entries carry these under ``tiled``). The
-lane-group kernels (density, force, SumDij, Jacobi, PBF's, Dρ/Dt, the
-multiphase force and dδ̂/dt, the elastic force + hourglass over its list)
-print the lane-group size G they take and the queries with candidates (their entries carry these
-under ``grouped``); the build prints the density and force kernels'
-registers and spills by G, and each instance of
+lane-group kernels (density, force, SumDij, Jacobi, PBF's, Dρ/Dt over the
+fluid and walls and over a shell, the multiphase force and dδ̂/dt, the κ
+impulse, the two elastic kernels over their list) print the lane-group
+size G they take and the queries with candidates (their entries carry
+these under ``grouped``); the build prints the density and force
+kernels' registers and spills by G, and each instance of
 ``group_pair_sweep_kernel``'s and ``group_list_sweep_kernel``'s.
 
 The run's total wall time is printed before the card's name and power
@@ -444,7 +451,7 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "pbf_dp": (30, 21), "pbf_grad": (28, 0), "pbf_omega": (33, 0),
             "force_moving": (56, 43), "force_p0_moving": (48, 39),
             "mp_force_moving": (72, 51), "body_density": (15, 0),
-            "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (41, 0),
+            "body_force": (50, 0), "mp_body": (45, 0), "elastic_f": (40, 0),
             "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0),
             "body_force_p0": (44, 0), "fluid_reaction_p0": (43, 0),
             "pressure_force_body": (23, 0),
@@ -457,7 +464,7 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
 # candidate outside the cutoff: those candidates cost this many operations,
 # the others PAIR_OPS's (the density and force kernels count the test once
 # per candidate and the rest of the pair on the pairs inside the cutoff)
-GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
+GUARDED = {"drho_shell": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "density": 9, "density_pred": 9, "body_density": 9, "force": 9,
            "force_p0": 9, "force_v0": 9, "force_p0_v0": 9,
            "force_moving": 9, "force_p0_moving": 9, "sum_dij": 9,
@@ -469,8 +476,9 @@ GUARDED = {"elastic_f": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
 # of the same body does inside the cutoff (its test of the candidates
-# outside is the walk's own cost, not the function's)
-LISTED = ("elastic_force_hg",)
+# outside is the walk's own cost, not the function's); ElasticF's pair
+# (40) is the range walk's (41) without its cutoff compare
+LISTED = ("elastic_force_hg", "elastic_f")
 # bytes each pair reads of a query row, a fluid source row and a wall
 # source row, for the kernels whose rows carry columns their pair never
 # reads: SumDij's one matrix x y z p/rho^2 (queries and source), Jacobi's
@@ -479,34 +487,34 @@ LISTED = ("elastic_force_hg",)
 # matrix, its fluid rows the queries: lambda reads x y z of a fluid row (m
 # is a parameter) and x y z psi_b of a wall row, Delta p x y z lambda and
 # x y z psi_b; N's x y z psi; D rho / Dt x y z v of a query (not its slot
-# 6 or pad), x y z v psi of a fluid row and x y z v_b psi_b of a wall row;
-# the elastic force + hourglass the whole 24-wide row X x PC F of its one
-# matrix; the multiphase force's one matrix, its fluid rows the queries:
-# a query row all but its slot 6 (V_i), a fluid row x y z v V pV^2 rho0
-# (the union with the query: the whole 48-byte row), a wall row x y z
-# psi_b (static) or x y z v_b psi_b (MOVING); d delta-hat / dt's x y z v
-# s/m of a query, x y z v of a fluid row (the union: 28 bytes) and
-# x y z v_b psi_b of a wall row; the kappa-V-hat^2 correction x y z kv2 qc
-# of a query and x y z kv2_j or x y z psi_b of a source row; the kappa
-# impulse over a body shell x y z kappa/rho of a query and x y z psi_b of a
-# shell row, its reverse x y z psi_b of a sample and x y z kappa/rho of a
-# fluid row (a body sweep's source rows all of one kind: no wall bytes,
-# None); IISPH's d_ii, rho_adv and a_ii one matrix, its fluid rows the
-# queries: x y z v_adv m v 1/rho^2 of a fluid row (the union with the
-# query: 44 bytes), x y z v_b psi_b of a wall row. The one-thread walks:
-# alpha x y z of a query, x y z psi of a fluid or wall row (over a shell
-# alpha_body and alpha_shell the same); the shell's D rho / Dt x y z v of
-# a query, x y z v_b psi_b of a shell row; XSPH x y z v rho of a query
-# and of a fluid row; omega's one matrix x y z v m/rho; the multiphase
-# density x y z of a query and a fluid row, x y z psi_b of a wall row;
-# the multiphase alpha sums x y z of a query, x y z 1/m_j or x y z psi_b
-# of a source row (over a shell the same); the shell's multiphase
-# d delta-hat / dt x y z v of a query, x y z v_b psi_b of a shell row;
-# the shell's kappa-V-hat^2 x y z qc of a query, x y z psi_b of a shell
-# row; the body contact x y z v rho pd2 of a query (no pd2 without the
-# pressure), x y z v_b psi_b of a shell row; the multiphase body contact
-# x y z v bp fr of a query; the fluid reaction x y z v_b psi of a sample,
-# x y z v rho of a fluid row; ElasticF X x of its one matrix. Their bound
+# 6 or pad), x y z v psi of a fluid row and x y z v_b psi_b of a wall row,
+# over a shell x y z v of a query and x y z v_b psi_b of a shell row; the
+# elastic force + hourglass the whole 24-wide row X x PC F of its one
+# matrix, ElasticF X x of its one matrix; the multiphase force's one
+# matrix, its fluid rows the queries: a query row all but its slot 6
+# (V_i), a fluid row x y z v V pV^2 rho0 (the union with the query: the
+# whole 48-byte row), a wall row x y z psi_b (static) or x y z v_b psi_b
+# (MOVING); d delta-hat / dt's x y z v s/m of a query, x y z v of a fluid
+# row (the union: 28 bytes) and x y z v_b psi_b of a wall row; the
+# kappa-V-hat^2 correction x y z kv2 qc of a query and x y z kv2_j or
+# x y z psi_b of a source row; the kappa impulse over a body shell x y z
+# kappa/rho of a query and x y z psi_b of a shell row, its reverse x y z
+# psi_b of a sample and x y z kappa/rho of a fluid row (a body sweep's
+# source rows all of one kind: no wall bytes, None); IISPH's d_ii, rho_adv
+# and a_ii one matrix, its fluid rows the queries: x y z v_adv m v 1/rho^2
+# of a fluid row (the union with the query: 44 bytes), x y z v_b psi_b of
+# a wall row. The one-thread walks: alpha x y z of a query, x y z psi of a
+# fluid or wall row (over a shell alpha_body and alpha_shell the same);
+# XSPH x y z v rho of a query and of a fluid row; omega's one matrix
+# x y z v m/rho; the multiphase density x y z of a query and a fluid row,
+# x y z psi_b of a wall row; the multiphase alpha sums x y z of a query,
+# x y z 1/m_j or x y z psi_b of a source row (over a shell the same); the
+# shell's multiphase d delta-hat / dt x y z v of a query, x y z v_b psi_b
+# of a shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z
+# psi_b of a shell row; the body contact x y z v rho pd2 of a query (no
+# pd2 without the pressure), x y z v_b psi_b of a shell row; the
+# multiphase body contact x y z v bp fr of a query; the fluid reaction
+# x y z v_b psi of a sample, x y z v rho of a fluid row. Their bound
 # counts these and no cell key: the port's ranges are exact, so no kernel
 # reads a key. Where the queries are the source's first rows they are
 # read once.
@@ -535,8 +543,9 @@ READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
 GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "force_v0", "force_p0_v0", "force_moving", "force_p0_moving",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
-           "elastic_force_hg", "mp_force", "mp_force_moving", "mp_drho",
-           "pressure_force_body", "pressure_force_body_rev", "dii_aii")
+           "elastic_force_hg", "elastic_f", "mp_force", "mp_force_moving",
+           "mp_drho", "pressure_force_body", "pressure_force_body_rev",
+           "drho_shell", "dii_aii")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -752,7 +761,7 @@ def group_stats(key, args, kw):
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``DII_AII_G``, ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``,
     ``pbf_dp_group``, ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
-    ``elastic_group``, ``body_kappa_group``, ``BODY_REV_G``) and the
+    ``elastic_group``, ``shell_group``, ``BODY_REV_G``) and the
     queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
     from nereus_tpu_torch.ops import cuda_sweep
@@ -789,8 +798,8 @@ def group_stats(key, args, kw):
         g = cuda_sweep.MP_DRHO_G
     elif key == "pressure_force_body_rev":
         g = cuda_sweep.BODY_REV_G
-    elif key == "pressure_force_body":
-        g = cuda_sweep.body_kappa_group(src.shape[0])
+    elif key in ("pressure_force_body", "drho_shell"):
+        g = cuda_sweep.shell_group(src.shape[0])
     else:
         g = cuda_sweep.density_group(n)
     busy = int(((e - s).clamp(min=0).sum(dim=0) > 0).sum())
@@ -1398,8 +1407,9 @@ def run_elastic(name, dev, plastic):
     positions and velocities; ``seg_overflow`` 0; ``max_stretch`` < 0.1
     and min y ≥ −0.01·spacing on every step; ``plastic``: E_p finite and
     traceless within 1e-5·max|E_p|. Then both kernels against their plain
-    versions at the path's shapes (its statics and ranges) on
-    :func:`deformed` positions, timed. Returns ``(timing, launches)``."""
+    versions at the path's shapes (its statics and pair list) on
+    :func:`deformed` positions, timed, and ElasticF so under each model of
+    ``MODELS``. Returns ``(timing, launches)``."""
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
     t0 = time.perf_counter()
@@ -1453,10 +1463,11 @@ def run_elastic(name, dev, plastic):
                 and tr <= 1e-5 * ep_max):
             fail(f"{name}: E_p not finite or not traceless ({tr} > "
                  f"1e-5·{ep_max})")
-    timing = compare_kernels(
-        cfg, elastic_kernel_ops(cfg, params, grid, statics,
-                                deformed(statics.x0, sp), ep),
-        f"{name}: its statics, deformed positions", time_it=True)
+    ops = elastic_kernel_ops(cfg, params, grid, statics,
+                             deformed(statics.x0, sp), ep)
+    label = f"{name}: its statics, deformed positions"
+    timing = compare_kernels(cfg, ops, label, time_it=True)
+    check_models(ops, ("elastic_f",), label)
     return timing, launches
 
 
@@ -1499,7 +1510,8 @@ def run_wcsph_elastic(name, dev):
     mean compression < 0.1; zero overflow. Prints how many body samples
     feel the fluid at the last step. Then every kernel of the path against
     its plain version at the path's shapes, timed: the elastic kernels on
-    the body's statics at :func:`deformed` positions; the fluid and contact
+    the body's statics at :func:`deformed` positions (ElasticF also under
+    each model of ``MODELS``); the fluid and contact
     kernels on the last state with the body moved, at its last velocities,
     into the middle of the fluid (at its own place the water has not
     reached it), FluidReaction also on its friction alone. Returns
@@ -1569,10 +1581,11 @@ def run_wcsph_elastic(name, dev):
         dim=1).gt(0).sum())
     print(f"{name}: {felt} of {statics.n} body samples feel the fluid at "
           "the last step")
-    timing = compare_kernels(
-        cfg, elastic_kernel_ops(cfg, params, grid, statics,
-                                deformed(statics.x0, sp), ep),
-        f"{name}: the body's statics, deformed positions", time_it=True)
+    eops = elastic_kernel_ops(cfg, params, grid, statics,
+                              deformed(statics.x0, sp), ep)
+    label = f"{name}: the body's statics, deformed positions"
+    timing = compare_kernels(cfg, eops, label, time_it=True)
+    check_models(eops, ("elastic_f",), label)
     centre = state.pos[:nf].mean(dim=0)
     inside = dataclasses.replace(
         body, pos=body.pos - body.pos.mean(dim=0) + centre)
@@ -1786,7 +1799,8 @@ def run_dfsph_coupled(name, dev, kind):
     velocities, into the middle of the fluid, the elastic kernels on the
     body's statics at :func:`deformed` positions; the block lowered until
     its bottom layer lies 0.5·h over the floor (in 60 steps it does not
-    reach the walls' support). Returns ``(timing, launches)``."""
+    reach the walls' support). The shell's Dρ/Dt and ElasticF also so
+    under each model of ``MODELS``. Returns ``(timing, launches)``."""
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
     from nereus_tpu_torch.solvers import dfsph_cuda
@@ -1894,8 +1908,11 @@ def run_dfsph_coupled(name, dev, kind):
                          f"{name} after {steps} steps, the body in "
                          "mid-fluid")
     ops.update(body_ops)
-    timing = compare_kernels(cfg, ops, f"{name} after {steps} steps",
-                             time_it=True)
+    label = f"{name} after {steps} steps"
+    timing = compare_kernels(cfg, ops, label, time_it=True)
+    if kind != "mp":
+        check_models(ops, ("drho_shell", "elastic_f") if elastic
+                     else ("drho_shell",), label)
     return timing, launches
 
 
@@ -1982,6 +1999,18 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
                 out[key] += (group_stats(key, args, kw),)
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
+
+
+def check_models(ops, keys, label):
+    """The kernels ``keys`` of ``ops`` (``{key: (kernel, plain, args,
+    kwargs)}``, a path's operands) against their plain versions under each
+    (kernel set, surface-tension model) of ``MODELS``, as
+    :func:`compare_kernels` holds them."""
+    import nereus_tpu_torch as nt
+    for ks, st in MODELS:
+        cfg = nt.SimConfig(kernel_set=nt.KernelSet[ks],
+                           surface_tension_model=nt.SurfaceTensionModel[st])
+        compare_kernels(cfg, ops, f"{label}, {ks}+{st}", keys=keys)
 
 
 def check_lambda(got, ref, pvec, label):
@@ -3104,8 +3133,7 @@ def ptxas_report(log):
             # the row-tiled kernels by name (their shared memory too)
             tag = (f"{entry}: " if "tiled_pair_sweep_kernel" in entry
                    or "group_pair_sweep_kernel" in entry
-                   or "group_list_sweep_kernel" in entry
-                   or "thread_sweep_kernel" in entry else "")
+                   or "group_list_sweep_kernel" in entry else "")
             print("  ptxas:", tag + line.strip())
             continue
         # template ints <KS[, ST, PRESSURE, VISC, MOVING], G>, then the

@@ -31,11 +31,18 @@
 // x y z vx | vy vz psi pad whose first C rows are the queries
 // (solvers/dfsph_cuda.py::KappaSweeps), so each iteration writes the
 // velocities once. G: ops/cuda_sweep.py::DRHO_G (the one instance
-// built). Drho over a rigid or elastic shell (the
-// DFSPH couplings) stays on pair_sweep_kernel, MaskedForm<Drho>, the
-// parent's unguarded walk: a shell's ranges are empty for nearly every
-// query, and a lane group's row scan of an empty query costs more than
-// one thread's (the rigid shells' density, +14-34 %: PERF.md section 6).
+// built).
+//
+// Drho over a rigid or elastic shell (the DFSPH couplings, as often as
+// Drho) is DrhoShell, the same pair over the shell's 9 rows, on the same
+// engine, group_pair_sweep_kernel<DrhoShell, KS, G>, at a G picked by the
+// shell's size (ops/cuda_sweep.py::shell_group, as the kappa impulse's).
+// Over a small shell (a rigid box's 56 samples) nearly every fluid
+// query's runs are empty and G 2 lanes scan them; over a large one (an
+// elastic cube's 4,096 samples in mid-fluid) the busy queries fill whole
+// warps, which G 8 lanes per query split. vy vz psi_b load only inside
+// the cutoff, where MaskedForm<Drho> on pair_sweep_kernel, the walk it
+// replaces, loaded every candidate's whole row and ran the pair masked.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   alpha: q (N, 4) x y z pad; src (M, 8) x y z 0 0 0 psi pad;
@@ -90,6 +97,12 @@ struct Drho {
   }
 };
 
+// Drho over a body shell's 9 range rows: the same pair, with the shell's
+// sample velocities and psi_b in the source row's slots 3-6
+struct DrhoShell : Drho {
+  static constexpr bool BOUNDARY_ROWS = false;
+};
+
 }  // namespace
 
 extern "C" {
@@ -99,7 +112,7 @@ NEREUS_PAIR_SWEEP(alpha, Alpha)
 NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<Alpha>)
 // the G of ops/cuda_sweep.py::DRHO_G
 NEREUS_GROUP_SWEEP(drho, Drho, 4)
-// over a body shell's 9 rows, one thread per query
-NEREUS_PAIR_SWEEP(drho_shell, MaskedForm<Drho>)
+// over a body shell's 9 rows, at the G of ops/cuda_sweep.py::shell_group
+NEREUS_GROUP_SWEEP(drho_shell, DrhoShell, 2, 8)
 
 }  // extern "C"

@@ -9,45 +9,46 @@
 // solvers/elastic_coupled.py::_estep_pallas; include_pressure=False, the
 // friction alone, in solvers/dfsph_elastic.py::_destep_pallas).
 //
-// Design. ElasticF and FluidReaction are functors of the range-walk
-// template pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
-// query, exact neighbor ranges, rows 0-8 only: BOUNDARY_ROWS = false), in
-// the operation order of nereus_tpu_torch/ops/sph_pairs.py, float32
-// without fast-math. The elastic functors read the REFERENCE positions X
-// for the geometry, the r^2 < h^2 cutoff and the spiky gradient scale; the
-// current positions are payload. The body's ranges over X are built once
-// when the body is made. A candidate outside the cutoff adds an exact 0 in
-// the plain version, so ElasticF returns before loading the rest of its
-// row.
+// Design. FluidReaction is a functor of the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per query,
+// exact neighbor ranges, rows 0-8 only: BOUNDARY_ROWS = false), in the
+// operation order of nereus_tpu_torch/ops/sph_pairs.py, float32 without
+// fast-math. A candidate outside the cutoff adds an exact 0 in the plain
+// version, so it returns before loading the rest of its row.
 //
-// ElasticForceHourglass fuses the force and the hourglass sweeps of the
-// TPU step (both read the same reference pairs after the F sweep) and
-// returns the two forces apart. It runs on the list form of the lane-group
-// engine, group_list_sweep_kernel<ElasticForceHourglass, KS, G> of
-// group_sweep.cuh, over the body's static pair list (ElasticStatics.
-// nbr_start, nbr: the pairs of the ranges with |X_ij|^2 < h^2, self pair
-// included, built once when the body is made). What held it back as a
-// range walk: one thread per query walking ~216 candidates of a lattice at
+// ElasticF (the deformation gradient's sum) and ElasticForceHourglass
+// (the force and the hourglass sweeps of the TPU step fused: both read
+// the same reference pairs after the F sweep; the two forces returned
+// apart) run on the list form of the lane-group engine,
+// group_list_sweep_kernel<P, KS, G> of group_sweep.cuh, over the body's
+// static pair list (ElasticStatics.nbr_start, nbr: the pairs of its
+// reference ranges with |X_ij|^2 < h^2, self pair included, built once
+// when the body is made, before its first F sweep). The elastic functors
+// read the REFERENCE positions X for the geometry and the spiky gradient
+// scale; the current positions are payload. What held them back as range
+// walks: one thread per query walking ~216 candidates of a lattice at
 // spacing h/2 in series, of which ~29 lie within h, the same ~85 % tested
 // and thrown away on every step, and at 4,096 queries (a 16^3 cube) 32
 // blocks on 132 SMs. What the design does: G lanes per query share the
-// query's ~29 list entries (one 4-byte index and one 96-byte row each), no
-// range rows, no row table, no cutoff test; G lanes per query put G times
-// as many warps on a small body. G by query count: ops/cuda_sweep.py::
-// elastic_group (only those instances are built). The same functor runs
-// on the range walk of group_pair_sweep_kernel, which tools/group_scan.py
-// builds to compare the two: measured on the H100 (PERF.md section 6),
-// the list took 0.195 ms at 512,000 queries (the best range walk 0.489)
-// and 0.0040 ms at 4,096 (0.0078).
+// query's ~29 list entries (one 4-byte index and one 32- or 96-byte row
+// each), no range rows, no row table and no cutoff test (the self pair
+// adds exactly 0: its X_ij is 0); G lanes per query put G times as many
+// warps on a small body. G by query count: ops/cuda_sweep.py::
+// elastic_group (only those instances are built). Measured on an NVIDIA
+// H100 80GB HBM3 at 700.00 W (PERF.md section 6): the force + hourglass
+// over the list took 0.195 ms at 512,000 queries (its best range walk
+// 0.489) and 0.0040 ms at 4,096 (0.0078); ElasticF 0.076 ms at 512,000
+// (the range walk 0.177) and 0.0032 at 4,096 (0.0345).
 //
-// Bound: ElasticF is bound by operations (every query walks ~216
-// candidates and reads rows that its neighbors also read);
-// ElasticForceHourglass by operations (~120 per pair inside h) over its
-// list; the reaction sweep by the query and range rows (a body's samples,
-// most with few fluid neighbors).
+// Bound: ElasticF by the bytes of its one matrix and its (N, 9) output
+// over the list (40 operations per pair), ElasticForceHourglass by
+// operations (~120 per pair); with the list's indices read, both by
+// bytes. The reaction sweep by the query and range rows (a body's
+// samples, most with few fluid neighbors).
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   ElasticF: q = src (N, 8) X0 X1 X2 x0 x1 x2 0 0 (the same matrix);
+//       nbr_start (N + 1,) and nbr (P,) int32, the static pair list;
 //       out (N, 9) sum_j (x_j - x_i)_a (s (X_i - X_j))_b at [3a + b]
 //   ElasticForceHourglass: q = src (N, 24) X(3) x(3) PC(9) F(9), PC = P C^T
 //       and F row-major; nbr_start (N + 1,) and nbr (P,) int32, the static
@@ -65,19 +66,20 @@ using namespace nereus_sweep;
 constexpr int PC = 6;   // PC_i in the 24-wide row
 constexpr int FM = 15;  // F_i in the 24-wide row
 
+// (x_j - x_i) (x) grad W(X_ij) of one pair of the list, a = X0 X1 X2 x0
+// of row j (the list admits the pair; the self pair adds exactly 0)
 struct ElasticF {
   static constexpr int QW = 8, SW = 8, OW = 9;
   static constexpr bool BOUNDARY_ROWS = false;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, 8, j, 0);  // X0 X1 X2 x0
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
     const float dx = q[0] - a.x;
     const float dy = q[1] - a.y;
     const float dz = q[2] - a.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 < p.h2)) return;
-    const float4 b = src_f4(src, 8, j, 1);  // x1 x2 0 0
+    const float4 b = src_f4(src, SW, j, 1);  // x1 x2 0 0
     float rl, invrl;
     rl_invrl(r2, rl, invrl);
     const float s = grad_scale_press<KS>(rl, invrl, p);
@@ -204,8 +206,8 @@ struct FluidReaction {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(elastic_f, ElasticF)
 // the G of ops/cuda_sweep.py::elastic_group
+NEREUS_LIST_SWEEP(elastic_f, ElasticF, 4, 16)
 NEREUS_LIST_SWEEP(elastic_force_hourglass, ElasticForceHourglass, 4, 16)
 
 // pair_sweep_kernel<FluidReaction<include_pressure>> on `stream`; returns

@@ -1,9 +1,8 @@
 // The lane-group walk of the neighbor sweeps, for Hopper (sm_90a): its
 // pieces (the row table of a query's flattened runs, the shuffle scan that
 // builds it, the walk, the group's fixed-order sum), used by the density
-// and force kernels of sph_sweep.cu, the engine they make for pair
-// functors, group_pair_sweep_kernel<P, KS, G>, and the one-thread walk of
-// the same functors over a small body shell, thread_sweep_kernel<P, KS>.
+// and force kernels of sph_sweep.cu, and the engine they make for pair
+// functors, group_pair_sweep_kernel<P, KS, G>, with its list form.
 //
 // The engine replaces the TPU kernel
 // nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel as
@@ -15,11 +14,12 @@
 // dfsph_multiphase_sweep.cu: multiphase_drho_pair + _bpair,
 // multiphase_kappa_pair + _bpair; iisph_sweep.cu's BodyPressureForce:
 // grad_pressure_force_pair(boundary=True, boundary_sign=-1) over a body
-// shell, forward and reverse). Its list form,
-// group_list_sweep_kernel<P, KS, G>, walks a static pair list instead of
-// the ranges: the elastic solid's reference pairs (elastic_sweep.cu,
-// elastic_force_pair + elastic_hourglass_pair as
-// nereus_tpu/solvers/elastic_pallas.py::_sweep launches them).
+// shell, forward and reverse; dfsph_sweep.cu's DrhoShell: drho_pair over
+// a body shell). Its list form, group_list_sweep_kernel<P, KS, G>, walks a
+// static pair list instead of the ranges: the elastic solid's reference
+// pairs (elastic_sweep.cu, elastic_f_pair and elastic_force_pair +
+// elastic_hourglass_pair as nereus_tpu/solvers/elastic_pallas.py::_sweep
+// launches them).
 //
 // What bounds a range-walk sweep on this card. Each query walks 9 (18 with
 // walls) short runs of 0-6 hash-sorted candidates; about 15 % of a 27-cell
@@ -66,17 +66,16 @@
 // wall sum scaled by the query's s_i / m_i), where a functor without one
 // writes its sums as (N, OW) rows.
 // MaskedForm<P> runs such a functor on pair_sweep_kernel (one thread per
-// query; the pair on every candidate, masked): a body shell's Drho,
-// multiphase Drho and multiphase kappa, whose queries are nearly all
-// without candidates.
+// query; the pair on every candidate, masked): a body shell's multiphase
+// Drho and multiphase kappa, whose queries are nearly all without
+// candidates.
 //
-// The one-thread walk. Over a small body shell nearly every fluid query's
-// runs are empty, and a lane group's scan of an empty query costs more
-// than one thread's (measured on the DFSPH couplings' shell Drho and kappa
-// impulse, PERF.md section 6). thread_sweep_kernel<P, KS> keeps one thread
-// per query but loads its 9 bounds at once (pair_sweep_kernel loads a
-// run's bounds after the previous run ends) and runs the pair only inside
-// the cutoff.
+// Over a body shell (the DFSPH couplings' kappa impulse and Drho, the
+// fluid rows as queries) nearly every query's runs are empty, and the
+// row scan of an empty query is most of the work: a small shell takes G 2
+// and a large one G 8 (ops/cuda_sweep.py::shell_group; measured against
+// one thread per query with its 9 bounds loaded at once, PERF.md section
+// 6).
 //
 // The list form. A sweep whose pairs never change (an elastic body's
 // neighbors in its reference positions X) walks a list built once, when
@@ -86,7 +85,10 @@
 // index load each, coalesced over the group), so there are no range rows,
 // no row table and no cutoff test: on the 80^3 body at spacing h/2 a
 // query's 9 runs hold ~216 candidates of which ~29 lie inside h, and the
-// range walk tests the other ~85 % on every step.
+// range walk tests the other ~85 % on every step. The list is built in
+// torch (ops/neighbors.py::cutoff_list) and the range walk tests r^2 in
+// the kernel, whose contracted multiply-adds may round a pair at the very
+// edge of h the other way; the spiky gradient is ~0 there.
 //
 // Numerics: float32, no fast-math; the functors keep the r^2 clamp before
 // rsqrtf (sweep_common.cuh).
@@ -312,78 +314,6 @@ struct MaskedForm {
   }
 };
 
-// ---------------------------------------------------------------------------
-// The one-thread walk of a lane-group functor over a small body shell
-// ---------------------------------------------------------------------------
-
-// The range walk of a lane-group functor P over 9 rows (BOUNDARY_ROWS
-// false), one thread per query: its 9 bounds loaded at once, its runs
-// walked in order, the pair only inside the cutoff. out (N, OW).
-template <class P, int KS>
-__global__ void __launch_bounds__(THREADS)
-thread_sweep_kernel(const float* __restrict__ q,
-                    const float* __restrict__ src,
-                    const int* __restrict__ seg_start,
-                    const int* __restrict__ seg_end, int n, int n_rows,
-                    const float* __restrict__ pv, float* __restrict__ out) {
-  static_assert(!P::BOUNDARY_ROWS, "the one-thread walk takes 9 range rows");
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int nr = min(n_rows, N_ROWS);
-  const Params p = load_params(pv);
-  float qv[P::QW];
-  load_row<P::QW>(q, i, qv);
-  if constexpr (HasPrologue<P>::value) P::prologue(qv, p);
-  int s[N_ROWS], e[N_ROWS];
-#pragma unroll
-  for (int r = 0; r < N_ROWS; ++r) {
-    s[r] = 0;
-    e[r] = 0;
-    if (r < nr) {
-      const size_t at = static_cast<size_t>(r) * n + i;
-      s[r] = __ldg(seg_start + at);
-      e[r] = __ldg(seg_end + at);
-    }
-  }
-  float acc[P::OW];
-#pragma unroll
-  for (int k = 0; k < P::OW; ++k) acc[k] = 0.0f;
-#pragma unroll
-  for (int r = 0; r < N_ROWS; ++r) {
-    for (int j = s[r]; j < e[r]; ++j) {
-      const float4 a = src_f4(src, P::SW, j, 0);
-      const float dx = qv[0] - a.x, dy = qv[1] - a.y, dz = qv[2] - a.z;
-      if (dx * dx + dy * dy + dz * dz < p.h2) {
-        P::template pair<KS, false>(qv, a, src, j, p, acc);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < P::OW; ++k) {
-    out[static_cast<size_t>(i) * P::OW + k] = acc[k];
-  }
-}
-
-// Launches thread_sweep_kernel<P, kernel_set> on `stream`; returns
-// cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
-template <class P>
-int launch_thread_sweep(const float* q, const float* src,
-                        const int* seg_start, const int* seg_end, int n,
-                        int n_rows, const float* pvec, int kernel_set,
-                        float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kernel_set == MULLER) {
-    thread_sweep_kernel<P, MULLER><<<blocks_for(n), THREADS, 0, st>>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, out);
-  } else if (kernel_set == MONAGHAN) {
-    thread_sweep_kernel<P, MONAGHAN><<<blocks_for(n), THREADS, 0, st>>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, out);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Launches group_pair_sweep_kernel<P, kernel_set, G> on `st`; returns
 // cudaGetLastError() (0 on success), or -1 for an unknown kernel set.
 template <class P, int G>
@@ -536,19 +466,5 @@ int launch_list_sweep(const float* q, const float* src, const int* nbr_start,
                             int group, float* out, void* stream) {           \
     return nereus_sweep::launch_group_sweep<PAIR, __VA_ARGS__>(             \
         q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, group, out, \
-        stream);                                                             \
-  }
-
-// The C entry point nereus_<NAME>_sweep of thread_sweep_kernel<PAIR>, for
-// use inside an extern "C" block: launches one kernel on `stream` and
-// returns cudaGetLastError() (0 on success), or -1 for an unknown kernel
-// set.
-#define NEREUS_THREAD_SWEEP(NAME, PAIR)                                      \
-  int nereus_##NAME##_sweep(const float* q, const float* src,               \
-                            const int* seg_start, const int* seg_end, int n, \
-                            int n_rows, const float* pvec, int kernel_set,   \
-                            float* out, void* stream) {                      \
-    return nereus_sweep::launch_thread_sweep<PAIR>(                        \
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,        \
         stream);                                                             \
   }

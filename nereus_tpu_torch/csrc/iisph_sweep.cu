@@ -64,12 +64,12 @@
 // pair_sweep_kernel: one thread per query, both float4s of every
 // candidate's 32-byte row loaded and the pair run masked. Two shapes want
 // opposite designs (PERF.md section 6). Forward, the 262,144 fluid rows
-// over a shell: nearly every query's runs are empty. Over a rigid box's 56
-// samples (under SMALL_SHELL) it runs thread_sweep_kernel of
-// group_sweep.cuh (one thread per query, all bounds in flight, the pair
-// only inside the cutoff); over an elastic cube's 4,096 samples in
-// mid-fluid, whose few thousand busy queries fill whole warps, the
-// lane-group engine at G 8.
+// over a shell: nearly every query's runs are empty. It runs on the
+// lane-group engine at the shell's G (ops/cuda_sweep.py::shell_group, as
+// the shell's Drho): G 2 over a rigid box's 56 samples (under
+// SMALL_SHELL), where 2 lanes scan an empty query's 9 rows; G 8 over an
+// elastic cube's 4,096 samples in mid-fluid, whose few thousand busy
+// queries fill whole warps.
 // Reverse, a body's 4,096 samples over the fluid rows: one thread per
 // sample put 32 blocks on the card; G 16 lanes per sample fill it.
 // BodyPressureForce loads kappa/rho or psi_b (slot 6) only inside the
@@ -233,24 +233,8 @@ NEREUS_GROUP_SWEEP(sum_dij, SumDij, 2)
 NEREUS_GROUP_SWEEP(jacobi, Jacobi, 4)
 NEREUS_TILED_SWEEP(pressure_force, PressureForce)
 // the DFSPH couplings' kappa impulse of a body shell on the fluid, the
-// fluid rows as queries, by the shell's size (ops/cuda_sweep.py::
-// body_kappa_group): group 1, thread_sweep_kernel (one thread per query);
-// group 8, lane groups. Returns cudaGetLastError() (0 on success), or -1
-// for an unknown kernel set or group.
-int nereus_pressure_force_body_sweep(const float* q, const float* src,
-                                     const int* seg_start,
-                                     const int* seg_end, int n, int n_rows,
-                                     const float* pvec, int kernel_set,
-                                     int group, float* out, void* stream) {
-  if (group == 1) {
-    return nereus_sweep::launch_thread_sweep<BodyPressureForce>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out,
-        stream);
-  }
-  return nereus_sweep::launch_group_sweep<BodyPressureForce, 8>(
-      q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, group, out,
-      stream);
-}
+// fluid rows as queries, at the G of ops/cuda_sweep.py::shell_group
+NEREUS_GROUP_SWEEP(pressure_force_body, BodyPressureForce, 2, 8)
 // the reverse kappa of the elastic coupling: a body's samples as queries
 // against the fluid rows, at ops/cuda_sweep.py::BODY_REV_G
 NEREUS_GROUP_SWEEP(pressure_force_body_rev, BodyPressureForce, 16)

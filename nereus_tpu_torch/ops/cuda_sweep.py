@@ -98,27 +98,27 @@ BODY_DENSITY = Kernel("density_sweep_kernel<body>")
 BODY_FORCE = Kernel("pair_sweep_kernel<BodyForce>")
 MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
 # the elastic solid's deformation gradient and fused force + hourglass
-# (over the body's static pair list), and the fluid's reaction on an
+# (both over the body's static pair list), and the fluid's reaction on an
 # elastic body's samples
-ELASTIC_F = Kernel("pair_sweep_kernel<ElasticF>")
+ELASTIC_F = Kernel("group_list_sweep_kernel<ElasticF>")
 ELASTIC_FORCE_HG = Kernel(
     "group_list_sweep_kernel<ElasticForceHourglass>")
 FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # the DFSPH couplings: the two contacts' friction alone, the body forms of
 # the DFSPH sweeps over a body shell (rows 0-8), and Alpha and Drho as they
-# are over a shell's 9 rows (Drho one thread per query), each counted
-# apart; the κ impulse forward (the fluid rows as queries over a shell)
-# and reverse (a body's samples as queries over the fluid rows) apart
+# are over a shell's 9 rows (Drho at the shell's G, as the forward κ
+# impulse), each counted apart; the κ impulse forward (the fluid rows as
+# queries over a shell) and reverse (a body's samples as queries over the
+# fluid rows) apart
 BODY_FORCE_P0 = Kernel("pair_sweep_kernel<BodyForce<PRESSURE=0>>")
 FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
 PRESSURE_FORCE_BODY = Kernel(
-    "thread_sweep_kernel<BodyPressureForce> (G 1) / "
-    "group_pair_sweep_kernel<BodyPressureForce> (G 8)")
+    "group_pair_sweep_kernel<BodyPressureForce><shell>")
 PRESSURE_FORCE_BODY_REV = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce>")
 ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<Alpha>>")
 ALPHA_SHELL = Kernel("pair_sweep_kernel<Alpha><body>")
-DRHO_SHELL = Kernel("pair_sweep_kernel<Drho><body>")
+DRHO_SHELL = Kernel("group_pair_sweep_kernel<DrhoShell>")
 MP_ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseAlpha>>")
 MP_DRHO_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseDrho>>")
 MP_KAPPA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseKappa>>")
@@ -303,12 +303,12 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
-              "jacobi": 1, "alpha": 0, "drho": 1, "drho_shell": 0,
+              "jacobi": 1, "alpha": 0, "drho": 1, "drho_shell": 1,
               "multiphase_density": 0, "multiphase_force": 3,
               "xsph": 0, "multiphase_alpha": 0,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
-              "multiphase_body": 0, "elastic_f": 0, "fluid_reaction": 1,
+              "multiphase_body": 0, "fluid_reaction": 1,
               "pressure_force_body": 1, "pressure_force_body_rev": 1,
               "alpha_body": 0,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
@@ -348,7 +348,7 @@ def _sweep(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
 
 # the C entry points nereus_<fn>_list_sweep(q, src, nbr_start, nbr, n,
 # pvec, kernel_set, group, out, stream) of group_list_sweep_kernel
-_LIST_FNS = ("elastic_force_hourglass",)
+_LIST_FNS = ("elastic_f", "elastic_force_hourglass")
 
 
 def _list(kernel: Kernel, fn: str, cfg: SimConfig, q, fq, src, fs,
@@ -574,39 +574,43 @@ def mp_force_group(n: int, moving_boundary=False) -> int:
     return 4 if n < SMALL_N or moving_boundary else 2
 
 
-# lanes per query G of the elastic force + hourglass kernel over its pair
-# list (``csrc/elastic_sweep.cu``, which builds only these), as measured on
-# the H100 (``tools/group_scan.py --solver elastic`` and ``wcsph_elastic``;
-# PERF.md section 6): 16 below ``SMALL_BODY`` queries (a 16³ cube's 4,096:
-# 8 took 13 % and 32 13 % more time), 4 above (the 80³ block's 512,000: 2
-# took 6 % and 8 10 % more); between the two sizes not measured.
+# lanes per query G of the two elastic kernels over the body's pair list,
+# the deformation gradient's and the force + hourglass
+# (``csrc/elastic_sweep.cu``, which builds only these), as measured on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (``tools/group_scan.py --solver
+# elastic`` and ``wcsph_elastic``; PERF.md section 6): 16 below
+# ``SMALL_BODY`` queries (a 16³ cube's 4,096: at 8 and 32 the force +
+# hourglass took 13 % more time, ElasticF 6 % and 10 %), 4 above (the 80³
+# block's 512,000: at 2 and 8 the force + hourglass took 6 % and 10 %
+# more, ElasticF 1 % and 19 %); between the two sizes not measured.
 SMALL_BODY = 2 ** 16
 
 
 def elastic_group(n: int) -> int:
-    """The elastic force + hourglass kernel's G for ``n`` queries."""
+    """The elastic kernels' G for ``n`` queries."""
     return 16 if n < SMALL_BODY else 4
 
 
-# The DFSPH couplings' κ impulse (``csrc/iisph_sweep.cu``, which builds only
-# these), as measured on the H100 (``tools/group_scan.py --solver
-# dfsph_elastic``, ``dfsph_coupled``; PERF.md section 6). Forward, the
-# fluid rows as queries over a body shell, by the shell's size: under
-# ``SMALL_SHELL`` samples (the rigid boxes' 56) G 1, one thread per query
-# with its 9 bounds loaded at once (``thread_sweep_kernel``; lane groups G
-# 4 took 14 % and G 8 96 % more than the parent's walk); over a larger
-# shell (an elastic cube's 4,096, in mid-fluid, whose busy queries fill
-# whole warps) G 8 (40 % under the parent's walk). Reverse, a body's
-# samples as queries over the fluid rows: 16 lanes per sample at the 16³
-# cube's 4,096, the one body size a path runs (G 4 took 86 %, G 8 29 % and
-# G 32 3 % more); the one instance built.
+# The DFSPH couplings' sweeps of the fluid rows as queries over a body shell,
+# the κ impulse (``csrc/iisph_sweep.cu``) and Dρ/Dt
+# (``csrc/dfsph_sweep.cu``), which build only these, by the shell's size, as
+# measured on an NVIDIA H100 80GB HBM3 at 700.00 W (``tools/group_scan.py
+# --solver dfsph_coupled``, ``dfsph_elastic``; PERF.md section 6): under
+# ``SMALL_SHELL`` samples (the rigid boxes' 56, nearly every query's runs
+# empty) G 2 (both 4-5 % under one thread per query with its 9 bounds loaded
+# at once; G 4 10-26 % over G 2); over a larger shell (an elastic cube's
+# 4,096, in mid-fluid, whose busy queries fill whole warps) G 8 (G 4 and 16
+# took 2-41 % more, one thread per query 35 %). The reverse κ impulse, a
+# body's samples as queries over the fluid rows: 16 lanes per sample at the
+# 16³ cube's 4,096, the one body size a path runs (G 4 took 86 %, G 8 29 %
+# and G 32 3 % more); the one instance built.
 BODY_REV_G = 16
 
 
-def body_kappa_group(m: int) -> int:
-    """The forward κ impulse's G over a shell of ``m`` samples (1: one
-    thread per query)."""
-    return 1 if m < SMALL_SHELL else 8
+def shell_group(m: int) -> int:
+    """The G of the sweeps over a body shell of ``m`` samples, the forward
+    κ impulse and Dρ/Dt."""
+    return 2 if m < SMALL_SHELL else 8
 
 
 def _density(kernel, cfg, q, src, seg_start, seg_end, pvec, rows, group):
@@ -824,11 +828,12 @@ def multiphase_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                   seg_end, pvec, (9,), 3)
 
 
-def elastic_f_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+def elastic_f_sweep(cfg: SimConfig, q, src, nbr_start, nbr, pvec):
     """Deformation-gradient accumulator (N, 9): q and src the body's
-    (N, 8) ``X x 0 0`` rows, its static ranges (9, N)."""
-    return _sweep(ELASTIC_F, "elastic_f", cfg, q, 8, src, 8, seg_start,
-                  seg_end, pvec, (9,), 9)
+    (N, 8) ``X x 0 0`` rows, its static pair list ``nbr_start`` (N + 1,),
+    ``nbr`` (P,) (``ElasticStatics``)."""
+    return _list(ELASTIC_F, "elastic_f", cfg, q, 8, src, 8, nbr_start, nbr,
+                 pvec, 9, elastic_group(q.shape[0]))
 
 
 def elastic_force_hourglass_sweep(cfg: SimConfig, q, src, nbr_start, nbr,
@@ -856,10 +861,10 @@ def pressure_force_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                               pvec):
     """The κ impulse −m·ψ_b·pd2_i·∇W of a body shell alone (N, 3): q (N, 4)
     ``x y z κ/ρ``, the shell (Mb, 8) with ψ_b in slot 6, ranges (9, N);
-    G by the shell's size (``body_kappa_group``)."""
+    G by the shell's size (``shell_group``)."""
     return _sweep(PRESSURE_FORCE_BODY, "pressure_force_body", cfg, q, 4, src,
                   8, seg_start, seg_end, pvec, (9,), 3,
-                  body_kappa_group(src.shape[0]))
+                  shell_group(src.shape[0]))
 
 
 def pressure_force_body_rev_sweep(cfg: SimConfig, q, src, seg_start,
@@ -887,9 +892,10 @@ def alpha_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 def drho_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Σψ_b(v_i − v_b)·∇W (N,) of a body shell with its sample velocities in
-    slots 3-5, counted in ``DRHO_SHELL``: q (N, 8), ranges (9, N)."""
+    slots 3-5, counted in ``DRHO_SHELL``: q (N, 8), ranges (9, N); G by the
+    shell's size (``shell_group``)."""
     return _sweep(DRHO_SHELL, "drho_shell", cfg, q, 8, src, 8, seg_start,
-                  seg_end, pvec, (9,), 0)
+                  seg_end, pvec, (9,), 0, shell_group(src.shape[0]))
 
 
 def multiphase_alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,

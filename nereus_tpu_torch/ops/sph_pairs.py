@@ -43,7 +43,7 @@ viscosity solve's ``visc_laplacian_sweep``, the three multiphase DFSPH
 sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
-``elastic_force_hourglass_sweep`` (over the body's static pair list,
+``elastic_force_hourglass_sweep`` (both over the body's static pair list,
 ``nbr_start`` and ``nbr`` in the places of the ranges), the elastic
 coupling's
 ``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
@@ -1168,11 +1168,12 @@ def pbf_omega_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
                                 seg_start, seg_end, 3)
 
 
-def elastic_f_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Σ_j (x_j − x_i) ⊗ ∇W(X_ij) (N, 9) over a body's static reference
-    ranges (9 rows): q and src the same (N, 8) ``X x 0 0`` rows."""
-    return neighbor_sweep_plain(_bind(elastic_f_pair, cfg, pvec), q, src,
-                                seg_start, seg_end, 9)
+def elastic_f_sweep_plain(cfg: SimConfig, q, src, nbr_start, nbr, pvec):
+    """Σ_j (x_j − x_i) ⊗ ∇W(X_ij) (N, 9) over a body's static pair list
+    (``ElasticStatics.nbr_start``, ``nbr``: the pairs of its reference
+    ranges within h): q and src the same (N, 8) ``X x 0 0`` rows."""
+    return list_sweep_plain(_bind(elastic_f_pair, cfg, pvec), q, src,
+                            nbr_start, nbr, 9)
 
 
 def elastic_force_hourglass_sweep_plain(cfg: SimConfig, q, src, nbr_start,

@@ -3,8 +3,9 @@
 
 - Neighborhoods, kernels and kernel gradients live in the REFERENCE
   configuration X, so the neighbor problem is solved once, when the body
-  is made: one hash sort and one set of exact cell ranges for the body's
-  whole lifetime (:class:`ElasticStatics`), and a step is sweeps plus
+  is made: one hash sort, one set of exact cell ranges and the pair list
+  of those ranges within h for the body's whole lifetime
+  (:class:`ElasticStatics`), and a step is two sweeps over the list plus
   batched 3×3 math, with no per-step sort.
 - Per particle the corrected deformation gradient
   ``F_i = V Σ_j (x_j − x_i) ⊗ ∇W(X_ij) · C_i`` with ``C_i = D_i⁻¹``,
@@ -103,16 +104,16 @@ class ElasticState:
 class ElasticStatics:
     """What is solved once, when the body is made: the hash-sorted
     reference positions, their exact cell ranges (9, N) over themselves,
-    the static pair list of those ranges within h (the force + hourglass
-    sweep walks it; derived from ``x0`` and h, never stored in a
-    checkpoint), and the gradient corrections C_i.
+    the static pair list of those ranges within h (both sweeps of a step
+    walk it; derived from ``x0`` and h, never stored in a checkpoint), and
+    the gradient corrections C_i.
 
     The JAX package keeps a TPU window plan here (``anchors``, ``hash_f32``
     and the window width ``win``): solid lattices at spacing h/2 hold ~8
     particles per cell, so ``make_elastic_solid`` there widens the windows
-    until the plan covers every reference pair. The port's kernels walk
-    the exact ranges, which cover every pair by construction, so there is
-    nothing to widen and ``miss`` is 0."""
+    until the plan covers every reference pair. The port's pair list comes
+    from the exact ranges, which cover every pair by construction, so
+    there is nothing to widen and ``miss`` is 0."""
 
     x0: torch.Tensor           # (N, 3) reference positions, hash-sorted
     sorted_hash: torch.Tensor  # (N,) int32, ascending
@@ -242,9 +243,9 @@ def make_elastic_solid(positions, params: SimParams, cfg: SimConfig,
                        device=None):
     """Make an elastic body on ``device`` (default: the CUDA device): sort
     the reference lattice by cell hash (stably, as the JAX package does,
-    so ``statics.x0`` comes in the same order), build its static ranges,
-    and compute the gradient corrections from one deformation-gradient
-    sweep at x = X. Returns ``(state, statics, grid)``.
+    so ``statics.x0`` comes in the same order), build its static ranges
+    and pair list, and compute the gradient corrections from one
+    deformation-gradient sweep at x = X. Returns ``(state, statics, grid)``.
 
     ``positions`` (N, 3) (:func:`sample_box_solid`); ``spacing`` the
     lattice constant (V = spacing³, m = ρV); ``fixed`` (N,) bool of pinned

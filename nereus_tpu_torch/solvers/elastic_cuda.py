@@ -1,8 +1,8 @@
 """The elastic step on the sweep kernels (the counterpart of
 ``nereus_tpu.solvers.elastic_pallas``).
 
-One step: the deformation-gradient sweep over the body's static reference
-ranges → F = V·raw·C and the batched constitutive math
+One step: the deformation-gradient sweep over the body's static pair
+list → F = V·raw·C and the batched constitutive math
 (:func:`~.elastic.stress_pc`, (N, 3, 3) ``bmm``/``einsum``) → one fused
 force + hourglass sweep → symplectic Euler (:func:`~.elastic._integrate`).
 The JAX package keeps the constitutive math in nine (N,) columns because
@@ -10,9 +10,9 @@ Mosaic tiles a rank-3 array's trailing (3, 3) to a full (8, 128) tile; on
 the GPU the batched form is a handful of launches.
 
 Both sweeps read one row per particle, the query and the source being the
-same matrix: ``X x 0 0`` (8 wide) for F, over the body's static ranges;
-``X x PC F`` (24 wide) for the forces, over its static pair list (the
-ranges' pairs within h, ``ElasticStatics.nbr_start``, ``nbr``). On CUDA
+same matrix, ``X x 0 0`` (8 wide) for F and ``X x PC F`` (24 wide) for
+the forces, over the body's static pair list (the pairs of its reference
+ranges within h, ``ElasticStatics.nbr_start``, ``nbr``). On CUDA
 tensors the sweeps are the hand-written kernels of
 ``csrc/elastic_sweep.cu``; on CPU tensors their plain PyTorch versions.
 """
@@ -29,11 +29,12 @@ from .elastic import (ElasticParams, ElasticState, ElasticStatics,
 
 
 def f_gradient_operands(statics: ElasticStatics, cur, pvec):
-    """The deformation-gradient sweep's ``(q, src, seg_start, seg_end,
-    pvec)``: one (N, 8) ``X x 0 0`` matrix as both query and source."""
+    """The deformation-gradient sweep's ``(q, src, nbr_start, nbr, pvec)``:
+    one (N, 8) ``X x 0 0`` matrix as both query and source, and the body's
+    static pair list."""
     z = torch.zeros_like(cur[:, :2])
     q = torch.cat([statics.x0, cur, z], dim=1)
-    return q, q, statics.seg_start, statics.seg_end, pvec
+    return q, q, statics.nbr_start, statics.nbr, pvec
 
 
 def f_gradient_sweep(statics: ElasticStatics, cur, params: SimParams,

@@ -5,13 +5,16 @@ sweeps), mirroring ``tests/test_elastic.py`` and
 * ``make_elastic_solid`` equals JAX's on the 8×4×4 bar: ``x0`` in the same
   order exactly, ``fixed`` exactly, the corrections within atol 1e-5;
   ``elastic_params`` equals JAX's field by field.
-* The plain twins of ``elastic_f_pair``, ``elastic_force_pair`` and
-  ``elastic_hourglass_pair`` (the fused force + hourglass sweep) against
-  JAX's pair functions summed over every pair within h, on the bar
-  stretched 2 % along x, sheared, rotated and perturbed by a seeded
-  non-affine noise of 0.05·spacing (the hourglass term is 0 on affine
-  motion), both kernel sets: max|Δ| ≤ 1e-5·max|ref| per column, JAX's
-  approximate reciprocal replaced by the exact one.
+* The plain twins of ``elastic_f_pair`` and of ``elastic_force_pair`` and
+  ``elastic_hourglass_pair`` (the fused force + hourglass sweep), both
+  over the body's static pair list, against JAX's pair functions summed
+  over every pair within h, on the bar stretched 2 % along x, sheared,
+  rotated and perturbed by a seeded non-affine noise of 0.05·spacing (the
+  hourglass term is 0 on affine motion), both kernel sets: max|Δ| ≤
+  1e-5·max|ref| per column, JAX's approximate reciprocal replaced by the
+  exact one. Over the list, both sweeps equal the same pair functions
+  walked over the body's (9, N) ranges within 1e-6·max|ref| (summation
+  order), and so does an elastic step whose F sweep walks the ranges.
 * ``elastic_step`` against JAX's segment oracle (``seg_window=64``) and
   JAX's Pallas step in interpret mode, over 3 steps from the 2 %-stretched
   bar: pos atol 1e-6, vel atol 1e-4, energy rtol 1e-3
@@ -155,7 +158,7 @@ def _operands(kernel_set, seed=0):
     ep = pt.elastic_params(1e5, 0.3, device="cpu")
     pc, _, _ = pt.solvers.elastic.stress_pc(f, pstat.corr, ep)
     hargs = elastic_cuda.force_operands(pstat, x, pc, f, ppv)
-    return pcfg, fargs, hargs, raw, (cfg, params, grid)
+    return pcfg, fargs, hargs, raw, (cfg, params, grid), pstat
 
 
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
@@ -164,7 +167,7 @@ def test_pair_twins_match_jax(exact_reciprocal, kernel_set):
     """The F accumulator, the elastic force and the hourglass force (the
     fused sweep's two halves) against JAX's pair functions over every pair
     within h; the hourglass is live (not all 0) on these operands."""
-    pcfg, fargs, hargs, raw, (cfg, params, grid) = _operands(kernel_set)
+    pcfg, fargs, hargs, raw, (cfg, params, grid), _ = _operands(kernel_set)
     pv = PS.build_pvec(params, cfg, grid)
     q8 = fargs[0].numpy()
     q24 = hargs[0].numpy()
@@ -236,17 +239,79 @@ def test_pair_list_sweep_matches_the_range_walk(kernel_set):
     same pair function walked over the body's (9, N) ranges (every pair
     outside h adds exactly 0 there) on the deformed bar, both kernel
     sets."""
-    pcfg, fargs, hargs, _, _ = _operands(kernel_set)
+    pcfg, _, hargs, _, _, pstat = _operands(kernel_set)
     q, src, ns, nb, pv = hargs
     got = SP.elastic_force_hourglass_sweep(pcfg, *hargs)
     walk = pt.ops.neighbors.neighbor_sweep_plain(
         lambda a, b: SP.elastic_force_hourglass_pair(
-            a, b, pv, kernel_set=pcfg.kernel_set), q, src, fargs[2],
-        fargs[3], 6)
-    assert int(nb.shape[0]) < int((fargs[3] - fargs[2]).sum())
+            a, b, pv, kernel_set=pcfg.kernel_set), q, src, pstat.seg_start,
+        pstat.seg_end, 6)
+    assert int(nb.shape[0]) < int((pstat.seg_end - pstat.seg_start).sum())
     assert float(got[:, 3:].abs().max()) > 0.0
     torch.testing.assert_close(got, walk, rtol=1e-6,
                                atol=1e-6 * float(walk.abs().max()))
+
+
+def _f_range_walk(cfg, q, src, seg_start, seg_end, pvec):
+    """The deformation-gradient sweep walked over the body's (9, N) ranges,
+    every candidate outside h adding exactly 0."""
+    return pt.ops.neighbors.neighbor_sweep_plain(
+        lambda a, b: SP.elastic_f_pair(a, b, pvec,
+                                       kernel_set=cfg.kernel_set),
+        q, src, seg_start, seg_end, 9)
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_f_list_sweep_matches_the_range_walk(kernel_set):
+    """The deformation-gradient sweep over the pair list (the dispatcher's
+    CPU route) equals ``elastic_f_pair`` walked over the body's ranges on
+    the deformed bar: max|Δ| ≤ 1e-6·max|ref| per column (the two sum in
+    another order)."""
+    pcfg, fargs, _, raw, _, pstat = _operands(kernel_set)
+    q, src, ns, nb, pv = fargs
+    assert torch.equal(ns, pstat.nbr_start) and torch.equal(nb, pstat.nbr)
+    got = SP.elastic_f_sweep(pcfg, *fargs)
+    assert torch.equal(got, raw)
+    walk = _f_range_walk(pcfg, q, src, pstat.seg_start, pstat.seg_end, pv)
+    assert_columns_close(got.numpy(), walk.numpy(), 1e-6, "F")
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_step_matches_the_range_walk_step(kernel_set, monkeypatch):
+    """One elastic step (``elastic_step_cuda`` on CPU tensors) from the
+    deformed bar, its F sweep over the pair list, against the same step
+    with the F sweep walked over the body's ranges: positions, velocities
+    and the diagnostics within 1e-6·max|ref| per column."""
+    cfg = dataclasses.replace(ORACLE, kernel_set=kernel_set)
+    pos, params, sp, _, (_, statics, grid) = _bar(cfg)
+    pstat, pgrid = _statics_to_port(statics, grid, params)
+    pcfg, pparams = _port_cfg(cfg), params_to_port(params)
+    ep = pt.elastic_params(1e5, 0.3, device="cpu")
+    x = _deformed(torch.from_numpy(np.asarray(statics.x0)), sp, 0)
+    state = convert.elastic_state_from_numpy(x.numpy(), np.zeros_like(
+        x.numpy()), device="cpu")
+    want_f = elastic_cuda.f_gradient_operands
+
+    def steps():
+        return elastic_cuda.elastic_step_cuda(state, pstat, pparams, ep,
+                                              pgrid, pcfg)
+    got, gd = steps()
+    monkeypatch.setattr(
+        elastic_cuda, "f_gradient_operands",
+        lambda st, cur, pv: (*want_f(st, cur, pv)[:2], st.seg_start,
+                             st.seg_end, pv))
+    monkeypatch.setattr(SP, "elastic_f_sweep", _f_range_walk)
+    ref, rd = steps()
+    assert float(ref.vel.abs().max()) > 0.0
+    for name in ("pos", "vel"):
+        assert_columns_close(getattr(got, name).numpy(),
+                             getattr(ref, name).numpy(), 1e-6, name)
+    for name in ("elastic_energy", "max_stretch", "max_speed"):
+        assert_columns_close(getattr(gd, name).reshape(1).numpy(),
+                             getattr(rd, name).reshape(1).numpy(), 1e-6,
+                             name)
 
 
 # ---------------------------------------------------------------------------

@@ -187,8 +187,8 @@ COUPLED_SWEEPS = {
                         cuda_sweep.multiphase_body_sweep, 8, 8, 9),
 }
 ELASTIC_SWEEPS = {
-    "elastic_f": (SP.elastic_f_sweep, cuda_sweep.elastic_f_sweep, 8, 8, 9),
     # 0 range rows: a static pair list (nbr_start, nbr) in their places
+    "elastic_f": (SP.elastic_f_sweep, cuda_sweep.elastic_f_sweep, 8, 8, 0),
     "elastic_force_hourglass": (SP.elastic_force_hourglass_sweep,
                                 cuda_sweep.elastic_force_hourglass_sweep,
                                 24, 24, 0),
@@ -1100,9 +1100,9 @@ def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set, large,
 @pytest.mark.requires_cuda
 def test_group_sweeps_build_only_their_g(cuda):
     """Each entry point of the lane-group engine launches at the G its
-    wrapper can pick (below and above ``SMALL_N`` queries; the forward κ
-    impulse's G 1 is its one-thread walk) and returns −1 for any other
-    group value, launching nothing."""
+    wrapper can pick (below and above ``SMALL_N`` queries, ``SMALL_SHELL``
+    shell samples or ``SMALL_BODY`` body samples) and returns −1 for any
+    other group value, launching nothing."""
     lib = cuda_sweep.load()
     picks = {
         "dii_aii": {cuda_sweep.DII_AII_G},
@@ -1114,30 +1114,31 @@ def test_group_sweeps_build_only_their_g(cuda):
         "pbf_grad": {cuda_sweep.PBF_GRAD_G},
         "drho": {cuda_sweep.DRHO_G},
         "multiphase_drho": {cuda_sweep.MP_DRHO_G},
-        # the κ impulse: forward by shell size, reverse at one G
-        "pressure_force_body": {
-            cuda_sweep.body_kappa_group(1),
-            cuda_sweep.body_kappa_group(cuda_sweep.SMALL_SHELL)},
+        # the κ impulse forward and Dρ/Dt over a shell by its size, the
+        # reverse κ impulse at one G
+        **{fn: {cuda_sweep.shell_group(1),
+                cuda_sweep.shell_group(cuda_sweep.SMALL_SHELL)}
+           for fn in ("pressure_force_body", "drho_shell")},
         "pressure_force_body_rev": {cuda_sweep.BODY_REV_G},
         # the multiphase force's four instances (st_model, moving)
         **{("multiphase_force", st, m): {
             cuda_sweep.mp_force_group(1, bool(m)),
             cuda_sweep.mp_force_group(cuda_sweep.SMALL_N, bool(m))}
            for st in (0, 1) for m in (0, 1)},
-        # the list form: the elastic force + hourglass over its pair list
-        "elastic_force_hourglass_list": {
-            cuda_sweep.elastic_group(1),
-            cuda_sweep.elastic_group(cuda_sweep.SMALL_BODY)}}
+        # the list form: the two elastic kernels over the body's pair list
+        **{f"{fn}_list": {cuda_sweep.elastic_group(1),
+                          cuda_sweep.elastic_group(cuda_sweep.SMALL_BODY)}
+           for fn in ("elastic_f", "elastic_force_hourglass")}}
     n = 8
     q = torch.zeros((n, 24), device=cuda)
     seg = torch.zeros((18, n), dtype=torch.int32, device=cuda)
     pv = _sweep_inputs("pbf_lambda", device=cuda)[4]
-    out = torch.zeros((n, 8), device=cuda)
+    out = torch.zeros((n, 16), device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     ks = nereus_tpu_torch.KernelSet.MULLER.value
     for fn, want in picks.items():
         rows = 9 if fn in ("sum_dij", "pbf_grad", "pressure_force_body",
-                           "pressure_force_body_rev") else 18
+                           "pressure_force_body_rev", "drho_shell") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
             if isinstance(fn, tuple):
@@ -1147,7 +1148,7 @@ def test_group_sweeps_build_only_their_g(cuda):
                     out.data_ptr(), stream)
             elif fn.endswith("_list"):
                 # an empty list: nbr_start all 0
-                rc = lib.nereus_elastic_force_hourglass_list_sweep(
+                rc = getattr(lib, f"nereus_{fn}_sweep")(
                     q.data_ptr(), q.data_ptr(), seg.data_ptr(),
                     seg.data_ptr(), n, pv.data_ptr(), ks, g, out.data_ptr(),
                     stream)
@@ -1441,13 +1442,16 @@ def test_elastic_kernels_match_plain_on_cuda(cuda, kernel_set):
 def test_elastic_list_kernel_groups_match_plain_on_cuda(cuda, kernel_set,
                                                         large, side,
                                                         monkeypatch):
-    """The elastic force + hourglass kernel over its pair list on a
-    deformed side³ block at spacing h/2 (16: a coupled cell's 4,096
-    samples; 80: elastic_512k's 512,000), at each lane-group size G its
-    wrapper can pick (``SMALL_BODY`` set so that the block takes the G of
-    a large body when ``large``, of a small one when not), against its plain
-    version: max|Δ| ≤ 1e-4·max|ref| per column, the hourglass half live;
-    the list holds as many pairs as the ranges hold within h."""
+    """The two elastic kernels over the body's pair list, the deformation
+    gradient's and the force + hourglass, on a deformed side³ block at
+    spacing h/2 (16: a coupled cell's 4,096 samples; 80: elastic_512k's
+    512,000), at each lane-group size G their wrappers can pick
+    (``SMALL_BODY`` set so that the block takes the G of a large body when
+    ``large``, of a small one when not), against their plain versions:
+    max|Δ| ≤ 1e-4·max|ref| per column, the hourglass half live; the F
+    kernel also against ``elastic_f_pair`` walked over the body's ranges
+    (the list is built in torch, the range walk tested r² < h² itself); the
+    list holds as many pairs as the ranges hold within h."""
     from nereus_tpu_torch.solvers import elastic_cuda
     from nereus_tpu_torch.solvers.elastic import stress_pc
     cfg, params, state, statics, grid, sp = _elastic_body(
@@ -1456,7 +1460,7 @@ def test_elastic_list_kernel_groups_match_plain_on_cuda(cuda, kernel_set,
     pv = SP.build_pvec(params, cfg, grid)
     ns, nb = statics.nbr_start, statics.nbr
     s, e = statics.seg_start, statics.seg_end
-    from nereus_tpu_torch.ops.neighbors import row_pairs
+    from nereus_tpu_torch.ops.neighbors import neighbor_sweep_plain, row_pairs
     inside = 0
     for r in range(9):
         qi, sj = row_pairs(s[r], e[r])
@@ -1464,19 +1468,27 @@ def test_elastic_list_kernel_groups_match_plain_on_cuda(cuda, kernel_set,
         inside += int(((d * d).sum(dim=1) < pv[SP.PV_H2]).sum())
     assert int(ns[-1]) == nb.shape[0] == inside
     x = _deformed(statics.x0, sp)
-    raw = SP.elastic_f_sweep_plain(
-        cfg, *elastic_cuda.f_gradient_operands(statics, x, pv))
+    fargs = elastic_cuda.f_gradient_operands(statics, x, pv)
+    raw = SP.elastic_f_sweep_plain(cfg, *fargs)
     f = torch.bmm(statics.vol * raw.reshape(-1, 3, 3), statics.corr)
     pc, _, _ = stress_pc(f, statics.corr,
                          nereus_tpu_torch.elastic_params(1e5, device=cuda))
     hargs = elastic_cuda.force_operands(statics, x, pc, f, pv)
+    g = cuda_sweep.elastic_group(statics.n)
     cuda_sweep.reset_launches()
+    got_f = cuda_sweep.elastic_f_sweep(cfg, *fargs)
+    _assert_columns_close(got_f, raw, f"elastic_f n={statics.n} G={g}")
+    walk = neighbor_sweep_plain(
+        lambda a, b: SP.elastic_f_pair(a, b, pv, kernel_set=cfg.kernel_set),
+        fargs[0], fargs[1], s, e, 9)
+    _assert_columns_close(got_f, walk, f"elastic_f n={statics.n} G={g} "
+                          "against the range walk")
     got = cuda_sweep.elastic_force_hourglass_sweep(cfg, *hargs)
     ref = SP.elastic_force_hourglass_sweep_plain(cfg, *hargs)
-    _assert_columns_close(got, ref, f"elastic_force_hg n={statics.n} G="
-                          f"{cuda_sweep.elastic_group(statics.n)}")
+    _assert_columns_close(got, ref, f"elastic_force_hg n={statics.n} G={g}")
     torch.cuda.synchronize()
-    _assert_launches({cuda_sweep.ELASTIC_FORCE_HG: 1})
+    _assert_launches({cuda_sweep.ELASTIC_F: 1,
+                      cuda_sweep.ELASTIC_FORCE_HG: 1})
 
 
 @pytest.mark.requires_cuda
@@ -1791,8 +1803,8 @@ def test_kappa_kernels_match_plain_on_cuda(cuda, kernel_set, large,
                                            monkeypatch):
     """On :func:`_warp_mix_operands`: the forward κ impulse at each G its
     wrapper picks (``SMALL_SHELL`` set so that the 1,024-row source takes
-    the lane groups of a large shell when ``large`` and the one-thread
-    walk when not), twice, bit for bit; the reverse at ``BODY_REV_G``; the
+    the G of a large shell when ``large`` and of a small one when not),
+    twice, bit for bit; the reverse at ``BODY_REV_G``; the
     multiphase κ correction over 18 rows: max|Δ| ≤ 1e-4·max|ref| per
     column of each warp."""
     monkeypatch.setattr(cuda_sweep, "SMALL_SHELL", 0 if large else 2 ** 31)
@@ -1804,7 +1816,7 @@ def test_kappa_kernels_match_plain_on_cuda(cuda, kernel_set, large,
     fwd = SP.pressure_force_body_sweep(cfg, *body, pv)
     assert torch.equal(SP.pressure_force_body_sweep(cfg, *body, pv), fwd)
     cases = [
-        (f"forward G={cuda_sweep.body_kappa_group(1024)}", fwd,
+        (f"forward G={cuda_sweep.shell_group(1024)}", fwd,
          SP.pressure_force_body_sweep_plain(cfg, *body, pv)),
         (f"reverse G={cuda_sweep.BODY_REV_G}",
          SP.pressure_force_body_rev_sweep(cfg, *body, pv),
@@ -1822,6 +1834,36 @@ def test_kappa_kernels_match_plain_on_cuda(cuda, kernel_set, large,
     _assert_launches({cuda_sweep.PRESSURE_FORCE_BODY: 2,
                       cuda_sweep.PRESSURE_FORCE_BODY_REV: 1,
                       cuda_sweep.MP_KAPPA: 1})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_shell_drho_matches_plain_on_cuda(cuda, kernel_set, large,
+                                          monkeypatch):
+    """On :func:`_warp_mix_operands` (8-wide queries and shell rows, 9
+    range rows): the shell's Dρ/Dt at each G its wrapper picks
+    (``SMALL_SHELL`` set so that the 1,024-row shell takes the G of a
+    large shell when ``large`` and of a small one when not),
+    twice, bit for bit, against its plain version: max|Δ| ≤ 1e-4·max|ref|
+    in each warp."""
+    monkeypatch.setattr(cuda_sweep, "SMALL_SHELL", 0 if large else 2 ** 31)
+    cfg, params, _, grid, _ = _scene(kernel_set, "NONE", False, cuda)
+    pv = SP.build_pvec(params, cfg, grid)
+    args = (*_warp_mix_operands(cuda, 8, 8, 9, seed=2), pv)
+    cuda_sweep.reset_launches()
+    got = SP.drho_shell_sweep(cfg, *args)
+    assert torch.equal(SP.drho_shell_sweep(cfg, *args), got)
+    ref = SP.drho_sweep_plain(cfg, *args)
+    key = f"drho shell G={cuda_sweep.shell_group(1024)}"
+    assert torch.isfinite(got).all(), key
+    assert float(ref.abs().max()) > 0.0, key
+    for w in range(0, len(ref), 32):
+        err = float((got[w:w + 32] - ref[w:w + 32]).abs().max())
+        scale = float(ref[w:w + 32].abs().max())
+        assert err <= 1e-4 * scale, (key, w, err, scale)
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.DRHO_SHELL: 2})
 
 
 @pytest.mark.requires_cuda

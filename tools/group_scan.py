@@ -9,9 +9,10 @@ CUDA card.
                                  mp_coupled|dfsph_mp_coupled|dfsph_coupled|
                                  dfsph_elastic]
         [--groups 1 2 4]
-        [--keys pbf_lambda pbf_dp pbf_grad drho elastic_force_hg mp_force
-                mp_force_moving mp_drho mp_drho_cols mp_kappa
-                pressure_force_body pressure_force_body_rev dii_aii]
+        [--keys pbf_lambda pbf_dp pbf_grad drho elastic_force_hg elastic_f
+                mp_force mp_force_moving mp_drho mp_drho_cols mp_kappa
+                pressure_force_body pressure_force_body_rev drho_shell
+                dii_aii]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -22,11 +23,13 @@ compiled at once, and prints ptxas's registers and spills of each
 instance. A key names its variants (``FUNCTORS``), each a functor and an
 engine: the range walk ``NEREUS_GROUP_SWEEP`` of ``csrc/group_sweep.cuh``
 (G 1 loads the next candidate's row ahead), its list form
-``NEREUS_LIST_SWEEP`` over a static pair list, the one-thread walk with
-all bounds loaded at once ``NEREUS_THREAD_SWEEP`` ("thread"), or
-``pair_sweep_kernel``'s one-thread walk ``NEREUS_PAIR_SWEEP`` (the
-parent's, "parent"; another functor's, "masked"). ``elastic_force_hg`` is the elastic
-force + hourglass kernel over the body's pair list; ``mp_force`` and
+``NEREUS_LIST_SWEEP`` over a static pair list, or ``pair_sweep_kernel``'s
+one-thread walk ``NEREUS_PAIR_SWEEP`` (the parent's, "parent"; another
+functor's, "masked"). ``elastic_force_hg``
+is the elastic force + hourglass kernel over the body's pair list,
+``elastic_f`` the deformation-gradient kernel over it ("G") beside the
+same pair walked over the body's (9, N) ranges by ``pair_sweep_kernel``,
+the candidate tested against the cutoff first ("parent"); ``mp_force`` and
 ``mp_force_moving`` the multiphase force's Becker instances (static and
 moving walls); ``mp_drho`` the dδ̂/dt kernel, which forms its one (N,)
 rate in its epilogue, and ``mp_drho_cols`` the same walk without the
@@ -34,16 +37,18 @@ epilogue, writing the fluid and wall sums as two columns, timed with the
 multiply and add that then form the rate (``d[:, 0] + q[:, 6] * d[:, 1]``)
 and checked after them; ``mp_kappa`` the κV̂² correction (the lane groups
 by G beside the port's one-thread walk); ``pressure_force_body`` the κ
-impulse of a body shell on the fluid (the one-thread walk, the lane groups
-by G, ``MaskedForm<BodyPressureForce>`` on ``pair_sweep_kernel``, the
+impulse of a body shell on the fluid (the lane groups by G,
+``MaskedForm<BodyPressureForce>`` on ``pair_sweep_kernel``, the
 parent's ``BoundaryForm<PressureForce>``) and ``pressure_force_body_rev``
-its reverse, a body's samples over the fluid rows; ``dii_aii`` IISPH's
-pre-loop sweep of d_ii, ρ_adv and a_ii on the port's one (C + Mb, 12)
-matrix ("G") and on the parent's two operands ("split": a (C, 12) query
-``x y z v_adv v 1/ρ² 0 0`` beside an 8-wide source ``x y z v_adv m 0``,
-walls ``x y z v_b ψ_b 0``), each at every G, and each also timed with
-its operands built as a step builds them ("columns": the one matrix
-stacked column by column into its rows).
+its reverse, a body's samples over the fluid rows; ``drho_shell`` Dρ/Dt over
+a body shell (the lane groups by G, ``MaskedForm<Drho>`` on
+``pair_sweep_kernel``, "masked"); ``dii_aii`` IISPH's pre-loop sweep of
+d_ii, ρ_adv and a_ii on the port's one (C + Mb, 12) matrix ("G") and on the
+parent's two operands ("split": a (C, 12) query ``x y z v_adv v 1/ρ² 0 0``
+beside an 8-wide source ``x y z v_adv m 0``, walls ``x y z v_b ψ_b 0``),
+each at every G, and each also timed with its operands built as a step
+builds them ("columns": the one matrix stacked column by column into its
+rows).
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
@@ -91,14 +96,16 @@ from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx  # noqa
 
 # key → (source of its functor, [(variant, engine, functor)]): engine
 # "ranges" (NEREUS_GROUP_SWEEP) or "list" (NEREUS_LIST_SWEEP), scanned over
-# --groups; "thread" (NEREUS_THREAD_SWEEP) or "pair" (NEREUS_PAIR_SWEEP),
-# the one-thread walks, once
+# --groups; "pair" (NEREUS_PAIR_SWEEP), a one-thread walk, once
 FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
             "pbf_dp": ("pbf_sweep.cu", [("G", "ranges", "PbfDp")]),
             "pbf_grad": ("pbf_sweep.cu", [("G", "ranges", "PbfGrad")]),
             "drho": ("dfsph_sweep.cu", [("G", "ranges", "Drho")]),
             "elastic_force_hg": ("elastic_sweep.cu",
                                  [("G", "list", "ElasticForceHourglass")]),
+            "elastic_f": ("elastic_sweep.cu", [
+                ("G", "list", "ElasticF"),
+                ("parent", "pair", "ElasticFRange")]),
             "mp_force": ("multiphase_sweep.cu",
                          [("G", "ranges", "MultiphaseForce<true, false>")]),
             "mp_force_moving": ("multiphase_sweep.cu", [
@@ -111,7 +118,6 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("G", "ranges", "MultiphaseKappa"),
                 ("parent", "pair", "MultiphaseKappa")]),
             "pressure_force_body": ("iisph_sweep.cu", [
-                ("thread", "thread", "BodyPressureForce"),
                 ("G", "ranges", "BodyPressureForce"),
                 ("masked", "pair",
                  "nereus_sweep::MaskedForm<BodyPressureForce>"),
@@ -121,12 +127,33 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("G", "ranges", "BodyPressureForce"),
                 ("parent", "pair",
                  "nereus_sweep::BoundaryForm<PressureForce>")]),
+            "drho_shell": ("dfsph_sweep.cu", [
+                ("G", "ranges", "DrhoShell"),
+                ("masked", "pair", "nereus_sweep::MaskedForm<Drho>")]),
             "dii_aii": ("iisph_sweep.cu", [
                 ("G", "ranges", "DiiAii"),
                 ("columns", "ranges", "DiiAii"),
                 ("split", "ranges", "DiiAiiSplit")])}
-# functors the scan file defines: dδ̂/dt's pair without its epilogue
-SCAN_FUNCTORS = {"MultiphaseDrhoCols": """
+# functors the scan file defines: dδ̂/dt's pair without its epilogue,
+# ElasticF's pair behind the range walk's cutoff test
+SCAN_FUNCTORS = {"ElasticFRange": """
+struct ElasticFRange {
+  static constexpr int QW = ElasticF::QW, SW = ElasticF::SW,
+                       OW = ElasticF::OW;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 a = nereus_sweep::src_f4(src, SW, j, 0);
+    const float dx = q[0] - a.x;
+    const float dy = q[1] - a.y;
+    const float dz = q[2] - a.z;
+    if (!(dx * dx + dy * dy + dz * dz < p.h2)) return;
+    ElasticF::pair<KS, B>(q, a, src, j, p, acc);
+  }
+};
+""", "MultiphaseDrhoCols": """
 struct MultiphaseDrhoCols {
   static constexpr int QW = MultiphaseDrho::QW, SW = MultiphaseDrho::SW,
                        OW = MultiphaseDrho::OW;
@@ -189,8 +216,20 @@ def split_operands(args):
     return (torch.cat([q[:, :6], q[:, 7:11], z], dim=1), src8, s, e, pv)
 
 
+# the elastic body's (9, N) reference ranges, for ElasticF's range walk
+RANGES = {}
+
+
+def range_operands(args):
+    """ElasticF's pair-list operands with the body's ranges in the list's
+    places."""
+    q, src, _, _, pv = args
+    return (q, src, *RANGES["elastic"], pv)
+
+
 # variants fed other operands than the wrapper's: functor → converter
-VARIANT_OPERANDS = {"DiiAiiSplit": split_operands}
+VARIANT_OPERANDS = {"DiiAiiSplit": split_operands,
+                    "ElasticFRange": range_operands}
 
 
 def dii_aii_builders(ctx, params, args):
@@ -227,29 +266,29 @@ BUILDERS = {}
 # the keys each path's operands feed
 PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
              "dfsph": ("drho",),
-             "elastic": ("elastic_force_hg",),
+             "elastic": ("elastic_force_hg", "elastic_f"),
              "multiphase": ("mp_force",),
              "multiphase_wavemaker": ("mp_force_moving",),
              "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols", "mp_kappa"),
              "mp_coupled": ("mp_force",),
              "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols",
                                   "mp_kappa"),
-             "dfsph_coupled": ("pressure_force_body",),
+             "dfsph_coupled": ("pressure_force_body", "drho_shell"),
              "dfsph_elastic": ("pressure_force_body",
-                               "pressure_force_body_rev"),
+                               "pressure_force_body_rev", "drho_shell"),
              "iisph": ("dii_aii",)}
 MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
               "dfsph_mp_coupled")
 BODY_SOLVERS = ("dfsph_coupled", "dfsph_elastic")
 SCAN_DIR = os.path.join(cuda_sweep.BUILD_DIR, "scan")
 MACROS = {"ranges": "NEREUS_GROUP_SWEEP", "list": "NEREUS_LIST_SWEEP",
-          "thread": "NEREUS_THREAD_SWEEP", "pair": "NEREUS_PAIR_SWEEP"}
+          "pair": "NEREUS_PAIR_SWEEP"}
 
 
 def build(keys, groups):
     """``{(key, variant): ctypes function}``: entry
     ``nereus_scan_<key>_<k>_sweep`` (``_list_sweep``) per variant k of each
-    key, built for ``groups`` (the one-thread walks once),
+    key, built for ``groups`` (a one-thread walk once),
     one library per source file, compiled at once; prints ptxas's report of
     their instances."""
     os.makedirs(SCAN_DIR, exist_ok=True)
@@ -300,8 +339,7 @@ def build(keys, groups):
                 else:
                     f = getattr(lib, f"nereus_scan_{key}_{k}_sweep")
                     f.argtypes = ([ptr, ptr, ptr, ptr, i32, i32, ptr, i32]
-                                  + ([] if engine in ("pair", "thread")
-                                     else [i32])
+                                  + ([] if engine == "pair" else [i32])
                                   + [ptr, ptr])
                 f.restype = i32
                 fns[key, variant] = (f, engine, values.get(engine, [None]),
@@ -363,9 +401,10 @@ def path_operands(solver, keys, dev):
          sp) = smoke.wcsph_elastic_scene(dev)
     ops = smoke.elastic_kernel_ops(cfg, params, grid, statics,
                                    smoke.deformed(statics.x0, sp), ep)
-    kern, _, a, kw = ops["elastic_force_hg"]
-    return cfg, {"elastic_force_hg": (kern, a, kw)}, (
-        f"{statics.n} queries, {int(a[3].shape[0])} pairs in the list")
+    RANGES["elastic"] = (statics.seg_start, statics.seg_end)
+    return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()}, (
+        f"{statics.n} queries, {int(statics.nbr.shape[0])} pairs in the "
+        "list")
 
 
 def mp_operands(solver, dev):
@@ -438,7 +477,8 @@ def body_operands(solver, dev):
     """``path_operands`` of ``dfsph_coupled_256k`` and
     ``dfsph_elastic_256k`` (``dfsph_coupled_scene``, ``kind`` "rigid" and
     "elastic", 60 steps): the κ impulse forward (``pressure_force_body``)
-    and, on the elastic path, reverse (``pressure_force_body_rev``), with
+    and, on the elastic path, reverse (``pressure_force_body_rev``), and
+    the shell's Dρ/Dt (``drho_shell``), with
     the body moved into the middle of the lowered fluid as
     ``run_dfsph_coupled`` holds them (``dfsph_coupled_held_ops``)."""
     kind = "elastic" if solver == "dfsph_elastic" else "rigid"

@@ -63,14 +63,17 @@ a_ii (key ``dii_aii``, which an earlier checkout runs as two, keys
 sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
 confinement, N (key ``pbf_grad``, which an earlier checkout computes with
 its λ kernel) and ω, at the state advected from the final one (pbf*),
-Dρ/Dt (dfsph*, ``dfsph_operands``; with the pressure force at
-dfsph_coupled), the multiphase density and force (multiphase,
+Dρ/Dt (dfsph*, ``dfsph_operands``; with the pressure force at dfsph_coupled;
+and over the body's shell at dfsph_coupled and dfsph_elastic, key
+``drho_shell``, from ``dfsph_coupled_held_ops``, the body in the middle of
+the lowered fluid), the multiphase density and force (multiphase,
 ``multiphase_operands``; MultiphaseForce<MOVING> under the wavemaker) and
 the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
 dfsph_mp_coupled, ``mp_dfsph_operands``), and the elastic kernels on the
 body's statics at ``deformed`` positions (elastic, wcsph_elastic,
-dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches captured in a CUDA graph, the replay timed with
-CUDA events, the better of two), and prints a hash of each output. Pair k
+dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches captured
+in a CUDA graph, the replay timed with CUDA events, the better of two), and
+prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
 On the paths driven by ``run_steps`` (all but wcsph, wcsph_visc and
 wcsph_wide12M; multiphase and multiphase_wavemaker too) each run also
@@ -363,6 +366,12 @@ else:
         kern, args, kw = ops.pop("mp_force")
         ops["mp_force_moving"] = (kern, args,
                                   {**kw, "moving_boundary": True})
+if solver in ("dfsph_coupled", "dfsph_elastic"):
+    _, body_ops = own.dfsph_coupled_held_ops(
+        cfg, params, state, grid, boundary, held["body"], body,
+        "rigid" if solver == "dfsph_coupled" else "elastic")
+    kern, _, args, kw = body_ops["drho_shell"]
+    ops["drho_shell"] = (kern, args, kw)
 kernels = {}
 for key, (kern, args, kw) in ops.items():
     out = kern(cfg, *args, **kw)
