@@ -58,9 +58,10 @@ Phases, in order; any failure exits non-zero:
     ``multiphase_1M`` (the top half by y at 0.3·ρ₀, mass ρ0_i/ρ₀·m), fed
     the operands of its first multiphase step built by the step's own
     operand functions, both kernel sets × {NONE, BECKER with st_cross =
-    0.25}; and the XSPH kernel on the first XSPH step's operands of the
-    single-phase dam-break, both kernel sets (max|Δ| ≤ 1e-4·max|ref| per
-    output column, and finite);
+    0.25}; and the XSPH kernel (``group_pair_sweep_kernel<Xsph>``) on the
+    first XSPH step's one (C, 8) operand matrix of the single-phase
+    dam-break, both kernel sets (max|Δ| ≤ 1e-4·max|ref| per output column,
+    and finite);
 11. the multiphase main path, ``bench.py``'s ``multiphase_1M``: phase 4's
     dam-break with its boundary shell, split in two phases, 300
     ``wcsph_step`` calls at dt = 1e-3, steps 51-300 timed with CUDA
@@ -70,9 +71,10 @@ Phases, in order; any failure exits non-zero:
     mean height above the heavy phase's; then both kernels against their
     plain versions at these shapes, timed in turns;
 12. the XSPH path ``wcsph_1M_xsph``: phase 4's dam-break, 300 steps with
-    ``xsph_eps = 0.3``, phase 4's gates plus one XSPH launch per step; then
-    the density, force and XSPH kernels against their plain versions at
-    these shapes, timed in turns;
+    ``xsph_eps = 0.3``, phase 4's gates plus one XSPH launch
+    (``group_pair_sweep_kernel<Xsph>``) per step; then the density, force
+    and XSPH kernels against their plain versions at these shapes, timed
+    in turns;
 13. the force kernel's two instances without viscosity and wall friction
     (pressure on and off) and the viscous-Laplacian kernel against their
     plain versions on the phase-3 dam-break (DFSPH parameters at ν = 5,
@@ -124,8 +126,10 @@ Phases, in order; any failure exits non-zero:
 20. the PBF path ``pbf_1M_vort_xsph``: phase 18's dam-break with
     ``xsph_eps = 0.02`` and ``vorticity_eps = 0.01`` (the CLI's ``--solver
     pbf --xsph 0.02 --vorticity 0.01``), 300 steps, phase 18's gates with
-    N, ω and XSPH launched once per step; then the λ, Δp, N, ω and XSPH
-    kernels against their plain versions at these shapes, timed.
+    N, ω and XSPH launched once per step (ω and XSPH the lane-group
+    ``group_pair_sweep_kernel<PbfOmega>`` and ``<Xsph>``, each on its one
+    (C, 8) matrix); then the λ, Δp, N, ω and XSPH kernels against their
+    plain versions at these shapes, timed.
 
 21. the moving-wall kernels against their plain versions on the phase-3
     dam-break with its walls moving at (0.8, 0, −0.4) m/s
@@ -307,20 +311,21 @@ neighbor sweep must move (the queries, each source row once with a 4-byte
 cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
 over 67 TFLOP/s, the H100 SXM's published float32 peaks. The reaction,
-density, force, SumDij, Jacobi, PBF, Dρ/Dt (over the fluid and walls and
-over a shell), multiphase force, dδ̂/dt and κ impulse kernels stop after
-the geometry on a candidate outside the cutoff: there only those
-operations count (``GUARDED``), and the candidates inside the cutoff are
-counted from this run's positions. The two elastic kernels (ElasticF and
-the force + hourglass) walk the body's static pair list, every pair
-inside the cutoff (``LISTED``): their operations are the list's pairs ×
-the pair's, the work inside the cutoff whatever walks it. The elastic
-and SumDij sweeps read one matrix as queries and source, the density,
-force, PBF, Dρ/Dt, multiphase force and dδ̂/dt sweeps one whose first
-rows are the queries: its bytes count once. SumDij, Jacobi, PBF's,
-Dρ/Dt, the multiphase force, dδ̂/dt, the κV̂² correction, the κ impulse,
-the two elastic kernels and the one-thread walks count only the columns
-their pairs read (``READ_BYTES``) and no cell key.
+density, force, SumDij, Jacobi, PBF (ω included), XSPH, Dρ/Dt (over the
+fluid and walls and over a shell), multiphase force, dδ̂/dt and κ impulse
+kernels stop after the geometry on a candidate outside the cutoff: there
+only those operations count (``GUARDED``), and the candidates inside the
+cutoff are counted from this run's positions. The two elastic kernels
+(ElasticF and the force + hourglass) walk the body's static pair list,
+every pair inside the cutoff (``LISTED``): their operations are the
+list's pairs × the pair's, the work inside the cutoff whatever walks it.
+The elastic, SumDij, N, ω and XSPH sweeps read one matrix as queries and
+source, the density, force, PBF, Dρ/Dt, multiphase force and dδ̂/dt
+sweeps one whose first rows are the queries: its bytes count once.
+SumDij, Jacobi, PBF's, XSPH, Dρ/Dt, the multiphase force, dδ̂/dt, the
+κV̂² correction, the κ impulse, the two elastic kernels and the
+one-thread walks count only the columns their pairs read
+(``READ_BYTES``) and no cell key.
 ``bound_ranges_ms`` is the same bound of this port's interface, which
 also reads the (9 or 18, N) int32 range rows the port builds per step
 (the pair list of a ``LISTED`` kernel).
@@ -471,7 +476,7 @@ GUARDED = {"drho_shell": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
            "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9,
            "pressure_force_body": 9, "pressure_force_body_rev": 9,
-           "dii_aii": 9}
+           "dii_aii": 9, "xsph": 9, "pbf_omega": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -503,21 +508,21 @@ LISTED = ("elastic_force_hg", "elastic_f")
 # source rows all of one kind: no wall bytes, None); IISPH's d_ii, rho_adv
 # and a_ii one matrix, its fluid rows the queries: x y z v_adv m v 1/rho^2
 # of a fluid row (the union with the query: 44 bytes), x y z v_b psi_b of
-# a wall row. The one-thread walks: alpha x y z of a query, x y z psi of a
-# fluid or wall row (over a shell alpha_body and alpha_shell the same);
-# XSPH x y z v rho of a query and of a fluid row; omega's one matrix
-# x y z v m/rho; the multiphase density x y z of a query and a fluid row,
-# x y z psi_b of a wall row; the multiphase alpha sums x y z of a query,
-# x y z 1/m_j or x y z psi_b of a source row (over a shell the same); the
-# shell's multiphase d delta-hat / dt x y z v of a query, x y z v_b psi_b
-# of a shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z
-# psi_b of a shell row; the body contact x y z v rho pd2 of a query (no
-# pd2 without the pressure), x y z v_b psi_b of a shell row; the
-# multiphase body contact x y z v bp fr of a query; the fluid reaction
-# x y z v_b psi of a sample, x y z v rho of a fluid row. Their bound
-# counts these and no cell key: the port's ranges are exact, so no kernel
-# reads a key. Where the queries are the source's first rows they are
-# read once.
+# a wall row; XSPH's one matrix x y z v rho of a row (x y z vx alone for a
+# candidate outside the cutoff), omega's x y z v m/rho (x y z vx alone
+# outside), each the queries and the source. The one-thread walks: alpha x y
+# z of a query, x y z psi of a fluid or wall row (over a shell alpha_body
+# and alpha_shell the same); the multiphase density x y z of a query and a
+# fluid row, x y z psi_b of a wall row; the multiphase alpha sums x y z of a
+# query, x y z 1/m_j or x y z psi_b of a source row (over a shell the same);
+# the shell's multiphase d delta-hat / dt x y z v of a query, x y z v_b
+# psi_b of a shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z
+# psi_b of a shell row; the body contact x y z v rho pd2 of a query (no pd2
+# without the pressure), x y z v_b psi_b of a shell row; the multiphase body
+# contact x y z v bp fr of a query; the fluid reaction x y z v_b psi of a
+# sample, x y z v rho of a fluid row. Their bound counts these and no cell
+# key: the port's ranges are exact, so no kernel reads a key. Where the
+# queries are the source's first rows they are read once.
 READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pbf_lambda": (12, 12, 16), "pbf_dp": (16, 16, 16),
               "pbf_grad": (16, 16, 0), "drho": (24, 28, 28),
@@ -545,7 +550,7 @@ GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
            "elastic_force_hg", "elastic_f", "mp_force", "mp_force_moving",
            "mp_drho", "pressure_force_body", "pressure_force_body_rev",
-           "drho_shell", "dii_aii")
+           "drho_shell", "dii_aii", "xsph", "pbf_omega")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -760,7 +765,8 @@ def group_stats(key, args, kw):
     """The lane-group size G the kernel's wrapper takes for these operands
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``DII_AII_G``, ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``,
-    ``pbf_dp_group``, ``PBF_GRAD_G``, ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
+    ``pbf_dp_group``, ``PBF_GRAD_G``, ``PBF_OMEGA_G``, ``XSPH_G``,
+    ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
     ``elastic_group``, ``shell_group``, ``BODY_REV_G``) and the
     queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
@@ -790,6 +796,10 @@ def group_stats(key, args, kw):
         g = cuda_sweep.pbf_dp_group(n)
     elif key == "pbf_grad":
         g = cuda_sweep.PBF_GRAD_G
+    elif key == "pbf_omega":
+        g = cuda_sweep.PBF_OMEGA_G
+    elif key == "xsph":
+        g = cuda_sweep.XSPH_G
     elif key == "drho":
         g = cuda_sweep.DRHO_G
     elif key.startswith("mp_force"):

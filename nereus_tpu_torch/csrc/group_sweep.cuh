@@ -9,8 +9,9 @@
 // nereus_tpu/ops/pallas_sph.py::generic_sweep launches it, for the pair
 // functions whose functors it runs (iisph_sweep.cu: sum_dij_pair,
 // jacobi_fluid_pair + jacobi_boundary_pair; pbf_sweep.cu: pbf_lambda_pair,
-// pbf_dp_pair; dfsph_sweep.cu: drho_pair; multiphase_sweep.cu:
-// multiphase_force_pair + multiphase_boundary_pair;
+// pbf_dp_pair, pbf_omega_pair; dfsph_sweep.cu: drho_pair;
+// multiphase_sweep.cu: multiphase_force_pair + multiphase_boundary_pair,
+// xsph_pair;
 // dfsph_multiphase_sweep.cu: multiphase_drho_pair + _bpair,
 // multiphase_kappa_pair + _bpair; iisph_sweep.cu's BodyPressureForce:
 // grad_pressure_force_pair(boundary=True, boundary_sign=-1) over a body

@@ -11,7 +11,7 @@
 // velocity in slots 3-5 of the boundary source row), and xsph_pair
 // (wcsph_step_pallas with xsph_eps).
 //
-// Design. The density and XSPH functors run on the range-walk template
+// Design. The density functor runs on the range-walk template
 // pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
 // hash-sorted query, exact neighbor ranges), in the operation order of
 // nereus_tpu_torch/ops/sph_pairs.py. The self pair stays in the ranges:
@@ -39,6 +39,17 @@
 // once. G: ops/cuda_sweep.py::mp_force_group (only those instances are
 // built).
 //
+// XSPH (once per step with xsph_eps, on the WCSPH and PBF paths) runs on
+// the same engine, group_pair_sweep_kernel<Xsph, KS, G>, over the 9 fluid
+// rows. As one thread per query it walked the runs in series and loaded
+// both float4s of every candidate's 32-byte row, evaluating W on all of
+// them (~85 % outside the cutoff, multiplied by 0) and skipping only the
+// exact division there. Now a candidate loads x y z vx and tests the
+// cutoff; vy vz rho_j, W and the exact division run only inside it. Its
+// operands are one (C, 8) matrix built through planes
+// (solvers/wcsph_cuda.py::xsph_operands), the queries and the source. G:
+// ops/cuda_sweep.py::XSPH_G (the one instance built).
+//
 // Bound: memory traffic (sweep_common.cuh). The multiphase density sweep
 // reads 16-byte rows (position and psi_b only), the XSPH sweep 32-byte
 // rows.
@@ -53,9 +64,8 @@
 //       rows x y z vb_x | vb_y vb_z psi_b 0 | 0 0 0 0 (the wall velocity 0
 //       for a static wall); q its first C rows (every slot read but 6);
 //       out (N, 3) acceleration
-//   xsph: q (N, 8) x y z vx vy vz rho pad; src (M, 8) x y z vx vy vz rho
-//       pad, fluid rows only (9 range rows); out (N, 3), scaled by eps
-//       outside
+//   xsph: q = src (C, 8) x y z vx vy vz rho 0, fluid rows only (9 range
+//       rows); out (N, 3), scaled by eps outside
 
 #include "group_sweep.cuh"
 
@@ -162,21 +172,21 @@ struct MultiphaseForce {
   }
 };
 
-// sum 2m / max(rho_i + rho_j, eps) (v_j - v_i) W over the fluid rows
+// sum 2m / max(rho_i + rho_j, eps) (v_j - v_i) W over the fluid rows, on
+// one (C, 8) matrix x y z vx | vy vz rho 0, the queries and the source. The
+// engine calls it inside the cutoff with a = x y z vx of row j; vy vz rho_j
+// load only there, and the division is exact (no okf select: every pair it
+// sees is inside)
 struct Xsph {
   static constexpr int QW = 8, SW = 8, OW = 3;
   static constexpr bool BOUNDARY_ROWS = false;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
-    const float4 b = src_f4(src, SW, j, 1);  // vy vz rho pad
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz rho_j 0
     const WGeom g = w_geom<KS>(q, a, p);
-    const float denom = fmaxf(q[6] + b.z, 1e-12f);
-    // (2m W / denom) * okf, the division skipped outside the cutoff (the
-    // same +0 there, W >= 0): an exact division costs more than the rest
-    // of the pair, and most candidates lie outside the cutoff
-    const float c = g.okf != 0.0f ? (2.0f * p.pm) * g.w / denom : 0.0f;
+    const float c = (2.0f * p.pm) * g.w / fmaxf(q[6] + b.z, 1e-12f);
     acc[0] += c * (a.w - q[3]);
     acc[1] += c * (b.x - q[4]);
     acc[2] += c * (b.y - q[5]);
@@ -188,7 +198,8 @@ struct Xsph {
 extern "C" {
 
 NEREUS_PAIR_SWEEP(multiphase_density, MultiphaseDensity)
-NEREUS_PAIR_SWEEP(xsph, Xsph)
+// the G of ops/cuda_sweep.py (XSPH_G)
+NEREUS_GROUP_SWEEP(xsph, Xsph, 2)
 
 // group_pair_sweep_kernel<MultiphaseForce<st_model == BECKER, moving>> at
 // lane-group size `group` (the G of ops/cuda_sweep.py::mp_force_group) on

@@ -9,19 +9,21 @@
 // and the lambda formula that pbf_step_pallas applies to the sums.
 // Its XSPH pass is the Xsph functor of multiphase_sweep.cu.
 //
-// Design. PbfOmega (once per step with vorticity confinement) runs on the
-// range-walk template pair_sweep_kernel<Pair, KS> of sweep_common.cuh. The
-// lambda and dp sweeps (each launched pbf_iters times per step) and N run
-// on the lane-group engine group_pair_sweep_kernel<Pair, KS, G> of
+// Design. The lambda and dp sweeps (each launched pbf_iters times per
+// step), N and omega (once per step with vorticity confinement) run on the
+// lane-group engine group_pair_sweep_kernel<Pair, KS, G> of
 // group_sweep.cuh. What bounded them on this card as one thread per query:
-// the 18 runs of 0-6 candidates walked in series, each run's bounds loaded
-// after the previous run ended, lanes diverging on trip counts, and the
-// pair math (W, the gradient scale, the rsqrt under Monaghan kernels,
-// dp's s_corr) on every candidate, multiplied by 0 for the ~85 % outside
-// the cutoff. What the design does:
+// the 9 or 18 runs of 0-6 candidates walked in series, each run's bounds
+// loaded after the previous run ended, lanes diverging on trip counts, and
+// the pair math (W, the gradient scale, the rsqrt under Monaghan kernels,
+// dp's s_corr) and every float4 of the row on every candidate, multiplied
+// by 0 for the ~85 % outside the cutoff. What the design does:
 // - G lanes per query walk the flattened runs, fluid and wall rows one
 //   list; the pair runs only inside the cutoff, on the float4 x y z s the
-//   engine loaded, which is all of a source row that either pair reads.
+//   engine loaded, which is all of a source row that lambda, dp or N
+//   reads. Omega's pair loads its row's second float4 (vy vz m/rho_j)
+//   there too, and only there; its one (C, 8) matrix is built through
+//   planes (solvers/pbf_cuda.py::omega_operands).
 // - One (C [+ Mb], 4) matrix per step (solvers/pbf_cuda.py): fluid rows
 //   x y z lambda, wall rows x y z psi_b. Its fluid rows are both kernels'
 //   queries; the whole matrix is both kernels' source. Each iteration
@@ -53,8 +55,8 @@
 //           queries), wall x y z psi_b; out (N, 3) sum m (lambda_i +
 //           lambda_j + scorr) grad W + sum psi_b lambda_i grad W (the
 //           caller scales by 1/rho0)
-//   omega:  q (N, 8) x y z vx vy vz pad pad; src (M, 8) x y z vx vy vz
-//           m/rho_j pad, fluid rows only (9 range rows); out (N, 3)
+//   omega:  q = src (C, 8) x y z vx vy vz m/rho_j 0, fluid rows only (9
+//           range rows); out (N, 3)
 
 #include "group_sweep.cuh"
 
@@ -152,17 +154,20 @@ struct PbfDp {
   }
 };
 
-// omega = sum (m / rho_j) (v_j - v_i) x grad W over the fluid rows
+// omega = sum (m / rho_j) (v_j - v_i) x grad W over the fluid rows, on one
+// (C, 8) matrix x y z vx | vy vz m/rho_j 0, the queries and the source; the
+// engine calls it inside the cutoff with a = x y z vx of row j, and
+// vy vz m/rho_j load only there
 struct PbfOmega {
   static constexpr int QW = 8, SW = 8, OW = 3;
   static constexpr bool BOUNDARY_ROWS = false;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z vx
-    const float4 b = src_f4(src, SW, j, 1);  // vy vz m/rho_j pad
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = src_f4(src, SW, j, 1);  // vy vz m/rho_j 0
     const Geom g = default_geom<KS>(q, a, p);
-    const float c = b.z * g.s * g.okf;
+    const float c = b.z * g.s;
     const float dvx = a.w - q[3];
     const float dvy = b.x - q[4];
     const float dvz = b.y - q[5];
@@ -176,10 +181,11 @@ struct PbfOmega {
 
 extern "C" {
 
-// the G of ops/cuda_sweep.py (PBF_LAMBDA_G, pbf_dp_group, PBF_GRAD_G)
+// the G of ops/cuda_sweep.py (PBF_LAMBDA_G, pbf_dp_group, PBF_GRAD_G,
+// PBF_OMEGA_G)
 NEREUS_GROUP_SWEEP(pbf_lambda, PbfLambda, 2)
 NEREUS_GROUP_SWEEP(pbf_dp, PbfDp, 2, 4)
 NEREUS_GROUP_SWEEP(pbf_grad, PbfGrad, 2)
-NEREUS_PAIR_SWEEP(pbf_omega, PbfOmega)
+NEREUS_GROUP_SWEEP(pbf_omega, PbfOmega, 2)
 
 }  // extern "C"

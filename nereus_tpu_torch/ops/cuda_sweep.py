@@ -71,7 +71,7 @@ ALPHA = Kernel("pair_sweep_kernel<Alpha>")
 DRHO = Kernel("group_pair_sweep_kernel<Drho>")
 MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
 MP_FORCE = Kernel("group_pair_sweep_kernel<MultiphaseForce>")
-XSPH = Kernel("pair_sweep_kernel<Xsph>")
+XSPH = Kernel("group_pair_sweep_kernel<Xsph>")
 # the force kernel without the viscosity and the wall friction (the
 # implicit viscosity solve owns both): WCSPH's, then DFSPH's pressure-off
 FORCE_V0 = Kernel("force_sweep_kernel<VISC=0>")
@@ -84,7 +84,7 @@ MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
 # the fluid rows), each counted apart
 PBF_LAMBDA = Kernel("group_pair_sweep_kernel<PbfLambda>")
 PBF_DP = Kernel("group_pair_sweep_kernel<PbfDp>")
-PBF_OMEGA = Kernel("pair_sweep_kernel<PbfOmega>")
+PBF_OMEGA = Kernel("group_pair_sweep_kernel<PbfOmega>")
 PBF_GRAD = Kernel("group_pair_sweep_kernel<PbfGrad>")
 # the force kernels whose wall friction reads a moving wall's velocity:
 # WCSPH's, then the implicit solvers' pressure-off one; the multiphase one
@@ -305,9 +305,9 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
               "jacobi": 1, "alpha": 0, "drho": 1, "drho_shell": 1,
               "multiphase_density": 0, "multiphase_force": 3,
-              "xsph": 0, "multiphase_alpha": 0,
+              "xsph": 1, "multiphase_alpha": 0,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
-              "pbf_dp": 1, "pbf_omega": 0, "pbf_grad": 1, "body_force": 1,
+              "pbf_dp": 1, "pbf_omega": 1, "pbf_grad": 1, "body_force": 1,
               "multiphase_body": 0, "fluid_reaction": 1,
               "pressure_force_body": 1, "pressure_force_body_rev": 1,
               "alpha_body": 0,
@@ -542,6 +542,12 @@ DII_AII_G = 4
 # 11 %).
 PBF_LAMBDA_G = 2
 PBF_GRAD_G = 2
+# And of ω, (m/ρ_j)(v_j − v_i) × ∇W over the fluid rows of
+# ``pbf_1M_vort_xsph``'s one (C, 8) matrix (1,092,727 queries), once per
+# step: 2, the one instance built (``tools/group_scan.py --solver
+# pbf_vort_xsph --keys pbf_omega``: G 1, 4 and 8 took 15 %, 8 % and 44 %
+# more time; no path runs it below ``SMALL_N``).
+PBF_OMEGA_G = 2
 
 
 def pbf_dp_group(n: int) -> int:
@@ -567,6 +573,14 @@ DRHO_G = 4
 # the one instance built), 4 at every query count (G 2 took 10 % and G 8
 # 24 % more time at 262,144 queries; no path runs it above ``SMALL_N``).
 MP_DRHO_G = 4
+# And of XSPH (``csrc/multiphase_sweep.cu``, the one instance built), over
+# the fluid rows of its one (C, 8) matrix: 2 at every query count, as
+# measured at the two paths that run it, ``wcsph_1M_xsph`` and
+# ``pbf_1M_vort_xsph``, both 1,092,727 queries (``tools/group_scan.py
+# --keys xsph``: G 4 and 8 took 11 % / 14 % and 38 % / 45 % more time; G
+# 1 2 % more at the first and 1 % less at the second, one G for both; no
+# path runs it below ``SMALL_N``).
+XSPH_G = 2
 
 
 def mp_force_group(n: int, moving_boundary=False) -> int:
@@ -734,10 +748,11 @@ def multiphase_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 
 
 def xsph_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """XSPH sum (N, 3) over the fluid rows only: q (N, 8), src (M, 8),
-    ranges (9, N)."""
+    """XSPH sum (N, 3) over the fluid rows only: q (N, 8) ``x y z v ρ 0``,
+    src (M, 8) (on the step's path the query itself,
+    ``wcsph_cuda.xsph_operands``), ranges (9, N)."""
     return _sweep(XSPH, "xsph", cfg, q, 8, src, 8, seg_start, seg_end,
-                  pvec, (9,), 3)
+                  pvec, (9,), 3, XSPH_G)
 
 
 def visc_laplacian_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
@@ -789,10 +804,11 @@ def pbf_dp_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 
 def pbf_omega_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """PBF vorticity ω (N, 3) over the fluid rows only: q (N, 8),
-    src (M, 8), ranges (9, N)."""
+    """PBF vorticity ω (N, 3) over the fluid rows only: q (N, 8)
+    ``x y z v m/ρ 0``, src (M, 8) (on the step's path the query itself,
+    ``pbf_cuda.omega_operands``), ranges (9, N)."""
     return _sweep(PBF_OMEGA, "pbf_omega", cfg, q, 8, src, 8, seg_start,
-                  seg_end, pvec, (9,), 3)
+                  seg_end, pvec, (9,), 3, PBF_OMEGA_G)
 
 
 def pbf_grad_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):

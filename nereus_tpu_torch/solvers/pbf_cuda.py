@@ -62,9 +62,10 @@ def pbf_operands(ctx: SweepCtx, particle_mass):
 
 def omega_operands(ctx: SweepCtx, v, mrho):
     """The vorticity sweep's operands at x* from the (C,) velocity columns
-    ``v`` and m/ρ: one (C, 8) matrix ``x y z v m/ρ 0`` as query and
-    source, the fluid ranges."""
-    w8 = ctx.pack(v, mrho, boundary=False)
+    ``v`` and m/ρ: one (C, 8) matrix ``x y z v m/ρ 0`` built through
+    planes (:meth:`SweepCtx.pack_fluid`) as query and source, the fluid
+    ranges."""
+    w8 = ctx.pack_fluid(v, mrho)
     return w8, w8, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec
 
 

@@ -11,7 +11,10 @@ sweeps read one matrix each (:meth:`SweepCtx.density_operands`,
 boundary rows follow them. The multiphase force sweep reads one
 (C [+ Mb], 12) wide matrix (:meth:`SweepCtx.pack_wide`), its queries the
 fluid rows, the multiphase density sweep and the multiphase DFSPH α and κ
-sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`).
+sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`), and the XSPH and ω
+sweeps over the fluid rows only one (C, 8) matrix that is their queries
+and their source (:meth:`SweepCtx.pack_fluid`). The wide and the (C, 8)
+matrices are built through contiguous planes and one transposing copy.
 A multiphase state's ``mass`` and ``rho0`` ride the sort with the
 positions. A moving boundary (``BoundaryData.vel`` set) packs its wall
 velocities into slots 3-5 of every 8-wide and wide boundary row, as the
@@ -168,21 +171,33 @@ class SweepCtx:
         ((C,) or 0-d) and zero pads (the multiphase force: vx vy vz V pV²
         ρ0 1/m m 1/ρ̃, whose first C rows are its queries); boundary rows
         ``x y z v_b ψ_b 0 0 0 0 0`` (v_b = 0 for a static wall). Built
-        through planes: the columns stacked as contiguous (12, C) planes,
-        then one transposing copy into the fluid rows. A stack straight
-        into 48-byte rows copies column by column, each 4-byte store
-        touching every row's sector (IISPH's 1,092,727 + 100,120 rows:
-        0.32 ms against 0.09, PERF.md section 6)."""
-        if len(cols) > SP.WIDE_WIDTH - 3:
-            raise ValueError(f"pack_wide takes at most {SP.WIDE_WIDTH - 3} "
-                             f"columns, got {len(cols)}")
+        through planes (:meth:`_through_planes`)."""
+        return self._through_planes(cols, SP.WIDE_WIDTH, self._b_src_wide)
+
+    def pack_fluid(self, vel, slot6):
+        """(C, 8) matrix ``x y z vx vy vz slot6 0`` of a sweep over the
+        fluid rows only, its queries and its source (XSPH, ω): the values of
+        ``pack(vel, slot6, boundary=False)``, built through planes
+        (:meth:`_through_planes`)."""
+        return self._through_planes([*vel, slot6], SP.SRC_WIDTH)
+
+    def _through_planes(self, cols, width, walls=None):
+        """(C [+ Mb], ``width``): fluid rows ``x y z``, then ``cols`` ((C,)
+        or 0-d) and zero pads, then the rows ``walls`` (Mb, ``width``) when
+        given. The columns are stacked as contiguous (``width``, C)
+        planes, then one transposing copy writes the fluid rows. A stack
+        straight into 32- or 48-byte rows copies column by column, each
+        4-byte store touching every row's sector (IISPH's 1,092,727 +
+        100,120 rows, 12 wide: 0.32 ms against 0.09, PERF.md section 6)."""
+        if len(cols) > width - 3:
+            raise ValueError(f"a {width}-wide matrix takes at most "
+                             f"{width - 3} columns, got {len(cols)}")
         z = torch.zeros_like(self.px)
-        pads = [z] * (SP.WIDE_WIDTH - 3 - len(cols))
+        pads = [z] * (width - 3 - len(cols))
         planes = torch.stack([self.px, self.py, self.pz,
                               *(col.expand(self.c) for col in cols), *pads])
-        walls = self._b_src_wide
         nb = 0 if walls is None else walls.shape[0]
-        out = planes.new_empty((self.c + nb, SP.WIDE_WIDTH))
+        out = planes.new_empty((self.c + nb, width))
         out[:self.c] = planes.t()
         if nb:
             out[self.c:] = walls

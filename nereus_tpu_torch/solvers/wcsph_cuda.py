@@ -49,11 +49,12 @@ PLAIN = Sweeps(SP.density_sweep_plain, SP.fluid_force_sweep_plain)
 
 def xsph_operands(ctx: SweepCtx, nv, dens):
     """The XSPH sweep's operands from the new velocities ``nv`` (three (C,)
-    columns) and the density: ``(q, src, seg_start_f, seg_end_f, pvec)``,
-    q ``x y z nv ρ 0``, src fluid rows ``x y z nv ρ 0``, fluid ranges."""
-    return (ctx.queries(*nv, dens, width=8), ctx.pack(nv, dens,
-                                                      boundary=False),
-            ctx.seg_start_f, ctx.seg_end_f, ctx.pvec)
+    columns) and the density: ``(q, src, seg_start_f, seg_end_f, pvec)``
+    on one (C, 8) matrix ``x y z nv ρ 0`` built through planes
+    (:meth:`SweepCtx.pack_fluid`), the query and the source, and the fluid
+    ranges."""
+    m = ctx.pack_fluid(nv, dens)
+    return m, m, ctx.seg_start_f, ctx.seg_end_f, ctx.pvec
 
 
 def _integrate(ctx: SweepCtx, dt, nv, v_adv):

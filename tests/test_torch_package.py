@@ -1098,6 +1098,41 @@ def test_pbf_kernels_match_plain_on_cuda(cuda, kernel_set, large,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_xsph_omega_groups_match_plain_on_cuda(cuda, kernel_set, large):
+    """The XSPH and ω kernels at the lane-group sizes built for them
+    (``XSPH_G``, ``PBF_OMEGA_G``), each on its one (C, 8) matrix built by
+    the steps' own operand functions (the query and the source at once),
+    on the settled PBF block at 4,000 queries and, when ``large``, at
+    2¹⁹ or more, with seeded velocities in ±0.5 m/s (so that the sums are
+    not zero) and ρ from the plain density, against their plain versions:
+    max|Δ| ≤ 1e-4·max|ref| per column (``chip_smoke.FORCE_TOL``)."""
+    from nereus_tpu_torch.solvers import pbf_cuda, wcsph_cuda
+    cfg, params, state, grid, boundary = _pbf_block(
+        cuda, kernel_set, n_target=600_000 if large else 4000)
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    assert (ctx.c >= 2 ** 19) == large, ctx.c
+    dens = SP.density_sweep_plain(cfg, *ctx.density_operands(
+        params.particle_mass))
+    v = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (ctx.c, 3)).astype(np.float32)).to(cuda).unbind(1)
+    xargs = wcsph_cuda.xsph_operands(ctx, v, dens)
+    oargs = pbf_cuda.omega_operands(
+        ctx, v, params.particle_mass / dens.clamp(min=1e-12))
+    assert xargs[0] is xargs[1] and oargs[0] is oargs[1]
+    cuda_sweep.reset_launches()
+    _assert_columns_close(cuda_sweep.xsph_sweep(cfg, *xargs),
+                          SP.xsph_sweep_plain(cfg, *xargs),
+                          f"xsph n={ctx.c} G={cuda_sweep.XSPH_G}")
+    _assert_columns_close(cuda_sweep.pbf_omega_sweep(cfg, *oargs),
+                          SP.pbf_omega_sweep_plain(cfg, *oargs),
+                          f"pbf_omega n={ctx.c} G={cuda_sweep.PBF_OMEGA_G}")
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.XSPH: 1, cuda_sweep.PBF_OMEGA: 1})
+
+
+@pytest.mark.requires_cuda
 def test_group_sweeps_build_only_their_g(cuda):
     """Each entry point of the lane-group engine launches at the G its
     wrapper can pick (below and above ``SMALL_N`` queries, ``SMALL_SHELL``
@@ -1112,6 +1147,8 @@ def test_group_sweeps_build_only_their_g(cuda):
         "pbf_dp": {cuda_sweep.pbf_dp_group(1),
                    cuda_sweep.pbf_dp_group(cuda_sweep.SMALL_N)},
         "pbf_grad": {cuda_sweep.PBF_GRAD_G},
+        "pbf_omega": {cuda_sweep.PBF_OMEGA_G},
+        "xsph": {cuda_sweep.XSPH_G},
         "drho": {cuda_sweep.DRHO_G},
         "multiphase_drho": {cuda_sweep.MP_DRHO_G},
         # the κ impulse forward and Dρ/Dt over a shell by its size, the
@@ -1137,8 +1174,9 @@ def test_group_sweeps_build_only_their_g(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     ks = nereus_tpu_torch.KernelSet.MULLER.value
     for fn, want in picks.items():
-        rows = 9 if fn in ("sum_dij", "pbf_grad", "pressure_force_body",
-                           "pressure_force_body_rev", "drho_shell") else 18
+        rows = 9 if fn in ("sum_dij", "pbf_grad", "pbf_omega", "xsph",
+                           "pressure_force_body", "pressure_force_body_rev",
+                           "drho_shell") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
             if isinstance(fn, tuple):

@@ -15,7 +15,8 @@ sweeps), on ``tests/test_pbf.py``'s settle scene.
   ``pbf_scorr_k = 0`` the Δp sweep matches JAX's too, and differs from
   the one with scorr. λ is exactly 0 on a block under ρ₀ and negative on
   an over-dense one, as JAX's. The step's one operand matrix carries the
-  iterate in its fluid rows and keeps its wall rows.
+  iterate in its fluid rows and keeps its wall rows. ω's one matrix,
+  built through planes, equals bit for bit the column stack it replaced.
 * ``pbf_step`` against ``pbf_step_pallas`` (interpret) and the jnp segment
   step over three steps of ``_settle_scene(nside=7)``, without and with
   ``xsph_eps = 0.02, vorticity_eps = 0.01``, the port's own trajectory
@@ -562,3 +563,26 @@ def test_convert_carries_pbf_params():
             np.testing.assert_array_equal(getattr(own, f.name).numpy(), want,
                                           err_msg=f.name)
     assert "pbf_params" in pt.__all__ and "pbf_step" in pt.__all__
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_omega_operands_equal_pack(kernel_set):
+    """ω's one (C, 8) matrix, built through planes, is the query and the
+    source at once and equals bit for bit ``pack(v, m/ρ, boundary=False)``
+    (the column stack it replaced), ``x y z v m/ρ 0``, with the velocities
+    as the step hands them over: strided views of one (C, 3) tensor."""
+    cfg, params, grid, boundary, state = _contact_scene(kernel_set)
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid,
+                                            boundary)
+    ctx = build_sweep_ctx(pbf_cuda.advected(pstate, pparams), pparams, pg,
+                          pcfg, pb)
+    _, _, vel = _sweep_inputs(ctx.c, float(pparams.interaction_radius))
+    v = torch.from_numpy(vel).unbind(1)
+    mrho = pparams.particle_mass / torch.from_numpy(
+        np.random.default_rng(2).uniform(900.0, 1100.0, ctx.c).astype(
+            np.float32))
+    q, src, s, e, pv = pbf_cuda.omega_operands(ctx, v, mrho)
+    assert q is src and q.is_contiguous() and q.shape == (ctx.c, 8)
+    assert torch.equal(q, ctx.pack(v, mrho, boundary=False))
+    assert s.shape[0] == e.shape[0] == 9 and pv is ctx.pvec

@@ -11,6 +11,9 @@ velocities in ±0.5 m/s (so that the smoothing sum is not zero).
   tolerances of ``test_torch_wcsph.py::test_step_matches_jax``; the JAX
   force pair's approximate reciprocal replaced by the exact one.
 * ε = 0 reproduces the step without XSPH bit for bit.
+* The step's one XSPH operand matrix, built through planes, equals bit for
+  bit the two column-stacked builds it replaced, and is the query and the
+  source at once.
 """
 
 import jax
@@ -127,3 +130,50 @@ def test_xsph_eps_zero_matches_off():
     s2, _ = pt.wcsph_step(pstate, pparams, pg, pcfg, pb, xsph_eps=EPS)
     assert torch.equal(s0.vel, s2.vel)
     assert not torch.equal(s0.pos, s2.pos)
+
+
+def _port_ctx():
+    """The sweep context of the port's copy of ``_scene()``, with seeded
+    new velocities (±0.5 m/s) and a seeded density around ρ₀."""
+    pcfg, pparams, pstate, pg, pb = to_port(*_scene())
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    rng = np.random.default_rng(1)
+    nv = torch.from_numpy(rng.uniform(-0.5, 0.5, (ctx.c, 3)).astype(
+        np.float32))
+    dens = torch.from_numpy(rng.uniform(900.0, 1100.0, ctx.c).astype(
+        np.float32))
+    return ctx, nv, dens
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_xsph_operands_equal_the_column_builds(strided):
+    """XSPH's one (C, 8) matrix, built through planes, is the query and the
+    source at once and holds bit for bit what the two column stacks it
+    replaced held: the query ``queries(*nv, ρ, width=8)`` and the source
+    ``pack(nv, ρ, boundary=False)``, ``x y z nv ρ 0``; the new velocities
+    as three contiguous columns (the WCSPH step's) or as strided views of
+    one (C, 3) tensor (the PBF step's)."""
+    ctx, nv, dens = _port_ctx()
+    cols = (nv.unbind(1) if strided
+            else tuple(nv[:, k].contiguous() for k in range(3)))
+    q, src, s, e, pv = wcsph_cuda.xsph_operands(ctx, cols, dens)
+    assert q is src and q.is_contiguous() and q.shape == (ctx.c, 8)
+    assert torch.equal(q, ctx.queries(*cols, dens, width=8))
+    assert torch.equal(src, ctx.pack(cols, dens, boundary=False))
+    assert s.shape[0] == e.shape[0] == 9 and pv is ctx.pvec
+    assert torch.equal(q[:, 7], torch.zeros(ctx.c))
+
+
+def test_plane_builds_refuse_too_many_columns():
+    """A matrix built through planes takes at most its width less the three
+    position columns; the wide matrix keeps its boundary rows behind the
+    fluid rows, ``x y z v_b ψ_b`` and zero pads."""
+    ctx, nv, dens = _port_ctx()
+    with pytest.raises(ValueError, match="at most 5 columns"):
+        ctx.pack_fluid([*nv.unbind(1), dens, dens], dens)
+    wide = ctx.pack_wide([*nv.unbind(1), dens])
+    assert wide.shape == (ctx.c + ctx.b_src.shape[0], SP.WIDE_WIDTH)
+    assert torch.equal(wide[ctx.c:, :8], ctx.b_src)
+    assert not wide[ctx.c:, 8:].any()
+    assert torch.equal(wide[:ctx.c, :7],
+                       ctx.queries(*nv.unbind(1), dens))

@@ -3,16 +3,16 @@ on one path's operands, beside the one-thread walks they replace, on one
 CUDA card.
 
     python3 tools/group_scan.py [--solver pbf|pbf_settled|pbf_vort_xsph|
-                                 iisph|elastic|wcsph_elastic|dfsph|
+                                 xsph|iisph|elastic|wcsph_elastic|dfsph|
                                  dfsph_visc|
                                  multiphase|multiphase_wavemaker|dfsph_mp|
                                  mp_coupled|dfsph_mp_coupled|dfsph_coupled|
                                  dfsph_elastic]
         [--groups 1 2 4]
-        [--keys pbf_lambda pbf_dp pbf_grad drho elastic_force_hg elastic_f
-                mp_force mp_force_moving mp_drho mp_drho_cols mp_kappa
-                pressure_force_body pressure_force_body_rev drho_shell
-                dii_aii]
+        [--keys pbf_lambda pbf_dp pbf_grad pbf_omega xsph drho
+                elastic_force_hg elastic_f mp_force mp_force_moving mp_drho
+                mp_drho_cols mp_kappa pressure_force_body
+                pressure_force_body_rev drho_shell dii_aii]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -48,14 +48,25 @@ parent's two operands ("split": a (C, 12) query ``x y z v_adv v 1/ρ² 0 0``
 beside an 8-wide source ``x y z v_adv m 0``, walls ``x y z v_b ψ_b 0``),
 each at every G, and each also timed with its operands built as a step
 builds them ("columns": the one matrix stacked column by column into its
-rows).
+rows); ``xsph`` and ``pbf_omega`` XSPH and PBF's vorticity ω on their one
+(C, 8) matrix (the lane groups by G) beside the one-thread walk of the
+pair as it was before it moved onto lane groups ("thread": both float4s
+of every candidate's row loaded, the pair on every candidate and masked
+by the cutoff, XSPH's exact division skipped outside it), each also timed
+with its operands built as a step builds them (G: the one matrix through
+planes; thread: XSPH's query and source, ω's one matrix, each stacked
+column by column).
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
 the kernels' operands with ``chip_smoke.py``'s ``pbf_path_operands`` (at
-the state advected from the final one) or ``dfsph_operands`` (at the final
-state); iisph runs ``iisph_1M_settled`` (``settled_main_path``, 60 steps)
-and takes ``iisph_operands`` at the final state. The multiphase paths run
+the state advected from the final one; ``--keys pbf_grad``, ``pbf_omega``
+or ``xsph`` take the vorticity path's operands) or ``dfsph_operands`` (at
+the final state); xsph runs ``wcsph_1M_xsph`` (``wcsph_main_path`` and
+``run_wcsph`` with ``XSPH_EPS``, ``N_STEPS`` steps) and takes
+``xsph_path_operands`` at the final state; iisph runs
+``iisph_1M_settled`` (``settled_main_path``, 60 steps) and takes
+``iisph_operands`` at the final state. The multiphase paths run
 ``multiphase_1M`` (``wcsph_main_path`` split by ``two_phase``,
 ``N_STEPS`` steps), ``multiphase_1M_wavemaker``
 (the same under ``wavemaker``), ``dfsph_mp_256k_settled``
@@ -100,6 +111,12 @@ from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx  # noqa
 FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
             "pbf_dp": ("pbf_sweep.cu", [("G", "ranges", "PbfDp")]),
             "pbf_grad": ("pbf_sweep.cu", [("G", "ranges", "PbfGrad")]),
+            "pbf_omega": ("pbf_sweep.cu", [
+                ("G", "ranges", "PbfOmega"),
+                ("thread", "pair", "PbfOmegaWalk")]),
+            "xsph": ("multiphase_sweep.cu", [
+                ("G", "ranges", "Xsph"),
+                ("thread", "pair", "XsphWalk")]),
             "drho": ("dfsph_sweep.cu", [("G", "ranges", "Drho")]),
             "elastic_force_hg": ("elastic_sweep.cu",
                                  [("G", "list", "ElasticForceHourglass")]),
@@ -135,8 +152,47 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("columns", "ranges", "DiiAii"),
                 ("split", "ranges", "DiiAiiSplit")])}
 # functors the scan file defines: dδ̂/dt's pair without its epilogue,
-# ElasticF's pair behind the range walk's cutoff test
-SCAN_FUNCTORS = {"ElasticFRange": """
+# ElasticF's pair behind the range walk's cutoff test, and the one-thread
+# walks of XSPH and ω as they were before they moved onto lane groups
+SCAN_FUNCTORS = {"XsphWalk": """
+struct XsphWalk {
+  static constexpr int QW = 8, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 a = nereus_sweep::src_f4(src, SW, j, 0);
+    const float4 b = nereus_sweep::src_f4(src, SW, j, 1);
+    const WGeom g = w_geom<KS>(q, a, p);
+    const float denom = fmaxf(q[6] + b.z, 1e-12f);
+    const float c = g.okf != 0.0f ? (2.0f * p.pm) * g.w / denom : 0.0f;
+    acc[0] += c * (a.w - q[3]);
+    acc[1] += c * (b.x - q[4]);
+    acc[2] += c * (b.y - q[5]);
+  }
+};
+""", "PbfOmegaWalk": """
+struct PbfOmegaWalk {
+  static constexpr int QW = 8, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 a = nereus_sweep::src_f4(src, SW, j, 0);
+    const float4 b = nereus_sweep::src_f4(src, SW, j, 1);
+    const nereus_sweep::Geom g = nereus_sweep::default_geom<KS>(q, a, p);
+    const float c = b.z * g.s * g.okf;
+    const float dvx = a.w - q[3];
+    const float dvy = b.x - q[4];
+    const float dvz = b.y - q[5];
+    acc[0] += c * (dvy * g.dz - dvz * g.dy);
+    acc[1] += c * (dvz * g.dx - dvx * g.dz);
+    acc[2] += c * (dvx * g.dy - dvy * g.dx);
+  }
+};
+""", "ElasticFRange": """
 struct ElasticFRange {
   static constexpr int QW = ElasticF::QW, SW = ElasticF::SW,
                        OW = ElasticF::OW;
@@ -232,7 +288,7 @@ VARIANT_OPERANDS = {"DiiAiiSplit": split_operands,
                     "ElasticFRange": range_operands}
 
 
-def dii_aii_builders(ctx, params, args):
+def dii_aii_makers(ctx, params, args):
     """``{variant: build}`` of the d_ii, ρ_adv and a_ii sweep: ``build()``
     makes the variant's operands as a step would, from the step's columns
     (v_adv, 1/ρ², taken from the one matrix ``args``, and the sorted
@@ -261,10 +317,30 @@ def dii_aii_builders(ctx, params, args):
             "split": split, "columns": columns}
 
 
-# per key, the builders of its variants' operands (time with the build)
-BUILDERS = {}
+def fluid_matrix_makers(ctx, args, build, own_query):
+    """``{variant: build}`` of a sweep over the fluid rows on one (C, 8)
+    matrix ``x y z v s 0`` (``args``), from its columns: "G" by the step's
+    own ``build(ctx, v, s)`` (through planes), "thread" as the step built
+    its operands before, the source stacked column by column
+    (``SweepCtx.pack``) and, with ``own_query`` (XSPH), the query stacked
+    apart (``SweepCtx.queries``), else the source as both (ω)."""
+    m = args[0]
+    v = [m[:, k].clone() for k in (3, 4, 5)]
+    col = m[:, 6].clone()
+
+    def thread():
+        src = ctx.pack(v, col, boundary=False)
+        q = ctx.queries(*v, col, width=8) if own_query else src
+        return (q, src, *args[2:])
+    return {"G": lambda: build(ctx, v, col), "thread": thread}
+
+
+# per key, the makers of its variants' operands (time with the build)
+MAKERS = {}
 # the keys each path's operands feed
-PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad"),
+PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad", "pbf_omega",
+                     "xsph"),
+             "xsph": ("xsph",),
              "dfsph": ("drho",),
              "elastic": ("elastic_force_hg", "elastic_f"),
              "multiphase": ("mp_force",),
@@ -369,10 +445,28 @@ def path_operands(solver, keys, dev):
             state, *steps)
         ctx = build_sweep_ctx(pbf_cuda.advected(state, params), params,
                               grid, cfg, boundary)
-        ops = smoke.pbf_path_operands(cfg, ctx, params,
-                                      vorticity="pbf_grad" in keys)
+        ops = smoke.pbf_path_operands(
+            cfg, ctx, params,
+            vorticity=bool({"pbf_grad", "pbf_omega", "xsph"} & set(keys)))
+        if "xsph" in ops:
+            from nereus_tpu_torch.solvers import wcsph_cuda
+            MAKERS["xsph"] = fluid_matrix_makers(
+                ctx, ops["xsph"][2], wcsph_cuda.xsph_operands, True)
+            MAKERS["pbf_omega"] = fluid_matrix_makers(
+                ctx, ops["pbf_omega"][2], pbf_cuda.omega_operands, False)
         return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                      }, f"{ctx.c} queries, {ms:.4f} ms/step"
+    if solver == "xsph":
+        from nereus_tpu_torch.solvers import wcsph_cuda
+        cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+        state, _, ms, _ = smoke.run_wcsph(cfg, params, state, grid,
+                                          boundary, xsph_eps=smoke.XSPH_EPS)
+        ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+        ops = smoke.xsph_path_operands(cfg, ctx, params)
+        MAKERS["xsph"] = fluid_matrix_makers(
+            ctx, ops["xsph"][2], wcsph_cuda.xsph_operands, True)
+        return cfg, {"xsph": (ops["xsph"][0], ops["xsph"][2], {})}, (
+            f"{ctx.c} queries, {ms:.4f} ms/step")
     if solver == "iisph":
         cfg, params, state, grid, boundary, step = smoke.settled_main_path(
             solver, dev, smoke.MAIN_N)
@@ -380,7 +474,7 @@ def path_operands(solver, keys, dev):
                                            smoke.IMPLICIT_TIMED_FROM)
         ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
         ops = smoke.iisph_operands(cfg, ctx, params)
-        BUILDERS["dii_aii"] = dii_aii_builders(ctx, params,
+        MAKERS["dii_aii"] = dii_aii_makers(ctx, params,
                                                ops["dii_aii"][2])
         return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                      }, f"{ctx.c} queries, {ms:.4f} ms/step"
@@ -510,8 +604,8 @@ def body_operands(solver, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
-                    choices=("pbf", "pbf_settled", "pbf_vort_xsph", "iisph",
-                             "elastic", "wcsph_elastic", "dfsph",
+                    choices=("pbf", "pbf_settled", "pbf_vort_xsph", "xsph",
+                             "iisph", "elastic", "wcsph_elastic", "dfsph",
                              "dfsph_visc", *MP_SOLVERS, *BODY_SOLVERS))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--keys", nargs="+", choices=sorted(FUNCTORS))
@@ -520,8 +614,8 @@ def main():
         sys.exit("group_scan: needs a CUDA card")
     family = (args.solver if args.solver in MP_SOLVERS + BODY_SOLVERS
               else "pbf" if args.solver.startswith("pbf") else "dfsph"
-              if args.solver.startswith("dfsph") else "iisph"
-              if args.solver == "iisph" else "elastic")
+              if args.solver.startswith("dfsph") else args.solver
+              if args.solver in ("iisph", "xsph") else "elastic")
     keys = args.keys or list(PATH_KEYS[family][:2])
     if not set(keys) <= set(PATH_KEYS[family]):
         sys.exit(f"group_scan: --solver {args.solver} feeds the keys "
@@ -576,7 +670,7 @@ def main():
             for label, (f, engine, v, out, vargs, variant) in runs.items():
                 t = smoke.graph_ms(lambda: launch(f, engine, v, out, vargs))
                 best[label] = min(best.get(label, t), t)
-                make = BUILDERS.get(key, {}).get(variant)
+                make = MAKERS.get(key, {}).get(variant)
                 if make:
                     t = smoke.graph_ms(
                         lambda: launch(f, engine, v, out, make()))

@@ -3,7 +3,7 @@ on one CUDA card, their kernels' times on the final state, and how far
 the two final states lie apart.
 
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR [--pairs N]
-        [--solver wcsph|wcsph_wide12M|iisph|wcsph_visc|pcisph|pbf|
+        [--solver wcsph|wcsph_wide12M|xsph|iisph|wcsph_visc|pcisph|pbf|
                   pbf_settled|pbf_vort_xsph|dfsph|dfsph_visc|elastic|
                   wcsph_elastic|dfsph_elastic|multiphase|
                   multiphase_wavemaker|dfsph_mp|dfsph_coupled|
@@ -19,7 +19,9 @@ run of a checkout compiles them, the later ones load the library). Both
 sides' scenes and steps are driven by this repository's ``chip_smoke.py``:
 wcsph, its ``wcsph_main_path`` (``dam_break(n_target=2**20)`` with its
 boundary shell, 1,092,727 fluid particles) and ``run_wcsph`` (300 steps,
-steps 51-300 timed with CUDA events); wcsph_wide12M, its
+steps 51-300 timed with CUDA events); xsph, the same scene stepped with
+``XSPH_EPS`` (``wcsph_1M_xsph``) by ``run_steps`` (300 steps, steps
+51-300 timed); wcsph_wide12M, its
 ``wide_main_path`` (``bench.py``'s 12M dam-break on the grid stretched past
 2^24 cells) and ``WIDE_WARMUP`` + ``WIDE_TIMED`` steps, the last
 ``WIDE_TIMED`` timed; wcsph_visc, the 1M dam-break at ν = 5 with the
@@ -54,29 +56,30 @@ timed.
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
 ``sweep_inputs``, ``wcsph_visc_operands``, ``iisph_operands``,
-``pcisph_operands`` or ``pbf_path_operands``, so that each side feeds its
-kernels in its own contract): the density and force kernels on the
-WCSPH, IISPH and PCISPH paths, and the Laplacian (wcsph_visc), the
-pressure force (iisph, pcisph), the pre-loop sweep of d_ii, ρ_adv and
-a_ii (key ``dii_aii``, which an earlier checkout runs as two, keys
-``dii_rhoadv`` and ``aii``) and the Jacobi loop's Σd_ij·p_j and Jacobi
-sums (iisph), the PBF loop's λ and Δp kernels and, with vorticity
-confinement, N (key ``pbf_grad``, which an earlier checkout computes with
-its λ kernel) and ω, at the state advected from the final one (pbf*),
-Dρ/Dt (dfsph*, ``dfsph_operands``; with the pressure force at dfsph_coupled;
-and over the body's shell at dfsph_coupled and dfsph_elastic, key
-``drho_shell``, from ``dfsph_coupled_held_ops``, the body in the middle of
-the lowered fluid), the multiphase density and force (multiphase,
-``multiphase_operands``; MultiphaseForce<MOVING> under the wavemaker) and
-the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
+``pcisph_operands``, ``xsph_path_operands`` or ``pbf_path_operands``, so
+that each side feeds its kernels in its own contract): the density and
+force kernels on the WCSPH, XSPH, IISPH and PCISPH paths, and XSPH's
+kernel (xsph), the Laplacian (wcsph_visc), the pressure force (iisph,
+pcisph), the pre-loop sweep of d_ii, ρ_adv and a_ii (key ``dii_aii``,
+which an earlier checkout runs as two, keys ``dii_rhoadv`` and ``aii``)
+and the Jacobi loop's Σd_ij·p_j and Jacobi sums (iisph), the PBF loop's
+λ and Δp kernels and, with vorticity confinement, N (key ``pbf_grad``,
+which an earlier checkout computes with its λ kernel), ω and XSPH, at
+the state advected from the final one (pbf*), Dρ/Dt (dfsph*,
+``dfsph_operands``; with the pressure force at dfsph_coupled; and over
+the body's shell at dfsph_coupled and dfsph_elastic, key ``drho_shell``,
+from ``dfsph_coupled_held_ops``, the body in the middle of the lowered
+fluid), the multiphase density and force (multiphase,
+``multiphase_operands``; MultiphaseForce<MOVING> under the wavemaker)
+and the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
 dfsph_mp_coupled, ``mp_dfsph_operands``), and the elastic kernels on the
 body's statics at ``deformed`` positions (elastic, wcsph_elastic,
-dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches captured
-in a CUDA graph, the replay timed with CUDA events, the better of two), and
-prints a hash of each output. Pair k
+dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches
+captured in a CUDA graph, the replay timed with CUDA events, the better
+of two), and prints a hash of each output. Pair k
 runs the parent first when k is even and the change first when k is odd.
 On the paths driven by ``run_steps`` (all but wcsph, wcsph_visc and
-wcsph_wide12M; multiphase and multiphase_wavemaker too) each run also
+wcsph_wide12M; xsph, multiphase and multiphase_wavemaker too) each run also
 times its host loop on the host's clock:
 ms/step from the first timed step's call to the last step's return, the
 last enqueue, before the wait for the card. Prints every run, then each side's median and quartiles, and the largest
@@ -230,6 +233,12 @@ elif solver == "wcsph_wide12M":
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / smoke.WIDE_TIMED
+elif solver == "xsph":
+    cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
+    state, _, ms, *_ = smoke.run_steps(
+        clocked(lambda s: nt.wcsph_step(s, params, grid, cfg, boundary,
+                                        xsph_eps=smoke.XSPH_EPS),
+                smoke.TIMED_FROM), state, smoke.N_STEPS, smoke.TIMED_FROM)
 elif solver.startswith("multiphase"):
     cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
     state = smoke.two_phase(state, params)
@@ -330,11 +339,13 @@ elif solver in ("wcsph", "wcsph_wide12M"):
                                 SP.density_sweep(cfg, *dargs))
     ops = {"density": (SP.density_sweep, dargs, {}),
            "force": (SP.fluid_force_sweep, fargs, {})}
+elif solver == "xsph":
+    ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
+           in own.xsph_path_operands(cfg, ctx, params).items()}
 elif solver.startswith("pbf"):
     ops = {{"pbf_lambda_n": "pbf_grad"}.get(k, k): (kern, args, kw)
            for k, (kern, _, args, kw) in own.pbf_path_operands(
-               cfg, ctx, params, vorticity=solver == "pbf_vort_xsph").items()
-           if k != "xsph"}
+               cfg, ctx, params, vorticity=solver == "pbf_vort_xsph").items()}
 else:
     operands_of = {"wcsph_visc": own.wcsph_visc_operands,
                    "iisph": own.iisph_operands,
@@ -429,9 +440,9 @@ sys.stdout = sys.__stdout__
 print(json.dumps(times))
 """.replace("GRAPH_MS\n", GRAPH_MS)
 
-SOLVERS = ("wcsph", "wcsph_wide12M", "iisph", "wcsph_visc", "pcisph", "pbf",
-           "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc", "elastic",
-           "wcsph_elastic", "dfsph_elastic", "multiphase",
+SOLVERS = ("wcsph", "wcsph_wide12M", "xsph", "iisph", "wcsph_visc", "pcisph",
+           "pbf", "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc",
+           "elastic", "wcsph_elastic", "dfsph_elastic", "multiphase",
            "multiphase_wavemaker", "dfsph_mp", "dfsph_coupled",
            "dfsph_mp_coupled")
 
@@ -440,7 +451,7 @@ def run(root, solver, state_file, *drift):
     """The run's record: ms/step, the host loop's ms/step (None on the
     WCSPH paths), iterations (the total ``solver_iters``,
     for PBF ``pbf_iters`` per step; CG iterations launched for wcsph_visc,
-    0 for the WCSPH, elastic and wcsph_elastic paths), state
+    0 for the WCSPH, XSPH, elastic and wcsph_elastic paths), state
     hash, and per kernel [host-free ms, output hash]; its final live
     positions and velocities go to ``state_file``. ``drift``: the steps
     to save the state after and the nudge switch, as in :func:`drift`."""
