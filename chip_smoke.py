@@ -448,7 +448,8 @@ F32_OPS_PER_S = 67e12
 PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "dii_aii": (33, 33), "sum_dij": (22, 0),
             "jacobi": (28, 21), "pressure_force": (24, 24),
-            "density_pred": (15, 15), "alpha": (24, 21), "drho": (25, 25),
+            "density_pred": (15, 15), "density_alpha": (30, 27),
+            "density_alpha_sums": (30, 27), "drho": (25, 25),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
             "force_v0": (39, 31), "force_p0_v0": (31, 27),
             "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
@@ -476,7 +477,8 @@ GUARDED = {"drho_shell": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "jacobi": 9, "pbf_lambda": 9, "pbf_dp": 9, "pbf_grad": 9,
            "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9,
            "pressure_force_body": 9, "pressure_force_body_rev": 9,
-           "dii_aii": 9, "xsph": 9, "pbf_omega": 9}
+           "dii_aii": 9, "xsph": 9, "pbf_omega": 9, "density_alpha": 9,
+           "density_alpha_sums": 9, "mp_density": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -510,10 +512,12 @@ LISTED = ("elastic_force_hg", "elastic_f")
 # of a fluid row (the union with the query: 44 bytes), x y z v_b psi_b of
 # a wall row; XSPH's one matrix x y z v rho of a row (x y z vx alone for a
 # candidate outside the cutoff), omega's x y z v m/rho (x y z vx alone
-# outside), each the queries and the source. The one-thread walks: alpha x y
-# z of a query, x y z psi of a fluid or wall row (over a shell alpha_body
-# and alpha_shell the same); the multiphase density x y z of a query and a
-# fluid row, x y z psi_b of a wall row; the multiphase alpha sums x y z of a
+# outside), each the queries and the source; DFSPH's density and alpha
+# x y z psi of a row of the density's one matrix, the queries its fluid
+# rows; the multiphase density x y z of a fluid row (the queries its first
+# rows), x y z psi_b of a wall row. The one-thread walks: alpha's sums over
+# a shell (alpha_body, alpha_shell) x y z of a query, x y z psi_b of a
+# shell row; the multiphase alpha sums x y z of a
 # query, x y z 1/m_j or x y z psi_b of a source row (over a shell the same);
 # the shell's multiphase d delta-hat / dt x y z v of a query, x y z v_b
 # psi_b of a shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z
@@ -531,7 +535,8 @@ READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "mp_drho": (28, 28, 28), "mp_kappa": (20, 16, 16),
               "pressure_force_body": (16, 16, None),
               "pressure_force_body_rev": (16, 16, None),
-              "dii_aii": (44, 44, 28), "alpha": (12, 16, 16),
+              "dii_aii": (44, 44, 28), "density_alpha": (16, 16, 16),
+              "density_alpha_sums": (16, 16, 16),
               "alpha_body": (12, 16, None), "alpha_shell": (12, 16, None),
               "drho_shell": (24, 28, None), "xsph": (28, 28, 0),
               "pbf_omega": (24, 28, 0), "mp_density": (12, 12, 16),
@@ -550,7 +555,8 @@ GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "sum_dij", "jacobi", "pbf_lambda", "pbf_dp", "pbf_grad", "drho",
            "elastic_force_hg", "elastic_f", "mp_force", "mp_force_moving",
            "mp_drho", "pressure_force_body", "pressure_force_body_rev",
-           "drho_shell", "dii_aii", "xsph", "pbf_omega")
+           "drho_shell", "dii_aii", "xsph", "pbf_omega", "density_alpha",
+           "density_alpha_sums", "mp_density")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -766,7 +772,7 @@ def group_stats(key, args, kw):
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``DII_AII_G``, ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``,
     ``pbf_dp_group``, ``PBF_GRAD_G``, ``PBF_OMEGA_G``, ``XSPH_G``,
-    ``DRHO_G``, ``mp_force_group``, ``MP_DRHO_G``,
+    ``DRHO_G``, ``DENSITY_ALPHA_G``, ``mp_force_group``, ``MP_DRHO_G``,
     ``elastic_group``, ``shell_group``, ``BODY_REV_G``) and the
     queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
@@ -802,6 +808,8 @@ def group_stats(key, args, kw):
         g = cuda_sweep.XSPH_G
     elif key == "drho":
         g = cuda_sweep.DRHO_G
+    elif key.startswith("density_alpha"):
+        g = cuda_sweep.DENSITY_ALPHA_G
     elif key.startswith("mp_force"):
         g = cuda_sweep.mp_force_group(n, kw.get("moving_boundary", False))
     elif key == "mp_drho":
@@ -936,17 +944,20 @@ def pcisph_operands(cfg, ctx, params):
     }
 
 
-def dfsph_operands(cfg, ctx, params):
+def dfsph_operands(cfg, ctx, params, sums=False):
     """The operands of every sweep of one DFSPH step from ``ctx``, built
     by ``solvers/dfsph_cuda.py``'s own operand functions on the plain
-    density: the density, α, the pressure-off force and Dρ/Dt on the
-    state's velocities, the κ correction of the warm start ½·κ_prev (κ/ρ
-    in the pd2 slot), and under ``viscosity_model="implicit"`` the
-    Laplacian of the CG's first matvec (at v* after the plain advection
-    force). ``{key: (kernel, plain, args, kwargs)}``."""
+    density: the density and α in one sweep (key ``density_alpha``; with
+    ``sums``, the DFSPH couplings' form ``density_alpha_sums``), the
+    pressure-off force and Dρ/Dt on the state's velocities, the κ
+    correction of the warm start ½·κ_prev (κ/ρ in the pd2 slot), and under
+    ``viscosity_model="implicit"`` the Laplacian of the CG's first matvec
+    (at v* after the plain advection force). ``{key: (kernel, plain, args,
+    kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
-    from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps, alpha_src
+    from nereus_tpu_torch.solvers.dfsph_cuda import KappaSweeps
     ops, dens, f_adv = start_operands(cfg, ctx, params)
+    dargs = ops.pop("density")[2]
     sweeps = KappaSweeps(ctx, params, cfg, dens)
     kap = 0.5 * torch.clamp(
         torch.where(ctx.active, ctx.pres_prev, torch.zeros_like(dens)),
@@ -958,9 +969,11 @@ def dfsph_operands(cfg, ctx, params):
         ops["visc_laplacian"] = laplacian_op(ctx, params, dens, v_star)
     return {
         **ops,
-        "alpha": (cuda_sweep.alpha_sweep, SP.alpha_sweep_plain,
-                  (ops["density"][2][0], alpha_src(ctx, params),
-                   *ops["density"][2][2:]), {}),
+        **({"density_alpha_sums": (cuda_sweep.density_alpha_sums_sweep,
+                                   SP.density_alpha_sums_sweep_plain, dargs,
+                                   {})} if sums else
+           {"density_alpha": (cuda_sweep.density_alpha_sweep,
+                              SP.density_alpha_sweep_plain, dargs, {})}),
         "drho": (cuda_sweep.drho_sweep, SP.drho_sweep_plain,
                  sweeps.drho_operands(
                      torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)), {}),
@@ -1061,12 +1074,12 @@ def mp_dfsph_operands(cfg, ctx, params):
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
     mass, rho0 = ctx.mass, ctx.rho0
-    dargs = wcsph_cuda.multiphase_density_operands(ctx)
-    dout = SP.multiphase_density_sweep_plain(cfg, *dargs)
+    # the density and α̂ sweep one matrix
+    aargs = dfsph_cuda.multiphase_alpha_operands(ctx)
+    dout = SP.multiphase_density_sweep_plain(cfg, *aargs)
     delta = dout[:, 0]
     dens = mass * delta + (rho0 / params.rest_density) * dout[:, 1]
     sweeps = dfsph_cuda.MultiphaseKappaSweeps(ctx, params, cfg, dens)
-    aargs = dfsph_cuda.multiphase_alpha_operands(ctx)
     al = SP.multiphase_alpha_sweep_plain(cfg, *aargs)
     g = al[:, 0:3] + sweeps.sm[:, None] * al[:, 4:7]
     alpha = mass * sweeps.delta_hat ** 2 / torch.clamp(
@@ -1079,7 +1092,7 @@ def mp_dfsph_operands(cfg, ctx, params):
         ctx, vel, 1.0 / torch.clamp(delta, min=1e-12),
         1.0 / torch.clamp(dens, min=1e-12), torch.zeros_like(dens))
     return {"mp_density": (cuda_sweep.multiphase_density_sweep,
-                           SP.multiphase_density_sweep_plain, dargs, {}),
+                           SP.multiphase_density_sweep_plain, aargs, {}),
             "mp_alpha": (cuda_sweep.multiphase_alpha_sweep,
                          SP.multiphase_alpha_sweep_plain, aargs, {}),
             "mp_force": (cuda_sweep.multiphase_force_sweep,
@@ -1638,7 +1651,7 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
         return {"body_density": bdens,
                 "alpha_body": (cuda_sweep.alpha_body_sweep,
                                SP.alpha_body_sweep_plain,
-                               (q4, t.shell.src, *rows), {}),
+                               (q4, t.src4, *rows), {}),
                 "drho_shell": (cuda_sweep.drho_shell_sweep,
                                SP.drho_sweep_plain, (q_v, src_v, *rows), {}),
                 "pressure_force_body": (
@@ -1708,8 +1721,8 @@ def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
                              SP.density_sweep_plain,
                              (q4, es.shell.src4, *rows), {}),
             "alpha_shell": (cuda_sweep.alpha_shell_sweep,
-                            SP.alpha_sweep_plain, (q4, es.shell.src, *rows),
-                            {}),
+                            SP.alpha_sweep_plain,
+                            (q4, es.shell.src4, *rows), {}),
             "drho_shell": (cuda_sweep.drho_shell_sweep, SP.drho_sweep_plain,
                            (q_v, es.shell.src, *rows), {}),
             "pressure_force_body": (cuda_sweep.pressure_force_body_sweep,
@@ -1890,7 +1903,7 @@ def run_dfsph_coupled(name, dev, kind):
                 K.MP_DRHO: it, K.MP_DRHO_BODY: it, K.MP_KAPPA: corr,
                 K.MP_KAPPA_BODY: corr, K.MP_FORCE: steps, K.MP_BODY: steps}
     else:
-        want = {K.DENSITY: steps, K.ALPHA: steps, K.BODY_DENSITY: steps,
+        want = {K.DENSITY_ALPHA_SUMS: steps, K.BODY_DENSITY: steps,
                 K.DRHO: it, K.DRHO_SHELL: it, K.PRESSURE_FORCE: corr,
                 K.FORCE_P0: steps, K.BODY_FORCE_P0: steps}
         if elastic:
@@ -1950,7 +1963,7 @@ def dfsph_coupled_held_ops(cfg, params, state, grid, walls, b, body, kind):
     if kind == "mp":
         ops = mp_dfsph_operands(cfg, ctx, params)
     else:
-        ops = dfsph_operands(cfg, ctx, params)
+        ops = dfsph_operands(cfg, ctx, params, sums=True)
     if kind == "elastic":
         _, statics, ep, psi = body
         inside = dataclasses.replace(
@@ -1998,6 +2011,8 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
             fail(f"{label}: {key} kernel vs plain max|d| {err.tolist()} > "
                  f"{FORCE_TOL}*max|ref| {scale.tolist()}")
         msg.append(f"{key} {float(err.max()):.3g}/{float(scale.max()):.4g}")
+        if key.startswith("density_alpha"):
+            check_fused_density(cfg, args, got, f"{label}: {key}")
         if time_it:
             out[key] = (float(err.max()),
                         *time_turns(key, lambda: kern(cfg, *args, **kw),
@@ -2009,6 +2024,22 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
                 out[key] += (group_stats(key, args, kw),)
     print(f"  {label}: max|d|/max|ref| " + ", ".join(msg))
     return out
+
+
+def check_fused_density(cfg, args, got, label):
+    """Prints the fused density and α kernel's ρ (column 0 of ``got``)
+    against the density kernel's on the same operands, each at its own G:
+    bit for bit, or the largest difference."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    dens = cuda_sweep.density_sweep(cfg, *args)
+    groups = (cuda_sweep.DENSITY_ALPHA_G,
+              cuda_sweep.density_group(args[0].shape[0]))
+    diff = float((got[:, 0] - dens).abs().max())
+    same = bool(torch.equal(got[:, 0], dens))
+    print(f"  {label}: ρ against the density kernel's (G {groups[0]} / "
+          f"{groups[1]}): " + ("bit for bit" if same else
+                              f"max|d| {diff:.3g} of max ρ "
+                              f"{float(dens.max()):.6g}"))
 
 
 def check_models(ops, keys, label):
@@ -2348,8 +2379,7 @@ def run_settled_path(solver, dev, loops, cg=None):
         # the warm κ is applied on every step (DFSPH warm start on); the
         # implicit viscosity solve runs its Laplacian once for r0 and once
         # per launched CG iteration, after the force without viscosity
-        want = {cuda_sweep.DENSITY: steps, cuda_sweep.ALPHA: steps,
-                cuda_sweep.DRHO: launched,
+        want = {cuda_sweep.DENSITY_ALPHA: steps, cuda_sweep.DRHO: launched,
                 cuda_sweep.PRESSURE_FORCE: launched + steps}
         if cg is None:
             want[cuda_sweep.FORCE_P0_MOVING if moving
@@ -3945,7 +3975,11 @@ def main():
             "pressure_force": (cuda_sweep.PRESSURE_FORCE, iisph_src,
                                rep + "922"),
             "density_pred": (cuda_sweep.DENSITY_PRED, sph_src, rep + "1193"),
-            "alpha": (cuda_sweep.ALPHA, dfsph_src, rep + "578"),
+            # density_sweep (:1193) and alpha_pair (:578), fused
+            "density_alpha": (cuda_sweep.DENSITY_ALPHA, dfsph_src,
+                              rep + "1193,578"),
+            "density_alpha_sums": (cuda_sweep.DENSITY_ALPHA_SUMS, dfsph_src,
+                                   rep + "1193,578"),
             "drho": (cuda_sweep.DRHO, dfsph_src, rep + "903"),
             "mp_density": (cuda_sweep.MP_DENSITY, mp_src, rep + "628"),
             "mp_force": (cuda_sweep.MP_FORCE, mp_src, rep + "657"),

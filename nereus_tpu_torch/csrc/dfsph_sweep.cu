@@ -2,36 +2,59 @@
 //
 // Replace the TPU kernel nereus_tpu/ops/pallas_neighbors.py::_sweep_kernel
 // as nereus_tpu/ops/pallas_sph.py::generic_sweep launches it with the two
-// DFSPH pair functions of pallas_sph.py, alpha_pair and drho_pair
-// (solvers/dfsph_pallas.py::dfsph_step_pallas). Its kappa correction is the
-// PressureForce functor of iisph_sweep.cu with kappa/rho in the pd2 slot.
-// The DFSPH couplings (solvers/dfsph_coupled.py, dfsph_elastic.py) run
-// alpha_pair(include_sq=False) over a body shell alone (BoundaryForm<Alpha>,
-// rows 0-8), and Alpha and Drho as they are over a shell's 9 rows (the
-// elastic body's sum |psi grad W|^2 under strong coupling; the shell's
-// sample velocities in Drho's velocity slots).
+// DFSPH pair functions of pallas_sph.py, alpha_pair and drho_pair, and the
+// density sweep of the same step (density_pair, pallas_sph.py:1193;
+// solvers/dfsph_pallas.py::dfsph_step_pallas, lines 202-214). Its kappa
+// correction is the PressureForce functor of iisph_sweep.cu with kappa/rho
+// in the pd2 slot. The DFSPH couplings (solvers/dfsph_coupled.py,
+// dfsph_elastic.py) run alpha_pair(include_sq=False) over a body shell
+// alone (rows 0-8), alpha_pair as it is over a shell's 9 rows (the elastic
+// body's sum |psi grad W|^2 under strong coupling) and drho_pair over a
+// shell's 9 rows (the shell's sample velocities in Drho's velocity slots).
 //
-// Design. Alpha (once per step) is a functor of the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, in the operation order
-// of ops/sph_pairs.py; it uses the default (poly6 / Monaghan) gradient,
-// which is exactly 0 at the self pair only because r^2 is clamped before
-// the rsqrt, so self-pairs stay in the ranges; the Muller gradient skips
-// the rsqrt. Bound: memory traffic (sweep_common.cuh): one 32-byte source
-// row per candidate against ~20 flops.
+// The density and the factor alpha (once per step) are one walk,
+// group_pair_sweep_kernel<DensityAlpha<SUMS>, KS, G> on the lane-group
+// engine of group_sweep.cuh. What held them back: the density kernel
+// walked the ranges, then alpha's one thread per query walked the same 18
+// runs again in series, every candidate loading both float4s of its
+// 32-byte row (of which it read x y z and psi) and running the pair,
+// multiplied by 0 outside the cutoff (~85 % of the candidates). What the
+// design does: G lanes per query walk the flattened fluid and wall runs of
+// the density's one (C + Mb, 4) matrix x y z psi (fluid rows psi = m, wall
+// rows psi_b; solvers/sweep_common.py::SweepCtx.density_operands), so the
+// step builds no other matrix; a candidate's one float4 is the engine's own
+// load, and inside the cutoff the pair adds psi W to rho in the density
+// kernel's per-pair expression (sph_sweep.cu), so rho is the density
+// kernel's at the same G, and alpha's sums (AlphaSums). Lane 0's epilogue
+// writes rho and alpha = rho / max(|sum psi grad W|^2 + sum |psi grad W|^2,
+// 1e-6) as two (N,) planes (the single-phase step), or rho and the four
+// sums as five (SUMS: the DFSPH couplings add a shell's sums, and under
+// strong coupling its mobility, before they form alpha). G:
+// ops/cuda_sweep.py::DENSITY_ALPHA_G (the one instance of each built).
+// Measured at the settled 262,144-particle block (PERF.md section 6): the
+// one walk took 0.0410 ms for rho and alpha, about the density kernel's
+// time alone; the sums alone on the same engine and matrix
+// (group_pair_sweep_kernel<AlphaSums>, 0.0410 by itself) took 0.0975 with
+// the density kernel before them and alpha formed in torch after them,
+// and the parent's one-thread walk so 0.1198.
+//
+// Over a body shell the factor's sums stay on the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, one thread per query,
+// the pair masked by the cutoff (MaskedForm<AlphaSums>; its boundary form
+// BoundaryForm<MaskedForm<AlphaSums>>), over the shell's (Mb, 4) rows
+// x y z psi_b (Shell.src4, the shell's density source).
 //
 // Drho runs once per iteration of both solver loops (~4 times per step)
-// on the lane-group engine group_pair_sweep_kernel<Drho, KS, G> of
-// group_sweep.cuh. What held it back on pair_sweep_kernel: one thread per
-// query walking 18 runs in series, and every candidate loading both
-// float4s of its 32-byte row and running the whole pair, multiplied by 0
-// outside the cutoff (~85 % of the candidates). What the design does: G
-// lanes per query walk the flattened fluid and wall runs as one list; a
-// candidate loads x y z vx, tests the cutoff, and only inside it loads
-// vy vz psi and runs the pair. Its operands are one (C + Mb, 8) matrix
-// x y z vx | vy vz psi pad whose first C rows are the queries
+// on the lane-group engine group_pair_sweep_kernel<Drho, KS, G>. What held
+// it back on pair_sweep_kernel: one thread per query walking 18 runs in
+// series, and every candidate loading both float4s of its 32-byte row and
+// running the whole pair, multiplied by 0 outside the cutoff. What the
+// design does: G lanes per query walk the flattened fluid and wall runs as
+// one list; a candidate loads x y z vx, tests the cutoff, and only inside
+// it loads vy vz psi and runs the pair. Its operands are one (C + Mb, 8)
+// matrix x y z vx | vy vz psi pad whose first C rows are the queries
 // (solvers/dfsph_cuda.py::KappaSweeps), so each iteration writes the
-// velocities once. G: ops/cuda_sweep.py::DRHO_G (the one instance
-// built).
+// velocities once. G: ops/cuda_sweep.py::DRHO_G (the one instance built).
 //
 // Drho over a rigid or elastic shell (the DFSPH couplings, as often as
 // Drho) is DrhoShell, the same pair over the shell's 9 rows, on the same
@@ -44,9 +67,20 @@
 // the cutoff, where MaskedForm<Drho> on pair_sweep_kernel, the walk it
 // replaces, loaded every candidate's whole row and ran the pair masked.
 //
+// Numerics: the default (poly6 / Monaghan) gradient is exactly 0 at the
+// self pair only because r^2 is clamped before the rsqrt, so self pairs
+// stay in the ranges; the Muller gradient skips the rsqrt. The division
+// of alpha is exact. Bound: memory traffic (sweep_common.cuh).
+//
 // Layouts (row-major float32, 16-byte aligned rows):
-//   alpha: q (N, 4) x y z pad; src (M, 8) x y z 0 0 0 psi pad;
-//          out (N, 4) sum psi grad W (3), sum |psi grad W|^2 (fluid rows)
+//   density_alpha: src (C + Mb, 4) x y z psi (fluid rows psi = m, wall
+//          rows psi_b); q its first C rows; out (2, N) planes rho, alpha,
+//          or (SUMS) (5, N) planes rho, sum psi grad W (3),
+//          sum |psi grad W|^2 (fluid rows)
+//   alpha_body, alpha_shell: q (N, 4) x y z (slot 3 unread); src a shell's
+//          (Mb, 4) rows x y z psi_b; ranges (9, N); out (N, 4) sum
+//          psi_b grad W (3), sum |psi_b grad W|^2 (alpha_shell; 0 in
+//          alpha_body)
 //   drho:  src (C + Mb, 8) x y z vx vy vz psi pad (fluid rows psi = m,
 //          wall rows their velocities, 0 for a static wall, and psi_b);
 //          q its first C rows (slots 0-5 read); out (N,)
@@ -59,22 +93,65 @@ namespace {
 
 using namespace nereus_sweep;
 
-// sum psi grad W, and sum |psi grad W|^2 over the fluid rows only (static
-// boundaries add to the gradient sum alone)
-struct Alpha {
-  static constexpr int QW = 4, SW = 8, OW = 4;
+// alpha's sums over rows x y z psi: sum psi grad W (acc 0-2), and
+// sum |psi grad W|^2 over the fluid rows only (acc 3; static boundaries add
+// to the gradient sum alone); the engine calls it inside the cutoff with
+// a = x y z psi of row j
+struct AlphaSums {
+  static constexpr int QW = 4, SW = 4, OW = 4;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);
-    const float psi = src_f4(src, SW, j, 1).z;
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
     const Geom g = default_geom<KS>(q, a, p);
-    const float c = psi * g.s * g.okf;
+    const float c = a.w * g.s;
     acc[0] += c * g.dx;
     acc[1] += c * g.dy;
     acc[2] += c * g.dz;
     if constexpr (!B) acc[3] += c * c * g.r2;
+  }
+};
+
+// rho = sum psi W over all rows (self term included), in the density
+// kernel's per-pair expression, and AlphaSums' sums, in one walk over the
+// density's matrix x y z psi; the engine calls it inside the cutoff with
+// a = x y z psi of row j. The epilogue writes rho and alpha, or (SUMS) rho
+// and the four sums.
+template <bool SUMS>
+struct DensityAlpha {
+  static constexpr int QW = 4, SW = 4, OW = 5, OUTW = SUMS ? 5 : 2;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
+    const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    float rl = 0.0f, invrl = 0.0f;
+    if constexpr (KS == MULLER) {
+      const float d = p.h2 - r2;
+      acc[0] += (d * d * d) * (a.w * p.kpoly);
+    } else {
+      rl_invrl(r2, rl, invrl);
+      acc[0] += a.w * w_value<KS>(r2, rl, p);
+    }
+    const float c = a.w * grad_scale_default<KS>(r2, rl, invrl, p);
+    acc[1] += c * dx;
+    acc[2] += c * dy;
+    acc[3] += c * dz;
+    if constexpr (!B) acc[4] += c * c * r2;
+  }
+  __device__ static void epilogue(const float (&)[QW],
+                                  const float (&acc)[OW], const Params&,
+                                  float (&o)[OUTW]) {
+    if constexpr (SUMS) {
+#pragma unroll
+      for (int k = 0; k < OW; ++k) o[k] = acc[k];
+    } else {
+      const float denom =
+          acc[1] * acc[1] + acc[2] * acc[2] + acc[3] * acc[3] + acc[4];
+      o[0] = acc[0];
+      o[1] = acc[0] / fmaxf(denom, 1e-6f);
+    }
   }
 };
 
@@ -107,9 +184,12 @@ struct DrhoShell : Drho {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(alpha, Alpha)
-// sum psi grad W of a body shell alone, without the square sum
-NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<Alpha>)
+// the G of ops/cuda_sweep.py::DENSITY_ALPHA_G
+NEREUS_GROUP_SWEEP(density_alpha, DensityAlpha<false>, 4)
+NEREUS_GROUP_SWEEP(density_alpha_sums, DensityAlpha<true>, 4)
+// over a body shell's 9 rows: the sums, and sum psi grad W alone
+NEREUS_PAIR_SWEEP(alpha_shell, MaskedForm<AlphaSums>)
+NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<MaskedForm<AlphaSums>>)
 // the G of ops/cuda_sweep.py::DRHO_G
 NEREUS_GROUP_SWEEP(drho, Drho, 4)
 // over a body shell's 9 rows, at the G of ops/cuda_sweep.py::shell_group

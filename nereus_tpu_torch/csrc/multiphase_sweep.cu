@@ -11,52 +11,73 @@
 // velocity in slots 3-5 of the boundary source row), and xsph_pair
 // (wcsph_step_pallas with xsph_eps).
 //
-// Design. The density functor runs on the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
-// hash-sorted query, exact neighbor ranges), in the operation order of
-// nereus_tpu_torch/ops/sph_pairs.py. The self pair stays in the ranges:
-// it gives the number density its W(0), and every force and XSPH term is
-// exactly 0 there (r^2 is clamped before the rsqrt, so the gradients are
-// finite and multiply r = 0; dv = 0; Becker's r is 0). The viscosity
-// bracket multiplies r^2 before its kernel constant (visc_rdotgrad) and the
-// viscosity denominator divides exactly. The same-phase test of Becker
-// cohesion is an exact float compare of the query's and the source's copy
-// of one rho0 column (slot 8 of the same matrix).
+// Design. Every functor runs on the lane-group engine
+// group_pair_sweep_kernel<Pair, KS, G> of group_sweep.cuh (G lanes per
+// hash-sorted query walk its exact neighbor ranges as one flattened list),
+// in the operation order of nereus_tpu_torch/ops/sph_pairs.py. The self
+// pair stays in the ranges: it gives the number density its W(0), and every
+// force and XSPH term is exactly 0 there (r^2 is clamped before the rsqrt,
+// so the gradients are finite and multiply r = 0; dv = 0; Becker's r is
+// 0). The viscosity bracket multiplies r^2 before its kernel constant
+// (visc_rdotgrad) and the viscosity denominator divides exactly. The
+// same-phase test of Becker cohesion is an exact float compare of the
+// query's and the source's copy of one rho0 column (slot 8 of the same
+// matrix).
 //
-// The force (once per step on every multiphase path) runs on the
-// lane-group engine group_pair_sweep_kernel<MultiphaseForce, KS, G> of
-// group_sweep.cuh. What held it back on pair_sweep_kernel: one thread per
-// query walking 18 runs in series, and every candidate loading two or three
-// float4s of its 48-byte row and running the heaviest pair of the port (72
-// operations on a fluid row with an exact division, 48-51 on a wall row),
-// multiplied by 0 outside the cutoff (~85 % of the candidates). What the
-// design does: G lanes per query walk the flattened fluid and wall runs as
-// one list; a candidate loads x y z vx, tests the cutoff, and only inside
-// it loads vy vz V pV^2 (wall: vb_y vb_z psi_b) and, for a fluid pair
-// under Becker cohesion, rho0_j. Its operands are one (C + Mb, 12) matrix
-// whose first C rows are the queries (solvers/wcsph_cuda.py::
-// multiphase_force_args), so a step writes the positions and velocities
-// once. G: ops/cuda_sweep.py::mp_force_group (only those instances are
-// built).
+// The number density (once per step on every multiphase path) is
+// group_pair_sweep_kernel<MultiphaseDensity, KS, G>. What held it back on
+// pair_sweep_kernel: one thread per query walking 18 runs in series, and
+// every candidate loading its 16-byte row and evaluating W, multiplied by 0
+// outside the cutoff (~85 % of the candidates). What the design does: G
+// lanes per query walk the flattened fluid and wall runs as one list; a
+// candidate's one float4 (x y z psi_b) is the engine's own load, and W runs
+// only inside the cutoff. Its operands are one (C [+ Mb], 4) matrix whose
+// first C rows are the queries: on the multiphase WCSPH paths the fluid rows
+// x y z 0 stacked in place, then the walls
+// (solvers/wcsph_cuda.py::multiphase_density_operands); on the multiphase
+// DFSPH paths the multiphase alpha's own x y z 1/m matrix
+// (solvers/dfsph_cuda.py::multiphase_alpha_operands), whose fluid rows' slot
+// 3 this pair never reads. G: the density kernel's,
+// ops/cuda_sweep.py::density_group (only those instances are built).
+// Measured (PERF.md section 6): at the 262,144-query multiphase DFSPH block
+// 9 % under the one-thread walk; at multiphase_1M's 1,092,727 queries level
+// with it, and 10 % under it with the operands built (one matrix stacked in
+// place, where the walk's query was stacked and then copied again behind the
+// walls).
 //
-// XSPH (once per step with xsph_eps, on the WCSPH and PBF paths) runs on
-// the same engine, group_pair_sweep_kernel<Xsph, KS, G>, over the 9 fluid
-// rows. As one thread per query it walked the runs in series and loaded
-// both float4s of every candidate's 32-byte row, evaluating W on all of
-// them (~85 % outside the cutoff, multiplied by 0) and skipping only the
-// exact division there. Now a candidate loads x y z vx and tests the
-// cutoff; vy vz rho_j, W and the exact division run only inside it. Its
-// operands are one (C, 8) matrix built through planes
-// (solvers/wcsph_cuda.py::xsph_operands), the queries and the source. G:
-// ops/cuda_sweep.py::XSPH_G (the one instance built).
+// The force (once per step on every multiphase path) is
+// group_pair_sweep_kernel<MultiphaseForce, KS, G>. What held it back on
+// pair_sweep_kernel: one thread per query walking 18 runs in series, and
+// every candidate loading two or three float4s of its 48-byte row and
+// running the heaviest pair of the port (72 operations on a fluid row with
+// an exact division, 48-51 on a wall row), multiplied by 0 outside the
+// cutoff (~85 % of the candidates). What the design does: G lanes per query
+// walk the flattened fluid and wall runs as one list; a candidate loads x y
+// z vx, tests the cutoff, and only inside it loads vy vz V pV^2 (wall: vb_y
+// vb_z psi_b) and, for a fluid pair under Becker cohesion, rho0_j. Its
+// operands are one (C + Mb, 12) matrix whose first C rows are the queries
+// (solvers/wcsph_cuda.py::multiphase_force_args), so a step writes the
+// positions and velocities once. G: ops/cuda_sweep.py::mp_force_group (only
+// those instances are built).
+//
+// XSPH (once per step with xsph_eps, on the WCSPH and PBF paths) is
+// group_pair_sweep_kernel<Xsph, KS, G>, over the 9 fluid rows. As one thread
+// per query it walked the runs in series and loaded both float4s of every
+// candidate's 32-byte row, evaluating W on all of them (~85 % outside the
+// cutoff, multiplied by 0) and skipping only the exact division there. Now a
+// candidate loads x y z vx and tests the cutoff; vy vz rho_j, W and the
+// exact division run only inside it. Its operands are one (C, 8) matrix
+// built through planes (solvers/wcsph_cuda.py::xsph_operands), the queries
+// and the source. G: ops/cuda_sweep.py::XSPH_G (the one instance built).
 //
 // Bound: memory traffic (sweep_common.cuh). The multiphase density sweep
 // reads 16-byte rows (position and psi_b only), the XSPH sweep 32-byte
 // rows.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
-//   multiphase density: q (N, 4) x y z pad; src (M, 4) fluid x y z 0,
-//       boundary x y z psi_b; out (N, 2) sum W (fluid rows), sum psi_b W
+//   multiphase density: src (C + Mb, 4) fluid rows x y z s (s not read:
+//       0, or 1/m on the DFSPH paths), then the boundary rows x y z psi_b;
+//       q its first C rows; out (N, 2) sum W (fluid rows), sum psi_b W
 //       (boundary rows)
 //   multiphase force: src (C + Mb, 12), fluid rows x y z vx | vy vz V p V^2
 //       | rho0 1/m m 1/rho~ (V = 1/delta, p V^2 0 for DFSPH's non-pressure
@@ -94,19 +115,21 @@ __device__ __forceinline__ WGeom w_geom(const float* q, float4 a,
 }
 
 // number density sum W (fluid rows, column 0) and sum psi_b W (boundary
-// rows, column 1, rescaled per query phase by the caller)
+// rows, column 1, rescaled per query phase by the caller); the engine calls
+// it inside the cutoff with a = x y z psi_b of row j (a fluid row's slot 3
+// is not read). W keeps w_value's operation order, so delta is the plain
+// version's function.
 struct MultiphaseDensity {
   static constexpr int QW = 4, SW = 4, OW = 2;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const float4 a = src_f4(src, SW, j, 0);  // x y z (psi_b)
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
     const WGeom g = w_geom<KS>(q, a, p);
     if constexpr (B) {
-      acc[1] += a.w * g.w * g.okf;
+      acc[1] += a.w * g.w;
     } else {
-      acc[0] += g.w * g.okf;
+      acc[0] += g.w;
     }
   }
 };
@@ -197,7 +220,8 @@ struct Xsph {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(multiphase_density, MultiphaseDensity)
+// the G of ops/cuda_sweep.py::density_group
+NEREUS_GROUP_SWEEP(multiphase_density, MultiphaseDensity, 2, 4)
 // the G of ops/cuda_sweep.py (XSPH_G)
 NEREUS_GROUP_SWEEP(xsph, Xsph, 2)
 

@@ -67,9 +67,12 @@ JACOBI = Kernel("group_pair_sweep_kernel<Jacobi>")
 PRESSURE_FORCE = Kernel("tiled_pair_sweep_kernel<PressureForce>")
 # the density kernel at PCISPH's predicted positions, counted apart
 DENSITY_PRED = Kernel("density_sweep_kernel<predicted>")
-ALPHA = Kernel("pair_sweep_kernel<Alpha>")
+# DFSPH's density and factor α in one walk: (ρ, α), and the couplings'
+# form (ρ and α's four sums), each counted apart
+DENSITY_ALPHA = Kernel("group_pair_sweep_kernel<DensityAlpha>")
+DENSITY_ALPHA_SUMS = Kernel("group_pair_sweep_kernel<DensityAlpha<SUMS>>")
 DRHO = Kernel("group_pair_sweep_kernel<Drho>")
-MP_DENSITY = Kernel("pair_sweep_kernel<MultiphaseDensity>")
+MP_DENSITY = Kernel("group_pair_sweep_kernel<MultiphaseDensity>")
 MP_FORCE = Kernel("group_pair_sweep_kernel<MultiphaseForce>")
 XSPH = Kernel("group_pair_sweep_kernel<Xsph>")
 # the force kernel without the viscosity and the wall friction (the
@@ -105,8 +108,8 @@ ELASTIC_FORCE_HG = Kernel(
     "group_list_sweep_kernel<ElasticForceHourglass>")
 FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # the DFSPH couplings: the two contacts' friction alone, the body forms of
-# the DFSPH sweeps over a body shell (rows 0-8), and Alpha and Drho as they
-# are over a shell's 9 rows (Drho at the shell's G, as the forward κ
+# the DFSPH sweeps over a body shell (rows 0-8), and α's sums and Drho as
+# they are over a shell's 9 rows (Drho at the shell's G, as the forward κ
 # impulse), each counted apart; the κ impulse forward (the fluid rows as
 # queries over a shell) and reverse (a body's samples as queries over the
 # fluid rows) apart
@@ -116,8 +119,9 @@ PRESSURE_FORCE_BODY = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce><shell>")
 PRESSURE_FORCE_BODY_REV = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce>")
-ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<Alpha>>")
-ALPHA_SHELL = Kernel("pair_sweep_kernel<Alpha><body>")
+ALPHA_BODY = Kernel(
+    "pair_sweep_kernel<BoundaryForm<MaskedForm<AlphaSums>>>")
+ALPHA_SHELL = Kernel("pair_sweep_kernel<MaskedForm<AlphaSums>>")
 DRHO_SHELL = Kernel("group_pair_sweep_kernel<DrhoShell>")
 MP_ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseAlpha>>")
 MP_DRHO_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseDrho>>")
@@ -131,15 +135,15 @@ CELL_CHECK = Kernel("cell_check_kernel")
 LAYOUT_AOS = Kernel("layout_probe<AoS>")
 LAYOUT_SOA = Kernel("layout_probe<SoA>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_AII, SUM_DIJ, JACOBI, PRESSURE_FORCE,
-           DENSITY_PRED, ALPHA, DRHO, MP_DENSITY, MP_FORCE, XSPH, FORCE_V0,
-           FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA, MP_DRHO, MP_KAPPA,
-           PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING, FORCE_P0_MOVING,
-           MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE, MP_BODY, ELASTIC_F,
-           ELASTIC_FORCE_HG, FLUID_REACTION, BODY_FORCE_P0, FLUID_REACTION_P0,
-           PRESSURE_FORCE_BODY, ALPHA_BODY, ALPHA_SHELL, DRHO_SHELL,
-           MP_ALPHA_BODY, MP_DRHO_BODY, MP_KAPPA_BODY, WALL_FORCE,
-           WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS, LAYOUT_SOA, PBF_GRAD,
-           PRESSURE_FORCE_BODY_REV)
+           DENSITY_PRED, DENSITY_ALPHA, DENSITY_ALPHA_SUMS, DRHO, MP_DENSITY,
+           MP_FORCE, XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA,
+           MP_DRHO, MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
+           FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
+           MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
+           BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
+           ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
+           MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
+           LAYOUT_SOA, PBF_GRAD, PRESSURE_FORCE_BODY_REV)
 
 _lock = threading.Lock()
 _lib = None
@@ -303,14 +307,15 @@ def _raise_on(lib, kernel: Kernel, rc: int):
 # n_rows, pvec, kernel_set, *switches, out, stream), by their number of
 # int switches after kernel_set
 _SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
-              "jacobi": 1, "alpha": 0, "drho": 1, "drho_shell": 1,
-              "multiphase_density": 0, "multiphase_force": 3,
+              "jacobi": 1, "density_alpha": 1, "density_alpha_sums": 1,
+              "drho": 1, "drho_shell": 1,
+              "multiphase_density": 1, "multiphase_force": 3,
               "xsph": 1, "multiphase_alpha": 0,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 1, "pbf_grad": 1, "body_force": 1,
               "multiphase_body": 0, "fluid_reaction": 1,
               "pressure_force_body": 1, "pressure_force_body_rev": 1,
-              "alpha_body": 0,
+              "alpha_body": 0, "alpha_shell": 0,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
               "multiphase_kappa_body": 0, "wall_force": 1}
 
@@ -498,7 +503,12 @@ SMALL_SHELL = 512
 
 
 def density_group(n: int) -> int:
-    """The density kernel's G for ``n`` queries."""
+    """The density kernel's G for ``n`` queries, and the multiphase density
+    kernel's (``csrc/multiphase_sweep.cu`` builds these two), as measured
+    for it by ``tools/group_scan.py --keys multiphase_density`` (PERF.md
+    section 6): at ``multiphase_1M``'s 1,092,727 queries G 4 took 7 % more
+    than G 2, at the multiphase DFSPH block's 262,144 G 2 4 % more than
+    G 4."""
     return 4 if n < SMALL_N else 2
 
 
@@ -560,6 +570,12 @@ def pbf_dp_group(n: int) -> int:
 # 262,144-particle block (``tools/group_scan.py --solver dfsph``; PERF.md
 # section 6: 2 took 19 % and 8 22 % more time).
 DRHO_G = 4
+# And of its density and factor α in one walk, both forms (the one instance
+# of each built), as measured at the settled 262,144-particle block, the
+# size of every path that runs them (``tools/group_scan.py --solver dfsph
+# --keys density_alpha``: G 1, 2 and 8 took 35 %, 6 % and 23 % more
+# time).
+DENSITY_ALPHA_G = 4
 
 
 # lanes per query G of the multiphase force kernel
@@ -707,10 +723,23 @@ def predicted_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                     (9, 18), density_group(q.shape[0]))
 
 
-def alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """DFSPH factor accumulators (N, 4): q (N, 4), src (M, 8)."""
-    return _sweep(ALPHA, "alpha", cfg, q, 4, src, 8, seg_start, seg_end,
-                  pvec, (9, 18), 4)
+def density_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
+    """DFSPH's (ρ, α) (N, 2), each column a contiguous (N,) plane, from one
+    walk: src (M, 4) ``x y z ψ`` (the density's matrix, fluid rows ψ = m,
+    wall rows ψ_b), q (N, 4) its first N rows (slot 3 unread)."""
+    return _sweep(DENSITY_ALPHA, "density_alpha", cfg, q, 4, src, 4,
+                  seg_start, seg_end, pvec, (9, 18), 2, DENSITY_ALPHA_G,
+                  planes=True)
+
+
+def density_alpha_sums_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                             pvec):
+    """ρ and α's sums (Σψ∇W xyz, Σ|ψ∇W|²) (N, 5), each column a contiguous
+    (N,) plane, from the walk of :func:`density_alpha_sweep` on the same
+    operands, counted in ``DENSITY_ALPHA_SUMS``."""
+    return _sweep(DENSITY_ALPHA_SUMS, "density_alpha_sums", cfg, q, 4, src,
+                  4, seg_start, seg_end, pvec, (9, 18), 5, DENSITY_ALPHA_G,
+                  planes=True)
 
 
 def drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -723,9 +752,12 @@ def drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 
 def multiphase_density_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                              pvec):
-    """(δ = ΣW, Σψ_b·W) (N, 2): q (N, 4), src (M, 4)."""
+    """(δ = ΣW, Σψ_b·W) (N, 2): src (M, 4), fluid rows ``x y z s`` (s not
+    read), wall rows ``x y z ψ_b``; q (N, 4) (on the step's path its first
+    N rows)."""
     return _sweep(MP_DENSITY, "multiphase_density", cfg, q, 4, src, 4,
-                  seg_start, seg_end, pvec, (9, 18), 2)
+                  seg_start, seg_end, pvec, (9, 18), 2,
+                  density_group(q.shape[0]))
 
 
 def multiphase_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
@@ -894,15 +926,16 @@ def pressure_force_body_rev_sweep(cfg: SimConfig, q, src, seg_start,
 
 def alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Σψ_b∇W of a body shell alone (N, 4), column 3 zero: q (N, 4), the
-    shell (Mb, 8), ranges (9, N)."""
-    return _sweep(ALPHA_BODY, "alpha_body", cfg, q, 4, src, 8, seg_start,
+    shell (Mb, 4) ``x y z ψ_b`` (``Shell.src4``), ranges (9, N)."""
+    return _sweep(ALPHA_BODY, "alpha_body", cfg, q, 4, src, 4, seg_start,
                   seg_end, pvec, (9,), 4)
 
 
 def alpha_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """The Alpha kernel in its fluid form over a body shell (N, 4):
-    Σψ_b∇W and Σ|ψ_b∇W|², counted in ``ALPHA_SHELL``; ranges (9, N)."""
-    return _sweep(ALPHA_SHELL, "alpha", cfg, q, 4, src, 8, seg_start,
+    """α's sums in their fluid form over a body shell (N, 4): Σψ_b∇W and
+    Σ|ψ_b∇W|², q (N, 4), the shell (Mb, 4) ``x y z ψ_b``
+    (``Shell.src4``), ranges (9, N); counted in ``ALPHA_SHELL``."""
+    return _sweep(ALPHA_SHELL, "alpha_shell", cfg, q, 4, src, 4, seg_start,
                   seg_end, pvec, (9,), 4)
 
 

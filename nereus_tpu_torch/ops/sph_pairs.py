@@ -24,10 +24,12 @@ queries: fluid rows ``x y z vx vy vz V p·V² ρ0 1/m m 1/ρ̃``, boundary rows
 ``x y z v_b ψ_b 0…``. Multiphase DFSPH's dδ̂/dt reads one (C + Mb, 8)
 matrix, its queries the first C rows: fluid rows ``x y z v s/m 0`` (s_i/m_i
 read from the query alone), boundary rows ``x y z v_b ψ_b 0``.
-The multiphase density sweep reads a (M, 4) source ``x y z ψ_b`` (fluid
-rows ``x y z 0``); the multiphase DFSPH α and κ sweeps and PBF's λ and Δp
-sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j or λ_j,
-boundary s = ψ_b; PBF's λ sweep reads its fluid ψ = m from pvec).
+DFSPH's density and factor α read the density's (M, 4) matrix ``x y z ψ``
+in one walk, its first N rows the queries. The multiphase density sweep
+reads a (M, 4) source ``x y z s`` whose fluid s it never reads and whose
+boundary rows are ``x y z ψ_b``; the multiphase DFSPH α and κ sweeps and
+PBF's λ and Δp sweeps a (M, 4) source ``x y z s`` (fluid s = 1/m_j, κV̂²_j
+or λ_j, boundary s = ψ_b; PBF's λ sweep reads its fluid ψ = m from pvec).
 
 The pair formulas keep the JAX functions' operation order, including the
 float32 overflow discipline: r² is clamped to ε² before the rsqrt, so
@@ -37,7 +39,9 @@ constant.
 
 Every sweep dispatcher (``density_sweep``, ``fluid_force_sweep``, the
 four IISPH sweeps (``dii_aii_sweep`` the TPU's two pre-loop sweeps in
-one), PCISPH's ``predicted_density_sweep``, the two DFSPH sweeps, the
+one), PCISPH's ``predicted_density_sweep``, the DFSPH sweeps
+(``density_alpha_sweep`` and ``density_alpha_sums_sweep`` the TPU's
+density and α sweeps in one, and ``drho_sweep``), the
 multiphase density and force sweeps, ``xsph_sweep``, the implicit
 viscosity solve's ``visc_laplacian_sweep``, the three multiphase DFSPH
 sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
@@ -453,9 +457,9 @@ def grad_pressure_force_pair(q, s, pv, *, kernel_set, boundary,
 def alpha_pair(q, s, pv, *, kernel_set, include_sq):
     """DFSPH factor accumulators: Σψ∇W (3) and Σ|ψ∇W|² (fluid rows,
     ``include_sq``; static boundaries add to the gradient sum alone).
-    q: x y z pad; src ψ in slot 6. Returns (P, 4)."""
+    q: x y z pad; s: x y z ψ (the density's rows). Returns (P, 4)."""
     dx, dy, dz, r2, sg, okf = _default_grad(q, s, pv, kernel_set)
-    c = s[:, 6] * sg * okf
+    c = s[:, 3] * sg * okf
     sq = c * c * r2 if include_sq else torch.zeros_like(c)
     return torch.stack([c * dx, c * dy, c * dz, sq], dim=1)
 
@@ -997,11 +1001,44 @@ def pressure_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
 
 
 def alpha_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """(Σψ∇W xyz, Σ|ψ∇W|²) (N, 4): q (N, 4), src (M, 8) with ψ in slot 6;
-    the square sum over the fluid rows only."""
+    """(Σψ∇W xyz, Σ|ψ∇W|²) (N, 4): q (N, 4), src (M, 4) ``x y z ψ``; the
+    square sum over the fluid rows only (on 9 range rows, a shell's
+    ``x y z ψ_b`` as the source: ``alpha_shell_sweep``)."""
     return neighbor_sweep_plain(
         _bind(alpha_pair, cfg, pvec, include_sq=True), q, src, seg_start,
         seg_end, 4, pair_fn_b=_bind(alpha_pair, cfg, pvec, include_sq=False))
+
+
+ALPHA_EPS = 1e-6    # α's denominator floor (dfsph_pallas.py's _EPS_DENOM)
+
+
+def alpha_of(sums):
+    """(ρ, α) (N, 2) from (ρ, Σψ∇W xyz, Σ|ψ∇W|²) (N, 5), in the JAX step's
+    order: α = ρ / max(|Σψ∇W|² + Σ|ψ∇W|², ε); the fused kernel's epilogue.
+    The columns are contiguous (N,) planes, as the kernel writes them."""
+    dens = sums[:, 0]
+    denom = (sums[:, 1] * sums[:, 1] + sums[:, 2] * sums[:, 2]
+             + sums[:, 3] * sums[:, 3] + sums[:, 4])
+    return torch.stack([dens, dens / torch.clamp(denom, min=ALPHA_EPS)]).t()
+
+
+def density_alpha_sums_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                   seg_end, pvec):
+    """ρ and α's sums (ρ, Σψ∇W xyz, Σ|ψ∇W|²) (N, 5), each column a
+    contiguous plane: :func:`density_sweep_plain` and
+    :func:`alpha_sweep_plain` on the density's operands, src (M, 4)
+    ``x y z ψ`` (fluid ψ = m, walls ψ_b), q (N, 4)."""
+    dens = density_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
+    al = alpha_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
+    return torch.cat([dens[None], al.t()]).t()
+
+
+def density_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
+                              pvec):
+    """DFSPH's (ρ, α) (N, 2), each column a contiguous plane:
+    :func:`alpha_of` of :func:`density_alpha_sums_sweep_plain`."""
+    return alpha_of(density_alpha_sums_sweep_plain(cfg, q, src, seg_start,
+                                                   seg_end, pvec))
 
 
 def drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -1015,7 +1052,7 @@ def drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
 def multiphase_density_sweep_plain(cfg: SimConfig, q, src, seg_start,
                                    seg_end, pvec):
     """(δ = ΣW, Σψ_b·W) (N, 2): q (N, 4), src (M, 4) fluid rows
-    ``x y z 0``, boundary rows ``x y z ψ_b``."""
+    ``x y z s`` (s not read), boundary rows ``x y z ψ_b``."""
     return neighbor_sweep_plain(
         _bind(multiphase_density_pair, cfg, pvec), q, src, seg_start,
         seg_end, 2, pair_fn_b=_bind(multiphase_density_bpair, cfg, pvec))
@@ -1217,7 +1254,8 @@ def pressure_force_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
 
 def alpha_body_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """Σψ_b∇W (N, 4) of a body shell alone, column 3 zero
-    (``alpha_pair(include_sq=False)``): q (N, 4), the shell (Mb, 8)."""
+    (``alpha_pair(include_sq=False)``): q (N, 4), the shell (Mb, 4)
+    ``x y z ψ_b``."""
     return neighbor_sweep_plain(
         _bind(alpha_pair, cfg, pvec, include_sq=False), q, src, seg_start,
         seg_end, 4)
@@ -1297,7 +1335,10 @@ sum_dij_sweep = _dispatcher(sum_dij_sweep_plain, "sum_dij_sweep")
 jacobi_sweep = _dispatcher(jacobi_sweep_plain, "jacobi_sweep")
 pressure_force_sweep = _dispatcher(pressure_force_sweep_plain,
                                    "pressure_force_sweep")
-alpha_sweep = _dispatcher(alpha_sweep_plain, "alpha_sweep")
+density_alpha_sweep = _dispatcher(density_alpha_sweep_plain,
+                                  "density_alpha_sweep")
+density_alpha_sums_sweep = _dispatcher(density_alpha_sums_sweep_plain,
+                                       "density_alpha_sums_sweep")
 drho_sweep = _dispatcher(drho_sweep_plain, "drho_sweep")
 # PCISPH's predicted density ρ* at x*: the density sweep on the x* query
 # and source rows over the start-of-step ranges (``density_pair`` with
@@ -1344,8 +1385,8 @@ pressure_force_body_rev_sweep = _dispatcher(
     pressure_force_body_sweep_plain, "pressure_force_body_rev_sweep",
     name="pressure_force_body_rev_sweep")
 alpha_body_sweep = _dispatcher(alpha_body_sweep_plain, "alpha_body_sweep")
-# Alpha and Drho as they are over a body shell's 9 range rows (their fluid
-# form: Σψ_b²|∇W|², and the shell's sample velocities), counted apart
+# α's sums and Drho as they are over a body shell's 9 range rows (their
+# fluid form: Σψ_b²|∇W|², and the shell's sample velocities), counted apart
 alpha_shell_sweep = _dispatcher(alpha_sweep_plain, "alpha_shell_sweep",
                                 name="alpha_shell_sweep")
 drho_shell_sweep = _dispatcher(drho_sweep_plain, "drho_shell_sweep",

@@ -5,10 +5,12 @@ counterparts of ``_coupled_pallas`` and ``_coupled_mp_pallas`` in
 Each body's shell (:func:`~.coupled_cuda.body_shells`) enters the DFSPH
 solve as a boundary of its own, swept alone over 9 range rows:
 
-* the density (the body density kernel) and the factor α: the shell's
-  Σψ_b∇W joins the gradient sum (``alpha_body_sweep``, the boundary form
-  of ``Alpha``), and with ``SimConfig.dfsph_strong_coupling`` the body's
-  mobility pm·(|g|²/M + t·I⁻¹t), t = (x_i − c)×g, joins the denominator;
+* the density (the body density kernel) and the factor α: the fluid's ρ
+  and α's sums come from one sweep (``density_alpha_sums_sweep``), the
+  shell's Σψ_b∇W joins the gradient sum (``alpha_body_sweep``, the
+  boundary form of α's sums, on the shell's ``x y z ψ_b`` rows), and
+  with ``SimConfig.dfsph_strong_coupling`` the body's mobility
+  pm·(|g|²/M + t·I⁻¹t), t = (x_i − c)×g, joins the denominator;
 * every Dρ/Dt of both loops: the shell with the body's CURRENT sample
   velocities v + ω×r in slots 3-5 (``drho_shell_sweep``);
 * every κ correction of both loops and the warm start: the boundary form
@@ -54,9 +56,8 @@ from ..state import BoundaryData, FluidState
 from .coupled import rigid_extras
 from .coupled_cuda import Shell, body_shells, reaction
 from .dfsph_cuda import (_EPS_DENOM, KappaSweeps, MultiphaseKappaSweeps,
-                         alpha_src, dfsph_solve, multiphase_alpha_operands)
+                         dfsph_solve, multiphase_alpha_operands)
 from .sweep_common import SweepCtx, build_sweep_ctx
-from .wcsph_cuda import multiphase_density_operands
 
 
 class BodyTerms:
@@ -75,7 +76,7 @@ class BodyTerms:
 
     @functools.cached_property
     def src4(self):
-        """(Mb, 4) ``x y z ψ_b``: the shell of the density and the
+        """(Mb, 4) ``x y z ψ_b``: the shell of the density, α's and the
         multiphase α and κ sweeps."""
         return self.shell.src4
 
@@ -175,18 +176,18 @@ def coupled_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     """``(dens, alpha)`` of a single-phase coupled step: the density with
     every shell's ψ-density, and α with every shell's Σψ_b∇W in the
     gradient sum and, under strong coupling, its mobility pm·(|g|²/M +
-    t·I⁻¹t) in the denominator."""
+    t·I⁻¹t) in the denominator. The fluid's ρ and α's sums come from one
+    sweep of the density's matrix."""
     pm = params.particle_mass
-    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     q4, *dargs = ctx.density_operands(pm)
-    dens = SP.density_sweep(cfg, q4, *dargs)
-    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
+    sums = SP.density_alpha_sums_sweep(cfg, q4, *dargs)
+    dens, al = sums[:, 0], sums[:, 1:]
     mob = torch.zeros_like(dens)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     for t in terms:
         dens = dens + SP.body_density_sweep(cfg, q4, t.src4,
                                             *t.ranges(ctx.pvec))
-        alb = SP.alpha_body_sweep(cfg, q4, t.shell.src, *t.ranges(ctx.pvec))
+        alb = SP.alpha_body_sweep(cfg, q4, t.src4, *t.ranges(ctx.pvec))
         al = al + alb
         if cfg.dfsph_strong_coupling:
             mob = mob + pm * t.mobility(pos, alb[:, :3])
@@ -269,20 +270,20 @@ def coupled_density_alpha_multiphase(ctx: SweepCtx, params: SimParams,
     density ρ̃ with every shell's ψ-density scaled by s_i = ρ0_i/ρ₀, the
     number density δ, and α̂ with every shell's Σψ_b∇W in the wall sum
     (scaled by s_i/m_i) and, under strong coupling, its mobility in
-    adapted units, (s_i²/m_i)·(|g|²/M + t·I⁻¹t)."""
+    adapted units, (s_i²/m_i)·(|g|²/M + t·I⁻¹t). The density and α̂ sweep
+    one matrix (:func:`~.dfsph_cuda.multiphase_alpha_operands`)."""
     mass = ctx.mass
     s_phase = ctx.rho0 / params.rest_density
     sm = s_phase / mass
-    dargs = multiphase_density_operands(ctx)
-    dout = SP.multiphase_density_sweep(cfg, *dargs)
-    delta, bsum = dout[:, 0], dout[:, 1]
     aargs = multiphase_alpha_operands(ctx)
+    dout = SP.multiphase_density_sweep(cfg, *aargs)
+    delta, bsum = dout[:, 0], dout[:, 1]
     al = SP.multiphase_alpha_sweep(cfg, *aargs)
     bgx, bgy, bgz = al[:, 4], al[:, 5], al[:, 6]
     mob = torch.zeros_like(delta)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     for t in terms:
-        bsum = bsum + SP.body_density_sweep(cfg, dargs[0], t.src4,
+        bsum = bsum + SP.body_density_sweep(cfg, aargs[0], t.src4,
                                             *t.ranges(ctx.pvec))
         gk = SP.multiphase_alpha_body_sweep(cfg, aargs[0], t.src4,
                                             *t.ranges(ctx.pvec))[:, 4:7]

@@ -2,22 +2,24 @@
 ``nereus_tpu.solvers.dfsph_pallas.dfsph_step_pallas`` and
 ``dfsph_multiphase_pallas``).
 
-Single phase (:func:`dfsph_step_cuda`): density → α from the Σψ∇W /
-Σ|ψ∇W|² sweep → divergence loop (per iteration: Dρ/Dt, then the κᵛ
-correction) → advection forces (pressure off) + gravity → with
-``viscosity_model="implicit"`` the implicit viscosity solve on v*, the
-force sweep then without viscosity and wall friction → warm start,
-½·κ_prev applied once → density loop (per iteration: ρ* = ρ + dt·Dρ/Dt,
-then the κ correction) → positions. The κ correction is the implicit
-solvers' pressure-force sweep with κ/ρ in the pd2 slot.
+Single phase (:func:`dfsph_step_cuda`): density and α = ρ/max(|Σψ∇W|² +
+Σ|ψ∇W|², ε) from one sweep of the density's matrix → divergence loop
+(per iteration: Dρ/Dt, then the κᵛ correction) → advection forces
+(pressure off) + gravity → with ``viscosity_model="implicit"`` the
+implicit viscosity solve on v*, the force sweep then without viscosity and
+wall friction → warm start, ½·κ_prev applied once → density loop (per
+iteration: ρ* = ρ + dt·Dρ/Dt, then the κ correction) → positions. The κ
+correction is the implicit solvers' pressure-force sweep with κ/ρ in the
+pd2 slot.
 
 Multiphase (:func:`dfsph_step_multiphase_cuda`): the same two loops on the
 adapted number-density domain of ``nereus_tpu.solvers.dfsph``: δ̂ = ρ̃/m_i
 from the multiphase density sweep, α̂ = m_iδ̂²/max(|Ĝ|² + m_iS, ε) from
-the multiphase α sweep, per iteration one dδ̂/dt sweep and one κV̂²
-correction sweep (V̂ = 1/δ̂), and the multiphase force sweep with zero
-pressure as the non-pressure forces. Errors are in kg/m³ of each
-particle's own ρ₀ (``to_kg`` = m_i·ρ₀/ρ0_i).
+the multiphase α sweep (both over one (C [+ Mb], 4) matrix
+``x y z 1/m``, :func:`multiphase_alpha_operands`), per iteration one
+dδ̂/dt sweep and one κV̂² correction sweep (V̂ = 1/δ̂), and the multiphase
+force sweep with zero pressure as the non-pressure forces. Errors are in
+kg/m³ of each particle's own ρ₀ (``to_kg`` = m_i·ρ₀/ρ0_i).
 
 On CUDA tensors the sweeps are the hand-written kernels of ``csrc/``; on
 CPU tensors their plain PyTorch versions.
@@ -47,9 +49,9 @@ from .predicated_loop import LoopCounts, PredicatedLoop
 from .sweep_common import SweepCtx, build_sweep_ctx, pd2_operands
 from .viscosity import implicit_viscosity
 from .wcsph import StepDiagnostics
-from .wcsph_cuda import multiphase_density_operands, multiphase_force_args
+from .wcsph_cuda import multiphase_force_args
 
-_EPS_DENOM = 1e-6
+_EPS_DENOM = SP.ALPHA_EPS
 
 # Iterations launched between two host reads of the divergence and the
 # density loop's condition. The settled block's loops end at their minima,
@@ -301,19 +303,14 @@ def dfsph_solve(state: FluidState, sweeps, alpha, carry=(),
     return new_state, carry, diag
 
 
-def alpha_src(ctx: SweepCtx, params: SimParams):
-    """The α sweep's (C [+ Mb], 8) source: fluid rows ψ = m in slot 6,
-    boundary rows ψ_b (the velocity slots are not read)."""
-    return ctx.pack((ctx.vx, ctx.vy, ctx.vz), params.particle_mass)
-
-
 def multiphase_alpha_operands(ctx: SweepCtx):
     """The multiphase α sweep's operands ``(q, src, seg_start, seg_end,
-    pvec)``: q ``x y z 1/m_i`` (the kernel reads x y z), the 4-wide source
-    (fluid rows the queries, ``x y z 1/m_j``; boundary rows
-    ``x y z ψ_b``)."""
-    q = ctx.queries(1.0 / ctx.mass)
-    return q, ctx.pack_psi(q), ctx.seg_start, ctx.seg_end, ctx.pvec
+    pvec)`` on one (C [+ Mb], 4) matrix, built as the density's
+    (:meth:`SweepCtx.density_operands`): fluid rows ``x y z 1/m_j``, then
+    the boundary rows ``x y z ψ_b``; q its first C rows (the kernel reads
+    their x y z). The multiphase density sweep walks the same matrix (it
+    reads no fluid row's slot 3)."""
+    return ctx.density_operands(1.0 / ctx.mass)
 
 
 def _result(state: FluidState, ctx: SweepCtx, params: SimParams, v, kap,
@@ -348,15 +345,9 @@ def dfsph_step_cuda(state: FluidState, params: SimParams,
     """One single-phase DFSPH step; returns ``(new_state,
     StepDiagnostics)`` with the new state in hash-sorted order."""
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
-    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
-
-    # -- density + the DFSPH factor α (on the density's queries) -----------
-    q4, *dargs = ctx.density_operands(params.particle_mass)
-    dens = SP.density_sweep(cfg, q4, *dargs)
-    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
-    denom = (al[:, 0] * al[:, 0] + al[:, 1] * al[:, 1] + al[:, 2] * al[:, 2]
-             + al[:, 3])
-    alpha = dens / torch.clamp(denom, min=_EPS_DENOM)
+    # -- density + the DFSPH factor α: one sweep of the density's matrix ---
+    dens, alpha = SP.density_alpha_sweep(
+        cfg, *ctx.density_operands(params.particle_mass)).unbind(1)
     new_state, _, diag = dfsph_solve(state, KappaSweeps(ctx, params, cfg,
                                                         dens),
                                      alpha, tol=tol, tol_v=tol_v)
@@ -373,13 +364,14 @@ def dfsph_step_multiphase_cuda(state: FluidState, params: SimParams,
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     mass = ctx.mass
 
-    # -- adapted density + the factor α̂ -------------------------------------
-    dout = SP.multiphase_density_sweep(cfg, *multiphase_density_operands(ctx))
+    # -- adapted density + the factor α̂, on one matrix --------------------
+    aargs = multiphase_alpha_operands(ctx)
+    dout = SP.multiphase_density_sweep(cfg, *aargs)
     delta = dout[:, 0]
     dens = mass * delta + (ctx.rho0 / params.rest_density) * dout[:, 1]
     sweeps = MultiphaseKappaSweeps(ctx, params, cfg, dens, delta)
     sm = sweeps.sm
-    al = SP.multiphase_alpha_sweep(cfg, *multiphase_alpha_operands(ctx))
+    al = SP.multiphase_alpha_sweep(cfg, *aargs)
     ghx = al[:, 0] + sm * al[:, 4]
     ghy = al[:, 1] + sm * al[:, 5]
     ghz = al[:, 2] + sm * al[:, 6]

@@ -16,12 +16,12 @@ pair.
 The interface is Gauss–Seidel: each reaction kicks the sample velocities
 (v_b += dt·f_b/m_b) and the next Dρ/Dt sees the body yield. With
 ``SimConfig.dfsph_strong_coupling`` the per-sample mobility
-(pm/m_b)·Σψ_b²|∇W|² joins α's denominator: the Alpha kernel in its fluid
-form over the shell (``alpha_shell_sweep``); without it the shell adds to
-the gradient sum alone (``alpha_body_sweep``). The non-pressure stage
-exchanges the Akinci friction alone, forward (``body_force_sweep``) and
-per sample (``fluid_reaction_sweep``), both with ``include_pressure=
-False``. After the solve the kicked velocities go back to the body in
+(pm/m_b)·Σψ_b²|∇W|² joins α's denominator: α's sums in their fluid form
+over the shell's ``x y z ψ_b`` rows (``alpha_shell_sweep``); without it
+the shell adds to the gradient sum alone (``alpha_body_sweep``). The
+non-pressure stage exchanges the Akinci friction alone, forward
+(``body_force_sweep``) and per sample (``fluid_reaction_sweep``), both
+with ``include_pressure=False``. After the solve the kicked velocities go back to the body in
 statics order and the body takes ``substeps`` elastic steps of
 dt/substeps (the reaction came as an impulse at the step's start). On
 CUDA tensors the sweeps are the hand-written kernels of ``csrc/``; on CPU
@@ -39,7 +39,7 @@ from .. import grid as gridlib
 from ..ops import sph_pairs as SP
 from ..params import SimConfig, SimParams
 from ..state import BoundaryData, FluidState
-from .dfsph_cuda import _EPS_DENOM, KappaSweeps, alpha_src, dfsph_solve
+from .dfsph_cuda import _EPS_DENOM, KappaSweeps, dfsph_solve
 from .elastic import ElasticParams, ElasticState, ElasticStatics
 from .elastic_coupled import ElasticShell, elastic_shell
 from .elastic_cuda import elastic_step_cuda
@@ -106,21 +106,21 @@ def elastic_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     """``(dens, alpha)`` of a coupled step: the density with the body's
     ψ-density, and α with the body's Σψ_b∇W in the gradient sum and, under
     strong coupling, its per-sample mobility (pm/m_b)·Σψ_b²|∇W|² in the
-    denominator (the Alpha kernel in its fluid form over the shell;
-    without strong coupling its boundary form)."""
+    denominator (α's sums in their fluid form over the shell; without
+    strong coupling their boundary form). The fluid's ρ and α's sums come
+    from one sweep of the density's matrix."""
     pm = params.particle_mass
-    rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     brng = (es.shell.seg_start, es.shell.seg_end, ctx.pvec)
     q4, *dargs = ctx.density_operands(pm)
-    dens = SP.density_sweep(cfg, q4, *dargs)
-    dens = dens + SP.body_density_sweep(cfg, q4, es.shell.src4, *brng)
-    al = SP.alpha_sweep(cfg, q4, alpha_src(ctx, params), *rng)
+    sums = SP.density_alpha_sums_sweep(cfg, q4, *dargs)
+    src4 = es.shell.src4
+    dens = sums[:, 0] + SP.body_density_sweep(cfg, q4, src4, *brng)
     body_alpha = (SP.alpha_shell_sweep if cfg.dfsph_strong_coupling
                   else SP.alpha_body_sweep)
-    alb = body_alpha(cfg, q4, es.shell.src, *brng)
-    g = al[:, :3] + alb[:, :3]
+    alb = body_alpha(cfg, q4, src4, *brng)
+    g = sums[:, 1:4] + alb[:, :3]
     denom = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
-             + al[:, 3] + (pm / mbm) * alb[:, 3])
+             + sums[:, 4] + (pm / mbm) * alb[:, 3])
     return dens, dens / torch.clamp(denom, min=_EPS_DENOM)
 
 

@@ -8,10 +8,12 @@ stays as sorted (C,) columns; the (N, Fq) query and (M, 8) source matrices
 the kernels read are built from them per sweep. The density and force
 sweeps read one matrix each (:meth:`SweepCtx.density_operands`,
 :meth:`SweepCtx.force_operands`): the queries are its fluid rows, the
-boundary rows follow them. The multiphase force sweep reads one
+boundary rows follow them; DFSPH's density and α sweep walks the
+density's, and the multiphase density and α sweeps one built the same
+way. The multiphase force sweep reads one
 (C [+ Mb], 12) wide matrix (:meth:`SweepCtx.pack_wide`), its queries the
-fluid rows, the multiphase density sweep and the multiphase DFSPH α and κ
-sweeps a (M, 4) one (:meth:`SweepCtx.pack_psi`), and the XSPH and ω
+fluid rows, the multiphase DFSPH κ sweep a (M, 4) one
+(:meth:`SweepCtx.pack_psi`), and the XSPH and ω
 sweeps over the fluid rows only one (C, 8) matrix that is their queries
 and their source (:meth:`SweepCtx.pack_fluid`). The wide and the (C, 8)
 matrices are built through contiguous planes and one transposing copy.
@@ -127,8 +129,7 @@ class SweepCtx:
 
     def pack_psi(self, q4):
         """(C [+ Mb], 4) source of a sweep that reads positions and one
-        scalar: fluid rows ``q4`` (4-wide queries, ``x y z s``: m for the
-        density, 0 for the multiphase density, 1/m_j or κV̂²_j for
+        scalar: fluid rows ``q4`` (4-wide queries, ``x y z s``: κV̂²_j of
         multiphase DFSPH), then the boundary rows ``x y z ψ_b``."""
         if self.b_src is None:
             return q4
@@ -137,7 +138,8 @@ class SweepCtx:
     def density_operands(self, psi):
         """The density sweep's operands ``(q, src, seg_start, seg_end,
         pvec)`` on one (C [+ Mb], 4) matrix: fluid rows ``x y z ψ`` (ψ =
-        ``psi``, the particle mass: 0-d or (C,)), then the boundary rows
+        ``psi``, 0-d or (C,): the particle mass; the multiphase density's
+        unread 0 and the multiphase α's 1/m), then the boundary rows
         ``x y z ψ_b``; the query is its first C rows (the kernel does not
         read its slot 3)."""
         return self._one_matrix([psi.expand(self.c)], self._b_src_psi)

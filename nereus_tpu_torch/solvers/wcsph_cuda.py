@@ -132,10 +132,11 @@ def wcsph_step_cuda(state: FluidState, params: SimParams,
 
 def multiphase_density_operands(ctx: SweepCtx):
     """The multiphase density sweep's operands ``(q, src, seg_start,
-    seg_end, pvec)``: q ``x y z 0``, the 4-wide source (fluid rows the
-    queries, boundary rows ``x y z ψ_b``)."""
-    q = ctx.queries(width=4)
-    return q, ctx.pack_psi(q), ctx.seg_start, ctx.seg_end, ctx.pvec
+    seg_end, pvec)`` on one (C [+ Mb], 4) matrix, built as the density's
+    (:meth:`SweepCtx.density_operands`): fluid rows ``x y z 0`` (slot 3 is
+    not read), then the boundary rows ``x y z ψ_b``; q its first C
+    rows."""
+    return ctx.density_operands(ctx.px.new_zeros(()))
 
 
 def multiphase_force_args(ctx: SweepCtx, vel, vol, inv_rho, pv2):

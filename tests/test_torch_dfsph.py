@@ -4,7 +4,11 @@ package (CPU, plain sweeps).
 * The α and Dρ/Dt plain sweeps against interpret-mode ``generic_sweep``
   with ``alpha_pair`` / ``drho_pair`` on the same sorted operands:
   max|Δ| ≤ 1e-5·max|ref| per output column (float32 sums in another
-  order), the boundary rows live.
+  order), the boundary rows live. The density and α in one sweep of the
+  density's matrix (``density_alpha_sweep``, and its sums form) against
+  ``density_sweep``, ``generic_sweep(alpha_pair)`` and
+  ``dfsph_step_pallas``'s α, with and without walls, to the same
+  tolerance.
 * ``dfsph_step`` against ``dfsph_step_pallas`` (interpret) and the jnp
   segment step over two steps, with and without boundary, with the
   tolerances of ``tests/test_dfsph.py::test_dfsph_pallas_matches_oracle``
@@ -100,16 +104,68 @@ def test_alpha_drho_sweeps_match_jax(kernel_set):
     rng = (ctx.seg_start, ctx.seg_end, ctx.pvec)
     vel = (ctx.vx, ctx.vy, ctx.vz)
     src = ctx.pack(vel, pparams.particle_mass)
-    got_al = SP.alpha_sweep(pcfg, ctx.queries(width=4), src, *rng)
+    # α's sums read the density's one matrix x y z ψ (the step's operands)
+    q4, src4, *_ = ctx.density_operands(pparams.particle_mass)
+    got_al = SP.density_alpha_sums_sweep(pcfg, q4, src4, *rng)[:, 1:]
     got_drho = SP.drho_sweep(pcfg, ctx.queries(*vel, width=8), src, *rng)
     assert_columns_close(got_al.numpy(), np.asarray(al)[:n], 1e-5, "alpha")
     assert_columns_close(got_drho.numpy(), np.asarray(drho)[:n], 1e-5,
                          "drho")
     # the boundary rows add to the gradient sum, not to the square sum
-    fluid_only = SP.alpha_sweep(pcfg, ctx.queries(width=4), src,
-                                ctx.seg_start[:9], ctx.seg_end[:9], ctx.pvec)
+    fluid_only = SP.density_alpha_sums_sweep(
+        pcfg, q4, src4, ctx.seg_start[:9], ctx.seg_end[:9], ctx.pvec)[:, 1:]
     assert torch.equal(fluid_only[:, 3], got_al[:, 3])
     assert not torch.equal(fluid_only[:, 1], got_al[:, 1])
+
+
+def _jax_density_alpha(cfg, params, state, grid, boundary):
+    """``dfsph_step_pallas``'s density, α sums and α (lines 202-214)."""
+    ctx = build_pallas_ctx(state, params, grid, cfg, boundary)
+    kw = dict(n_rows=ctx.n_rows, interpret=True)
+    q4 = ctx.queries(width=4)
+    src = ctx.pack(slot6=jnp.full((ctx.c,), 1.0, ctx.dtype)
+                   * params.particle_mass)
+    dens = PS.density_sweep(cfg, q4, src, ctx.anchors, ctx.pvec, ctx.gsize,
+                            **kw)
+    al = PS.generic_sweep(cfg, PS.alpha_pair, q4, src, ctx.anchors,
+                          ctx.pvec, ctx.gsize, out_width=4, include_sq=True,
+                          pair_fn_b=PS.alpha_pair,
+                          pair_b_kw=dict(include_sq=False), **kw)
+    denom = al[:, 0] ** 2 + al[:, 1] ** 2 + al[:, 2] ** 2 + al[:, 3]
+    return dens, al, dens / jnp.maximum(denom, 1e-6)
+
+
+@pytest.mark.parametrize("with_boundary", [False, True])
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_density_alpha_sweep_matches_jax(kernel_set, with_boundary):
+    """The density and α in one sweep of the density's one matrix
+    ``x y z ψ`` (the step's operands, the queries its first rows): (ρ, α)
+    and the couplings' form (ρ, α's four sums), each column a contiguous
+    plane, against JAX's density sweep, α sums and α; ρ equals the plain
+    density sweep's bit for bit and α its ``alpha_of`` of the sums."""
+    scene = _dam_scene(with_boundary, kernel_set)
+    cfg, params, state, grid, boundary = scene
+    dens, al, alpha = jax.jit(lambda s: _jax_density_alpha(
+        cfg, params, s, grid, boundary))(state)
+    n = state.capacity
+    pcfg, pparams, pstate, pg, pb = to_port(*scene)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    assert ctx.seg_start.shape[0] == (18 if with_boundary else 9)
+    args = ctx.density_operands(pparams.particle_mass)
+    assert args[0].data_ptr() == args[1].data_ptr()
+    got = SP.density_alpha_sweep(pcfg, *args)
+    sums = SP.density_alpha_sums_sweep(pcfg, *args)
+    assert got.shape == (n, 2) and sums.shape == (n, 5)
+    assert got.t().is_contiguous() and sums.t().is_contiguous()
+    want = np.stack([np.asarray(dens)[:n], np.asarray(alpha)[:n]], 1)
+    assert_columns_close(got.numpy(), want, 1e-5, "rho, alpha")
+    assert_columns_close(sums.numpy()[:, 1:], np.asarray(al)[:n], 1e-5,
+                         "alpha sums")
+    assert torch.equal(got[:, 0], SP.density_sweep(pcfg, *args))
+    assert torch.equal(sums[:, 0], got[:, 0])
+    assert torch.equal(got, SP.alpha_of(sums))
+    assert float(got[:, 1].min()) > 0.0
 
 
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,

@@ -127,8 +127,8 @@ def test_body_twins_match_jax(kernel_set):
                                                *rows),
          dense_pairs(PS.grad_pressure_force_pair, kargs[0], t.shell.src, pv,
                      kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
-        ("alpha", SP.alpha_body_sweep(pcfg, ctx.queries(width=4),
-                                      t.shell.src, *rows)[:, :3],
+        ("alpha", SP.alpha_body_sweep(pcfg, ctx.queries(width=4), t.src4,
+                                      *rows)[:, :3],
          dense_pairs(PS.alpha_pair, ctx.queries(width=4), t.shell.src, pv,
                      kernel_set=ks, include_sq=False)[:, :3]),
         ("drho", SP.drho_shell_sweep(pcfg, sweeps.q_v, src_v, *rows),
@@ -141,7 +141,7 @@ def test_body_twins_match_jax(kernel_set):
                      include_adhesion=False)[:, :3]))
     for name, got, want in cases:
         assert_columns_close(got.numpy(), want, 1e-5, name)
-    al = SP.alpha_body_sweep(pcfg, ctx.queries(width=4), t.shell.src, *rows)
+    al = SP.alpha_body_sweep(pcfg, ctx.queries(width=4), t.src4, *rows)
     assert float(al[:, 3].abs().max()) == 0.0
     # the friction reads the sample velocities
     still = src_v.clone()
@@ -151,6 +151,39 @@ def test_body_twins_match_jax(kernel_set):
                                 include_pressure=False)
     assert float((other - fric).abs().max()) > 1e-3 * float(
         fric.abs().max())
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_shell_alpha_forms_read_src4(kernel_set):
+    """The source-width pin of α's two shell forms: ``alpha_body_sweep``
+    and ``alpha_shell_sweep`` read the shell's (Mb, 4) rows ``x y z ψ_b``
+    (``BodyTerms.src4``), and on them give JAX's ``alpha_pair``
+    (``include_sq`` False / True) over the shell's (Mb, 8) rows
+    ``x y z v_b ψ_b 0`` (ψ_b in slot 6, the layout they read before)
+    within 1e-5·max|ref| per column; the 8-wide rows cut to their first
+    four columns (the sample velocity's x where ψ_b belongs) give another
+    result."""
+    cfg, params, state, grid, walls, bodies = _tank(kernel_set=kernel_set)
+    pcfg, pparams, pstate, pg, pw = to_port(cfg, params, state, grid, walls)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pw)
+    (t,) = DC.body_terms(ctx, pg, (body_to_port(bodies[0]),))
+    rows = t.ranges(ctx.pvec)
+    q4 = ctx.queries(width=4)
+    assert t.src4.shape == (t.shell.src.shape[0], 4)
+    assert torch.equal(t.src4[:, 3], t.shell.src[:, 6])
+    pv = PS.build_pvec(params, cfg, grid)
+    cut = t.shell.src[:, :4].contiguous()
+    for name, sweep, sq in (("body", SP.alpha_body_sweep, False),
+                            ("shell", SP.alpha_shell_sweep, True)):
+        got = sweep(pcfg, q4, t.src4, *rows)
+        want = dense_pairs(PS.alpha_pair, q4, t.shell.src, pv,
+                           kernel_set=kernel_set, include_sq=sq)
+        live = 4 if sq else 3
+        assert_columns_close(got.numpy()[:, :live], want[:, :live], 1e-5,
+                             f"alpha {name}")
+        assert float(got[:, :3].abs().max()) > 0.0
+        assert not torch.allclose(sweep(pcfg, q4, cut, *rows), got)
 
 
 _JAX_STEP = jax.jit(jt.dfsph_coupled_step, static_argnums=(3,))

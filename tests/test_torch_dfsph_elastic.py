@@ -87,7 +87,8 @@ def test_body_twins_match_jax(kernel_set):
          SP.pressure_force_body_rev_sweep(pcfg, sweeps.q_b, src, *rev),
          dense_pairs(PS.grad_pressure_force_pair, sweeps.q_b, src, pv,
                      kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
-        ("alpha shell", SP.alpha_shell_sweep(pcfg, q4, es.shell.src, *brng),
+        ("alpha shell", SP.alpha_shell_sweep(pcfg, q4, es.shell.src4,
+                                             *brng),
          dense_pairs(PS.alpha_pair, q4, es.shell.src, pv, kernel_set=ks,
                      include_sq=True)),
         ("friction", SP.fluid_reaction_sweep(pcfg, src_b, src_f, *rev,

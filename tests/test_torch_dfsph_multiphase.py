@@ -84,6 +84,37 @@ def _jax_sweeps(cfg, params, state, grid, boundary):
 
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
                                         jt.KernelSet.MONAGHAN])
+def test_shared_density_alpha_matrix(contact, kernel_set):
+    """The multiphase DFSPH step's one matrix
+    (``dfsph_cuda.multiphase_alpha_operands``: fluid rows ``x y z 1/m``,
+    then the walls ``x y z ψ_b``, the queries a view of its first rows)
+    gives the multiphase density sweep the same δ and Σψ_bW, and the
+    multiphase α sweep the same sums, bit for bit, as the two matrices the
+    step built before (each a column stack ``x y z 0`` / ``x y z 1/m`` with
+    the walls copied behind it); the wall column is live."""
+    state, params, grid, walls = contact
+    cfg = jt.SimConfig(engine="pallas", kernel_set=kernel_set,
+                       surface_tension_model=ST.NONE)
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid, walls)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    args = dfsph_cuda.multiphase_alpha_operands(ctx)
+    q, src = args[:2]
+    assert q.data_ptr() == src.data_ptr() and q.shape == (ctx.c, 4)
+    assert torch.equal(q[:, 3], 1.0 / ctx.mass)
+    rng = args[2:]
+    qd = ctx.queries(width=4)
+    qa = ctx.queries(1.0 / ctx.mass)
+    dout = SP.multiphase_density_sweep(pcfg, *args)
+    assert torch.equal(dout, SP.multiphase_density_sweep(
+        pcfg, qd, ctx.pack_psi(qd), *rng))
+    assert float(dout[:, 1].abs().max()) > 0.0
+    assert torch.equal(SP.multiphase_alpha_sweep(pcfg, *args),
+                       SP.multiphase_alpha_sweep(pcfg, qa, ctx.pack_psi(qa),
+                                                 *rng))
+
+
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
 def test_multiphase_dfsph_sweeps_match_jax(contact, kernel_set):
     state, params, grid, walls = contact
     cfg = jt.SimConfig(engine="pallas", kernel_set=kernel_set,

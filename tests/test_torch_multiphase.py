@@ -111,6 +111,44 @@ def _jax_sweeps(cfg, params, state, grid, boundary):
     return dout, acc, jnp.stack(qcols, 1), jnp.stack(wcols, 1)
 
 
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_one_matrix_density_operands_match_jax(contact, kernel_set):
+    """``wcsph_cuda.multiphase_density_operands``: one (C + Mb, 4) matrix,
+    its first C rows the queries (a view), fluid rows ``x y z 0``, then the
+    walls ``x y z ψ_b``; its x y z are JAX's ``q4`` (``wcsph_pallas.py:156``)
+    in the same sorted order, its wall rows the samples JAX's ``src_d``
+    carries (their positions and ψ_b), and the sweep on it gives JAX's
+    ``generic_sweep`` on ``q4`` / ``src_d`` within 1e-5·max|ref| per
+    column, the wall column live."""
+    state, params, grid, walls = contact
+    cfg = _cfg(kernel_set, ST.NONE, 0.0)
+
+    def jax_operands(s):
+        ctx = build_pallas_ctx(s, params, grid, cfg, walls)
+        return ctx.queries(width=4)
+
+    q4 = np.asarray(jax.jit(jax_operands)(state))
+    dout = jax.jit(lambda s: _jax_sweeps(cfg, params, s, grid, walls)[0])(
+        state)
+    n = state.capacity
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid, walls)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    q, src, s, e, pv = wcsph_cuda.multiphase_density_operands(ctx)
+    mb = walls.num_boundaries
+    assert src.shape == (n + mb, 4) and q.shape == (n, 4)
+    assert q.data_ptr() == src.data_ptr()
+    np.testing.assert_array_equal(q[:, :3].numpy(), q4[:n, :3])
+    assert float(q[:, 3].abs().max()) == 0.0
+    wall_rows = np.concatenate([np.asarray(walls.pos),
+                                np.asarray(walls.psi)[:, None]], axis=1)
+    np.testing.assert_array_equal(src[n:].numpy(), wall_rows)
+    got = SP.multiphase_density_sweep(pcfg, q, src, s, e, pv)
+    assert_columns_close(got.numpy(), np.asarray(dout)[:n, :2], 1e-5,
+                         "density")
+    assert float(got[:, 1].abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("kernel_set,st,st_cross", SWEEP_CASES,
                          ids=SWEEP_IDS)
 def test_multiphase_sweeps_match_jax(exact_reciprocal, contact, kernel_set,

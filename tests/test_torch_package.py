@@ -149,7 +149,11 @@ IISPH_SWEEPS = {
 PCISPH_DFSPH_SWEEPS = {
     "predicted_density": (SP.predicted_density_sweep,
                           cuda_sweep.predicted_density_sweep, 4, 4, 18),
-    "alpha": (SP.alpha_sweep, cuda_sweep.alpha_sweep, 4, 8, 18),
+    # DFSPH's density and α in one walk: (ρ, α), and the couplings' sums
+    "alpha": (SP.density_alpha_sweep, cuda_sweep.density_alpha_sweep, 4, 4,
+              18),
+    "alpha_sums": (SP.density_alpha_sums_sweep,
+                   cuda_sweep.density_alpha_sums_sweep, 4, 4, 18),
     "drho": (SP.drho_sweep, cuda_sweep.drho_sweep, 8, 8, 18),
 }
 
@@ -202,10 +206,10 @@ DFSPH_BODY_SWEEPS = {
     "pressure_force_body_rev": (SP.pressure_force_body_rev_sweep,
                                 cuda_sweep.pressure_force_body_rev_sweep, 4,
                                 8, 9),
-    "alpha_body": (SP.alpha_body_sweep, cuda_sweep.alpha_body_sweep, 4, 8,
+    "alpha_body": (SP.alpha_body_sweep, cuda_sweep.alpha_body_sweep, 4, 4,
                    9),
     "alpha_shell": (SP.alpha_shell_sweep, cuda_sweep.alpha_shell_sweep, 4,
-                    8, 9),
+                    4, 9),
     "drho_shell": (SP.drho_shell_sweep, cuda_sweep.drho_shell_sweep, 8, 8,
                    9),
     "multiphase_alpha_body": (SP.multiphase_alpha_body_sweep,
@@ -691,9 +695,12 @@ def _settled_block(params_fn, cuda, n_target=4000):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
 def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
-    """The predicted-density, α and Dρ/Dt kernels against their plain
-    versions on the small dam-break after one real DFSPH step, with x*
-    moved up to 0.3·h: max|Δ| ≤ 1e-4·max|ref| per output column."""
+    """The predicted-density kernel, DFSPH's density and α kernel in both
+    forms ((ρ, α) and ρ with α's sums, on the density's one matrix) and
+    the Dρ/Dt kernel against their plain versions on the small dam-break
+    after one real DFSPH step, with x* moved up to 0.3·h: max|Δ| ≤
+    1e-4·max|ref| per output column; the fused ρ equals the density
+    kernel's at the same G, bit for bit."""
     cfg = nereus_tpu_torch.SimConfig(
         kernel_set=nereus_tpu_torch.KernelSet[kernel_set])
     base = nereus_tpu_torch.dfsph_params(dt=5e-4, device=cuda)
@@ -718,18 +725,28 @@ def test_pcisph_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
     cases = {
         "predicted_density":
             pcisph_cuda.predicted_density_operands(ctx, pm)(x),
-        "alpha": (ctx.queries(width=4), ctx.pack(vel, pm), *rows),
+        "alpha": ctx.density_operands(pm),
+        "alpha_sums": ctx.density_operands(pm),
         "drho": (ctx.queries(*vel, width=8), ctx.pack(vel, pm), *rows),
     }
     plain = {"predicted_density": SP.density_sweep_plain,
-             "alpha": SP.alpha_sweep_plain, "drho": SP.drho_sweep_plain}
+             "alpha": SP.density_alpha_sweep_plain,
+             "alpha_sums": SP.density_alpha_sums_sweep_plain,
+             "drho": SP.drho_sweep_plain}
     cuda_sweep.reset_launches()
+    got = {}
     for key, args in cases.items():
-        got = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
-        _assert_columns_close(got, plain[key](cfg, *args), key)
+        got[key] = PCISPH_DFSPH_SWEEPS[key][0](cfg, *args)
+        _assert_columns_close(got[key], plain[key](cfg, *args), key)
     torch.cuda.synchronize()
-    _assert_launches({cuda_sweep.DENSITY_PRED: 1, cuda_sweep.ALPHA: 1,
-                      cuda_sweep.DRHO: 1})
+    _assert_launches({cuda_sweep.DENSITY_PRED: 1,
+                      cuda_sweep.DENSITY_ALPHA: 1,
+                      cuda_sweep.DENSITY_ALPHA_SUMS: 1, cuda_sweep.DRHO: 1})
+    assert (cuda_sweep.density_group(ctx.c) == cuda_sweep.DENSITY_ALPHA_G)
+    dens = cuda_sweep.density_sweep(cfg, *cases["alpha"])
+    assert torch.equal(got["alpha"][:, 0], dens)
+    assert torch.equal(got["alpha_sums"][:, 0], dens)
+    assert all(got[k].t().is_contiguous() for k in ("alpha", "alpha_sums"))
 
 
 @pytest.mark.requires_cuda
@@ -768,9 +785,9 @@ def test_pcisph_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     assert launched >= iters > 3 * (cfg.dfsph_min_iters
                                     + cfg.dfsph_min_iters_v)
-    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.FORCE_P0: 3,
+    _assert_launches({cuda_sweep.DENSITY_ALPHA: 3, cuda_sweep.FORCE_P0: 3,
                       cuda_sweep.PRESSURE_FORCE: launched + 3,
-                      cuda_sweep.ALPHA: 3, cuda_sweep.DRHO: launched})
+                      cuda_sweep.DRHO: launched})
     assert torch.isfinite(state.pos).all()
     assert float(state.pressure.min()) >= 0.0
 
@@ -925,7 +942,7 @@ def test_visc_mp_dfsph_steps_run_kernels_on_cuda(cuda):
     launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     cg = viscosity.LOOP.launched
     assert cg >= 3 and int(viscosity.LOOP.last.it) > 0
-    _assert_launches({cuda_sweep.DENSITY: 3, cuda_sweep.ALPHA: 3,
+    _assert_launches({cuda_sweep.DENSITY_ALPHA: 3,
                       cuda_sweep.FORCE_P0_V0: 3, cuda_sweep.DRHO: launched,
                       cuda_sweep.PRESSURE_FORCE: launched + 3,
                       cuda_sweep.VISC_LAPLACIAN: cg + 3})
@@ -1150,6 +1167,10 @@ def test_group_sweeps_build_only_their_g(cuda):
         "pbf_omega": {cuda_sweep.PBF_OMEGA_G},
         "xsph": {cuda_sweep.XSPH_G},
         "drho": {cuda_sweep.DRHO_G},
+        "density_alpha": {cuda_sweep.DENSITY_ALPHA_G},
+        "density_alpha_sums": {cuda_sweep.DENSITY_ALPHA_G},
+        "multiphase_density": {cuda_sweep.density_group(1),
+                               cuda_sweep.density_group(cuda_sweep.SMALL_N)},
         "multiphase_drho": {cuda_sweep.MP_DRHO_G},
         # the κ impulse forward and Dρ/Dt over a shell by its size, the
         # reverse κ impulse at one G
@@ -1622,6 +1643,46 @@ def test_multiphase_groups_match_plain_on_cuda(cuda, kernel_set, st, large,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_multiphase_density_groups_match_plain_on_cuda(cuda, kernel_set,
+                                                       large, monkeypatch):
+    """The multiphase density kernel at each G its wrapper picks
+    (``SMALL_N`` set so that the small two-phase dam-break takes the G of
+    ``multiphase_1M`` when ``large`` and that of the 256k cells when not),
+    static and moving walls, on the multiphase WCSPH step's one matrix
+    (fluid rows ``x y z 0``) and on the multiphase DFSPH step's (the α
+    sweep's ``x y z 1/m``): max|Δ| ≤ 1e-4·max|ref| per column, and the two
+    matrices give the same δ and Σψ_bW bit for bit (no fluid row's slot 3
+    is read)."""
+    monkeypatch.setattr(cuda_sweep, "SMALL_N", 0 if large else 2 ** 31)
+    from nereus_tpu_torch import boundary as B
+    from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
+    cfg, params, state, grid, boundary = _scene(kernel_set, "NONE", True,
+                                                cuda)
+    mp = _two_phase(state, params, cuda)
+    moving = B.move_boundary(boundary, grid, velocity=WALL_VEL)
+    cuda_sweep.reset_launches()
+    for walls in (boundary, moving):
+        ctx = build_sweep_ctx(mp, params, grid, cfg, walls)
+        g = cuda_sweep.density_group(ctx.c)
+        assert g == (2 if large else 4)
+        outs = []
+        for args in (wcsph_cuda.multiphase_density_operands(ctx),
+                     dfsph_cuda.multiphase_alpha_operands(ctx)):
+            q, src = args[:2]
+            assert q.data_ptr() == src.data_ptr() and q.shape == (ctx.c, 4)
+            outs.append(cuda_sweep.multiphase_density_sweep(cfg, *args))
+            _assert_columns_close(
+                outs[-1], SP.multiphase_density_sweep_plain(cfg, *args),
+                f"mp density G={g} moving={walls is moving}")
+        assert torch.equal(outs[0], outs[1])
+        assert float(outs[0][:, 1].abs().max()) > 0.0
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.MP_DENSITY: 4})
+
+
+@pytest.mark.requires_cuda
 def test_elastic_steps_run_kernels_on_cuda(cuda):
     """Elastic and elastoplastic steps launch one ElasticF and one
     ElasticForceHourglass per step and nothing else; a coupled step launches
@@ -1699,9 +1760,9 @@ def _dfsph_body_cases(cfg, params, state, grid, cuda):
         ("kappa body", SP.pressure_force_body_sweep,
          SP.pressure_force_body_sweep_plain, (kq, t.shell.src, *rows), {}),
         ("alpha body", SP.alpha_body_sweep, SP.alpha_body_sweep_plain,
-         (q4, t.shell.src, *rows), {}),
+         (q4, t.src4, *rows), {}),
         ("alpha shell", SP.alpha_shell_sweep, SP.alpha_sweep_plain,
-         (q4, t.shell.src, *rows), {}),
+         (q4, t.src4, *rows), {}),
         ("drho shell", SP.drho_shell_sweep, SP.drho_sweep_plain,
          (sw.q_v, src_v, *rows), {}),
         ("body friction", SP.body_force_sweep, SP.body_force_sweep_plain,
@@ -1941,7 +2002,7 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
                     K.MP_KAPPA: corr, K.MP_KAPPA_BODY: 2 * corr,
                     K.MP_FORCE: 2, K.MP_BODY: 4}
         else:
-            want = {K.DENSITY: 2, K.ALPHA: 2, K.BODY_DENSITY: 4,
+            want = {K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY: 4,
                     K.ALPHA_BODY: 4, K.DRHO: it, K.DRHO_SHELL: 2 * it,
                     K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: 2 * corr,
                     K.FORCE_P0: 2, K.BODY_FORCE_P0: 4}
@@ -1967,7 +2028,7 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
             s, params, grid, cfg, es, statics, ep, psi, boundary, substeps=3)
     it = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     corr = it + 2
-    _assert_launches({K.DENSITY: 2, K.ALPHA: 2, K.BODY_DENSITY: 2,
+    _assert_launches({K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY: 2,
                       K.ALPHA_SHELL: 2, K.DRHO: it, K.DRHO_SHELL: it,
                       K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: corr,
                       K.PRESSURE_FORCE_BODY_REV: corr, K.FORCE_P0: 2,

@@ -9,9 +9,10 @@ CUDA card.
                                  mp_coupled|dfsph_mp_coupled|dfsph_coupled|
                                  dfsph_elastic]
         [--groups 1 2 4]
-        [--keys pbf_lambda pbf_dp pbf_grad pbf_omega xsph drho
-                elastic_force_hg elastic_f mp_force mp_force_moving mp_drho
-                mp_drho_cols mp_kappa pressure_force_body
+        [--keys pbf_lambda pbf_dp pbf_grad pbf_omega xsph drho alpha
+                density_alpha elastic_force_hg elastic_f mp_force
+                mp_force_moving mp_drho mp_drho_cols mp_kappa
+                multiphase_density pressure_force_body
                 pressure_force_body_rev drho_shell dii_aii]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
@@ -55,7 +56,21 @@ of every candidate's row loaded, the pair on every candidate and masked
 by the cutoff, XSPH's exact division skipped outside it), each also timed
 with its operands built as a step builds them (G: the one matrix through
 planes; thread: XSPH's query and source, ω's one matrix, each stacked
-column by column).
+column by column); ``multiphase_density`` the number density on its one
+matrix (the lane groups by G) beside the parent's one-thread walk
+("thread": every candidate's W, masked by the cutoff), each also timed
+with its operands built (G: the step's one matrix; thread: the parent's
+query stacked column by column and copied again behind the walls, at the
+multiphase DFSPH paths also the α sweep's own pair of them, which the
+change's shared matrix replaces), and the density kernel timed on the
+same matrix beside them; ``density_alpha`` DFSPH's density and α
+in one walk on the density's matrix ("B", by G) beside the density kernel
+followed by α's sums alone and α formed in torch as the step formed it
+("A": the sums on the lane groups over the same matrix, by G; "thread":
+the parent's one-thread walk over its 8-wide source ``x y z v ψ 0``, also
+timed with that source built as the parent's step built it), and
+``alpha`` α's sums alone ("A" by G, "thread"), checked against the
+columns of the couplings' form ``density_alpha_sums``.
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
@@ -101,7 +116,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as smoke  # noqa: E402
 import nereus_tpu_torch as nt  # noqa: E402
-from nereus_tpu_torch.ops import cuda_sweep  # noqa: E402
+from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP  # noqa: E402
 from nereus_tpu_torch.solvers import pbf_cuda  # noqa: E402
 from nereus_tpu_torch.solvers.sweep_common import build_sweep_ctx  # noqa
 
@@ -118,6 +133,16 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("G", "ranges", "Xsph"),
                 ("thread", "pair", "XsphWalk")]),
             "drho": ("dfsph_sweep.cu", [("G", "ranges", "Drho")]),
+            "alpha": ("dfsph_sweep.cu", [
+                ("A", "ranges", "AlphaSums"),
+                ("thread", "pair", "AlphaWalk")]),
+            "density_alpha": ("dfsph_sweep.cu", [
+                ("B", "ranges", "DensityAlpha<false>"),
+                ("A", "ranges", "AlphaSums"),
+                ("thread", "pair", "AlphaWalk")]),
+            "multiphase_density": ("multiphase_sweep.cu", [
+                ("G", "ranges", "MultiphaseDensity"),
+                ("thread", "pair", "MultiphaseDensityWalk")]),
             "elastic_force_hg": ("elastic_sweep.cu",
                                  [("G", "list", "ElasticForceHourglass")]),
             "elastic_f": ("elastic_sweep.cu", [
@@ -153,8 +178,44 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("split", "ranges", "DiiAiiSplit")])}
 # functors the scan file defines: dδ̂/dt's pair without its epilogue,
 # ElasticF's pair behind the range walk's cutoff test, and the one-thread
-# walks of XSPH and ω as they were before they moved onto lane groups
-SCAN_FUNCTORS = {"XsphWalk": """
+# walks of XSPH, ω, α's sums and the multiphase density as they were before
+# they moved onto lane groups
+SCAN_FUNCTORS = {"MultiphaseDensityWalk": """
+struct MultiphaseDensityWalk {
+  static constexpr int QW = 4, SW = 4, OW = 2;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 a = nereus_sweep::src_f4(src, SW, j, 0);
+    const WGeom g = w_geom<KS>(q, a, p);
+    if constexpr (B) {
+      acc[1] += a.w * g.w * g.okf;
+    } else {
+      acc[0] += g.w * g.okf;
+    }
+  }
+};
+""", "AlphaWalk": """
+struct AlphaWalk {
+  static constexpr int QW = 4, SW = 8, OW = 4;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const float4 a = nereus_sweep::src_f4(src, SW, j, 0);
+    const float psi = nereus_sweep::src_f4(src, SW, j, 1).z;
+    const nereus_sweep::Geom g = nereus_sweep::default_geom<KS>(q, a, p);
+    const float c = psi * g.s * g.okf;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+    if constexpr (!B) acc[3] += c * c * g.r2;
+  }
+};
+""", "XsphWalk": """
 struct XsphWalk {
   static constexpr int QW = 8, SW = 8, OW = 3;
   static constexpr bool BOUNDARY_ROWS = false;
@@ -283,9 +344,24 @@ def range_operands(args):
     return (q, src, *RANGES["elastic"], pv)
 
 
+def alpha8_operands(args):
+    """The parent's α operands from the density's ``(q, src4, ...)``: the
+    8-wide source ``x y z 0 0 0 ψ 0`` (walls ``x y z v_b ψ_b 0``, whose
+    velocity the pair never reads)."""
+    q, src4, s, e, pv = args
+    src8 = src4.new_zeros((src4.shape[0], 8))
+    src8[:, :3] = src4[:, :3]
+    src8[:, 6] = src4[:, 3]
+    return (q, src8, s, e, pv)
+
+
 # variants fed other operands than the wrapper's: functor → converter
 VARIANT_OPERANDS = {"DiiAiiSplit": split_operands,
-                    "ElasticFRange": range_operands}
+                    "ElasticFRange": range_operands,
+                    "AlphaWalk": alpha8_operands}
+# (key, variant) pairs timed as the parent's step ran them: α's sums alone
+# with the density kernel before them and α formed in torch after them
+COMPOSED = {("density_alpha", "A"), ("density_alpha", "thread")}
 
 
 def dii_aii_makers(ctx, params, args):
@@ -335,17 +411,60 @@ def fluid_matrix_makers(ctx, args, build, own_query):
     return {"G": lambda: build(ctx, v, col), "thread": thread}
 
 
+def alpha_sums(cfg, q, src, s, e, pv):
+    """α's sums (N, 4), rows: columns 1-4 of the couplings' form of the
+    density and α kernel on the same operands."""
+    return cuda_sweep.density_alpha_sums_sweep(cfg, q, src, s, e,
+                                               pv)[:, 1:].contiguous()
+
+
+def alpha_makers(ctx, params):
+    """``{variant: build}`` of DFSPH's density and α: both sides build the
+    density's one matrix (``SweepCtx.density_operands``); the parent's
+    one-thread walk ("thread") also its 8-wide source, built as its step
+    built it (``SweepCtx.pack``)."""
+    pm = params.particle_mass
+
+    def thread():
+        q, _, *rest = ctx.density_operands(pm)
+        return (q, ctx.pack((ctx.vx, ctx.vy, ctx.vz), pm), *rest)
+    return {"B": lambda: ctx.density_operands(pm),
+            "A": lambda: ctx.density_operands(pm), "thread": thread}
+
+
+def mp_density_makers(ctx, dfsph):
+    """``{variant: build}`` of the multiphase density: "G" the step's one
+    matrix (``wcsph_cuda.multiphase_density_operands``; on the multiphase
+    DFSPH paths ``dfsph_cuda.multiphase_alpha_operands``, which the α
+    sweep shares); "thread" the parent's query stacked column by column
+    and copied again behind the walls (``SweepCtx.pack_psi``), on the
+    DFSPH paths with the α sweep's own pair built after it."""
+    from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
+    rest = (ctx.seg_start, ctx.seg_end, ctx.pvec)
+
+    def thread():
+        q = ctx.queries(width=4)
+        src = ctx.pack_psi(q)
+        if dfsph:
+            ctx.pack_psi(ctx.queries(1.0 / ctx.mass))
+        return (q, src, *rest)
+    return {"G": lambda: (dfsph_cuda.multiphase_alpha_operands(ctx) if dfsph
+                          else wcsph_cuda.multiphase_density_operands(ctx)),
+            "thread": thread}
+
+
 # per key, the makers of its variants' operands (time with the build)
 MAKERS = {}
 # the keys each path's operands feed
 PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad", "pbf_omega",
                      "xsph"),
              "xsph": ("xsph",),
-             "dfsph": ("drho",),
+             "dfsph": ("drho", "alpha", "density_alpha"),
              "elastic": ("elastic_force_hg", "elastic_f"),
-             "multiphase": ("mp_force",),
+             "multiphase": ("mp_force", "multiphase_density"),
              "multiphase_wavemaker": ("mp_force_moving",),
-             "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols", "mp_kappa"),
+             "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols", "mp_kappa",
+                          "multiphase_density"),
              "mp_coupled": ("mp_force",),
              "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols",
                                   "mp_kappa"),
@@ -378,10 +497,12 @@ def build(keys, groups):
         cu = os.path.join(SCAN_DIR, f"scan_{stem}.cu")
         with open(cu, "w") as f:
             f.write(f'#include "{os.path.join(cuda_sweep.CSRC, src)}"\n')
-            lines = []
+            lines, written = [], set()
             for key in ks:
                 for k, (_, engine, functor) in enumerate(FUNCTORS[key][1]):
-                    f.write(SCAN_FUNCTORS.get(functor, ""))
+                    if functor not in written:
+                        f.write(SCAN_FUNCTORS.get(functor, ""))
+                        written.add(functor)
                     f.write(f"using scan_{key}_{k}_t = {functor};\n")
                     args = [f"scan_{key}_{k}", f"scan_{key}_{k}_t",
                             *map(str, values.get(engine, ()))]
@@ -485,6 +606,10 @@ def path_operands(solver, keys, dev):
                                            smoke.IMPLICIT_TIMED_FROM)
         ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
         ops = smoke.dfsph_operands(cfg, ctx, params)
+        dargs = ops["density_alpha"][2]
+        ops["alpha"] = (alpha_sums, None, dargs, {})
+        MAKERS["density_alpha"] = alpha_makers(ctx, params)
+        MAKERS["alpha"] = MAKERS["density_alpha"]
         return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                      }, f"{ctx.c} queries, {ms:.4f} ms/step"
     if solver == "elastic":
@@ -558,11 +683,16 @@ def mp_operands(solver, dev):
         ops = smoke.multiphase_operands(cfg, ctx, params)
         if solver == "multiphase_wavemaker":
             ops = {"mp_force_moving": smoke.moving(ops["mp_force"])}
+        else:
+            ops["multiphase_density"] = ops["mp_density"]
+            MAKERS["multiphase_density"] = mp_density_makers(ctx, False)
     elif solver == "mp_coupled":
         ops = smoke.coupled_operands(cfg, ctx, params, grid, held["body"])
     else:
         ops = smoke.mp_dfsph_operands(cfg, ctx, params)
         ops["mp_drho_cols"] = ops["mp_drho"]
+        ops["multiphase_density"] = ops["mp_density"]
+        MAKERS["multiphase_density"] = mp_density_makers(ctx, True)
     return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                  }, f"{ctx.c} queries, {ms:.4f} ms/step"
 
@@ -629,7 +759,7 @@ def main():
         ref = kern(cfg, *a, **kwk)
         cols = key == "mp_drho_cols"
 
-        def launch(f, engine, v, out, vargs):
+        def launch(f, engine, v, out, vargs, composed=False):
             q, src, s, e, pv = vargs
             lead = ((q.data_ptr(), src.data_ptr(), s.data_ptr(),
                      e.data_ptr(), q.shape[0])
@@ -640,6 +770,12 @@ def main():
             if rc != 0:
                 sys.exit(f"group_scan: {key} {engine} {v} launch failed "
                          f"({rc})")
+            if composed:
+                # the parent's step: the density kernel, α formed after
+                dens = cuda_sweep.density_sweep(cfg, *a)
+                denom = (out[:, 0] * out[:, 0] + out[:, 1] * out[:, 1]
+                         + out[:, 2] * out[:, 2] + out[:, 3])
+                return dens, dens / torch.clamp(denom, min=SP.ALPHA_EPS)
             # the two-column form: the rate formed after the kernel
             return out[:, 0] + q[:, 6] * out[:, 1] if cols else out
         runs = {}
@@ -647,10 +783,14 @@ def main():
             if k != key:
                 continue
             vargs = convert(a) if convert else a
+            composed = (key, variant) in COMPOSED
             for v in vals:
                 out = (a[0].new_empty((a[0].shape[0], 2)) if cols
+                       else a[0].new_empty((a[0].shape[0], 4)) if composed
                        else torch.empty_like(ref))
-                got = launch(f, engine, v, out, vargs)
+                got = launch(f, engine, v, out, vargs, composed)
+                if composed:
+                    got = torch.stack(got).t()
                 torch.cuda.synchronize()
                 label = variant + ("" if v is None else f"{v}")
                 if key == "pbf_lambda":
@@ -664,21 +804,29 @@ def main():
                     if not bool((err <= 1e-4 * r2.abs().amax(dim=0)).all()):
                         sys.exit(f"group_scan: {key} {label} differs from "
                                  f"the wrapper's output by {err.tolist()}")
-                runs[label] = (f, engine, v, out, vargs, variant)
+                runs[label] = (f, engine, v, out, vargs, variant, composed)
         best, built = {}, {}
         for _ in range(3):
-            for label, (f, engine, v, out, vargs, variant) in runs.items():
-                t = smoke.graph_ms(lambda: launch(f, engine, v, out, vargs))
+            for label, (f, engine, v, out, vargs, variant,
+                        composed) in runs.items():
+                t = smoke.graph_ms(lambda: launch(f, engine, v, out, vargs,
+                                                  composed))
                 best[label] = min(best.get(label, t), t)
                 make = MAKERS.get(key, {}).get(variant)
                 if make:
                     t = smoke.graph_ms(
-                        lambda: launch(f, engine, v, out, make()))
+                        lambda: launch(f, engine, v, out, make(), composed))
                     built[label] = min(built.get(label, t), t)
         wrapper = smoke.graph_ms(lambda: kern(cfg, *a, **kwk))
         print(f"{key} at {args.solver}: host-free ms: "
               + ", ".join(f"{label} {t:.4f}" for label, t in best.items())
               + f"; the wrapper's own {wrapper:.4f}")
+        if key == "multiphase_density":
+            dens = min(smoke.graph_ms(lambda: cuda_sweep.density_sweep(
+                cfg, *a)) for _ in range(3))
+            print(f"{key} at {args.solver}: the density kernel on the same "
+                  f"matrix (G {cuda_sweep.density_group(a[0].shape[0])}) "
+                  f"{dens:.4f}")
         if built:
             print(f"{key} at {args.solver}: host-free ms with the operands "
                   "built: " + ", ".join(f"{label} {t:.4f}"

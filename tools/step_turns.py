@@ -364,13 +364,20 @@ else:
                       "sum_dij", "jacobi", "pressure_force"),
             "pcisph": ("density", "force_p0", "density_pred",
                        "pressure_force"),
-            "dfsph": ("drho", "pressure_force"),
-            "dfsph_visc": ("drho", "visc_laplacian"),
-            "dfsph_coupled": ("drho", "pressure_force"),
-            "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_kappa"),
+            # density and alpha: the two sweeps an earlier checkout runs
+            # where a later one runs density_alpha
+            "dfsph": ("density", "alpha", "density_alpha", "drho",
+                      "pressure_force"),
+            "dfsph_visc": ("density", "alpha", "density_alpha", "drho",
+                           "visc_laplacian"),
+            "dfsph_coupled": ("density", "alpha", "density_alpha", "drho",
+                              "pressure_force"),
+            "dfsph_mp_coupled": ("mp_density", "mp_alpha", "mp_force",
+                                 "mp_drho", "mp_kappa"),
             "multiphase": ("mp_density", "mp_force"),
             "multiphase_wavemaker": ("mp_density", "mp_force"),
-            "dfsph_mp": ("mp_force", "mp_drho", "mp_kappa")}[solver]
+            "dfsph_mp": ("mp_density", "mp_alpha", "mp_force", "mp_drho",
+                         "mp_kappa")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
            in operands_of(cfg, ctx, params).items() if k in keep}
     if solver == "multiphase_wavemaker":
