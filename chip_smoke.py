@@ -79,7 +79,8 @@ Phases, in order; any failure exits non-zero:
     (pressure on and off) and the viscous-Laplacian kernel against their
     plain versions on the phase-3 dam-break (DFSPH parameters at ν = 5,
     mass calibrated to the lattice), fed its first step's operands; and
-    the three multiphase DFSPH kernels (α̂ sums, dδ̂/dt, κV̂² correction)
+    the three multiphase DFSPH kernels (the density and α̂ sums in one
+    walk, dδ̂/dt, κV̂² correction)
     on the first step's operands of its two-phase split (phase 10's),
     κ from the first divergence iteration; both kernel sets
     (max|Δ| ≤ 1e-4·max|ref| per output column, and finite);
@@ -312,16 +313,20 @@ cell key, the parameters, the output) over 3.35 TB/s and its operations
 (candidate pairs of this run's ranges × the pair formula's operations)
 over 67 TFLOP/s, the H100 SXM's published float32 peaks. The reaction,
 density, force, SumDij, Jacobi, PBF (ω included), XSPH, Dρ/Dt (over the
-fluid and walls and over a shell), multiphase force, dδ̂/dt and κ impulse
-kernels stop after the geometry on a candidate outside the cutoff: there
-only those operations count (``GUARDED``), and the candidates inside the
-cutoff are counted from this run's positions. The two elastic kernels
+fluid and walls and over a shell), multiphase force, dδ̂/dt, κ impulse,
+multiphase density and α̂ and body contact kernels stop after the geometry
+on a candidate outside the cutoff: there only those operations count
+(``GUARDED``), and the candidates inside the cutoff are counted from this
+run's positions. The body contact reads a shell row's second float4 only
+inside the cutoff: a shell row counts 16 B, or 32 where some query has it
+inside the cutoff in this run (``SPLIT_ROWS``). The two elastic kernels
 (ElasticF and the force + hourglass) walk the body's static pair list,
 every pair inside the cutoff (``LISTED``): their operations are the
 list's pairs × the pair's, the work inside the cutoff whatever walks it.
 The elastic, SumDij, N, ω and XSPH sweeps read one matrix as queries and
-source, the density, force, PBF, Dρ/Dt, multiphase force and dδ̂/dt
-sweeps one whose first rows are the queries: its bytes count once.
+source, the density, force, PBF, Dρ/Dt, multiphase force, dδ̂/dt and
+multiphase density and α̂ sweeps one whose first rows are the queries: its
+bytes count once.
 SumDij, Jacobi, PBF's, XSPH, Dρ/Dt, the multiphase force, dδ̂/dt, the
 κV̂² correction, the κ impulse, the two elastic kernels and the
 one-thread walks count only the columns their pairs read
@@ -339,8 +344,9 @@ print the plan (tiles, CTAs, non-empty spans) and their time at each tile
 size of ``TILE_SIZES``, timed alike, every plan bit-identical to the
 default (their ``kernels`` entries carry these under ``tiled``). The
 lane-group kernels (density, force, SumDij, Jacobi, PBF's, Dρ/Dt over the
-fluid and walls and over a shell, the multiphase force and dδ̂/dt, the κ
-impulse, the two elastic kernels over their list) print the lane-group
+fluid and walls and over a shell, the multiphase force and dδ̂/dt, the
+multiphase density and α̂, the κ impulse, the body contact force, the two
+elastic kernels over their list) print the lane-group
 size G they take and the queries with candidates (their entries carry
 these under ``grouped``); the build prints the density and force
 kernels' registers and spills by G, and each instance of
@@ -452,7 +458,7 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "density_alpha_sums": (30, 27), "drho": (25, 25),
             "mp_density": (16, 17), "mp_force": (72, 48), "xsph": (29, 0),
             "force_v0": (39, 31), "force_p0_v0": (31, 27),
-            "visc_laplacian": (33, 34), "mp_alpha": (24, 21),
+            "visc_laplacian": (33, 34), "mp_density_alpha": (27, 25),
             "mp_drho": (24, 25), "mp_kappa": (22, 22), "pbf_lambda": (28, 25),
             "pbf_dp": (30, 21), "pbf_grad": (28, 0), "pbf_omega": (33, 0),
             "force_moving": (56, 43), "force_p0_moving": (48, 39),
@@ -478,7 +484,8 @@ GUARDED = {"drho_shell": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "drho": 9, "mp_force": 9, "mp_force_moving": 9, "mp_drho": 9,
            "pressure_force_body": 9, "pressure_force_body_rev": 9,
            "dii_aii": 9, "xsph": 9, "pbf_omega": 9, "density_alpha": 9,
-           "density_alpha_sums": 9, "mp_density": 9}
+           "density_alpha_sums": 9, "mp_density": 9,
+           "mp_density_alpha": 9, "body_force": 9, "body_force_p0": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -540,13 +547,20 @@ READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "alpha_body": (12, 16, None), "alpha_shell": (12, 16, None),
               "drho_shell": (24, 28, None), "xsph": (28, 28, 0),
               "pbf_omega": (24, 28, 0), "mp_density": (12, 12, 16),
-              "mp_alpha": (12, 16, 16), "mp_alpha_body": (12, 16, None),
+              "mp_density_alpha": (12, 16, 16),
+              "mp_alpha_body": (12, 16, None),
               "mp_drho_body": (24, 28, None),
               "mp_kappa_body": (16, 16, None), "body_force": (32, 28, None),
               "body_force_p0": (28, 28, None), "mp_body": (32, 28, None),
               "fluid_reaction": (28, 28, None),
               "fluid_reaction_p0": (28, 28, None),
               "elastic_f": (24, 24, 0)}
+# the guarded kernels over a body shell that read a shell row's first
+# float4 (x y z vb_x) to test it and its second (vb_y vb_z psi_b) only
+# inside the cutoff: a shell row counts 16 B unless some query has it
+# inside the cutoff in this run, then its whole 32-byte row (the body
+# contact force, both forms); their queries as READ_BYTES says
+SPLIT_ROWS = {"body_force": (16, 32), "body_force_p0": (16, 32)}
 # the lane-group kernels (csrc/sph_sweep.cu, and group_pair_sweep_kernel
 # and group_list_sweep_kernel of csrc/group_sweep.cuh), whose rows name
 # their G
@@ -556,7 +570,8 @@ GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "elastic_force_hg", "elastic_f", "mp_force", "mp_force_moving",
            "mp_drho", "pressure_force_body", "pressure_force_body_rev",
            "drho_shell", "dii_aii", "xsph", "pbf_omega", "density_alpha",
-           "density_alpha_sums", "mp_density")
+           "density_alpha_sums", "mp_density", "mp_density_alpha",
+           "body_force", "body_force_p0")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
 ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
@@ -600,6 +615,11 @@ def bound(key, args, out):
         n, m = q.shape[0], src.shape[0]
         nbytes = ((0 if shared else qb * n) + fb * m if wb is None
                   else (0 if shared else qb * n) + fb * n + wb * (m - n))
+        if key in SPLIT_ROWS:
+            from nereus_tpu_torch.ops.sph_pairs import PV_H2
+            test, whole = SPLIT_ROWS[key]
+            hit = rows_inside(q, src, s, e, float(pv[PV_H2]))
+            nbytes = qb * n + test * (m - hit) + whole * hit
         nbytes += sum(t.numel() * t.element_size() for t in (pv, out))
     else:
         ins = (src, pv, out) if shared else (q, src, pv, out)
@@ -637,6 +657,18 @@ def cutoff_pairs(q, src, s, e, h2, by_row=False):
         d = q[qi, :3] - src[sj, :3]
         n.append(int(((d * d).sum(dim=1) < h2).sum()))
     return n if by_row else sum(n)
+
+
+def rows_inside(q, src, s, e, h2):
+    """The number of source rows that lie within r² < ``h2`` of some query
+    of the ranges ``s``, ``e`` (positions in columns 0-2)."""
+    from nereus_tpu_torch.ops.neighbors import row_pairs
+    hit = torch.zeros(src.shape[0], dtype=torch.bool, device=src.device)
+    for r in range(s.shape[0]):
+        qi, sj = row_pairs(s[r], e[r])
+        d = q[qi, :3] - src[sj, :3]
+        hit[sj[(d * d).sum(dim=1) < h2]] = True
+    return int(hit.sum())
 
 
 def sweep_inputs(ctx, params, dens=None):
@@ -772,8 +804,9 @@ def group_stats(key, args, kw):
     (``cuda_sweep.density_group``, ``force_group``, ``body_group``,
     ``DII_AII_G``, ``SUM_DIJ_G``, ``JACOBI_G``, ``PBF_LAMBDA_G``,
     ``pbf_dp_group``, ``PBF_GRAD_G``, ``PBF_OMEGA_G``, ``XSPH_G``,
-    ``DRHO_G``, ``DENSITY_ALPHA_G``, ``mp_force_group``, ``MP_DRHO_G``,
-    ``elastic_group``, ``shell_group``, ``BODY_REV_G``) and the
+    ``DRHO_G``, ``DENSITY_ALPHA_G``, ``MP_DENSITY_ALPHA_G``,
+    ``mp_force_group``, ``MP_DRHO_G``, ``elastic_group``, ``shell_group``,
+    ``BODY_REV_G``) and the
     queries that have a candidate in their ranges (pairs in the list of a
     ``LISTED`` kernel)."""
     from nereus_tpu_torch.ops import cuda_sweep
@@ -810,13 +843,16 @@ def group_stats(key, args, kw):
         g = cuda_sweep.DRHO_G
     elif key.startswith("density_alpha"):
         g = cuda_sweep.DENSITY_ALPHA_G
+    elif key == "mp_density_alpha":
+        g = cuda_sweep.MP_DENSITY_ALPHA_G
     elif key.startswith("mp_force"):
         g = cuda_sweep.mp_force_group(n, kw.get("moving_boundary", False))
     elif key == "mp_drho":
         g = cuda_sweep.MP_DRHO_G
     elif key == "pressure_force_body_rev":
         g = cuda_sweep.BODY_REV_G
-    elif key in ("pressure_force_body", "drho_shell"):
+    elif key in ("pressure_force_body", "drho_shell", "body_force",
+                 "body_force_p0"):
         g = cuda_sweep.shell_group(src.shape[0])
     else:
         g = cuda_sweep.density_group(n)
@@ -1074,13 +1110,13 @@ def mp_dfsph_operands(cfg, ctx, params):
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers import dfsph_cuda, wcsph_cuda
     mass, rho0 = ctx.mass, ctx.rho0
-    # the density and α̂ sweep one matrix
+    # the density and α̂'s sums: one sweep of one matrix
     aargs = dfsph_cuda.multiphase_alpha_operands(ctx)
-    dout = SP.multiphase_density_sweep_plain(cfg, *aargs)
-    delta = dout[:, 0]
-    dens = mass * delta + (rho0 / params.rest_density) * dout[:, 1]
+    out = SP.multiphase_density_alpha_sweep_plain(cfg, *aargs)
+    delta = out[:, 0]
+    dens = mass * delta + (rho0 / params.rest_density) * out[:, 1]
     sweeps = dfsph_cuda.MultiphaseKappaSweeps(ctx, params, cfg, dens)
-    al = SP.multiphase_alpha_sweep_plain(cfg, *aargs)
+    al = out[:, 2:]
     g = al[:, 0:3] + sweeps.sm[:, None] * al[:, 4:7]
     alpha = mass * sweeps.delta_hat ** 2 / torch.clamp(
         (g * g).sum(dim=1) + mass * al[:, 3], min=1e-6)
@@ -1091,10 +1127,9 @@ def mp_dfsph_operands(cfg, ctx, params):
     fargs = wcsph_cuda.multiphase_force_args(
         ctx, vel, 1.0 / torch.clamp(delta, min=1e-12),
         1.0 / torch.clamp(dens, min=1e-12), torch.zeros_like(dens))
-    return {"mp_density": (cuda_sweep.multiphase_density_sweep,
-                           SP.multiphase_density_sweep_plain, aargs, {}),
-            "mp_alpha": (cuda_sweep.multiphase_alpha_sweep,
-                         SP.multiphase_alpha_sweep_plain, aargs, {}),
+    return {"mp_density_alpha": (cuda_sweep.multiphase_density_alpha_sweep,
+                                 SP.multiphase_density_alpha_sweep_plain,
+                                 aargs, {}),
             "mp_force": (cuda_sweep.multiphase_force_sweep,
                          SP.multiphase_force_sweep_plain, fargs, {}),
             "mp_drho": (cuda_sweep.multiphase_drho_sweep,
@@ -1898,8 +1933,8 @@ def run_dfsph_coupled(name, dev, kind):
     corr = it + steps     # the warm start's correction on every step
     K = cuda_sweep
     if kind == "mp":
-        want = {K.MP_DENSITY: steps, K.MP_ALPHA: steps,
-                K.BODY_DENSITY: steps, K.MP_ALPHA_BODY: steps,
+        want = {K.MP_DENSITY_ALPHA: steps, K.BODY_DENSITY: steps,
+                K.MP_ALPHA_BODY: steps,
                 K.MP_DRHO: it, K.MP_DRHO_BODY: it, K.MP_KAPPA: corr,
                 K.MP_KAPPA_BODY: corr, K.MP_FORCE: steps, K.MP_BODY: steps}
     else:
@@ -2013,6 +2048,8 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
         msg.append(f"{key} {float(err.max()):.3g}/{float(scale.max()):.4g}")
         if key.startswith("density_alpha"):
             check_fused_density(cfg, args, got, f"{label}: {key}")
+        elif key == "mp_density_alpha":
+            check_fused_mp_density(cfg, args, got, f"{label}: {key}")
         if time_it:
             out[key] = (float(err.max()),
                         *time_turns(key, lambda: kern(cfg, *args, **kw),
@@ -2040,6 +2077,22 @@ def check_fused_density(cfg, args, got, label):
           f"{groups[1]}): " + ("bit for bit" if same else
                               f"max|d| {diff:.3g} of max ρ "
                               f"{float(dens.max()):.6g}"))
+
+
+def check_fused_mp_density(cfg, args, got, label):
+    """Prints the multiphase density and α̂ kernel's δ and Σψ_bW (columns
+    0-1 of ``got``) against the multiphase density kernel's on the same
+    operands, each at its own G: bit for bit, or the largest difference."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    dout = cuda_sweep.multiphase_density_sweep(cfg, *args)
+    groups = (cuda_sweep.MP_DENSITY_ALPHA_G,
+              cuda_sweep.density_group(args[0].shape[0]))
+    diff = float((got[:, :2] - dout).abs().max())
+    same = bool(torch.equal(got[:, :2], dout))
+    print(f"  {label}: δ and Σψ_bW against the multiphase density "
+          f"kernel's (G {groups[0]} / {groups[1]}): "
+          + ("bit for bit" if same else f"max|d| {diff:.3g} of max δ "
+             f"{float(dout[:, 0].max()):.6g}"))
 
 
 def check_models(ops, keys, label):
@@ -2372,7 +2425,7 @@ def run_settled_path(solver, dev, loops, cg=None):
                 cuda_sweep.PRESSURE_FORCE: launched + steps}
     elif solver == "dfsph_mp":
         # the warm κ̂ is applied on every step (DFSPH warm start on)
-        want = {cuda_sweep.MP_DENSITY: steps, cuda_sweep.MP_ALPHA: steps,
+        want = {cuda_sweep.MP_DENSITY_ALPHA: steps,
                 cuda_sweep.MP_FORCE: steps, cuda_sweep.MP_DRHO: launched,
                 cuda_sweep.MP_KAPPA: launched + steps}
     else:
@@ -3672,7 +3725,7 @@ def main():
                               boundary)
         compare_kernels(cfg, mp_dfsph_operands(cfg, ctx, params),
                         f"multiphase DFSPH {label}",
-                        keys=("mp_alpha", "mp_drho", "mp_kappa"))
+                        keys=("mp_density_alpha", "mp_drho", "mp_kappa"))
     torch.cuda.synchronize()
     del state, ctx, boundary, grid
 
@@ -3988,7 +4041,10 @@ def main():
             "force_p0_v0": (cuda_sweep.FORCE_P0_V0, sph_src, rep + "1207"),
             "visc_laplacian": (cuda_sweep.VISC_LAPLACIAN, visc_src,
                                rep + "984"),
-            "mp_alpha": (cuda_sweep.MP_ALPHA, mpd_src, rep + "799"),
+            # multiphase_density_pair (:628) and multiphase_alpha_pair
+            # (:799), fused
+            "mp_density_alpha": (cuda_sweep.MP_DENSITY_ALPHA, mpd_src,
+                                 rep + "628,799"),
             "mp_drho": (cuda_sweep.MP_DRHO, mpd_src, rep + "836"),
             "mp_kappa": (cuda_sweep.MP_KAPPA, mpd_src, rep + "871"),
             "pbf_lambda": (cuda_sweep.PBF_LAMBDA, pbf_src, rep + "949"),

@@ -11,20 +11,38 @@
 // of the multiphase DFSPH coupling). A body shell's psi-density is
 // the density kernel of sph_sweep.cu over the body source.
 //
-// Design: one functor each for the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per
-// hash-sorted query, exact neighbor ranges), in the operation order of
-// nereus_tpu_torch/ops/sph_pairs.py. The source is one body shell alone,
-// so only rows 0-8 are walked (BOUNDARY_ROWS = false): the ranges come from
-// the query cells and the shell's own sorted hashes. Both forces are
-// central, along r, so the caller sums the reaction on the body from the
-// fluid side (F = -sum f_i, tau = -sum (x_i - c) x f_i) and no second,
-// body-as-query sweep is needed.
+// Design. The source is one body shell alone, so only rows 0-8 are walked
+// (BOUNDARY_ROWS = false): the ranges come from the query cells and the
+// shell's own sorted hashes. Both forces are central, along r, so the
+// caller sums the reaction on the body from the fluid side
+// (F = -sum f_i, tau = -sum (x_i - c) x f_i) and no second,
+// body-as-query sweep is needed. Each pair keeps the operation order of
+// nereus_tpu_torch/ops/sph_pairs.py.
 //
-// Bound: memory traffic (sweep_common.cuh). Each candidate reads one
-// 32-byte body row; a shell has tens to thousands of samples, so most
-// queries find empty ranges and the sweep costs about one read of the
-// 32-byte query rows and the range rows.
+// The body force, both forms (once per step on the coupled WCSPH paths,
+// once per step as the friction alone on the DFSPH couplings), runs on
+// the lane-group engine group_pair_sweep_kernel<BodyForce<PRESSURE>, KS,
+// G> of group_sweep.cuh. What held it back on pair_sweep_kernel: one
+// thread per fluid query walked the shell's 9 runs in series, and every
+// candidate loaded both float4s of its 32-byte row and ran the whole pair,
+// multiplied by 0 outside the cutoff. Over a small shell (a rigid box's
+// 56 samples) nearly every query's runs are empty and the range rows are
+// the cost; over a large one in mid-fluid (an elastic cube's 4,096
+// samples) the busy queries hold many candidates each and diverge from
+// their warp's empty lanes. What the design does: G lanes per query walk
+// the flattened runs as one list; a candidate loads x y z vb_x, tests the
+// cutoff, and only inside it loads vb_y vb_z psi_b and runs the pair. G:
+// ops/cuda_sweep.py::shell_group, by the shell's size, as the DFSPH
+// couplings' shell sweeps (only those instances are built; measured at the
+// four paths that run it, PERF.md section 6).
+//
+// The multiphase body contact stays on the range-walk template
+// pair_sweep_kernel<Pair, KS> of sweep_common.cuh (one thread per query,
+// the pair on every candidate, masked by the cutoff).
+//
+// Bound: memory traffic (sweep_common.cuh). A shell has tens to thousands
+// of samples, so most queries find empty ranges and the sweep costs about
+// one read of the 32-byte query rows and the range rows.
 //
 // Layouts (row-major float32, 16-byte aligned rows):
 //   body force: q (N, 8) x y z vx vy vz rho pd2 (the force sweep's query);
@@ -33,7 +51,7 @@
 //       bp = (rho0_i/rho0) max(p_i, 0)/rho~_i^2 and fr = m_i/rho~_i^2;
 //       src as the body force's; out (N, 3) acceleration
 
-#include "sweep_common.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
@@ -67,28 +85,37 @@ __device__ __forceinline__ BodyGeom body_geom(const float (&q)[8],
 
 // force on the fluid: friction nu max((v_i - v_b) . r, 0) psi grad W with
 // nu = 2 m^2 mu^2 h c_s / (1 + 0.01 h^2) / rho_i^2, and (PRESSURE) the
-// repulsive Akinci pressure -m psi max(pd2_i, 0) grad W
+// repulsive Akinci pressure -m psi max(pd2_i, 0) grad W; the engine calls
+// it inside the cutoff with a = x y z vb_x of row j, and vb_y vb_z psi_b
+// load only there
 template <bool PRESSURE>
 struct BodyForce {
   static constexpr int QW = 8, SW = 8, OW = 3;
   static constexpr bool BOUNDARY_ROWS = false;
   template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], const float* src, int j,
-                              const Params& p, float (&acc)[OW]) {
-    const BodyGeom g = body_geom<KS>(q, src, j, p);
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    const float4 b = src_f4(src, SW, j, 1);  // vb_y vb_z psi pad
+    const float dx = q[0] - a.x, dy = q[1] - a.y, dz = q[2] - a.z;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    float rl = 0.0f, invrl = 0.0f;
+    if constexpr (KS != MULLER) rl_invrl(r2, rl, invrl);
+    const float s = grad_scale_default<KS>(r2, rl, invrl, p);
+    const float vdotr = (q[3] - a.w) * dx + (q[4] - b.x) * dy +
+                        (q[5] - b.y) * dz;
     const float di = fmaxf(q[6], 1e-12f);
     const float nu = ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
                       (1.0f + 0.01f * p.h2)) /
                      (di * di);
-    const float cfric = nu * fmaxf(g.vdotr, 0.0f) * g.psi * g.s;
+    const float cfric = nu * fmaxf(vdotr, 0.0f) * b.z * s;
     float c = cfric;
     if constexpr (PRESSURE) {
-      c = cfric + (-p.pm) * g.psi * fmaxf(q[7], 0.0f) * g.s;
+      c = cfric + (-p.pm) * b.z * fmaxf(q[7], 0.0f) * s;
     }
-    c *= g.okf;
-    acc[0] += c * g.dx;
-    acc[1] += c * g.dy;
-    acc[2] += c * g.dz;
+    acc[0] += c * dx;
+    acc[1] += c * dy;
+    acc[2] += c * dz;
   }
 };
 
@@ -117,23 +144,8 @@ struct MultiphaseBody {
 extern "C" {
 
 NEREUS_PAIR_SWEEP(multiphase_body, MultiphaseBody)
-
-// pair_sweep_kernel<BodyForce<include_pressure>> on `stream`; returns
-// cudaGetLastError() (0 on success), or -1 for an unknown kernel set or a
-// switch other than 0 and 1.
-int nereus_body_force_sweep(const float* q, const float* src,
-                            const int* seg_start, const int* seg_end, int n,
-                            int n_rows, const float* pvec, int kernel_set,
-                            int include_pressure, float* out, void* stream) {
-  if (include_pressure == 1) {
-    return nereus_sweep::launch_pair_sweep<BodyForce<true>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
-  }
-  if (include_pressure == 0) {
-    return nereus_sweep::launch_pair_sweep<BodyForce<false>>(
-        q, src, seg_start, seg_end, n, n_rows, pvec, kernel_set, out, stream);
-  }
-  return -1;
-}
+// both forms at the G of ops/cuda_sweep.py::shell_group
+NEREUS_GROUP_SWEEP(body_force, BodyForce<true>, 2, 8)
+NEREUS_GROUP_SWEEP(body_force_p0, BodyForce<false>, 2, 8)
 
 }  // extern "C"

@@ -8,18 +8,39 @@
 // multiphase_kappa_pair / _bpair, and the three _bpair alone over a body
 // shell (BoundaryForm<...>, rows 0-8: solvers/dfsph_coupled.py::
 // _coupled_mp_pallas; the shell's alpha and kappa source is 4 wide, x y z
-// psi_b). Its density and non-pressure force sweeps
-// are the MultiphaseDensity and MultiphaseForce functors of
-// multiphase_sweep.cu.
+// psi_b), and, fused with the first, the step's density sweep
+// (multiphase_density_pair / _bpair, dfsph_pallas.py's density before
+// alpha-hat). Its non-pressure force sweep is the MultiphaseForce functor
+// of multiphase_sweep.cu.
 //
-// Design: one functor per fluid / wall pair of the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, the fluid rows the
-// B = false branch and the wall rows the B = true one, in the operation
-// order of ops/sph_pairs.py. All three use the default (poly6 / Monaghan)
-// gradient, exactly 0 at the self pair (r^2 is clamped before the rsqrt),
-// so self-pairs stay in the ranges; the Muller gradient skips the rsqrt.
+// Design: one functor per fluid / wall pair, the fluid rows the B = false
+// branch and the wall rows the B = true one, in the operation order of
+// ops/sph_pairs.py. All use the default (poly6 / Monaghan) gradient,
+// exactly 0 at the self pair (r^2 is clamped before the rsqrt), so
+// self-pairs stay in the ranges; the Muller gradient skips the rsqrt.
 // The wall sums the caller rescales by each query's s_i / m_i (alpha's
 // B vector) keep columns of their own.
+//
+// The adapted density and the factor alpha-hat (once per step) are one
+// walk, group_pair_sweep_kernel<MultiphaseDensityAlpha, KS, G> on the
+// lane-group engine of group_sweep.cuh. What held them back: the
+// multiphase density kernel walked the ranges of the step's one
+// (C + Mb, 4) matrix, then alpha-hat's one thread per query walked the same
+// 18 runs again in series, every candidate masked by the cutoff (~85 % of
+// them outside it). What the design does: G lanes per query walk the
+// flattened fluid and wall runs of that matrix (fluid rows x y z 1/m_j,
+// wall rows x y z psi_b; solvers/dfsph_cuda.py::multiphase_alpha_operands)
+// once; a candidate's one float4 is the engine's own load, and inside the
+// cutoff the pair adds W (fluid) or psi_b W (wall) as the multiphase
+// density kernel does (the same mp_geom and mp_density_add of
+// sweep_common.cuh, explicit intrinsics), so delta is that kernel's at the
+// same G, bit for bit, and alpha-hat's seven sums. Lane 0's epilogue
+// writes the nine sums as (9, N) planes; the caller forms rho~ and
+// alpha-hat from them, as alpha-hat needs s_i = rho0_i / rho0, which the
+// matrix does not carry. G: ops/cuda_sweep.py::MP_DENSITY_ALPHA_G (the one
+// instance built). Over a
+// rigid body's shell the wall sums alone keep the one-thread walk,
+// BoundaryForm<MultiphaseAlpha> (rows 0-8, every candidate masked).
 //
 // d delta-hat / dt runs once per iteration of both solver loops on the
 // lane-group engine group_pair_sweep_kernel<MultiphaseDrho, KS, G> of
@@ -62,9 +83,13 @@
 // velocities and psi_b).
 //
 // Layouts (row-major float32, 16-byte aligned rows):
-//   alpha: q (N, 4) x y z pad; src (M, 4) fluid x y z 1/m_j, wall x y z
-//          psi_b; out (N, 7) sum grad W (3), sum |grad W|^2 / m_j (fluid
-//          rows), sum psi_b grad W (3, wall rows)
+//   density_alpha: src (C + Mb, 4) fluid x y z 1/m_j, wall x y z psi_b;
+//          q its first C rows (x y z read); out (9, N) planes sum W,
+//          sum psi_b W, sum grad W (3), sum |grad W|^2 / m_j (fluid rows),
+//          sum psi_b grad W (3, wall rows)
+//   alpha_body: q (N, 4) x y z pad; src a shell's (Mb, 4) rows x y z psi_b;
+//          ranges (9, N); out (N, 7), sum psi_b grad W in columns 4-6 and
+//          columns 0-3 exactly 0
 //   drho:  src (C + Mb, 8) fluid rows x y z vx vy vz s_i/m_i 0, wall rows
 //          x y z vb vb vb psi_b 0 (the wall velocity 0 for a static wall);
 //          q its first C rows (slots 0-6 read); out (N,)
@@ -84,7 +109,9 @@ namespace {
 using namespace nereus_sweep;
 
 // G = sum grad W and S = sum |grad W|^2 / m_j over the fluid rows,
-// B = sum psi_b grad W over the wall rows
+// B = sum psi_b grad W over the wall rows, on every candidate, masked by
+// the cutoff: the one-thread walk's functor, whose wall formula
+// BoundaryForm<MultiphaseAlpha> runs over a body shell
 struct MultiphaseAlpha {
   static constexpr int QW = 4, SW = 4, OW = 7;
   static constexpr bool BOUNDARY_ROWS = true;
@@ -105,6 +132,46 @@ struct MultiphaseAlpha {
       acc[2] += c * g.dz;
       acc[3] += a.w * c * c * g.r2;
     }
+  }
+};
+
+// the multiphase density and alpha-hat's sums in one walk of the one
+// (C + Mb, 4) matrix x y z 1/m_j (fluid rows) / x y z psi_b (wall rows):
+// delta = sum W (acc 0) and sum psi_b W (acc 1) as the multiphase density
+// kernel adds them (multiphase_sweep.cu's MultiphaseDensity: the same
+// mp_geom and mp_density_add, whose explicit intrinsics the compiler
+// cannot contract otherwise here), then MultiphaseAlpha's
+// G = sum grad W (acc 2-4) and
+// S = sum |grad W|^2 / m_j (acc 5) over the fluid rows and
+// B = sum psi_b grad W (acc 6-8) over the wall rows, without the cutoff
+// mask; the engine calls it inside the cutoff with a = row j. The
+// epilogue writes the nine sums as (9, N) planes.
+struct MultiphaseDensityAlpha {
+  static constexpr int QW = 4, SW = 4, OW = 9, OUTW = 9;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const Params& p, float (&acc)[OW]) {
+    const MpGeom g = mp_geom<KS>(q, a, p);
+    mp_density_add<B>(g, a, acc[0], acc[1]);
+    const float s = grad_scale_default<KS>(g.r2, g.rl, g.invrl, p);
+    if constexpr (B) {
+      const float c = a.w * s;
+      acc[6] += c * g.dx;
+      acc[7] += c * g.dy;
+      acc[8] += c * g.dz;
+    } else {
+      acc[2] += s * g.dx;
+      acc[3] += s * g.dy;
+      acc[4] += s * g.dz;
+      acc[5] += a.w * s * s * g.r2;
+    }
+  }
+  __device__ static void epilogue(const float (&)[QW],
+                                  const float (&acc)[OW], const Params&,
+                                  float (&o)[OUTW]) {
+#pragma unroll
+    for (int k = 0; k < OW; ++k) o[k] = acc[k];
   }
 };
 
@@ -174,7 +241,8 @@ struct MultiphaseKappa {
 
 extern "C" {
 
-NEREUS_PAIR_SWEEP(multiphase_alpha, MultiphaseAlpha)
+// the G of ops/cuda_sweep.py::MP_DENSITY_ALPHA_G
+NEREUS_GROUP_SWEEP(multiphase_density_alpha, MultiphaseDensityAlpha, 4)
 // the G of ops/cuda_sweep.py::MP_DRHO_G
 NEREUS_GROUP_SWEEP(multiphase_drho, MultiphaseDrho, 4)
 NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)

@@ -118,19 +118,16 @@ __device__ __forceinline__ WGeom w_geom(const float* q, float4 a,
 // rows, column 1, rescaled per query phase by the caller); the engine calls
 // it inside the cutoff with a = x y z psi_b of row j (a fluid row's slot 3
 // is not read). W keeps w_value's operation order, so delta is the plain
-// version's function.
+// version's function, its products that feed a sum explicit intrinsics
+// (mp_geom and mp_density_add of sweep_common.cuh), so that multiphase
+// DFSPH's density and alpha-hat kernel adds the same bits.
 struct MultiphaseDensity {
   static constexpr int QW = 4, SW = 4, OW = 2;
   static constexpr bool BOUNDARY_ROWS = true;
   template <int KS, bool B>
   __device__ static void pair(const float (&q)[QW], float4 a, const float*,
                               int, const Params& p, float (&acc)[OW]) {
-    const WGeom g = w_geom<KS>(q, a, p);
-    if constexpr (B) {
-      acc[1] += a.w * g.w;
-    } else {
-      acc[0] += g.w;
-    }
+    mp_density_add<B>(mp_geom<KS>(q, a, p), a, acc[0], acc[1]);
   }
 };
 

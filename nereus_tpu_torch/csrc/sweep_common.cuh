@@ -204,6 +204,57 @@ __device__ __forceinline__ Geom default_geom(const float* q, float4 a,
   return g;
 }
 
+// The multiphase density's pair geometry and W = wa * wb (Muller:
+// kpoly d^2 and d with d = max(h^2 - r^2, 0); Monaghan: sigma and
+// a^3 - 4 b^3), in w_value's operation order, each product that feeds a
+// sum an explicit intrinsic (__fmaf_rn, __fmul_rn), which nvcc neither
+// contracts nor splits: nvcc contracts a plain expression by its context,
+// so two functors that add the same plain W may round it differently.
+// Every functor that adds W through mp_density_add gets the same bits.
+// rl and invrl (Monaghan; 0 for Muller) serve the same pair's gradient.
+struct MpGeom {
+  float dx, dy, dz, r2, rl, invrl, wa, wb;
+};
+
+template <int KS>
+__device__ __forceinline__ MpGeom mp_geom(const float* q, float4 a,
+                                          const Params& p) {
+  MpGeom g;
+  g.dx = q[0] - a.x;
+  g.dy = q[1] - a.y;
+  g.dz = q[2] - a.z;
+  g.r2 = __fmaf_rn(g.dz, g.dz, __fmaf_rn(g.dy, g.dy, __fmul_rn(g.dx, g.dx)));
+  g.rl = 0.0f;
+  g.invrl = 0.0f;
+  if constexpr (KS == MULLER) {
+    const float d = fmaxf(p.h2 - g.r2, 0.0f);
+    g.wa = __fmul_rn(__fmul_rn(p.kpoly, d), d);
+    g.wb = d;
+  } else {
+    rl_invrl(g.r2, g.rl, g.invrl);
+    const float qh = g.rl / p.h;
+    const float ta = fmaxf(2.0f - qh, 0.0f);
+    const float tb = fmaxf(1.0f - qh, 0.0f);
+    g.wa = p.sigma;
+    g.wb = __fmaf_rn(__fmul_rn(ta, ta), ta,
+                     -__fmul_rn(__fmul_rn(4.0f * tb, tb), tb));
+  }
+  return g;
+}
+
+// the multiphase density's sums of one pair inside the cutoff: W into
+// acc0 (fluid rows) or psi_b W into acc1 (wall rows, psi_b = a.w), each
+// an explicit fused multiply-add (mp_geom)
+template <bool B>
+__device__ __forceinline__ void mp_density_add(const MpGeom& g, float4 a,
+                                               float& acc0, float& acc1) {
+  if constexpr (B) {
+    acc1 = __fmaf_rn(a.w, __fmul_rn(g.wa, g.wb), acc1);
+  } else {
+    acc0 = __fmaf_rn(g.wa, g.wb, acc0);
+  }
+}
+
 // the k-th float4 of source row j of a (M, width) matrix
 __device__ __forceinline__ float4 src_f4(const float* src, int width, int j,
                                          int k) {

@@ -80,7 +80,8 @@ XSPH = Kernel("group_pair_sweep_kernel<Xsph>")
 FORCE_V0 = Kernel("force_sweep_kernel<VISC=0>")
 FORCE_P0_V0 = Kernel("force_sweep_kernel<PRESSURE=0,VISC=0>")
 VISC_LAPLACIAN = Kernel("tiled_pair_sweep_kernel<ViscLaplacian>")
-MP_ALPHA = Kernel("pair_sweep_kernel<MultiphaseAlpha>")
+# multiphase DFSPH's density and α̂'s sums in one walk
+MP_DENSITY_ALPHA = Kernel("group_pair_sweep_kernel<MultiphaseDensityAlpha>")
 MP_DRHO = Kernel("group_pair_sweep_kernel<MultiphaseDrho>")
 MP_KAPPA = Kernel("pair_sweep_kernel<MultiphaseKappa>")
 # PBF's (ρ, λ), Δp and ω, and vorticity confinement's N (the λ sums over
@@ -98,7 +99,7 @@ MP_FORCE_MOVING = Kernel(
 # the rigid-body coupling: a body shell's ψ-density (the density kernel
 # over the body source, counted apart) and the two contact sweeps
 BODY_DENSITY = Kernel("density_sweep_kernel<body>")
-BODY_FORCE = Kernel("pair_sweep_kernel<BodyForce>")
+BODY_FORCE = Kernel("group_pair_sweep_kernel<BodyForce>")
 MP_BODY = Kernel("pair_sweep_kernel<MultiphaseBody>")
 # the elastic solid's deformation gradient and fused force + hourglass
 # (both over the body's static pair list), and the fluid's reaction on an
@@ -113,7 +114,7 @@ FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # impulse), each counted apart; the κ impulse forward (the fluid rows as
 # queries over a shell) and reverse (a body's samples as queries over the
 # fluid rows) apart
-BODY_FORCE_P0 = Kernel("pair_sweep_kernel<BodyForce<PRESSURE=0>>")
+BODY_FORCE_P0 = Kernel("group_pair_sweep_kernel<BodyForce<PRESSURE=0>>")
 FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
 PRESSURE_FORCE_BODY = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce><shell>")
@@ -136,7 +137,8 @@ LAYOUT_AOS = Kernel("layout_probe<AoS>")
 LAYOUT_SOA = Kernel("layout_probe<SoA>")
 KERNELS = (DENSITY, FORCE, FORCE_P0, DII_AII, SUM_DIJ, JACOBI, PRESSURE_FORCE,
            DENSITY_PRED, DENSITY_ALPHA, DENSITY_ALPHA_SUMS, DRHO, MP_DENSITY,
-           MP_FORCE, XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN, MP_ALPHA,
+           MP_FORCE, XSPH, FORCE_V0, FORCE_P0_V0, VISC_LAPLACIAN,
+           MP_DENSITY_ALPHA,
            MP_DRHO, MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
            FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
            MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
@@ -310,9 +312,10 @@ _SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
               "jacobi": 1, "density_alpha": 1, "density_alpha_sums": 1,
               "drho": 1, "drho_shell": 1,
               "multiphase_density": 1, "multiphase_force": 3,
-              "xsph": 1, "multiphase_alpha": 0,
+              "xsph": 1, "multiphase_density_alpha": 1,
               "multiphase_drho": 1, "multiphase_kappa": 0, "pbf_lambda": 1,
               "pbf_dp": 1, "pbf_omega": 1, "pbf_grad": 1, "body_force": 1,
+              "body_force_p0": 1,
               "multiphase_body": 0, "fluid_reaction": 1,
               "pressure_force_body": 1, "pressure_force_body_rev": 1,
               "alpha_body": 0, "alpha_shell": 0,
@@ -597,6 +600,15 @@ MP_DRHO_G = 4
 # 1 2 % more at the first and 1 % less at the second, one G for both; no
 # path runs it below ``SMALL_N``).
 XSPH_G = 2
+# And of multiphase DFSPH's density and α̂ sums in one walk
+# (``csrc/dfsph_multiphase_sweep.cu``, the one instance built): 4, as
+# measured on an NVIDIA H100 80GB HBM3 at 700.00 W at the two paths that
+# run it, ``dfsph_mp_256k_settled`` and ``dfsph_mp_coupled_256k``, both
+# 262,144 queries (``tools/group_scan.py --keys mp_density_alpha``: G 1,
+# 2 and 8 took 25 %, 12 % and 23 % more time; the multiphase density
+# kernel and α̂'s one-thread walk it replaces 83 % more; no path runs it
+# above ``SMALL_N``).
+MP_DENSITY_ALPHA_G = 4
 
 
 def mp_force_group(n: int, moving_boundary=False) -> int:
@@ -621,16 +633,24 @@ def elastic_group(n: int) -> int:
     return 16 if n < SMALL_BODY else 4
 
 
-# The DFSPH couplings' sweeps of the fluid rows as queries over a body shell,
-# the κ impulse (``csrc/iisph_sweep.cu``) and Dρ/Dt
-# (``csrc/dfsph_sweep.cu``), which build only these, by the shell's size, as
+# The sweeps of the fluid rows as queries over a body shell, the DFSPH
+# couplings' κ impulse (``csrc/iisph_sweep.cu``) and Dρ/Dt
+# (``csrc/dfsph_sweep.cu``), and the body contact force, both forms
+# (``csrc/coupled_sweep.cu``), which build only these, by the shell's size, as
 # measured on an NVIDIA H100 80GB HBM3 at 700.00 W (``tools/group_scan.py
 # --solver dfsph_coupled``, ``dfsph_elastic``; PERF.md section 6): under
 # ``SMALL_SHELL`` samples (the rigid boxes' 56, nearly every query's runs
 # empty) G 2 (both 4-5 % under one thread per query with its 9 bounds loaded
 # at once; G 4 10-26 % over G 2); over a larger shell (an elastic cube's
 # 4,096, in mid-fluid, whose busy queries fill whole warps) G 8 (G 4 and 16
-# took 2-41 % more, one thread per query 35 %). The reverse κ impulse, a
+# took 2-41 % more, one thread per query 35 %). The body contact force takes
+# the same two (``--solver coupled``, ``wcsph_elastic``, ``dfsph_coupled``,
+# ``dfsph_elastic``): at the 56-sample box G 2 0.0071 / 0.0080 ms against
+# G 1 0.0070 / 0.0095, G 4 0.0094 / 0.0102 and the one-thread walk it
+# replaced 0.0106 / 0.0093; at the 4,096-sample cube G 8 0.0218 / 0.0278
+# against G 4 0.0237 / 0.0373, G 16 0.0330 / 0.0336 and the walk 0.0464 /
+# 0.0528 (with the pressure at coupled_256k and wcsph_elastic_256k / its
+# friction alone at the DFSPH couplings). The reverse κ impulse, a
 # body's samples as queries over the fluid rows: 16 lanes per sample at the
 # 16³ cube's 4,096, the one body size a path runs (G 4 took 86 %, G 8 29 %
 # and G 32 3 % more); the one instance built.
@@ -639,7 +659,7 @@ BODY_REV_G = 16
 
 def shell_group(m: int) -> int:
     """The G of the sweeps over a body shell of ``m`` samples, the forward
-    κ impulse and Dρ/Dt."""
+    κ impulse, Dρ/Dt and the body contact force."""
     return 2 if m < SMALL_SHELL else 8
 
 
@@ -795,11 +815,16 @@ def visc_laplacian_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
                   seg_start, seg_end, pvec, plan, 3)
 
 
-def multiphase_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
-                           pvec):
-    """Multiphase DFSPH factor sums (N, 7): q (N, 4), src (M, 4)."""
-    return _sweep(MP_ALPHA, "multiphase_alpha", cfg, q, 4, src, 4,
-                  seg_start, seg_end, pvec, (9, 18), 7)
+def multiphase_density_alpha_sweep(cfg: SimConfig, q, src, seg_start,
+                                   seg_end, pvec):
+    """Multiphase DFSPH's density and α̂ sums from one walk (N, 9), each
+    column a contiguous (N,) plane: δ = ΣW, Σψ_b·W, G = Σ∇W (3),
+    S = Σ|∇W|²/m_j, B = Σψ_b∇W (3); src (M, 4) fluid rows ``x y z 1/m_j``,
+    wall rows ``x y z ψ_b`` (``dfsph_cuda.multiphase_alpha_operands``), q
+    (N, 4) its first N rows."""
+    return _sweep(MP_DENSITY_ALPHA, "multiphase_density_alpha", cfg, q, 4,
+                  src, 4, seg_start, seg_end, pvec, (9, 18), 9,
+                  MP_DENSITY_ALPHA_G, planes=True)
 
 
 def multiphase_drho_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -863,10 +888,13 @@ def body_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,
                      include_pressure=True):
     """Rigid-body contact force (N, 3), friction and pressure: q (N, 8),
     the body source (Mb, 8), ranges (9, N); ``include_pressure=False``
-    launches the friction-only instance, counted in ``BODY_FORCE_P0``."""
+    launches the friction-only instance, counted in ``BODY_FORCE_P0``; G by
+    the shell's size (``shell_group``)."""
     p = bool(include_pressure)
-    return _sweep(BODY_FORCE if p else BODY_FORCE_P0, "body_force", cfg, q,
-                  8, src, 8, seg_start, seg_end, pvec, (9,), 3, int(p))
+    return _sweep(BODY_FORCE if p else BODY_FORCE_P0,
+                  "body_force" if p else "body_force_p0", cfg, q, 8, src, 8,
+                  seg_start, seg_end, pvec, (9,), 3,
+                  shell_group(src.shape[0]))
 
 
 def multiphase_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):

@@ -44,7 +44,8 @@ one), PCISPH's ``predicted_density_sweep``, the DFSPH sweeps
 density and α sweeps in one, and ``drho_sweep``), the
 multiphase density and force sweeps, ``xsph_sweep``, the implicit
 viscosity solve's ``visc_laplacian_sweep``, the three multiphase DFSPH
-sweeps, PBF's λ, Δp, ω and N sweeps, the rigid-body
+sweeps (``multiphase_density_alpha_sweep`` the TPU's multiphase density
+and α̂ sweeps in one), PBF's λ, Δp, ω and N sweeps, the rigid-body
 coupling's ``body_density_sweep``, ``body_force_sweep`` and
 ``multiphase_body_sweep``, the elastic solid's ``elastic_f_sweep`` and
 ``elastic_force_hourglass_sweep`` (both over the body's static pair list,
@@ -1144,6 +1145,20 @@ def multiphase_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start,
         7, pair_fn_b=_bind(multiphase_alpha_bpair, cfg, pvec))
 
 
+def multiphase_density_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                         seg_end, pvec):
+    """Multiphase DFSPH's density and α̂ sums (N, 9), each column a
+    contiguous plane: (δ = ΣW, Σψ_b·W) of
+    :func:`multiphase_density_sweep_plain`, then (G, S, B) of
+    :func:`multiphase_alpha_sweep_plain`, on the one matrix both read: src
+    (M, 4) fluid rows ``x y z 1/m_j``, boundary rows ``x y z ψ_b``,
+    q (N, 4)."""
+    dout = multiphase_density_sweep_plain(cfg, q, src, seg_start, seg_end,
+                                          pvec)
+    al = multiphase_alpha_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
+    return torch.cat([dout.t(), al.t()]).t()
+
+
 def multiphase_drho_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
                                 pvec):
     """dδ̂/dt (N,) = Σ(v_i − v_j)·∇W + (s_i/m_i)·Σψ_b(v_i − v_b)·∇W, the
@@ -1362,8 +1377,8 @@ multiphase_body_sweep = _dispatcher(multiphase_body_sweep_plain,
 xsph_sweep = _dispatcher(xsph_sweep_plain, "xsph_sweep")
 visc_laplacian_sweep = _dispatcher(visc_laplacian_sweep_plain,
                                    "visc_laplacian_sweep")
-multiphase_alpha_sweep = _dispatcher(multiphase_alpha_sweep_plain,
-                                     "multiphase_alpha_sweep")
+multiphase_density_alpha_sweep = _dispatcher(
+    multiphase_density_alpha_sweep_plain, "multiphase_density_alpha_sweep")
 multiphase_drho_sweep = _dispatcher(multiphase_drho_sweep_plain,
                                     "multiphase_drho_sweep")
 multiphase_kappa_sweep = _dispatcher(multiphase_kappa_sweep_plain,

@@ -270,15 +270,16 @@ def coupled_density_alpha_multiphase(ctx: SweepCtx, params: SimParams,
     density ρ̃ with every shell's ψ-density scaled by s_i = ρ0_i/ρ₀, the
     number density δ, and α̂ with every shell's Σψ_b∇W in the wall sum
     (scaled by s_i/m_i) and, under strong coupling, its mobility in
-    adapted units, (s_i²/m_i)·(|g|²/M + t·I⁻¹t). The density and α̂ sweep
-    one matrix (:func:`~.dfsph_cuda.multiphase_alpha_operands`)."""
+    adapted units, (s_i²/m_i)·(|g|²/M + t·I⁻¹t). The density and α̂'s
+    sums come from one sweep of one matrix
+    (:func:`~.dfsph_cuda.multiphase_alpha_operands`)."""
     mass = ctx.mass
     s_phase = ctx.rho0 / params.rest_density
     sm = s_phase / mass
     aargs = multiphase_alpha_operands(ctx)
-    dout = SP.multiphase_density_sweep(cfg, *aargs)
-    delta, bsum = dout[:, 0], dout[:, 1]
-    al = SP.multiphase_alpha_sweep(cfg, *aargs)
+    out = SP.multiphase_density_alpha_sweep(cfg, *aargs)
+    delta, bsum = out[:, 0], out[:, 1]
+    al = out[:, 2:]
     bgx, bgy, bgz = al[:, 4], al[:, 5], al[:, 6]
     mob = torch.zeros_like(delta)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)

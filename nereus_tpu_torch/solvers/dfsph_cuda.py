@@ -14,9 +14,9 @@ pd2 slot.
 
 Multiphase (:func:`dfsph_step_multiphase_cuda`): the same two loops on the
 adapted number-density domain of ``nereus_tpu.solvers.dfsph``: δ̂ = ρ̃/m_i
-from the multiphase density sweep, α̂ = m_iδ̂²/max(|Ĝ|² + m_iS, ε) from
-the multiphase α sweep (both over one (C [+ Mb], 4) matrix
-``x y z 1/m``, :func:`multiphase_alpha_operands`), per iteration one
+and α̂ = m_iδ̂²/max(|Ĝ|² + m_iS, ε) from the sums of one sweep of one
+(C [+ Mb], 4) matrix ``x y z 1/m`` (:func:`multiphase_alpha_operands`;
+the multiphase density's and α̂'s sums in one walk), per iteration one
 dδ̂/dt sweep and one κV̂² correction sweep (V̂ = 1/δ̂), and the multiphase
 force sweep with zero pressure as the non-pressure forces. Errors are in
 kg/m³ of each particle's own ρ₀ (``to_kg`` = m_i·ρ₀/ρ0_i).
@@ -304,12 +304,12 @@ def dfsph_solve(state: FluidState, sweeps, alpha, carry=(),
 
 
 def multiphase_alpha_operands(ctx: SweepCtx):
-    """The multiphase α sweep's operands ``(q, src, seg_start, seg_end,
-    pvec)`` on one (C [+ Mb], 4) matrix, built as the density's
-    (:meth:`SweepCtx.density_operands`): fluid rows ``x y z 1/m_j``, then
-    the boundary rows ``x y z ψ_b``; q its first C rows (the kernel reads
-    their x y z). The multiphase density sweep walks the same matrix (it
-    reads no fluid row's slot 3)."""
+    """The operands ``(q, src, seg_start, seg_end, pvec)`` of the
+    multiphase density and α̂ sweep on one (C [+ Mb], 4) matrix, built as
+    the density's (:meth:`SweepCtx.density_operands`): fluid rows
+    ``x y z 1/m_j``, then the boundary rows ``x y z ψ_b``; q its first C
+    rows (the kernel reads their x y z). The multiphase density sweep
+    alone walks it too (it reads no fluid row's slot 3)."""
     return ctx.density_operands(1.0 / ctx.mass)
 
 
@@ -364,14 +364,14 @@ def dfsph_step_multiphase_cuda(state: FluidState, params: SimParams,
     ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
     mass = ctx.mass
 
-    # -- adapted density + the factor α̂, on one matrix --------------------
-    aargs = multiphase_alpha_operands(ctx)
-    dout = SP.multiphase_density_sweep(cfg, *aargs)
-    delta = dout[:, 0]
-    dens = mass * delta + (ctx.rho0 / params.rest_density) * dout[:, 1]
+    # -- adapted density + the factor α̂: one sweep of one matrix ----------
+    out = SP.multiphase_density_alpha_sweep(cfg,
+                                            *multiphase_alpha_operands(ctx))
+    delta = out[:, 0]
+    dens = mass * delta + (ctx.rho0 / params.rest_density) * out[:, 1]
     sweeps = MultiphaseKappaSweeps(ctx, params, cfg, dens, delta)
     sm = sweeps.sm
-    al = SP.multiphase_alpha_sweep(cfg, *aargs)
+    al = out[:, 2:]
     ghx = al[:, 0] + sm * al[:, 4]
     ghy = al[:, 1] + sm * al[:, 5]
     ghz = al[:, 2] + sm * al[:, 6]

@@ -3,6 +3,11 @@
 (the two-layer tank of ``tests/test_multiphase.py``, 128 particles in two
 phases at a ρ₀ ratio 1 : 0.4, settled until the floor lies inside h).
 
+* The plain twin of the multiphase density and α̂ in one walk (nine
+  columns) against interpret-mode ``generic_sweep`` with
+  ``multiphase_density_pair``/``_bpair`` and ``multiphase_alpha_pair``/
+  ``_bpair``, with walls and without, both kernel sets: max|Δ| ≤
+  1e-5·max|ref| per live column.
 * The multiphase α, dδ̂/dt and κV̂² plain sweeps against interpret-mode
   ``generic_sweep`` with ``multiphase_alpha_pair``/``_bpair``,
   ``multiphase_drho_pair``/``_bpair`` and ``multiphase_kappa_pair``/
@@ -89,9 +94,10 @@ def test_shared_density_alpha_matrix(contact, kernel_set):
     (``dfsph_cuda.multiphase_alpha_operands``: fluid rows ``x y z 1/m``,
     then the walls ``x y z ψ_b``, the queries a view of its first rows)
     gives the multiphase density sweep the same δ and Σψ_bW, and the
-    multiphase α sweep the same sums, bit for bit, as the two matrices the
-    step built before (each a column stack ``x y z 0`` / ``x y z 1/m`` with
-    the walls copied behind it); the wall column is live."""
+    multiphase density and α̂ sweep the same nine sums, bit for bit, as the
+    two matrices the step built before (each a column stack ``x y z 0`` /
+    ``x y z 1/m`` with the walls copied behind it); the wall column is
+    live."""
     state, params, grid, walls = contact
     cfg = jt.SimConfig(engine="pallas", kernel_set=kernel_set,
                        surface_tension_model=ST.NONE)
@@ -108,9 +114,59 @@ def test_shared_density_alpha_matrix(contact, kernel_set):
     assert torch.equal(dout, SP.multiphase_density_sweep(
         pcfg, qd, ctx.pack_psi(qd), *rng))
     assert float(dout[:, 1].abs().max()) > 0.0
-    assert torch.equal(SP.multiphase_alpha_sweep(pcfg, *args),
-                       SP.multiphase_alpha_sweep(pcfg, qa, ctx.pack_psi(qa),
-                                                 *rng))
+    fused = SP.multiphase_density_alpha_sweep(pcfg, *args)
+    assert torch.equal(fused[:, :2], dout)
+    assert torch.equal(fused[:, 2:], SP.multiphase_alpha_sweep_plain(
+        pcfg, qa, ctx.pack_psi(qa), *rng))
+
+
+# the wall sums of the multiphase density and α̂ sweep's nine columns
+WALL_COLS = (1, 6, 7, 8)
+
+
+@pytest.mark.parametrize("with_walls", [True, False],
+                         ids=["walls", "no-walls"])
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_multiphase_density_alpha_twin_matches_jax(contact, kernel_set,
+                                                   with_walls):
+    """The plain twin of the fused multiphase density and α̂ kernel (nine
+    planes δ, Σψ_bW, G, S, B) on the step's one matrix
+    (``dfsph_cuda.multiphase_alpha_operands``) against interpret-mode
+    ``generic_sweep`` with ``multiphase_density_pair``/``_bpair`` and
+    ``multiphase_alpha_pair``/``_bpair`` on the same sorted state, with
+    the walls in contact and without walls: max|Δ| ≤ 1e-5·max|ref| per
+    column (float32 sums in another order); without walls the four wall
+    columns exactly 0 on both sides."""
+    state, params, grid, walls = contact
+    walls = walls if with_walls else None
+    cfg = jt.SimConfig(engine="pallas", kernel_set=kernel_set,
+                       surface_tension_model=ST.NONE)
+
+    def jax_sums(s):
+        ctx = build_pallas_ctx(s, params, grid, cfg, walls)
+        geo = (ctx.anchors, ctx.pvec, ctx.gsize)
+        kw = dict(n_rows=ctx.n_rows, interpret=True)
+        q, src = ctx.queries(width=4), ctx.pack(slot6=1.0 / ctx.mass)
+        dout = PS.generic_sweep(cfg, PS.multiphase_density_pair, q, src,
+                                *geo, out_width=4,
+                                pair_fn_b=PS.multiphase_density_bpair, **kw)
+        al = PS.generic_sweep(cfg, PS.multiphase_alpha_pair, q, src, *geo,
+                              out_width=8,
+                              pair_fn_b=PS.multiphase_alpha_bpair, **kw)
+        return jnp.concatenate([dout[:ctx.c, :2], al[:ctx.c, :7]], axis=1)
+    want = np.asarray(jax.jit(jax_sums)(state))
+    pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid, walls)
+    ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
+    assert ctx.seg_start.shape[0] == (18 if with_walls else 9)
+    got = SP.multiphase_density_alpha_sweep(
+        pcfg, *dfsph_cuda.multiphase_alpha_operands(ctx)).numpy()
+    assert got.shape == want.shape == (ctx.c, 9)
+    live = [c for c in range(9) if with_walls or c not in WALL_COLS]
+    assert_columns_close(got[:, live], want[:, live], 1e-5,
+                         f"density and alpha, walls {with_walls}")
+    if not with_walls:
+        assert not got[:, WALL_COLS].any() and not want[:, WALL_COLS].any()
 
 
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
@@ -124,8 +180,8 @@ def test_multiphase_dfsph_sweeps_match_jax(contact, kernel_set):
     pcfg, pparams, pstate, pg, pb = to_port(cfg, params, state, grid, walls)
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pb)
     assert ctx.seg_start.shape[0] == 18
-    got = SP.multiphase_alpha_sweep(pcfg,
-                                    *dfsph_cuda.multiphase_alpha_operands(ctx))
+    got = SP.multiphase_density_alpha_sweep(
+        pcfg, *dfsph_cuda.multiphase_alpha_operands(ctx))[:, 2:]
     assert_columns_close(got.numpy(), np.asarray(al), 1e-5, "alpha")
     # dδ̂/dt at s_i/m_i = 1/m (m ∝ ρ0), then with the light phase's mass
     # scaled by 1.5: s_i/m_i then differs by phase, so a wrong slot 6

@@ -9,6 +9,10 @@ plain sweeps), mirroring ``tests/test_elastic_coupled.py``.
   clamped to ρ₀, so the Tait pressure is 0; ~1e-9 of the pressure term
   here): max|Δ| ≤ 1e-5·max|ref| per column, both kernel sets; the
   friction reads the sample velocities.
+* The ``BodyForce`` plain twin, both forms (with the Akinci pressure, and
+  the friction alone of the DFSPH couplings), over the same cube's shell
+  against JAX's ``boundary_force_pair`` body form summed over every pair
+  within h: max|Δ| ≤ 1e-5·max|ref| per column, both kernel sets.
 * ``wcsph_elastic_step`` against JAX's Pallas step (interpret mode) on
   ``_free_space_scene`` and on the same scene with the body moved into
   contact with the blob, 2 steps at ``substeps=2``: fluid positions atol
@@ -160,6 +164,48 @@ def test_fluid_reaction_twin_matches_jax(kernel_set):
     still[:, 3:6] = 0.0
     moved = SP.fluid_reaction_sweep(pcfg, still, fric, s, e, pv)
     assert float((moved - got).abs().max()) > 1e-2 * float(got.abs().max())
+
+
+@pytest.mark.parametrize("include_pressure", [True, False],
+                         ids=["body-force", "friction"])
+@pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
+                                        jt.KernelSet.MONAGHAN])
+def test_body_force_twin_matches_jax(kernel_set, include_pressure):
+    """The body contact's plain twin over a dense shell in mid-fluid (the
+    immersed 4³ cube at h/2, moving and spinning: most of its samples have
+    fluid within h), both forms, on the step's own operands (the force
+    sweep's query, the shell's rows ``x y z v_b ψ_b 0``), against JAX's
+    ``boundary_force_pair(moving=True, include_adhesion=False,
+    pressure_sign=-1, consistent_pressure=True)`` summed over every pair
+    within h: max|Δ| ≤ 1e-5·max|ref| per column. The friction-only form
+    (``include_pressure=False``, the DFSPH couplings') reads the sample
+    velocities."""
+    (cfg, params, grid), (pcfg, pparams, pgrid, ctx, pest, psi) = \
+        _immersed(kernel_set)
+    ops = elastic_coupled.elastic_operands(ctx, pparams, pcfg, pgrid, pest,
+                                           psi)
+    sh = ops.shell
+    q = ops.fargs[0]
+    busy = int((sh.seg_end - sh.seg_start).sum(dim=0).gt(0).sum())
+    assert busy > q.shape[0] // 4, busy
+    got = SP.body_force_sweep(pcfg, q, sh.src, sh.seg_start, sh.seg_end,
+                              ctx.pvec, include_pressure=include_pressure)
+    jq, js = jnp.asarray(q.numpy()), jnp.asarray(sh.src.numpy().T)
+    want = PS.boundary_force_pair(
+        jq, js, jnp.ones((jq.shape[0], js.shape[1]), bool),
+        PS.build_pvec(params, cfg, grid), kernel_set=kernel_set,
+        include_pressure=include_pressure, moving=True,
+        include_adhesion=False, pressure_sign=-1.0,
+        consistent_pressure=True)
+    assert_columns_close(got.numpy(), np.asarray(want)[:, :3], 1e-5,
+                         f"pressure={include_pressure}")
+    if not include_pressure:
+        still = SP.body_force_sweep(
+            pcfg, q, sh.src.clone().index_fill_(1, torch.tensor([3, 4, 5]),
+                                                0.0),
+            sh.seg_start, sh.seg_end, ctx.pvec, include_pressure=False)
+        assert float((still - got).abs().max()) > 1e-2 * float(
+            got.abs().max())
 
 
 @pytest.fixture(scope="module")

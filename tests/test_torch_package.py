@@ -168,8 +168,10 @@ MULTIPHASE_XSPH_SWEEPS = {
 VISC_MP_DFSPH_SWEEPS = {
     "visc_laplacian": (SP.visc_laplacian_sweep,
                        cuda_sweep.visc_laplacian_sweep, 8, 8, 18),
-    "multiphase_alpha": (SP.multiphase_alpha_sweep,
-                         cuda_sweep.multiphase_alpha_sweep, 4, 4, 18),
+    # the multiphase density and α̂'s sums in one walk
+    "multiphase_density_alpha": (SP.multiphase_density_alpha_sweep,
+                                 cuda_sweep.multiphase_density_alpha_sweep,
+                                 4, 4, 18),
     "multiphase_drho": (SP.multiphase_drho_sweep,
                         cuda_sweep.multiphase_drho_sweep, 8, 8, 18),
     "multiphase_kappa": (SP.multiphase_kappa_sweep,
@@ -311,6 +313,37 @@ def test_friction_only_contacts_route_by_device(key):
     with pytest.raises(ValueError, match="CUDA"):
         wrapper(cfg, *_sweep_inputs(key), include_pressure=False)
     assert [k.launches for k in cuda_sweep.KERNELS] == [0] * N_KERNELS
+
+
+def test_body_force_and_mp_density_alpha_take_their_g(monkeypatch):
+    """The body contact force, both forms, passes its kernel the G of
+    ``shell_group`` for its shell's size (a rigid box's 56 samples, an
+    elastic cube's 4,096), and the multiphase density and α̂ sweep
+    ``MP_DENSITY_ALPHA_G``, each to its own entry point and counter (the
+    launch itself recorded, not made: no card here)."""
+    calls = []
+
+    def record(kernel, fn, cfg, q, fq, src, fs, s, e, pv, rows, cols,
+               *switches, planes=False):
+        calls.append((kernel, fn, src.shape[0], cols, switches, planes))
+    monkeypatch.setattr(cuda_sweep, "_sweep", record)
+    cfg = nereus_tpu_torch.SimConfig()
+    want = []
+    for m in (56, 4096):
+        for p, kern, fn in ((True, cuda_sweep.BODY_FORCE, "body_force"),
+                            (False, cuda_sweep.BODY_FORCE_P0,
+                             "body_force_p0")):
+            cuda_sweep.body_force_sweep(cfg, *_sweep_inputs("body_force",
+                                                            m=m),
+                                        include_pressure=p)
+            want.append((kern, fn, m, 3, (cuda_sweep.shell_group(m),),
+                         False))
+    cuda_sweep.multiphase_density_alpha_sweep(
+        cfg, *_sweep_inputs("multiphase_density_alpha"))
+    want.append((cuda_sweep.MP_DENSITY_ALPHA, "multiphase_density_alpha",
+                  8, 9, (cuda_sweep.MP_DENSITY_ALPHA_G,), True))
+    assert calls == want
+    assert [cuda_sweep.shell_group(m) for m in (56, 4096)] == [2, 8]
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -895,7 +928,8 @@ def test_visc_mp_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
     cases = {
         "visc_laplacian": viscosity.laplacian_operands(ctx, params, dens)(
             torch.stack(vel, dim=1)),
-        "multiphase_alpha": dfsph_cuda.multiphase_alpha_operands(mp),
+        "multiphase_density_alpha": dfsph_cuda.multiphase_alpha_operands(
+            mp),
         "multiphase_drho": sweeps.drho_operands(
             torch.stack([mp.vx, mp.vy, mp.vz], dim=1)),
         "multiphase_kappa": sweeps.kappa_operands(
@@ -916,8 +950,8 @@ def test_visc_mp_dfsph_kernels_match_plain_on_cuda(cuda, kernel_set):
     torch.cuda.synchronize()
     _assert_launches({k: 1 for k in (
         cuda_sweep.FORCE_V0, cuda_sweep.FORCE_P0_V0,
-        cuda_sweep.VISC_LAPLACIAN, cuda_sweep.MP_ALPHA, cuda_sweep.MP_DRHO,
-        cuda_sweep.MP_KAPPA)})
+        cuda_sweep.VISC_LAPLACIAN, cuda_sweep.MP_DENSITY_ALPHA,
+        cuda_sweep.MP_DRHO, cuda_sweep.MP_KAPPA)})
 
 
 @pytest.mark.requires_cuda
@@ -965,7 +999,7 @@ def test_visc_mp_dfsph_steps_run_kernels_on_cuda(cuda):
     for _ in range(3):
         s, _ = nereus_tpu_torch.dfsph_step(s, params, grid, cfg, boundary)
     launched = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
-    _assert_launches({cuda_sweep.MP_DENSITY: 3, cuda_sweep.MP_ALPHA: 3,
+    _assert_launches({cuda_sweep.MP_DENSITY_ALPHA: 3,
                       cuda_sweep.MP_FORCE: 3, cuda_sweep.MP_DRHO: launched,
                       cuda_sweep.MP_KAPPA: launched + 3})
     assert torch.isfinite(s.pos).all() and s.multiphase
@@ -1172,11 +1206,13 @@ def test_group_sweeps_build_only_their_g(cuda):
         "multiphase_density": {cuda_sweep.density_group(1),
                                cuda_sweep.density_group(cuda_sweep.SMALL_N)},
         "multiphase_drho": {cuda_sweep.MP_DRHO_G},
-        # the κ impulse forward and Dρ/Dt over a shell by its size, the
-        # reverse κ impulse at one G
+        "multiphase_density_alpha": {cuda_sweep.MP_DENSITY_ALPHA_G},
+        # the κ impulse forward, Dρ/Dt and the body contact force (both
+        # forms) over a shell by its size, the reverse κ impulse at one G
         **{fn: {cuda_sweep.shell_group(1),
                 cuda_sweep.shell_group(cuda_sweep.SMALL_SHELL)}
-           for fn in ("pressure_force_body", "drho_shell")},
+           for fn in ("pressure_force_body", "drho_shell", "body_force",
+                      "body_force_p0")},
         "pressure_force_body_rev": {cuda_sweep.BODY_REV_G},
         # the multiphase force's four instances (st_model, moving)
         **{("multiphase_force", st, m): {
@@ -1197,7 +1233,8 @@ def test_group_sweeps_build_only_their_g(cuda):
     for fn, want in picks.items():
         rows = 9 if fn in ("sum_dij", "pbf_grad", "pbf_omega", "xsph",
                            "pressure_force_body", "pressure_force_body_rev",
-                           "drho_shell") else 18
+                           "drho_shell", "body_force",
+                           "body_force_p0") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
             if isinstance(fn, tuple):
@@ -1682,6 +1719,114 @@ def test_multiphase_density_groups_match_plain_on_cuda(cuda, kernel_set,
     _assert_launches({cuda_sweep.MP_DENSITY: 4})
 
 
+def _body_force_shell(cuda, kernel_set, shell):
+    """The small dam-break (walls on, seeded velocities) and one body shell
+    in its fluid, as the coupled steps build their operands: ``"box"`` the
+    rigid 0.15 m box of ``coupled_256k`` (56 samples), moving at (0.3,
+    −0.5, 0.2) m/s and spinning at (1, −2, 0.5) rad/s; ``"cube"`` a 16³
+    elastic cube at h/2 (4,096 samples, those of ``wcsph_elastic_256k`` and
+    ``dfsph_elastic_256k``) around the whole fluid, so that every query's
+    runs hold up to ~216 candidates. ``(cfg, (q, src, seg_start, seg_end,
+    pvec))``: the force sweep's query with the shell's ψ-density in ρ."""
+    from nereus_tpu_torch.solvers import coupled_cuda, elastic_coupled
+    from nereus_tpu_torch.solvers.elastic import sample_box_solid
+    cfg, params, state, grid, boundary = _scene(kernel_set, "NONE", True,
+                                                cuda)
+    ctx = build_sweep_ctx(state, params, grid, cfg, boundary)
+    c = state.pos.mean(dim=0).cpu().numpy()
+    if shell == "box":
+        body = dataclasses.replace(
+            nereus_tpu_torch.make_rigid_box(
+                c, (0.15,) * 3, float(params.particle_radius), 500.0, params,
+                device=cuda),
+            vel=torch.tensor([0.3, -0.5, 0.2], device=cuda),
+            omega=torch.tensor([1.0, -2.0, 0.5], device=cuda))
+        shells = coupled_cuda.body_shells(ctx, grid, (body,))
+        _, fargs, _, _ = coupled_cuda.coupled_operands(ctx, params, cfg,
+                                                       shells)
+        sh = shells[0]
+    else:
+        sp = 0.5 * float(params.interaction_radius)
+        es, statics, _ = nereus_tpu_torch.make_elastic_solid(
+            sample_box_solid(c - 7.5 * sp, c + 7.6 * sp, sp), params, cfg,
+            sp, grid=grid, density=400.0, device=cuda)
+        psi = nereus_tpu_torch.elastic_psi(statics, params, cfg)
+        ops = elastic_coupled.elastic_operands(ctx, params, cfg, grid, es,
+                                               psi)
+        fargs, sh = ops.fargs, ops.shell
+    assert sh.src.shape[0] == (56 if shell == "box" else 4096)
+    return cfg, (fargs[0], sh.src, sh.seg_start, sh.seg_end, ctx.pvec)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shell", ["box", "cube"])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_body_force_groups_match_plain_on_cuda(cuda, kernel_set, shell,
+                                               monkeypatch):
+    """BodyForce, both forms (with the Akinci pressure, and the friction
+    alone), at every G built for it (``shell_group`` below and above
+    ``SMALL_SHELL``), over :func:`_body_force_shell`'s 56-sample box and
+    4,096-sample cube: twice, bit for bit, and against
+    ``body_force_sweep_plain``, max|Δ| ≤ 1e-4·max|ref| per column."""
+    cfg, args = _body_force_shell(cuda, kernel_set, shell)
+    busy = int((args[3] - args[2]).sum(dim=0).gt(0).sum())
+    assert busy > 0
+    groups = sorted({cuda_sweep.shell_group(1),
+                     cuda_sweep.shell_group(cuda_sweep.SMALL_SHELL)})
+    cuda_sweep.reset_launches()
+    for g in groups:
+        monkeypatch.setattr(cuda_sweep, "shell_group", lambda m, g=g: g)
+        for p in (True, False):
+            got = SP.body_force_sweep(cfg, *args, include_pressure=p)
+            assert torch.equal(SP.body_force_sweep(cfg, *args,
+                                                   include_pressure=p), got)
+            _assert_columns_close(
+                got, SP.body_force_sweep_plain(cfg, *args,
+                                               include_pressure=p),
+                f"body force {shell} G={g} pressure={p} ({busy} busy)")
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.BODY_FORCE: 2 * len(groups),
+                      cuda_sweep.BODY_FORCE_P0: 2 * len(groups)})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_boundary", [False, True])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_multiphase_density_alpha_matches_plain_on_cuda(cuda, kernel_set,
+                                                        with_boundary,
+                                                        monkeypatch):
+    """The multiphase density and α̂ kernel at ``MP_DENSITY_ALPHA_G`` on the
+    two-phase split's one matrix (``dfsph_cuda.multiphase_alpha_operands``),
+    with walls and without: against its plain twin, max|Δ| ≤ 1e-4·max|ref|
+    per column (without walls the four wall columns exactly 0); its δ and
+    Σψ_bW planes bit for bit the multiphase density kernel's at the same G
+    (``SMALL_N`` set so that ``density_group`` picks it)."""
+    from nereus_tpu_torch.solvers import dfsph_cuda
+    g = cuda_sweep.MP_DENSITY_ALPHA_G
+    assert g in (2, 4), "density_group builds the multiphase density at 2, 4"
+    monkeypatch.setattr(cuda_sweep, "SMALL_N", 2 ** 31 if g == 4 else 0)
+    cfg, params, state, grid, boundary = _scene(kernel_set, "NONE",
+                                                with_boundary, cuda)
+    mp = build_sweep_ctx(_two_phase(state, params, cuda), params, grid, cfg,
+                         boundary)
+    args = dfsph_cuda.multiphase_alpha_operands(mp)
+    assert cuda_sweep.density_group(mp.c) == g
+    cuda_sweep.reset_launches()
+    got = cuda_sweep.multiphase_density_alpha_sweep(cfg, *args)
+    ref = SP.multiphase_density_alpha_sweep_plain(cfg, *args)
+    walls = [1, 6, 7, 8]
+    live = [c for c in range(9) if with_boundary or c not in walls]
+    _assert_columns_close(got[:, live], ref[:, live],
+                          f"mp density alpha G={g} walls={with_boundary}")
+    if not with_boundary:
+        assert not bool(got[:, walls].any())
+    assert torch.equal(got[:, :2],
+                       cuda_sweep.multiphase_density_sweep(cfg, *args))
+    torch.cuda.synchronize()
+    _assert_launches({cuda_sweep.MP_DENSITY_ALPHA: 1,
+                      cuda_sweep.MP_DENSITY: 1})
+
+
 @pytest.mark.requires_cuda
 def test_elastic_steps_run_kernels_on_cuda(cuda):
     """Elastic and elastoplastic steps launch one ElasticF and one
@@ -1997,7 +2142,7 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
         it = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
         corr = it + 2
         if mp:
-            want = {K.MP_DENSITY: 2, K.MP_ALPHA: 2, K.BODY_DENSITY: 4,
+            want = {K.MP_DENSITY_ALPHA: 2, K.BODY_DENSITY: 4,
                     K.MP_ALPHA_BODY: 4, K.MP_DRHO: it, K.MP_DRHO_BODY: 2 * it,
                     K.MP_KAPPA: corr, K.MP_KAPPA_BODY: 2 * corr,
                     K.MP_FORCE: 2, K.MP_BODY: 4}

@@ -6,14 +6,15 @@ CUDA card.
                                  xsph|iisph|elastic|wcsph_elastic|dfsph|
                                  dfsph_visc|
                                  multiphase|multiphase_wavemaker|dfsph_mp|
-                                 mp_coupled|dfsph_mp_coupled|dfsph_coupled|
-                                 dfsph_elastic]
+                                 mp_coupled|dfsph_mp_coupled|coupled|
+                                 dfsph_coupled|dfsph_elastic]
         [--groups 1 2 4]
         [--keys pbf_lambda pbf_dp pbf_grad pbf_omega xsph drho alpha
                 density_alpha elastic_force_hg elastic_f mp_force
                 mp_force_moving mp_drho mp_drho_cols mp_kappa
                 multiphase_density pressure_force_body
-                pressure_force_body_rev drho_shell dii_aii]
+                pressure_force_body_rev drho_shell dii_aii body_force
+                body_force_p0 mp_density_alpha]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -70,7 +71,15 @@ followed by α's sums alone and α formed in torch as the step formed it
 the parent's one-thread walk over its 8-wide source ``x y z v ψ 0``, also
 timed with that source built as the parent's step built it), and
 ``alpha`` α's sums alone ("A" by G, "thread"), checked against the
-columns of the couplings' form ``density_alpha_sums``.
+columns of the couplings' form ``density_alpha_sums``. ``body_force``
+and ``body_force_p0`` the body contact force with and without the Akinci
+pressure (the lane groups by G) beside the one-thread walk it replaced
+("thread": both float4s of every candidate's row loaded, the pair on
+every candidate and masked by the cutoff), each on the operands its path
+builds for it; ``mp_density_alpha`` the multiphase DFSPH density and
+α̂'s sums in one walk (the lane groups by G) beside the parent's step
+("thread": the multiphase density kernel and α̂'s one-thread walk, each
+on the same matrix), each also timed with that matrix built.
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
@@ -96,7 +105,11 @@ their body (``elastic_block``, the 80³ block of elastic_512k, or
 steps; the DFSPH couplings ``dfsph_coupled_256k`` and
 ``dfsph_elastic_256k`` (``dfsph_coupled_scene``, 60 steps) take the body
 sweeps' operands of ``dfsph_coupled_held_ops``, the body in the middle of
-the lowered fluid. Each variant's output is checked against the wrapper's
+the lowered fluid; coupled takes ``coupled_256k``'s first-step operands
+(``coupled_scene``, ``coupled_operands``) and wcsph_elastic, for
+``body_force``, ``wcsph_elastic_256k`` after 60 steps with the cube
+moved into the middle of the fluid (``elastic_coupled_ops``). Each
+variant's output is checked against the wrapper's
 (``chip_smoke.py``'s ``check_lambda`` for λ, max|Δ| ≤ 1e-4·max|ref| per
 column for the others) and timed host-free (``chip_smoke.graph_ms``) in
 three interleaved rounds, the better of each.
@@ -175,12 +188,47 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
             "dii_aii": ("iisph_sweep.cu", [
                 ("G", "ranges", "DiiAii"),
                 ("columns", "ranges", "DiiAii"),
-                ("split", "ranges", "DiiAiiSplit")])}
-# functors the scan file defines: dδ̂/dt's pair without its epilogue,
-# ElasticF's pair behind the range walk's cutoff test, and the one-thread
-# walks of XSPH, ω, α's sums and the multiphase density as they were before
-# they moved onto lane groups
-SCAN_FUNCTORS = {"MultiphaseDensityWalk": """
+                ("split", "ranges", "DiiAiiSplit")]),
+            "body_force": ("coupled_sweep.cu", [
+                ("G", "ranges", "BodyForce<true>"),
+                ("thread", "pair", "BodyForceWalk<true>")]),
+            "body_force_p0": ("coupled_sweep.cu", [
+                ("G", "ranges", "BodyForce<false>"),
+                ("thread", "pair", "BodyForceWalk<false>")]),
+            "mp_density_alpha": ("dfsph_multiphase_sweep.cu", [
+                ("G", "ranges", "MultiphaseDensityAlpha"),
+                ("thread", "pair", "MultiphaseAlpha")])}
+# functors the scan file defines (by name, without template arguments):
+# dδ̂/dt's pair without its epilogue, ElasticF's pair behind the range
+# walk's cutoff test, and the one-thread walks of XSPH, ω, α's sums, the
+# multiphase density and the body contact force as they were before they
+# moved onto lane groups
+SCAN_FUNCTORS = {"BodyForceWalk": """
+template <bool PRESSURE>
+struct BodyForceWalk {
+  static constexpr int QW = 8, SW = 8, OW = 3;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], const float* src, int j,
+                              const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const BodyGeom g = body_geom<KS>(q, src, j, p);
+    const float di = fmaxf(q[6], 1e-12f);
+    const float nu = ((2.0f * p.pm * p.pm * p.visc * p.visc * p.h * p.cs) /
+                      (1.0f + 0.01f * p.h2)) /
+                     (di * di);
+    const float cfric = nu * fmaxf(g.vdotr, 0.0f) * g.psi * g.s;
+    float c = cfric;
+    if constexpr (PRESSURE) {
+      c = cfric + (-p.pm) * g.psi * fmaxf(q[7], 0.0f) * g.s;
+    }
+    c *= g.okf;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+  }
+};
+""", "MultiphaseDensityWalk": """
 struct MultiphaseDensityWalk {
   static constexpr int QW = 4, SW = 4, OW = 2;
   static constexpr bool BOUNDARY_ROWS = true;
@@ -360,8 +408,10 @@ VARIANT_OPERANDS = {"DiiAiiSplit": split_operands,
                     "ElasticFRange": range_operands,
                     "AlphaWalk": alpha8_operands}
 # (key, variant) pairs timed as the parent's step ran them: α's sums alone
-# with the density kernel before them and α formed in torch after them
-COMPOSED = {("density_alpha", "A"), ("density_alpha", "thread")}
+# with the density kernel before them and α formed in torch after them;
+# the multiphase α̂'s walk with the multiphase density kernel beside it
+COMPOSED = {("density_alpha", "A"), ("density_alpha", "thread"),
+            ("mp_density_alpha", "thread")}
 
 
 def dii_aii_makers(ctx, params, args):
@@ -461,20 +511,26 @@ PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad", "pbf_omega",
              "xsph": ("xsph",),
              "dfsph": ("drho", "alpha", "density_alpha"),
              "elastic": ("elastic_force_hg", "elastic_f"),
+             "wcsph_elastic": ("elastic_force_hg", "elastic_f",
+                               "body_force"),
+             "coupled": ("body_force",),
              "multiphase": ("mp_force", "multiphase_density"),
              "multiphase_wavemaker": ("mp_force_moving",),
              "dfsph_mp": ("mp_force", "mp_drho", "mp_drho_cols", "mp_kappa",
-                          "multiphase_density"),
+                          "multiphase_density", "mp_density_alpha"),
              "mp_coupled": ("mp_force",),
              "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols",
-                                  "mp_kappa"),
-             "dfsph_coupled": ("pressure_force_body", "drho_shell"),
+                                  "mp_kappa", "mp_density_alpha"),
+             "dfsph_coupled": ("pressure_force_body", "drho_shell",
+                               "body_force_p0"),
              "dfsph_elastic": ("pressure_force_body",
-                               "pressure_force_body_rev", "drho_shell"),
+                               "pressure_force_body_rev", "drho_shell",
+                               "body_force_p0"),
              "iisph": ("dii_aii",)}
 MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
               "dfsph_mp_coupled")
-BODY_SOLVERS = ("dfsph_coupled", "dfsph_elastic")
+BODY_SOLVERS = ("coupled", "wcsph_elastic", "dfsph_coupled",
+                "dfsph_elastic")
 SCAN_DIR = os.path.join(cuda_sweep.BUILD_DIR, "scan")
 MACROS = {"ranges": "NEREUS_GROUP_SWEEP", "list": "NEREUS_LIST_SWEEP",
           "pair": "NEREUS_PAIR_SWEEP"}
@@ -500,9 +556,10 @@ def build(keys, groups):
             lines, written = [], set()
             for key in ks:
                 for k, (_, engine, functor) in enumerate(FUNCTORS[key][1]):
-                    if functor not in written:
-                        f.write(SCAN_FUNCTORS.get(functor, ""))
-                        written.add(functor)
+                    name = functor.split("<")[0]
+                    if name not in written:
+                        f.write(SCAN_FUNCTORS.get(name, ""))
+                        written.add(name)
                     f.write(f"using scan_{key}_{k}_t = {functor};\n")
                     args = [f"scan_{key}_{k}", f"scan_{key}_{k}_t",
                             *map(str, values.get(engine, ()))]
@@ -551,7 +608,7 @@ def path_operands(solver, keys, dev):
     if solver in MP_SOLVERS:
         return mp_operands(solver, dev)
     if solver in BODY_SOLVERS:
-        return body_operands(solver, dev)
+        return body_operands(solver, keys, dev)
     if solver.startswith("pbf"):
         settled = solver == "pbf_settled"
         cfg, params, state, grid, boundary = smoke.pbf_main_path(dev,
@@ -612,6 +669,13 @@ def path_operands(solver, keys, dev):
         MAKERS["alpha"] = MAKERS["density_alpha"]
         return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                      }, f"{ctx.c} queries, {ms:.4f} ms/step"
+    return elastic_operands(solver, dev)
+
+
+def elastic_operands(solver, dev):
+    """``path_operands`` of the elastic kernels over a body's statics at
+    ``deformed`` positions, without steps: ``elastic_512k``'s 80³ block
+    (elastic) or ``wcsph_elastic_256k``'s 16³ cube (wcsph_elastic)."""
     if solver == "elastic":
         cfg, params, ep, _, statics, grid, sp = smoke.elastic_block(dev,
                                                                     False)
@@ -689,43 +753,98 @@ def mp_operands(solver, dev):
     elif solver == "mp_coupled":
         ops = smoke.coupled_operands(cfg, ctx, params, grid, held["body"])
     else:
+        from nereus_tpu_torch.solvers import dfsph_cuda
         ops = smoke.mp_dfsph_operands(cfg, ctx, params)
         ops["mp_drho_cols"] = ops["mp_drho"]
-        ops["multiphase_density"] = ops["mp_density"]
+        ops["multiphase_density"] = (
+            cuda_sweep.multiphase_density_sweep,
+            SP.multiphase_density_sweep_plain, ops["mp_density_alpha"][2],
+            {})
         MAKERS["multiphase_density"] = mp_density_makers(ctx, True)
+        # both sides walk the one matrix the step builds
+        build = {v: (lambda: dfsph_cuda.multiphase_alpha_operands(ctx))
+                 for v in ("G", "thread")}
+        MAKERS["mp_density_alpha"] = build
     return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                  }, f"{ctx.c} queries, {ms:.4f} ms/step"
 
 
-def body_operands(solver, dev):
-    """``path_operands`` of ``dfsph_coupled_256k`` and
-    ``dfsph_elastic_256k`` (``dfsph_coupled_scene``, ``kind`` "rigid" and
-    "elastic", 60 steps): the κ impulse forward (``pressure_force_body``)
-    and, on the elastic path, reverse (``pressure_force_body_rev``), and
-    the shell's Dρ/Dt (``drho_shell``), with
-    the body moved into the middle of the lowered fluid as
+def body_operands(solver, keys, dev):
+    """``path_operands`` of the body paths (``BODY_SOLVERS``).
+    ``coupled_256k`` (coupled): the body contact force (``body_force``) on
+    the first step's operands, as ``run_coupled`` holds it (the body meets
+    the water in the first step). ``wcsph_elastic_256k`` (wcsph_elastic):
+    with ``body_force`` asked for, 60 steps at 4 substeps, then the body
+    contact force with the cube moved into the middle of the fluid as
+    ``run_wcsph_elastic`` holds it, beside the elastic kernels on the
+    body's statics (else those alone, without steps).
+    ``dfsph_coupled_256k`` and ``dfsph_elastic_256k``
+    (``dfsph_coupled_scene``, ``kind`` "rigid" and "elastic", 60 steps):
+    the κ impulse forward (``pressure_force_body``) and, on the elastic
+    path, reverse (``pressure_force_body_rev``), the shell's Dρ/Dt
+    (``drho_shell``) and the friction alone (``body_force_p0``), with the
+    body moved into the middle of the lowered fluid as
     ``run_dfsph_coupled`` holds them (``dfsph_coupled_held_ops``)."""
-    kind = "elastic" if solver == "dfsph_elastic" else "rigid"
-    cfg, params, state, grid, walls, body = smoke.dfsph_coupled_scene(dev,
-                                                                      kind)
-    held = {"body": body[0] if kind == "elastic" else body}
+    if solver == "coupled":
+        cfg, params, state, grid, walls, body = smoke.coupled_scene(dev,
+                                                                    False)
+        ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+        ops = smoke.coupled_operands(cfg, ctx, params, grid, body)
+        q, src = ops["body_force"][2][:2]
+        return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw)
+                     in ops.items()}, (
+            f"{q.shape[0]} queries over {src.shape[0]} body samples, the "
+            "first step's operands")
+    if solver == "wcsph_elastic" and "body_force" not in keys:
+        return elastic_operands(solver, dev)
+    kind = {"wcsph_elastic": "wcsph", "dfsph_elastic": "elastic"}.get(
+        solver, "rigid")
+    if kind == "wcsph":
+        (cfg, params, state, grid, walls, estate, statics, ep, psi,
+         sp) = smoke.wcsph_elastic_scene(dev)
+        held = {"body": estate}
+        body = None
+    else:
+        cfg, params, state, grid, walls, body = smoke.dfsph_coupled_scene(
+            dev, kind)
+        held = {"body": body[0] if kind == "elastic" else body}
     kw = dict(tol=smoke.DFSPH_TOL, tol_v=smoke.DFSPH_TOL)
 
     def step(s):
-        if kind == "elastic":
-            _, statics, ep, psi = body
-            s, held["body"], d = nt.dfsph_elastic_step(
+        if kind == "wcsph":
+            s, held["body"], d = nt.wcsph_elastic_step(
                 s, params, grid, cfg, held["body"], statics, ep, psi, walls,
-                substeps=smoke.WEL_SUBSTEPS, **kw)
+                substeps=smoke.WEL_SUBSTEPS)
+        elif kind == "elastic":
+            _, statics_e, ep_e, psi_e = body
+            s, held["body"], d = nt.dfsph_elastic_step(
+                s, params, grid, cfg, held["body"], statics_e, ep_e, psi_e,
+                walls, substeps=smoke.WEL_SUBSTEPS, **kw)
         else:
             s, held["body"], d = nt.dfsph_coupled_step(
                 s, params, grid, cfg, held["body"], walls, **kw)
         return s, d
     state, _, ms, *_ = smoke.run_steps(step, state, smoke.IMPLICIT_STEPS,
                                        smoke.IMPLICIT_TIMED_FROM)
-    _, ops = smoke.dfsph_coupled_held_ops(cfg, params, state, grid, walls,
-                                          held["body"], body, kind)
-    q, src = ops["pressure_force_body"][2][:2]
+    if kind == "wcsph":
+        # as run_wcsph_elastic holds the contact kernels: the body moved,
+        # at its last velocities, into the middle of the fluid
+        ctx = build_sweep_ctx(state, params, grid, cfg, walls)
+        nf = int(state.num_active)
+        b = held["body"]
+        inside = dataclasses.replace(
+            b, pos=b.pos - b.pos.mean(dim=0) + state.pos[:nf].mean(dim=0))
+        ops = smoke.elastic_coupled_ops(cfg, ctx, params, grid, inside, psi)
+        ops.update(smoke.elastic_kernel_ops(
+            cfg, params, grid, statics, smoke.deformed(statics.x0, sp), ep))
+        RANGES["elastic"] = (statics.seg_start, statics.seg_end)
+        key = "body_force"
+    else:
+        _, ops = smoke.dfsph_coupled_held_ops(cfg, params, state, grid,
+                                              walls, held["body"], body,
+                                              kind)
+        key = "pressure_force_body"
+    q, src = ops[key][2][:2]
     return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()}, (
         f"{q.shape[0]} queries over {src.shape[0]} body samples, "
         f"{ms:.4f} ms/step")
@@ -735,8 +854,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solver", default="pbf",
                     choices=("pbf", "pbf_settled", "pbf_vort_xsph", "xsph",
-                             "iisph", "elastic", "wcsph_elastic", "dfsph",
-                             "dfsph_visc", *MP_SOLVERS, *BODY_SOLVERS))
+                             "iisph", "elastic", "dfsph", "dfsph_visc",
+                             *MP_SOLVERS, *BODY_SOLVERS))
     ap.add_argument("--groups", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--keys", nargs="+", choices=sorted(FUNCTORS))
     args = ap.parse_args()
@@ -770,6 +889,10 @@ def main():
             if rc != 0:
                 sys.exit(f"group_scan: {key} {engine} {v} launch failed "
                          f"({rc})")
+            if composed and key == "mp_density_alpha":
+                # the parent's step: the multiphase density kernel and α̂'s
+                # walk on the same matrix
+                return cuda_sweep.multiphase_density_sweep(cfg, *a), out
             if composed:
                 # the parent's step: the density kernel, α formed after
                 dens = cuda_sweep.density_sweep(cfg, *a)
@@ -785,11 +908,16 @@ def main():
             vargs = convert(a) if convert else a
             composed = (key, variant) in COMPOSED
             for v in vals:
-                out = (a[0].new_empty((a[0].shape[0], 2)) if cols
-                       else a[0].new_empty((a[0].shape[0], 4)) if composed
+                n = a[0].shape[0]
+                out = (a[0].new_empty((n, 2)) if cols
+                       else a[0].new_empty((n, 7)) if composed
+                       and key == "mp_density_alpha"
+                       else a[0].new_empty((n, 4)) if composed
                        else torch.empty_like(ref))
                 got = launch(f, engine, v, out, vargs, composed)
-                if composed:
+                if composed and key == "mp_density_alpha":
+                    got = torch.cat(got, dim=1)
+                elif composed:
                     got = torch.stack(got).t()
                 torch.cuda.synchronize()
                 label = variant + ("" if v is None else f"{v}")

@@ -6,7 +6,7 @@ the two final states lie apart.
         [--solver wcsph|wcsph_wide12M|xsph|iisph|wcsph_visc|pcisph|pbf|
                   pbf_settled|pbf_vort_xsph|dfsph|dfsph_visc|elastic|
                   wcsph_elastic|dfsph_elastic|multiphase|
-                  multiphase_wavemaker|dfsph_mp|dfsph_coupled|
+                  multiphase_wavemaker|dfsph_mp|coupled|dfsph_coupled|
                   dfsph_mp_coupled]
     python3 tools/step_turns.py PARENT_DIR CHANGE_DIR --smoke [--pairs N]
         [--log DIR]
@@ -51,7 +51,9 @@ dfsph_mp, ``settled_main_path``'s two-phase block
 (``dfsph_mp_256k_settled``), 60 steps, steps 11-60 timed; dfsph_coupled
 and dfsph_mp_coupled, ``dfsph_coupled_scene`` with its rigid box
 (``dfsph_coupled_256k``, ``dfsph_mp_coupled_256k``), 60 steps, steps 11-60
-timed.
+timed; coupled, ``coupled_scene`` (``coupled_256k``, its rigid box over
+the settled block) stepped by ``wcsph_coupled_step``, 60 steps, steps
+11-60 timed.
 
 After the steps each run times its own kernels on its final state with the
 operands built by its own checkout's ``chip_smoke.py`` (its
@@ -69,9 +71,15 @@ the state advected from the final one (pbf*), Dρ/Dt (dfsph*,
 ``dfsph_operands``; with the pressure force at dfsph_coupled; and over
 the body's shell at dfsph_coupled and dfsph_elastic, key ``drho_shell``,
 from ``dfsph_coupled_held_ops``, the body in the middle of the lowered
-fluid), the multiphase density and force (multiphase,
+fluid, and the body contact's friction alone, key ``body_force_p0``),
+the body contact force at coupled (with the density, force and body
+density kernels, ``coupled_operands``) and wcsph_elastic (key
+``body_force``, ``elastic_coupled_ops``), each with the body moved into
+the middle of the fluid, the multiphase density and force (multiphase,
 ``multiphase_operands``; MultiphaseForce<MOVING> under the wavemaker)
-and the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
+and the multiphase density and α̂'s sums (key ``mp_density_alpha``,
+which an earlier checkout runs as two, keys ``mp_density`` and
+``mp_alpha``), the multiphase force, dδ̂/dt and κV̂² correction (dfsph_mp,
 dfsph_mp_coupled, ``mp_dfsph_operands``), and the elastic kernels on the
 body's statics at ``deformed`` positions (elastic, wcsph_elastic,
 dfsph_elastic, ``elastic_kernel_ops``), each host-free (20 launches
@@ -263,6 +271,18 @@ elif solver.startswith("pbf"):
         clocked(lambda s: nt.pbf_step(s, params, grid, cfg, boundary, **kw),
                 steps[1]), state, *steps)
     iters = sum(int(d.solver_iters) for d in diags)
+elif solver == "coupled":
+    cfg, params, state, grid, boundary, body = smoke.coupled_scene(dev,
+                                                                   False)
+    held = {"body": body}
+
+    def step(s):
+        s, held["body"], d = nt.wcsph_coupled_step(s, params, grid, cfg,
+                                                   held["body"], boundary)
+        return s, d
+    state, diags, ms, *_ = smoke.run_steps(
+        clocked(step, smoke.IMPLICIT_TIMED_FROM), state, smoke.IMPLICIT_STEPS,
+        smoke.IMPLICIT_TIMED_FROM)
 elif solver in ("dfsph_coupled", "dfsph_mp_coupled"):
     cfg, params, state, grid, boundary, body = smoke.dfsph_coupled_scene(
         dev, "rigid" if solver == "dfsph_coupled" else "mp")
@@ -330,9 +350,26 @@ if solver.endswith("elastic"):
            in own.elastic_kernel_ops(cfg, params, grid, statics,
                                      own.deformed(statics.x0, sp),
                                      ep).items()}
+    if solver == "wcsph_elastic":
+        # the body contact with the cube moved, at its last velocities,
+        # into the middle of the fluid, as chip_smoke.py holds it
+        b = held["body"]
+        nf = int(state.num_active)
+        inside = dataclasses.replace(
+            b, pos=b.pos - b.pos.mean(dim=0) + state.pos[:nf].mean(dim=0))
+        kern, _, args, kw = own.elastic_coupled_ops(
+            cfg, ctx, params, grid, inside, psi)["body_force"]
+        ops["body_force"] = (kern, args, kw)
     if solver == "dfsph_elastic":
         kern, _, args, kw = own.dfsph_operands(cfg, ctx, params)["drho"]
         ops["drho"] = (kern, args, kw)
+elif solver == "coupled":
+    # the body moved, at its last velocities, into the middle of the fluid
+    nf = int(state.num_active)
+    inside = dataclasses.replace(held["body"],
+                                 com=state.pos[:nf].mean(dim=0))
+    ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
+           in own.coupled_operands(cfg, ctx, params, grid, inside).items()}
 elif solver in ("wcsph", "wcsph_wide12M"):
     dargs, _ = own.sweep_inputs(ctx, params)
     _, fargs = own.sweep_inputs(ctx, params,
@@ -372,12 +409,15 @@ else:
                            "visc_laplacian"),
             "dfsph_coupled": ("density", "alpha", "density_alpha", "drho",
                               "pressure_force"),
-            "dfsph_mp_coupled": ("mp_density", "mp_alpha", "mp_force",
-                                 "mp_drho", "mp_kappa"),
+            # mp_density and mp_alpha: the two sweeps an earlier checkout
+            # runs where a later one runs mp_density_alpha
+            "dfsph_mp_coupled": ("mp_density", "mp_alpha",
+                                 "mp_density_alpha", "mp_force", "mp_drho",
+                                 "mp_kappa"),
             "multiphase": ("mp_density", "mp_force"),
             "multiphase_wavemaker": ("mp_density", "mp_force"),
-            "dfsph_mp": ("mp_density", "mp_alpha", "mp_force", "mp_drho",
-                         "mp_kappa")}[solver]
+            "dfsph_mp": ("mp_density", "mp_alpha", "mp_density_alpha",
+                         "mp_force", "mp_drho", "mp_kappa")}[solver]
     ops = {k: (kern, args, kw) for k, (kern, _, args, kw)
            in operands_of(cfg, ctx, params).items() if k in keep}
     if solver == "multiphase_wavemaker":
@@ -388,8 +428,9 @@ if solver in ("dfsph_coupled", "dfsph_elastic"):
     _, body_ops = own.dfsph_coupled_held_ops(
         cfg, params, state, grid, boundary, held["body"], body,
         "rigid" if solver == "dfsph_coupled" else "elastic")
-    kern, _, args, kw = body_ops["drho_shell"]
-    ops["drho_shell"] = (kern, args, kw)
+    for key in ("drho_shell", "body_force_p0"):
+        kern, _, args, kw = body_ops[key]
+        ops[key] = (kern, args, kw)
 kernels = {}
 for key, (kern, args, kw) in ops.items():
     out = kern(cfg, *args, **kw)
@@ -450,7 +491,7 @@ print(json.dumps(times))
 SOLVERS = ("wcsph", "wcsph_wide12M", "xsph", "iisph", "wcsph_visc", "pcisph",
            "pbf", "pbf_settled", "pbf_vort_xsph", "dfsph", "dfsph_visc",
            "elastic", "wcsph_elastic", "dfsph_elastic", "multiphase",
-           "multiphase_wavemaker", "dfsph_mp", "dfsph_coupled",
+           "multiphase_wavemaker", "dfsph_mp", "coupled", "dfsph_coupled",
            "dfsph_mp_coupled")
 
 
