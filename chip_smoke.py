@@ -467,8 +467,9 @@ PAIR_OPS = {"density": (15, 15), "force": (56, 40), "force_p0": (48, 36),
             "elastic_force_hg": (120, 0), "fluid_reaction": (58, 0),
             "body_force_p0": (44, 0), "fluid_reaction_p0": (43, 0),
             "pressure_force_body": (23, 0),
-            "pressure_force_body_rev": (23, 0), "alpha_body": (21, 0),
-            "alpha_shell": (24, 0), "drho_shell": (25, 0),
+            "pressure_force_body_rev": (23, 0),
+            "body_density_alpha": (27, 0), "body_density_alpha_sq": (30, 0),
+            "drho_shell": (25, 0),
             "mp_alpha_body": (21, 0), "mp_drho_body": (25, 0),
             "mp_kappa_body": (22, 0), "wall_force": (53, 0),
             "wall_force_p0": (49, 0)}
@@ -485,7 +486,9 @@ GUARDED = {"drho_shell": 9, "fluid_reaction": 9, "fluid_reaction_p0": 9,
            "pressure_force_body": 9, "pressure_force_body_rev": 9,
            "dii_aii": 9, "xsph": 9, "pbf_omega": 9, "density_alpha": 9,
            "density_alpha_sums": 9, "mp_density": 9,
-           "mp_density_alpha": 9, "body_force": 9, "body_force_p0": 9}
+           "mp_density_alpha": 9, "body_force": 9, "body_force_p0": 9,
+           "body_density_alpha": 9, "body_density_alpha_sq": 9,
+           "mp_kappa_body": 9}
 # the kernels that walk a static pair list (q, src, nbr_start, nbr, pvec)
 # instead of ranges: every pair of the list is inside the cutoff, so their
 # operations are the list's pairs × PAIR_OPS, the same work a range walk
@@ -522,12 +525,12 @@ LISTED = ("elastic_force_hg", "elastic_f")
 # outside), each the queries and the source; DFSPH's density and alpha
 # x y z psi of a row of the density's one matrix, the queries its fluid
 # rows; the multiphase density x y z of a fluid row (the queries its first
-# rows), x y z psi_b of a wall row. The one-thread walks: alpha's sums over
-# a shell (alpha_body, alpha_shell) x y z of a query, x y z psi_b of a
-# shell row; the multiphase alpha sums x y z of a
+# rows), x y z psi_b of a wall row; a shell's psi-density with alpha's
+# sums (body_density_alpha, both forms) x y z of a query, x y z psi_b of a
+# shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z psi_b of
+# a shell row. The one-thread walks: the multiphase alpha sums x y z of a
 # query, x y z 1/m_j or x y z psi_b of a source row (over a shell the same);
 # the shell's multiphase d delta-hat / dt x y z v of a query, x y z v_b
-# psi_b of a shell row; the shell's kappa-V-hat^2 x y z qc of a query, x y z
 # psi_b of a shell row; the body contact x y z v rho pd2 of a query (no pd2
 # without the pressure), x y z v_b psi_b of a shell row; the multiphase body
 # contact x y z v bp fr of a query; the fluid reaction x y z v_b psi of a
@@ -544,7 +547,8 @@ READ_BYTES = {"sum_dij": (16, 16, 0), "jacobi": (28, 24, 16),
               "pressure_force_body_rev": (16, 16, None),
               "dii_aii": (44, 44, 28), "density_alpha": (16, 16, 16),
               "density_alpha_sums": (16, 16, 16),
-              "alpha_body": (12, 16, None), "alpha_shell": (12, 16, None),
+              "body_density_alpha": (12, 16, None),
+              "body_density_alpha_sq": (12, 16, None),
               "drho_shell": (24, 28, None), "xsph": (28, 28, 0),
               "pbf_omega": (24, 28, 0), "mp_density": (12, 12, 16),
               "mp_density_alpha": (12, 16, 16),
@@ -571,11 +575,11 @@ GROUPED = ("density", "density_pred", "body_density", "force", "force_p0",
            "mp_drho", "pressure_force_body", "pressure_force_body_rev",
            "drho_shell", "dii_aii", "xsph", "pbf_omega", "density_alpha",
            "density_alpha_sums", "mp_density", "mp_density_alpha",
-           "body_force", "body_force_p0")
+           "body_force", "body_force_p0", "body_density_alpha",
+           "body_density_alpha_sq", "mp_kappa_body")
 # the output columns a body form leaves at exactly 0 (its pair function
 # writes the other columns): checked 0, and no scale for the tolerance
-ZERO_COLS = {"alpha_body": (3,), "mp_alpha_body": (0, 1, 2, 3),
-             "mp_drho_body": (0,)}
+ZERO_COLS = {"mp_alpha_body": (0, 1, 2, 3), "mp_drho_body": (0,)}
 
 
 def fail(msg):
@@ -852,7 +856,8 @@ def group_stats(key, args, kw):
     elif key == "pressure_force_body_rev":
         g = cuda_sweep.BODY_REV_G
     elif key in ("pressure_force_body", "drho_shell", "body_force",
-                 "body_force_p0"):
+                 "body_force_p0", "body_density_alpha",
+                 "body_density_alpha_sq", "mp_kappa_body"):
         g = cuda_sweep.shell_group(src.shape[0])
     else:
         g = cuda_sweep.density_group(n)
@@ -1658,11 +1663,13 @@ def run_wcsph_elastic(name, dev):
 def dfsph_body_ops(cfg, ctx, params, grid, body):
     """The operands of one coupled DFSPH step's body sweeps with one
     rigid ``body`` (multiphase on a two-phase ``ctx``), built by
-    ``solvers/dfsph_coupled_cuda.py``'s own classes: the body density, the
-    body form of α, Dρ/Dt (dδ̂/dt) over the shell at the body's sample
-    velocities and the κ correction over the shell, both on the first
-    divergence iteration (κᵛ = max(Dρ/Dt, 0)·α/dt), and the friction
-    alone (pressure off; multiphase: bp at 0) at the state's velocities.
+    ``solvers/dfsph_coupled_cuda.py``'s own classes: the shell's
+    ψ-density with the body form of α in one sweep (multiphase: the body
+    density and the body form of α̂), Dρ/Dt (dδ̂/dt) over the shell at the
+    body's sample velocities and the κ correction over the shell, both on
+    the first divergence iteration (κᵛ = max(Dρ/Dt, 0)·α/dt), and the
+    friction alone (pressure off; multiphase: bp at 0) at the state's
+    velocities.
     ``{key: (kernel, plain, args, kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers import dfsph_coupled_cuda as DC
@@ -1672,8 +1679,6 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
     v = torch.stack([ctx.vx, ctx.vy, ctx.vz], dim=1)
     dt = float(params.dt)
     q4 = ctx.queries(width=4)
-    bdens = (cuda_sweep.body_density_sweep, SP.density_sweep_plain,
-             (q4, t.src4, *rows), {})
     zero = torch.zeros_like(ctx.px)
     if ctx.mass is None:
         dens, alpha = DC.coupled_density_alpha(ctx, params, cfg, [t])
@@ -1683,10 +1688,9 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
         q_v = sw.q_v.clone()
         q8 = ctx.queries(ctx.vx, ctx.vy, ctx.vz, dens, zero)
         src_v = t.src_at(bv).clone()
-        return {"body_density": bdens,
-                "alpha_body": (cuda_sweep.alpha_body_sweep,
-                               SP.alpha_body_sweep_plain,
-                               (q4, t.src4, *rows), {}),
+        return {"body_density_alpha": (cuda_sweep.body_density_alpha_sweep,
+                                       SP.body_density_alpha_sweep_plain,
+                                       (q4, t.src4, *rows), {}),
                 "drho_shell": (cuda_sweep.drho_shell_sweep,
                                SP.drho_sweep_plain, (q_v, src_v, *rows), {}),
                 "pressure_force_body": (
@@ -1707,7 +1711,9 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
     q8b = ctx.queries(ctx.vx, ctx.vy, ctx.vz, zero,
                       ctx.mass * inv_rho * inv_rho)
     src_v = t.src_at(bv).clone()
-    return {"body_density": bdens,
+    return {"body_density": (cuda_sweep.body_density_sweep,
+                             SP.density_sweep_plain, (q4, t.src4, *rows),
+                             {}),
             "mp_alpha_body": (cuda_sweep.multiphase_alpha_body_sweep,
                               SP.multiphase_alpha_body_sweep_plain,
                               (q4, t.src4, *rows), {}),
@@ -1725,12 +1731,12 @@ def dfsph_body_ops(cfg, ctx, params, grid, body):
 def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
     """The operands of one coupled DFSPH + elastic step's body sweeps with
     the body at ``estate``, built by ``solvers/dfsph_elastic.py``'s own
-    classes: the body density, Alpha over the shell (strong coupling),
-    Drho over the shell at the sample velocities, the κ correction of the
-    first divergence iteration forward over the shell and reverse (the
-    samples as queries against the fluid rows, key ``*_rev``), and the
-    friction alone both ways at the state's velocities. ``{key: (kernel,
-    plain, args, kwargs)}``."""
+    classes: the shell's ψ-density with α's sums over the shell in one
+    sweep (their fluid form: strong coupling), Drho over the shell at the
+    sample velocities, the κ correction of the first divergence iteration
+    forward over the shell and reverse (the samples as queries against
+    the fluid rows, key ``*_rev``), and the friction alone both ways at
+    the state's velocities. ``{key: (kernel, plain, args, kwargs)}``."""
     from nereus_tpu_torch.ops import cuda_sweep, sph_pairs as SP
     from nereus_tpu_torch.solvers import dfsph_elastic as DE
     from nereus_tpu_torch.solvers.elastic_coupled import elastic_shell
@@ -1752,12 +1758,10 @@ def dfsph_elastic_ops(cfg, ctx, params, grid, estate, statics, psi):
     src_f = ctx.pack((ctx.vx, ctx.vy, ctx.vz), dens)[:ctx.c]
     p0 = {"include_pressure": False}
     plain = SP.pressure_force_body_sweep_plain
-    return {"body_density": (cuda_sweep.body_density_sweep,
-                             SP.density_sweep_plain,
-                             (q4, es.shell.src4, *rows), {}),
-            "alpha_shell": (cuda_sweep.alpha_shell_sweep,
-                            SP.alpha_sweep_plain,
-                            (q4, es.shell.src4, *rows), {}),
+    return {"body_density_alpha_sq": (
+                cuda_sweep.body_density_alpha_sweep,
+                SP.body_density_alpha_sweep_plain,
+                (q4, es.shell.src4, *rows), {"include_sq": True}),
             "drho_shell": (cuda_sweep.drho_shell_sweep, SP.drho_sweep_plain,
                            (q_v, es.shell.src, *rows), {}),
             "pressure_force_body": (cuda_sweep.pressure_force_body_sweep,
@@ -1857,7 +1861,8 @@ def run_dfsph_coupled(name, dev, kind):
     velocities, into the middle of the fluid, the elastic kernels on the
     body's statics at :func:`deformed` positions; the block lowered until
     its bottom layer lies 0.5·h over the floor (in 60 steps it does not
-    reach the walls' support). The shell's Dρ/Dt and ElasticF also so
+    reach the walls' support). The shell's Dρ/Dt, its ψ-density and α
+    sweep and ElasticF (the multiphase: the shell's κ̂ correction) also so
     under each model of ``MODELS``. Returns ``(timing, launches)``."""
     import nereus_tpu_torch as nt
     from nereus_tpu_torch.ops import cuda_sweep
@@ -1938,18 +1943,19 @@ def run_dfsph_coupled(name, dev, kind):
                 K.MP_DRHO: it, K.MP_DRHO_BODY: it, K.MP_KAPPA: corr,
                 K.MP_KAPPA_BODY: corr, K.MP_FORCE: steps, K.MP_BODY: steps}
     else:
-        want = {K.DENSITY_ALPHA_SUMS: steps, K.BODY_DENSITY: steps,
-                K.DRHO: it, K.DRHO_SHELL: it, K.PRESSURE_FORCE: corr,
-                K.FORCE_P0: steps, K.BODY_FORCE_P0: steps}
+        want = {K.DENSITY_ALPHA_SUMS: steps, K.DRHO: it, K.DRHO_SHELL: it,
+                K.PRESSURE_FORCE: corr, K.FORCE_P0: steps,
+                K.BODY_FORCE_P0: steps}
         if elastic:
-            want.update({K.ALPHA_SHELL: steps,
+            want.update({K.BODY_DENSITY_ALPHA_SQ: steps,
                          K.PRESSURE_FORCE_BODY: corr,
                          K.PRESSURE_FORCE_BODY_REV: corr,
                          K.FLUID_REACTION_P0: steps,
                          K.ELASTIC_F: WEL_SUBSTEPS * steps,
                          K.ELASTIC_FORCE_HG: WEL_SUBSTEPS * steps})
         else:
-            want.update({K.ALPHA_BODY: steps, K.PRESSURE_FORCE_BODY: corr})
+            want.update({K.BODY_DENSITY_ALPHA: steps,
+                         K.PRESSURE_FORCE_BODY: corr})
     check_launches(name, want)
     if overflow != 0:
         fail(f"{name}: seg_overflow {overflow}")
@@ -1968,9 +1974,9 @@ def run_dfsph_coupled(name, dev, kind):
     ops.update(body_ops)
     label = f"{name} after {steps} steps"
     timing = compare_kernels(cfg, ops, label, time_it=True)
-    if kind != "mp":
-        check_models(ops, ("drho_shell", "elastic_f") if elastic
-                     else ("drho_shell",), label)
+    check_models(ops, ("mp_kappa_body",) if kind == "mp" else
+                 ("drho_shell", "elastic_f", "body_density_alpha_sq")
+                 if elastic else ("drho_shell", "body_density_alpha"), label)
     return timing, launches
 
 
@@ -2048,6 +2054,8 @@ def compare_kernels(cfg, ops, label, keys=None, time_it=False):
         msg.append(f"{key} {float(err.max()):.3g}/{float(scale.max()):.4g}")
         if key.startswith("density_alpha"):
             check_fused_density(cfg, args, got, f"{label}: {key}")
+        elif key.startswith("body_density_alpha"):
+            check_fused_body_density(cfg, args, got, f"{label}: {key}")
         elif key == "mp_density_alpha":
             check_fused_mp_density(cfg, args, got, f"{label}: {key}")
         if time_it:
@@ -2077,6 +2085,22 @@ def check_fused_density(cfg, args, got, label):
           f"{groups[1]}): " + ("bit for bit" if same else
                               f"max|d| {diff:.3g} of max ρ "
                               f"{float(dens.max()):.6g}"))
+
+
+def check_fused_body_density(cfg, args, got, label):
+    """Prints the shell's fused ψ-density and α kernel's Σψ_bW (column 0
+    of ``got``) against the density kernel's ``<body>`` on the same
+    operands, each at its own G: bit for bit, or the largest difference."""
+    from nereus_tpu_torch.ops import cuda_sweep
+    dens = cuda_sweep.body_density_sweep(cfg, *args)
+    m = args[1].shape[0]
+    groups = (cuda_sweep.shell_group(m), cuda_sweep.body_group(m))
+    diff = float((got[:, 0] - dens).abs().max())
+    same = bool(torch.equal(got[:, 0], dens))
+    print(f"  {label}: Σψ_bW against the density kernel's <body> (G "
+          f"{groups[0]} / {groups[1]}): " + ("bit for bit" if same else
+                                             f"max|d| {diff:.3g} of max "
+                                             f"{float(dens.max()):.6g}"))
 
 
 def check_fused_mp_density(cfg, args, got, label):
@@ -4077,8 +4101,12 @@ def main():
             # fluid rows (the reverse κ)
             "pressure_force_body_rev": (cuda_sweep.PRESSURE_FORCE_BODY_REV,
                                         iisph_src, rep + "922"),
-            "alpha_body": (cuda_sweep.ALPHA_BODY, dfsph_src, rep + "578"),
-            "alpha_shell": (cuda_sweep.ALPHA_SHELL, dfsph_src, rep + "578"),
+            # density_sweep (:1193) and alpha_pair (:578) over a shell,
+            # fused
+            "body_density_alpha": (cuda_sweep.BODY_DENSITY_ALPHA, dfsph_src,
+                                   rep + "1193,578"),
+            "body_density_alpha_sq": (cuda_sweep.BODY_DENSITY_ALPHA_SQ,
+                                      dfsph_src, rep + "1193,578"),
             "drho_shell": (cuda_sweep.DRHO_SHELL, dfsph_src, rep + "903"),
             "mp_alpha_body": (cuda_sweep.MP_ALPHA_BODY, mpd_src, rep + "820"),
             "mp_drho_body": (cuda_sweep.MP_DRHO_BODY, mpd_src, rep + "854"),

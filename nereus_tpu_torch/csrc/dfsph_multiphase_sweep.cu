@@ -6,9 +6,9 @@
 // adapted number-density domain (delta-hat, alpha-hat, kappa V-hat^2):
 // multiphase_alpha_pair / _bpair, multiphase_drho_pair / _bpair and
 // multiphase_kappa_pair / _bpair, and the three _bpair alone over a body
-// shell (BoundaryForm<...>, rows 0-8: solvers/dfsph_coupled.py::
-// _coupled_mp_pallas; the shell's alpha and kappa source is 4 wide, x y z
-// psi_b), and, fused with the first, the step's density sweep
+// shell (BoundaryForm<...>, kappa's GroupBoundaryForm<...>, rows 0-8:
+// solvers/dfsph_coupled.py::_coupled_mp_pallas; the shell's alpha and
+// kappa source is 4 wide, x y z psi_b), and, fused with the first, the step's density sweep
 // (multiphase_density_pair / _bpair, dfsph_pallas.py's density before
 // alpha-hat). Its non-pressure force sweep is the MultiphaseForce functor
 // of multiphase_sweep.cu.
@@ -72,10 +72,16 @@
 // source is one 16-byte row per candidate (x y z kv2_j, wall rows x y z
 // psi_b), which both walks load once, and the 18 range rows and the
 // candidate gathers are most of its time; a pair this cheap gains nothing
-// from the guard. Over a shell (the wall formula alone) the same pair
-// inside the cutoff, masked after it (BoundaryForm<MaskedForm<
-// MultiphaseKappa>>, as d delta-hat / dt), took 10 % less than the
-// one-thread walk's masked pair.
+// from the guard. Over a rigid body's shell (the wall formula alone, as
+// often) it runs on the lane-group engine,
+// group_pair_sweep_kernel<GroupBoundaryForm<MultiphaseKappa>, KS, G>.
+// What held it back on the one-thread walk (BoundaryForm<MaskedForm<
+// MultiphaseKappa>>): a shell's ranges are empty for nearly every query,
+// and one thread per query loaded its 9 range rows' bounds in series, so
+// the walk sat at its with-ranges bound, the bounds' latency. What the
+// design does: G lanes per query load the 9 bounds at once and walk the
+// few candidates G at a time, the pair only inside the cutoff. G:
+// ops/cuda_sweep.py::shell_group, the shell's size.
 //
 // Bound: memory traffic (sweep_common.cuh). The alpha and kappa sources
 // are 16-byte rows (x y z and one scalar: 1 / m_j or kappa V-hat_j^2 on
@@ -101,6 +107,8 @@
 //   kappa: q (N, 8) x y z kv2_i qc_i pad pad pad; src (M, 4) fluid x y z
 //          kv2_j, wall x y z psi_b; out (N, 3)
 //          sum (kv2_i + kv2_j) grad W + qc_i sum psi_b grad W
+//   kappa_body: q as kappa's; src a shell's (Mb, 4) rows x y z psi_b;
+//          ranges (9, N); out (N, 3) qc_i sum psi_b grad W
 
 #include "group_sweep.cuh"
 
@@ -207,7 +215,8 @@ struct MultiphaseDrho {
 // plus qc_i sum psi_b grad W over the wall rows, into the same columns;
 // source row j is x y z kv2_j (fluid) or x y z psi_b (wall). Two forms of
 // one formula: pair_sweep_kernel's, on every candidate, masked by the
-// cutoff; and MaskedForm's, inside the cutoff, with a the row j it loaded.
+// cutoff; and the engine's, inside the cutoff, with a the row j it loaded
+// (GroupBoundaryForm's wall formula over a body shell).
 struct MultiphaseKappa {
   static constexpr int QW = 8, SW = 4, OW = 3;
   static constexpr bool BOUNDARY_ROWS = true;
@@ -250,7 +259,8 @@ NEREUS_PAIR_SWEEP(multiphase_kappa, MultiphaseKappa)
 NEREUS_PAIR_SWEEP(multiphase_alpha_body, BoundaryForm<MultiphaseAlpha>)
 NEREUS_PAIR_SWEEP(multiphase_drho_body,
                   BoundaryForm<MaskedForm<MultiphaseDrho>>)
-NEREUS_PAIR_SWEEP(multiphase_kappa_body,
-                  BoundaryForm<MaskedForm<MultiphaseKappa>>)
+// at the G of ops/cuda_sweep.py::shell_group
+NEREUS_GROUP_SWEEP(multiphase_kappa_body, GroupBoundaryForm<MultiphaseKappa>,
+                   2, 8)
 
 }  // extern "C"

@@ -7,10 +7,11 @@
 // solvers/dfsph_pallas.py::dfsph_step_pallas, lines 202-214). Its kappa
 // correction is the PressureForce functor of iisph_sweep.cu with kappa/rho
 // in the pd2 slot. The DFSPH couplings (solvers/dfsph_coupled.py,
-// dfsph_elastic.py) run alpha_pair(include_sq=False) over a body shell
-// alone (rows 0-8), alpha_pair as it is over a shell's 9 rows (the elastic
-// body's sum |psi grad W|^2 under strong coupling) and drho_pair over a
-// shell's 9 rows (the shell's sample velocities in Drho's velocity slots).
+// dfsph_elastic.py) run density_pair with alpha_pair(include_sq=False)
+// over a body shell alone (rows 0-8), or with alpha_pair as it is over a
+// shell's 9 rows (the elastic body's sum |psi grad W|^2 under strong
+// coupling), and drho_pair over a shell's 9 rows (the shell's sample
+// velocities in Drho's velocity slots).
 //
 // The density and the factor alpha (once per step) are one walk,
 // group_pair_sweep_kernel<DensityAlpha<SUMS>, KS, G> on the lane-group
@@ -25,7 +26,7 @@
 // step builds no other matrix; a candidate's one float4 is the engine's own
 // load, and inside the cutoff the pair adds psi W to rho in the density
 // kernel's per-pair expression (sph_sweep.cu), so rho is the density
-// kernel's at the same G, and alpha's sums (AlphaSums). Lane 0's epilogue
+// kernel's at the same G, and alpha's sums. Lane 0's epilogue
 // writes rho and alpha = rho / max(|sum psi grad W|^2 + sum |psi grad W|^2,
 // 1e-6) as two (N,) planes (the single-phase step), or rho and the four
 // sums as five (SUMS: the DFSPH couplings add a shell's sums, and under
@@ -33,16 +34,28 @@
 // ops/cuda_sweep.py::DENSITY_ALPHA_G (the one instance of each built).
 // Measured at the settled 262,144-particle block (PERF.md section 6): the
 // one walk took 0.0410 ms for rho and alpha, about the density kernel's
-// time alone; the sums alone on the same engine and matrix
-// (group_pair_sweep_kernel<AlphaSums>, 0.0410 by itself) took 0.0975 with
+// time alone; the sums alone on the same engine and matrix (0.0410 by
+// themselves, tools/group_scan.py's AlphaSums) took 0.0975 with
 // the density kernel before them and alpha formed in torch after them,
 // and the parent's one-thread walk so 0.1198.
 //
-// Over a body shell the factor's sums stay on the range-walk template
-// pair_sweep_kernel<Pair, KS> of sweep_common.cuh, one thread per query,
-// the pair masked by the cutoff (MaskedForm<AlphaSums>; its boundary form
-// BoundaryForm<MaskedForm<AlphaSums>>), over the shell's (Mb, 4) rows
-// x y z psi_b (Shell.src4, the shell's density source).
+// Over a body shell (the DFSPH couplings, once per step) the shell's
+// psi-density and alpha's shell sums are one walk,
+// group_pair_sweep_kernel<ShellDensityAlpha<SQ>, KS, G>, on the same
+// engine. What held them back: the density kernel walked the shell's 9
+// range rows, then alpha's one thread per query walked the same rows again
+// in series, every candidate masked by the cutoff; a shell's ranges are
+// empty for nearly every query, so over a small shell (a rigid box's 56
+// samples) both walks are their range rows' bytes, read twice, and over a
+// large one (an elastic cube's 4,096 samples) the one-thread walk's busy
+// queries diverge from their warp's empty lanes. What the design does: G
+// lanes per query walk the shell's (Mb, 4) rows x y z psi_b (Shell.src4)
+// once; inside the cutoff the pair is DensityAlpha's, so the shell's
+// sum psi_b W is the density kernel's at the same G, bit for bit, and
+// alpha's sums: sum psi_b grad W and, for SQ (the fluid form, an elastic
+// body under strong coupling), sum |psi_b grad W|^2. Lane 0's epilogue
+// writes the four or five sums as planes. G: ops/cuda_sweep.py::
+// shell_group, the shell's size.
 //
 // Drho runs once per iteration of both solver loops (~4 times per step)
 // on the lane-group engine group_pair_sweep_kernel<Drho, KS, G>. What held
@@ -77,10 +90,10 @@
 //          rows psi_b); q its first C rows; out (2, N) planes rho, alpha,
 //          or (SUMS) (5, N) planes rho, sum psi grad W (3),
 //          sum |psi grad W|^2 (fluid rows)
-//   alpha_body, alpha_shell: q (N, 4) x y z (slot 3 unread); src a shell's
-//          (Mb, 4) rows x y z psi_b; ranges (9, N); out (N, 4) sum
-//          psi_b grad W (3), sum |psi_b grad W|^2 (alpha_shell; 0 in
-//          alpha_body)
+//   body_density_alpha(_sq): q (N, 4) x y z (slot 3 unread); src a
+//          shell's (Mb, 4) rows x y z psi_b; ranges (9, N); out (4, N)
+//          planes sum psi_b W, sum psi_b grad W (3), or (_sq) (5, N)
+//          with sum |psi_b grad W|^2
 //   drho:  src (C + Mb, 8) x y z vx vy vz psi pad (fluid rows psi = m,
 //          wall rows their velocities, 0 for a static wall, and psi_b);
 //          q its first C rows (slots 0-5 read); out (N,)
@@ -93,30 +106,13 @@ namespace {
 
 using namespace nereus_sweep;
 
-// alpha's sums over rows x y z psi: sum psi grad W (acc 0-2), and
-// sum |psi grad W|^2 over the fluid rows only (acc 3; static boundaries add
-// to the gradient sum alone); the engine calls it inside the cutoff with
-// a = x y z psi of row j
-struct AlphaSums {
-  static constexpr int QW = 4, SW = 4, OW = 4;
-  static constexpr bool BOUNDARY_ROWS = true;
-  template <int KS, bool B>
-  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
-                              int, const Params& p, float (&acc)[OW]) {
-    const Geom g = default_geom<KS>(q, a, p);
-    const float c = a.w * g.s;
-    acc[0] += c * g.dx;
-    acc[1] += c * g.dy;
-    acc[2] += c * g.dz;
-    if constexpr (!B) acc[3] += c * c * g.r2;
-  }
-};
-
 // rho = sum psi W over all rows (self term included), in the density
-// kernel's per-pair expression, and AlphaSums' sums, in one walk over the
-// density's matrix x y z psi; the engine calls it inside the cutoff with
-// a = x y z psi of row j. The epilogue writes rho and alpha, or (SUMS) rho
-// and the four sums.
+// kernel's per-pair expression, and alpha's sums (sum psi grad W, and
+// sum |psi grad W|^2 over the fluid rows only: static boundaries add to
+// the gradient sum alone), in one walk over the density's matrix
+// x y z psi; the engine calls it inside the cutoff with a = x y z psi of
+// row j. The epilogue writes rho and alpha, or (SUMS) rho and the four
+// sums.
 template <bool SUMS>
 struct DensityAlpha {
   static constexpr int QW = 4, SW = 4, OW = 5, OUTW = SUMS ? 5 : 2;
@@ -155,6 +151,28 @@ struct DensityAlpha {
   }
 };
 
+// a body shell's sum psi_b W and alpha's shell sums in one walk over its 9
+// rows x y z psi_b: DensityAlpha's pair, sum |psi_b grad W|^2 only for SQ
+// (alpha's fluid form over a shell); the epilogue writes sum psi_b W,
+// sum psi_b grad W (3) and (SQ) sum |psi_b grad W|^2 as planes
+template <bool SQ>
+struct ShellDensityAlpha {
+  static constexpr int QW = 4, SW = 4, OW = 5, OUTW = SQ ? 5 : 4;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    DensityAlpha<true>::template pair<KS, !SQ>(q, a, src, j, p, acc);
+  }
+  __device__ static void epilogue(const float (&)[QW],
+                                  const float (&acc)[OW], const Params&,
+                                  float (&o)[OUTW]) {
+#pragma unroll
+    for (int k = 0; k < OUTW; ++k) o[k] = acc[k];
+  }
+};
+
 // D rho / Dt = sum psi_j (v_q - v_j) . grad W, one formula for both
 // regions; the engine calls it inside the cutoff, with a = x y z vx of
 // row j
@@ -187,9 +205,10 @@ extern "C" {
 // the G of ops/cuda_sweep.py::DENSITY_ALPHA_G
 NEREUS_GROUP_SWEEP(density_alpha, DensityAlpha<false>, 4)
 NEREUS_GROUP_SWEEP(density_alpha_sums, DensityAlpha<true>, 4)
-// over a body shell's 9 rows: the sums, and sum psi grad W alone
-NEREUS_PAIR_SWEEP(alpha_shell, MaskedForm<AlphaSums>)
-NEREUS_PAIR_SWEEP(alpha_body, BoundaryForm<MaskedForm<AlphaSums>>)
+// over a body shell's 9 rows, at the G of ops/cuda_sweep.py::shell_group:
+// sum psi_b W and sum psi_b grad W, and (_sq) sum |psi_b grad W|^2 too
+NEREUS_GROUP_SWEEP(body_density_alpha, ShellDensityAlpha<false>, 2, 8)
+NEREUS_GROUP_SWEEP(body_density_alpha_sq, ShellDensityAlpha<true>, 2, 8)
 // the G of ops/cuda_sweep.py::DRHO_G
 NEREUS_GROUP_SWEEP(drho, Drho, 4)
 // over a body shell's 9 rows, at the G of ops/cuda_sweep.py::shell_group

@@ -12,12 +12,14 @@
 // pbf_dp_pair, pbf_omega_pair; dfsph_sweep.cu: drho_pair;
 // multiphase_sweep.cu: multiphase_force_pair + multiphase_boundary_pair,
 // xsph_pair;
-// dfsph_multiphase_sweep.cu: multiphase_drho_pair + _bpair,
-// multiphase_kappa_pair + _bpair; iisph_sweep.cu's BodyPressureForce:
-// grad_pressure_force_pair(boundary=True, boundary_sign=-1) over a body
-// shell, forward and reverse; dfsph_sweep.cu's DrhoShell: drho_pair over
-// a body shell). Its list form, group_list_sweep_kernel<P, KS, G>, walks a
-// static pair list instead of the ranges: the elastic solid's reference
+// dfsph_multiphase_sweep.cu: multiphase_drho_pair + _bpair, and
+// multiphase_kappa_bpair over a body shell; iisph_sweep.cu's
+// BodyPressureForce: grad_pressure_force_pair(boundary=True,
+// boundary_sign=-1) over a body shell, forward and reverse;
+// dfsph_sweep.cu's DrhoShell: drho_pair over a body shell, and
+// ShellDensityAlpha: density_pair and alpha_pair over a body shell). Its
+// list form, group_list_sweep_kernel<P, KS, G>, walks a static pair list
+// instead of the ranges: the elastic solid's reference
 // pairs (elastic_sweep.cu, elastic_f_pair and elastic_force_pair +
 // elastic_hourglass_pair as nereus_tpu/solvers/elastic_pallas.py::_sweep
 // launches them).
@@ -68,10 +70,13 @@
 // writes its sums as (N, OW) rows.
 // MaskedForm<P> runs such a functor on pair_sweep_kernel (one thread per
 // query; the pair on every candidate, masked): a body shell's multiphase
-// Drho and multiphase kappa, whose queries are nearly all without
-// candidates.
+// Drho, whose queries are nearly all without candidates.
+// GroupBoundaryForm<P> runs its wall formula over a body shell's 9 rows on
+// the engine (the lane-group counterpart of sweep_common.cuh's
+// BoundaryForm): a body shell's multiphase kappa.
 //
-// Over a body shell (the DFSPH couplings' kappa impulse and Drho, the
+// Over a body shell (the DFSPH couplings' kappa impulse, Drho, the
+// shell's psi-density with alpha's sums and the multiphase kappa, the
 // fluid rows as queries) nearly every query's runs are empty, and the
 // row scan of an empty query is most of the work: a small shell takes G 2
 // and a large one G 8 (ops/cuda_sweep.py::shell_group; measured against
@@ -312,6 +317,23 @@ struct MaskedForm {
     P::template pair<KS, B>(q, a, src, j, p, t);
 #pragma unroll
     for (int k = 0; k < OW; ++k) acc[k] += t[k] * okf;
+  }
+};
+
+// The boundary form of a lane-group functor P over a body shell's 9 range
+// rows (the fluid rows as queries): P's widths and its B = true formula,
+// run inside the cutoff with the engine's `a`, on rows 0-8 alone. The
+// lane-group counterpart of sweep_common.cuh's BoundaryForm; P's epilogue,
+// if any, is left out (the sums are written as (N, OW) rows).
+template <class P>
+struct GroupBoundaryForm {
+  static constexpr int QW = P::QW, SW = P::SW, OW = P::OW;
+  static constexpr bool BOUNDARY_ROWS = false;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a,
+                              const float* src, int j, const Params& p,
+                              float (&acc)[OW]) {
+    P::template pair<KS, true>(q, a, src, j, p, acc);
   }
 };
 

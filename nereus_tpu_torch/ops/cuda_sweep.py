@@ -109,24 +109,25 @@ ELASTIC_FORCE_HG = Kernel(
     "group_list_sweep_kernel<ElasticForceHourglass>")
 FLUID_REACTION = Kernel("pair_sweep_kernel<FluidReaction>")
 # the DFSPH couplings: the two contacts' friction alone, the body forms of
-# the DFSPH sweeps over a body shell (rows 0-8), and α's sums and Drho as
-# they are over a shell's 9 rows (Drho at the shell's G, as the forward κ
-# impulse), each counted apart; the κ impulse forward (the fluid rows as
-# queries over a shell) and reverse (a body's samples as queries over the
-# fluid rows) apart
+# the DFSPH sweeps over a body shell (rows 0-8), the shell's ψ-density with
+# α's shell sums in one walk (their boundary form, and with Σ|ψ_b∇W|², the
+# fluid form) and Drho over a shell's 9 rows, each counted apart; the κ
+# impulse forward (the fluid rows as queries over a shell) and reverse (a
+# body's samples as queries over the fluid rows) apart
 BODY_FORCE_P0 = Kernel("group_pair_sweep_kernel<BodyForce<PRESSURE=0>>")
 FLUID_REACTION_P0 = Kernel("pair_sweep_kernel<FluidReaction<PRESSURE=0>>")
 PRESSURE_FORCE_BODY = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce><shell>")
 PRESSURE_FORCE_BODY_REV = Kernel(
     "group_pair_sweep_kernel<BodyPressureForce>")
-ALPHA_BODY = Kernel(
-    "pair_sweep_kernel<BoundaryForm<MaskedForm<AlphaSums>>>")
-ALPHA_SHELL = Kernel("pair_sweep_kernel<MaskedForm<AlphaSums>>")
+BODY_DENSITY_ALPHA = Kernel("group_pair_sweep_kernel<ShellDensityAlpha>")
+BODY_DENSITY_ALPHA_SQ = Kernel(
+    "group_pair_sweep_kernel<ShellDensityAlpha<SQ>>")
 DRHO_SHELL = Kernel("group_pair_sweep_kernel<DrhoShell>")
 MP_ALPHA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseAlpha>>")
 MP_DRHO_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseDrho>>")
-MP_KAPPA_BODY = Kernel("pair_sweep_kernel<BoundaryForm<MultiphaseKappa>>")
+MP_KAPPA_BODY = Kernel(
+    "group_pair_sweep_kernel<GroupBoundaryForm<MultiphaseKappa>>")
 # the wall-only force (the JAX package's boundary_force_sweep), with and
 # without the wall pressure
 WALL_FORCE = Kernel("pair_sweep_kernel<WallForce>")
@@ -142,10 +143,11 @@ KERNELS = (DENSITY, FORCE, FORCE_P0, DII_AII, SUM_DIJ, JACOBI, PRESSURE_FORCE,
            MP_DRHO, MP_KAPPA, PBF_LAMBDA, PBF_DP, PBF_OMEGA, FORCE_MOVING,
            FORCE_P0_MOVING, MP_FORCE_MOVING, BODY_DENSITY, BODY_FORCE,
            MP_BODY, ELASTIC_F, ELASTIC_FORCE_HG, FLUID_REACTION,
-           BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY, ALPHA_BODY,
-           ALPHA_SHELL, DRHO_SHELL, MP_ALPHA_BODY, MP_DRHO_BODY,
-           MP_KAPPA_BODY, WALL_FORCE, WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS,
-           LAYOUT_SOA, PBF_GRAD, PRESSURE_FORCE_BODY_REV)
+           BODY_FORCE_P0, FLUID_REACTION_P0, PRESSURE_FORCE_BODY,
+           BODY_DENSITY_ALPHA, BODY_DENSITY_ALPHA_SQ, DRHO_SHELL,
+           MP_ALPHA_BODY, MP_DRHO_BODY, MP_KAPPA_BODY, WALL_FORCE,
+           WALL_FORCE_P0, CELL_CHECK, LAYOUT_AOS, LAYOUT_SOA, PBF_GRAD,
+           PRESSURE_FORCE_BODY_REV)
 
 _lock = threading.Lock()
 _lib = None
@@ -318,9 +320,9 @@ _SWEEP_FNS = {"density": 1, "force": 5, "dii_aii": 1, "sum_dij": 1,
               "body_force_p0": 1,
               "multiphase_body": 0, "fluid_reaction": 1,
               "pressure_force_body": 1, "pressure_force_body_rev": 1,
-              "alpha_body": 0, "alpha_shell": 0,
+              "body_density_alpha": 1, "body_density_alpha_sq": 1,
               "multiphase_alpha_body": 0, "multiphase_drho_body": 0,
-              "multiphase_kappa_body": 0, "wall_force": 1}
+              "multiphase_kappa_body": 1, "wall_force": 1}
 
 
 def _launch(kernel: Kernel, fn: str, device, *args):
@@ -634,11 +636,13 @@ def elastic_group(n: int) -> int:
 
 
 # The sweeps of the fluid rows as queries over a body shell, the DFSPH
-# couplings' κ impulse (``csrc/iisph_sweep.cu``) and Dρ/Dt
-# (``csrc/dfsph_sweep.cu``), and the body contact force, both forms
-# (``csrc/coupled_sweep.cu``), which build only these, by the shell's size, as
-# measured on an NVIDIA H100 80GB HBM3 at 700.00 W (``tools/group_scan.py
-# --solver dfsph_coupled``, ``dfsph_elastic``; PERF.md section 6): under
+# couplings' κ impulse (``csrc/iisph_sweep.cu``), Dρ/Dt and the ψ-density
+# with α's sums (``csrc/dfsph_sweep.cu``), the multiphase κ̂ correction
+# (``csrc/dfsph_multiphase_sweep.cu``) and the body contact force, both
+# forms (``csrc/coupled_sweep.cu``), which build only these, by the shell's
+# size, as measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (``tools/group_scan.py --solver dfsph_coupled``, ``dfsph_elastic``;
+# PERF.md section 6): under
 # ``SMALL_SHELL`` samples (the rigid boxes' 56, nearly every query's runs
 # empty) G 2 (both 4-5 % under one thread per query with its 9 bounds loaded
 # at once; G 4 10-26 % over G 2); over a larger shell (an elastic cube's
@@ -650,16 +654,23 @@ def elastic_group(n: int) -> int:
 # replaced 0.0106 / 0.0093; at the 4,096-sample cube G 8 0.0218 / 0.0278
 # against G 4 0.0237 / 0.0373, G 16 0.0330 / 0.0336 and the walk 0.0464 /
 # 0.0528 (with the pressure at coupled_256k and wcsph_elastic_256k / its
-# friction alone at the DFSPH couplings). The reverse κ impulse, a
-# body's samples as queries over the fluid rows: 16 lanes per sample at the
-# 16³ cube's 4,096, the one body size a path runs (G 4 took 86 %, G 8 29 %
-# and G 32 3 % more); the one instance built.
+# friction alone at the DFSPH couplings). The shell's ψ-density with α's
+# sums in one walk and the multiphase κ̂ correction over a shell take the
+# same two (``--keys body_density_alpha``, ``body_density_alpha_sq``,
+# ``mp_kappa_body``): at the 56-sample box G 2 0.0068 / 0.0072 ms against
+# G 1 0.0077 / 0.0082, G 4 0.0096 / 0.0098 and the walks they replaced
+# 0.0157 (the density kernel with α's walk) / 0.0079; at the 4,096-sample
+# cube G 8 0.0252 against G 4 0.0339, G 16 0.0335 and 0.0632. The reverse
+# κ impulse, a body's samples as queries over the fluid rows: 16 lanes per
+# sample at the 16³ cube's 4,096, the one body size a path runs (G 4 took
+# 86 %, G 8 29 % and G 32 3 % more); the one instance built.
 BODY_REV_G = 16
 
 
 def shell_group(m: int) -> int:
     """The G of the sweeps over a body shell of ``m`` samples, the forward
-    κ impulse, Dρ/Dt and the body contact force."""
+    κ impulse, Dρ/Dt, the body contact force, the shell's ψ-density with
+    α's sums and the multiphase κ̂ correction."""
     return 2 if m < SMALL_SHELL else 8
 
 
@@ -952,19 +963,19 @@ def pressure_force_body_rev_sweep(cfg: SimConfig, q, src, seg_start,
                   4, src, 8, seg_start, seg_end, pvec, (9,), 3, BODY_REV_G)
 
 
-def alpha_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """Σψ_b∇W of a body shell alone (N, 4), column 3 zero: q (N, 4), the
-    shell (Mb, 4) ``x y z ψ_b`` (``Shell.src4``), ranges (9, N)."""
-    return _sweep(ALPHA_BODY, "alpha_body", cfg, q, 4, src, 4, seg_start,
-                  seg_end, pvec, (9,), 4)
-
-
-def alpha_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
-    """α's sums in their fluid form over a body shell (N, 4): Σψ_b∇W and
-    Σ|ψ_b∇W|², q (N, 4), the shell (Mb, 4) ``x y z ψ_b``
-    (``Shell.src4``), ranges (9, N); counted in ``ALPHA_SHELL``."""
-    return _sweep(ALPHA_SHELL, "alpha_shell", cfg, q, 4, src, 4, seg_start,
-                  seg_end, pvec, (9,), 4)
+def body_density_alpha_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
+                              pvec, include_sq=False):
+    """A body shell's Σψ_b·W and α's shell sums Σψ_b∇W (N, 4) from one
+    walk, each column a contiguous (N,) plane: q (N, 4), the shell (Mb, 4)
+    ``x y z ψ_b`` (``Shell.src4``), ranges (9, N); ``include_sq=True``
+    (α's fluid form over the shell, strong coupling) adds Σ|ψ_b∇W|² as a
+    fifth, counted in ``BODY_DENSITY_ALPHA_SQ``; G by the shell's size
+    (``shell_group``)."""
+    sq = bool(include_sq)
+    return _sweep(BODY_DENSITY_ALPHA_SQ if sq else BODY_DENSITY_ALPHA,
+                  "body_density_alpha_sq" if sq else "body_density_alpha",
+                  cfg, q, 4, src, 4, seg_start, seg_end, pvec, (9,),
+                  5 if sq else 4, shell_group(src.shape[0]), planes=True)
 
 
 def drho_shell_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
@@ -994,9 +1005,11 @@ def multiphase_drho_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
 def multiphase_kappa_body_sweep(cfg: SimConfig, q, src, seg_start, seg_end,
                                 pvec):
     """qc_i·Σψ_b∇W of a body shell alone (N, 3): q (N, 8) ``x y z κV̂² qc``,
-    the shell (Mb, 4) ``x y z ψ_b``, ranges (9, N)."""
+    the shell (Mb, 4) ``x y z ψ_b``, ranges (9, N); G by the shell's size
+    (``shell_group``)."""
     return _sweep(MP_KAPPA_BODY, "multiphase_kappa_body", cfg, q, 8, src, 4,
-                  seg_start, seg_end, pvec, (9,), 3)
+                  seg_start, seg_end, pvec, (9,), 3,
+                  shell_group(src.shape[0]))
 
 
 def boundary_force_sweep(cfg: SimConfig, q, src, seg_start, seg_end, pvec,

@@ -53,8 +53,9 @@ coupling's ``body_density_sweep``, ``body_force_sweep`` and
 coupling's
 ``fluid_reaction_sweep``, and the DFSPH couplings' body sweeps
 ``pressure_force_body_sweep`` (and its reverse,
-``pressure_force_body_rev_sweep``), ``alpha_body_sweep``,
-``alpha_shell_sweep``, ``drho_shell_sweep`` and the three
+``pressure_force_body_rev_sweep``), ``body_density_alpha_sweep`` (the
+TPU's density and α sweeps over a shell in one), ``drho_shell_sweep`` and
+the three
 ``multiphase_*_body_sweep``, and the wall-only
 ``boundary_force_sweep``) routes by device:
 a CPU tensor goes to the plain sweep, a CUDA float32 tensor to the
@@ -1004,7 +1005,7 @@ def pressure_force_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end,
 def alpha_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
     """(Σψ∇W xyz, Σ|ψ∇W|²) (N, 4): q (N, 4), src (M, 4) ``x y z ψ``; the
     square sum over the fluid rows only (on 9 range rows, a shell's
-    ``x y z ψ_b`` as the source: ``alpha_shell_sweep``)."""
+    ``x y z ψ_b`` as the source: α's fluid form over the shell)."""
     return neighbor_sweep_plain(
         _bind(alpha_pair, cfg, pvec, include_sq=True), q, src, seg_start,
         seg_end, 4, pair_fn_b=_bind(alpha_pair, cfg, pvec, include_sq=False))
@@ -1276,6 +1277,21 @@ def alpha_body_sweep_plain(cfg: SimConfig, q, src, seg_start, seg_end, pvec):
         seg_end, 4)
 
 
+def body_density_alpha_sweep_plain(cfg: SimConfig, q, src, seg_start,
+                                    seg_end, pvec, include_sq=False):
+    """A body shell's Σψ_b·W and α's shell sums Σψ_b∇W (N, 4), each column
+    a contiguous plane: :func:`density_sweep_plain` and
+    :func:`alpha_body_sweep_plain` (``alpha_pair(include_sq=False)``) on the
+    shell's (Mb, 4) ``x y z ψ_b``, q (N, 4), ranges (9, N);
+    ``include_sq=True`` :func:`alpha_sweep_plain` instead
+    (``alpha_pair(include_sq=True)``, α's fluid form over the shell), its
+    Σ|ψ_b∇W|² a fifth column."""
+    dens = density_sweep_plain(cfg, q, src, seg_start, seg_end, pvec)
+    sweep = alpha_sweep_plain if include_sq else alpha_body_sweep_plain
+    al = sweep(cfg, q, src, seg_start, seg_end, pvec)
+    return torch.cat([dens[None], al.t()[:4 if include_sq else 3]]).t()
+
+
 def multiphase_alpha_body_sweep_plain(cfg: SimConfig, q, src, seg_start,
                                       seg_end, pvec):
     """Σψ_b∇W of a body shell alone into columns 4-6 of (N, 7)
@@ -1399,11 +1415,10 @@ pressure_force_body_sweep = _dispatcher(pressure_force_body_sweep_plain,
 pressure_force_body_rev_sweep = _dispatcher(
     pressure_force_body_sweep_plain, "pressure_force_body_rev_sweep",
     name="pressure_force_body_rev_sweep")
-alpha_body_sweep = _dispatcher(alpha_body_sweep_plain, "alpha_body_sweep")
-# α's sums and Drho as they are over a body shell's 9 range rows (their
-# fluid form: Σψ_b²|∇W|², and the shell's sample velocities), counted apart
-alpha_shell_sweep = _dispatcher(alpha_sweep_plain, "alpha_shell_sweep",
-                                name="alpha_shell_sweep")
+body_density_alpha_sweep = _dispatcher(body_density_alpha_sweep_plain,
+                                       "body_density_alpha_sweep")
+# Drho as it is over a body shell's 9 range rows (the shell's sample
+# velocities), counted apart
 drho_shell_sweep = _dispatcher(drho_sweep_plain, "drho_shell_sweep",
                                name="drho_shell_sweep")
 multiphase_alpha_body_sweep = _dispatcher(multiphase_alpha_body_sweep_plain,

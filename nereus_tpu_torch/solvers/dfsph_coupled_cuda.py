@@ -5,12 +5,12 @@ counterparts of ``_coupled_pallas`` and ``_coupled_mp_pallas`` in
 Each body's shell (:func:`~.coupled_cuda.body_shells`) enters the DFSPH
 solve as a boundary of its own, swept alone over 9 range rows:
 
-* the density (the body density kernel) and the factor α: the fluid's ρ
-  and α's sums come from one sweep (``density_alpha_sums_sweep``), the
-  shell's Σψ_b∇W joins the gradient sum (``alpha_body_sweep``, the
-  boundary form of α's sums, on the shell's ``x y z ψ_b`` rows), and
-  with ``SimConfig.dfsph_strong_coupling`` the body's mobility
-  pm·(|g|²/M + t·I⁻¹t), t = (x_i − c)×g, joins the denominator;
+* the density and the factor α: the fluid's ρ and α's sums come from one
+  sweep (``density_alpha_sums_sweep``), the shell's ψ-density and its
+  Σψ_b∇W (the boundary form of α's sums) from one sweep of the shell's
+  ``x y z ψ_b`` rows (``body_density_alpha_sweep``); Σψ_b∇W joins the
+  gradient sum, and with ``SimConfig.dfsph_strong_coupling`` the body's
+  mobility pm·(|g|²/M + t·I⁻¹t), t = (x_i − c)×g, joins the denominator;
 * every Dρ/Dt of both loops: the shell with the body's CURRENT sample
   velocities v + ω×r in slots 3-5 (``drho_shell_sweep``);
 * every κ correction of both loops and the warm start: the boundary form
@@ -76,8 +76,8 @@ class BodyTerms:
 
     @functools.cached_property
     def src4(self):
-        """(Mb, 4) ``x y z ψ_b``: the shell of the density, α's and the
-        multiphase α and κ sweeps."""
+        """(Mb, 4) ``x y z ψ_b``: the shell of the density and α sweep,
+        the multiphase density, α and κ sweeps."""
         return self.shell.src4
 
     def ranges(self, pvec):
@@ -177,22 +177,23 @@ def coupled_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     every shell's ψ-density, and α with every shell's Σψ_b∇W in the
     gradient sum and, under strong coupling, its mobility pm·(|g|²/M +
     t·I⁻¹t) in the denominator. The fluid's ρ and α's sums come from one
-    sweep of the density's matrix."""
+    sweep of the density's matrix, each shell's ψ-density and Σψ_b∇W from
+    one sweep of its rows."""
     pm = params.particle_mass
     q4, *dargs = ctx.density_operands(pm)
     sums = SP.density_alpha_sums_sweep(cfg, q4, *dargs)
-    dens, al = sums[:, 0], sums[:, 1:]
+    dens, g = sums[:, 0], sums[:, 1:4]
     mob = torch.zeros_like(dens)
     pos = torch.stack([ctx.px, ctx.py, ctx.pz], dim=1)
     for t in terms:
-        dens = dens + SP.body_density_sweep(cfg, q4, t.src4,
+        shell = SP.body_density_alpha_sweep(cfg, q4, t.src4,
                                             *t.ranges(ctx.pvec))
-        alb = SP.alpha_body_sweep(cfg, q4, t.src4, *t.ranges(ctx.pvec))
-        al = al + alb
+        dens = dens + shell[:, 0]
+        g = g + shell[:, 1:]
         if cfg.dfsph_strong_coupling:
-            mob = mob + pm * t.mobility(pos, alb[:, :3])
-    denom = (al[:, 0] * al[:, 0] + al[:, 1] * al[:, 1] + al[:, 2] * al[:, 2]
-             + al[:, 3] + mob)
+            mob = mob + pm * t.mobility(pos, shell[:, 1:])
+    denom = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
+             + sums[:, 4] + mob)
     return dens, dens / torch.clamp(denom, min=_EPS_DENOM)
 
 

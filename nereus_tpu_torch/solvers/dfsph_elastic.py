@@ -17,8 +17,10 @@ The interface is Gauss–Seidel: each reaction kicks the sample velocities
 (v_b += dt·f_b/m_b) and the next Dρ/Dt sees the body yield. With
 ``SimConfig.dfsph_strong_coupling`` the per-sample mobility
 (pm/m_b)·Σψ_b²|∇W|² joins α's denominator: α's sums in their fluid form
-over the shell's ``x y z ψ_b`` rows (``alpha_shell_sweep``); without it
-the shell adds to the gradient sum alone (``alpha_body_sweep``). The
+over the shell's ``x y z ψ_b`` rows; without it the shell adds to the
+gradient sum alone. The shell's ψ-density and those sums come from one
+sweep (``body_density_alpha_sweep``, with ``include_sq`` under strong
+coupling). The
 non-pressure stage exchanges the Akinci friction alone, forward
 (``body_force_sweep``) and per sample (``fluid_reaction_sweep``), both
 with ``include_pressure=False``. After the solve the kicked velocities go back to the body in
@@ -108,19 +110,21 @@ def elastic_density_alpha(ctx: SweepCtx, params: SimParams, cfg: SimConfig,
     strong coupling, its per-sample mobility (pm/m_b)·Σψ_b²|∇W|² in the
     denominator (α's sums in their fluid form over the shell; without
     strong coupling their boundary form). The fluid's ρ and α's sums come
-    from one sweep of the density's matrix."""
+    from one sweep of the density's matrix, the shell's from one sweep of
+    its ``x y z ψ_b`` rows."""
     pm = params.particle_mass
-    brng = (es.shell.seg_start, es.shell.seg_end, ctx.pvec)
+    strong = cfg.dfsph_strong_coupling
     q4, *dargs = ctx.density_operands(pm)
     sums = SP.density_alpha_sums_sweep(cfg, q4, *dargs)
-    src4 = es.shell.src4
-    dens = sums[:, 0] + SP.body_density_sweep(cfg, q4, src4, *brng)
-    body_alpha = (SP.alpha_shell_sweep if cfg.dfsph_strong_coupling
-                  else SP.alpha_body_sweep)
-    alb = body_alpha(cfg, q4, src4, *brng)
-    g = sums[:, 1:4] + alb[:, :3]
+    shell = SP.body_density_alpha_sweep(
+        cfg, q4, es.shell.src4, es.shell.seg_start, es.shell.seg_end,
+        ctx.pvec, include_sq=strong)
+    dens = sums[:, 0] + shell[:, 0]
+    g = sums[:, 1:4] + shell[:, 1:4]
     denom = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
-             + sums[:, 4] + (pm / mbm) * alb[:, 3])
+             + sums[:, 4])
+    if strong:
+        denom = denom + (pm / mbm) * shell[:, 4]
     return dens, dens / torch.clamp(denom, min=_EPS_DENOM)
 
 

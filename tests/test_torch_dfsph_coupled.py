@@ -7,8 +7,9 @@ package (CPU, plain sweeps), mirroring ``tests/test_dfsph_coupled.py``.
   divergence iteration), both kernel sets, max|Δ| ≤ 1e-5·max|ref| per
   column: the body form of the κ impulse
   (``grad_pressure_force_pair(boundary=True, boundary_sign=-1)``), the
-  body form of α (``alpha_pair(include_sq=False)``; its column 3 exactly
-  0), Dρ/Dt over the shell with its sample velocities, and the friction
+  shell's ψ-density with the body form of α in one sweep (``density_pair``
+  and ``alpha_pair(include_sq=False)``), Dρ/Dt over the shell with its
+  sample velocities, and the friction
   alone (``boundary_force_pair(include_pressure=False, moving=True,
   include_adhesion=False)``), which reads the sample velocities.
 * ``dfsph_coupled_step`` against JAX's Pallas step (interpret mode) over
@@ -127,10 +128,15 @@ def test_body_twins_match_jax(kernel_set):
                                                *rows),
          dense_pairs(PS.grad_pressure_force_pair, kargs[0], t.shell.src, pv,
                      kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
-        ("alpha", SP.alpha_body_sweep(pcfg, ctx.queries(width=4), t.src4,
-                                      *rows)[:, :3],
-         dense_pairs(PS.alpha_pair, ctx.queries(width=4), t.shell.src, pv,
-                     kernel_set=ks, include_sq=False)[:, :3]),
+        ("density and alpha",
+         SP.body_density_alpha_sweep(pcfg, ctx.queries(width=4), t.src4,
+                                     *rows),
+         np.concatenate([
+             dense_pairs(PS.density_pair, ctx.queries(width=4), t.shell.src,
+                         pv, kernel_set=ks),
+             dense_pairs(PS.alpha_pair, ctx.queries(width=4), t.shell.src,
+                         pv, kernel_set=ks, include_sq=False)[:, :3]],
+             axis=1)),
         ("drho", SP.drho_shell_sweep(pcfg, sweeps.q_v, src_v, *rows),
          dense_pairs(PS.drho_pair, sweeps.q_v, src_v, pv,
                      kernel_set=ks)[:, 0]),
@@ -141,8 +147,7 @@ def test_body_twins_match_jax(kernel_set):
                      include_adhesion=False)[:, :3]))
     for name, got, want in cases:
         assert_columns_close(got.numpy(), want, 1e-5, name)
-    al = SP.alpha_body_sweep(pcfg, ctx.queries(width=4), t.src4, *rows)
-    assert float(al[:, 3].abs().max()) == 0.0
+    assert cases[1][1].shape == (ctx.c, 4)
     # the friction reads the sample velocities
     still = src_v.clone()
     still[:, 3:6] = 0.0
@@ -156,14 +161,14 @@ def test_body_twins_match_jax(kernel_set):
 @pytest.mark.parametrize("kernel_set", [jt.KernelSet.MULLER,
                                         jt.KernelSet.MONAGHAN])
 def test_shell_alpha_forms_read_src4(kernel_set):
-    """The source-width pin of α's two shell forms: ``alpha_body_sweep``
-    and ``alpha_shell_sweep`` read the shell's (Mb, 4) rows ``x y z ψ_b``
-    (``BodyTerms.src4``), and on them give JAX's ``alpha_pair``
-    (``include_sq`` False / True) over the shell's (Mb, 8) rows
-    ``x y z v_b ψ_b 0`` (ψ_b in slot 6, the layout they read before)
-    within 1e-5·max|ref| per column; the 8-wide rows cut to their first
-    four columns (the sample velocity's x where ψ_b belongs) give another
-    result."""
+    """The source-width pin of the shell's ψ-density and α sweep, both
+    forms: ``body_density_alpha_sweep`` (``include_sq`` False / True) reads
+    the shell's (Mb, 4) rows ``x y z ψ_b`` (``BodyTerms.src4``), and on
+    them gives JAX's ``density_pair`` and ``alpha_pair`` (``include_sq``
+    False / True) over the shell's (Mb, 8) rows ``x y z v_b ψ_b 0`` (ψ_b
+    in slot 6, the layout of JAX's sweeps) within 1e-5·max|ref| per
+    column; the 8-wide rows cut to their first four columns (the sample
+    velocity's x where ψ_b belongs) give another result."""
     cfg, params, state, grid, walls, bodies = _tank(kernel_set=kernel_set)
     pcfg, pparams, pstate, pg, pw = to_port(cfg, params, state, grid, walls)
     ctx = build_sweep_ctx(pstate, pparams, pg, pcfg, pw)
@@ -174,16 +179,20 @@ def test_shell_alpha_forms_read_src4(kernel_set):
     assert torch.equal(t.src4[:, 3], t.shell.src[:, 6])
     pv = PS.build_pvec(params, cfg, grid)
     cut = t.shell.src[:, :4].contiguous()
-    for name, sweep, sq in (("body", SP.alpha_body_sweep, False),
-                            ("shell", SP.alpha_shell_sweep, True)):
-        got = sweep(pcfg, q4, t.src4, *rows)
-        want = dense_pairs(PS.alpha_pair, q4, t.shell.src, pv,
-                           kernel_set=kernel_set, include_sq=sq)
-        live = 4 if sq else 3
-        assert_columns_close(got.numpy()[:, :live], want[:, :live], 1e-5,
-                             f"alpha {name}")
-        assert float(got[:, :3].abs().max()) > 0.0
-        assert not torch.allclose(sweep(pcfg, q4, cut, *rows), got)
+    dens = dense_pairs(PS.density_pair, q4, t.shell.src, pv,
+                       kernel_set=kernel_set)
+    for name, sq in (("body", False), ("shell", True)):
+        got = SP.body_density_alpha_sweep(pcfg, q4, t.src4, *rows,
+                                          include_sq=sq)
+        want = np.concatenate([dens, dense_pairs(
+            PS.alpha_pair, q4, t.shell.src, pv, kernel_set=kernel_set,
+            include_sq=sq)[:, :4 if sq else 3]], axis=1)
+        assert got.shape == want.shape
+        assert_columns_close(got.numpy(), want, 1e-5,
+                             f"density and alpha {name}")
+        assert float(got[:, 1:4].abs().max()) > 0.0
+        assert not torch.allclose(SP.body_density_alpha_sweep(
+            pcfg, q4, cut, *rows, include_sq=sq), got)
 
 
 _JAX_STEP = jax.jit(jt.dfsph_coupled_step, static_argnums=(3,))

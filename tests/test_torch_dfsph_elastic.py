@@ -10,7 +10,8 @@ plain sweeps), mirroring ``tests/test_dfsph_elastic.py``.
   reverse (the samples ``x y z ψ_b`` as queries against the fluid rows
   with κ/ρ in slot 6), both ``grad_pressure_force_pair(boundary=True,
   boundary_sign=-1)`` through their own wrappers' CPU routes, the
-  Alpha kernel in its fluid form over the shell (Σψ_b∇W, Σψ_b²|∇W|²:
+  shell's ψ-density with α's sums in their fluid form over the shell in
+  one sweep (Σψ_bW, Σψ_b∇W, Σψ_b²|∇W|²: ``density_pair`` and
   ``alpha_pair(include_sq=True)``), and the per-sample friction
   (``fluid_reaction_pair(include_pressure=False)``), which reads the
   sample velocities.
@@ -87,10 +88,14 @@ def test_body_twins_match_jax(kernel_set):
          SP.pressure_force_body_rev_sweep(pcfg, sweeps.q_b, src, *rev),
          dense_pairs(PS.grad_pressure_force_pair, sweeps.q_b, src, pv,
                      kernel_set=ks, boundary=True, boundary_sign=-1.0)[:, :3]),
-        ("alpha shell", SP.alpha_shell_sweep(pcfg, q4, es.shell.src4,
-                                             *brng),
-         dense_pairs(PS.alpha_pair, q4, es.shell.src, pv, kernel_set=ks,
-                     include_sq=True)),
+        ("density and alpha shell",
+         SP.body_density_alpha_sweep(pcfg, q4, es.shell.src4, *brng,
+                                     include_sq=True),
+         np.concatenate([
+             dense_pairs(PS.density_pair, q4, es.shell.src, pv,
+                         kernel_set=ks),
+             dense_pairs(PS.alpha_pair, q4, es.shell.src, pv, kernel_set=ks,
+                         include_sq=True)], axis=1)),
         ("friction", SP.fluid_reaction_sweep(pcfg, src_b, src_f, *rev,
                                              include_pressure=False),
          dense_pairs(PS.fluid_reaction_pair, src_b, src_f, pv, kernel_set=ks,

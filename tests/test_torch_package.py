@@ -8,6 +8,7 @@ has none: ``python -m pytest --noconftest tests/test_torch_package.py``
 """
 
 import dataclasses
+import functools
 import os
 import pkgutil
 import re
@@ -208,10 +209,13 @@ DFSPH_BODY_SWEEPS = {
     "pressure_force_body_rev": (SP.pressure_force_body_rev_sweep,
                                 cuda_sweep.pressure_force_body_rev_sweep, 4,
                                 8, 9),
-    "alpha_body": (SP.alpha_body_sweep, cuda_sweep.alpha_body_sweep, 4, 4,
-                   9),
-    "alpha_shell": (SP.alpha_shell_sweep, cuda_sweep.alpha_shell_sweep, 4,
-                    4, 9),
+    # the shell's ψ-density and α's sums, their boundary and fluid forms
+    "body_density_alpha": (SP.body_density_alpha_sweep,
+                           cuda_sweep.body_density_alpha_sweep, 4, 4, 9),
+    "body_density_alpha_sq": (
+        functools.partial(SP.body_density_alpha_sweep, include_sq=True),
+        functools.partial(cuda_sweep.body_density_alpha_sweep,
+                          include_sq=True), 4, 4, 9),
     "drho_shell": (SP.drho_shell_sweep, cuda_sweep.drho_shell_sweep, 8, 8,
                    9),
     "multiphase_alpha_body": (SP.multiphase_alpha_body_sweep,
@@ -344,6 +348,36 @@ def test_body_force_and_mp_density_alpha_take_their_g(monkeypatch):
                   8, 9, (cuda_sweep.MP_DENSITY_ALPHA_G,), True))
     assert calls == want
     assert [cuda_sweep.shell_group(m) for m in (56, 4096)] == [2, 8]
+
+
+@pytest.mark.parametrize("key", ["body_density_alpha",
+                                 "body_density_alpha_sq",
+                                 "multiphase_kappa_body"])
+def test_shell_sweeps_take_their_g(monkeypatch, key):
+    """The shell's ψ-density and α sweep, both forms, and the multiphase κ̂
+    correction over a shell pass their kernels the G of ``shell_group`` for
+    the shell's size (a rigid box's 56 samples, an elastic cube's 4,096),
+    each to its own entry point and counter, the fused sweep's output as
+    planes (the launch itself recorded, not made: no card here)."""
+    calls = []
+
+    def record(kernel, fn, cfg, q, fq, src, fs, s, e, pv, rows, cols,
+               *switches, planes=False):
+        calls.append((kernel, fn, fq, src.shape, rows, cols, switches,
+                      planes))
+    monkeypatch.setattr(cuda_sweep, "_sweep", record)
+    cfg = nereus_tpu_torch.SimConfig()
+    wrapper = ALL_SWEEPS[key][1]
+    fq, fs = ALL_SWEEPS[key][2:4]
+    kernel, cols, planes = {
+        "body_density_alpha": (cuda_sweep.BODY_DENSITY_ALPHA, 4, True),
+        "body_density_alpha_sq": (cuda_sweep.BODY_DENSITY_ALPHA_SQ, 5, True),
+        "multiphase_kappa_body": (cuda_sweep.MP_KAPPA_BODY, 3, False)}[key]
+    for m in (56, 4096):
+        wrapper(cfg, *_sweep_inputs(key, m=m))
+    assert calls == [(kernel, key, fq, (m, fs), (9,), cols,
+                      (cuda_sweep.shell_group(m),), planes)
+                     for m in (56, 4096)]
 
 
 @pytest.mark.parametrize("include_pressure", [True, False])
@@ -1212,7 +1246,8 @@ def test_group_sweeps_build_only_their_g(cuda):
         **{fn: {cuda_sweep.shell_group(1),
                 cuda_sweep.shell_group(cuda_sweep.SMALL_SHELL)}
            for fn in ("pressure_force_body", "drho_shell", "body_force",
-                      "body_force_p0")},
+                      "body_force_p0", "body_density_alpha",
+                      "body_density_alpha_sq", "multiphase_kappa_body")},
         "pressure_force_body_rev": {cuda_sweep.BODY_REV_G},
         # the multiphase force's four instances (st_model, moving)
         **{("multiphase_force", st, m): {
@@ -1233,8 +1268,9 @@ def test_group_sweeps_build_only_their_g(cuda):
     for fn, want in picks.items():
         rows = 9 if fn in ("sum_dij", "pbf_grad", "pbf_omega", "xsph",
                            "pressure_force_body", "pressure_force_body_rev",
-                           "drho_shell", "body_force",
-                           "body_force_p0") else 18
+                           "drho_shell", "body_force", "body_force_p0",
+                           "body_density_alpha", "body_density_alpha_sq",
+                           "multiphase_kappa_body") else 18
         built = set()
         for g in (1, 2, 4, 8, 16, 32, 3):
             if isinstance(fn, tuple):
@@ -1790,6 +1826,66 @@ def test_body_force_groups_match_plain_on_cuda(cuda, kernel_set, shell,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("shell", ["box", "cube"])
+@pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
+def test_shell_density_alpha_and_kappa_groups_match_plain_on_cuda(
+        cuda, kernel_set, shell, monkeypatch):
+    """The shell's ψ-density and α's sums in one walk, both forms
+    (``include_sq`` False / True), and the multiphase κ̂ correction over the
+    shell, at every G built for them (``shell_group`` below and above
+    ``SMALL_SHELL``), over :func:`_body_force_shell`'s 56-sample box and
+    4,096-sample cube (its ``x y z ψ_b`` rows; κ̂'s query ``x y z κV̂² qc``
+    with seeded κV̂² and qc): twice, bit for bit, and against their plain
+    twins, max|Δ| ≤ 1e-4·max|ref| per column; the Σψ_bW plane bit for bit
+    the density kernel's ``<body>`` at G 2, a G both build."""
+    from nereus_tpu_torch.solvers.sweep_common import psi_rows
+    cfg, (q8, src, s, e, pv) = _body_force_shell(cuda, kernel_set, shell)
+    q4 = q8[:, :4].contiguous()
+    src4 = psi_rows(src)
+    kq = q8.clone()
+    kq[:, 3:5] = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 1.5, (len(kq), 2)).astype(np.float32)).to(cuda)
+    kq[:, 5:] = 0.0
+    busy = int((e - s).sum(dim=0).gt(0).sum())
+    assert busy > 0
+    groups = sorted({cuda_sweep.shell_group(1),
+                     cuda_sweep.shell_group(cuda_sweep.SMALL_SHELL)})
+    cuda_sweep.reset_launches()
+    for g in groups:
+        monkeypatch.setattr(cuda_sweep, "shell_group", lambda m, g=g: g)
+        for sq in (False, True):
+            got = SP.body_density_alpha_sweep(cfg, q4, src4, s, e, pv,
+                                              include_sq=sq)
+            assert got.shape == (len(q4), 5 if sq else 4)
+            assert torch.equal(SP.body_density_alpha_sweep(
+                cfg, q4, src4, s, e, pv, include_sq=sq), got)
+            _assert_columns_close(
+                got, SP.body_density_alpha_sweep_plain(
+                    cfg, q4, src4, s, e, pv, include_sq=sq),
+                f"density alpha {shell} G={g} sq={sq} ({busy} busy)")
+        got = SP.multiphase_kappa_body_sweep(cfg, kq, src4, s, e, pv)
+        assert torch.equal(SP.multiphase_kappa_body_sweep(
+            cfg, kq, src4, s, e, pv), got)
+        _assert_columns_close(
+            got, SP.multiphase_kappa_body_sweep_plain(cfg, kq, src4, s, e,
+                                                      pv),
+            f"mp kappa body {shell} G={g} ({busy} busy)")
+    monkeypatch.setattr(cuda_sweep, "shell_group", lambda m: 2)
+    monkeypatch.setattr(cuda_sweep, "body_group", lambda m: 2)
+    for sq in (False, True):
+        assert torch.equal(
+            SP.body_density_alpha_sweep(cfg, q4, src4, s, e, pv,
+                                        include_sq=sq)[:, 0],
+            cuda_sweep.body_density_sweep(cfg, q4, src4, s, e, pv))
+    torch.cuda.synchronize()
+    n = len(groups)
+    _assert_launches({cuda_sweep.BODY_DENSITY_ALPHA: 2 * n + 1,
+                      cuda_sweep.BODY_DENSITY_ALPHA_SQ: 2 * n + 1,
+                      cuda_sweep.MP_KAPPA_BODY: 2 * n,
+                      cuda_sweep.BODY_DENSITY: 2})
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("with_boundary", [False, True])
 @pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
 def test_multiphase_density_alpha_matches_plain_on_cuda(cuda, kernel_set,
@@ -1904,10 +2000,11 @@ def _dfsph_body_cases(cfg, params, state, grid, cuda):
     cases += [
         ("kappa body", SP.pressure_force_body_sweep,
          SP.pressure_force_body_sweep_plain, (kq, t.shell.src, *rows), {}),
-        ("alpha body", SP.alpha_body_sweep, SP.alpha_body_sweep_plain,
-         (q4, t.src4, *rows), {}),
-        ("alpha shell", SP.alpha_shell_sweep, SP.alpha_sweep_plain,
-         (q4, t.src4, *rows), {}),
+        ("density alpha body", SP.body_density_alpha_sweep,
+         SP.body_density_alpha_sweep_plain, (q4, t.src4, *rows), {}),
+        ("density alpha shell", SP.body_density_alpha_sweep,
+         SP.body_density_alpha_sweep_plain, (q4, t.src4, *rows),
+         dict(include_sq=True)),
         ("drho shell", SP.drho_shell_sweep, SP.drho_sweep_plain,
          (sw.q_v, src_v, *rows), {}),
         ("body friction", SP.body_force_sweep, SP.body_force_sweep_plain,
@@ -1955,16 +2052,16 @@ def _dfsph_body_cases(cfg, params, state, grid, cuda):
 
 
 # output columns a body form leaves at exactly 0
-_ZERO_COLS = {"alpha body": [3], "mp alpha body": [0, 1, 2, 3],
-              "mp drho body": [0]}
+_ZERO_COLS = {"mp alpha body": [0, 1, 2, 3], "mp drho body": [0]}
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kernel_set", ["MULLER", "MONAGHAN"])
 def test_dfsph_body_kernels_match_plain_on_cuda(cuda, kernel_set):
-    """The DFSPH couplings' instances (the body forms of PressureForce,
-    Alpha and the three multiphase DFSPH functors, Alpha and Drho over a
-    shell, BodyForce and FluidReaction without pressure) against their
+    """The DFSPH couplings' instances (the body form of PressureForce,
+    the shell's ψ-density with α's sums in both forms, the three
+    multiphase DFSPH functors' body forms, Drho over a shell, BodyForce
+    and FluidReaction without pressure) against their
     plain versions on a moving, spinning box and elastic cube in the small
     dam-break's fluid: max|Δ| ≤ 1e-4·max|ref| per nonzero column, the
     body forms' other columns exactly 0; the two friction sweeps read the
@@ -1994,8 +2091,8 @@ def test_dfsph_body_kernels_match_plain_on_cuda(cuda, kernel_set):
     torch.cuda.synchronize()
     K = cuda_sweep
     _assert_launches({K.PRESSURE_FORCE_BODY: 1,
-                      K.PRESSURE_FORCE_BODY_REV: 1, K.ALPHA_BODY: 1,
-                      K.ALPHA_SHELL: 1, K.DRHO_SHELL: 1,
+                      K.PRESSURE_FORCE_BODY_REV: 1, K.BODY_DENSITY_ALPHA: 1,
+                      K.BODY_DENSITY_ALPHA_SQ: 1, K.DRHO_SHELL: 1,
                       K.BODY_FORCE_P0: 2, K.MP_ALPHA_BODY: 1,
                       K.MP_DRHO_BODY: 1, K.MP_KAPPA_BODY: 1,
                       K.FLUID_REACTION_P0: 2})
@@ -2114,8 +2211,9 @@ def test_shell_drho_matches_plain_on_cuda(cuda, kernel_set, large,
 def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
     """Two coupled DFSPH steps with two bodies (single phase, then
     multiphase) and two coupled DFSPH + elastic steps launch each kernel
-    as their loops say: per step one density and α (and per body one body
-    density and body-form α), per launched iteration one Dρ/Dt and one κ
+    as their loops say: per step one density and α (and per body one
+    shell ψ-density and α sweep; multiphase: one body density and one
+    body-form α̂), per launched iteration one Dρ/Dt and one κ
     correction plus one per body, one more κ correction for the warm
     start, one pressure-off force and one friction per body; the elastic
     step also one reverse κ per correction (its own counter), one
@@ -2147,8 +2245,8 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
                     K.MP_KAPPA: corr, K.MP_KAPPA_BODY: 2 * corr,
                     K.MP_FORCE: 2, K.MP_BODY: 4}
         else:
-            want = {K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY: 4,
-                    K.ALPHA_BODY: 4, K.DRHO: it, K.DRHO_SHELL: 2 * it,
+            want = {K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY_ALPHA: 4,
+                    K.DRHO: it, K.DRHO_SHELL: 2 * it,
                     K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: 2 * corr,
                     K.FORCE_P0: 2, K.BODY_FORCE_P0: 4}
         _assert_launches(want)
@@ -2173,8 +2271,8 @@ def test_dfsph_coupled_steps_run_kernels_on_cuda(cuda):
             s, params, grid, cfg, es, statics, ep, psi, boundary, substeps=3)
     it = dfsph_cuda.LOOP.launched + dfsph_cuda.LOOP_V.launched
     corr = it + 2
-    _assert_launches({K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY: 2,
-                      K.ALPHA_SHELL: 2, K.DRHO: it, K.DRHO_SHELL: it,
+    _assert_launches({K.DENSITY_ALPHA_SUMS: 2, K.BODY_DENSITY_ALPHA_SQ: 2,
+                      K.DRHO: it, K.DRHO_SHELL: it,
                       K.PRESSURE_FORCE: corr, K.PRESSURE_FORCE_BODY: corr,
                       K.PRESSURE_FORCE_BODY_REV: corr, K.FORCE_P0: 2,
                       K.BODY_FORCE_P0: 2, K.FLUID_REACTION_P0: 2,

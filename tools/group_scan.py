@@ -14,7 +14,8 @@ CUDA card.
                 mp_force_moving mp_drho mp_drho_cols mp_kappa
                 multiphase_density pressure_force_body
                 pressure_force_body_rev drho_shell dii_aii body_force
-                body_force_p0 mp_density_alpha]
+                body_force_p0 mp_density_alpha body_density_alpha
+                body_density_alpha_sq mp_kappa_body]
 
 The port's own library builds only the G that ``ops/cuda_sweep.py`` can
 pick. This tool compiles libraries of its own from the same sources: per
@@ -79,7 +80,19 @@ every candidate and masked by the cutoff), each on the operands its path
 builds for it; ``mp_density_alpha`` the multiphase DFSPH density and
 α̂'s sums in one walk (the lane groups by G) beside the parent's step
 ("thread": the multiphase density kernel and α̂'s one-thread walk, each
-on the same matrix), each also timed with that matrix built.
+on the same matrix), each also timed with that matrix built;
+``body_density_alpha`` and ``body_density_alpha_sq`` a body shell's
+ψ-density and α's shell sums in one walk, their boundary form (the
+rigid box) and their fluid form (the elastic cube under strong
+coupling), by G, beside the parent's step ("thread": the density kernel
+over the shell at ``body_group``'s G and α's one-thread walk, every
+candidate masked, ``BoundaryForm<MaskedForm<AlphaSums>>`` /
+``MaskedForm<AlphaSums>``); ``mp_kappa_body`` the multiphase κ̂
+correction over a shell (the lane groups by G,
+``GroupBoundaryForm<MultiphaseKappa>``) beside the parent's one-thread
+walk ("thread", ``BoundaryForm<MaskedForm<MultiphaseKappa>>``); these
+three also timed with the shell's ``x y z ψ_b`` rows built from its
+8-wide rows, as the step builds them (``Shell.src4``), on both sides.
 
 It drives the path as ``tools/step_turns.py`` does (``chip_smoke.py``'s
 ``pbf_main_path`` or ``settled_main_path`` and ``run_steps``) and builds
@@ -119,6 +132,7 @@ import argparse
 import dataclasses
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -197,13 +211,44 @@ FUNCTORS = {"pbf_lambda": ("pbf_sweep.cu", [("G", "ranges", "PbfLambda")]),
                 ("thread", "pair", "BodyForceWalk<false>")]),
             "mp_density_alpha": ("dfsph_multiphase_sweep.cu", [
                 ("G", "ranges", "MultiphaseDensityAlpha"),
-                ("thread", "pair", "MultiphaseAlpha")])}
+                ("thread", "pair", "MultiphaseAlpha")]),
+            "body_density_alpha": ("dfsph_sweep.cu", [
+                ("G", "ranges", "ShellDensityAlpha<false>"),
+                ("thread", "pair",
+                 "nereus_sweep::BoundaryForm<"
+                 "nereus_sweep::MaskedForm<AlphaSums>>")]),
+            "body_density_alpha_sq": ("dfsph_sweep.cu", [
+                ("G", "ranges", "ShellDensityAlpha<true>"),
+                ("thread", "pair", "nereus_sweep::MaskedForm<AlphaSums>")]),
+            "mp_kappa_body": ("dfsph_multiphase_sweep.cu", [
+                ("G", "ranges",
+                 "nereus_sweep::GroupBoundaryForm<MultiphaseKappa>"),
+                ("thread", "pair",
+                 "nereus_sweep::BoundaryForm<"
+                 "nereus_sweep::MaskedForm<MultiphaseKappa>>")])}
 # functors the scan file defines (by name, without template arguments):
 # dδ̂/dt's pair without its epilogue, ElasticF's pair behind the range
-# walk's cutoff test, and the one-thread walks of XSPH, ω, α's sums, the
-# multiphase density and the body contact force as they were before they
-# moved onto lane groups
-SCAN_FUNCTORS = {"BodyForceWalk": """
+# walk's cutoff test, α's sums alone (AlphaSums, the lane-group pair whose
+# MaskedForm was α's one-thread walk over a shell), and the one-thread
+# walks of XSPH, ω, α's sums, the multiphase density and the body contact
+# force as they were before they moved onto lane groups
+SCAN_FUNCTORS = {"AlphaSums": """
+struct AlphaSums {
+  static constexpr int QW = 4, SW = 4, OW = 4;
+  static constexpr bool BOUNDARY_ROWS = true;
+  template <int KS, bool B>
+  __device__ static void pair(const float (&q)[QW], float4 a, const float*,
+                              int, const nereus_sweep::Params& p,
+                              float (&acc)[OW]) {
+    const nereus_sweep::Geom g = nereus_sweep::default_geom<KS>(q, a, p);
+    const float c = a.w * g.s;
+    acc[0] += c * g.dx;
+    acc[1] += c * g.dy;
+    acc[2] += c * g.dz;
+    if constexpr (!B) acc[3] += c * c * g.r2;
+  }
+};
+""", "BodyForceWalk": """
 template <bool PRESSURE>
 struct BodyForceWalk {
   static constexpr int QW = 8, SW = 8, OW = 3;
@@ -411,7 +456,8 @@ VARIANT_OPERANDS = {"DiiAiiSplit": split_operands,
 # with the density kernel before them and α formed in torch after them;
 # the multiphase α̂'s walk with the multiphase density kernel beside it
 COMPOSED = {("density_alpha", "A"), ("density_alpha", "thread"),
-            ("mp_density_alpha", "thread")}
+            ("mp_density_alpha", "thread"), ("body_density_alpha", "thread"),
+            ("body_density_alpha_sq", "thread")}
 
 
 def dii_aii_makers(ctx, params, args):
@@ -503,6 +549,18 @@ def mp_density_makers(ctx, dfsph):
             "thread": thread}
 
 
+def shell_makers(args, src8):
+    """``{variant: build}`` of a sweep over a body shell's ``x y z ψ_b``
+    rows (``args``): both sides build them from the shell's 8-wide rows
+    ``src8`` (ψ_b in slot 6) as the step does (``Shell.src4``, one
+    ``psi_rows``); the queries are the step's own."""
+    from nereus_tpu_torch.solvers.sweep_common import psi_rows
+
+    def build():
+        return (args[0], psi_rows(src8), *args[2:])
+    return {"G": build, "thread": build}
+
+
 # per key, the makers of its variants' operands (time with the build)
 MAKERS = {}
 # the keys each path's operands feed
@@ -520,12 +578,13 @@ PATH_KEYS = {"pbf": ("pbf_lambda", "pbf_dp", "pbf_grad", "pbf_omega",
                           "multiphase_density", "mp_density_alpha"),
              "mp_coupled": ("mp_force",),
              "dfsph_mp_coupled": ("mp_force", "mp_drho", "mp_drho_cols",
-                                  "mp_kappa", "mp_density_alpha"),
+                                  "mp_kappa", "mp_density_alpha",
+                                  "mp_kappa_body"),
              "dfsph_coupled": ("pressure_force_body", "drho_shell",
-                               "body_force_p0"),
+                               "body_force_p0", "body_density_alpha"),
              "dfsph_elastic": ("pressure_force_body",
                                "pressure_force_body_rev", "drho_shell",
-                               "body_force_p0"),
+                               "body_force_p0", "body_density_alpha_sq"),
              "iisph": ("dii_aii",)}
 MP_SOLVERS = ("multiphase", "multiphase_wavemaker", "dfsph_mp", "mp_coupled",
               "dfsph_mp_coupled")
@@ -556,10 +615,10 @@ def build(keys, groups):
             lines, written = [], set()
             for key in ks:
                 for k, (_, engine, functor) in enumerate(FUNCTORS[key][1]):
-                    name = functor.split("<")[0]
-                    if name not in written:
-                        f.write(SCAN_FUNCTORS.get(name, ""))
-                        written.add(name)
+                    for name in re.findall(r"\w+", functor):
+                        if name in SCAN_FUNCTORS and name not in written:
+                            f.write(SCAN_FUNCTORS[name])
+                            written.add(name)
                     f.write(f"using scan_{key}_{k}_t = {functor};\n")
                     args = [f"scan_{key}_{k}", f"scan_{key}_{k}_t",
                             *map(str, values.get(engine, ()))]
@@ -694,7 +753,8 @@ def mp_operands(solver, dev):
     """``path_operands`` of the multiphase paths (``MP_SOLVERS``): the
     multiphase force (``mp_force``; ``mp_force_moving`` under the
     wavemaker) and, on the DFSPH paths, dδ̂/dt (``mp_drho``, and
-    ``mp_drho_cols`` on the same operands)."""
+    ``mp_drho_cols`` on the same operands); on ``dfsph_mp_coupled`` also
+    the shell's κ̂ correction (``mp_kappa_body``, ``dfsph_body_ops``)."""
     lowered = False
     if solver.startswith("multiphase"):
         cfg, params, state, grid, boundary = smoke.wcsph_main_path(dev)
@@ -765,6 +825,17 @@ def mp_operands(solver, dev):
         build = {v: (lambda: dfsph_cuda.multiphase_alpha_operands(ctx))
                  for v in ("G", "thread")}
         MAKERS["mp_density_alpha"] = build
+        if solver == "dfsph_mp_coupled":
+            # the shell's κ̂ correction with the body moved, at its last
+            # velocities, into the middle of the lowered fluid, as
+            # dfsph_coupled_held_ops holds it
+            n = int(state.num_active)
+            body = dataclasses.replace(held["body"],
+                                       com=state.pos[:n].mean(dim=0))
+            bops = smoke.dfsph_body_ops(cfg, ctx, params, grid, body)
+            ops["mp_kappa_body"] = bops["mp_kappa_body"]
+            MAKERS["mp_kappa_body"] = shell_makers(
+                bops["mp_kappa_body"][2], bops["mp_drho_body"][2][1])
     return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()
                  }, f"{ctx.c} queries, {ms:.4f} ms/step"
 
@@ -782,9 +853,11 @@ def body_operands(solver, keys, dev):
     (``dfsph_coupled_scene``, ``kind`` "rigid" and "elastic", 60 steps):
     the κ impulse forward (``pressure_force_body``) and, on the elastic
     path, reverse (``pressure_force_body_rev``), the shell's Dρ/Dt
-    (``drho_shell``) and the friction alone (``body_force_p0``), with the
-    body moved into the middle of the lowered fluid as
-    ``run_dfsph_coupled`` holds them (``dfsph_coupled_held_ops``)."""
+    (``drho_shell``), the friction alone (``body_force_p0``) and the
+    shell's ψ-density with α's sums (``body_density_alpha``; on the
+    elastic path ``body_density_alpha_sq``), with the body moved into the
+    middle of the lowered fluid as ``run_dfsph_coupled`` holds them
+    (``dfsph_coupled_held_ops``)."""
     if solver == "coupled":
         cfg, params, state, grid, walls, body = smoke.coupled_scene(dev,
                                                                     False)
@@ -843,6 +916,9 @@ def body_operands(solver, keys, dev):
         _, ops = smoke.dfsph_coupled_held_ops(cfg, params, state, grid,
                                               walls, held["body"], body,
                                               kind)
+        for k in ("body_density_alpha", "body_density_alpha_sq"):
+            if k in ops:
+                MAKERS[k] = shell_makers(ops[k][2], ops["drho_shell"][2][1])
         key = "pressure_force_body"
     q, src = ops[key][2][:2]
     return cfg, {k: (kern, a, kw) for k, (kern, _, a, kw) in ops.items()}, (
@@ -893,6 +969,10 @@ def main():
                 # the parent's step: the multiphase density kernel and α̂'s
                 # walk on the same matrix
                 return cuda_sweep.multiphase_density_sweep(cfg, *a), out
+            if composed and key.startswith("body_density_alpha"):
+                # the parent's step: the density kernel over the shell and
+                # α's walk over it
+                return cuda_sweep.body_density_sweep(cfg, *vargs), out
             if composed:
                 # the parent's step: the density kernel, α formed after
                 dens = cuda_sweep.density_sweep(cfg, *a)
@@ -917,6 +997,9 @@ def main():
                 got = launch(f, engine, v, out, vargs, composed)
                 if composed and key == "mp_density_alpha":
                     got = torch.cat(got, dim=1)
+                elif composed and key.startswith("body_density_alpha"):
+                    got = torch.cat([got[0][:, None],
+                                     got[1][:, :ref.shape[1] - 1]], dim=1)
                 elif composed:
                     got = torch.stack(got).t()
                 torch.cuda.synchronize()

@@ -71,7 +71,12 @@ the state advected from the final one (pbf*), Dρ/Dt (dfsph*,
 ``dfsph_operands``; with the pressure force at dfsph_coupled; and over
 the body's shell at dfsph_coupled and dfsph_elastic, key ``drho_shell``,
 from ``dfsph_coupled_held_ops``, the body in the middle of the lowered
-fluid, and the body contact's friction alone, key ``body_force_p0``),
+fluid, the body contact's friction alone, key ``body_force_p0``, and
+the shell's ψ-density with α's shell sums, key ``body_density_alpha``
+(``body_density_alpha_sq`` at dfsph_elastic), which an earlier checkout
+runs as two, keys ``body_density`` and ``alpha_body`` (``alpha_shell``);
+at dfsph_mp_coupled the body density and the shell's κ̂ correction, keys
+``body_density`` and ``mp_kappa_body``),
 the body contact force at coupled (with the density, force and body
 density kernels, ``coupled_operands``) and wcsph_elastic (key
 ``body_force``, ``elastic_coupled_ops``), each with the body moved into
@@ -424,13 +429,19 @@ else:
         kern, args, kw = ops.pop("mp_force")
         ops["mp_force_moving"] = (kern, args,
                                   {**kw, "moving_boundary": True})
-if solver in ("dfsph_coupled", "dfsph_elastic"):
+if solver in ("dfsph_coupled", "dfsph_elastic", "dfsph_mp_coupled"):
     _, body_ops = own.dfsph_coupled_held_ops(
         cfg, params, state, grid, boundary, held["body"], body,
-        "rigid" if solver == "dfsph_coupled" else "elastic")
-    for key in ("drho_shell", "body_force_p0"):
-        kern, _, args, kw = body_ops[key]
-        ops[key] = (kern, args, kw)
+        {"dfsph_coupled": "rigid", "dfsph_elastic": "elastic",
+         "dfsph_mp_coupled": "mp"}[solver])
+    # body_density and alpha_body / alpha_shell: the two sweeps an earlier
+    # checkout runs where a later one runs body_density_alpha(_sq)
+    for key in ("drho_shell", "body_force_p0", "body_density", "alpha_body",
+                "alpha_shell", "body_density_alpha", "body_density_alpha_sq",
+                "mp_kappa_body"):
+        if key in body_ops:
+            kern, _, args, kw = body_ops[key]
+            ops[key] = (kern, args, kw)
 kernels = {}
 for key, (kern, args, kw) in ops.items():
     out = kern(cfg, *args, **kw)
